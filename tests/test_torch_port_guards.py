@@ -1,0 +1,108 @@
+"""Guards of the PyTorch port: its data copies give the JAX package's
+arrays exactly, it imports nothing of JAX or the JAX package, and it never
+moves to the CPU on its own."""
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from colearn_federated_learning_tpu.data import partition as jax_partition
+from colearn_federated_learning_tpu.data import registry as jax_registry
+from colearn_federated_learning_tpu.data import sharding as jax_sharding
+from colearn_federated_learning_tpu.utils import config as jax_config
+from colearn_federated_learning_tpu_torch.data import partition, registry
+from colearn_federated_learning_tpu_torch.data import sharding
+from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+from colearn_federated_learning_tpu_torch.models import registry as model_registry
+from colearn_federated_learning_tpu_torch.utils import config
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "colearn_federated_learning_tpu")
+
+
+@pytest.mark.parametrize("name", ["agnews_tiny", "mnist_tiny",
+                                  "iot_traffic_tiny"])
+def test_datasets_identical_to_jax(name):
+    a = jax_registry.get_dataset(name, seed=3)
+    b = registry.get_dataset(name, seed=3)
+    for field in ("x_train", "y_train", "x_test", "y_test"):
+        x, y = getattr(a, field), getattr(b, field)
+        assert x.dtype == y.dtype and np.array_equal(x, y), field
+
+
+@pytest.mark.parametrize("kind", ["iid", "dirichlet", "pathological"])
+def test_partitions_and_shards_identical_to_jax(kind):
+    ds = registry.get_dataset("agnews_tiny", seed=1)
+    labels = ds.y_train
+    args = {"iid": (len(labels), 7), "dirichlet": (labels, 7, 0.5),
+            "pathological": (labels, 7)}[kind]
+    fn = f"{kind}_partition"
+    ours = getattr(partition, fn)(*args, seed=2)
+    ref = getattr(jax_partition, fn)(*args, seed=2)
+    assert all(np.array_equal(a, b) for a, b in zip(ours, ref))
+    for cap in (0, 50):
+        s = sharding.pack_client_shards(ds.x_train, labels, ours, capacity=cap)
+        r = jax_sharding.pack_client_shards(ds.x_train, labels, ref,
+                                            capacity=cap)
+        for field in ("x", "y", "counts"):
+            assert np.array_equal(getattr(s, field), getattr(r, field))
+
+
+def test_configs_identical_to_jax():
+    assert sorted(config.CONFIGS) == sorted(jax_config.CONFIGS)
+    for name, cfg in config.CONFIGS.items():
+        assert (dataclasses.asdict(cfg)
+                == dataclasses.asdict(jax_config.CONFIGS[name])), name
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    files = sorted((ROOT / "colearn_federated_learning_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_learner_without_cuda_raises_instead_of_using_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config.get_config("agnews_bert_fedavg")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FederatedLearner(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FederatedLearner(cfg, device="cuda")
+
+
+def test_build_model_without_cuda_raises_instead_of_using_the_cpu(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model_cfg = config.get_config("agnews_bert_fedavg").model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_registry.build_model(model_cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_registry.build_model(model_cfg, "cuda")
+
+
+@pytest.mark.parametrize("fed_kw", [
+    dict(strategy="scaffold"), dict(dp_clip=1.0), dict(secure_agg=True),
+    dict(aggregator="median"), dict(lora_rank=4)])
+def test_unported_features_raise(fed_kw):
+    base = config.get_config("agnews_bert_fedavg")
+    cfg = base.replace(
+        data=dataclasses.replace(base.data, dataset="agnews_tiny"),
+        fed=dataclasses.replace(base.fed, **fed_kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FederatedLearner(cfg, device="cpu")
