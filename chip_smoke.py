@@ -7,12 +7,19 @@ Phases (any failure exits non-zero; no phase's error is caught):
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build the CUDA kernels from ``colearn_federated_learning_tpu_torch/csrc``;
+   print each head-dim-64 kernel's registers, spills and blocks per SM,
+   and fail if any instantiation spills;
 3. each flash-attention kernel (K1 forward, K2 dQ, K3 dK/dV) against its
    plain PyTorch version in bf16 — at the BERT-base training shapes and
    the evaluation batch of 64 with a realistic padding mask, a ragged
-   L=100, a causal case and a case with a fully masked row — then its time
-   at the training shapes beside the plain version's, its bound, and
-   torch's SDPA as a yardstick;
+   L=100, a causal case and a case with a fully masked row — then its
+   device time at the training shapes (and K1's at the evaluation batch)
+   beside the plain version's, its bound, and torch's SDPA as a yardstick.
+   Device time is that of calls captured in a CUDA graph and replayed back
+   to back, over input sets that together exceed twice the 50 MB L2 cache,
+   so each call reads its inputs from HBM as the bound assumes; the host
+   loop of wrapper calls on one warm set is reported beside it as
+   ``wrapper_ms``, and the graph's own cost per call as its floor;
 4. a small-input check (flash vs dense cores of a small BERT on the card),
    then the main path: ``FederatedLearner`` on ``agnews_bert_fedavg`` with
    ``attn_impl="flash"`` and 4 local steps (full BERT-base width and
@@ -26,17 +33,21 @@ prints no result otherwise.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+L2_BYTES = 50e6                # H100 L2 cache
 BF16_TOL = 2e-2                # kernel vs plain, of the largest |plain|
 BF16_ULP = 2.0 ** -8           # one bf16 step at the largest magnitude
 KERNELS = {
@@ -54,8 +65,18 @@ def log(*args):
     print(*args, flush=True)
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def time_ms(fn, iters: int = 50) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, after warm-up."""
+    """Mean time of ``fn`` over ``iters`` calls in a host loop, after
+    warm-up, by events around the loop: the wrapper's host cost where it
+    exceeds the kernel's, on inputs that stay in L2."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -67,6 +88,56 @@ def time_ms(fn, iters: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, sets, passes: int = 4, replays: int = 5) -> float:
+    """Mean device time of one call ``fn(s)``: ``passes`` passes through
+    ``sets`` captured in one CUDA graph, whose replays are timed by events,
+    so the host's cost of a call is not counted and the card runs the
+    calls back to back.  Where the sets together exceed the L2 cache
+    (``input_sets``), every call finds its inputs in HBM."""
+    for s in sets:
+        fn(s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    # "relaxed": a build that sets a kernel attribute at each launch is
+    # still capturable.
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(passes):
+            for s in sets:
+                fn(s)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * passes * len(sets))
+
+
+def input_sets(A, B, L, H, D, mask, seed):
+    """Input sets of the kernels at one shape, enough of them that together
+    they exceed twice the L2 cache: q, k, v, dO and the key bias, the lse
+    and Δ of the forward kernel, and SDPA's (B, H, L, D) copies."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed)
+    n = max(5, math.ceil(2 * L2_BYTES / bound_bytes("flash_forward",
+                                                     B, L, H, D)))
+    sets = []
+    for _ in range(n):
+        q, k, v, dout = (torch.randn(B, L, H, D, generator=g)
+                         .to(torch.bfloat16).to(dev) for _ in range(4))
+        bias = A.key_bias(mask.to(dev), B, L, dev)
+        o, lse = A.flash_forward(q, k, v, bias)
+        delta = (dout.float() * o.float()).sum(-1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sets.append(SimpleNamespace(
+            q=q, k=k, v=v, dout=dout, bias=bias, lse=lse, delta=delta,
+            qt=qt, kt=kt, vt=vt, amask=mask.to(dev)[:, None, None, :]))
+    return sets
 
 
 def padding_mask(B: int, L: int, seed: int) -> torch.Tensor:
@@ -144,20 +215,26 @@ def kernel_case(A, name, B, L, H, D, causal, mask, seed):
         + ", ".join(f"{k} err {e:.3e}" for k, e in errs.items())
         + f", lse err {lse_err:.2e} (bounds: {BF16_TOL} x max|plain|; "
         f"2 x plain's err + {BF16_ULP} x max|f32| against f32)")
-    return errs, (q, k, v, dout, bias, o_ref, lse_ref, delta, mask.to(dev))
+    return errs
 
 
-def bound_ms(kname, B, L, H, D) -> tuple[float, str]:
-    """Least time for the same work: inputs read once and outputs written
-    once over HBM bandwidth, or the products at the bf16 peak."""
+def bound_bytes(kname, B, L, H, D) -> int:
+    """Bytes the function must move: each input read once, each output
+    written once."""
     act, bias, rowf = B * L * H * D * 2, B * L * 4, B * L * H * 4
-    nbytes = {
+    return {
         "flash_forward": 3 * act + bias + act + rowf,
         "flash_backward_dq": 4 * act + bias + 2 * rowf + act,
         "flash_backward_dkv": 4 * act + bias + 2 * rowf + 2 * act,
     }[kname]
+
+
+def bound_ms(kname, B, L, H, D) -> tuple[float, str]:
+    """Least time for the same work: its bytes over HBM bandwidth, or the
+    products at the bf16 peak."""
     flops = KERNELS[kname][1] * B * H * L * L * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    t_bytes = bound_bytes(kname, B, L, H, D) / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -175,46 +252,73 @@ def kernel_phase(A):
     row_mask = padding_mask(4, L, 4)
     row_mask[1] = False
     cases.append(("masked_row", 4, L, H, D, False, row_mask, 14))
-    slice_inputs = None
     for case in cases:
-        e, inputs = kernel_case(A, *case)
+        e = kernel_case(A, *case)
         errs = {k: max(errs[k], e[k]) for k in errs}
-        slice_inputs = slice_inputs or inputs
 
-    q, k, v, dout, bias, o, lse, delta, mask = slice_inputs
-    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, dout))
-    amask = mask[:, None, None, :]
-    timings = {
+    sets = input_sets(A, B, L, H, D, cases[0][6], 21)
+    fns = {
         "flash_forward": (
-            lambda: A.flash_forward(q, k, v, bias),
-            lambda: A.flash_forward_reference(q, k, v, bias),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)),
+            lambda s: A.flash_forward(s.q, s.k, s.v, s.bias),
+            lambda s: A.flash_forward_reference(s.q, s.k, s.v, s.bias),
+            lambda s: F.scaled_dot_product_attention(s.qt, s.kt, s.vt,
+                                                     attn_mask=s.amask)),
         "flash_backward_dq": (
-            lambda: A.flash_backward_dq(q, k, v, bias, dout, lse, delta),
-            lambda: A.flash_backward_dq_reference(q, k, v, bias, dout, lse,
-                                                  delta), None),
+            lambda s: A.flash_backward_dq(s.q, s.k, s.v, s.bias, s.dout,
+                                          s.lse, s.delta),
+            lambda s: A.flash_backward_dq_reference(
+                s.q, s.k, s.v, s.bias, s.dout, s.lse, s.delta), None),
         "flash_backward_dkv": (
-            lambda: A.flash_backward_dkv(q, k, v, bias, dout, lse, delta),
-            lambda: A.flash_backward_dkv_reference(q, k, v, bias, dout, lse,
-                                                   delta), None),
+            lambda s: A.flash_backward_dkv(s.q, s.k, s.v, s.bias, s.dout,
+                                           s.lse, s.delta),
+            lambda s: A.flash_backward_dkv_reference(
+                s.q, s.k, s.v, s.bias, s.dout, s.lse, s.delta), None),
     }
+    tiny = torch.zeros(1, device="cuda")
+    log(f"  device times over {len(sets)} input sets of "
+        f"{bound_bytes('flash_forward', B, L, H, D) / 1e6:.1f}+ MB each; "
+        "graph floor per call (one 1-element add) "
+        f"{device_ms(lambda s: tiny.add_(1), sets) * 1e3:.2f} us")
     rows = {}
-    for kname, (kern, plain, lib) in timings.items():
+    for kname, (kern, plain, lib) in fns.items():
         bms, bby = bound_ms(kname, B, L, H, D)
         rows[kname] = {
-            "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "library_ms": time_ms(lib) if lib is not None else None,
+            "ms": device_ms(kern, sets),
+            "wrapper_ms": time_ms(lambda: kern(sets[0])),
+            "plain_ms": device_ms(plain, sets),
+            "library_ms": device_ms(lib, sets) if lib is not None else None,
             "bound_ms": bms, "bound_by": bby, "max_abs_err": errs[kname],
         }
-        log(f"  {kname:19s} {rows[kname]['ms']:.4f} ms  plain "
-            f"{rows[kname]['plain_ms']:.4f} ms  bound {bms:.4f} ms ({bby})  "
-            f"sdpa {rows[kname]['library_ms']}")
+        r = rows[kname]
+        warm = device_ms(kern, sets[:1])
+        log(f"  {kname:19s} {r['ms'] * 1e3:8.2f} us device "
+            f"({bms / r['ms']:.1%} of bound {bms * 1e3:.2f} us, {bby}); "
+            f"{warm * 1e3:.2f} us on one set left in L2; "
+            f"wrapper loop {r['wrapper_ms'] * 1e3:.2f} us; plain "
+            f"{r['plain_ms'] * 1e3:.2f} us; sdpa "
+            + (f"{r['library_ms'] * 1e3:.2f} us" if lib is not None
+               else "none"))
     # Yardstick only: SDPA's backward computes dQ, dK and dV in one call.
-    qg, kg, vg = (t.clone().requires_grad_(True) for t in (qt, kt, vt))
-    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=amask)
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dot,
-                                                   retain_graph=True))
-    log(f"  sdpa backward (dQ, dK, dV together): {sdpa_bwd:.4f} ms")
+    # It is captured with its forward (autograd runs a backward on its
+    # forward's stream), whose time is then taken off.
+    for s in sets:
+        s.ins = [t.clone().requires_grad_(True) for t in (s.qt, s.kt, s.vt)]
+        s.dot = s.dout.transpose(1, 2).contiguous()
+    sdpa_fb = device_ms(lambda s: torch.autograd.grad(
+        F.scaled_dot_product_attention(*s.ins, attn_mask=s.amask), s.ins,
+        s.dot), sets)
+    sdpa_bwd = sdpa_fb - rows["flash_forward"]["library_ms"]
+    log(f"  sdpa backward (dQ, dK, dV together): {sdpa_bwd * 1e3:.2f} us "
+        "device")
+    del sets
+    # K1 at the evaluation batch.
+    sets = input_sets(A, 64, L, H, D, cases[1][6], 22)
+    bms, _ = bound_ms("flash_forward", 64, L, H, D)
+    k1 = device_ms(fns["flash_forward"][0], sets)
+    sdpa = device_ms(fns["flash_forward"][2], sets)
+    log(f"  flash_forward at B=64: {k1 * 1e3:.2f} us device "
+        f"({bms / k1:.1%} of bound {bms * 1e3:.2f} us); sdpa "
+        f"{sdpa * 1e3:.2f} us")
     return rows
 
 
@@ -305,6 +409,43 @@ def main_path(A):
     return launches
 
 
+def build_phase(_build):
+    """Build the kernels; report each head-dim-64 instantiation's registers,
+    spills and blocks per SM, and fail if any instantiation spills."""
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f"  built in {time.perf_counter() - t0:.2f} s")
+    props = {}                     # mangled name -> ptxas lines
+    for text in logs.values():
+        func = ""
+        for line in text.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                func = m.group(1)
+            elif func and ("spill stores" in line or "Used" in line):
+                props.setdefault(func, []).append(
+                    line.split(":", 1)[-1].strip())
+    spills = [f for f, lines in props.items()
+              if re.search(r"[1-9]\d* bytes spill stores", " ".join(lines))]
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
+    if not props:
+        raise AssertionError("no ptxas report for the kernels")
+    lib = _build.load("flash_attention")
+    lib.fa_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)]
+    lib.fa_blocks_per_sm.restype = ctypes.c_int
+    for kind, name in enumerate(("fwd", "dq", "dkv")):
+        blocks = ctypes.c_int(0)
+        err = lib.fa_blocks_per_sm(kind, 64, ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"occupancy query failed: cudaError {err}")
+        func = next((f for f in props if f"flash_{name}_" in f
+                     and "Li64E" in f), None)
+        log(f"  {name} D=64: {blocks.value} blocks/SM; "
+            + ("; ".join(props[func]) if func else "no ptxas report"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -313,25 +454,12 @@ def main() -> int:
     from colearn_federated_learning_tpu_torch.ops import attention as A
 
     log("phase 1: device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    log(card())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
     log("phase 2: build")
-    t0 = time.perf_counter()
-    logs = _build.build_all()
-    log(f"  built in {time.perf_counter() - t0:.2f} s")
-    # Register use of the head-dim-64 instantiations (the training path).
-    for text in logs.values():
-        func = ""
-        for line in text.splitlines():
-            if "Function properties for" in line:
-                func = line.rsplit(" ", 1)[-1]
-            elif "Used" in line and "Li64E" in func:
-                log(f"  {func}: {line.split(':', 1)[1].strip()}")
+    build_phase(_build)
 
     log("phase 3: kernels vs plain versions (bf16)")
     rows = kernel_phase(A)

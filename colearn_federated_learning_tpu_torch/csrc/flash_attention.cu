@@ -8,36 +8,84 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 #include "flash_attention_kernels.cuh"
 
 namespace fa {
+namespace {
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <typename Kernel>
-cudaError_t launch_kernel(Kernel kernel, int smem, dim3 grid, int threads,
-                          const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+using KernelFn = void (*)(Params);
+
+// Devices (one bit each) on which a kernel's shared-memory limit is set.
+// Internal linkage: a function-local static of a template would be one
+// process-wide object shared with any other build of these sources loaded
+// beside this one.
+template <KernelFn kernel>
+std::atomic<unsigned long long> ready{0};
+
+// Lift the kernel's dynamic shared-memory limit to `smem` on the current
+// device.  cudaFuncSetAttribute costs about as much as a kernel's own time
+// here, so it runs once per kernel and device; an error still
+// reaches the caller, and the next launch tries again.
+template <KernelFn kernel, int smem>
+cudaError_t prepare() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(p);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (ready<kernel>.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess)
+    ready<kernel>.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <KernelFn kernel, int smem>
+cudaError_t launch_kernel(dim3 grid, const Params& p, cudaStream_t stream) {
+  const cudaError_t err = prepare<kernel, smem>();
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kMmaThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <KernelFn kernel, int smem>
+cudaError_t occupancy(int* blocks) {
+  const cudaError_t err = prepare<kernel, smem>();
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       kMmaThreads, smem);
 }
 
 template <int D>
 cudaError_t launch(Kind kind, const Params& p, cudaStream_t stream) {
-  static_assert(kRows == kTile, "K3 loads its key rows as one tile");
+  static_assert(kRows == kTile, "a block's rows are one tile of the stream");
   const int lrows = kind == kDkv ? p.Lk : p.Lq;
   const dim3 grid((lrows + kRows - 1) / kRows, p.B * p.H);
   if (kind == kFwd)
-    return launch_kernel(flash_fwd_bf16_kernel<D>, fwd_bf16_smem<D>(), grid,
-                         kMmaThreads, p, stream);
+    return launch_kernel<flash_fwd_bf16_kernel<D>, fwd_bf16_smem<D>()>(
+        grid, p, stream);
   if (kind == kDq)
-    return launch_kernel(flash_dq_bf16_kernel<D>, dq_bf16_smem<D>(), grid,
-                         kMmaThreads, p, stream);
-  return launch_kernel(flash_dkv_bf16_kernel<D>, dkv_bf16_smem<D>(), grid,
-                       kMmaThreads, p, stream);
+    return launch_kernel<flash_dq_bf16_kernel<D>, dq_bf16_smem<D>()>(
+        grid, p, stream);
+  return launch_kernel<flash_dkv_bf16_kernel<D>, dkv_bf16_smem<D>()>(
+      grid, p, stream);
 }
+
+template <int D>
+cudaError_t blocks_per_sm(Kind kind, int* blocks) {
+  if (kind == kFwd)
+    return occupancy<flash_fwd_bf16_kernel<D>, fwd_bf16_smem<D>()>(blocks);
+  if (kind == kDq)
+    return occupancy<flash_dq_bf16_kernel<D>, dq_bf16_smem<D>()>(blocks);
+  return occupancy<flash_dkv_bf16_kernel<D>, dkv_bf16_smem<D>()>(blocks);
+}
+
+}  // namespace
 
 int run(Kind kind, int D, const Params& p, void* stream) {
   if (p.B <= 0 || p.H <= 0 || p.Lq <= 0 || p.Lk <= 0 || p.B * p.H > 65535)
@@ -111,6 +159,18 @@ int fa_backward_dkv(const void* q, const void* k, const void* v,
   p.o = dk;
   p.o2 = dv;
   return fa::run(fa::kDkv, D, p, stream);
+}
+
+// Blocks of kernel `kind` (0 K1, 1 K2, 2 K3) that fit on one SM at head
+// dim D, by the occupancy calculator of the current device.
+int fa_blocks_per_sm(int kind, int D, int* blocks) {
+  switch (D) {
+    case 16: return fa::blocks_per_sm<16>(static_cast<fa::Kind>(kind), blocks);
+    case 32: return fa::blocks_per_sm<32>(static_cast<fa::Kind>(kind), blocks);
+    case 64: return fa::blocks_per_sm<64>(static_cast<fa::Kind>(kind), blocks);
+    case 128: return fa::blocks_per_sm<128>(static_cast<fa::Kind>(kind), blocks);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

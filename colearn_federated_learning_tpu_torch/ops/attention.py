@@ -130,21 +130,33 @@ def flash_backward_dkv_reference(q, k, v, bias, dout, lse, delta,
 _LIB = None
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dims = [I, I, I, I, I, F, I, P]             # B Lq Lk H D scale causal stream
+    lib.fa_forward.argtypes = [P] * 6 + dims
+    lib.fa_backward_dq.argtypes = [P] * 8 + dims
+    lib.fa_backward_dkv.argtypes = [P] * 9 + dims
+    for fn in (lib.fa_forward, lib.fa_backward_dq, lib.fa_backward_dkv):
+        fn.restype = I
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         from colearn_federated_learning_tpu_torch.ops import _build
 
-        lib = _build.load("flash_attention")
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        dims = [I, I, I, I, I, F, I, P]         # B Lq Lk H D scale causal stream
-        lib.fa_forward.argtypes = [P] * 6 + dims
-        lib.fa_backward_dq.argtypes = [P] * 8 + dims
-        lib.fa_backward_dkv.argtypes = [P] * 9 + dims
-        for fn in (lib.fa_forward, lib.fa_backward_dq, lib.fa_backward_dkv):
-            fn.restype = I
-        _LIB = lib
+        _LIB = _bind(_build.load("flash_attention"))
     return _LIB
+
+
+def use_library(lib: Optional[ctypes.CDLL]) -> None:
+    """Launch the kernels from ``lib``, a build of another revision of
+    ``csrc/`` with the same C entry points, until called again; ``None``
+    returns to this package's own build.  For timing two versions side by
+    side (``scripts/torch_port_profile.py --parent-csrc``)."""
+    global _LIB
+    _LIB = None if lib is None else _bind(lib)
 
 
 def _check(q, k, v, bias, dout=None, lse=None, delta=None):
@@ -162,6 +174,10 @@ def _check(q, k, v, bias, dout=None, lse=None, delta=None):
                          "dtype use the plain version)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash attention kernels need contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, k, v, dout) if t is not None):
+        raise ValueError("flash attention kernels need q, k, v and dout at "
+                         "16-byte aligned addresses (they copy 16 bytes at "
+                         "a time)")
     B, lq, H, D = q.shape
     lk = k.shape[1]
     if k.shape != (B, lk, H, D) or v.shape != k.shape:

@@ -25,39 +25,63 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, B, L, H, D, dtype, mask_kind, seed=0):
+def _inputs(device, B, L, H, D, dtype, mask_kind, seed=0, lk=None):
+    """q and dO of length L, k and v of length ``lk`` (default L), and a
+    (B, lk) key mask."""
+    lk = L if lk is None else lk
     g = torch.Generator().manual_seed(seed)
-    q, k, v, dout = (torch.randn(B, L, H, D, generator=g).to(dtype).to(device)
-                     for _ in range(4))
-    lengths = torch.randint(L // 4, L + 1, (B,), generator=g)
-    mask = torch.arange(L)[None, :] < lengths[:, None]
+    q, k, v, dout = (torch.randn(B, n, H, D, generator=g).to(dtype).to(device)
+                     for n in (L, lk, lk, L))
+    lengths = torch.randint(max(1, lk // 4), lk + 1, (B,), generator=g)
+    mask = torch.arange(lk)[None, :] < lengths[:, None]
     if mask_kind == "row":
         mask[0] = False
     elif mask_kind == "lead":
         mask[0, :3] = False
+    elif mask_kind == "none":
+        mask[:] = True
     return q, k, v, dout, mask.to(device)
 
 
-def _close(got, ref, tol):
+def _close(got, ref, tol, atol=0.0):
     got, ref = got.detach().float(), ref.detach().float()
     assert torch.isfinite(got).all()
-    bound = tol * float(ref.abs().max())
+    bound = max(tol * float(ref.abs().max()), atol)
     err = float((got - ref).abs().max())
     assert err <= bound, (err, bound)
 
 
-@pytest.mark.parametrize("B,L,H,D,causal,mask_kind", [
-    (16, 128, 12, 64, False, "pad"),
-    (4, 100, 4, 64, False, "pad"),
-    (4, 128, 4, 64, True, "lead"),
-    (3, 96, 2, 64, False, "row"),
-    (2, 70, 2, 32, True, "pad"),
+@pytest.mark.parametrize("B,L,Lk,H,D,causal,mask_kind", [
+    (16, 128, 128, 12, 64, False, "pad"),
+    (4, 100, 100, 4, 64, False, "pad"),
+    (4, 128, 128, 4, 64, True, "lead"),
+    (3, 96, 96, 2, 64, False, "row"),
+    (2, 70, 70, 2, 32, True, "pad"),
+    # The head dims of the other instantiations.
+    (2, 128, 128, 3, 16, False, "pad"),
+    (2, 128, 128, 3, 32, False, "pad"),
+    (2, 128, 128, 3, 128, False, "pad"),
+    (2, 130, 130, 2, 128, True, "pad"),
+    # One row, a partial row group past one tile, a ragged second tile.
+    (3, 1, 1, 2, 64, False, "none"),
+    (3, 1, 65, 2, 64, False, "pad"),
+    (3, 65, 65, 2, 64, False, "pad"),
+    (3, 130, 130, 2, 64, False, "row"),
+    # Lq != Lk both ways, with and without causal masking.
+    (2, 70, 200, 2, 64, False, "pad"),
+    (2, 200, 70, 2, 64, False, "pad"),
+    (2, 70, 200, 2, 64, True, "none"),
+    (2, 200, 70, 2, 32, True, "none"),
+    # Causal with ragged L.
+    (2, 193, 193, 2, 64, True, "lead"),
+    # The evaluation batch.
+    (64, 128, 128, 12, 64, False, "pad"),
 ])
-def test_kernels_match_plain(cuda, B, L, H, D, causal, mask_kind):
+def test_kernels_match_plain(cuda, B, L, Lk, H, D, causal, mask_kind):
     tol = 2e-2
     q, k, v, dout, mask = _inputs(cuda, B, L, H, D, torch.bfloat16,
-                                  mask_kind)
-    bias = A.key_bias(mask, B, L, cuda)
+                                  mask_kind, lk=Lk)
+    bias = A.key_bias(mask, B, Lk, cuda)
     o_ref, lse_ref = A.flash_forward_reference(q, k, v, bias, causal)
     before = dict(A.launches)
     o, lse = A.flash_forward(q, k, v, bias, causal)
@@ -66,18 +90,37 @@ def test_kernels_match_plain(cuda, B, L, H, D, causal, mask_kind):
     fin = lse_ref < 1e29
     _close(lse[fin], lse_ref[fin], 1e-4)
     delta = (dout.float() * o_ref.float()).sum(-1)
+    # With a single key the softmax is constant, so dQ and dK are 0 up to
+    # the f32 rounding of dp - delta (|dO| |V| x 2^-24 x D): an absolute
+    # bound, as a relative one has nothing to scale with.
+    atol = 1e-5 if Lk == 1 else 0.0
     dq = A.flash_backward_dq(q, k, v, bias, dout, lse_ref, delta, causal)
     _close(dq, A.flash_backward_dq_reference(q, k, v, bias, dout, lse_ref,
-                                             delta, causal), tol)
+                                             delta, causal), tol, atol)
     dk, dv = A.flash_backward_dkv(q, k, v, bias, dout, lse_ref, delta, causal)
     dk_ref, dv_ref = A.flash_backward_dkv_reference(q, k, v, bias, dout,
                                                     lse_ref, delta, causal)
-    _close(dk, dk_ref, tol)
+    _close(dk, dk_ref, tol, atol)
     _close(dv, dv_ref, tol)
     torch.cuda.synchronize()
     assert all(A.launches[n] == before[n] + 1 for n in A.launches)
     if mask_kind == "row":
         assert float(o[0].float().abs().max()) == 0.0
+
+
+def test_dkv_is_bitwise_repeatable(cuda):
+    """Each dK/dV tile has one owner block and no atomics: two launches on
+    the same input give the same bits."""
+    q, k, v, dout, mask = _inputs(cuda, 16, 128, 12, 64, torch.bfloat16,
+                                  "pad", seed=3)
+    bias = A.key_bias(mask, 16, 128, cuda)
+    o, lse = A.flash_forward(q, k, v, bias)
+    delta = (dout.float() * o.float()).sum(-1)
+    dk1, dv1 = A.flash_backward_dkv(q, k, v, bias, dout, lse, delta)
+    dk2, dv2 = A.flash_backward_dkv(q, k, v, bias, dout, lse, delta)
+    torch.cuda.synchronize()
+    assert torch.equal(dk1.view(torch.int16), dk2.view(torch.int16))
+    assert torch.equal(dv1.view(torch.int16), dv2.view(torch.int16))
 
 
 def test_autograd_matches_dense(cuda):
@@ -98,6 +141,14 @@ def test_wrapper_rejects_float32_cuda_tensors(cuda):
     q = torch.zeros(1, 8, 1, 32, device=cuda)
     bias = torch.zeros(1, 8, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
+        A.flash_forward(q, q, q, bias)
+
+
+def test_wrapper_rejects_misaligned_operands(cuda):
+    buf = torch.zeros(1 * 8 * 1 * 32 + 1, device=cuda, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 8, 1, 32)              # contiguous, 2 bytes off
+    bias = torch.zeros(1, 8, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
         A.flash_forward(q, q, q, bias)
 
 

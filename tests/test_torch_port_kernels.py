@@ -4,7 +4,11 @@ per-row logsumexp, and dq/dk/dv against ``jax.grad``.  The JAX flash
 kernel runs in Pallas interpret mode, its default off the TPU.
 
 f32 throughout; tolerance rtol 1e-4, atol 2e-5 (the two sides sum in a
-different order, nothing else differs).
+different order, nothing else differs).  Each side is also held to the same
+function in float64, by the same tolerance, so that a mismatch says which
+side moved; the port's plain version gives the same bits at any torch
+thread count, so its summation order does not depend on the worker it
+runs in.
 """
 
 import jax
@@ -45,6 +49,26 @@ def _torch_run(fn, q, k, v, ct, mask, causal):
     return [t.detach().numpy() for t in [out] + [i.grad for i in ins]]
 
 
+def _f64_run(q, k, v, ct, mask, causal):
+    """Output and gradients of the flash function in float64, masked rows
+    and all, with torch autograd."""
+    ins = [torch.from_numpy(a.astype(np.float64)).requires_grad_(True)
+           for a in (q, k, v)]
+    qq, kk, vv = ins
+    s = torch.einsum("bqhd,bkhd->bhqk", qq, kk) / qq.shape[-1] ** 0.5
+    if mask is not None:
+        s = s + torch.where(torch.from_numpy(mask), 0.0, A.NEG)[:, None, None]
+    if causal:
+        L = q.shape[1]
+        s = torch.where(torch.ones(L, L, dtype=torch.bool).tril(), s, A.NEG)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(s > 0.5 * A.NEG, torch.exp(s - m), 0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd",
+                       p / p.sum(-1, keepdim=True).clamp_min(1e-300), vv)
+    (out * torch.from_numpy(ct.astype(np.float64))).sum().backward()
+    return [t.detach().numpy() for t in [out] + [i.grad for i in ins]]
+
+
 def _jax_run(fn, q, k, v, ct, mask):
     def loss(q, k, v):
         return jnp.sum(fn(q, k, v) * ct)
@@ -71,10 +95,31 @@ def test_flash_matches_jax_flash(L, block, causal, mask_kind):
     ref = _jax_run(lambda q, k, v: jax_flash(q, k, v, mask, causal=causal,
                                              block_q=block, block_k=block),
                    q, k, v, ct, mask)
-    for name, a, b in zip(("out", "dq", "dk", "dv"), ours, ref):
+    truth = _f64_run(q, k, v, ct, mask, causal)
+    for name, a, b, t in zip(("out", "dq", "dk", "dv"), ours, ref, truth):
+        np.testing.assert_allclose(a, t, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"port {name} vs float64")
+        np.testing.assert_allclose(b, t, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"jax {name} vs float64")
         np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=name)
     if mask_kind == "row":
         assert np.all(ours[0][0] == 0.0)
+
+
+def test_plain_flash_is_bitwise_repeatable_across_threads():
+    q, k, v, ct, mask = _inputs(2, 40, 2, 8, "pad", seed=56)
+    before = torch.get_num_threads()
+    runs = []
+    try:
+        for n in (1, 2, 3, 4, 8):
+            torch.set_num_threads(n)
+            runs.append(_torch_run(A.flash_attention, q, k, v, ct, mask,
+                                   False))
+    finally:
+        torch.set_num_threads(before)
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert np.array_equal(a, b)
 
 
 @pytest.mark.parametrize("L,block,causal,mask_kind", CASES)
