@@ -308,8 +308,9 @@ def kernel_phase(A):
         F.scaled_dot_product_attention(*s.ins, attn_mask=s.amask), s.ins,
         s.dot), sets)
     sdpa_bwd = sdpa_fb - rows["flash_forward"]["library_ms"]
+    ours = rows["flash_backward_dq"]["ms"] + rows["flash_backward_dkv"]["ms"]
     log(f"  sdpa backward (dQ, dK, dV together): {sdpa_bwd * 1e3:.2f} us "
-        "device")
+        f"device; flash_backward_dq + flash_backward_dkv {ours * 1e3:.2f} us")
     del sets
     # K1 at the evaluation batch.
     sets = input_sets(A, 64, L, H, D, cases[1][6], 22)

@@ -28,53 +28,58 @@
 // HBM) and do 0.8-1.6 GFLOP (under 2 us at the bf16 tensor-core peak), so
 // the floor is set by bytes, and the design is about the memory path:
 // every byte a block needs in flight early, in wide transactions, moved
-// once.  Once it is (timed on the card, chip_smoke.py), K1 and K3 run as
-// fast with their inputs left in L2 as from HBM: what remains is each
-// SM's own work -- ldmatrix traffic (every warp reads the whole streamed
-// tile, 4x per block), the mma.sync instruction rate and the softmax's f32
-// arithmetic -- and the latency of a grid that fits in one wave.
+// once.  Once it is (timed on the card, chip_smoke.py), the kernels run
+// about as fast with their inputs left in L2 as from HBM: what remains is
+// each SM's own work -- ldmatrix traffic (every warp reads the whole
+// streamed tile, 4x per block), the mma.sync instruction rate and the
+// softmax's f32 arithmetic -- and the latency of a grid that fits in one
+// wave.
 //
-// K1 and K3:
-// - A block of 4 warps owns 64 rows of the output (K1 queries, K3 keys), a
-//   warp 16 of them.  Each output tile has one owner block (K3 loops over
-//   query tiles), so there are no atomics and results are bitwise
-//   repeatable.  64 rows, not 128: at B = 16 the grid's 384 blocks fill
-//   the 132 SMs about three deep, where 192 would leave most with one;
-//   the second block of a (b, h) finds K and V (K1) or Q and dO (K3) in
-//   L2.
+// The three kernels share one design:
+// - A block of 4 warps owns 64 rows of the output (K1 and K2 queries, K3
+//   keys), a warp 16 of them.  Each output tile has one owner block (K1
+//   and K2 loop over key tiles, K3 over query tiles), so there are no
+//   atomics and results are bitwise repeatable.  64 rows, not 128: at
+//   B = 16 the grid's 384 blocks fill the 132 SMs about three deep, where
+//   192 would leave most with one; the second block of a (b, h) finds K
+//   and V (K1, K2) or Q and dO (K3) in L2.
 // - Every tile enters shared memory by 16-byte cp.async copies, zero-filled
 //   past the ragged end, spread over all 128 threads so that 8 neighbouring
-//   lanes copy one 128-byte row.  The streamed tiles (K1: K, V and the key
-//   bias of each 64-key tile; K3: Q, dO, lse and delta of each 64-query
-//   tile) pass through a ring of 2 stages: tile i+1 is in flight while
-//   tile i is multiplied, and at L = 128 a block's whole stream is in
-//   flight from the start.  K1 commits K and V of a tile as two groups, so
-//   its scores start before V lands.  lse and delta are H floats apart in
-//   (B, Lq, H), so they come by 4-byte copies.
+//   lanes copy one 128-byte row.  The block's own rows (Q in K1; Q and dO
+//   in K2; K and V in K3) ride in the first tile's commit group.  The
+//   streamed tiles (K1 and K2: K, V and the key bias of each 64-key tile;
+//   K3: Q, dO, lse and delta of each 64-query tile) pass through a ring of
+//   2 stages: tile i+1 is in flight while tile i is multiplied, and at
+//   L = 128 a block's whole stream is in flight from the start.  K1 and K2
+//   commit K and V of a tile as two groups, so that the scores and p start
+//   before V lands.  lse and delta are H floats apart in (B, Lq, H), so K3
+//   copies them by 4-byte copies and K2 loads its rows' into registers.
 // - Rows in shared memory are padded by 16 bytes, so the 8 row addresses of
 //   an ldmatrix phase fall on 8 distinct 4-bank groups.
-// - Fragments come by ldmatrix.x4: the A operands (Q in K1; K and V, staged
-//   once, in K3) and the B operands of the first products (K; Q and dO) as
-//   they lie, the B operands of the second products (V; Q and dO again) by
-//   ldmatrix.x4.trans from the same row-major tiles.  No transposed copy of
-//   any tile is made.
-// - P (K1) and P, dS (K3) go from the f32 accumulators of the first
-//   product straight into the A fragments of the second, rounded to bf16
-//   on the way, without touching memory.
+// - Fragments come by ldmatrix.x4: the A operands (Q in K1; Q and dO in
+//   K2; K and V in K3) and the B operands of the first products (K in K1;
+//   K and V in K2; Q and dO in K3) as they lie, the B operands of the
+//   second products (V; K; Q and dO again) by ldmatrix.x4.trans from the
+//   same row-major tiles.  No transposed copy of any tile is made.
+// - P (K1), dS (K2) and P, dS (K3) go from the f32 accumulators of the
+//   first products straight into the A fragments of the second, rounded to
+//   bf16 on the way, without touching memory.
 // - exp is 2^x on the MUFU unit (exp(x - m) = 2^(x log2 e - m log2 e)), and
 //   the ragged-end and causal masks are applied only on the tiles (K3:
 //   passes) that have masked entries; the rest of the softmax is the f32
-//   arithmetic the plain version does.
+//   arithmetic the plain version does.  K1 and K2 must mask keys past Lk
+//   themselves: their bias is zero-filled there.  In K2 nothing else would
+//   show the omission (the zero K and V rows cancel a wrong p), so the
+//   mask is kept for the semantics.
 // - Outputs are staged in the shared rows their warp read its A operand
 //   from, then leave by 16-byte coalesced stores.
-// - K3 takes a query tile in passes of 32 queries (16 at D = 128), so its
-//   live f32 state (dK, dV and one pass's S^T, dP^T) leaves room for 3
-//   blocks of 128 threads per SM at D <= 64 without spills.
-//
-// K2 keeps its first design: its resident operands (q, dO) come into
-// registers by 4-byte global loads, and each key tile is copied by the
-// threads into shared memory, once row-major and once transposed, between
-// two barriers.
+// - Registers: K3 takes a query tile in passes of 32 queries (16 at
+//   D = 128), so its live dK, dV and one pass's S^T, dP^T leave room for 3
+//   blocks of 128 threads per SM at D <= 64 without spills.  K2 holds a
+//   whole tile's S and dP (f32) beside dQ, and its A fragments come from
+//   shared memory tile by tile, so it fits 128 registers: 4 blocks per SM
+//   at D <= 64 (3 fit at 156 registers, and were 2 % slower on the card).
+//   Either way the 384-block grid at B = 16 is one wave.
 //
 // Tensor cores: mma.sync m16n8k16 with f32 accumulators.  A wgmma form of
 // K1's first product (Q from registers, K read once per warpgroup from a
@@ -135,7 +140,7 @@ __device__ __forceinline__ int key_tiles(const Params& p, int q0) {
   return p.causal && need < n ? need : n;
 }
 
-// ---------------------------------------------------------------- K1, K3
+// ------------------------------------------------------ building blocks
 
 // Start the copies of rows [l0, l0 + NR) of head h of a (B, L, H, D)
 // tensor into dst (row stride D + kPad), 16 bytes each; rows past L are
@@ -152,6 +157,37 @@ __device__ __forceinline__ void copy_rows(unsigned short* dst,
     cp_async16(dst + r * (D + kPad) + c,
                src + row_off(b, in ? l0 + r : 0, L, H, h, D) + c, in);
   }
+}
+
+// Start the copies of key tile `tile` (K, V and the key bias of keys
+// [tile * kTile, tile * kTile + kTile)) into stage tile % kStages of the
+// ring: kv holds per stage K then V ([kTile][D + kPad] each), bs the bias
+// ([kTile]).  Two commit groups, K with its bias and then V, so that a
+// tile's scores start before its V lands; past the block's last tile the
+// groups are empty, which keeps the wait counts uniform.
+template <int D>
+__device__ __forceinline__ void copy_key_tile(unsigned short* kv, float* bs,
+                                              const Params& p, int b, int h,
+                                              int tile, int n_tiles) {
+  constexpr int kLd = D + kPad;
+  const int s = tile % kStages, k0 = tile * kTile;
+  unsigned short* ks = kv + 2 * s * kTile * kLd;
+  if (tile < n_tiles) {
+    copy_rows<D, kTile>(ks, static_cast<const unsigned short*>(p.k), b, k0,
+                        p.Lk, p.H, h);
+    for (int j = threadIdx.x; j < kTile; j += blockDim.x) {
+      const bool in = k0 + j < p.Lk;
+      cp_async4(bs + s * kTile + j,
+                p.bias + static_cast<long long>(b) * p.Lk + (in ? k0 + j : 0),
+                in);
+    }
+  }
+  cp_async_commit();
+  if (tile < n_tiles)
+    copy_rows<D, kTile>(ks + kTile * kLd,
+                        static_cast<const unsigned short*>(p.v), b, k0, p.Lk,
+                        p.H, h);
+  cp_async_commit();
 }
 
 // A fragments (16 rows x 16 columns at column c0) of rows r0 .. r0 + 15 of
@@ -237,32 +273,12 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_kernel(Params p) {
   const int q0 = blockIdx.x * kRows;
   const int r0 = q0 + warp * 16 + g;   // this thread's rows: r0, r0 + 8
   const int n_tiles = key_tiles(p, q0);
-  const unsigned short* k = static_cast<const unsigned short*>(p.k);
-  const unsigned short* v = static_cast<const unsigned short*>(p.v);
 
-  // Key tile i goes to stage i % kStages in two commit groups, K with
-  // its bias and then V, so that a tile's scores start before its V lands.
-  auto copy_tile = [&](int tile) {
-    const int s = tile % kStages, k0 = tile * kTile;
-    unsigned short* ks = kv + 2 * s * kTile * kLd;
-    if (tile < n_tiles) {
-      copy_rows<D, kTile>(ks, k, b, k0, p.Lk, p.H, h);
-      for (int j = tid; j < kTile; j += blockDim.x) {
-        const bool in = k0 + j < p.Lk;
-        cp_async4(bs + s * kTile + j,
-                  p.bias + static_cast<long long>(b) * p.Lk + (in ? k0 + j : 0),
-                  in);
-      }
-    }
-    cp_async_commit();
-    if (tile < n_tiles)
-      copy_rows<D, kTile>(ks + kTile * kLd, v, b, k0, p.Lk, p.H, h);
-    cp_async_commit();
-  };
   copy_rows<D, kRows>(qs, static_cast<const unsigned short*>(p.q), b, q0,
                        p.Lq, p.H, h);
 #pragma unroll
-  for (int i = 0; i < kStages; ++i) copy_tile(i);   // Q rides with K of tile 0
+  for (int i = 0; i < kStages; ++i)   // Q rides with K of tile 0
+    copy_key_tile<D>(kv, bs, p, b, h, i, n_tiles);
 
   unsigned qa[D / 16][4];
   float o[D / 8][4] = {};
@@ -354,7 +370,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_kernel(Params p) {
       }
     }
     __syncthreads();                // every warp is done with stage s
-    copy_tile(tile + kStages);
+    copy_key_tile<D>(kv, bs, p, b, h, tile + kStages, n_tiles);
   }
   cp_async_wait<0>();
 
@@ -516,145 +532,35 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 1)
                 1.f, 1.f, b, w0, p.Lk, p.H, h, lane);
 }
 
-// -------------------------------------------------------------------- K2
-
-__device__ __forceinline__ void load_bias(float* dst, const Params& p, int b,
-                                          int k0) {
-  for (int j = threadIdx.x; j < kTile; j += blockDim.x)
-    dst[j] = k0 + j < p.Lk ? p.bias[static_cast<long long>(b) * p.Lk + k0 + j]
-                           : kNeg;
-}
-
-// Rows [l0, l0 + kTile) of head h as raw bf16 into dst[r * ld + d]
-// (row-major) or, with transpose, dst[d * ld + r]; rows past L are 0.
 template <int D>
-__device__ __forceinline__ void load_tile_bf16(unsigned short* dst, int ld,
-                                               const unsigned short* src,
-                                               int b, int l0, int L, int H,
-                                               int h) {
-  for (int i = threadIdx.x; i < kTile * D / 2; i += blockDim.x) {
-    const int r = i / (D / 2);
-    const int d = 2 * (i - r * (D / 2));
-    st32(dst, r * ld + d,
-         l0 + r < L ? ld32(src, row_off(b, l0 + r, L, H, h, D) + d) : 0u);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_tile_bf16_t(unsigned short* dst, int ld,
-                                                 const unsigned short* src,
-                                                 int b, int l0, int L, int H,
-                                                 int h) {
-  for (int i = threadIdx.x; i < kTile * D; i += blockDim.x) {
-    const int r = i / D;
-    const int d = i - r * D;
-    dst[d * ld + r] =
-        l0 + r < L ? src[row_off(b, l0 + r, L, H, h, D) + d] : 0;
-  }
-}
-
-// A fragments (16 rows x D) of rows r0 and r0 + 8 of a (B, L, H, D) tensor;
-// rows past L are 0.
-template <int D>
-__device__ __forceinline__ void load_a_frags(unsigned (*a)[4],
-                                             const unsigned short* src, int b,
-                                             int r0, int L, int H, int h,
-                                             int t) {
-  const int r1 = r0 + 8;
-  const long long o0 = row_off(b, r0 < L ? r0 : 0, L, H, h, D);
-  const long long o1 = row_off(b, r1 < L ? r1 : 0, L, H, h, D);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = 16 * kk + 2 * t;
-    a[kk][0] = r0 < L ? ld32(src, o0 + c) : 0u;
-    a[kk][1] = r1 < L ? ld32(src, o1 + c) : 0u;
-    a[kk][2] = r0 < L ? ld32(src, o0 + c + 8) : 0u;
-    a[kk][3] = r1 < L ? ld32(src, o1 + c + 8) : 0u;
-  }
-}
-
-// acc[j] (16 x 8 tile j of the 16 x kTile product) += A . M^T, with M the
-// kTile x D row-major tile in smem (B[k][n] = M[n][k]).
-template <int D>
-__device__ __forceinline__ void mma_rows_t(float (*acc)[4],
-                                           const unsigned (*a)[4],
-                                           const unsigned short* m, int ld,
-                                           int g, int t) {
-#pragma unroll
-  for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const unsigned bf[2] = {ld32(m, (8 * j + g) * ld + 16 * kk + 2 * t),
-                              ld32(m, (8 * j + g) * ld + 16 * kk + 8 + 2 * t)};
-      mma_bf16_16816(acc[j], a[kk], bf);
-    }
-  }
-}
-
-// out[n] (16 x 8 tile n of the 16 x D result) += P . M, with P the
-// 16 x kTile f32 accumulators rounded to bf16 and M given transposed in
-// smem as mt[d * ld + key].
-template <int D>
-__device__ __forceinline__ void mma_probs(float (*out)[4],
-                                          const float (*pr)[4],
-                                          const unsigned short* mt, int ld,
-                                          int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    unsigned a[4];
-    pack_a(a, pr[2 * kk], pr[2 * kk + 1]);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const unsigned bf[2] = {ld32(mt, (8 * n + g) * ld + 16 * kk + 2 * t),
-                              ld32(mt, (8 * n + g) * ld + 16 * kk + 8 + 2 * t)};
-      mma_bf16_16816(out[n], a, bf);
-    }
-  }
-}
-
-// Rows r0 and r0 + 8 of a D-wide f32 accumulator, times s0 and s1, stored
-// as bf16 into a (B, L, H, D) tensor; rows past L are skipped.
-template <int D>
-__device__ __forceinline__ void store_rows(unsigned short* dst,
-                                           const float (*acc)[4], float s0,
-                                           float s1, int b, int r0, int L,
-                                           int H, int h, int t) {
-  const int r1 = r0 + 8;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (r0 < L)
-      st32(dst, row_off(b, r0, L, H, h, D) + c,
-           pack_bf16(acc[n][0] * s0, acc[n][1] * s0));
-    if (r1 < L)
-      st32(dst, row_off(b, r1, L, H, h, D) + c,
-           pack_bf16(acc[n][2] * s1, acc[n][3] * s1));
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_kernel(Params p) {
+__global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 4 : 1)
+    flash_dq_bf16_kernel(Params p) {
   constexpr int kLd = D + kPad;
-  constexpr int kLdT = kTile + kPad;
   extern __shared__ __align__(16) unsigned char fa_smem[];
-  unsigned short* ks = reinterpret_cast<unsigned short*>(fa_smem);  // [kTile][kLd]
-  unsigned short* vs = ks + kTile * kLd;                              // [kTile][kLd]
-  unsigned short* kt = vs + kTile * kLd;                              // [D][kLdT]
-  float* bs = reinterpret_cast<float*>(kt + D * kLdT);                // [kTile]
+  // qs: [kRows][kLd] Q, then dQ.  dos: [kRows][kLd] dO.  kv: per stage, K
+  // then V, [kTile][kLd] each.  bs: per stage, the key bias [kTile].
+  unsigned short* qs = reinterpret_cast<unsigned short*>(fa_smem);
+  unsigned short* dos = qs + kRows * kLd;
+  unsigned short* kv = dos + kRows * kLd;
+  float* bs = reinterpret_cast<float*>(kv + kStages * 2 * kTile * kLd);
 
-  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y - b * p.H;
   const int q0 = blockIdx.x * kRows;
-  const int r0 = q0 + (tid / 32) * 16 + g;
+  const int r0 = q0 + warp * 16 + g;   // this thread's rows: r0, r0 + 8
+  const int n_tiles = key_tiles(p, q0);
 
-  unsigned qa[D / 16][4], da[D / 16][4];
-  load_a_frags<D>(qa, static_cast<const unsigned short*>(p.q), b, r0, p.Lq,
-                  p.H, h, t);
-  load_a_frags<D>(da, static_cast<const unsigned short*>(p.dout), b, r0, p.Lq,
-                  p.H, h, t);
+  copy_rows<D, kRows>(qs, static_cast<const unsigned short*>(p.q), b, q0,
+                       p.Lq, p.H, h);
+  copy_rows<D, kRows>(dos, static_cast<const unsigned short*>(p.dout), b, q0,
+                       p.Lq, p.H, h);
+#pragma unroll
+  for (int i = 0; i < kStages; ++i)   // Q and dO ride with K of tile 0
+    copy_key_tile<D>(kv, bs, p, b, h, i, n_tiles);
+
+  // Rows past Lq get p = 0: lse +1e30, as for a fully masked row.
   float lse[2], delta[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -665,35 +571,89 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_kernel(Params p) {
   }
   float dq[D / 8][4] = {};
 
-  const int n_tiles = key_tiles(p, q0);
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kTile;
-    __syncthreads();
-    const unsigned short* k = static_cast<const unsigned short*>(p.k);
-    load_tile_bf16<D>(ks, kLd, k, b, k0, p.Lk, p.H, h);
-    load_tile_bf16_t<D>(kt, kLdT, k, b, k0, p.Lk, p.H, h);
-    load_tile_bf16<D>(vs, kLd, static_cast<const unsigned short*>(p.v), b, k0,
-                      p.Lk, p.H, h);
-    load_bias(bs, p, b, k0);
-    __syncthreads();
+    cp_async_wait<2 * kStages - 1>();   // this thread's copies of K ...
+    __syncthreads();                       // ... and everyone's
+    const int s = tile % kStages, k0 = tile * kTile;
+    const unsigned short* ks = kv + 2 * s * kTile * kLd;
+    const unsigned short* vs = ks + kTile * kLd;
+    const float* bias = bs + s * kTile;
 
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    mma_rows_t<D>(s, qa, ks, kLd, g, t);
-    mma_rows_t<D>(dp, da, vs, kLd, g, t);
+    float sc[kTile / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned qa[4];
+      a_frag(qa, qs, kLd, warp * 16, 16 * kk, lane);
+#pragma unroll
+      for (int j = 0; j < kTile / 8; j += 2) {
+        unsigned bf[4];
+        bt_frags(bf, ks, kLd, 8 * j, 16 * kk, lane);
+        mma_bf16_16816(sc[j], qa, bf);
+        mma_bf16_16816(sc[j + 1], qa, bf + 2);
+      }
+    }
+    // p = exp(x - lse) as 2^((x - lse) log2(e)), which is 0 for a score at
+    // or below -5e29 (lse is finite, or +1e30 for a fully masked row).
+    // Keys past Lk (their bias is zero-filled) and, with causal masking,
+    // keys after the row score -1e30; only a tile at the ragged end or
+    // across the diagonal has any.
+    auto probs = [&](auto edge) {
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = 8 * j + 2 * t + (e & 1);
+          float x = sc[j][e] * p.scale + bias[kj];
+          if (decltype(edge)::value &&
+              (k0 + kj >= p.Lk ||
+               (p.causal && r0 + (e >> 1) * 8 < k0 + kj)))
+            x = kNeg;
+          sc[j][e] = exp2f((x - lse[e >> 1]) * kLog2e);
+        }
+    };
+    if (k0 + kTile > p.Lk || (p.causal && q0 + warp * 16 < k0 + kTile - 1))
+      probs(std::true_type{});
+    else
+      probs(std::false_type{});
+    cp_async_wait<2 * kStages - 2>();   // V of the tile
+    __syncthreads();
+    float dp[kTile / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned da[4];
+      a_frag(da, dos, kLd, warp * 16, 16 * kk, lane);
+#pragma unroll
+      for (int j = 0; j < kTile / 8; j += 2) {
+        unsigned bf[4];
+        bt_frags(bf, vs, kLd, 8 * j, 16 * kk, lane);
+        mma_bf16_16816(dp[j], da, bf);
+        mma_bf16_16816(dp[j + 1], da, bf + 2);
+      }
+    }
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kj = 8 * j + 2 * t + (e & 1);
-        float sc = s[j][e] * p.scale + bs[kj];
-        if (p.causal && r0 + (e >> 1) * 8 < k0 + kj) sc = kNeg;
-        const float pj = sc > kMaskedBelow ? expf(sc - lse[e >> 1]) : 0.f;
-        s[j][e] = pj * (dp[j][e] - delta[e >> 1]);   // ds
+      for (int e = 0; e < 4; ++e)
+        sc[j][e] *= dp[j][e] - delta[e >> 1];   // ds
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      unsigned a[4];
+      pack_a(a, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < D / 8; n += 2) {
+        unsigned bf[4];
+        b_frags(bf, ks, kLd, 16 * kk, 8 * n, lane);
+        mma_bf16_16816(dq[n], a, bf);
+        mma_bf16_16816(dq[n + 1], a, bf + 2);
       }
-    mma_probs<D>(dq, s, kt, kLdT, g, t);
+    }
+    __syncthreads();                // every warp is done with stage s
+    copy_key_tile<D>(kv, bs, p, b, h, tile + kStages, n_tiles);
   }
-  store_rows<D>(static_cast<unsigned short*>(p.o), dq, p.scale, p.scale, b,
-                r0, p.Lq, p.H, h, t);
+  cp_async_wait<0>();
+
+  store_tile<D>(static_cast<unsigned short*>(p.o), qs + warp * 16 * kLd, dq,
+                p.scale, p.scale, b, q0 + warp * 16, p.Lq, p.H, h, lane);
 }
 
 // Dynamic shared memory of each kernel, in bytes.
@@ -701,7 +661,8 @@ template <int D> constexpr int fwd_bf16_smem() {
   return (kRows + kStages * 2 * kTile) * (D + kPad) * 2 + kStages * kTile * 4;
 }
 template <int D> constexpr int dq_bf16_smem() {
-  return (2 * kTile * (D + kPad) + D * (kTile + kPad)) * 2 + kTile * 4;
+  return (2 * kRows + kStages * 2 * kTile) * (D + kPad) * 2 +
+         kStages * kTile * 4;
 }
 template <int D> constexpr int dkv_bf16_smem() {
   return (2 * kRows + kStages * 2 * kTile) * (D + kPad) * 2 +

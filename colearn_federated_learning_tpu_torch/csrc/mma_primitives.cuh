@@ -95,11 +95,8 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
           << 16);
 }
 
-// The 32-bit word holding p[i] and p[i + 1] (i even, p 4-byte aligned).
-__device__ __forceinline__ unsigned ld32(const unsigned short* p, long long i) {
-  return *reinterpret_cast<const unsigned*>(p + i);
-}
-
+// Store v as the 32-bit word holding p[i] and p[i + 1] (i even, p 4-byte
+// aligned).
 __device__ __forceinline__ void st32(unsigned short* p, long long i,
                                      unsigned v) {
   *reinterpret_cast<unsigned*>(p + i) = v;
