@@ -14,18 +14,32 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the evaluation batch of 64 with a realistic padding mask, a ragged
    L=100, a causal case and a case with a fully masked row — then its
    device time at the training shapes (and K1's at the evaluation batch)
-   beside the plain version's, its bound, and torch's SDPA as a yardstick.
+   beside the plain version's, its bound, and torch's SDPA as a yardstick;
+   the same at ViT-B/16's shape (16, 50, 12, 64) with no key mask, and
+   K1's at ViT's evaluation batch (64, 50, 12, 64).
    Device time is that of calls captured in a CUDA graph and replayed back
    to back, over input sets that together exceed twice the 50 MB L2 cache,
    so each call reads its inputs from HBM as the bound assumes; the host
    loop of wrapper calls on one warm set is reported beside it as
    ``wrapper_ms``, and the graph's own cost per call as its floor;
 4. a small-input check (flash vs dense cores of a small BERT on the card),
-   then the main path: ``FederatedLearner`` on ``agnews_bert_fedavg`` with
+   then the BERT path: ``FederatedLearner`` on ``agnews_bert_fedavg`` with
    ``attn_impl="flash"`` and 4 local steps (full BERT-base width and
    depth, cohort 10, batch 16, seq 128, bf16) for 2 rounds and an
    evaluation, with the kernels' launch counts read around it;
-5. one JSON line of per-kernel results, then the result line.
+5. this slice's path: ``cifar10_cnn_fedavg`` (BASELINE config #2) as it
+   is — the width-64 CNN in bf16, 100 Dirichlet clients, cohort 20,
+   batch 32, its own 34-step budget — for 2 rounds and an evaluation;
+6. one round and one evaluation of each other family at full width, each
+   cut listed in its line: config #1 (MLP), config #3 (ResNet-18,
+   FedProx), ``iot_traffic_tcn_fedavg`` (TCN), config #5 (ViT-B/16 with
+   ``attn_impl="flash"``, cohort cut to 32) and MoE-BERT (BERT-base width,
+   4 experts, flash, cohort 4, 2 local steps).  Every path resets the
+   launch counts before it and checks them after: depth × (steps +
+   evaluation batches) for K1 and depth × steps for K2 and K3 on a flash
+   path, none elsewhere;
+7. one JSON line of per-kernel results (launches summed over the paths),
+   then the result line.
 
 Needs a CUDA device and the repository beside it; it exits non-zero and
 prints no result otherwise.
@@ -59,6 +73,7 @@ KERNELS = {
         "colearn_federated_learning_tpu/ops/attention.py:259", 8),
 }
 SOURCE = "colearn_federated_learning_tpu_torch/csrc/flash_attention_kernels.cuh"
+VIT_L = 50                     # ViT-B/16 on 28 x 28 FEMNIST: 7 x 7 patches + cls
 
 
 def log(*args):
@@ -136,7 +151,8 @@ def input_sets(A, B, L, H, D, mask, seed):
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         sets.append(SimpleNamespace(
             q=q, k=k, v=v, dout=dout, bias=bias, lse=lse, delta=delta,
-            qt=qt, kt=kt, vt=vt, amask=mask.to(dev)[:, None, None, :]))
+            qt=qt, kt=kt, vt=vt,
+            amask=None if mask.all() else mask.to(dev)[:, None, None, :]))
     return sets
 
 
@@ -252,11 +268,45 @@ def kernel_phase(A):
     row_mask = padding_mask(4, L, 4)
     row_mask[1] = False
     cases.append(("masked_row", 4, L, H, D, False, row_mask, 14))
+    # ViT-B/16 on FEMNIST: 49 patches + the class token, no key mask, at
+    # the training batch and the evaluation batch.
+    cases.append(("vit", B, VIT_L, H, D, False,
+                  torch.ones(B, VIT_L, dtype=torch.bool), 16))
+    cases.append(("vit_eval", 64, VIT_L, H, D, False,
+                  torch.ones(64, VIT_L, dtype=torch.bool), 17))
     for case in cases:
         e = kernel_case(A, *case)
         errs = {k: max(errs[k], e[k]) for k in errs}
 
-    sets = input_sets(A, B, L, H, D, cases[0][6], 21)
+    rows = time_kernels(A, B, L, H, D, cases[0][6], errs)
+    eval_forward(A, "BERT", 64, L, H, D, cases[1][6])
+    log(f"  at the ViT shape ({B}, {VIT_L}, {H}, {D}), no key mask:")
+    vit = time_kernels(A, B, VIT_L, H, D, cases[-2][6], errs)
+    log("  vit shape rows " + json.dumps(vit))
+    eval_forward(A, "ViT", 64, VIT_L, H, D, cases[-1][6])
+    return rows
+
+
+def eval_forward(A, label, B, L, H, D, mask):
+    """Device time of K1 at an evaluation batch beside its bound and SDPA."""
+    from torch.nn import functional as F
+
+    sets = input_sets(A, B, L, H, D, mask, 22)
+    bms, bby = bound_ms("flash_forward", B, L, H, D)
+    k1 = device_ms(lambda s: A.flash_forward(s.q, s.k, s.v, s.bias), sets)
+    sdpa = device_ms(lambda s: F.scaled_dot_product_attention(
+        s.qt, s.kt, s.vt, attn_mask=s.amask), sets)
+    log(f"  flash_forward at the {label} evaluation batch ({B}, {L}, {H}, "
+        f"{D}): {k1 * 1e3:.2f} us device ({bms / k1:.1%} of bound "
+        f"{bms * 1e3:.2f} us, {bby}); sdpa {sdpa * 1e3:.2f} us")
+
+
+def time_kernels(A, B, L, H, D, mask, errs):
+    """Device time of K1-K3 at one shape beside their plain versions, the
+    bound and SDPA; returns the per-kernel rows."""
+    from torch.nn import functional as F
+
+    sets = input_sets(A, B, L, H, D, mask, 21)
     fns = {
         "flash_forward": (
             lambda s: A.flash_forward(s.q, s.k, s.v, s.bias),
@@ -311,15 +361,6 @@ def kernel_phase(A):
     ours = rows["flash_backward_dq"]["ms"] + rows["flash_backward_dkv"]["ms"]
     log(f"  sdpa backward (dQ, dK, dV together): {sdpa_bwd * 1e3:.2f} us "
         f"device; flash_backward_dq + flash_backward_dkv {ours * 1e3:.2f} us")
-    del sets
-    # K1 at the evaluation batch.
-    sets = input_sets(A, 64, L, H, D, cases[1][6], 22)
-    bms, _ = bound_ms("flash_forward", 64, L, H, D)
-    k1 = device_ms(fns["flash_forward"][0], sets)
-    sdpa = device_ms(fns["flash_forward"][2], sets)
-    log(f"  flash_forward at B=64: {k1 * 1e3:.2f} us device "
-        f"({bms / k1:.1%} of bound {bms * 1e3:.2f} us); sdpa "
-        f"{sdpa * 1e3:.2f} us")
     return rows
 
 
@@ -363,51 +404,99 @@ def main_path_config():
 
 
 def main_path(A):
+    """The BERT path (``main_path_config``): 2 rounds and an evaluation."""
+    return drive_path(A, "bert", main_path_config(), 2, "local_steps 4")
+
+
+def drive_path(A, label, cfg, rounds, cuts):
+    """Build ``FederatedLearner(cfg)`` on the card, run ``rounds`` rounds
+    and one evaluation, check that the output is finite, that every
+    sampled client completed and that the params moved, and that the
+    flash kernels launched exactly depth × (steps + evaluation batches)
+    (K1) and depth × steps (K2, K3) times on a flash path, and never
+    elsewhere.  Returns the launch counts."""
     from colearn_federated_learning_tpu_torch.fed import FederatedLearner
 
-    cfg = main_path_config()
+    t_path = time.perf_counter()
     t0 = time.perf_counter()
     learner = FederatedLearner(cfg)
-    log(f"  learner built in {time.perf_counter() - t0:.2f} s "
-        f"({learner.num_clients} clients, cohort {learner.cohort_size}, "
-        f"{learner.num_steps} steps x batch {cfg.fed.batch_size})")
+    n_params = sum(p.numel() for p in learner.params.values())
+    width = cfg.model.hidden_dim if cfg.model.name == "mlp" else cfg.model.width
+    log(f"  [{label}] {cfg.run.name}: {cfg.model.name} width {width} "
+        f"{cfg.model.dtype}, {n_params / 1e6:.2f} M params; "
+        f"{learner.num_clients} clients, cohort {learner.cohort_size}, "
+        f"{learner.num_steps} steps x batch {cfg.fed.batch_size}; cuts: "
+        f"{cuts}; built in {time.perf_counter() - t0:.2f} s")
     before = [p.clone() for p in learner.params.values()]
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     A.reset_launches()
     round_s = []
-    for _ in range(2):
+    for _ in range(rounds):
         t0 = time.perf_counter()
         rec = learner.run_round()
         torch.cuda.synchronize()
         round_s.append(time.perf_counter() - t0)
-        log(f"  round {rec['round']}: train_loss {rec['train_loss']:.6f} "
-            f"completed {rec['completed']:.0f} "
+        log(f"  [{label}] round {rec['round']}: train_loss "
+            f"{rec['train_loss']:.6f} completed {rec['completed']:.0f} "
             f"delta_norm_mean {rec['delta_norm_mean']:.6f} "
             f"in {round_s[-1]:.3f} s")
-        if not (math.isfinite(rec["train_loss"]) and rec["completed"] == 10):
-            raise AssertionError(f"bad round record {rec}")
+        if not (math.isfinite(rec["train_loss"])
+                and math.isfinite(rec["delta_norm_mean"])
+                and rec["completed"] == learner.cohort_size):
+            raise AssertionError(f"{label}: bad round record {rec}")
     t0 = time.perf_counter()
     eval_loss, eval_acc = learner.evaluate()
     eval_s = time.perf_counter() - t0
     launches = dict(A.launches)
     changed = sum(float((p - b).abs().sum())
                   for p, b in zip(learner.params.values(), before))
-    log(f"  evaluate: loss {eval_loss:.6f} acc {eval_acc:.4f} in "
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in learner.params.values())
+    log(f"  [{label}] evaluate: loss {eval_loss:.6f} acc {eval_acc:.4f} in "
         f"{eval_s:.3f} s; launches {launches}; params moved (sum |diff|) "
         f"{changed:.6e}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    if not (math.isfinite(eval_loss) and 0.0 <= eval_acc <= 1.0 and changed > 0):
-        raise AssertionError("main path output is not finite or did not train")
-    steps = 2 * learner.cohort_size * learner.num_steps
-    eval_batches = math.ceil(len(learner.dataset.x_test) / 64)
-    depth = cfg.model.depth
+    if not (finite and math.isfinite(eval_loss) and 0.0 <= eval_acc <= 1.0
+            and changed > 0):
+        raise AssertionError(f"{label}: output is not finite or did not train")
+    flash = cfg.model.attn_impl == "flash"
+    steps = rounds * learner.cohort_size * learner.num_steps
+    eval_batches = math.ceil(len(learner.dataset.x_test)
+                             / max(cfg.fed.batch_size, 64))
+    depth = cfg.model.depth if flash else 0
     want = {"flash_forward": depth * (steps + eval_batches),
             "flash_backward_dq": depth * steps,
             "flash_backward_dkv": depth * steps}
     if launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
-    log(f"  seconds per round: {round_s}")
+        raise AssertionError(f"{label}: kernel launches {launches}, "
+                             f"expected {want}")
+    log(f"  [{label}] seconds per round: {round_s}; path "
+        f"{time.perf_counter() - t_path:.2f} s")
     return launches
+
+
+def family_paths():
+    """(label, config, cuts) of one round of each other family."""
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
+
+    vit = get_config("femnist_vit_cross_silo")
+    moe = get_config("agnews_bert_fedavg")
+    return [
+        ("mlp", get_config("mnist_mlp_fedavg"), "none"),
+        ("resnet18", get_config("cifar100_resnet18_fedprox"), "none"),
+        ("tcn", get_config("iot_traffic_tcn_fedavg"), "none"),
+        ("vit", vit.replace(
+            model=dataclasses.replace(vit.model, attn_impl="flash"),
+            fed=dataclasses.replace(vit.fed, cohort_size=32)),
+         "cohort_size 256 -> 32"),
+        ("moe_bert", moe.replace(
+            model=dataclasses.replace(moe.model, name="moe_bert",
+                                      num_experts=4, attn_impl="flash"),
+            fed=dataclasses.replace(moe.fed, cohort_size=4, local_steps=2),
+            run=dataclasses.replace(moe.run, name="moe_bert_agnews")),
+         "cohort_size 10 -> 4, local_steps 150 -> 2"),
+    ]
 
 
 def build_phase(_build):
@@ -465,12 +554,30 @@ def main() -> int:
     log("phase 3: kernels vs plain versions (bf16)")
     rows = kernel_phase(A)
 
-    log("phase 4: small-input check and main path")
+    log("phase 4: small-input check and the BERT path")
+    t0 = time.perf_counter()
     small_model_check()
-    launches = main_path(A)
+    paths = {"bert": main_path(A)}
+    log(f"  phase 4 in {time.perf_counter() - t0:.2f} s")
+
+    log("phase 5: this slice's path, the CIFAR-10 CNN round (config #2)")
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
+
+    t0 = time.perf_counter()
+    paths["cnn"] = drive_path(A, "cnn", get_config("cifar10_cnn_fedavg"), 2,
+                              "none")
+    log(f"  phase 5 in {time.perf_counter() - t0:.2f} s")
+
+    log("phase 6: one round of each other family at full width")
+    t0 = time.perf_counter()
+    for label, cfg, cuts in family_paths():
+        paths[label] = drive_path(A, label, cfg, 1, cuts)
+    log(f"  phase 6 in {time.perf_counter() - t0:.2f} s")
+    log("launches per path " + json.dumps(paths))
 
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=rep,
-                    launches=launches[name], status="ok", **rows[name])
+                    launches=sum(p[name] for p in paths.values()),
+                    status="ok", **rows[name])
                for name, (rep, _) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,100 +1,103 @@
-"""Exact conversion between flax BERT params and the port's ``state_dict``.
+"""Exact conversion between flax params and the port's ``state_dict``.
 
 Flax params are a nested dict of numpy arrays, as ``jax.device_get`` gives
-them for the JAX package's ``BertClassifier``; the port's are a flat
-``state_dict`` of ``BertClassifier``.  Both directions only transpose and
-reshape, so a round trip is bit-exact:
+them for any of the JAX package's models; the port's are the flat
+``state_dict`` of the matching module.  The port's submodules carry their
+flax names, so a parameter's torch name is its flax path joined by dots
+with the leaf renamed, and one walk serves every family.  Both directions
+only transpose and reshape, so a round trip is bit-exact:
 
 - ``Dense`` kernels (in, out) <-> ``weight`` (out, in);
+- ``Conv`` kernels HWIO <-> OIHW, and WIO <-> OIW for 1-D convs;
 - ``DenseGeneral`` query/key/value kernels (D, H, hd) and biases (H, hd)
-  <-> (H·hd, D) and (H·hd,); the ``out`` kernel (H, hd, D) <-> (D, H·hd);
-- ``Embed.embedding`` <-> ``embed.weight``; ``pos_embed`` (1, max_len, D)
-  as it is; ``LayerNorm.scale`` <-> ``weight``.
+  <-> (H·hd, D) and (H·hd,); the attention ``out`` kernel (H, hd, D) <->
+  (D, H·hd);
+- ``Embed.embedding`` and ``LayerNorm``/``GroupNorm`` ``scale`` <->
+  ``weight``;
+- raw parameters (``pos_embed``, ``cls``, the MoE ``experts_*`` banks) as
+  they are.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from collections.abc import Mapping
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
-
-def _layer_map(depth: int) -> list[tuple[tuple[str, ...], str, str]]:
-    """(flax path, torch prefix, kind) for every parameterised layer."""
-    rows = [(("Embed_0",), "embed", "embed"),
-            (("LayerNorm_0",), "ln_embed", "norm"),
-            (("Dense_0",), "head", "dense")]
-    for i in range(depth):
-        blk, pre = f"TransformerBlock_{i}", f"blocks.{i}"
-        mha = (blk, "MultiHeadAttention_0")
-        rows += [(mha + (n,), f"{pre}.attn.{n}", "qkv")
-                 for n in ("query", "key", "value")]
-        rows += [(mha + ("out",), f"{pre}.attn.out", "attn_out"),
-                 ((blk, "LayerNorm_0"), f"{pre}.ln1", "norm"),
-                 ((blk, "Dense_0"), f"{pre}.mlp_in", "dense"),
-                 ((blk, "Dense_1"), f"{pre}.mlp_out", "dense"),
-                 ((blk, "LayerNorm_1"), f"{pre}.ln2", "norm")]
-    return rows
+_QKV = ("query", "key", "value")
 
 
-def _depth(flax_params) -> int:
-    return sum(1 for k in flax_params if k.startswith("TransformerBlock_"))
+def _kind(module: str) -> str:
+    """The flax layer kind of a module name (``Conv_3`` -> ``Conv``)."""
+    return module.rsplit("_", 1)[0] if module[-1:].isdigit() else module
 
 
-def _get(tree, path):
-    for key in path:
-        tree = tree[key]
-    return tree
+def _leaves(tree, path=()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, path + (key,))
+        else:
+            yield path + (key,), np.asarray(value)
 
 
 def flax_to_state_dict(flax_params: Any) -> dict[str, torch.Tensor]:
-    """flax BERT params -> the port's ``state_dict`` (CPU tensors)."""
-    sd = {"pos_embed": np.asarray(flax_params["pos_embed"])}
-    for path, pre, kind in _layer_map(_depth(flax_params)):
-        layer = {k: np.asarray(v) for k, v in _get(flax_params, path).items()}
-        if kind == "embed":
-            sd[f"{pre}.weight"] = layer["embedding"]
-        elif kind == "norm":
-            sd[f"{pre}.weight"], sd[f"{pre}.bias"] = layer["scale"], layer["bias"]
-        elif kind == "dense":
-            sd[f"{pre}.weight"], sd[f"{pre}.bias"] = layer["kernel"].T, layer["bias"]
-        elif kind == "qkv":
-            D = layer["kernel"].shape[0]
-            sd[f"{pre}.weight"] = layer["kernel"].reshape(D, -1).T
-            sd[f"{pre}.bias"] = layer["bias"].reshape(-1)
-        else:  # attn_out
-            D = layer["kernel"].shape[-1]
-            sd[f"{pre}.weight"] = layer["kernel"].reshape(-1, D).T
-            sd[f"{pre}.bias"] = layer["bias"]
+    """flax params -> the port's ``state_dict`` (CPU tensors)."""
+    sd = {}
+    for path, a in _leaves(flax_params):
+        module, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
+        prefix = ".".join(path[:-1])
+        if leaf == "kernel":
+            if module in _QKV:
+                a = a.reshape(a.shape[0], -1).T
+            elif module == "out":
+                a = a.reshape(-1, a.shape[-1]).T
+            else:                     # Dense (in, out); Conv (*k, in, out)
+                a = np.transpose(a, (a.ndim - 1, a.ndim - 2,
+                                     *range(a.ndim - 2)))
+            name = "weight"
+        elif leaf == "bias":
+            a = a.reshape(-1) if module in _QKV else a
+            name = "bias"
+        elif leaf in ("scale", "embedding"):
+            name = "weight"
+        else:
+            name = leaf
+        sd[f"{prefix}.{name}" if prefix else name] = a
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
 
 
 def state_dict_to_flax(state_dict: dict[str, torch.Tensor],
-                       num_heads: int) -> dict:
-    """The port's ``state_dict`` -> flax BERT params (numpy arrays)."""
-    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
-    depth = 1 + max((int(k.split(".")[1]) for k in sd if k.startswith("blocks.")),
-                    default=-1)
-    out: dict = {"pos_embed": sd["pos_embed"]}
-    for path, pre, kind in _layer_map(depth):
-        w = sd[f"{pre}.weight"]
-        if kind == "embed":
-            layer = {"embedding": w}
-        elif kind == "norm":
-            layer = {"scale": w, "bias": sd[f"{pre}.bias"]}
-        elif kind == "dense":
-            layer = {"kernel": w.T, "bias": sd[f"{pre}.bias"]}
-        elif kind == "qkv":
-            D = w.shape[1]
-            layer = {"kernel": w.T.reshape(D, num_heads, -1),
-                     "bias": sd[f"{pre}.bias"].reshape(num_heads, -1)}
-        else:  # attn_out
-            D = w.shape[0]
-            layer = {"kernel": w.T.reshape(num_heads, -1, D),
-                     "bias": sd[f"{pre}.bias"]}
+                       num_heads: Optional[int] = None) -> dict:
+    """The port's ``state_dict`` -> flax params (numpy arrays);
+    ``num_heads`` is needed where there is attention."""
+    out: dict = {}
+    for key, t in state_dict.items():
+        a = t.detach().cpu().numpy()
+        path = key.split(".")
+        module, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
+        kind = _kind(module)
+        if module in _QKV + ("out",) and num_heads is None:
+            raise ValueError(f"{key}: attention weights need num_heads")
+        if leaf == "weight" and kind == "Embed":
+            layer = {"embedding": a}
+        elif leaf == "weight" and kind in ("LayerNorm", "GroupNorm"):
+            layer = {"scale": a}
+        elif leaf == "weight":
+            if module in _QKV:
+                a = a.T.reshape(a.shape[1], num_heads, -1)
+            elif module == "out":
+                a = a.T.reshape(num_heads, -1, a.shape[0])
+            else:
+                a = np.transpose(a, (*range(2, a.ndim), 1, 0))
+            layer = {"kernel": a}
+        elif leaf == "bias" and module in _QKV:
+            layer = {"bias": a.reshape(num_heads, -1)}
+        else:
+            layer = {leaf: a}
         node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = {k: np.ascontiguousarray(v) for k, v in layer.items()}
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node.update({k: np.ascontiguousarray(v) for k, v in layer.items()})
     return out

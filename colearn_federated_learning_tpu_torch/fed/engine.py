@@ -109,7 +109,8 @@ class FederatedLearner:
 
         # --- model and server state -----------------------------------
         self.model = model_registry.build_model(
-            c.model, self.device, generator=prng.init_generator(c.run.seed))
+            c.model, self.device, generator=prng.init_generator(c.run.seed),
+            input_shape=shards.x.shape[2:])
         self.server_state = strategies.init_server_state(
             self._param_copy(), c.fed)
 
@@ -120,7 +121,9 @@ class FederatedLearner:
         self.local_update = local.make_local_update(
             self.model, optimizer, self.num_steps,
             prox_mu=c.fed.prox_mu if c.fed.strategy == "fedprox" else 0.0,
-            min_steps_fraction=c.fed.straggler_min_fraction)
+            min_steps_fraction=c.fed.straggler_min_fraction,
+            aux_loss_weight=(c.model.moe_aux_weight
+                             if c.model.name.startswith("moe") else 0.0))
         cohort = c.fed.cohort_size or self.num_clients
         self.cohort_size = min(cohort, self.num_clients)
         self.draws = plan if plan is not None else programs.Draws(c.run.seed)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from colearn_federated_learning_tpu_torch.fed import losses
+from colearn_federated_learning_tpu_torch.models.moe import MoEFfn
 
 
 class LocalResult(NamedTuple):
@@ -92,7 +93,8 @@ def make_optimizer(lr: float, momentum: float, name: str = "sgd") -> Optimizer:
 
 def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
                       num_steps: int, prox_mu: float = 0.0,
-                      min_steps_fraction: float = 0.25) -> Callable:
+                      min_steps_fraction: float = 0.25,
+                      aux_loss_weight: float = 0.0) -> Callable:
     """Build ``local_update(global_params, x, y, count, batch_idx,
     step_budget, lr_scale=None) -> LocalResult``.
 
@@ -105,12 +107,19 @@ def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
       [0, count), one row per step (drawn by the caller).
     - Steps at or past ``step_budget`` do not run.
     - With ``prox_mu > 0`` the loss gains FedProx's μ/2 ‖w − w_global‖².
+    - With ``aux_loss_weight > 0`` it gains that weight times the mean of
+      the load-balance losses the model's MoE layers left on themselves
+      (the JAX trainer's sown ``moe_aux``).
     """
     min_steps = max(1, int(num_steps * min_steps_fraction))
     params = list(model.parameters())
+    moe_layers = [m for m in model.modules() if isinstance(m, MoEFfn)]
 
     def loss_fn(global_params, xb, yb):
         loss = losses.softmax_cross_entropy(model(xb), yb)
+        if aux_loss_weight > 0.0 and moe_layers:
+            aux = sum(m.aux for m in moe_layers) / len(moe_layers)
+            loss = loss + aux_loss_weight * aux
         if prox_mu > 0.0:
             diffs = torch._foreach_sub(params, global_params)
             sq = torch.stack([(d * d).sum() for d in diffs]).sum()

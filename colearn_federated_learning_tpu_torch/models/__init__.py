@@ -1,1 +1,2 @@
-"""Model families (BERT so far) and their registry."""
+"""Model families (MLP, CNN, ResNet-18, TCN, ViT, BERT, MoE-BERT), their
+flax-numerics layers and their registry."""

@@ -17,17 +17,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
+from colearn_federated_learning_tpu_torch.models.layers import linear
 from colearn_federated_learning_tpu_torch.ops import attention as attn_ops
 
 ATTN_IMPLS = ("dense", "flash")
-
-
-def linear(x, layer: nn.Linear, dtype: torch.dtype):
-    """``layer`` applied in ``dtype`` (f32 master weights cast per call)."""
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 class MultiHeadAttention(nn.Module):

@@ -8,27 +8,61 @@ from colearn_federated_learning_tpu_torch.utils.config import ModelConfig
 from colearn_federated_learning_tpu_torch.utils.device import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TEXT_MODELS = ("bert", "moe_bert")
+
+
+def _module(cfg: ModelConfig, input_shape):
+    dtype = DTYPES[cfg.dtype]
+    if cfg.name not in TEXT_MODELS and input_shape is None:
+        raise ValueError(f"model {cfg.name!r} needs the per-example "
+                         "input_shape of its dataset")
+    shape = tuple(input_shape or ())
+    if cfg.name == "mlp":
+        from colearn_federated_learning_tpu_torch.models.mlp import MLP
+
+        return MLP(shape, cfg.num_classes, cfg.hidden_dim, cfg.depth, dtype)
+    if cfg.name == "cnn":
+        from colearn_federated_learning_tpu_torch.models.cnn import CNN
+
+        return CNN(shape, cfg.num_classes, cfg.width, dtype, cfg.stem, cfg.norm)
+    if cfg.name == "resnet18":
+        from colearn_federated_learning_tpu_torch.models.resnet import ResNet18
+
+        return ResNet18(shape, cfg.num_classes, cfg.width, dtype)
+    if cfg.name == "tcn":
+        from colearn_federated_learning_tpu_torch.models.tcn import TCN
+
+        return TCN(shape, cfg.num_classes, cfg.width, cfg.depth, dtype)
+    if cfg.name == "vit_b16":
+        from colearn_federated_learning_tpu_torch.models.vit import ViT
+
+        return ViT(shape, cfg.num_classes, cfg.width, cfg.depth, cfg.num_heads,
+                   cfg.patch_size, dtype, cfg.attn_impl)
+    if cfg.name in TEXT_MODELS:
+        from colearn_federated_learning_tpu_torch.models.bert import (
+            BertClassifier,
+        )
+
+        return BertClassifier(
+            num_classes=cfg.num_classes, vocab_size=cfg.vocab_size,
+            embed_dim=cfg.width, depth=cfg.depth, num_heads=cfg.num_heads,
+            max_len=cfg.seq_len, dtype=dtype, attn_impl=cfg.attn_impl,
+            num_experts=cfg.num_experts if cfg.name == "moe_bert" else 0)
+    raise KeyError(f"unknown model {cfg.name!r}")
 
 
 def build_model(cfg: ModelConfig, device=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                input_shape: tuple[int, ...] | None = None):
     """The module for ``cfg`` on ``device`` (``None``: the card, raising
-    without one); with ``generator`` its parameters are drawn from it
+    without one), sized for examples of ``input_shape`` (the dataset's
+    per-example shape; required but for text models, which take
+    ``cfg.seq_len``); with ``generator`` its parameters are drawn from it
     (flax's default init), else they are left for the caller to load."""
     device = resolve_device(device)
     if cfg.remat:
         raise NotImplementedError("remat is not ported yet; see ROADMAP.md")
-    if cfg.name != "bert":
-        raise NotImplementedError(
-            f"model {cfg.name!r} is not ported yet (only 'bert' is); see "
-            "ROADMAP.md Queue A")
-    from colearn_federated_learning_tpu_torch.models.bert import BertClassifier
-
-    model = BertClassifier(num_classes=cfg.num_classes,
-                           vocab_size=cfg.vocab_size, embed_dim=cfg.width,
-                           depth=cfg.depth, num_heads=cfg.num_heads,
-                           max_len=cfg.seq_len, dtype=DTYPES[cfg.dtype],
-                           attn_impl=cfg.attn_impl)
+    model = _module(cfg, input_shape)
     if generator is not None:
         model.reset_parameters(generator)
     return model.to(device)

@@ -2,16 +2,19 @@
 """Where a round of the PyTorch port's main path spends its time.
 
     python3 scripts/torch_port_profile.py
+    python3 scripts/torch_port_profile.py --config cifar10_cnn_fedavg
     python3 scripts/torch_port_profile.py --parent-csrc DIR
 
-Builds the ``chip_smoke.py`` main path (``agnews_bert_fedavg`` with
-``attn_impl="flash"``, 4 local steps, on one CUDA card), runs one warm-up
-round, times one round and one evaluation, then profiles one round and one
+Builds the ``chip_smoke.py`` BERT path (``agnews_bert_fedavg`` with
+``attn_impl="flash"``, 4 local steps, on one CUDA card) or, with
+``--config NAME``, that registry config as it is; runs one warm-up round,
+times one round and one evaluation, then profiles one round and one
 evaluation with ``torch.profiler``
 and prints, per phase: wall seconds, device-busy seconds (union of kernel
 intervals), the idle share, and device time grouped by kernel family
-(flash-attention kernels, matmuls, optimizer ``_foreach`` passes, other)
-and the kernels that take the most device time.  Needs a CUDA device.
+(flash-attention kernels, convolutions, matmuls, optimizer ``_foreach``
+passes, GroupNorm/pooling/elementwise, other) and the kernels that take
+the most device time.  Needs a CUDA device.
 
 With ``--parent-csrc DIR`` (another revision's ``csrc/``, with the same C
 entry points) it compares the two builds in one process, in turns parent,
@@ -35,10 +38,15 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+# First match wins: cuDNN's convolution kernels are xmma/cutlass GEMMs too.
 FAMILIES = (
     ("flash_attention", ("fa::flash_fwd", "fa::flash_dq", "fa::flash_dkv")),
+    ("conv", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit_gemm",
+              "nchwtonhwc", "nhwctonchw")),
     ("matmul", ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas")),
     ("optimizer_foreach", ("multi_tensor_apply", "foreach")),
+    ("norm_pool_elementwise", ("elementwise", "reduce", "pool", "norm",
+                               "catarray", "index")),
 )
 
 
@@ -179,6 +187,9 @@ def main() -> int:
     parser.add_argument("--parent-csrc", default=None,
                         help="compare with the kernels built from this "
                              "csrc/ directory, in turns")
+    parser.add_argument("--config", default=None,
+                        help="a registry config to profile as it is "
+                             "(default: chip_smoke's BERT path)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no CUDA device", file=sys.stderr)
@@ -191,8 +202,13 @@ def main() -> int:
         return 0
     from chip_smoke import main_path_config
     from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
 
-    learner = FederatedLearner(main_path_config())
+    cfg = get_config(args.config) if args.config else main_path_config()
+    learner = FederatedLearner(cfg)
+    print(json.dumps({"config": cfg.run.name, "clients": learner.num_clients,
+                      "cohort": learner.cohort_size,
+                      "steps": learner.num_steps}), flush=True)
     learner.run_round()                                  # warm-up
     learner.evaluate()
     profile_main_path(learner)

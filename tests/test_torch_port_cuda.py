@@ -1,19 +1,28 @@
 """The flash-attention CUDA kernels (K1-K3) against their plain PyTorch
-versions, on the card.  Marked ``cuda``: without a CUDA device every test
-here skips.  On a machine with the card (no JAX needed):
+versions, and every model family's bf16 logits against the same model in
+f32 on the CPU, on the card.  Marked ``cuda``: without a CUDA device every
+test here skips.  On a machine with the card (no JAX needed):
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -p no:cacheprovider -q
 
 Inputs are bf16, the only dtype the kernels take.  Tolerance: both sides
 sum in f32 and round to bf16 at the same points, so they differ only where
 a different summation order flips a rounding; outputs are held to 2e-2 of
-the largest reference magnitude, the lse to 1e-4 of it.
+the largest reference magnitude, the lse to 1e-4 of it.  A family's bf16
+logits on the card are held to the f32 truth (the same params in f32 on
+the CPU): their error may be at most twice that of the same bf16 model on
+the CPU plus one bf16 step at the largest magnitude, since cuDNN, cuBLAS
+and the kernels round in other places than the CPU's plain ops.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
+from colearn_federated_learning_tpu_torch.models import registry
 from colearn_federated_learning_tpu_torch.ops import attention as A
+from colearn_federated_learning_tpu_torch.utils.config import ModelConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -79,6 +88,10 @@ def _close(got, ref, tol, atol=0.0):
     # The training grid at the D = 128 instantiation (its own register
     # budget and occupancy).
     (16, 128, 128, 12, 128, True, "pad"),
+    # ViT-B/16 on FEMNIST: 49 patches + the class token, no key mask, at
+    # the training batch and the evaluation batch.
+    (16, 50, 50, 12, 64, False, "none"),
+    (64, 50, 50, 12, 64, False, "none"),
 ])
 def test_kernels_match_plain(cuda, B, L, Lk, H, D, causal, mask_kind):
     tol = 2e-2
@@ -165,3 +178,53 @@ def test_wrapper_rejects_unsupported_head_dim(cuda):
     bias = torch.zeros(1, 8, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         A.flash_forward(q, q, q, bias)
+
+
+# name -> (ModelConfig fields, per-example input shape)
+FAMILIES = {
+    "mlp": (dict(name="mlp", num_classes=10, hidden_dim=64), (28, 28, 1)),
+    "cnn": (dict(name="cnn", num_classes=10, width=16), (32, 32, 3)),
+    "cnn_s2d_nonorm": (dict(name="cnn", num_classes=10, width=16,
+                            stem="space_to_depth", norm="none"), (32, 32, 3)),
+    "resnet18": (dict(name="resnet18", num_classes=10, width=16),
+                 (32, 32, 3)),
+    "tcn": (dict(name="tcn", num_classes=8, width=16, depth=3), (64, 16)),
+    "vit_flash": (dict(name="vit_b16", num_classes=10, width=128, depth=2,
+                       num_heads=4, attn_impl="flash"), (28, 28, 1)),
+    "moe_bert_flash": (dict(name="moe_bert", num_classes=4, width=128,
+                            depth=2, num_heads=4, seq_len=64,
+                            vocab_size=1000, num_experts=4,
+                            attn_impl="flash"), (64,)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_family_bf16_logits_on_card_match_f32(cuda, name):
+    kw, shape = FAMILIES[name]
+    g = torch.Generator().manual_seed(0)
+    if kw["name"] == "moe_bert":
+        x = torch.randint(1, 1000, (8,) + shape, generator=g)
+        x[:, 48:] = 0
+        x[3] = 0                                # an all-padding example
+    else:
+        x = torch.randn((8,) + shape, generator=g)
+    cfg = ModelConfig(**kw)
+    f32 = registry.build_model(cfg, "cpu", generator=torch.Generator()
+                               .manual_seed(1), input_shape=shape)
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    plain = registry.build_model(bf16, "cpu", input_shape=shape)
+    card = registry.build_model(bf16, cuda, input_shape=shape)
+    plain.load_state_dict(f32.state_dict())
+    card.load_state_dict(f32.state_dict())
+    before = dict(A.launches)
+    with torch.no_grad():
+        truth, ref = f32(x), plain(x)
+        got = card(x.to(cuda)).cpu()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    err = float((got - truth).abs().max())
+    bound = (2.0 * float((ref - truth).abs().max())
+             + 2.0 ** -8 * float(truth.abs().max()))
+    assert err <= bound, (err, bound)
+    flash = kw.get("attn_impl") == "flash"
+    assert (A.launches["flash_forward"] > before["flash_forward"]) == flash

@@ -120,7 +120,8 @@ def test_port_init_matches_flax_init_statistics():
 
 def test_unported_families_and_cores_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build_model(ModelConfig(name="cnn"), "cpu")
+        registry.build_model(ModelConfig(name="vit_b16", width=32, depth=1,
+                                         remat=True), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.build_model(ModelConfig(**dict(SIZES, name="bert"),
                                          attn_impl="ring"), "cpu")

@@ -2,13 +2,22 @@
 ``FederatedLearner``, plus its local optimizers, lr schedule and server
 strategies against optax and the JAX package.
 
-The round runs a tiny BERT (agnews_tiny, 5 clients, cohort 3, 3 local Adam
-steps, warmup-cosine lr, flash attention on both sides; the JAX kernel in
-interpret mode) from the same initial params, with the port fed the JAX
-round's own draws: the cohort from ``rank_cohort(sampling_key)`` and every
-step's batch indices from ``fold_in``/``randint`` on ``client_round_key``.
+The round runs a tiny model of each family from the same initial params,
+with the port fed the JAX round's own draws: the cohort from
+``rank_cohort(sampling_key)`` and every step's batch indices from
+``fold_in``/``randint`` on ``client_round_key``.  5 clients, cohort 3,
+3 local steps, f32:
 
-Tolerance of the trajectory (f32 on both sides): losses, weights and
+- BERT (agnews_tiny, Adam, warmup-cosine lr, flash attention on both
+  sides, the JAX kernel in interpret mode), with FedAvg and with FedProx
+  and stragglers; MoE-BERT (4 experts, Adam), whose local loss carries
+  the load-balance term (``moe_aux_weight`` 0.01);
+- CNN (cifar10_tiny, Dirichlet clients), ResNet-18 (FedProx, μ = 3), MLP
+  (mnist_tiny), TCN (iot_traffic_tiny) and ViT (mnist_tiny, flash
+  attention), all with SGD and momentum.
+
+Tolerance of the trajectory (f32 on both sides) for BERT, MoE-BERT, MLP,
+TCN and ViT: losses, weights and
 update norms to 1e-5; params to rtol 1e-4 / atol 1e-5 for at least 99.9%
 of the entries of every tensor, and every entry within the Adam step
 bound (3 · lr · Σ_rounds lr_scale · steps).  Summation order differs
@@ -18,6 +27,21 @@ gradient's size, so an entry whose gradient is at the level of Adam's eps
 key-projection biases are held to the step bound alone: their true
 gradient is exactly zero (a constant added to every key's score cancels
 in the softmax), so both sides train them on roundoff.
+
+The convolutional families (CNN, ResNet-18) part ways at roundoff: a
+ReLU whose GroupNorm'd input lies within f32 rounding of 0 takes the
+other branch on one side (against a float64 replay of single steps, one
+such input just below 0 came out positive on the port's side in a CNN
+step and moved the whole gradient of the first conv, while JAX's matched
+float64; in a ResNet step it was JAX's side that missed), and momentum
+SGD on these width-8 nets, whose GroupNorm groups are single channels on
+4 × 4 maps, amplifies such a step.  Their numerics are held step by step in
+``test_torch_port_families.py``; here they run at a small lr (2e-3),
+which keeps the drift well inside the bound below, and are held to: losses to rtol 1e-4, update norms to rtol 1e-3, and
+every parameter tensor's error norm within 10 % of its movement norm.
+The CNN's conv biases feed GroupNorms of single channels, which remove
+any per-channel constant: their true gradient is exactly zero, both sides
+train them on roundoff (≈ 1e-9), and they are held to 1e-6.
 """
 
 import dataclasses
@@ -44,15 +68,43 @@ PARAM_RTOL, PARAM_ATOL, LOSS_TOL = 1e-4, 1e-5, 1e-5
 AGREE_FRACTION = 0.999
 
 
-def _configs(straggler_prob=0.0, strategy="fedavg"):
+SGD = dict(lr=0.05, momentum=0.9, local_optimizer="sgd")
+FAMILIES = {
+    "bert": (dict(dataset="agnews_tiny", partition="iid"),
+             dict(name="bert", num_classes=4, width=32, depth=2, num_heads=4,
+                  seq_len=64, vocab_size=2000, attn_impl="flash"),
+             dict(lr=1e-3, momentum=0.0, local_optimizer="adam",
+                  lr_schedule="warmup_cosine", warmup_rounds=1,
+                  lr_min_fraction=0.1)),
+    "moe_bert": (dict(dataset="agnews_tiny", partition="iid"),
+                 dict(name="moe_bert", num_classes=4, width=32, depth=2,
+                      num_heads=4, seq_len=64, vocab_size=2000,
+                      num_experts=4, attn_impl="flash"),
+                 dict(lr=1e-3, momentum=0.0, local_optimizer="adam")),
+    "cnn": (dict(dataset="cifar10_tiny", partition="dirichlet"),
+            dict(name="cnn", num_classes=10, width=8), dict(SGD, lr=2e-3)),
+    "resnet18": (dict(dataset="cifar10_tiny", partition="dirichlet"),
+                 dict(name="resnet18", num_classes=10, width=8),
+                 dict(SGD, lr=2e-3)),
+    "mlp": (dict(dataset="mnist_tiny", partition="iid"),
+            dict(name="mlp", num_classes=10, hidden_dim=32, depth=2), SGD),
+    "tcn": (dict(dataset="iot_traffic_tiny", partition="dirichlet"),
+            dict(name="tcn", num_classes=8, width=8, depth=3), SGD),
+    "vit": (dict(dataset="mnist_tiny", partition="iid"),
+            dict(name="vit_b16", num_classes=10, width=32, depth=2,
+                 num_heads=4, attn_impl="flash"),
+            dict(SGD, lr=0.03, lr_schedule="warmup_cosine", warmup_rounds=1,
+                 lr_min_fraction=0.05)),
+}
+
+
+def _configs(straggler_prob=0.0, strategy="fedavg", family="bert"):
+    data, model, fed = FAMILIES[family]
     kw = dict(
-        data=dict(dataset="agnews_tiny", num_clients=5, partition="iid"),
-        model=dict(name="bert", num_classes=4, width=32, depth=2, num_heads=4,
-                   seq_len=64, vocab_size=2000, attn_impl="flash"),
-        fed=dict(strategy=strategy, rounds=2, cohort_size=3, local_steps=3,
-                 batch_size=8, lr=1e-3, momentum=0.0, local_optimizer="adam",
-                 lr_schedule="warmup_cosine", warmup_rounds=1,
-                 lr_min_fraction=0.1, straggler_prob=straggler_prob,
+        data=dict(data, num_clients=5),
+        model=model,
+        fed=dict(fed, strategy=strategy, rounds=2, cohort_size=3,
+                 local_steps=3, batch_size=8, straggler_prob=straggler_prob,
                  straggler_min_fraction=0.67),
         run=dict(seed=3))
     out = []
@@ -93,46 +145,81 @@ class JaxDraws:
         return np.asarray(out)
 
 
-def _assert_params_close(jax_params, port_params, step_bound):
+CONV_FAMILIES = ("cnn", "resnet18")
+CONV_LOSS_TOL, CONV_NORM_RTOL, CONV_DRIFT = 1e-4, 1e-3, 0.1
+# FedProx's μ.  At the conv families' lr (2e-3) over 3 steps, μ = 0.1 moves
+# nothing past the tolerances above; at μ = 3 the prox term moves round 0's
+# loss by 1.1e-3, three times its tolerance, so a port that dropped the
+# term fails.
+PROX_MU = {"resnet18": 3.0}
+
+
+def _assert_params_close(jax_params, port_params, step_bound, start=None):
+    """The BERT/MLP/TCN/ViT rule, or with ``start`` (the params before the
+    trajectory) the convolutional families' drift-within-movement rule."""
     want = convert.flax_to_state_dict(jax.tree.map(np.asarray, jax_params))
     for name, t in port_params.items():
+        if start is not None:
+            got, ref = t.numpy(), want[name].numpy()
+            if name.startswith("Conv_") and name.endswith(".bias"):
+                # Zero true gradient (see the module docstring): roundoff.
+                assert np.abs(got - ref).max() <= 1e-6, name
+                continue
+            move = np.linalg.norm(ref - start[name].numpy())
+            err = np.linalg.norm(got - ref)
+            assert err <= CONV_DRIFT * move, (name, err, move)
+            continue
         got, ref = t.numpy(), want[name].numpy()
         err = np.abs(got - ref)
         assert err.max() <= step_bound, (name, err.max(), step_bound)
-        if name.endswith("attn.key.bias"):
+        if name.endswith("MultiHeadAttention_0.key.bias"):
             continue
         agree = err <= PARAM_ATOL + PARAM_RTOL * np.abs(ref)
         assert agree.mean() >= AGREE_FRACTION, (name, agree.mean())
 
 
 @pytest.mark.filterwarnings("ignore::UserWarning")
-@pytest.mark.parametrize("straggler_prob,strategy", [
-    (0.0, "fedavg"), (0.6, "fedprox")])
-def test_two_round_trajectory_matches_jax(straggler_prob, strategy):
-    jcfg, tcfg = _configs(straggler_prob, strategy)
+@pytest.mark.parametrize("straggler_prob,strategy,family", [
+    pytest.param(0.0, "fedavg", "bert", id="0.0-fedavg"),
+    pytest.param(0.6, "fedprox", "bert", id="0.6-fedprox"),
+    pytest.param(0.0, "fedavg", "moe_bert", id="moe-bert"),
+    pytest.param(0.0, "fedavg", "cnn", id="cnn"),
+    pytest.param(0.0, "fedprox", "resnet18", id="resnet18-fedprox"),
+    pytest.param(0.0, "fedavg", "mlp", id="mlp"),
+    pytest.param(0.0, "fedavg", "tcn", id="tcn"),
+    pytest.param(0.0, "fedavg", "vit", id="vit-flash")])
+def test_two_round_trajectory_matches_jax(straggler_prob, strategy, family):
+    jcfg, tcfg = _configs(straggler_prob, strategy, family)
     if strategy == "fedprox":
-        jcfg = jcfg.replace(fed=dataclasses.replace(jcfg.fed, prox_mu=0.1))
-        tcfg = tcfg.replace(fed=dataclasses.replace(tcfg.fed, prox_mu=0.1))
+        mu = PROX_MU.get(family, 0.1)
+        jcfg = jcfg.replace(fed=dataclasses.replace(jcfg.fed, prox_mu=mu))
+        tcfg = tcfg.replace(fed=dataclasses.replace(tcfg.fed, prox_mu=mu))
     jl = JaxLearner(jcfg)
     tl = FederatedLearner(tcfg, device="cpu", plan=JaxDraws(jcfg.run.seed))
     tl.load_flax_params(jax.device_get(jl.params))
+    conv = family in CONV_FAMILIES
+    start = {k: v.clone() for k, v in tl.params.items()} if conv else None
+    tol = CONV_LOSS_TOL if conv else LOSS_TOL
     completed, step_bound = [], 0.0
     for r in range(2):
+        scale = strategies.lr_scale_for_round(tcfg.fed, r)
         step_bound += (3 * tcfg.fed.lr * tcfg.fed.local_steps
-                       * strategies.lr_scale_for_round(tcfg.fed, r))
+                       * (1.0 if scale is None else scale))
         jr, tr = jl.run_round(), tl.run_round()
         assert tr["completed"] == jr["completed"]
         completed.append(tr["completed"])
         np.testing.assert_allclose(tr["train_loss"], jr["train_loss"],
-                                   rtol=LOSS_TOL, atol=LOSS_TOL)
+                                   rtol=tol, atol=tol)
         for key in ("total_weight", "delta_norm_mean", "delta_norm_max"):
-            np.testing.assert_allclose(tr[key], jr[key], rtol=1e-4, atol=1e-6)
+            np.testing.assert_allclose(
+                tr[key], jr[key], rtol=CONV_NORM_RTOL if conv else 1e-4,
+                atol=1e-6)
         _assert_params_close(jax.device_get(jl.server_state.params),
-                             tl.params, step_bound)
+                             tl.params, step_bound, start)
     if straggler_prob > 0:
         assert min(completed) < 3       # some client really was dropped
     (jloss, jacc), (tloss, tacc) = jl.evaluate(), tl.evaluate()
-    np.testing.assert_allclose(tloss, jloss, rtol=LOSS_TOL, atol=LOSS_TOL)
+    np.testing.assert_allclose(tloss, jloss, rtol=tol, atol=tol)
     assert tacc == pytest.approx(jacc, abs=1e-6)
 
 
