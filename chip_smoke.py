@@ -38,7 +38,19 @@ Phases (any failure exits non-zero; no phase's error is caught):
    launch counts before it and checks them after: depth × (steps +
    evaluation batches) for K1 and depth × steps for K2 and K3 on a flash
    path, none elsewhere;
-7. one JSON line of per-kernel results (launches summed over the paths),
+7. the federated round's other branches through the port's command line
+   (``cli.main``) at full width: 7a SCAFFOLD on config #2 (2 rounds; the
+   server variate moves and exactly the contributors' variate rows
+   change), 7b FedNova on config #2 with stragglers (the clients' step
+   counts, and so their a_i, differ), 7c DP with adaptive clipping and
+   secure aggregation on BERT-base (2 rounds; the clip moves, ε equals
+   the JAX accountant's value for 7c's q, z and δ, which a CPU test ties
+   to JAX; no update norm in the record) and 7c' its round
+   0 without the masks (the params agree to 1e-5: the masks cancel on the
+   card), 7d Krum on BERT-base (8 of 10 kept), 7e ring masks of degree 4
+   with DP on config #2 — each with exact launch counts, its seconds per
+   round, evaluation seconds and peak memory;
+8. one JSON line of per-kernel results (launches summed over the paths),
    then the result line.
 
 Needs a CUDA device and the repository beside it; it exits non-zero and
@@ -499,6 +511,200 @@ def family_paths():
     ]
 
 
+# ε of 7c's 2 rounds (q = cohort 10 of 50 clients, z = 1.0, δ = 1e-5) by
+# the JAX package's RDP accountant; tests/test_torch_port_guards.py holds
+# this constant to it.  The relative tolerance allows for another numpy.
+EPS_7C = 4.1187131819595315
+EPS_RTOL = 1e-9
+BERT_DP = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
+           "--local-steps", "4", "--dp-clip", "1.0",
+           "--dp-noise-multiplier", "1.0", "--dp-adaptive-clip"]
+
+
+def cli_path(A, label, argv, watch=None):
+    """Run ``cli.main(["train", *argv])`` on the card, with the kernels'
+    launch counts and the peak memory reset once the learner is built;
+    ``watch(learner, record)`` sees the learner before the first round
+    (record None) and after each round.  Checks that every round's loss
+    and the params are finite and that the flash kernels launched exactly
+    depth × (steps run + evaluation batches) (K1) and depth × steps (K2,
+    K3) on a flash path, and never elsewhere.  Returns (records, launches,
+    learner)."""
+    from colearn_federated_learning_tpu_torch import cli
+
+    state = {"records": [], "steps": 0}
+
+    def on_round(learner, rec):
+        if rec is None:
+            state["learner"] = learner
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launches()
+        else:
+            state["records"].append(rec)
+            state["steps"] += int(learner.last_cohort["steps_run"].sum())
+            extra = {k: rec[k] for k in ("dp_clip", "dp_bit_frac",
+                                         "dp_epsilon", "eval_acc")
+                     if k in rec}
+            log(f"  [{label}] round {rec['round']}: train_loss "
+                f"{rec['train_loss']:.6f} completed {rec['completed']:.0f}; "
+                + json.dumps(extra))
+        if watch is not None:
+            watch(learner, rec)
+
+    t0 = time.perf_counter()
+    log(f"  [{label}] train " + " ".join(argv))
+    cli.main(["train", *argv], on_round=on_round)
+    torch.cuda.synchronize()
+    launches = dict(A.launches)
+    learner, records = state["learner"], state["records"]
+    cfg = learner.config
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in learner.params.values())
+    if not (finite and records
+            and all(math.isfinite(r["train_loss"]) for r in records)):
+        raise AssertionError(f"{label}: output is not finite")
+    evals = sum("eval_loss" in r for r in records)
+    eval_batches = math.ceil(len(learner.dataset.x_test)
+                             / max(cfg.fed.batch_size, 64))
+    depth = cfg.model.depth if cfg.model.attn_impl == "flash" else 0
+    want = {"flash_forward": depth * (state["steps"] + evals * eval_batches),
+            "flash_backward_dq": depth * state["steps"],
+            "flash_backward_dkv": depth * state["steps"]}
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, "
+                             f"expected {want}")
+    log(f"  [{label}] s/round "
+        f"{[round(r['phase_update_s'], 3) for r in records]}; eval s "
+        f"{[round(r['round_time_s'] - r['phase_update_s'], 3) for r in records if 'eval_loss' in r]}"
+        f"; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+        f"launches {launches} (exact); path "
+        f"{time.perf_counter() - t0:.2f} s; {card()}")
+    return records, launches, learner
+
+
+def scaffold_path(A):
+    """7a: the server variate moves in round 0 and exactly the
+    contributors' rows of the variate store change."""
+    seen = {}
+
+    def watch(learner, rec):
+        if rec is None:
+            seen["rows"] = [r.clone() for r in learner.variates.rows]
+        elif rec["round"] == 0:
+            cohort = learner.last_cohort
+            want = set(cohort["clients"][cohort["contributed"]].tolist())
+            changed = set()
+            for old, new in zip(seen["rows"], learner.variates.rows):
+                diff = (old != new).reshape(len(old), -1).any(dim=1)
+                changed |= set(torch.nonzero(diff).flatten().tolist())
+            c_norm = math.sqrt(sum(float(c.float().square().sum()) for c in
+                                   learner.server_state.control.values()))
+            log(f"  [7a] after round 0: |c| = {c_norm:.6e}; variate rows "
+                f"changed {len(changed)}, contributors {len(want)}")
+            if not (c_norm > 0 and changed == want):
+                raise AssertionError(f"7a: |c| {c_norm}, rows changed "
+                                     f"{sorted(changed)} != {sorted(want)}")
+            del seen["rows"]
+
+    return cli_path(A, "7a", ["--config", "cifar10_cnn_fedavg", "--strategy",
+                              "scaffold", "--momentum", "0", "--rounds", "2"],
+                    watch)[1]
+
+
+def fednova_path(A):
+    """7b: under stragglers the clients' executed steps, and so their
+    a_i, differ."""
+    def watch(learner, rec):
+        if rec is None:
+            return
+        cohort = learner.last_cohort
+        log(f"  [7b] steps run {cohort['steps_run'].astype(int).tolist()}; "
+            f"a_i {[round(float(a), 4) for a in cohort['nova_a']]}")
+        if len(set(cohort["nova_a"].tolist())) < 2:
+            raise AssertionError("7b: every client's a_i is the same")
+
+    return cli_path(A, "7b", ["--config", "cifar10_cnn_fedavg", "--strategy",
+                              "fednova", "--straggler-prob", "0.5",
+                              "--rounds", "1"], watch)[1]
+
+
+def private_paths(A):
+    """7c: DP with adaptive clipping and secure aggregation on BERT-base,
+    and 7c': its round 0 without the masks, whose params must agree with
+    7c's to 1e-5 (the masks cancel on the card)."""
+    snap = {}
+
+    def watch(learner, rec):
+        if rec is not None and rec["round"] == 0:
+            snap["params"] = [p.clone() for p in learner.params.values()]
+
+    records, launches, learner = cli_path(
+        A, "7c", BERT_DP + ["--rounds", "2", "--secure-agg"], watch)
+    leaked = [k for r in records for k in r if k.startswith("delta_norm")]
+    eps = records[-1]["dp_epsilon"]
+    log(f"  [7c] dp_clip {records[0]['dp_clip']:.6f} after round 0 (from "
+        f"1.0); dp_epsilon {eps!r}, the JAX accountant's {EPS_7C!r} (q = "
+        f"10/50, z = 1.0, delta 1e-5, 2 rounds; rel tol {EPS_RTOL})")
+    if not (records[0]["dp_clip"] != 1.0 and not leaked
+            and abs(eps - EPS_7C) <= EPS_RTOL * EPS_7C):
+        raise AssertionError(f"7c: clip {records[0]['dp_clip']}, epsilon "
+                             f"{eps}, keys {leaked}")
+    del learner
+    _, launches2, plain = cli_path(A, "7c'", BERT_DP + ["--rounds", "1"])
+    err = max(float((p - q).abs().max())
+              for p, q in zip(plain.params.values(), snap["params"]))
+    log(f"  [7c'] params after round 0, masked vs unmasked: max abs diff "
+        f"{err:.3e} (bound 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError(f"7c': masks did not cancel: {err}")
+    return launches, launches2
+
+
+def krum_path(A):
+    """7d: Krum on BERT-base keeps n − f = 8 of the 10 clients."""
+    records, launches, learner = cli_path(
+        A, "7d", ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
+                  "--local-steps", "4", "--rounds", "1", "--aggregator",
+                  "krum", "--trim-fraction", "0.2"])
+    chosen = learner.last_cohort["selected"]
+    log(f"  [7d] Krum kept {len(chosen)} of {learner.cohort_size}: "
+        f"{sorted(chosen.tolist())}")
+    if len(chosen) != 8:
+        raise AssertionError(f"7d: Krum kept {len(chosen)}, expected 8")
+    return launches
+
+
+def ring_path(A):
+    """7e: ring masks of degree 4 with DP on config #2."""
+    records, launches, learner = cli_path(
+        A, "7e", ["--config", "cifar10_cnn_fedavg", "--secure-agg",
+                  "--secure-agg-neighbors", "4", "--dp-clip", "0.5",
+                  "--dp-noise-multiplier", "0.5", "--rounds", "1"])
+    cohort = learner.last_cohort
+    table = cohort["partners"]
+    ok = all(len(set(row.tolist())) == 4 and cid not in row
+             for cid, row in zip(cohort["clients"], table))
+    log(f"  [7e] partner table {table.shape}, 4 distinct partners each: {ok}")
+    if not (ok and table.shape == (learner.cohort_size, 4)):
+        raise AssertionError(f"7e: partner table {table}")
+    return launches
+
+
+def cli_phase(A):
+    """Phase 7: the round's other branches through the command line."""
+    paths = {}
+    for label, fn in (("scaffold", scaffold_path), ("fednova", fednova_path),
+                      ("krum", krum_path), ("ring_dp", ring_path)):
+        t0 = time.perf_counter()
+        paths[label] = fn(A)
+        log(f"  {label} in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["dp_secure_agg"], paths["dp"] = private_paths(A)
+    log(f"  dp_secure_agg and dp in {time.perf_counter() - t0:.2f} s")
+    return paths
+
+
 def build_phase(_build):
     """Build the kernels; report each head-dim-64 instantiation's registers,
     spills and blocks per SM, and fail if any instantiation spills."""
@@ -542,6 +748,7 @@ def main() -> int:
         return 1
     from colearn_federated_learning_tpu_torch.ops import _build
     from colearn_federated_learning_tpu_torch.ops import attention as A
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
 
     log("phase 1: device")
     log(card())
@@ -554,18 +761,17 @@ def main() -> int:
     log("phase 3: kernels vs plain versions (bf16)")
     rows = kernel_phase(A)
 
+    paths = {}
     log("phase 4: small-input check and the BERT path")
     t0 = time.perf_counter()
     small_model_check()
-    paths = {"bert": main_path(A)}
+    paths["bert"] = main_path(A)
     log(f"  phase 4 in {time.perf_counter() - t0:.2f} s")
 
-    log("phase 5: this slice's path, the CIFAR-10 CNN round (config #2)")
-    from colearn_federated_learning_tpu_torch.utils.config import get_config
-
+    log("phase 5: the CIFAR-10 CNN round (config #2)")
     t0 = time.perf_counter()
-    paths["cnn"] = drive_path(A, "cnn", get_config("cifar10_cnn_fedavg"), 2,
-                              "none")
+    paths["cnn"] = drive_path(A, "cnn", get_config("cifar10_cnn_fedavg"),
+                              2, "none")
     log(f"  phase 5 in {time.perf_counter() - t0:.2f} s")
 
     log("phase 6: one round of each other family at full width")
@@ -573,6 +779,11 @@ def main() -> int:
     for label, cfg, cuts in family_paths():
         paths[label] = drive_path(A, label, cfg, 1, cuts)
     log(f"  phase 6 in {time.perf_counter() - t0:.2f} s")
+
+    log("phase 7: this slice's paths through the command line")
+    t0 = time.perf_counter()
+    paths.update(cli_phase(A))
+    log(f"  phase 7 in {time.perf_counter() - t0:.2f} s")
     log("launches per path " + json.dumps(paths))
 
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=rep,

@@ -1,0 +1,236 @@
+"""Command line of the PyTorch port: ``train``.
+
+    python -m colearn_federated_learning_tpu_torch.cli train --config NAME \\
+        [--backend gpu|cpu] [overrides]
+
+The counterpart of the JAX package's ``colearn train`` (its
+``config_from_args`` and ``cmd_train``) for what this package runs: the
+single-device federated round with every strategy, DP (fixed or adaptive
+clipping, with the RDP accountant), secure aggregation and the robust
+aggregators.  The run goes on the card (``--backend gpu``, the default,
+which raises without one) or, only when asked, on the CPU.  Each round's
+record goes to stderr as one JSON line and the final summary to stdout,
+as in the JAX package; :func:`main` also returns the summary.
+
+A flag of the JAX command line whose feature is not ported yet is
+accepted by the parser and refused: the run exits with status 2 and names
+the ROADMAP item that ports it, and never runs without it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+from typing import Callable, Optional
+
+from colearn_federated_learning_tpu_torch.utils.config import (
+    CONFIGS, ExperimentConfig, get_config)
+
+_FED_KEYS = {"rounds", "cohort_size", "local_epochs", "local_steps",
+             "batch_size", "lr", "lr_schedule", "warmup_rounds",
+             "lr_min_fraction", "momentum", "local_optimizer", "strategy",
+             "prox_mu", "aggregator", "trim_fraction", "dp_clip",
+             "dp_noise_multiplier", "dp_delta", "dp_adaptive_clip",
+             "dp_target_quantile", "dp_clip_lr", "dp_bit_noise",
+             "secure_agg", "secure_agg_neighbors", "straggler_prob"}
+_DATA_KEYS = {"num_clients", "dataset", "partition", "dirichlet_alpha"}
+_MODEL_KEYS = {"attn_impl", "width", "stem", "norm"}
+_RUN_KEYS = {"seed", "eval_every"}
+
+_LORA = "ROADMAP.md Queue A item 5 (LoRA)"
+_EDGE = "ROADMAP.md Queue A item 4 (fed/hierarchical.py)"
+_TP_SP = "ROADMAP.md Queue A item 7 (TP and SP)"
+_COMM = "ROADMAP.md Queue A item 8 (the fold kernel and the comm/ planes)"
+_CKPT = "ROADMAP.md Queue A item 9 (fleetsim and checkpoints)"
+_OBS = "ROADMAP.md Queue A item 10 (telemetry, tracing and evaluation extras)"
+
+# dest -> (flag, argparse kwargs, the ROADMAP item that ports it)
+_UNPORTED = {
+    "lora_rank": ("--lora-rank", dict(type=int), _LORA),
+    "lora_alpha": ("--lora-alpha", dict(type=float), _LORA),
+    "lora_merge_every": ("--lora-merge-every", dict(type=int), _LORA),
+    "edge_groups": ("--edge-groups", dict(type=int), _EDGE),
+    "edge_sync_period": ("--edge-sync-period", dict(type=int), _EDGE),
+    "tp_size": ("--tp-size", dict(type=int), _TP_SP),
+    "remat": ("--remat", dict(action="store_true"), _TP_SP),
+    "role": ("--role", dict(choices=["sim", "client"]), _COMM),
+    "compress": ("--compress", dict(), _COMM),
+    "compress_down": ("--compress-down", dict(), _COMM),
+    "compress_feedback": ("--compress-feedback",
+                          dict(action="store_true"), _COMM),
+    "topk_fraction": ("--topk-fraction", dict(type=float), _COMM),
+    "topk_adaptive": ("--topk-adaptive", dict(action="store_true"), _COMM),
+    "fold_device": ("--fold-device", dict(action="store_true"), _COMM),
+    "num_aggregators": ("--num-aggregators", dict(type=int), _COMM),
+    "min_cohort_fraction": ("--min-cohort-fraction", dict(type=float),
+                            _COMM),
+    "fault_plan": ("--fault-plan", dict(), _COMM),
+    "checkpoint_dir": ("--checkpoint-dir", dict(), _CKPT),
+    "checkpoint_every": ("--checkpoint-every", dict(type=int), _CKPT),
+    "ckpt_stream": ("--ckpt-stream", dict(action="store_true"), _CKPT),
+    "resume": ("--resume", dict(action="store_true"), _CKPT),
+    "trace_dir": ("--trace-dir", dict(), _OBS),
+    "trace_rounds": ("--trace-rounds", dict(type=int), _OBS),
+    "profile_dir": ("--profile-dir", dict(), _OBS),
+    "log_file": ("--log-file", dict(), _OBS),
+    "tensorboard_dir": ("--tensorboard-dir", dict(), _OBS),
+    "health_dir": ("--health-dir", dict(), _OBS),
+    "learn_observe": ("--learn-observe", dict(action="store_true"), _OBS),
+    "per_client_eval": ("--per-client-eval", dict(action="store_true"),
+                        _OBS),
+    "personalize_steps": ("--personalize-steps", dict(type=int), _OBS),
+    "detection_eval": ("--detection-eval", dict(action="store_true"), _OBS),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m colearn_federated_learning_tpu_torch.cli",
+        description="colearn on PyTorch (the CUDA port)")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("train", help="run federated training")
+    p.add_argument("--config", default="mnist_mlp_fedavg",
+                   help=f"experiment config; one of {sorted(CONFIGS)}")
+    p.add_argument("--backend", choices=["gpu", "cpu"], default="gpu",
+                   help="the card (default; raises without one) or the CPU")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--rounds", type=int, default=None)
+    p.add_argument("--num-clients", type=int, default=None)
+    p.add_argument("--cohort-size", type=int, default=None)
+    p.add_argument("--local-epochs", type=int, default=None)
+    p.add_argument("--local-steps", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--lr-schedule", default=None,
+                   choices=["constant", "cosine", "warmup_cosine"])
+    p.add_argument("--warmup-rounds", type=int, default=None)
+    p.add_argument("--lr-min-fraction", type=float, default=None)
+    p.add_argument("--momentum", type=float, default=None)
+    p.add_argument("--local-optimizer", default=None,
+                   choices=["sgd", "adam", "adamw"])
+    p.add_argument("--strategy", default=None,
+                   choices=["fedavg", "fedprox", "fedadam", "fedyogi",
+                            "scaffold", "fednova"])
+    p.add_argument("--prox-mu", type=float, default=None)
+    p.add_argument("--aggregator", default=None,
+                   choices=["mean", "median", "trimmed_mean", "krum"])
+    p.add_argument("--trim-fraction", type=float, default=None)
+    p.add_argument("--dataset", default=None)
+    p.add_argument("--partition", default=None,
+                   choices=["iid", "dirichlet", "pathological"])
+    p.add_argument("--dirichlet-alpha", type=float, default=None)
+    p.add_argument("--dp-clip", type=float, default=None)
+    p.add_argument("--dp-noise-multiplier", type=float, default=None)
+    p.add_argument("--dp-delta", type=float, default=None,
+                   help="δ at which the RDP accountant reports ε")
+    p.add_argument("--dp-adaptive-clip", action="store_true", default=None,
+                   help="track the --dp-target-quantile of update norms "
+                        "(--dp-clip becomes the initial norm)")
+    p.add_argument("--dp-target-quantile", type=float, default=None)
+    p.add_argument("--dp-clip-lr", type=float, default=None)
+    p.add_argument("--dp-bit-noise", type=float, default=None,
+                   help="σ_b on the quantile-bit sum (0 = cohort/20)")
+    p.add_argument("--secure-agg", action="store_true", default=None)
+    p.add_argument("--secure-agg-neighbors", type=int, default=None,
+                   help="k-regular random-ring masking (0 = all pairs)")
+    p.add_argument("--straggler-prob", type=float, default=None)
+    p.add_argument("--eval-every", type=int, default=None)
+    p.add_argument("--attn-impl", default=None, choices=["dense", "flash"])
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--stem", default=None, choices=["conv", "space_to_depth"])
+    p.add_argument("--norm", default=None, choices=["group", "none"])
+    for dest, (flag, kwargs, _) in _UNPORTED.items():
+        p.add_argument(flag, dest=dest, default=None,
+                       help="not ported yet (refused)", **kwargs)
+    return parser
+
+
+def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
+    """The named config with the command line's overrides applied."""
+    cfg = get_config(args.config)
+    sections = {"fed": {}, "data": {}, "model": {}, "run": {}}
+    for key, val in vars(args).items():
+        if val is None:
+            continue
+        for section, keys in (("fed", _FED_KEYS), ("data", _DATA_KEYS),
+                              ("model", _MODEL_KEYS), ("run", _RUN_KEYS)):
+            if key in keys:
+                sections[section][key] = val
+    return cfg.replace(**{
+        name: dataclasses.replace(getattr(cfg, name), **values)
+        for name, values in sections.items()})
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    """Exit with status 2, naming the ROADMAP items, if any flag of a
+    feature that is not ported yet was given."""
+    given = [(flag, item) for dest, (flag, _, item) in _UNPORTED.items()
+             if getattr(args, dest) not in (None, False)
+             and not (dest == "role" and args.role == "sim")]
+    if given:
+        for flag, item in given:
+            print(f"{flag} is not ported to the PyTorch package yet; "
+                  f"see {item}", file=sys.stderr)
+        raise SystemExit(2)
+
+
+def train(args: argparse.Namespace,
+          on_round: Optional[Callable] = None) -> dict:
+    """``train``: build the learner, fit, evaluate; returns the summary.
+    ``on_round(learner, record)`` is called before the first round (with
+    ``record`` None) and after each round."""
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+
+    config = config_from_args(args)
+    t_start = time.perf_counter()
+    learner = FederatedLearner(config, device=(
+        "cuda" if args.backend == "gpu" else "cpu"))
+    if on_round is not None:
+        on_round(learner, None)
+
+    def log_fn(rec: dict) -> None:
+        print(json.dumps(rec), file=sys.stderr, flush=True)
+        if on_round is not None:
+            on_round(learner, rec)
+
+    records = learner.fit(log_fn=log_fn)
+    out = {"name": config.run.name, "rounds": len(records),
+           "elapsed_s": time.perf_counter() - t_start,
+           "device": str(learner.device)}
+    timed = [r["round_time_s"] for r in records]
+    if timed:
+        out["rounds_per_sec"] = len(timed) / sum(timed)
+        samples = (learner.cohort_size * learner.num_steps
+                   * config.fed.batch_size)
+        out["client_samples_per_sec_per_chip"] = out["rounds_per_sec"] * samples
+    accs = [(r["round"], r["eval_acc"]) for r in records if "eval_acc" in r]
+    if accs:
+        out["final_acc"] = accs[-1][1]
+        out["best_acc"] = max(a for _, a in accs)
+        out["acc_at_round"] = dict(accs)
+    losses = [r["eval_loss"] for r in records if "eval_loss" in r]
+    if losses:
+        out["final_loss"] = losses[-1]
+    if records and "dp_epsilon" in records[-1]:
+        out["dp_epsilon"] = records[-1]["dp_epsilon"]
+        out["dp_delta"] = records[-1]["dp_delta"]
+    out["data_source"] = learner.dataset.source
+    return out
+
+
+def main(argv: Optional[list] = None,
+         on_round: Optional[Callable] = None) -> dict:
+    """Parse ``argv``, run the command and print its summary as one JSON
+    line on stdout; returns the summary."""
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    summary = train(args, on_round)
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,10 @@
 The counterpart of the JAX package's ``FederatedLearner`` on its
 single-device path: data, model and server state are built once, then
 each ``run_round`` samples the cohort, trains every client, folds the
-weighted deltas and applies the server step (``fed/programs.py``).
+weighted deltas and applies the server step (``fed/programs.py``).  It
+validates the privacy and robustness knobs as the JAX engine does, keeps
+SCAFFOLD's per-client variates on the host, carries the adaptive DP clip
+from round to round as a device scalar and steps the RDP accountant.
 
 ``device=None`` means ``"cuda"``; without a card the constructor raises
 instead of running somewhere else.  ``device="cpu"`` runs the same round
@@ -12,6 +15,7 @@ with every kernel's plain PyTorch version (the tests do this).
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Optional
 
@@ -23,8 +27,10 @@ from colearn_federated_learning_tpu_torch.data import partition as partition_lib
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
 from colearn_federated_learning_tpu_torch.data.sharding import pack_client_shards
 from colearn_federated_learning_tpu_torch.fed import evaluation, local, programs
-from colearn_federated_learning_tpu_torch.fed import strategies
+from colearn_federated_learning_tpu_torch.fed import robust, strategies
 from colearn_federated_learning_tpu_torch.models import registry as model_registry
+from colearn_federated_learning_tpu_torch.privacy import dp as dp_lib
+from colearn_federated_learning_tpu_torch.privacy.accountant import RdpAccountant
 from colearn_federated_learning_tpu_torch.utils import prng
 from colearn_federated_learning_tpu_torch.utils.config import ExperimentConfig
 from colearn_federated_learning_tpu_torch.utils.device import resolve_device
@@ -34,9 +40,6 @@ def check_supported(config: ExperimentConfig) -> None:
     """Refuse what this package does not run yet rather than ignore it."""
     f = config.fed
     unported = {
-        "dp_clip > 0": f.dp_clip > 0.0,
-        "secure_agg": f.secure_agg,
-        f"aggregator={f.aggregator!r}": f.aggregator != "mean",
         "lora_rank > 0": f.lora_rank > 0,
         "edge_groups > 1": f.edge_groups > 1,
         "tp_size > 1": config.run.tp_size > 1,
@@ -47,6 +50,86 @@ def check_supported(config: ExperimentConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"not ported yet: {', '.join(bad)}; see ROADMAP.md Queue A")
+
+
+def check_fed_options(fed) -> None:
+    """The JAX engine's checks of the secure-aggregation, SCAFFOLD and
+    robust-aggregation options, with its messages."""
+    if fed.secure_agg and fed.secure_agg_neighbors and (
+            fed.secure_agg_neighbors % 2 or fed.secure_agg_neighbors < 2):
+        raise ValueError(
+            "secure_agg_neighbors must be an even integer >= 2, got "
+            f"{fed.secure_agg_neighbors}")
+    if fed.secure_agg and not 0.0 < fed.secure_agg_threshold <= 1.0:
+        raise ValueError(
+            "secure_agg_threshold must be in (0, 1], got "
+            f"{fed.secure_agg_threshold}")
+    scaffold = fed.strategy == "scaffold"
+    if scaffold and (fed.secure_agg or fed.dp_clip > 0.0):
+        raise ValueError(
+            "scaffold is incompatible with secure_agg/dp hooks: the "
+            "control-variate deltas are a second payload the masks and "
+            "noise calibration do not cover")
+    if fed.aggregator not in robust.AGGREGATORS:
+        raise ValueError(
+            f"unknown aggregator {fed.aggregator!r}; use {robust.AGGREGATORS}")
+    if fed.aggregator != "mean":
+        if not 0.0 <= fed.trim_fraction < 0.5:
+            raise ValueError(
+                f"trim_fraction must be in [0, 0.5), got {fed.trim_fraction}")
+        if fed.secure_agg:
+            raise ValueError(
+                "robust aggregators need the individual updates; "
+                "secure-agg masks only cancel in a plain sum")
+        if scaffold:
+            raise ValueError(
+                "scaffold assumes mean aggregation of its control "
+                "variates; use aggregator='mean'")
+        if fed.dp_noise_multiplier > 0.0:
+            raise ValueError(
+                "robust aggregation of noised updates is not the "
+                "Gaussian mechanism the RDP accountant models; use "
+                "dp_clip alone (norm bounding) with robust aggregators")
+
+
+def check_trim_at_cohort(fed, cohort_size: int) -> None:
+    """A trimmed mean or Krum whose floor(trim · cohort) is 0 would be the
+    plain mean in disguise: refuse it, as the JAX engine does."""
+    if (fed.aggregator not in ("trimmed_mean", "krum")
+            or int(fed.trim_fraction * cohort_size + 1e-4) >= 1):
+        return
+    what = ("trims zero clients" if fed.aggregator == "trimmed_mean"
+            else "assumes zero Byzantine clients (f = 0)")
+    if cohort_size < 3:
+        raise ValueError(
+            f"aggregator={fed.aggregator!r} needs a cohort of at "
+            f"least 3 (got {cohort_size}); use aggregator='median'")
+    ok_frac = math.ceil(1e6 / cohort_size) / 1e6
+    raise ValueError(
+        f"trim_fraction={fed.trim_fraction} {what} at "
+        f"cohort_size={cohort_size}; raise it to at least "
+        f"{ok_frac:.6f} (or use aggregator='median')")
+
+
+class VariateStore:
+    """SCAFFOLD's per-client control variates, one row per client, held on
+    the host (pinned when the params live on a card): each client's row
+    goes to the device for its local update, and a contributor's refreshed
+    row comes back, so the device holds O(model) of them, not
+    O(clients × model)."""
+
+    def __init__(self, params: dict, num_clients: int, device):
+        pin = torch.device(device).type == "cuda"
+        self.device = device
+        self.rows = [torch.zeros((num_clients,) + p.shape, dtype=p.dtype,
+                                 pin_memory=pin) for p in params.values()]
+
+    def gather(self, slot: int) -> list:
+        return [r[slot].to(self.device, non_blocking=True) for r in self.rows]
+
+    def scatter(self, slot: int, values: list) -> None:
+        for r, v in zip(self.rows, values):
+            r[slot].copy_(v)
 
 
 def partition_for_config(config: ExperimentConfig, labels: np.ndarray):
@@ -81,8 +164,15 @@ class FederatedLearner:
 
     ``plan``: optional object with the methods of
     :class:`fed.programs.Draws` (``cohort``, ``batch_indices``,
-    ``step_budgets``) supplying the round's random draws; by default they
-    come from ``utils/prng``.
+    ``step_budgets``, ``dp_noise``, ``pair_mask``, ``ring_order``,
+    ``clip_bit_noise``) supplying the round's random draws; by default
+    they come from ``utils/prng``.
+
+    ``last_cohort`` describes the last round's cohort (numpy arrays):
+    ``clients``, ``steps_run`` and ``contributed``, and with the options
+    that make them ``nova_a`` (FedNova's coefficients), ``partners``
+    (secure aggregation's partner table) and ``selected`` (the clients
+    Krum kept).
     """
 
     def __init__(self, config: ExperimentConfig,
@@ -91,6 +181,11 @@ class FederatedLearner:
         self.config = c = config
         self.device = resolve_device(device)
         check_supported(c)
+        check_fed_options(c.fed)
+        local.check_strategy_optimizer(c.fed)
+        self.scaffold = c.fed.strategy == "scaffold"
+        self.fednova = c.fed.strategy == "fednova"
+        self.robust = c.fed.aggregator != "mean"
 
         # --- data -----------------------------------------------------
         self.dataset = dataset or data_registry.get_dataset(
@@ -123,10 +218,41 @@ class FederatedLearner:
             prox_mu=c.fed.prox_mu if c.fed.strategy == "fedprox" else 0.0,
             min_steps_fraction=c.fed.straggler_min_fraction,
             aux_loss_weight=(c.model.moe_aux_weight
-                             if c.model.name.startswith("moe") else 0.0))
+                             if c.model.name.startswith("moe") else 0.0),
+            scaffold=self.scaffold, lr=c.fed.lr)
+        self.variates = (VariateStore(self.server_state.params,
+                                      self.num_clients, self.device)
+                         if self.scaffold else None)
         cohort = c.fed.cohort_size or self.num_clients
         self.cohort_size = min(cohort, self.num_clients)
+        if self.robust:
+            check_trim_at_cohort(c.fed, self.cohort_size)
         self.draws = plan if plan is not None else programs.Draws(c.run.seed)
+        self.last_cohort: dict = {}
+
+        # --- DP -------------------------------------------------------
+        # Noise is calibrated to the cohort (the JAX engine's dp_cohort,
+        # min(cohort, real clients), is cohort_size here: this engine pads
+        # no ghost clients).  With adaptive clipping the clip is a device
+        # scalar carried from round to round, and the bit query's noise is
+        # paid for by inflating the update noise, so the joint mechanism
+        # still costs z.
+        self.adaptive_clip = c.fed.dp_adaptive_clip
+        self.dp_z = self.dp_bit_noise = 0.0
+        if self.adaptive_clip:
+            if c.fed.dp_clip <= 0.0:
+                raise ValueError(
+                    "dp_adaptive_clip needs dp_clip > 0 as the initial norm")
+            z = c.fed.dp_noise_multiplier
+            if z > 0.0:
+                self.dp_bit_noise = c.fed.dp_bit_noise or max(
+                    self.cohort_size / 20.0, 1.0)
+                self.dp_z = dp_lib.adaptive_noise_multiplier(
+                    z, self.dp_bit_noise)
+        self.dp_clip = torch.tensor(c.fed.dp_clip, dtype=torch.float32,
+                                    device=self.device)
+        self.accountant = RdpAccountant.from_config(
+            c.fed, sampling_rate=self.cohort_size / self.num_clients)
 
         self._eval_fn = evaluation.make_eval_fn(
             self.model, self.dataset.x_test, self.dataset.y_test,
@@ -160,9 +286,15 @@ class FederatedLearner:
         r = len(self.history)
         t0 = time.perf_counter()
         metrics = programs.run_round(self, r)
+        if self.adaptive_clip:
+            self.dp_clip = metrics["dp_clip"]
         out = {k: float(v) for k, v in metrics.items()}
         out["round"] = r
         out["phase_update_s"] = time.perf_counter() - t0
+        if self.accountant is not None:
+            self.accountant.step()
+            out["dp_epsilon"] = self.accountant.epsilon()
+            out["dp_delta"] = self.accountant.delta
         self.history.append(out)
         return out
 

@@ -29,6 +29,12 @@ class LocalResult(NamedTuple):
     steps_run: float       # executed step count
 
 
+class ScaffoldResult(NamedTuple):
+    result: LocalResult
+    c_new: list            # this client's refreshed control variate
+    delta_c: list          # c_new - c_i (the server variate's update)
+
+
 # optax's defaults for adam / adamw.
 ADAM_B1, ADAM_B2, ADAM_EPS, ADAMW_WEIGHT_DECAY = 0.9, 0.999, 1e-8, 1e-4
 
@@ -91,12 +97,51 @@ def make_optimizer(lr: float, momentum: float, name: str = "sgd") -> Optimizer:
     return Optimizer(name, lr, momentum)
 
 
+def check_strategy_optimizer(fed) -> None:
+    """Refuse optimizer settings a strategy's algebra does not model, with
+    the JAX package's messages (its ``fed/setup.py``)."""
+    if fed.strategy == "scaffold" and fed.local_optimizer != "sgd":
+        raise ValueError(
+            "scaffold's option-II variate refresh assumes plain SGD steps; "
+            f"local_optimizer={fed.local_optimizer!r} is unsupported")
+    if fed.strategy == "fednova" and fed.local_optimizer != "sgd":
+        raise ValueError(
+            "fednova's step coefficient a_i models SGD(+momentum) "
+            f"dynamics; local_optimizer={fed.local_optimizer!r} does not "
+            "follow that geometric series and would be mis-normalized")
+    if fed.strategy == "scaffold" and fed.momentum != 0.0:
+        raise ValueError(
+            "scaffold requires momentum=0.0: the option-II control-variate "
+            f"refresh is biased under momentum (got momentum={fed.momentum})")
+
+
+def fednova_coefficient(steps_run: float, momentum: float) -> np.float32:
+    """FedNova's a_i for ``steps_run`` executed steps of SGD at
+    ``momentum`` m: ``(τ − m(1 − m^τ)/(1 − m))/(1 − m)``, or τ without
+    momentum; τ = max(steps_run, 1).  In f32, as the JAX round computes it
+    (the Python-float constants rounded to f32 once)."""
+    tau = np.float32(max(steps_run, 1.0))
+    if momentum <= 0.0:
+        return tau
+    m, one_m = np.float32(momentum), np.float32(1.0 - momentum)
+    return (tau - m * (np.float32(1.0) - m ** tau) / one_m) / one_m
+
+
 def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
                       num_steps: int, prox_mu: float = 0.0,
                       min_steps_fraction: float = 0.25,
-                      aux_loss_weight: float = 0.0) -> Callable:
+                      aux_loss_weight: float = 0.0, scaffold: bool = False,
+                      lr: float = 0.0) -> Callable:
     """Build ``local_update(global_params, x, y, count, batch_idx,
     step_budget, lr_scale=None) -> LocalResult``.
+
+    With ``scaffold=True`` the function takes trailing ``(c_i, c)``
+    control variates (lists like ``global_params``) and returns a
+    :class:`ScaffoldResult` (SCAFFOLD, Karimireddy et al.): every step's
+    gradient gains ``c − c_i``, and the client's variate refreshes by
+    option II, ``c_i' = c_i − c − delta / (K · lr_eff)`` over the K
+    executed steps, where ``lr_eff`` is ``lr`` (the client learning rate)
+    times the round's ``lr_scale``.
 
     - ``global_params``: list of f32 tensors in ``model.parameters()``
       order; the model's own parameters are overwritten with them and
@@ -111,6 +156,8 @@ def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
       the load-balance losses the model's MoE layers left on themselves
       (the JAX trainer's sown ``moe_aux``).
     """
+    if scaffold and lr <= 0.0:
+        raise ValueError("scaffold=True requires the client lr")
     min_steps = max(1, int(num_steps * min_steps_fraction))
     params = list(model.parameters())
     moe_layers = [m for m in model.modules() if isinstance(m, MoEFfn)]
@@ -126,9 +173,8 @@ def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
             loss = loss + 0.5 * prox_mu * sq
         return loss
 
-    def local_update(global_params, x, y, count: int, batch_idx,
-                     step_budget: int, lr_scale: Optional[float] = None
-                     ) -> LocalResult:
+    def run_steps(global_params, x, y, count, batch_idx, step_budget,
+                  lr_scale, correction) -> LocalResult:
         with torch.no_grad():
             torch._foreach_copy_(params, global_params)
         state = optimizer.init(params)
@@ -138,6 +184,8 @@ def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
             idx = batch_idx[t]
             loss = loss_fn(global_params, x[idx], y[idx])
             grads = torch.autograd.grad(loss, params)
+            if correction is not None:
+                grads = torch._foreach_add(grads, correction)
             optimizer.step(params, grads, state, lr_scale)
             loss_sum += loss.detach()
         with torch.no_grad():
@@ -150,4 +198,36 @@ def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
             steps_run=float(executed),
         )
 
-    return local_update
+    if not scaffold:
+        def local_update(global_params, x, y, count: int, batch_idx,
+                         step_budget: int, lr_scale: Optional[float] = None
+                         ) -> LocalResult:
+            return run_steps(global_params, x, y, count, batch_idx,
+                             step_budget, lr_scale, None)
+
+        return local_update
+
+    @torch.no_grad()
+    def refresh(result: LocalResult, c_i, c, lr_scale) -> ScaffoldResult:
+        # lr_eff folds in the round's schedule factor (f32, as in JAX); it
+        # is clamped so a zero-floor cosine past its horizon, where delta
+        # is exactly 0, refreshes to 0 and not to 0 · inf = NaN.
+        f32 = np.float32
+        lr_eff = f32(lr) if lr_scale is None else f32(lr) * f32(lr_scale)
+        scale = f32(1.0) / (max(f32(result.steps_run), f32(1.0))
+                            * max(lr_eff, f32(1e-12)))
+        c_new = torch._foreach_sub(c_i, c)
+        torch._foreach_add_(c_new, torch._foreach_mul(result.delta,
+                                                      float(-scale)))
+        return ScaffoldResult(result=result, c_new=c_new,
+                              delta_c=torch._foreach_sub(c_new, c_i))
+
+    def scaffold_update(global_params, x, y, count: int, batch_idx,
+                        step_budget: int, c_i, c,
+                        lr_scale: Optional[float] = None) -> ScaffoldResult:
+        correction = torch._foreach_sub(c, c_i)      # grads − c_i + c
+        result = run_steps(global_params, x, y, count, batch_idx,
+                           step_budget, lr_scale, correction)
+        return refresh(result, c_i, c, lr_scale)
+
+    return scaffold_update

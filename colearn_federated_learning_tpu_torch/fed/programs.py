@@ -1,16 +1,25 @@
 """One federated round: cohort sampling, local training, aggregation.
 
 The counterpart of the JAX package's ``fed/programs.py`` on its single-
-device path (``rank_cohort``, ``cohort_step``, ``finish_round``).  Where
-the JAX program vmaps the local trainer over the cohort and then sums the
-stacked deltas, this loops over the cohort and keeps a running weighted
-delta sum in f32, so memory holds one client's delta at a time, never a
-cohort of them.
+device path (``rank_cohort``, ``cohort_step``, ``finish_round``), with
+every branch of the JAX round in its order: straggler budgets,
+SCAFFOLD's corrected local update, FedNova's normalisation, update-norm
+telemetry, uniform weights under DP, secure aggregation, SCAFFOLD or a
+robust aggregator, DP clip and noise (fixed, or adaptive with the
+quantile bit), secure-aggregation masks, the robust aggregate, SCAFFOLD's
+variate refresh and the adaptive clip's epilogue.
 
-The round's random draws (cohort, per-step batch indices, straggler
-budgets) come from a :class:`Draws` object; the default one uses the
-package's ``utils/prng`` generators, and a caller may substitute another
-(tests replay the JAX round's own draws this way).
+Where the JAX program vmaps the local trainer over the cohort and then
+sums the stacked deltas, this loops over the cohort and keeps a running
+f32 sum, so memory holds one client's delta at a time.  A robust
+aggregator needs the individual deltas: on that path the contributors'
+deltas are stacked (contributors only; the host knows who they are).
+
+The round's random draws (cohort, batch indices, straggler budgets, DP
+noise, mask streams, the ring order, the clip bit's noise) come from a
+:class:`Draws` object; the default one uses the package's ``utils/prng``
+generators, and a caller may substitute another (tests replay the JAX
+round's own draws this way).
 """
 
 from __future__ import annotations
@@ -18,8 +27,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from colearn_federated_learning_tpu_torch.fed import local, robust
 from colearn_federated_learning_tpu_torch.fed import strategies
+from colearn_federated_learning_tpu_torch.privacy import dp as dp_lib
+from colearn_federated_learning_tpu_torch.privacy import secure_agg
 from colearn_federated_learning_tpu_torch.utils import prng
+
+# Std of the masks on the adaptive-clipping bit: a unit-scale mask on a
+# {0, 1} payload would leak the bit; at 1e3 the f32 cancellation residual
+# stays far below the cohort-sized bit sum.
+BIT_MASK_STD = 1e3
 
 
 def rank_cohort(gen: torch.Generator, counts: np.ndarray, k: int) -> np.ndarray:
@@ -31,8 +48,16 @@ def rank_cohort(gen: torch.Generator, counts: np.ndarray, k: int) -> np.ndarray:
     return torch.argsort(scores, stable=True)[:k].numpy()
 
 
+def _normal_stream(gen: torch.Generator, shapes, device):
+    for shape in shapes:
+        yield torch.randn(shape, generator=gen, device=device,
+                          dtype=torch.float32)
+
+
 class Draws:
-    """The round's random draws from per-purpose ``torch.Generator``s."""
+    """The round's random draws from per-purpose ``torch.Generator``s.
+    Noise and masks are drawn on ``device`` (the params' device), one
+    parameter tensor at a time as the caller consumes the iterator."""
 
     def __init__(self, seed: int):
         self.seed = seed
@@ -61,12 +86,50 @@ class Draws:
                        else num_steps)
         return np.asarray(out, np.int64)
 
+    def dp_noise(self, round_idx: int, client_id: int, shapes, device):
+        """Standard-normal f32 tensors of ``shapes``: one client's DP noise
+        in one round."""
+        return _normal_stream(
+            prng.dp_generator(self.seed, client_id, round_idx, device),
+            shapes, device)
 
-def cohort_step(ln, params: list, sel: np.ndarray, round_idx: int):
-    """Train every sampled client from ``params`` and fold its delta into a
-    running weighted sum.  Returns ``(wsum, total_w, stats)`` with
-    ``stats = (loss_sum, n_completed, norm_sum, norm_max)``; the weight of
-    a client is ``num_examples · (completed ∧ non-ghost)``."""
+    def pair_mask(self, round_idx: int, a: int, b: int, shapes, device,
+                  stream: int = 0):
+        """Standard-normal f32 tensors of ``shapes``: the mask stream that
+        clients ``a`` and ``b`` share in one round (the same for (b, a));
+        ``stream`` 1 is the adaptive-clipping bit's."""
+        return _normal_stream(
+            prng.pair_mask_generator(self.seed, a, b, round_idx, device,
+                                     stream), shapes, device)
+
+    def ring_order(self, round_idx: int, cohort_ids: np.ndarray) -> np.ndarray:
+        """The round's secure-aggregation ring: the cohort ids in an order
+        every member derives alike."""
+        ids = np.sort(np.asarray(cohort_ids))
+        scores = torch.rand(len(ids),
+                            generator=prng.ring_generator(self.seed, round_idx))
+        return ids[torch.argsort(scores, stable=True).numpy()]
+
+    def clip_bit_noise(self, round_idx: int, device) -> torch.Tensor:
+        """A standard-normal f32 scalar: the noise on the round's
+        adaptive-clipping bit sum."""
+        gen = prng.clip_bit_generator(self.seed, round_idx, device)
+        return torch.randn((), generator=gen, device=device,
+                           dtype=torch.float32)
+
+
+def cohort_step(ln, params: list, sel: np.ndarray, round_idx: int) -> tuple:
+    """Train every sampled client from ``params`` and fold its update.
+
+    Returns ``(agg, total_w, stats, extras)``: ``agg`` is the running
+    weighted delta sum (on a robust path, the robust aggregate); ``stats``
+    holds the device scalars ``loss_sum``, ``bit_sum``, ``norm_sum``,
+    ``norm_max`` and the host numbers ``n_completed`` and ``nova_sum``;
+    ``extras`` is SCAFFOLD's ``dc_sum`` (or None).  A client contributes
+    when it completed and holds examples; its weight is its example count,
+    or 1 under uniform weighting, and 0 when it does not contribute.
+    The adaptive clip is ``ln.dp_clip`` (a device scalar).
+    """
     c = ln.config.fed
     gids = ln.client_ids[sel]
     if c.straggler_prob > 0.0:
@@ -77,52 +140,175 @@ def cohort_step(ln, params: list, sel: np.ndarray, round_idx: int):
     lr_scale = strategies.lr_scale_for_round(c, round_idx)
 
     dev = ln.device
-    wsum = [torch.zeros_like(p) for p in params]
+    dp = c.dp_clip > 0.0
+    # Exact update norms are an unaccounted release under DP and exactly
+    # what the masks hide under secure aggregation: report them only
+    # without either.
+    track_norms = not (dp or c.secure_agg)
+    uniform = dp or c.secure_agg or ln.scaffold or ln.robust
+    shapes = [p.shape for p in params]
+    partners = None
+    if c.secure_agg:
+        ring = (ln.draws.ring_order(round_idx, gids)
+                if c.secure_agg_neighbors > 0 else None)
+        partners = secure_agg.partner_table(gids, gids,
+                                            c.secure_agg_neighbors, ring)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    if ln.robust:
+        agg = [torch.empty((len(sel),) + p.shape, dtype=torch.float32,
+                           device=dev) for p in params]
+    else:
+        agg = [torch.zeros_like(p) for p in params]
+    dc_sum = [torch.zeros_like(p) for p in params] if ln.scaffold else None
+    control = (list(ln.server_state.control.values()) if ln.scaffold
+               else None)
     total_w = 0.0
-    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    norm_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    norm_max = torch.zeros((), dtype=torch.float32, device=dev)
+    loss_sum, bit_sum = zero.clone(), zero.clone()
+    norm_sum, norm_max = zero.clone(), zero.clone()
+    nova_sum = np.float32(0.0)
     n_completed = 0
-    for slot, gid, budget in zip(sel, gids, budgets):
+    steps_run, contributed, nova_a = [], [], []
+    for k, (slot, gid, budget) in enumerate(zip(sel, gids, budgets)):
         count = int(ln.counts[slot])
         idx = ln.draws.batch_indices(round_idx, int(gid), count, ln.num_steps,
                                      c.batch_size)
         idx = torch.as_tensor(idx, dtype=torch.long).to(dev, non_blocking=True)
-        res = ln.local_update(params, ln.x[slot], ln.y[slot], count, idx,
-                              int(budget), lr_scale)
+        if ln.scaffold:
+            sres = ln.local_update(params, ln.x[slot], ln.y[slot], count, idx,
+                                   int(budget), ln.variates.gather(slot),
+                                   control, lr_scale)
+            res = sres.result
+        else:
+            res = ln.local_update(params, ln.x[slot], ln.y[slot], count, idx,
+                                  int(budget), lr_scale)
         contrib = res.completed and res.num_examples > 0
-        weight = float(res.num_examples) if contrib else 0.0
-        if contrib:
-            torch._foreach_add_(wsum, torch._foreach_mul(res.delta, weight))
-            n_completed += 1
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(res.delta)))
+        weight = (1.0 if uniform else float(res.num_examples)) if contrib \
+            else 0.0
+        delta = res.delta
+        steps_run.append(res.steps_run)
+        contributed.append(contrib)
+        if ln.fednova:
+            # Normalise by the client's step coefficient a_i, so unequal
+            # step counts (stragglers) stop biasing the objective; the
+            # epilogue rescales the mean by the weighted mean of a_i.
+            a = local.fednova_coefficient(res.steps_run, c.momentum)
+            torch._foreach_mul_(delta, float(np.float32(1.0) / a))
+            nova_sum = nova_sum + np.float32(weight) * a
+            nova_a.append(float(a))
+        if track_norms and contrib:
+            norm = dp_lib.global_norm(delta)
             norm_sum += norm
             norm_max = torch.maximum(norm_max, norm)
+        bit = None
+        if dp and contrib:
+            noise = ln.draws.dp_noise(round_idx, int(gid), shapes, dev)
+            if ln.adaptive_clip:
+                delta, bit = dp_lib.clip_and_noise_with_bit(
+                    delta, ln.dp_clip, ln.dp_z, ln.cohort_size, noise)
+            else:
+                delta = dp_lib.clip_and_noise(
+                    delta, c.dp_clip, c.dp_noise_multiplier,
+                    ln.cohort_size, noise)
+        if c.secure_agg:
+            # Every cohort member masks its weight-scaled update (weight 1
+            # or 0 here); the masks cancel in the plain sum.
+            masked = delta if contrib else [torch.zeros_like(p)
+                                            for p in params]
+            with torch.profiler.record_function("secure_agg.mask_update"):
+                secure_agg.mask_update(
+                    masked, int(gid), partners[k],
+                    lambda a, b: ln.draws.pair_mask(round_idx, a, b, shapes,
+                                                    dev))
+            torch._foreach_add_(agg, masked)
+            if ln.adaptive_clip:
+                # The bit is a second payload, masked on its own streams.
+                bit_sum += secure_agg.mask_scalar(
+                    bit if bit is not None else zero, int(gid), partners[k],
+                    lambda a, b: ln.draws.pair_mask(round_idx, a, b, [()],
+                                                    dev, stream=1),
+                    std=BIT_MASK_STD)
+        elif contrib:
+            if ln.robust:
+                torch._foreach_copy_([s[n_completed] for s in agg], delta)
+            else:
+                torch._foreach_add_(agg, torch._foreach_mul(delta, weight))
+            if bit is not None:
+                bit_sum += bit
+        if ln.scaffold and contrib:
+            # Contributors' variates only are refreshed.
+            torch._foreach_add_(dc_sum, sres.delta_c)
+            ln.variates.scatter(slot, sres.c_new)
         total_w += weight
         loss_sum += res.mean_loss * weight
-        del res
-    return wsum, total_w, (loss_sum, n_completed, norm_sum, norm_max)
+        n_completed += int(contrib)
+        del res, delta
+    detail = {"clients": gids.copy(), "steps_run": np.asarray(steps_run),
+              "contributed": np.asarray(contributed)}
+    if ln.fednova:
+        detail["nova_a"] = np.asarray(nova_a, np.float32)
+    if partners is not None:
+        detail["partners"] = np.asarray(partners)
+    if ln.robust:
+        with torch.profiler.record_function("robust.aggregate"):
+            agg, chosen = robust.robust_aggregate(
+                [s[:n_completed] for s in agg], c.aggregator, c.trim_fraction)
+        if chosen is not None:
+            detail["selected"] = gids[np.asarray(contributed)][
+                chosen.cpu().numpy()]
+    ln.last_cohort = detail
+    stats = (loss_sum, n_completed, bit_sum, norm_sum, norm_max, nova_sum)
+    return agg, total_w, stats, dc_sum
 
 
-def finish_round(ln, wsum: list, total_w: float, loss_sum, n_completed: int,
-                 norm_sum, norm_max) -> dict:
+def finish_round(ln, agg: list, total_w: float, stats: tuple, dc_sum,
+                 round_idx: int) -> dict:
     """Mean delta, server update, metrics (device scalars).  No
     contributor at all (every client a straggler) leaves the params as
-    they are."""
+    they are; the explicit gate matters under secure aggregation, where
+    the sum is not exactly zero but the masks' f32 residual."""
+    c = ln.config.fed
+    loss_sum, n_completed, bit_sum, norm_sum, norm_max, nova_sum = stats
     denom = np.float32(total_w) if total_w > 0 else np.float32(1.0)
-    scale = float(np.float32(1.0) / denom) if total_w > 0 else 0.0
-    torch._foreach_mul_(wsum, scale)
+    if not ln.robust:                   # a robust aggregate is the mean
+        scale = float(np.float32(1.0) / denom) if total_w > 0 else 0.0
+        torch._foreach_mul_(agg, scale)
+    if ln.fednova:
+        torch._foreach_mul_(agg, float(np.float32(nova_sum) / denom))
     names = list(ln.server_state.params)
-    strategies.server_update(ln.server_state, dict(zip(names, wsum)),
-                             ln.config.fed)
-    return {
+    mean_dc = participation = None
+    if ln.scaffold:
+        n = np.float32(n_completed)
+        torch._foreach_mul_(dc_sum, float(np.float32(1.0) / n)
+                            if n_completed > 0 else 0.0)
+        mean_dc = dict(zip(names, dc_sum))
+        participation = float(n / np.float32(ln.num_clients))
+    strategies.server_update(ln.server_state, dict(zip(names, agg)), c,
+                             mean_delta_c=mean_dc,
+                             participation=participation)
+    metrics = {
         "train_loss": loss_sum / float(denom),
         "completed": n_completed,
         "total_weight": total_w,
-        "delta_norm_mean": norm_sum / max(float(n_completed), 1.0),
-        "delta_norm_max": norm_max,
     }
+    if not (c.dp_clip > 0.0 or c.secure_agg):
+        metrics["delta_norm_mean"] = norm_sum / max(float(n_completed), 1.0)
+        metrics["delta_norm_max"] = norm_max
+    if ln.adaptive_clip:
+        # Noised quantile fraction -> geometric clip step.
+        noised = bit_sum
+        if ln.dp_bit_noise > 0.0:
+            noised = bit_sum + float(np.float32(ln.dp_bit_noise)) * \
+                ln.draws.clip_bit_noise(round_idx, ln.device)
+        frac = torch.clamp(noised / max(float(n_completed), 1.0), 0.0, 1.0)
+        new_clip = dp_lib.adaptive_clip_update(
+            ln.dp_clip, frac, c.dp_target_quantile, c.dp_clip_lr)
+        # A zero-contributor round carries no norm evidence: the clip
+        # stays, as the params do.
+        if n_completed == 0:
+            new_clip = ln.dp_clip
+        metrics["dp_clip"] = torch.clamp(new_clip, min=1e-6)
+        metrics["dp_bit_frac"] = frac
+    return metrics
 
 
 def run_round(ln, round_idx: int) -> dict:
@@ -133,5 +319,5 @@ def run_round(ln, round_idx: int) -> dict:
     else:
         sel = np.arange(ln.num_clients)
     params = list(ln.server_state.params.values())
-    wsum, total_w, stats = cohort_step(ln, params, sel, round_idx)
-    return finish_round(ln, wsum, total_w, *stats)
+    agg, total_w, stats, dc_sum = cohort_step(ln, params, sel, round_idx)
+    return finish_round(ln, agg, total_w, stats, dc_sum, round_idx)

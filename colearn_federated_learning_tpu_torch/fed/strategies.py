@@ -4,6 +4,11 @@ The server consumes the aggregated mean delta and applies a server step
 (the counterpart of the JAX package's ``fed/strategies.py``):
 
 - fedavg / fedprox : w <- w + server_lr · mean_delta
+- fednova          : the same server step; the round normalises each
+  client's delta by its local-step coefficient and rescales the mean
+  (``fed/programs.py``)
+- scaffold         : the same server step, and the global control variate
+  moves by ``participation · mean_delta_c``
 - fedadam / fedyogi: adaptive server optimizers (Reddi et al.)
 
 The server state is updated in place: it holds one copy of the params and
@@ -21,7 +26,8 @@ import torch
 from colearn_federated_learning_tpu_torch.utils.config import FedConfig
 
 SCHEDULES = ("constant", "cosine", "warmup_cosine")
-STRATEGIES = ("fedavg", "fedprox", "fedadam", "fedyogi")
+STRATEGIES = ("fedavg", "fedprox", "fedadam", "fedyogi", "scaffold",
+              "fednova")
 
 
 @dataclasses.dataclass
@@ -29,6 +35,7 @@ class ServerState:
     params: dict            # name -> f32 tensor
     opt_m: Optional[dict]   # first moment (fedadam/fedyogi) or None
     opt_v: Optional[dict]   # second moment or None
+    control: Optional[dict] = None  # global control variate c (scaffold)
     round_idx: int = 0
 
 
@@ -69,18 +76,29 @@ def init_server_state(params: dict, cfg: FedConfig) -> ServerState:
         return {k: torch.zeros_like(v) for k, v in params.items()}
 
     return ServerState(params=params, opt_m=zeros() if adaptive else None,
-                       opt_v=zeros() if adaptive else None)
+                       opt_v=zeros() if adaptive else None,
+                       control=zeros() if cfg.strategy == "scaffold" else None)
 
 
 @torch.no_grad()
-def server_update(state: ServerState, mean_delta: dict,
-                  cfg: FedConfig) -> ServerState:
-    """Apply one server step to the aggregated mean delta, in place."""
+def server_update(state: ServerState, mean_delta: dict, cfg: FedConfig,
+                  mean_delta_c: Optional[dict] = None,
+                  participation=None) -> ServerState:
+    """Apply one server step to the aggregated mean delta, in place.
+
+    ``mean_delta_c`` and ``participation`` (contributors / clients, an f32
+    scalar) are SCAFFOLD's: the global variate moves by
+    ``participation · mean_delta_c``."""
     names = list(state.params)
     w = [state.params[k] for k in names]
     d = [mean_delta[k] for k in names]
-    if cfg.strategy in ("fedavg", "fedprox"):
+    if cfg.strategy in ("fedavg", "fedprox", "scaffold", "fednova"):
         torch._foreach_add_(w, torch._foreach_mul(d, cfg.server_lr))
+        if cfg.strategy == "scaffold" and mean_delta_c is not None:
+            frac = 1.0 if participation is None else participation
+            c = [state.control[k] for k in names]
+            torch._foreach_add_(c, torch._foreach_mul(
+                [mean_delta_c[k] for k in names], frac))
     elif cfg.strategy in ("fedadam", "fedyogi"):
         b1, b2, eps = cfg.server_beta1, cfg.server_beta2, cfg.server_eps
         m = [state.opt_m[k] for k in names]

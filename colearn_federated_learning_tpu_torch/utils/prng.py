@@ -34,8 +34,11 @@ def derive_seed(seed: int, tag: int, *ids: int) -> int:
     return int.from_bytes(digest, "little") >> 1
 
 
-def generator(seed: int, tag: int, *ids: int) -> torch.Generator:
-    g = torch.Generator()
+def generator(seed: int, tag: int, *ids: int, device=None) -> torch.Generator:
+    """A generator for (seed, tag, ids...) on ``device`` (the host by
+    default).  Noise and masks for a card's tensors are drawn by a
+    generator on that card, never on the host and copied over."""
+    g = torch.Generator(device=device or "cpu")
     g.manual_seed(derive_seed(seed, tag, *ids))
     return g
 
@@ -60,3 +63,33 @@ def straggler_generator(seed: int, round_idx: int,
                         client_id: int) -> torch.Generator:
     """One client's simulated straggler budget in one round."""
     return generator(seed, TAG_STRAGGLER, round_idx, client_id)
+
+
+def dp_generator(seed: int, client_id: int, round_idx: int,
+                 device=None) -> torch.Generator:
+    """One client's DP noise in one round, drawn tensor by tensor in the
+    model's parameter order."""
+    return generator(seed, TAG_DP, client_id, round_idx, device=device)
+
+
+def pair_mask_generator(seed: int, a: int, b: int, round_idx: int,
+                        device=None, stream: int = 0) -> torch.Generator:
+    """The secure-aggregation mask that clients ``a`` and ``b`` share in
+    one round, symmetric in ``(a, b)`` so both members of the pair expand
+    the identical stream.  ``stream`` 1 is the adaptive-clipping bit's own
+    mask, apart from the update's (stream 0)."""
+    lo, hi = min(int(a), int(b)), max(int(a), int(b))
+    return generator(seed, TAG_MASK, lo, hi, round_idx, stream,
+                     device=device)
+
+
+def ring_generator(seed: int, round_idx: int) -> torch.Generator:
+    """The secure-aggregation ring permutation of one round (on the host:
+    one score per cohort member)."""
+    return generator(seed, TAG_MASK_RING, round_idx)
+
+
+def clip_bit_generator(seed: int, round_idx: int,
+                       device=None) -> torch.Generator:
+    """The noise on the adaptive-clipping bit sum in one round."""
+    return generator(seed, TAG_CLIP_BIT, round_idx, device=device)

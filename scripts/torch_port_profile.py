@@ -4,6 +4,7 @@
     python3 scripts/torch_port_profile.py
     python3 scripts/torch_port_profile.py --config cifar10_cnn_fedavg
     python3 scripts/torch_port_profile.py --parent-csrc DIR
+    python3 scripts/torch_port_profile.py --train "--config NAME [overrides]"
 
 Builds the ``chip_smoke.py`` BERT path (``agnews_bert_fedavg`` with
 ``attn_impl="flash"``, 4 local steps, on one CUDA card) or, with
@@ -14,7 +15,13 @@ and prints, per phase: wall seconds, device-busy seconds (union of kernel
 intervals), the idle share, and device time grouped by kernel family
 (flash-attention kernels, convolutions, matmuls, optimizer ``_foreach``
 passes, GroupNorm/pooling/elementwise, other) and the kernels that take
-the most device time.  Needs a CUDA device.
+the most device time.  With ``--train ARGS`` (repeatable) the learner
+is the one the port's ``train`` command line builds from ``ARGS`` (its
+overrides: strategy, DP, secure aggregation, aggregator, ...); each
+summary then also gives the host and device seconds of the round's named
+ranges: the secure-aggregation masks (``secure_agg.mask_update``), the
+robust aggregate (``robust.aggregate``) and Krum's selection with its
+Gram products (``robust.krum_select``).  Needs a CUDA device.
 
 With ``--parent-csrc DIR`` (another revision's ``csrc/``, with the same C
 entry points) it compares the two builds in one process, in turns parent,
@@ -30,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shlex
 import sys
 import time
 
@@ -74,9 +82,29 @@ def device_busy_us(events) -> float:
     return busy
 
 
+RANGES = ("secure_agg.mask_update", "robust.aggregate", "robust.krum_select")
+
+
+def ranges(prof) -> dict:
+    """Calls, host seconds and device seconds (the kernels launched inside,
+    children included) of each named range in ``RANGES``."""
+    out = {}
+    for e in prof.events():
+        if e.name in RANGES and e.device_type == torch.autograd.DeviceType.CPU:
+            r = out.setdefault(e.name, {"calls": 0, "host_s": 0.0,
+                                        "device_s": 0.0})
+            r["calls"] += 1
+            r["host_s"] += e.time_range.elapsed_us() / 1e6
+            r["device_s"] += e.device_time_total / 1e6
+    return out
+
+
 def summarize(prof, wall_s: float, phase: str) -> dict:
+    # The named ranges also appear on the device timeline as annotation
+    # spans; they are not kernels.
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in RANGES]
     by_family: dict[str, float] = {}
     for e in kernels:
         by_family[family(e.name)] = (by_family.get(family(e.name), 0.0)
@@ -92,6 +120,7 @@ def summarize(prof, wall_s: float, phase: str) -> dict:
         "kernels": len(kernels),
         "device_s_by_family": {k: v / 1e6 for k, v in sorted(by_family.items())},
         "top_kernels_s": [[name[:90], us / 1e6] for name, us in top],
+        "ranges": ranges(prof),
     }
     print(json.dumps(out), flush=True)
     return out
@@ -190,6 +219,9 @@ def main() -> int:
     parser.add_argument("--config", default=None,
                         help="a registry config to profile as it is "
                              "(default: chip_smoke's BERT path)")
+    parser.add_argument("--train", action="append", default=[],
+                        help="profile the learner of `cli train ARGS` "
+                             "(one quoted string; repeatable)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no CUDA device", file=sys.stderr)
@@ -201,17 +233,26 @@ def main() -> int:
         compare(args.parent_csrc)
         return 0
     from chip_smoke import main_path_config
+    from colearn_federated_learning_tpu_torch import cli
     from colearn_federated_learning_tpu_torch.fed import FederatedLearner
     from colearn_federated_learning_tpu_torch.utils.config import get_config
 
-    cfg = get_config(args.config) if args.config else main_path_config()
-    learner = FederatedLearner(cfg)
-    print(json.dumps({"config": cfg.run.name, "clients": learner.num_clients,
-                      "cohort": learner.cohort_size,
-                      "steps": learner.num_steps}), flush=True)
-    learner.run_round()                                  # warm-up
-    learner.evaluate()
-    profile_main_path(learner)
+    if args.train:
+        configs = [cli.config_from_args(cli.build_parser().parse_args(
+            ["train", *shlex.split(a)])) for a in args.train]
+    else:
+        configs = [get_config(args.config) if args.config
+                   else main_path_config()]
+    for cfg, argv in zip(configs, args.train or [None]):
+        learner = FederatedLearner(cfg)
+        print(json.dumps({"config": cfg.run.name, "train": argv,
+                          "clients": learner.num_clients,
+                          "cohort": learner.cohort_size,
+                          "steps": learner.num_steps}), flush=True)
+        learner.run_round()                              # warm-up
+        learner.evaluate()
+        profile_main_path(learner)
+        del learner
     return 0
 
 

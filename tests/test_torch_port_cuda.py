@@ -228,3 +228,50 @@ def test_family_bf16_logits_on_card_match_f32(cuda, name):
     assert err <= bound, (err, bound)
     flash = kw.get("attn_impl") == "flash"
     assert (A.launches["flash_forward"] > before["flash_forward"]) == flash
+
+
+def test_noise_and_masks_are_drawn_on_the_card(cuda):
+    """DP noise, pair masks and the clip bit's noise come from generators
+    on the card (never drawn on the host and copied), and a pair's two
+    members expand the same stream there, so the masks cancel in f32."""
+    import numpy as np
+
+    from colearn_federated_learning_tpu_torch.fed.programs import Draws
+    from colearn_federated_learning_tpu_torch.privacy import secure_agg
+
+    draws, shapes = Draws(5), [(300, 7), (11,)]
+    noise = list(draws.dp_noise(0, 3, shapes, cuda))
+    assert all(t.device.type == "cuda" for t in noise)
+    assert draws.clip_bit_noise(0, cuda).device.type == "cuda"
+    a, b = (list(draws.pair_mask(2, i, j, shapes, cuda))
+            for i, j in ((4, 9), (9, 4)))
+    assert all(torch.equal(x, y) and x.device.type == "cuda"
+               for x, y in zip(a, b))
+    ids = np.array([1, 4, 9, 12])
+    updates = [[torch.randn(s, device=cuda) for s in shapes] for _ in ids]
+    plain = [sum(u[k] for u in updates) for k in range(len(shapes))]
+    table = secure_agg.partner_table(ids, ids)
+    masked = [secure_agg.mask_update(
+        [t.clone() for t in u], int(i), row,
+        lambda p, q: draws.pair_mask(2, p, q, shapes, cuda))
+        for u, i, row in zip(updates, ids, table)]
+    for k in range(len(shapes)):
+        total = sum(m[k] for m in masked)
+        assert float((total - plain[k]).abs().max()) <= 1e-5
+
+
+def test_krum_on_the_card_matches_the_cpu(cuda):
+    """Krum's Gram products stay f32 on the card (no TF32): its selection
+    and aggregate equal the CPU's."""
+    from colearn_federated_learning_tpu_torch.fed import robust
+
+    g = torch.Generator().manual_seed(3)
+    stacked = [torch.randn(10, 64, 300, generator=g) * 1e-2,
+               torch.randn(10, 5, generator=g)]
+    stacked[0][7] += 0.5                          # a far outlier
+    cpu, cpu_sel = robust.robust_aggregate(stacked, "krum", 0.2)
+    dev, dev_sel = robust.robust_aggregate([s.to(cuda) for s in stacked],
+                                           "krum", 0.2)
+    assert torch.equal(cpu_sel, dev_sel.cpu()) and not bool(cpu_sel[7])
+    for x, y in zip(cpu, dev):
+        _close(y.cpu(), x, 1e-5)

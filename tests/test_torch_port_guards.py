@@ -1,9 +1,11 @@
 """Guards of the PyTorch port: its data copies give the JAX package's
-arrays exactly, it imports nothing of JAX or the JAX package, and it never
-moves to the CPU on its own."""
+arrays exactly (and its copy of the RDP accountant the same ε), neither it
+nor its card scripts import anything of JAX or the JAX package, it never
+moves to the CPU on its own, and it refuses what it does not run yet."""
 
 import ast
 import dataclasses
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -13,11 +15,13 @@ import torch
 from colearn_federated_learning_tpu.data import partition as jax_partition
 from colearn_federated_learning_tpu.data import registry as jax_registry
 from colearn_federated_learning_tpu.data import sharding as jax_sharding
+from colearn_federated_learning_tpu.privacy import accountant as jax_accountant
 from colearn_federated_learning_tpu.utils import config as jax_config
 from colearn_federated_learning_tpu_torch.data import partition, registry
 from colearn_federated_learning_tpu_torch.data import sharding
 from colearn_federated_learning_tpu_torch.fed import FederatedLearner
 from colearn_federated_learning_tpu_torch.models import registry as model_registry
+from colearn_federated_learning_tpu_torch.privacy import accountant
 from colearn_federated_learning_tpu_torch.utils import config
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -77,6 +81,44 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {mod}"
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "scripts/torch_port_profile.py",
+                                    "scripts/torch_port_ab_round.py"])
+def test_card_scripts_import_no_jax_and_nothing_of_the_jax_package(script):
+    for mod in _imports(ROOT / script):
+        assert mod.split(".")[0] not in FORBIDDEN, f"{script} imports {mod}"
+
+
+@pytest.mark.parametrize("q", [0.01, 0.2, 1.0])
+def test_accountant_copy_gives_the_jax_epsilon(q):
+    for z in (0.5, 1.0, 2.5):
+        for delta in (1e-5, 1e-3):
+            ours = accountant.RdpAccountant(z, q, delta)
+            theirs = jax_accountant.RdpAccountant(z, q, delta)
+            for rounds in (1, 10, 500):
+                ours.steps, theirs.steps = rounds, rounds
+                assert ours.epsilon() == theirs.epsilon(), (z, delta, rounds)
+            ours.step(3, sampling_rate=q / 2, noise_multiplier=z * 2)
+            theirs.step(3, sampling_rate=q / 2, noise_multiplier=z * 2)
+            assert ours.epsilon(1e-6) == theirs.epsilon(1e-6)
+
+
+def test_chip_smoke_epsilon_is_the_jax_accountants():
+    """chip_smoke.py's 7c holds the card run's ε to a constant; it must be
+    what JAX's accountant gives for 7c's sampling rate, noise and δ."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    argv = smoke.BERT_DP
+    cfg = config.get_config(argv[argv.index("--config") + 1])
+    z = float(argv[argv.index("--dp-noise-multiplier") + 1])
+    jax_acc = jax_accountant.RdpAccountant(
+        z, cfg.fed.cohort_size / cfg.data.num_clients, cfg.fed.dp_delta)
+    jax_acc.step(2)
+    assert smoke.EPS_7C == jax_acc.epsilon()
+
+
 def test_learner_without_cuda_raises_instead_of_using_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = config.get_config("agnews_bert_fedavg")
@@ -97,12 +139,15 @@ def test_build_model_without_cuda_raises_instead_of_using_the_cpu(
 
 
 @pytest.mark.parametrize("fed_kw", [
-    dict(strategy="scaffold"), dict(dp_clip=1.0), dict(secure_agg=True),
-    dict(aggregator="median"), dict(lora_rank=4)])
+    dict(lora_rank=4), dict(edge_groups=2), dict(tp_size=2),
+    dict(lora_rank=8, edge_groups=4), dict(strategy="fedsgd")])
 def test_unported_features_raise(fed_kw):
     base = config.get_config("agnews_bert_fedavg")
+    run_kw = {k: v for k, v in fed_kw.items() if k == "tp_size"}
+    fed_kw = {k: v for k, v in fed_kw.items() if k != "tp_size"}
     cfg = base.replace(
         data=dataclasses.replace(base.data, dataset="agnews_tiny"),
-        fed=dataclasses.replace(base.fed, **fed_kw))
+        fed=dataclasses.replace(base.fed, **fed_kw),
+        run=dataclasses.replace(base.run, **run_kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FederatedLearner(cfg, device="cpu")
