@@ -50,7 +50,22 @@ Phases (any failure exits non-zero; no phase's error is caught):
    card), 7d Krum on BERT-base (8 of 10 kept), 7e ring masks of degree 4
    with DP on config #2 — each with exact launch counts, its seconds per
    round, evaluation seconds and peak memory;
-8. one JSON line of per-kernel results (launches summed over the paths),
+8. the hierarchical and clustered learners and per-client evaluation at
+   full width: 8a ``train --edge-groups 2 --edge-sync-period 2 --rounds
+   3`` on BERT-base through ``cli.main`` (2 groups of 25 clients, cohort
+   10 each; after every sync each group holds the cloud model bit for
+   bit, the cloud model is the float64 example-weighted mean of the
+   groups' to 1e-6 of its largest entry, the groups part after round 0,
+   and the launches are exact over the groups' rounds and the two cloud
+   evaluations); 8b ``ClusteredLearner`` on config #2 with a second
+   concept planted on clients 50-99 (y -> 9 - y): 2 warm-up rounds, the
+   (100, 100) update similarity after 3 steps (symmetric to 1e-5, unit
+   diagonal to 1e-4), k-means into two clusters that partition the
+   clients, one round of each cluster and their per-client report (the
+   labels' agreement with the planted concept is printed, not gated);
+   8c ``train --per-client-eval`` on BERT-base for one round, the report
+   finite and K1's launches exact with the per-client chunks;
+9. one JSON line of per-kernel results (launches summed over the paths),
    then the result line.
 
 Needs a CUDA device and the repository beside it; it exits non-zero and
@@ -61,6 +76,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -69,6 +85,7 @@ import sys
 import time
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -98,6 +115,15 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return smi.stdout.strip().splitlines()[0]
+
+
+def fresh_peak() -> None:
+    """Free what earlier paths left unreachable (a learner held only in a
+    reference cycle, such as a wrapped method, waits for the collector)
+    and restart the peak-memory count, so a path's peak is its own."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def time_ms(fn, iters: int = 50) -> float:
@@ -440,8 +466,7 @@ def drive_path(A, label, cfg, rounds, cuts):
         f"{learner.num_steps} steps x batch {cfg.fed.batch_size}; cuts: "
         f"{cuts}; built in {time.perf_counter() - t0:.2f} s")
     before = [p.clone() for p in learner.params.values()]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak()
     A.reset_launches()
     round_s = []
     for _ in range(rounds):
@@ -521,15 +546,16 @@ BERT_DP = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
            "--dp-noise-multiplier", "1.0", "--dp-adaptive-clip"]
 
 
-def cli_path(A, label, argv, watch=None):
+def cli_path(A, label, argv, watch=None, extra_batches=None):
     """Run ``cli.main(["train", *argv])`` on the card, with the kernels'
     launch counts and the peak memory reset once the learner is built;
     ``watch(learner, record)`` sees the learner before the first round
     (record None) and after each round.  Checks that every round's loss
     and the params are finite and that the flash kernels launched exactly
     depth × (steps run + evaluation batches) (K1) and depth × steps (K2,
-    K3) on a flash path, and never elsewhere.  Returns (records, launches,
-    learner)."""
+    K3) on a flash path, and never elsewhere; ``extra_batches(learner)``
+    counts forward batches beyond those (a per-client evaluation's).
+    Returns (records, launches, learner)."""
     from colearn_federated_learning_tpu_torch import cli
 
     state = {"records": [], "steps": 0}
@@ -537,8 +563,7 @@ def cli_path(A, label, argv, watch=None):
     def on_round(learner, rec):
         if rec is None:
             state["learner"] = learner
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            fresh_peak()
             A.reset_launches()
         else:
             state["records"].append(rec)
@@ -568,7 +593,9 @@ def cli_path(A, label, argv, watch=None):
     eval_batches = math.ceil(len(learner.dataset.x_test)
                              / max(cfg.fed.batch_size, 64))
     depth = cfg.model.depth if cfg.model.attn_impl == "flash" else 0
-    want = {"flash_forward": depth * (state["steps"] + evals * eval_batches),
+    extra = extra_batches(learner) if extra_batches is not None else 0
+    want = {"flash_forward": depth * (state["steps"] + evals * eval_batches
+                                      + extra),
             "flash_backward_dq": depth * state["steps"],
             "flash_backward_dkv": depth * state["steps"]}
     if launches != want:
@@ -576,7 +603,7 @@ def cli_path(A, label, argv, watch=None):
                              f"expected {want}")
     log(f"  [{label}] s/round "
         f"{[round(r['phase_update_s'], 3) for r in records]}; eval s "
-        f"{[round(r['round_time_s'] - r['phase_update_s'], 3) for r in records if 'eval_loss' in r]}"
+        f"{[round(r['phase_eval_s'], 3) for r in records if 'eval_loss' in r]}"
         f"; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
         f"launches {launches} (exact); path "
         f"{time.perf_counter() - t0:.2f} s; {card()}")
@@ -705,6 +732,252 @@ def cli_phase(A):
     return paths
 
 
+HIER = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
+        "--local-steps", "4", "--edge-groups", "2", "--edge-sync-period", "2",
+        "--rounds", "3"]
+SYNC_RTOL = 1e-6               # cloud model vs its float64 recomputation
+
+
+def hierarchical_path(A):
+    """8a: hierarchical BERT-base through ``cli.main``.  Each cloud sync
+    is checked as it happens: the cloud model against the float64
+    example-weighted mean of the groups' params (to ``SYNC_RTOL`` of each
+    tensor's largest entry), and every group against the cloud model bit
+    for bit.  After round 0 (no sync) the groups' params differ.  The
+    flash kernels' launches are exact over both groups' rounds and the
+    cloud evaluations."""
+    from colearn_federated_learning_tpu_torch import cli
+
+    state = {"steps": 0, "syncs": [], "eval_s": [], "round_s": [],
+             "check_s": 0.0}
+
+    def checked_sync(h, sync):
+        def run():
+            t0 = time.perf_counter()
+            before = [[p.clone() for p in g.params.values()]
+                      for g in h.groups]
+            w = [x / sum(h.group_examples) for x in h.group_examples]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sync()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            worst = 0.0
+            for i, cloud in enumerate(h.global_params.values()):
+                ref = sum(wg * b[i].double() for wg, b in zip(w, before))
+                top = float(ref.abs().max())
+                err = float((cloud.double() - ref).abs().max())
+                worst = max(worst, err / top if top > 0 else err)
+            bitwise = all(torch.equal(p, c) for g in h.groups
+                          for p, c in zip(g.params.values(),
+                                          h.global_params.values()))
+            state["syncs"].append(worst)
+            state["check_s"] += time.perf_counter() - t0 - (t2 - t1)
+            log(f"  [8a] cloud sync in {t2 - t1:.4f} s: max err against the "
+                f"float64 mean {worst:.3e} of each tensor's largest entry "
+                f"(bound {SYNC_RTOL}); every group equals the cloud bit for "
+                f"bit: {bitwise}")
+            if not (worst <= SYNC_RTOL and bitwise):
+                raise AssertionError(f"8a: sync err {worst}, bitwise {bitwise}")
+        return run
+
+    def timed_eval(evaluate):
+        def run():
+            t0 = time.perf_counter()
+            out = evaluate()
+            torch.cuda.synchronize()
+            state["eval_s"].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def on_round(h, rec):
+        if rec is None:
+            state["h"] = h
+            h._cloud_sync = checked_sync(h, h._cloud_sync)
+            h.evaluate = timed_eval(h.evaluate)
+            fresh_peak()
+            A.reset_launches()
+            state["t"] = time.perf_counter()
+            return
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        evals = state["eval_s"][-1] if "eval_loss" in rec else 0.0
+        # The round's own time: the checks above are not the learner's.
+        state["round_s"].append(now - state["t"] - evals - state["check_s"])
+        state["t"], state["check_s"] = now, 0.0
+        state["steps"] += sum(int(g.last_cohort["steps_run"].sum())
+                              for g in h.groups)
+        log(f"  [8a] round {rec['round']}: synced {rec['synced']} "
+            f"group losses {[round(x, 6) for x in rec['group_losses']]} "
+            f"in {state['round_s'][-1]:.3f} s"
+            + (f"; cloud eval loss {rec['eval_loss']:.6f} acc "
+               f"{rec['eval_acc']:.4f} in {evals:.3f} s"
+               if "eval_loss" in rec else ""))
+        if rec["round"] == 0:
+            differ = any(not torch.equal(p, q) for p, q in zip(
+                h.groups[0].params.values(), h.groups[1].params.values()))
+            if rec["synced"] or not differ:
+                raise AssertionError("8a: the groups did not part in round 0")
+
+    t0 = time.perf_counter()
+    log("  [8a] train " + " ".join(HIER))
+    summary = cli.main(["train", *HIER], on_round=on_round)
+    torch.cuda.synchronize()
+    launches = dict(A.launches)
+    h = state["h"]
+    cfg = h.config
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in h.global_params.values())
+    evals = sum("eval_loss" in r for r in h.history)
+    eval_batches = math.ceil(len(h.dataset.x_test)
+                             / max(cfg.fed.batch_size, 64))
+    depth = cfg.model.depth
+    want = {"flash_forward": depth * (state["steps"] + evals * eval_batches),
+            "flash_backward_dq": depth * state["steps"],
+            "flash_backward_dkv": depth * state["steps"]}
+    ok = (finite and summary["rounds"] == 3 and len(state["syncs"]) == 2
+          and evals == 2 and math.isfinite(summary["final_loss"])
+          and [r["synced"] for r in h.history] == [False, True, True])
+    if not ok:
+        raise AssertionError(f"8a: summary {summary}, syncs {state['syncs']}")
+    if launches != want:
+        raise AssertionError(f"8a: kernel launches {launches}, "
+                             f"expected {want}")
+    log(f"  [8a] {len(h.groups)} groups x {h.groups[0].num_clients} clients, "
+        f"cohort {h.groups[0].cohort_size} each; s/round "
+        f"{[round(x, 3) for x in state['round_s']]}; cloud eval s "
+        f"{[round(x, 3) for x in state['eval_s']]}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+        f"{launches} (exact); summary {json.dumps(summary)}; path "
+        f"{time.perf_counter() - t0:.2f} s; {card()}")
+    log("  [8a] mask_cost_summary " + json.dumps(h.mask_cost_summary()))
+    return launches
+
+
+def clustered_path(A):
+    """8b: clustered FL on config #2 with a second concept planted on
+    clients 50-99 (y -> 9 - y): 2 warm-up rounds, the update similarity
+    after 3 steps, two clusters, one round each, per-client report."""
+    from colearn_federated_learning_tpu_torch.fed import (
+        ClusteredLearner, FederatedLearner)
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
+
+    t_path = time.perf_counter()
+    base = FederatedLearner(get_config("cifar10_cnn_fedavg"))
+    n = base.num_clients
+    planted = np.arange(n) >= n // 2
+    base.y[n // 2:] = 9 - base.y[n // 2:]
+    seen, times = {}, {}
+    similarity = base.client_update_similarity
+
+    def captured(steps):
+        t0 = time.perf_counter()
+        seen["sim"] = similarity(steps=steps)
+        times["similarity"] = time.perf_counter() - t0
+        return seen["sim"]
+
+    base.client_update_similarity = captured
+    clustered = ClusteredLearner(base, num_clusters=2)
+    fresh_peak()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    labels = clustered.cluster_and_specialize(warmup_rounds=2, sim_steps=3)
+    times["cluster_and_specialize"] = time.perf_counter() - t0
+    sim = seen["sim"]
+    asym = float(np.abs(sim - sim.T).max())
+    diag = float(np.abs(np.diag(sim) - 1.0).max())
+    members = np.sort(np.concatenate(clustered.members))
+    agree = float(max(np.mean(labels == planted), np.mean(labels != planted)))
+    log(f"  [8b] similarity {sim.shape} in {times['similarity']:.3f} s: "
+        f"max |S - S^T| {asym:.2e} (bound 1e-5), max |diag - 1| {diag:.2e} "
+        f"(bound 1e-4); mean within the planted concepts "
+        f"{sim[np.ix_(planted, planted)].mean():.4f} / "
+        f"{sim[np.ix_(~planted, ~planted)].mean():.4f}, across "
+        f"{sim[np.ix_(planted, ~planted)].mean():.4f}")
+    log(f"  [8b] cluster sizes {[int(m.size) for m in clustered.members]}; "
+        f"labels agree with the planted concept on {agree:.2%} of clients "
+        f"(reported, not gated)")
+    if not (sim.shape == (n, n) and asym <= 1e-5 and diag <= 1e-4
+            and np.array_equal(members, np.arange(n))):
+        raise AssertionError(f"8b: similarity {sim.shape}, asym {asym}, "
+                             f"diag {diag}, members {members}")
+    t0 = time.perf_counter()
+    clustered.fit(rounds=1)
+    times["fit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = clustered.evaluate_per_client()
+    times["evaluate_per_client"] = time.perf_counter() - t0
+    launches = dict(A.launches)
+    finite = all(bool(torch.isfinite(p).all()) for c in clustered.clusters
+                 if c is not None for p in c.params.values())
+    scalars = [v for k, v in rep.items() if isinstance(v, float)]
+    log(f"  [8b] report {json.dumps(rep)}; cluster records "
+        + json.dumps([c.history[-1] for c in clustered.clusters
+                      if c is not None]))
+    if not (finite and all(math.isfinite(v) for v in scalars)
+            and sum(rep["cluster_sizes"]) == n):
+        raise AssertionError(f"8b: output is not finite: {rep}")
+    if any(launches.values()):
+        raise AssertionError(f"8b: flash kernels launched on the CNN path: "
+                             f"{launches}")
+    log(f"  [8b] seconds {json.dumps({k: round(v, 3) for k, v in times.items()})}; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; path "
+        f"{time.perf_counter() - t_path:.2f} s; {card()}")
+    return launches
+
+
+def per_client_eval_path(A):
+    """8c: one BERT-base round and ``--per-client-eval``: the report is
+    finite and K1 launched once per layer for every per-client chunk."""
+    seen = {}
+
+    def watch(learner, rec):
+        if rec is None:
+            evaluate = learner.evaluate_per_client
+
+            def captured():
+                t0 = time.perf_counter()
+                seen["rep"] = evaluate()
+                seen["s"] = time.perf_counter() - t0
+                return seen["rep"]
+
+            learner.evaluate_per_client = captured
+
+    def chunks(learner):
+        batch = max(learner.config.fed.batch_size, 64)
+        return sum(math.ceil(int(c) / batch) for c in learner.counts)
+
+    _, launches, learner = cli_path(
+        A, "8c", ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
+                  "--local-steps", "4", "--rounds", "1",
+                  "--per-client-eval"], watch, extra_batches=chunks)
+    rep = seen["rep"]
+    values = [rep[k] for k in ("weighted_loss", "weighted_acc", "acc_p10",
+                               "acc_p50", "acc_p90")]
+    log(f"  [8c] per-client evaluation of {len(rep['per_client_acc'])} "
+        f"clients ({chunks(learner)} chunks) in {seen['s']:.3f} s: "
+        + json.dumps({k: rep[k] for k in ("weighted_loss", "weighted_acc",
+                                          "acc_p10", "acc_p50", "acc_p90")}))
+    if not (all(math.isfinite(v) for v in values)
+            and np.isfinite(rep["per_client_loss"]).all()
+            and len(rep["per_client_acc"]) == learner.num_clients):
+        raise AssertionError(f"8c: report is not finite: {rep}")
+    return launches
+
+
+def slice_phase(A):
+    """Phase 8: the hierarchical and clustered learners and per-client
+    evaluation."""
+    paths = {}
+    for label, fn in (("hierarchical", hierarchical_path),
+                      ("clustered", clustered_path),
+                      ("per_client_eval", per_client_eval_path)):
+        t0 = time.perf_counter()
+        paths[label] = fn(A)
+        log(f"  {label} in {time.perf_counter() - t0:.2f} s")
+    return paths
+
+
 def build_phase(_build):
     """Build the kernels; report each head-dim-64 instantiation's registers,
     spills and blocks per SM, and fail if any instantiation spills."""
@@ -780,10 +1053,15 @@ def main() -> int:
         paths[label] = drive_path(A, label, cfg, 1, cuts)
     log(f"  phase 6 in {time.perf_counter() - t0:.2f} s")
 
-    log("phase 7: this slice's paths through the command line")
+    log("phase 7: the round's other branches through the command line")
     t0 = time.perf_counter()
     paths.update(cli_phase(A))
     log(f"  phase 7 in {time.perf_counter() - t0:.2f} s")
+
+    log("phase 8: hierarchical, clustered and per-client evaluation")
+    t0 = time.perf_counter()
+    paths.update(slice_phase(A))
+    log(f"  phase 8 in {time.perf_counter() - t0:.2f} s")
     log("launches per path " + json.dumps(paths))
 
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=rep,

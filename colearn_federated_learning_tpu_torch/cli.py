@@ -7,7 +7,9 @@ The counterpart of the JAX package's ``colearn train`` (its
 ``config_from_args`` and ``cmd_train``) for what this package runs: the
 single-device federated round with every strategy, DP (fixed or adaptive
 clipping, with the RDP accountant), secure aggregation and the robust
-aggregators.  The run goes on the card (``--backend gpu``, the default,
+aggregators; hierarchical edge → cloud federation (``--edge-groups`` >= 2,
+``--edge-sync-period``); and, on the flat path, a per-client evaluation
+of the final model (``--per-client-eval``, its report on stderr).  The run goes on the card (``--backend gpu``, the default,
 which raises without one) or, only when asked, on the CPU.  Each round's
 record goes to stderr as one JSON line and the final summary to stdout,
 as in the JAX package; :func:`main` also returns the summary.
@@ -35,13 +37,13 @@ _FED_KEYS = {"rounds", "cohort_size", "local_epochs", "local_steps",
              "prox_mu", "aggregator", "trim_fraction", "dp_clip",
              "dp_noise_multiplier", "dp_delta", "dp_adaptive_clip",
              "dp_target_quantile", "dp_clip_lr", "dp_bit_noise",
-             "secure_agg", "secure_agg_neighbors", "straggler_prob"}
+             "secure_agg", "secure_agg_neighbors", "straggler_prob",
+             "edge_groups", "edge_sync_period"}
 _DATA_KEYS = {"num_clients", "dataset", "partition", "dirichlet_alpha"}
 _MODEL_KEYS = {"attn_impl", "width", "stem", "norm"}
-_RUN_KEYS = {"seed", "eval_every"}
+_RUN_KEYS = {"seed", "eval_every", "log_every"}
 
 _LORA = "ROADMAP.md Queue A item 5 (LoRA)"
-_EDGE = "ROADMAP.md Queue A item 4 (fed/hierarchical.py)"
 _TP_SP = "ROADMAP.md Queue A item 7 (TP and SP)"
 _COMM = "ROADMAP.md Queue A item 8 (the fold kernel and the comm/ planes)"
 _CKPT = "ROADMAP.md Queue A item 9 (fleetsim and checkpoints)"
@@ -52,8 +54,6 @@ _UNPORTED = {
     "lora_rank": ("--lora-rank", dict(type=int), _LORA),
     "lora_alpha": ("--lora-alpha", dict(type=float), _LORA),
     "lora_merge_every": ("--lora-merge-every", dict(type=int), _LORA),
-    "edge_groups": ("--edge-groups", dict(type=int), _EDGE),
-    "edge_sync_period": ("--edge-sync-period", dict(type=int), _EDGE),
     "tp_size": ("--tp-size", dict(type=int), _TP_SP),
     "remat": ("--remat", dict(action="store_true"), _TP_SP),
     "role": ("--role", dict(choices=["sim", "client"]), _COMM),
@@ -68,6 +68,23 @@ _UNPORTED = {
     "min_cohort_fraction": ("--min-cohort-fraction", dict(type=float),
                             _COMM),
     "fault_plan": ("--fault-plan", dict(), _COMM),
+    "fault_seed": ("--fault-seed", dict(type=int), _COMM),
+    "topk_min_fraction": ("--topk-min-fraction", dict(type=float), _COMM),
+    "topk_max_fraction": ("--topk-max-fraction", dict(type=float), _COMM),
+    "agg_heartbeat_timeout": ("--agg-heartbeat-timeout",
+                              dict(type=float), _COMM),
+    "agg_buffer_interval_s": ("--agg-buffer-interval", dict(type=float),
+                              _COMM),
+    "evict_after": ("--evict-after", dict(type=int), _COMM),
+    "comm_retries": ("--comm-retries", dict(type=int), _COMM),
+    "comm_backoff_base": ("--comm-backoff-base", dict(type=float), _COMM),
+    "comm_backoff_max": ("--comm-backoff-max", dict(type=float), _COMM),
+    "worker_enroll_timeout": ("--worker-enroll-timeout", dict(type=float),
+                              _COMM),
+    "client_id": ("--client-id", dict(type=int), _COMM),
+    "global_model": ("--global-model", dict(), _COMM),
+    "out": ("--out", dict(), _COMM),
+    "residual_path": ("--residual-path", dict(), _COMM),
     "checkpoint_dir": ("--checkpoint-dir", dict(), _CKPT),
     "checkpoint_every": ("--checkpoint-every", dict(type=int), _CKPT),
     "ckpt_stream": ("--ckpt-stream", dict(action="store_true"), _CKPT),
@@ -79,8 +96,6 @@ _UNPORTED = {
     "tensorboard_dir": ("--tensorboard-dir", dict(), _OBS),
     "health_dir": ("--health-dir", dict(), _OBS),
     "learn_observe": ("--learn-observe", dict(action="store_true"), _OBS),
-    "per_client_eval": ("--per-client-eval", dict(action="store_true"),
-                        _OBS),
     "personalize_steps": ("--personalize-steps", dict(type=int), _OBS),
     "detection_eval": ("--detection-eval", dict(action="store_true"), _OBS),
 }
@@ -138,6 +153,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="k-regular random-ring masking (0 = all pairs)")
     p.add_argument("--straggler-prob", type=float, default=None)
     p.add_argument("--eval-every", type=int, default=None)
+    p.add_argument("--log-every", type=int, default=None,
+                   help="hand every Nth round's record (and the last) to "
+                        "the log; the summary's rates are over those")
+    p.add_argument("--edge-groups", type=int, default=None,
+                   help=">= 2 turns on hierarchical edge->cloud federation "
+                        "(fed/hierarchical.py)")
+    p.add_argument("--edge-sync-period", type=int, default=None)
+    p.add_argument("--per-client-eval", action="store_true", default=None,
+                   help="report the final model's per-client accuracy "
+                        "spread (stderr)")
     p.add_argument("--attn-impl", default=None, choices=["dense", "flash"])
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--stem", default=None, choices=["conv", "space_to_depth"])
@@ -177,26 +202,70 @@ def refuse_unported(args: argparse.Namespace) -> None:
         raise SystemExit(2)
 
 
+def refuse_edge_unsupported(args: argparse.Namespace,
+                            config: ExperimentConfig) -> None:
+    """Exit with status 2 and the JAX command line's message if the
+    hierarchical path is asked for with a flag it does not support."""
+    if config.fed.edge_groups < 2:
+        return
+    unsupported = [
+        flag for flag, dest in [
+            ("--resume", "resume"), ("--per-client-eval", "per_client_eval"),
+            ("--detection-eval", "detection_eval"),
+            ("--personalize-steps", "personalize_steps"),
+            ("--checkpoint-dir", "checkpoint_dir"),
+            ("--profile-dir", "profile_dir"), ("--trace-dir", "trace_dir"),
+        ] if getattr(args, dest)]
+    if unsupported:
+        print(f"--edge-groups does not support {', '.join(unsupported)}",
+              file=sys.stderr)
+        raise SystemExit(2)
+
+
 def train(args: argparse.Namespace,
           on_round: Optional[Callable] = None) -> dict:
-    """``train``: build the learner, fit, evaluate; returns the summary.
-    ``on_round(learner, record)`` is called before the first round (with
-    ``record`` None) and after each round."""
-    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+    """``train``: build the learner (hierarchical when ``--edge-groups``
+    >= 2), fit, evaluate; returns the summary.  ``on_round(learner,
+    record)`` is called before the first round (with ``record`` None) and
+    with each logged record.  The flat summary's rates are taken over the
+    logged records' ``round_time_s``, which excludes evaluation."""
+    from colearn_federated_learning_tpu_torch.fed import (
+        FederatedLearner, HierarchicalLearner, evaluation)
 
     config = config_from_args(args)
+    device = "cuda" if args.backend == "gpu" else "cpu"
     t_start = time.perf_counter()
-    learner = FederatedLearner(config, device=(
-        "cuda" if args.backend == "gpu" else "cpu"))
+    hierarchical = config.fed.edge_groups >= 2
+    if hierarchical:
+        learner = HierarchicalLearner(
+            config, num_groups=config.fed.edge_groups,
+            sync_period=config.fed.edge_sync_period, device=device)
+    else:
+        learner = FederatedLearner(config, device=device)
     if on_round is not None:
         on_round(learner, None)
+    records = []
 
     def log_fn(rec: dict) -> None:
+        records.append(rec)
         print(json.dumps(rec), file=sys.stderr, flush=True)
         if on_round is not None:
             on_round(learner, rec)
 
-    records = learner.fit(log_fn=log_fn)
+    learner.fit(log_fn=log_fn)
+    if hierarchical:
+        # fit() ends on a synced, evaluated round: its score is the cloud
+        # model's.
+        last = learner.history[-1] if learner.history else {}
+        loss, acc = ((last["eval_loss"], last["eval_acc"])
+                     if "eval_loss" in last else learner.evaluate())
+        return {"name": config.run.name, "rounds": len(learner.history),
+                "edge_groups": config.fed.edge_groups,
+                "final_loss": loss, "final_acc": acc,
+                "data_source": learner.dataset.source}
+    if args.per_client_eval:
+        print(json.dumps(evaluation.sanitize_report(
+            learner.evaluate_per_client())), file=sys.stderr, flush=True)
     out = {"name": config.run.name, "rounds": len(records),
            "elapsed_s": time.perf_counter() - t_start,
            "device": str(learner.device)}
@@ -226,6 +295,7 @@ def main(argv: Optional[list] = None,
     """Parse ``argv``, run the command and print its summary as one JSON
     line on stdout; returns the summary."""
     args = build_parser().parse_args(argv)
+    refuse_edge_unsupported(args, config_from_args(args))
     refuse_unported(args)
     summary = train(args, on_round)
     print(json.dumps(summary), flush=True)

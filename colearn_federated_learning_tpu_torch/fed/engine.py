@@ -37,11 +37,13 @@ from colearn_federated_learning_tpu_torch.utils.device import resolve_device
 
 
 def check_supported(config: ExperimentConfig) -> None:
-    """Refuse what this package does not run yet rather than ignore it."""
+    """Refuse what this package does not run yet rather than ignore it.
+    ``edge_groups`` is not refused: the hierarchical learner
+    (``fed/hierarchical.py``) builds its groups from copies of a config
+    that still carries it, as the JAX package's does."""
     f = config.fed
     unported = {
         "lora_rank > 0": f.lora_rank > 0,
-        "edge_groups > 1": f.edge_groups > 1,
         "tp_size > 1": config.run.tp_size > 1,
     }
     bad = [name for name, on in unported.items() if on]
@@ -162,6 +164,10 @@ class FederatedLearner:
     """End-to-end federated experiment on one device: data, model, round
     loop, evaluation.
 
+    ``partitions``: optional explicit per-client index lists into the
+    dataset's train split, overriding ``config.data.partition`` (clustered
+    FL injects its members' exact shards this way).
+
     ``plan``: optional object with the methods of
     :class:`fed.programs.Draws` (``cohort``, ``batch_indices``,
     ``step_budgets``, ``dp_noise``, ``pair_mask``, ``ring_order``,
@@ -177,7 +183,7 @@ class FederatedLearner:
 
     def __init__(self, config: ExperimentConfig,
                  dataset: Optional[data_registry.Dataset] = None,
-                 device=None, plan=None):
+                 device=None, plan=None, partitions: Optional[list] = None):
         self.config = c = config
         self.device = resolve_device(device)
         check_supported(c)
@@ -191,9 +197,10 @@ class FederatedLearner:
         self.dataset = dataset or data_registry.get_dataset(
             c.data.dataset, seed=c.run.seed)
         labels = np.asarray(self.dataset.y_train)
+        parts = (partitions if partitions is not None
+                 else partition_for_config(c, labels))
         shards = pack_client_shards(
-            np.asarray(self.dataset.x_train), labels,
-            partition_for_config(c, labels),
+            np.asarray(self.dataset.x_train), labels, parts,
             capacity=c.data.max_examples_per_client)
         self.shards = shards
         self.num_clients = shards.num_clients
@@ -281,16 +288,34 @@ class FederatedLearner:
         """The global model's parameters (name -> f32 tensor)."""
         return self.server_state.params
 
+    def _sync(self) -> None:
+        """Wait for the card's queued work, so a host clock read after it
+        covers that work (nothing to wait for on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def run_round(self) -> dict:
-        """One federated round; returns its metrics (one host sync)."""
+        """One federated round; returns its metrics (one host sync).
+
+        ``phase_update_s`` runs from the cohort draw until the card has
+        finished the round; ``phase_sync_s`` is the metrics' copy to the
+        host; under SCAFFOLD ``phase_cohort_sample_s`` is the cohort draw,
+        as in the JAX record."""
         r = len(self.history)
         t0 = time.perf_counter()
-        metrics = programs.run_round(self, r)
+        sel = programs.sample_cohort(self, r)
+        t_sample = time.perf_counter() - t0
+        metrics = programs.run_round(self, r, sel)
         if self.adaptive_clip:
             self.dp_clip = metrics["dp_clip"]
+        self._sync()
+        t1 = time.perf_counter()
         out = {k: float(v) for k, v in metrics.items()}
         out["round"] = r
-        out["phase_update_s"] = time.perf_counter() - t0
+        out["phase_update_s"] = t1 - t0
+        out["phase_sync_s"] = time.perf_counter() - t1
+        if self.scaffold:
+            out["phase_cohort_sample_s"] = t_sample
         if self.accountant is not None:
             self.accountant.step()
             out["dp_epsilon"] = self.accountant.epsilon()
@@ -302,19 +327,62 @@ class FederatedLearner:
         """(mean loss, accuracy) of the global model on the test set."""
         return self._eval_fn(self.server_state.params.values())
 
+    def evaluate_per_client(self) -> dict:
+        """Score the current global model on every client's own shard:
+        per-client arrays in client-id order (``per_client_loss``,
+        ``per_client_acc``, ``num_examples``) and their example-weighted
+        aggregates and accuracy spread (``evaluation.summarize_per_client``)."""
+        loss, acc = programs.build_client_eval_fn(self)(
+            self.server_state.params.values())
+        counts = np.asarray(self.counts)
+        out = evaluation.summarize_per_client(loss, acc, counts)
+        out.update(per_client_loss=loss, per_client_acc=acc,
+                   num_examples=counts)
+        return out
+
+    def client_update_similarity(self, steps: int = 1) -> np.ndarray:
+        """(N, N) cosine similarity of every client's local update from the
+        current global model: the clustering signal of clustered FL
+        (``fed/clustered.py``).  Clients train one after another; their
+        normalised flat updates are stacked and multiplied once."""
+        if self.scaffold:
+            raise NotImplementedError(
+                "clustering uses the plain local trainer; run it with a "
+                "stateless strategy")
+        return programs.build_similarity_fn(self, steps)(
+            list(self.server_state.params.values()))
+
+    def id_order_slots(self) -> np.ndarray:
+        """Array slot of every real client in client-id order: the
+        identity on one device (the JAX package's mesh interleaves them)."""
+        return np.arange(self.num_clients)
+
     def fit(self, rounds: Optional[int] = None, log_fn=None) -> list[dict]:
         """Run ``rounds`` more rounds (default: up to ``config.fed.rounds``),
-        evaluating every ``run.eval_every`` rounds and after the last."""
+        evaluating every ``run.eval_every`` rounds and after the last, and
+        handing every ``run.log_every``-th record and the last to
+        ``log_fn``.  ``round_time_s`` is the round alone; an evaluation's
+        time is its own ``phase_eval_s``.  On the card the record also
+        carries ``hbm_used_gb``, the memory allocated after the round."""
         if rounds is None:
             rounds = max(0, self.config.fed.rounds - len(self.history))
-        eval_every = max(1, self.config.run.eval_every)
+        run = self.config.run
+        eval_every = max(1, run.eval_every)
+        log_every = max(1, run.log_every)
         last_round = len(self.history) + rounds - 1
         for _ in range(rounds):
             t0 = time.perf_counter()
             rec = self.run_round()
-            if rec["round"] % eval_every == 0 or rec["round"] == last_round:
-                rec["eval_loss"], rec["eval_acc"] = self.evaluate()
             rec["round_time_s"] = time.perf_counter() - t0
-            if log_fn is not None:
+            if self.device.type == "cuda":
+                rec["hbm_used_gb"] = round(
+                    torch.cuda.memory_allocated(self.device) / 2**30, 3)
+            if rec["round"] % eval_every == 0 or rec["round"] == last_round:
+                t1 = time.perf_counter()
+                rec["eval_loss"], rec["eval_acc"] = self.evaluate()
+                self._sync()
+                rec["phase_eval_s"] = time.perf_counter() - t1
+            if log_fn is not None and (rec["round"] % log_every == 0
+                                       or rec["round"] == last_round):
                 log_fn(rec)
         return self.history

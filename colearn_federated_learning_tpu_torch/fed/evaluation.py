@@ -52,3 +52,25 @@ def make_eval_fn(model: torch.nn.Module, x_test, y_test, batch: int,
         return float(loss_sum) / n, float(acc_sum) / n
 
     return eval_fn
+
+
+def sanitize_report(rep: dict) -> dict:
+    """JSON-ready copy of a metrics report (numpy arrays -> lists)."""
+    return {k: (v.tolist() if hasattr(v, "tolist") else v)
+            for k, v in rep.items()}
+
+
+def summarize_per_client(losses, accs, counts) -> dict:
+    """Example-weighted aggregates and the accuracy spread of per-client
+    scores (a copy of the JAX package's definition)."""
+    losses = np.asarray(losses, np.float64)
+    accs = np.asarray(accs, np.float64)
+    counts = np.asarray(counts, np.float64)
+    w = counts / counts.sum()
+    return {
+        "weighted_loss": float((losses * w).sum()),
+        "weighted_acc": float((accs * w).sum()),
+        "acc_p10": float(np.percentile(accs, 10)),
+        "acc_p50": float(np.percentile(accs, 50)),
+        "acc_p90": float(np.percentile(accs, 90)),
+    }

@@ -311,13 +311,88 @@ def finish_round(ln, agg: list, total_w: float, stats: tuple, dc_sum,
     return metrics
 
 
-def run_round(ln, round_idx: int) -> dict:
-    """Sample the cohort, train it, aggregate, update the server."""
+def sample_cohort(ln, round_idx: int) -> np.ndarray:
+    """Array slots of the round's cohort (every client when the cohort is
+    the whole population)."""
     if ln.cohort_size < ln.num_clients:
-        sel = np.asarray(ln.draws.cohort(round_idx, ln.counts,
-                                         ln.cohort_size), np.int64)
-    else:
-        sel = np.arange(ln.num_clients)
+        return np.asarray(ln.draws.cohort(round_idx, ln.counts,
+                                          ln.cohort_size), np.int64)
+    return np.arange(ln.num_clients)
+
+
+def run_round(ln, round_idx: int, sel: np.ndarray) -> dict:
+    """Train the cohort ``sel``, aggregate, update the server."""
     params = list(ln.server_state.params.values())
     agg, total_w, stats, dc_sum = cohort_step(ln, params, sel, round_idx)
     return finish_round(ln, agg, total_w, stats, dc_sum, round_idx)
+
+
+# ---------------------------------------------------------------------
+# per-client programs (evaluation, update similarity)
+# ---------------------------------------------------------------------
+# The round index the similarity's batch draws are keyed on: past any
+# training round, as in the JAX package.
+SIMILARITY_ROUND = 1 << 23
+
+
+def build_client_eval_fn(ln):
+    """``fn(params) -> (loss, acc)``: numpy f32 arrays of every client's
+    mean loss and accuracy under ``params`` on its own shard, in chunks of
+    ``max(batch_size, 64)`` rows; only rows below the client's count
+    score, and chunks wholly past it do not run.  One host sync."""
+    batch = max(ln.config.fed.batch_size, 64)
+    model_params = list(ln.model.parameters())
+    counts = [int(c) for c in ln.counts]
+
+    @torch.no_grad()
+    def eval_fn(params):
+        torch._foreach_copy_(model_params, list(params))
+        out = torch.zeros((len(counts), 2), dtype=torch.float64,
+                          device=ln.device)
+        for slot, count in enumerate(counts):
+            for b in range(0, count, batch):
+                x = ln.x[slot, b:min(b + batch, count)]
+                y = ln.y[slot, b:min(b + batch, count)]
+                logits = ln.model(x)
+                nll = -torch.nn.functional.log_softmax(
+                    logits.float(), dim=-1).gather(1, y[:, None])[:, 0]
+                out[slot, 0] += nll.sum()
+                out[slot, 1] += (logits.argmax(dim=-1) == y).sum()
+        out /= torch.tensor(counts, dtype=torch.float64,
+                            device=ln.device).clamp(min=1.0)[:, None]
+        out = out.float().cpu().numpy()
+        return out[:, 0], out[:, 1]
+
+    return eval_fn
+
+
+def build_similarity_fn(ln, steps: int):
+    """``fn(params) -> (N, N)`` numpy cosine similarity of every client's
+    local update: each client runs ``min(steps, num_steps)`` steps of the
+    plain local trainer from ``params`` on batches drawn at
+    ``SIMILARITY_ROUND``; the flat f32 updates are row-normalised by
+    ``max(norm, 1e-12)``, stacked (N, P) and multiplied once."""
+    budget = min(steps, ln.num_steps)
+    c = ln.config.fed
+
+    def sim_fn(params):
+        size = sum(p.numel() for p in params)
+        xn = torch.empty((ln.num_clients, size), dtype=torch.float32,
+                         device=ln.device)
+        for slot, gid in enumerate(ln.client_ids):
+            count = int(ln.counts[slot])
+            idx = ln.draws.batch_indices(SIMILARITY_ROUND, int(gid), count,
+                                         ln.num_steps, c.batch_size)
+            idx = torch.as_tensor(idx, dtype=torch.long).to(
+                ln.device, non_blocking=True)
+            res = ln.local_update(params, ln.x[slot], ln.y[slot], count,
+                                  idx, budget)
+            row, at = xn[slot], 0
+            for d in res.delta:
+                row[at:at + d.numel()].copy_(d.reshape(-1))
+                at += d.numel()
+            row /= torch.clamp(torch.linalg.vector_norm(row), min=1e-12)
+            del res
+        return (xn @ xn.T).cpu().numpy()
+
+    return sim_fn

@@ -3,10 +3,16 @@
 do, a run on the CPU gives the round of ``FederatedLearner`` called
 directly, a flag of a feature not ported yet exits non-zero naming its
 ROADMAP item, and the default backend is the card, which raises without
-one."""
+one.  The parser accepts every flag of the JAX ``train`` parser; the
+hierarchical path (``--edge-groups``) prints JAX's summary keys and
+refuses what JAX's refuses with its message; ``--per-client-eval`` dumps
+JAX's report; the summary's rates are over the ``--log-every`` records."""
 
 import argparse
+import io
 import json
+import re
+from contextlib import redirect_stdout
 
 import pytest
 import torch
@@ -44,7 +50,8 @@ def test_train_on_the_cpu_matches_the_learner(capsys):
     ["--secure-agg", "--secure-agg-neighbors", "4", "--seed", "7",
      "--eval-every", "3", "--straggler-prob", "0.2"],
     ["--aggregator", "krum", "--trim-fraction", "0.2", "--partition",
-     "dirichlet", "--dirichlet-alpha", "0.3", "--width", "48"]])
+     "dirichlet", "--dirichlet-alpha", "0.3", "--width", "48"],
+    ["--edge-groups", "2", "--edge-sync-period", "3", "--log-every", "2"]])
 def test_overrides_reach_the_config_as_in_jax(extra):
     ours = cli.config_from_args(cli.build_parser().parse_args(
         ["train", *TINY, *extra]))
@@ -55,10 +62,12 @@ def test_overrides_reach_the_config_as_in_jax(extra):
         assert vars(getattr(ours, section)) == vars(getattr(theirs, section))
     assert ours.run.seed == theirs.run.seed
     assert ours.run.eval_every == theirs.run.eval_every
+    assert ours.run.log_every == theirs.run.log_every
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--lora-rank", "4"], "item 5"), (["--edge-groups", "2"], "item 4"),
+    (["--lora-rank", "4"], "item 5"),
+    (["--lora-alpha", "8", "--edge-groups", "2"], "item 5"),
     (["--tp-size", "2"], "item 7"), (["--compress", "topk"], "item 8"),
     (["--role", "client"], "item 8"), (["--checkpoint-dir", "ck"], "item 9"),
     (["--resume"], "item 9"), (["--trace-dir", "tr"], "item 10"),
@@ -76,3 +85,111 @@ def test_default_backend_raises_without_a_card(monkeypatch):
     assert cli.build_parser().parse_args(["train"]).backend == "gpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["train", *TINY])
+
+
+def _jax_train_flags() -> set:
+    out = io.StringIO()
+    with redirect_stdout(out), pytest.raises(SystemExit):
+        jax_cli.main(["train", "--help"])
+    # Each option's own line of the help opens with two spaces.
+    return set(re.findall(r"^  (--[a-z][a-z0-9-]*)", out.getvalue(), re.M))
+
+
+def test_every_jax_train_flag_is_accepted():
+    jax_flags = _jax_train_flags()
+    assert {"--edge-groups", "--client-id", "--log-every"} <= jax_flags
+    ours = set(cli.build_parser()._subparsers._group_actions[0]
+               .choices["train"]._option_string_actions)
+    assert jax_flags <= ours, sorted(jax_flags - ours)
+
+
+# The flags of the JAX train parser that belong to the file, wire and fold
+# planes, with a value of their type.
+COMM_FLAGS = [
+    ("--agg-buffer-interval", "1.5"), ("--agg-heartbeat-timeout", "2.0"),
+    ("--client-id", "3"), ("--comm-backoff-base", "0.1"),
+    ("--comm-backoff-max", "1.0"), ("--comm-retries", "4"),
+    ("--evict-after", "2"), ("--fault-seed", "9"),
+    ("--global-model", "g.npz"), ("--out", "u.npz"),
+    ("--residual-path", "r.npz"), ("--topk-max-fraction", "0.3"),
+    ("--topk-min-fraction", "0.02"), ("--worker-enroll-timeout", "5.0")]
+
+
+@pytest.mark.parametrize("flag,value", COMM_FLAGS)
+def test_comm_plane_flag_exits_naming_item_8(flag, value, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["train", "--backend", "cpu", *TINY, flag, value])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert f"{flag} is not ported" in err
+    assert "ROADMAP.md Queue A item 8" in err
+
+
+EDGE = ["--config", "mnist_mlp_fedavg", "--dataset", "mnist_tiny",
+        "--num-clients", "4", "--local-steps", "2", "--rounds", "3",
+        "--edge-groups", "2", "--edge-sync-period", "2"]
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def test_edge_groups_prints_the_jax_summary(capsys):
+    records = []
+    summary = cli.main(["train", "--backend", "cpu", *EDGE],
+                       on_round=lambda ln, rec: rec and records.append(rec))
+    ours = capsys.readouterr()
+    assert _last_json(ours.out) == json.loads(json.dumps(summary))
+    assert jax_cli.main(["train", "--backend", "cpu", *EDGE]) == 0
+    theirs = capsys.readouterr()
+    jax_summary = _last_json(theirs.out)
+    assert sorted(summary) == sorted(jax_summary)
+    for key in ("name", "rounds", "edge_groups", "data_source"):
+        assert summary[key] == jax_summary[key]
+    assert [r["synced"] for r in records] == [False, True, True]
+    assert summary["final_acc"] == records[-1]["eval_acc"]
+    ours_recs = [json.loads(line) for line in ours.err.strip().splitlines()]
+    jax_recs = [json.loads(line) for line in theirs.err.strip().splitlines()]
+    assert [sorted(r) for r in ours_recs] == [sorted(r) for r in jax_recs]
+
+
+@pytest.mark.parametrize("extra", [["--per-client-eval"],
+                                   ["--per-client-eval", "--resume"]])
+def test_edge_groups_refuses_as_jax_does(extra, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["train", "--backend", "cpu", *EDGE, *extra])
+    assert exc.value.code == 2
+    ours = capsys.readouterr().err.strip()
+    assert jax_cli.main(["train", "--backend", "cpu", *EDGE, *extra]) == 2
+    assert ours == capsys.readouterr().err.strip()
+
+
+def test_per_client_eval_dumps_the_jax_report(capsys):
+    summary = cli.main(["train", "--backend", "cpu", *TINY,
+                        "--per-client-eval"])
+    report = _last_json(capsys.readouterr().err)
+    assert jax_cli.main(["train", "--backend", "cpu", *TINY,
+                         "--per-client-eval"]) == 0
+    jax_report = _last_json(capsys.readouterr().err)
+    assert sorted(report) == sorted(jax_report)
+    assert len(report["per_client_acc"]) == 4
+    assert report["num_examples"] == jax_report["num_examples"]
+    assert 0.0 <= report["weighted_acc"] <= 1.0
+    assert summary["rounds"] == 1
+
+
+def test_summary_rates_are_over_the_logged_rounds(capsys):
+    records = []
+    summary = cli.main(["train", "--backend", "cpu", *TINY[:-1], "3",
+                        "--log-every", "2"],
+                       on_round=lambda ln, rec: rec and records.append(rec))
+    capsys.readouterr()
+    assert [r["round"] for r in records] == [0, 2]
+    assert summary["rounds"] == 2
+    assert summary["rounds_per_sec"] == pytest.approx(
+        2 / sum(r["round_time_s"] for r in records))
+    assert jax_cli.main(["train", "--backend", "cpu", *TINY[:-1], "3",
+                         "--log-every", "2"]) == 0
+    jax_summary = _last_json(capsys.readouterr().out)
+    assert jax_summary["rounds"] == summary["rounds"]
+    assert set(jax_summary) <= set(summary)

@@ -1,6 +1,7 @@
 """The flash-attention CUDA kernels (K1-K3) against their plain PyTorch
-versions, and every model family's bf16 logits against the same model in
-f32 on the CPU, on the card.  Marked ``cuda``: without a CUDA device every
+versions, every model family's bf16 logits against the same model in
+f32 on the CPU, and the hierarchical sync, update similarity and
+per-client evaluation against the CPU, on the card.  Marked ``cuda``: without a CUDA device every
 test here skips.  On a machine with the card (no JAX needed):
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -p no:cacheprovider -q
@@ -275,3 +276,95 @@ def test_krum_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(cpu_sel, dev_sel.cpu()) and not bool(cpu_sel[7])
     for x, y in zip(cpu, dev):
         _close(y.cpu(), x, 1e-5)
+
+
+def _mlp_config(num_clients=8, **fed_kw):
+    from colearn_federated_learning_tpu_torch.utils import config
+
+    fed = dict(strategy="fedavg", rounds=3, cohort_size=0, local_steps=3,
+               batch_size=16, lr=0.1, momentum=0.9)
+    fed.update(fed_kw)
+    return config.ExperimentConfig(
+        data=config.DataConfig(dataset="mnist_tiny", num_clients=num_clients,
+                               partition="iid", max_examples_per_client=64),
+        model=config.ModelConfig(name="mlp", num_classes=10, hidden_dim=32,
+                                 depth=2),
+        fed=config.FedConfig(**fed), run=config.RunConfig(name="card"))
+
+
+def test_hierarchical_sync_on_the_card_matches_the_cpu(cuda):
+    """The f32 MLP in 2 groups, a sync after every round: each group holds
+    the cloud model bit for bit after a sync, the cloud model is the
+    float64 weighted mean of the groups' to 1e-6 of its largest entry, and
+    the card's cloud model after 2 rounds is the CPU's (same init, same
+    draws) to rtol 1e-4 / atol 2e-5."""
+    from colearn_federated_learning_tpu_torch.fed import HierarchicalLearner
+
+    cfg = _mlp_config()
+    card = HierarchicalLearner(cfg, sync_period=1, device=cuda)
+    cpu = HierarchicalLearner(cfg, sync_period=1, device="cpu")
+    card.run_round()
+    for g in card.groups:
+        g.run_round()
+    before = [[p.double() for p in g.params.values()] for g in card.groups]
+    w = [x / sum(card.group_examples) for x in card.group_examples]
+    card._cloud_sync()
+    for i, cloud in enumerate(card.global_params.values()):
+        ref = sum(wg * b[i] for wg, b in zip(w, before))
+        assert float((cloud.double() - ref).abs().max()) <= \
+            1e-6 * float(ref.abs().max())
+    for g in card.groups:
+        assert all(torch.equal(p, c) for p, c in zip(
+            g.params.values(), card.global_params.values()))
+    cpu.run_round()
+    for g in cpu.groups:
+        g.run_round()
+    cpu._cloud_sync()
+    for name, t in card.global_params.items():
+        torch.testing.assert_close(t.cpu(), cpu.global_params[name],
+                                   rtol=1e-4, atol=2e-5)
+
+
+def test_similarity_and_per_client_eval_on_the_card_match_the_cpu(cuda):
+    """Clients 4-7 in a permuted-label concept: the card's update
+    similarity (f32 Gram product, no TF32) and per-client scores are the
+    CPU's, the similarity is symmetric with a unit diagonal, and the
+    clustered learner recovers the two concepts."""
+    import numpy as np
+
+    from colearn_federated_learning_tpu_torch.fed import (
+        ClusteredLearner, FederatedLearner)
+
+    learners = []
+    for device in (cuda, "cpu"):
+        ln = FederatedLearner(_mlp_config(), device=device)
+        ln.y[4:] = 9 - ln.y[4:]
+        ln.run_round()
+        learners.append(ln)
+    card, cpu = learners
+    sim = card.client_update_similarity(steps=2)
+    np.testing.assert_allclose(sim, cpu.client_update_similarity(steps=2),
+                               rtol=1e-4, atol=2e-5)
+    assert np.abs(sim - sim.T).max() <= 1e-5
+    assert np.abs(np.diag(sim) - 1.0).max() <= 1e-4
+    rep, ref = card.evaluate_per_client(), cpu.evaluate_per_client()
+    for key in ("per_client_loss", "per_client_acc", "weighted_acc"):
+        np.testing.assert_allclose(rep[key], ref[key], rtol=1e-4, atol=2e-5)
+    clustered = ClusteredLearner(card)
+    labels = clustered.cluster_and_specialize(warmup_rounds=1, sim_steps=2)
+    assert len(set(labels[:4])) == 1 and len(set(labels[4:])) == 1
+    assert labels[0] != labels[4]
+    clustered.fit(rounds=1)
+    assert all(c.device.type == "cuda" for c in clustered.clusters)
+    assert np.isfinite(clustered.evaluate_per_client()["weighted_loss"])
+
+
+def test_fit_records_on_the_card_carry_memory_and_eval_time(cuda):
+    """On the card a record carries ``hbm_used_gb`` (the memory allocated
+    after the round) and, on evaluated rounds, ``phase_eval_s``."""
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+
+    hist = FederatedLearner(_mlp_config(rounds=2), device=cuda).fit()
+    for rec in hist:
+        assert rec["hbm_used_gb"] >= 0.0 and rec["phase_eval_s"] > 0.0
+        assert rec["phase_update_s"] <= rec["round_time_s"]

@@ -1,5 +1,6 @@
 """Guards of the PyTorch port: its data copies give the JAX package's
-arrays exactly (and its copy of the RDP accountant the same ε), neither it
+arrays exactly (its copy of the RDP accountant the same ε, its copy of
+the mask-cost model the same costs), neither it
 nor its card scripts import anything of JAX or the JAX package, it never
 moves to the CPU on its own, and it refuses what it does not run yet."""
 
@@ -16,12 +17,13 @@ from colearn_federated_learning_tpu.data import partition as jax_partition
 from colearn_federated_learning_tpu.data import registry as jax_registry
 from colearn_federated_learning_tpu.data import sharding as jax_sharding
 from colearn_federated_learning_tpu.privacy import accountant as jax_accountant
+from colearn_federated_learning_tpu.privacy import dropout as jax_dropout
 from colearn_federated_learning_tpu.utils import config as jax_config
 from colearn_federated_learning_tpu_torch.data import partition, registry
 from colearn_federated_learning_tpu_torch.data import sharding
 from colearn_federated_learning_tpu_torch.fed import FederatedLearner
 from colearn_federated_learning_tpu_torch.models import registry as model_registry
-from colearn_federated_learning_tpu_torch.privacy import accountant
+from colearn_federated_learning_tpu_torch.privacy import accountant, dropout
 from colearn_federated_learning_tpu_torch.utils import config
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -103,6 +105,19 @@ def test_accountant_copy_gives_the_jax_epsilon(q):
             assert ours.epsilon(1e-6) == theirs.epsilon(1e-6)
 
 
+@pytest.mark.parametrize("group_size", [0, 1, 5, 50])
+def test_mask_cost_copy_gives_the_jax_costs(group_size):
+    assert dropout.PRG_FLOPS_PER_ELEM == jax_dropout.PRG_FLOPS_PER_ELEM
+    assert dropout.SHARE_PAYLOAD_BYTES == jax_dropout.SHARE_PAYLOAD_BYTES
+    for cohort in (1, 10, 100):
+        for neighbors in (0, 2, 8):
+            kw = dict(cohort=cohort, param_count=1234567,
+                      neighbors=neighbors, group_size=group_size)
+            assert dropout.mask_cost(**kw) == jax_dropout.mask_cost(**kw)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        dropout.mask_cost(cohort=0, param_count=1)
+
+
 def test_chip_smoke_epsilon_is_the_jax_accountants():
     """chip_smoke.py's 7c holds the card run's ε to a constant; it must be
     what JAX's accountant gives for 7c's sampling rate, noise and δ."""
@@ -139,7 +154,7 @@ def test_build_model_without_cuda_raises_instead_of_using_the_cpu(
 
 
 @pytest.mark.parametrize("fed_kw", [
-    dict(lora_rank=4), dict(edge_groups=2), dict(tp_size=2),
+    dict(lora_rank=4), dict(lora_rank=4, edge_groups=2), dict(tp_size=2),
     dict(lora_rank=8, edge_groups=4), dict(strategy="fedsgd")])
 def test_unported_features_raise(fed_kw):
     base = config.get_config("agnews_bert_fedavg")

@@ -285,8 +285,7 @@ def _trajectory(model, num_clients=5, **fed):
         step_bound += 3 * tcfg.fed.lr * tcfg.fed.local_steps
         jr, tr = jl.run_round(), tl.run_round()
         assert tr["completed"] == jr["completed"]
-        assert set(tr) - {"phase_update_s"} == set(jr) - {
-            "phase_update_s", "phase_sync_s"}
+        assert set(tr) == set(jr)     # the JAX record's keys, timings too
         for key in ("train_loss", "total_weight", "dp_clip", "dp_bit_frac",
                     "dp_epsilon", "dp_delta"):
             if key in jr:
