@@ -65,7 +65,24 @@ Phases (any failure exits non-zero; no phase's error is caught):
    labels' agreement with the planted concept is printed, not gated);
    8c ``train --per-client-eval`` on BERT-base for one round, the report
    finite and K1's launches exact with the per-client chunks;
-9. one JSON line of per-kernel results (launches summed over the paths),
+9. the server's fold kernel (B4, ``csrc/fold.cu``) and the file plane:
+   9a the kernel against its plain version BIT FOR BIT (int32 views) at
+   BERT-base's slot layout (198 slots, 108.6 M float32 entries): 10
+   topk8 and 10 topk contributions at 5 % density drawn from a seed,
+   folded from zeros and onto an accumulator, one contribution alone,
+   10 dense contributions, and a -0.0 that must survive; then its device
+   time per launch (CUDA-graph replay), the staging copy's, the plain
+   version's, ``index_add_``'s (the yardstick the port never calls) and
+   the bytes bound, counting the 32-byte sectors a scatter touches; 9b
+   ``init``, 4 silos of ``train --role client --compress topk8``,
+   ``aggregate`` and ``eval`` on BERT-base (flash, 4 local steps)
+   through ``cli.main``, then the 4 update files through
+   ``StreamingFolder(device_fold=True)``, flat and as a two-aggregator
+   tree, each bitwise equal to its host fold, the mean within 1e-6 of
+   ``aggregate``'s mean delta and the new global model the old plus it,
+   with K1-K3's and the fold's launches exact; 9c ``bench`` with its
+   defaults, its JSON line printed;
+10. one JSON line of per-kernel results (launches summed over the paths),
    then the result line.
 
 Needs a CUDA device and the repository beside it; it exits non-zero and
@@ -82,6 +99,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -978,6 +996,390 @@ def slice_phase(A):
     return paths
 
 
+# ------------------------------------------------------------ phase 9 (B4)
+FOLD_KERNELS = {
+    "fold_sparse": "colearn_federated_learning_tpu/ops/fold_kernel.py:239",
+    "fold_dense": "colearn_federated_learning_tpu/ops/fold_kernel.py:269",
+}
+FOLD_SOURCE = "colearn_federated_learning_tpu_torch/csrc/fold.cu"
+FOLD_ROWS = 10                 # contributions per 9a batch
+TOPK_FRACTION = 0.05           # the JAX package's default keep density
+SECTOR = 32                    # bytes the card moves per scattered access
+F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+FILE_PLANE = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
+              "--local-steps", "4"]
+SILOS = 4
+
+
+def sparse_batch(sizes, rows, int8, seed):
+    """``rows`` topk-like contributions over the slot layout ``sizes``:
+    each entry kept with probability TOPK_FRACTION (unique, sorted
+    indices), int8 values with a per-slot scale or float32 values, a
+    float32 weight.  Drawn on the card from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    batch = []
+    for _ in range(rows):
+        keep = torch.rand(int(offs[-1]), generator=g, device="cuda")
+        gidx = torch.nonzero(keep < TOPK_FRACTION).flatten()
+        if int8:
+            vals = torch.randint(-127, 128, gidx.shape, generator=g,
+                                 device="cuda").to(torch.int8)
+        else:
+            vals = torch.randn(gidx.shape, generator=g, device="cuda")
+        gidx, vals = gidx.cpu().numpy(), vals.cpu().numpy()
+        cut = np.searchsorted(gidx, offs)
+        slots = [(gidx[cut[s]:cut[s + 1]] - offs[s], vals[cut[s]:cut[s + 1]],
+                  np.float32(rng.uniform(1e-4, 1e-2)) if int8
+                  else np.float32(1.0)) for s in range(len(sizes))]
+        batch.append((np.float32(rng.uniform(1.0, 300.0)), slots))
+    return batch
+
+
+def plain_sparse(F, kernel, st, acc):
+    """The plain version over a staged batch, contribution by contribution
+    as the kernel's launches go."""
+    n = len(kernel.sizes)
+    for r, w in enumerate(st.weights):
+        set_mode = acc is None
+        if set_mode:
+            acc = torch.zeros(kernel.total, dtype=torch.float32,
+                              device="cuda")
+        F.fold_sparse_reference(
+            acc, st.idx, st.vals, st.begin[r * n:(r + 1) * n + 1],
+            st.scales[r * n:(r + 1) * n], kernel.slot_off,
+            int(st.begin_host[r * n]), int(st.begin_host[(r + 1) * n]),
+            float(w), set_mode)
+    return acc
+
+
+def global_entries(kernel, st, r):
+    """Contribution ``r``'s flat accumulator indices and per-entry scales."""
+    n = len(kernel.sizes)
+    lo, hi = int(st.begin_host[r * n]), int(st.begin_host[(r + 1) * n])
+    e = torch.arange(lo, hi, device="cuda")
+    s = torch.searchsorted(st.begin[r * n:(r + 1) * n + 1], e, right=True) - 1
+    return kernel.slot_off[s] + st.idx[lo:hi], st.scales[r * n:][s], lo, hi
+
+
+def bits_equal(what, got, want):
+    """Hold ``got`` to ``want`` bit for bit (int32 views); returns the max
+    abs difference (0.0)."""
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        raise AssertionError(f"{what}: {bad} entries differ from the plain "
+                             "version")
+    return float((got - want).abs().max())
+
+
+def fold_check_phase(F):
+    """9a: the fold kernel against its plain version at BERT-base's slot
+    layout, bitwise; then its device time, the staging copy's, the plain
+    version's, ``index_add_``'s and the bound."""
+    from colearn_federated_learning_tpu_torch.fed import setup
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    shapes = setup.init_global_params(main_path_config(), "cuda")
+    sizes = [int(np.asarray(l).size) for l in trees.leaves(shapes)]
+    kernel = F.get_kernel(sizes)
+    log(f"  BERT-base layout: {len(sizes)} slots, {kernel.total} f32 entries")
+    errs = {"fold_sparse": 0.0, "fold_dense": 0.0}
+    rows = {}
+    staged = {}
+    for int8, label in ((True, "topk8"), (False, "topk")):
+        t0 = time.perf_counter()
+        batch = sparse_batch(sizes, FOLD_ROWS, int8, 90 + int(int8))
+        t_draw = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st = kernel.stage_sparse(batch)
+        torch.cuda.synchronize()
+        t_stage = time.perf_counter() - t0
+        k = int(st.begin_host[-1])
+        got = kernel.fold_sparse_staged(None, st)
+        want = plain_sparse(F, kernel, st, None)
+        errs["fold_sparse"] = max(errs["fold_sparse"], bits_equal(
+            f"9a {label} x {FOLD_ROWS}", got, want))
+        # Folding on into the accumulator adds, in order.
+        errs["fold_sparse"] = max(errs["fold_sparse"], bits_equal(
+            f"9a {label} onto an accumulator",
+            kernel.fold_sparse_staged(got, st), plain_sparse(F, kernel, st,
+                                                             want)))
+        first = kernel.stage_sparse(batch[:1])
+        bits_equal(f"9a {label} first contribution",
+                   kernel.fold_sparse_staged(None, first),
+                   plain_sparse(F, kernel, first, None))
+        staged[label] = (st, batch)
+        log(f"  {label}: {FOLD_ROWS} contributions of {k / FOLD_ROWS:.0f} "
+            f"entries on average bitwise equal to the plain version (from "
+            f"zeros, onto an accumulator, a first contribution alone); "
+            f"drawn in {t_draw:.2f} s, staged in {t_stage:.2f} s")
+    # A -0.0 assigned first and touched by nothing later survives.
+    empty = [(np.zeros(0, np.int64), np.zeros(0, np.float32),
+              np.float32(1.0))] * len(sizes)
+    zero_first = list(empty)
+    zero_first[0] = (np.array([3], np.int64), np.array([-0.0], np.float32),
+                     np.float32(1.0))
+    later = list(empty)
+    later[0] = (np.array([1], np.int64), np.array([1.5], np.float32),
+                np.float32(1.0))
+    later[5] = (np.array([0, 7], np.int64), np.array([-2.0, 0.25],
+                                                     np.float32),
+                np.float32(1.0))
+    nz = [(np.float32(1.0), zero_first), (np.float32(2.0), later)]
+    st = kernel.stage_sparse(nz)
+    got = kernel.fold_sparse_staged(None, st)
+    bits_equal("9a -0.0", got, plain_sparse(F, kernel, st, None))
+    if not (float(got[3]) == 0.0 and math.copysign(1.0, float(got[3])) < 0):
+        raise AssertionError("9a: the staged -0.0 did not survive")
+    log("  a -0.0 assigned by the first contribution survives the rest")
+
+    # Dense: 10 full-width contributions, adopted then added in order.
+    g = torch.Generator(device="cuda").manual_seed(93)
+    offs = kernel.offsets
+    dense = []
+    for _ in range(FOLD_ROWS):
+        flat = torch.randn(kernel.total, generator=g, device="cuda")
+        flat = flat.cpu().numpy()
+        dense.append([flat[a:b] for a, b in zip(offs[:-1], offs[1:])])
+    t0 = time.perf_counter()
+    x = kernel.stage_dense(dense)
+    torch.cuda.synchronize()
+    t_stage = time.perf_counter() - t0
+    got = kernel.fold_dense_staged(None, x)
+    want = F.fold_dense_reference(torch.empty_like(got), x, True)
+    errs["fold_dense"] = bits_equal(f"9a dense x {FOLD_ROWS}", got, want)
+    bits_equal("9a dense onto an accumulator",
+               kernel.fold_dense_staged(got, x[:2]),
+               F.fold_dense_reference(want, x[:2], False))
+    log(f"  dense: {FOLD_ROWS} contributions of {kernel.total} entries "
+        f"bitwise equal to the plain version (adopted, then onto an "
+        f"accumulator); staged in {t_stage:.2f} s")
+    del dense, got, want
+
+    # Timing.  The kernel by CUDA-graph replay (``device_ms``); the plain
+    # version and ``index_add_`` by events around a host loop (they are
+    # not captured: the plain version's index_put_ sorts).  Sparse times
+    # are per contribution (one launch), onto a standing accumulator.
+    for label in ("topk8", "topk"):
+        st, batch = staged[label]
+        acc = torch.zeros(kernel.total, dtype=torch.float32, device="cuda")
+        ms = device_ms(lambda s: kernel.fold_sparse_staged(acc, s),
+                       [st]) / FOLD_ROWS
+        wrapper = time_ms(lambda: kernel.fold_sparse_staged(acc, st),
+                          iters=5) / FOLD_ROWS
+        plain = time_ms(lambda: plain_sparse(F, kernel, st, acc),
+                        iters=3) / FOLD_ROWS
+        entries = [global_entries(kernel, st, r) for r in range(FOLD_ROWS)]
+        vals = st.vals
+
+        def yardstick():
+            for (gi, sc, lo, hi), w in zip(entries, st.weights):
+                acc.index_add_(0, gi, (vals[lo:hi].float() * sc) * float(w))
+
+        library = time_ms(yardstick, iters=3) / FOLD_ROWS
+        nbytes = int(st.begin_host[-1]) * (8 + vals.element_size())
+        nbytes += sum(SECTOR * 2 * int(torch.unique_consecutive(
+            gi // (SECTOR // 4)).numel()) for gi, *_ in entries)
+        nbytes /= FOLD_ROWS
+        flops = 3 * int(st.begin_host[-1]) / FOLD_ROWS
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        h2d_bytes = (st.idx.numel() * 8 + vals.numel() * vals.element_size()
+                     + st.begin.numel() * 8 + st.scales.numel() * 4)
+        h2d = time_ms(lambda: kernel._pinned[:h2d_bytes].to(
+            "cuda", non_blocking=True), iters=5) / FOLD_ROWS
+        row = {"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
+               "library_ms": library, "h2d_ms": h2d,
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "max_abs_err": errs["fold_sparse"]}
+        log(f"  fold_sparse {label} per contribution: {ms * 1e3:.2f} us "
+            f"device ({row['bound_ms'] / ms:.1%} of bound "
+            f"{row['bound_ms'] * 1e3:.2f} us, {row['bound_by']}: "
+            f"{nbytes / 1e6:.1f} MB with 32-byte sectors); wrapper loop "
+            f"{wrapper * 1e3:.2f} us; H2D staging copy {h2d * 1e3:.2f} us; "
+            f"plain {plain * 1e3:.2f} us; index_add_ {library * 1e3:.2f} us")
+        if label == "topk8":
+            rows["fold_sparse"] = row
+        del entries
+    dense_bytes = x.numel() * 4 + kernel.total * 4
+    ms = device_ms(lambda s: kernel.fold_dense_staged(None, s), [x])
+    out = torch.empty(kernel.total, dtype=torch.float32, device="cuda")
+    plain = time_ms(lambda: F.fold_dense_reference(out, x, True), iters=3)
+    library = device_ms(lambda s: torch.sum(s, dim=0), [x])
+    pinned = kernel._pinned
+    h2d = time_ms(lambda: pinned[:x.numel() * 4].to("cuda", non_blocking=True),
+                  iters=3)
+    t_bytes = dense_bytes / HBM_BYTES_PER_S
+    t_ops = x.numel() / F32_FLOP_PER_S
+    rows["fold_dense"] = {
+        "ms": ms, "wrapper_ms": time_ms(
+            lambda: kernel.fold_dense_staged(None, x), iters=3),
+        "plain_ms": plain, "library_ms": library, "h2d_ms": h2d,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "max_abs_err": errs["fold_dense"]}
+    r = rows["fold_dense"]
+    log(f"  fold_dense, {FOLD_ROWS} rows of {kernel.total}: {ms * 1e3:.2f} us "
+        f"device ({r['bound_ms'] / ms:.1%} of bound "
+        f"{r['bound_ms'] * 1e3:.2f} us, {r['bound_by']}); H2D staging copy "
+        f"{h2d * 1e3:.2f} us; plain {plain * 1e3:.2f} us; torch.sum "
+        f"{library * 1e3:.2f} us; {card()}")
+    return rows
+
+
+def file_plane_path(A, F, workdir):
+    """9b: the file plane at BERT-base width through ``cli.main``: init,
+    SILOS silos of ``train --role client --compress topk8``, aggregate,
+    eval; then the same update files through ``StreamingFolder(device_fold
+    =True)``, flat and as a two-aggregator tree, each bitwise equal to its
+    host fold, the flat mean within 1e-6 of aggregate's mean delta (of its
+    largest entry) and the new global model exactly the old plus that
+    mean.  K1-K3's and the fold's launches are exact."""
+    import os
+
+    from colearn_federated_learning_tpu_torch import cli
+    from colearn_federated_learning_tpu_torch.comm.aggregation import (
+        StreamingFolder)
+    from colearn_federated_learning_tpu_torch.fed import offline
+    from colearn_federated_learning_tpu_torch.utils import trees
+    from colearn_federated_learning_tpu_torch.utils.serialization import (
+        load_pytree_npz)
+
+    g0, g1 = f"{workdir}/global0.npz", f"{workdir}/global1.npz"
+    ups = [f"{workdir}/update{c}.npz" for c in range(SILOS)]
+    fresh_peak()
+    A.reset_launches()
+    F.reset_launches()
+    t0 = time.perf_counter()
+    log("  [file plane] " + " ".join(["init", *FILE_PLANE]))
+    cli.main(["init", *FILE_PLANE, "--out", g0])
+    client_s = []
+    for cid, out in enumerate(ups):
+        t1 = time.perf_counter()
+        stats = cli.main(["train", *FILE_PLANE, "--role", "client",
+                          "--client-id", str(cid), "--global-model", g0,
+                          "--out", out, "--compress", "topk8"])
+        client_s.append(time.perf_counter() - t1)
+        if not (math.isfinite(stats["mean_loss"]) and stats["weight"] > 0):
+            raise AssertionError(f"9b: bad client stats {stats}")
+    t1 = time.perf_counter()
+    agg = cli.main(["aggregate", *FILE_PLANE, "--global-model", g0,
+                    "--updates", *ups, "--out", g1])
+    agg_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ev = cli.main(["eval", *FILE_PLANE, "--global-model", g1])
+    eval_s = time.perf_counter() - t1
+    if not (agg["round"] == 1 and agg["num_updates"] == SILOS
+            and math.isfinite(ev["eval_loss"]) and 0 <= ev["eval_acc"] <= 1):
+        raise AssertionError(f"9b: aggregate {agg}, eval {ev}")
+    torch.cuda.synchronize()
+    launches = dict(A.launches)
+    config = cli.config_from_args(cli.build_parser().parse_args(
+        ["train", *FILE_PLANE]))
+    from colearn_federated_learning_tpu_torch.data import registry
+    n_test = len(registry.get_dataset(config.data.dataset,
+                                      seed=config.run.seed).x_test)
+    depth, steps = config.model.depth, SILOS * config.fed.local_steps
+    eval_batches = math.ceil(n_test / max(config.fed.batch_size, 64))
+    want = {"flash_forward": depth * (steps + eval_batches),
+            "flash_backward_dq": depth * steps,
+            "flash_backward_dkv": depth * steps}
+    if launches != want:
+        raise AssertionError(f"9b: kernel launches {launches}, expected "
+                             f"{want}")
+    size_mb = sum(os.path.getsize(u) for u in ups) / SILOS / 1e6
+    log(f"  [file plane] clients {[round(t, 2) for t in client_s]} s "
+        f"(update files {size_mb:.1f} MB each); aggregate {agg_s:.2f} s; "
+        f"eval {eval_s:.2f} s: loss {ev['eval_loss']:.6f} acc "
+        f"{ev['eval_acc']:.4f}; launches {launches} (exact)")
+
+    # The same files through the folders, host and on the card.
+    params, _ = load_pytree_npz(g0)
+    files = [load_pytree_npz(u) for u in ups]
+    order = [str(c) for c in range(SILOS)]
+
+    def folder(device_fold, subset=None, **kw):
+        f = StreamingFolder(params, order=order, device_fold=device_fold,
+                            **kw)
+        for wire, meta in (files if subset is None
+                           else [files[c] for c in subset]):
+            f.add(dict(meta), wire)
+        f.finalize()
+        return f
+
+    def same(what, a, b):
+        if not (a.total_w == b.total_w and a.loss_sum == b.loss_sum
+                and all(x.tobytes() == y.tobytes() for x, y in
+                        zip(trees.leaves(a.wsum), trees.leaves(b.wsum)))):
+            raise AssertionError(f"9b: {what} differs from the host fold")
+
+    t1 = time.perf_counter()
+    host = folder(False)
+    host_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    dev = folder(True)
+    dev_s = time.perf_counter() - t1
+    same("the device fold", dev, host)
+    mean, total_w, _ = dev.mean()
+    ref = offline.mean_update(config, params, 0, ups)
+    if ref["accepted"] != SILOS or ref["total_weight"] != total_w:
+        raise AssertionError(f"9b: aggregate's fold {ref['accepted']} / "
+                             f"{ref['total_weight']}")
+    ref_mean = [t.cpu().numpy() for t in trees.leaves(ref["mean_delta"])]
+    top = max(float(np.abs(m).max()) for m in ref_mean)
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(trees.leaves(mean), ref_mean))
+    if err > 1e-6 * top:
+        raise AssertionError(f"9b: folder mean vs aggregate's mean delta "
+                             f"{err} > 1e-6 x {top}")
+    new, _ = load_pytree_npz(g1)
+    lr = np.float32(config.fed.server_lr)
+    if not all(np.array_equal(n, p + m * lr)
+               for n, p, m in zip(trees.leaves(new), trees.leaves(params),
+                                  ref_mean)):
+        raise AssertionError("9b: the new global model is not the old plus "
+                             "the mean delta")
+    # Two aggregators fold two files each; the root folds their partials.
+    halves = [list(range(SILOS // 2)), list(range(SILOS // 2, SILOS))]
+    root = StreamingFolder(params, order=["agg:0", "agg:1"],
+                           device_fold=True)
+    for i, half in enumerate(halves):
+        leaf = folder(True, half)
+        root.add_partial(f"agg:{i}", leaf.total_w, leaf.wsum, leaf.loss_sum,
+                         count=len(half))
+    root.finalize()
+    same("the two-aggregator tree", root,
+         folder(False, slices=[[str(c) for c in h] for h in halves]))
+    torch.cuda.synchronize()
+    fold_launches = dict(F.launches)
+    want = {"fold_sparse": 2 * SILOS, "fold_dense": 1}
+    if fold_launches != want:
+        raise AssertionError(f"9b: fold launches {fold_launches}, expected "
+                             f"{want}")
+    log(f"  [file plane] StreamingFolder: host {host_s:.2f} s, device "
+        f"{dev_s:.2f} s, bitwise equal; mean vs aggregate's {err:.3e} "
+        f"(bound 1e-6 x {top:.3e}); tree bitwise equal to the sliced host "
+        f"fold; fold launches {fold_launches} (exact); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; path "
+        f"{time.perf_counter() - t0:.2f} s; cuts: local_steps 150 -> 4, "
+        f"{SILOS} silos")
+    return {**launches, **fold_launches}
+
+
+def bench_path():
+    """9c: the port's ``bench`` with its defaults on the card."""
+    from colearn_federated_learning_tpu_torch import cli
+
+    out = cli.main(["bench"])
+    if not (out["platform"] == "gpu" and out["value"] > 0
+            and out["metric"] == "fedavg_cifar10_cnn_rounds_per_sec"
+            and out["vs_baseline"] > 0 and out.get("card")):
+        raise AssertionError(f"9c: bad bench line {out}")
+    return out
+
+
 def build_phase(_build):
     """Build the kernels; report each head-dim-64 instantiation's registers,
     spills and blocks per SM, and fail if any instantiation spills."""
@@ -1062,12 +1464,33 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(slice_phase(A))
     log(f"  phase 8 in {time.perf_counter() - t0:.2f} s")
+    log("phase 9: the fold kernel and the file plane")
+    from colearn_federated_learning_tpu_torch.ops import fold as F
+
+    t0 = time.perf_counter()
+    rows.update(fold_check_phase(F))
+    log(f"  9a in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    # The global models and update files (~1.1 GB) go to a temporary
+    # directory inside the gitignored build directory, removed afterwards.
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        paths["file_plane"] = file_plane_path(A, F, workdir)
+    log(f"  9b in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    bench_path()
+    log(f"  9c in {time.perf_counter() - t0:.2f} s")
     log("launches per path " + json.dumps(paths))
 
-    kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=rep,
-                    launches=sum(p[name] for p in paths.values()),
+    sources = {**{name: (SOURCE, rep) for name, (rep, _) in KERNELS.items()},
+               **{name: (FOLD_SOURCE, rep)
+                  for name, rep in FOLD_KERNELS.items()}}
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=sum(p.get(name, 0) for p in paths.values()),
                     status="ok", **rows[name])
-               for name, (rep, _) in KERNELS.items()]
+               for name, (src, rep) in sources.items()]
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on their paths: {idle}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

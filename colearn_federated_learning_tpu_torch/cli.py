@@ -1,18 +1,24 @@
-"""Command line of the PyTorch port: ``train``.
+"""Command line of the PyTorch port: ``train``, ``init``, ``aggregate``,
+``eval`` and ``bench``.
 
     python -m colearn_federated_learning_tpu_torch.cli train --config NAME \\
         [--backend gpu|cpu] [overrides]
 
-The counterpart of the JAX package's ``colearn train`` (its
-``config_from_args`` and ``cmd_train``) for what this package runs: the
+The counterpart of the JAX package's ``colearn`` command line (its
+``config_from_args``, ``cmd_train``, ``cmd_init``, ``cmd_aggregate``,
+``cmd_eval`` and ``cmd_bench``) for what this package runs: the
 single-device federated round with every strategy, DP (fixed or adaptive
 clipping, with the RDP accountant), secure aggregation and the robust
 aggregators; hierarchical edge → cloud federation (``--edge-groups`` >= 2,
-``--edge-sync-period``); and, on the flat path, a per-client evaluation
-of the final model (``--per-client-eval``, its report on stderr).  The run goes on the card (``--backend gpu``, the default,
-which raises without one) or, only when asked, on the CPU.  Each round's
-record goes to stderr as one JSON line and the final summary to stdout,
-as in the JAX package; :func:`main` also returns the summary.
+``--edge-sync-period``); on the flat path, a per-client evaluation of the
+final model (``--per-client-eval``, its report on stderr); the file plane
+(``init``, ``train --role client`` with ``--compress``, ``aggregate``,
+``eval``; ``fed/offline.py``); and the headline benchmark (``bench``).
+Everything runs on the card (``--backend gpu``, the default, which raises
+without one) or, only when asked, on the CPU.  ``train`` writes each
+round's record to stderr as one JSON line and its summary to stdout, as in
+the JAX package; every command prints its result as one JSON line on
+stdout, and :func:`main` returns it.
 
 A flag of the JAX command line whose feature is not ported yet is
 accepted by the parser and refused: the run exits with status 2 and names
@@ -38,35 +44,30 @@ _FED_KEYS = {"rounds", "cohort_size", "local_epochs", "local_steps",
              "dp_noise_multiplier", "dp_delta", "dp_adaptive_clip",
              "dp_target_quantile", "dp_clip_lr", "dp_bit_noise",
              "secure_agg", "secure_agg_neighbors", "straggler_prob",
-             "edge_groups", "edge_sync_period"}
+             "edge_groups", "edge_sync_period", "compress",
+             "compress_feedback", "topk_fraction", "min_cohort_fraction"}
 _DATA_KEYS = {"num_clients", "dataset", "partition", "dirichlet_alpha"}
 _MODEL_KEYS = {"attn_impl", "width", "stem", "norm"}
 _RUN_KEYS = {"seed", "eval_every", "log_every"}
 
 _LORA = "ROADMAP.md Queue A item 5 (LoRA)"
 _TP_SP = "ROADMAP.md Queue A item 7 (TP and SP)"
-_COMM = "ROADMAP.md Queue A item 8 (the fold kernel and the comm/ planes)"
+_COMM = "ROADMAP.md Queue A item 8 (the socket planes and faults/)"
 _CKPT = "ROADMAP.md Queue A item 9 (fleetsim and checkpoints)"
 _OBS = "ROADMAP.md Queue A item 10 (telemetry, tracing and evaluation extras)"
 
-# dest -> (flag, argparse kwargs, the ROADMAP item that ports it)
+# dest -> (flag, argparse kwargs, the ROADMAP item that ports it): the
+# override flags every subcommand takes, and those of ``train`` alone.
 _UNPORTED = {
     "lora_rank": ("--lora-rank", dict(type=int), _LORA),
     "lora_alpha": ("--lora-alpha", dict(type=float), _LORA),
     "lora_merge_every": ("--lora-merge-every", dict(type=int), _LORA),
     "tp_size": ("--tp-size", dict(type=int), _TP_SP),
     "remat": ("--remat", dict(action="store_true"), _TP_SP),
-    "role": ("--role", dict(choices=["sim", "client"]), _COMM),
-    "compress": ("--compress", dict(), _COMM),
     "compress_down": ("--compress-down", dict(), _COMM),
-    "compress_feedback": ("--compress-feedback",
-                          dict(action="store_true"), _COMM),
-    "topk_fraction": ("--topk-fraction", dict(type=float), _COMM),
     "topk_adaptive": ("--topk-adaptive", dict(action="store_true"), _COMM),
     "fold_device": ("--fold-device", dict(action="store_true"), _COMM),
     "num_aggregators": ("--num-aggregators", dict(type=int), _COMM),
-    "min_cohort_fraction": ("--min-cohort-fraction", dict(type=float),
-                            _COMM),
     "fault_plan": ("--fault-plan", dict(), _COMM),
     "fault_seed": ("--fault-seed", dict(type=int), _COMM),
     "topk_min_fraction": ("--topk-min-fraction", dict(type=float), _COMM),
@@ -81,14 +82,9 @@ _UNPORTED = {
     "comm_backoff_max": ("--comm-backoff-max", dict(type=float), _COMM),
     "worker_enroll_timeout": ("--worker-enroll-timeout", dict(type=float),
                               _COMM),
-    "client_id": ("--client-id", dict(type=int), _COMM),
-    "global_model": ("--global-model", dict(), _COMM),
-    "out": ("--out", dict(), _COMM),
-    "residual_path": ("--residual-path", dict(), _COMM),
     "checkpoint_dir": ("--checkpoint-dir", dict(), _CKPT),
     "checkpoint_every": ("--checkpoint-every", dict(type=int), _CKPT),
     "ckpt_stream": ("--ckpt-stream", dict(action="store_true"), _CKPT),
-    "resume": ("--resume", dict(action="store_true"), _CKPT),
     "trace_dir": ("--trace-dir", dict(), _OBS),
     "trace_rounds": ("--trace-rounds", dict(type=int), _OBS),
     "profile_dir": ("--profile-dir", dict(), _OBS),
@@ -96,17 +92,16 @@ _UNPORTED = {
     "tensorboard_dir": ("--tensorboard-dir", dict(), _OBS),
     "health_dir": ("--health-dir", dict(), _OBS),
     "learn_observe": ("--learn-observe", dict(action="store_true"), _OBS),
+}
+_UNPORTED_TRAIN = {
+    "resume": ("--resume", dict(action="store_true"), _CKPT),
     "personalize_steps": ("--personalize-steps", dict(type=int), _OBS),
     "detection_eval": ("--detection-eval", dict(action="store_true"), _OBS),
 }
 
 
-def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(
-        prog="python -m colearn_federated_learning_tpu_torch.cli",
-        description="colearn on PyTorch (the CUDA port)")
-    sub = parser.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("train", help="run federated training")
+def _add_override_flags(p: argparse.ArgumentParser) -> None:
+    """The config overrides every subcommand but ``bench`` takes."""
     p.add_argument("--config", default="mnist_mlp_fedavg",
                    help=f"experiment config; one of {sorted(CONFIGS)}")
     p.add_argument("--backend", choices=["gpu", "cpu"], default="gpu",
@@ -160,16 +155,73 @@ def build_parser() -> argparse.ArgumentParser:
                    help=">= 2 turns on hierarchical edge->cloud federation "
                         "(fed/hierarchical.py)")
     p.add_argument("--edge-sync-period", type=int, default=None)
-    p.add_argument("--per-client-eval", action="store_true", default=None,
-                   help="report the final model's per-client accuracy "
-                        "spread (stderr)")
     p.add_argument("--attn-impl", default=None, choices=["dense", "flash"])
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--stem", default=None, choices=["conv", "space_to_depth"])
     p.add_argument("--norm", default=None, choices=["group", "none"])
-    for dest, (flag, kwargs, _) in _UNPORTED.items():
+    p.add_argument("--compress", default=None,
+                   help="uplink codec of train --role client's update file "
+                        "(none|int8|topk|topk8)")
+    p.add_argument("--compress-feedback", action="store_true", default=None,
+                   help="train --role client: carry the compression "
+                        "residual to the next round (--residual-path)")
+    p.add_argument("--topk-fraction", type=float, default=None,
+                   help="keep density of the topk codecs")
+    p.add_argument("--min-cohort-fraction", type=float, default=None,
+                   help="aggregate: the share of update files that must "
+                        "be usable for the round to commit")
+    _add_unported(p, _UNPORTED)
+
+
+def _add_unported(p: argparse.ArgumentParser, flags: dict) -> None:
+    for dest, (flag, kwargs, _) in flags.items():
         p.add_argument(flag, dest=dest, default=None,
                        help="not ported yet (refused)", **kwargs)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from colearn_federated_learning_tpu_torch import bench
+
+    parser = argparse.ArgumentParser(
+        prog="python -m colearn_federated_learning_tpu_torch.cli",
+        description="colearn on PyTorch (the CUDA port)")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("train", help="run federated training")
+    _add_override_flags(p)
+    p.add_argument("--role", choices=["sim", "client"], default="sim")
+    p.add_argument("--client-id", type=int, default=None)
+    p.add_argument("--global-model", default=None,
+                   help="global model npz (client role)")
+    p.add_argument("--out", default=None,
+                   help="update npz to write (client role)")
+    p.add_argument("--residual-path", default=None,
+                   help="client role: persist the uplink error-feedback "
+                        "compression residual here across file-plane "
+                        "rounds (--compress-feedback)")
+    p.add_argument("--per-client-eval", action="store_true", default=None,
+                   help="report the final model's per-client accuracy "
+                        "spread (stderr)")
+    _add_unported(p, _UNPORTED_TRAIN)
+
+    p = sub.add_parser("init", help="write an initial global model file")
+    _add_override_flags(p)
+    p.add_argument("--out", required=True)
+
+    p = sub.add_parser("aggregate",
+                       help="fold client update files into a new global model")
+    _add_override_flags(p)
+    p.add_argument("--global-model", required=True)
+    p.add_argument("--updates", nargs="+", required=True)
+    p.add_argument("--out", required=True)
+
+    p = sub.add_parser("eval", help="evaluate a global model file")
+    _add_override_flags(p)
+    p.add_argument("--global-model", required=True)
+    p.add_argument("--detection-eval", action="store_true", default=None,
+                   help="not ported yet (refused)")
+
+    sub.add_parser("bench", help="run the headline benchmark",
+                   parents=[bench.build_parser(add_help=False)])
     return parser
 
 
@@ -192,9 +244,9 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
 def refuse_unported(args: argparse.Namespace) -> None:
     """Exit with status 2, naming the ROADMAP items, if any flag of a
     feature that is not ported yet was given."""
-    given = [(flag, item) for dest, (flag, _, item) in _UNPORTED.items()
-             if getattr(args, dest) not in (None, False)
-             and not (dest == "role" and args.role == "sim")]
+    flags = {**_UNPORTED, **_UNPORTED_TRAIN}
+    given = [(flag, item) for dest, (flag, _, item) in flags.items()
+             if getattr(args, dest, None) not in (None, False)]
     if given:
         for flag, item in given:
             print(f"{flag} is not ported to the PyTorch package yet; "
@@ -290,16 +342,67 @@ def train(args: argparse.Namespace,
     return out
 
 
+def _device(args: argparse.Namespace) -> str:
+    return "cuda" if args.backend == "gpu" else "cpu"
+
+
+def client(args: argparse.Namespace) -> dict:
+    """``train --role client``: one silo's round against a global-model
+    file, its update written to ``--out`` (``fed/offline.client_update``)."""
+    from colearn_federated_learning_tpu_torch.fed import offline
+
+    if args.client_id is None or not args.global_model or not args.out:
+        print("train --role client requires --client-id, --global-model, "
+              "--out", file=sys.stderr)
+        raise SystemExit(2)
+    return offline.client_update(
+        config_from_args(args), args.client_id, args.global_model, args.out,
+        residual_path=args.residual_path, device=_device(args))
+
+
+def init(args: argparse.Namespace) -> dict:
+    from colearn_federated_learning_tpu_torch.fed import offline
+
+    offline.init_global_model(config_from_args(args), args.out,
+                              device=_device(args))
+    return {"out": args.out, "round": 0}
+
+
+def aggregate(args: argparse.Namespace) -> dict:
+    from colearn_federated_learning_tpu_torch.fed import offline
+
+    return offline.aggregate_updates(config_from_args(args),
+                                     args.global_model, args.updates,
+                                     args.out, device=_device(args))
+
+
+def evaluate(args: argparse.Namespace) -> dict:
+    from colearn_federated_learning_tpu_torch.fed import offline
+
+    return offline.evaluate_global(config_from_args(args), args.global_model,
+                                   device=_device(args))
+
+
 def main(argv: Optional[list] = None,
          on_round: Optional[Callable] = None) -> dict:
-    """Parse ``argv``, run the command and print its summary as one JSON
-    line on stdout; returns the summary."""
+    """Parse ``argv``, run the command and print its result as one JSON
+    line on stdout (``bench`` prints its own); returns the result.
+    ``on_round`` is :func:`train`'s."""
     args = build_parser().parse_args(argv)
-    refuse_edge_unsupported(args, config_from_args(args))
+    if args.cmd == "bench":
+        from colearn_federated_learning_tpu_torch import bench
+
+        return bench.run(args)
+    if args.cmd == "train":
+        refuse_edge_unsupported(args, config_from_args(args))
     refuse_unported(args)
-    summary = train(args, on_round)
-    print(json.dumps(summary), flush=True)
-    return summary
+    if args.cmd == "train" and args.role == "client":
+        result = client(args)
+    else:
+        result = {"train": lambda a: train(a, on_round), "init": init,
+                  "aggregate": aggregate, "eval": evaluate}[args.cmd](args)
+    print(json.dumps(result), flush=True)
+    return result
 
 
 if __name__ == "__main__":

@@ -294,13 +294,16 @@ class FederatedLearner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run_round(self) -> dict:
+    def run_round(self, sync: bool = True) -> dict:
         """One federated round; returns its metrics (one host sync).
 
         ``phase_update_s`` runs from the cohort draw until the card has
         finished the round; ``phase_sync_s`` is the metrics' copy to the
         host; under SCAFFOLD ``phase_cohort_sample_s`` is the cohort draw,
-        as in the JAX record."""
+        as in the JAX record.  ``sync=False`` leaves the metrics on the
+        device and does not wait for the card, so rounds queue back to
+        back (``phase_update_s`` is then the host's time to queue the
+        round); :meth:`finalize_history` turns them into floats."""
         r = len(self.history)
         t0 = time.perf_counter()
         sel = programs.sample_cohort(self, r)
@@ -308,9 +311,11 @@ class FederatedLearner:
         metrics = programs.run_round(self, r, sel)
         if self.adaptive_clip:
             self.dp_clip = metrics["dp_clip"]
-        self._sync()
+        if sync:
+            self._sync()
         t1 = time.perf_counter()
-        out = {k: float(v) for k, v in metrics.items()}
+        out = ({k: float(v) for k, v in metrics.items()} if sync
+               else dict(metrics))
         out["round"] = r
         out["phase_update_s"] = t1 - t0
         out["phase_sync_s"] = time.perf_counter() - t1
@@ -322,6 +327,13 @@ class FederatedLearner:
             out["dp_delta"] = self.accountant.delta
         self.history.append(out)
         return out
+
+    def finalize_history(self) -> list[dict]:
+        """Turn the device metrics of ``sync=False`` rounds into floats
+        (waits for the card)."""
+        self.history = [{k: (float(v) if isinstance(v, torch.Tensor) else v)
+                         for k, v in rec.items()} for rec in self.history]
+        return self.history
 
     def evaluate(self) -> tuple[float, float]:
         """(mean loss, accuracy) of the global model on the test set."""

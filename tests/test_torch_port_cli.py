@@ -3,7 +3,11 @@
 do, a run on the CPU gives the round of ``FederatedLearner`` called
 directly, a flag of a feature not ported yet exits non-zero naming its
 ROADMAP item, and the default backend is the card, which raises without
-one.  The parser accepts every flag of the JAX ``train`` parser; the
+one.  The parser accepts every flag of the JAX ``train``, ``init``,
+``aggregate``, ``eval`` and ``bench`` parsers; the file plane's flags
+(``--role client``, ``--compress*``, ``--topk-fraction``,
+``--min-cohort-fraction`` and the client's files) do in ``--role sim``
+what they do in JAX, which is nothing beyond the config; the
 hierarchical path (``--edge-groups``) prints JAX's summary keys and
 refuses what JAX's refuses with its message; ``--per-client-eval`` dumps
 JAX's report; the summary's rates are over the ``--log-every`` records."""
@@ -51,7 +55,9 @@ def test_train_on_the_cpu_matches_the_learner(capsys):
      "--eval-every", "3", "--straggler-prob", "0.2"],
     ["--aggregator", "krum", "--trim-fraction", "0.2", "--partition",
      "dirichlet", "--dirichlet-alpha", "0.3", "--width", "48"],
-    ["--edge-groups", "2", "--edge-sync-period", "3", "--log-every", "2"]])
+    ["--edge-groups", "2", "--edge-sync-period", "3", "--log-every", "2"],
+    ["--compress", "topk8", "--compress-feedback", "--topk-fraction", "0.2",
+     "--min-cohort-fraction", "0.5"]])
 def test_overrides_reach_the_config_as_in_jax(extra):
     ours = cli.config_from_args(cli.build_parser().parse_args(
         ["train", *TINY, *extra]))
@@ -68,8 +74,8 @@ def test_overrides_reach_the_config_as_in_jax(extra):
 @pytest.mark.parametrize("flag,item", [
     (["--lora-rank", "4"], "item 5"),
     (["--lora-alpha", "8", "--edge-groups", "2"], "item 5"),
-    (["--tp-size", "2"], "item 7"), (["--compress", "topk"], "item 8"),
-    (["--role", "client"], "item 8"), (["--checkpoint-dir", "ck"], "item 9"),
+    (["--tp-size", "2"], "item 7"), (["--compress-down", "int8"], "item 8"),
+    (["--fold-device"], "item 8"), (["--checkpoint-dir", "ck"], "item 9"),
     (["--resume"], "item 9"), (["--trace-dir", "tr"], "item 10"),
     (["--profile-dir", "pr"], "item 10")])
 def test_unported_override_exits_naming_its_roadmap_item(flag, item, capsys):
@@ -103,15 +109,15 @@ def test_every_jax_train_flag_is_accepted():
     assert jax_flags <= ours, sorted(jax_flags - ours)
 
 
-# The flags of the JAX train parser that belong to the file, wire and fold
-# planes, with a value of their type.
+# The flags of the JAX train parser that belong to the socket planes and
+# faults/, with a value of their type.
 COMM_FLAGS = [
     ("--agg-buffer-interval", "1.5"), ("--agg-heartbeat-timeout", "2.0"),
-    ("--client-id", "3"), ("--comm-backoff-base", "0.1"),
+    ("--num-aggregators", "3"), ("--comm-backoff-base", "0.1"),
     ("--comm-backoff-max", "1.0"), ("--comm-retries", "4"),
     ("--evict-after", "2"), ("--fault-seed", "9"),
-    ("--global-model", "g.npz"), ("--out", "u.npz"),
-    ("--residual-path", "r.npz"), ("--topk-max-fraction", "0.3"),
+    ("--fault-plan", "plan.json"), ("--compress-down", "int8"),
+    ("--compress-down", "topk8"), ("--topk-max-fraction", "0.3"),
     ("--topk-min-fraction", "0.02"), ("--worker-enroll-timeout", "5.0")]
 
 
@@ -193,3 +199,52 @@ def test_summary_rates_are_over_the_logged_rounds(capsys):
     jax_summary = _last_json(capsys.readouterr().out)
     assert jax_summary["rounds"] == summary["rounds"]
     assert set(jax_summary) <= set(summary)
+
+
+def _jax_flags(cmd: str) -> set:
+    out = io.StringIO()
+    with redirect_stdout(out), pytest.raises(SystemExit):
+        jax_cli.main([cmd, "--help"])
+    return set(re.findall(r"^  (--[a-z][a-z0-9-]*)", out.getvalue(), re.M))
+
+
+@pytest.mark.parametrize("cmd", ["init", "aggregate", "eval", "bench"])
+def test_every_jax_flag_of_the_file_plane_and_bench_is_accepted(cmd):
+    ours = set(cli.build_parser()._subparsers._group_actions[0]
+               .choices[cmd]._option_string_actions)
+    theirs = _jax_flags(cmd)
+    assert theirs and theirs <= ours, sorted(theirs - ours)
+
+
+def test_file_plane_flags_in_sim_run_the_plain_round(capsys):
+    """``--role sim`` with the file plane's flags trains exactly as without
+    them: the in-process round never reads them, in JAX either."""
+    extra = ["--client-id", "3", "--global-model", "g.npz", "--out", "u.npz",
+             "--residual-path", "r.npz", "--compress", "topk8",
+             "--compress-feedback", "--topk-fraction", "0.2",
+             "--min-cohort-fraction", "0.5", "--role", "sim"]
+    with_flags = cli.main(["train", "--backend", "cpu", *TINY, *extra])
+    plain = cli.main(["train", "--backend", "cpu", *TINY])
+    capsys.readouterr()
+    assert with_flags["final_loss"] == plain["final_loss"]
+    assert with_flags["acc_at_round"] == plain["acc_at_round"]
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["eval", "--global-model", "g.npz", "--detection-eval"], "item 10"),
+    (["init", "--out", "g.npz", "--lora-rank", "4"], "item 5"),
+    (["aggregate", "--global-model", "g.npz", "--updates", "u.npz", "--out",
+      "g1.npz", "--fault-plan", "p.json"], "item 8"),
+    (["train", "--role", "client", "--client-id", "0", "--global-model",
+      "g.npz", "--out", "u.npz", "--fold-device"], "item 8")])
+def test_file_plane_refusals_name_their_items(argv, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main([argv[0], "--backend", "cpu", *argv[1:]])
+    assert exc.value.code == 2
+    assert f"ROADMAP.md Queue A {item}" in capsys.readouterr().err
+
+
+def test_file_plane_commands_raise_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["init", "--out", str(tmp_path / "g.npz")])

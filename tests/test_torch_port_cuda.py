@@ -1,5 +1,5 @@
-"""The flash-attention CUDA kernels (K1-K3) against their plain PyTorch
-versions, every model family's bf16 logits against the same model in
+"""The flash-attention CUDA kernels (K1-K3) and the fold kernel (B4)
+against their plain PyTorch versions (the fold bit for bit), every model family's bf16 logits against the same model in
 f32 on the CPU, and the hierarchical sync, update similarity and
 per-client evaluation against the CPU, on the card.  Marked ``cuda``: without a CUDA device every
 test here skips.  On a machine with the card (no JAX needed):
@@ -18,11 +18,13 @@ and the kernels round in other places than the CPU's plain ops.
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from colearn_federated_learning_tpu_torch.models import registry
 from colearn_federated_learning_tpu_torch.ops import attention as A
+from colearn_federated_learning_tpu_torch.ops import fold
 from colearn_federated_learning_tpu_torch.utils.config import ModelConfig
 
 pytestmark = pytest.mark.cuda
@@ -368,3 +370,110 @@ def test_fit_records_on_the_card_carry_memory_and_eval_time(cuda):
     for rec in hist:
         assert rec["hbm_used_gb"] >= 0.0 and rec["phase_eval_s"] > 0.0
         assert rec["phase_update_s"] <= rec["round_time_s"]
+
+
+# ---------------------------------------------------------------- fold (B4)
+FOLD_SIZES = [4096, 37, 1, 12345, 768, 6]
+
+
+def _fold_batch(rng, sizes, rows, vdt, frac=0.2):
+    """``rows`` sparse contributions over ``sizes``: unique sorted indices,
+    int8 or float32 values, per-slot scales, float32 weights."""
+    batch = []
+    for _ in range(rows):
+        slots = []
+        for n in sizes:
+            k = max(1, int(n * frac))
+            idx = np.sort(rng.choice(n, k, replace=False)).astype(np.int64)
+            if vdt == np.int8:
+                vals = rng.integers(-127, 128, k).astype(np.int8)
+                scale = np.float32(rng.uniform(1e-4, 1e-2))
+            else:
+                vals = rng.standard_normal(k).astype(np.float32)
+                scale = np.float32(1.0)
+            slots.append((idx, vals, scale))
+        batch.append((np.float32(rng.uniform(1.0, 300.0)), slots))
+    return batch
+
+
+def _bits(t):
+    return t.detach().cpu().contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("vdt", [np.int8, np.float32])
+def test_fold_sparse_kernel_is_bitwise_its_plain_version(cuda, vdt):
+    rng = np.random.default_rng(5)
+    batch = _fold_batch(rng, FOLD_SIZES, 5, vdt)
+    # A -0.0 assigned by the first contribution at an index no later one
+    # touches must survive.
+    if vdt == np.float32:
+        batch[0][1][0][1][0] = -0.0
+        for _, slots in batch[1:]:
+            idx, vals, s = slots[0]
+            keep = idx != batch[0][1][0][0][0]
+            slots[0] = (idx[keep], vals[keep], s)
+    card, host = fold.FoldKernel(FOLD_SIZES, cuda), fold.FoldKernel(
+        FOLD_SIZES, "cpu")
+    fold.reset_launches()
+    got = card.fold_sparse(None, batch)
+    torch.cuda.synchronize()
+    assert fold.launches["fold_sparse"] == len(batch)
+    want = host.fold_sparse(None, batch)
+    assert torch.equal(_bits(got), _bits(want))
+    # Folding on into a given accumulator adds, in order.
+    more = _fold_batch(rng, FOLD_SIZES, 3, vdt)
+    assert torch.equal(_bits(card.fold_sparse(got, more)),
+                       _bits(host.fold_sparse(want, more)))
+
+
+@pytest.mark.parametrize("sizes", [FOLD_SIZES, [4096, 8, 12]])
+def test_fold_dense_kernel_is_bitwise_its_plain_version(cuda, sizes):
+    rng = np.random.default_rng(6)
+    batch = [[rng.standard_normal(n).astype(np.float32) for n in sizes]
+             for _ in range(4)]
+    card, host = fold.FoldKernel(sizes, cuda), fold.FoldKernel(sizes, "cpu")
+    fold.reset_launches()
+    got = card.fold_dense(None, batch)
+    got = card.fold_dense(got, batch[:2])
+    torch.cuda.synchronize()
+    assert fold.launches["fold_dense"] == 2
+    want = host.fold_dense(host.fold_dense(None, batch), batch[:2])
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_streaming_folder_on_the_card_is_bitwise_the_host_fold(cuda):
+    from colearn_federated_learning_tpu_torch.comm.aggregation import (
+        StreamingFolder)
+    from colearn_federated_learning_tpu_torch.fed import compression
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    shapes = {"a": {"kernel": np.zeros((64, 32), np.float32),
+                    "bias": np.zeros(32, np.float32)},
+              "b": {"scale": np.zeros(7, np.float32)}}
+    folds = []
+    for device_fold in (False, True):
+        f = StreamingFolder(shapes, order=[str(i) for i in range(5)],
+                            device_fold=device_fold, device=cuda)
+        for i, scheme in enumerate(["topk8", "topk", "none", "topk8",
+                                    "int8"]):
+            d = trees.map_leaves(lambda w: np.random.default_rng(
+                40 + i).standard_normal(w.shape).astype(np.float32), shapes)
+            wire, meta = compression.compress_delta(d, scheme,
+                                                    topk_fraction=0.1)
+            f.add({"client_id": str(i), "weight": 1.0 + i, **meta}, wire)
+        f.finalize()
+        folds.append(f)
+    host, dev = folds
+    assert host.total_w == dev.total_w
+    assert ([l.tobytes() for l in trees.leaves(host.wsum)]
+            == [l.tobytes() for l in trees.leaves(dev.wsum)])
+
+
+def test_fold_rejects_an_index_outside_its_slot(cuda):
+    k = fold.FoldKernel([8, 4], cuda)
+    bad = [(np.float32(1.0), [(np.array([1], np.int64),
+                               np.ones(1, np.float32), np.float32(1.0)),
+                              (np.array([4], np.int64),
+                               np.ones(1, np.float32), np.float32(1.0))])]
+    with pytest.raises(IndexError, match="slot 1"):
+        k.fold_sparse(None, bad)

@@ -1,30 +1,38 @@
 """Guards of the PyTorch port: its data copies give the JAX package's
 arrays exactly (its copy of the RDP accountant the same ε, its copy of
-the mask-cost model the same costs), neither it
+the mask-cost model the same costs, its copies of the serialization and
+compression the same bytes, its bench the same baseline), neither it
 nor its card scripts import anything of JAX or the JAX package, it never
 moves to the CPU on its own, and it refuses what it does not run yet."""
 
 import ast
 import dataclasses
 import importlib.util
+import inspect
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from colearn_federated_learning_tpu import bench as jax_bench
 from colearn_federated_learning_tpu.data import partition as jax_partition
 from colearn_federated_learning_tpu.data import registry as jax_registry
 from colearn_federated_learning_tpu.data import sharding as jax_sharding
 from colearn_federated_learning_tpu.privacy import accountant as jax_accountant
 from colearn_federated_learning_tpu.privacy import dropout as jax_dropout
+from colearn_federated_learning_tpu.fed import compression as jax_compression
 from colearn_federated_learning_tpu.utils import config as jax_config
+from colearn_federated_learning_tpu.utils import (
+    serialization as jax_serialization)
+from colearn_federated_learning_tpu_torch import bench
 from colearn_federated_learning_tpu_torch.data import partition, registry
 from colearn_federated_learning_tpu_torch.data import sharding
 from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+from colearn_federated_learning_tpu_torch.fed import compression
 from colearn_federated_learning_tpu_torch.models import registry as model_registry
 from colearn_federated_learning_tpu_torch.privacy import accountant, dropout
-from colearn_federated_learning_tpu_torch.utils import config
+from colearn_federated_learning_tpu_torch.utils import config, serialization
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "colearn_federated_learning_tpu")
@@ -73,10 +81,17 @@ def _imports(path: Path):
             yield node.module
 
 
+NEW_MODULES = ["bench.py", "comm/aggregation.py", "fed/compression.py",
+               "fed/offline.py", "fed/setup.py", "ops/fold.py",
+               "utils/serialization.py", "utils/trees.py"]
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((ROOT / "colearn_federated_learning_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    pkg = ROOT / "colearn_federated_learning_tpu_torch"
+    assert {pkg / m for m in NEW_MODULES} <= set(files)
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -89,6 +104,54 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_card_scripts_import_no_jax_and_nothing_of_the_jax_package(script):
     for mod in _imports(ROOT / script):
         assert mod.split(".")[0] not in FORBIDDEN, f"{script} imports {mod}"
+
+
+def _wire_tree():
+    rng = np.random.default_rng(4)
+    return {"a": {"w": rng.standard_normal((3, 5)).astype(np.float32),
+                  "i": np.arange(4, dtype=np.int32)},
+            "b": np.float32(2.5), "c": np.int64(7)}
+
+
+def test_serialization_copy_gives_the_jax_bytes(tmp_path):
+    tree, meta = _wire_tree(), {"round": 3, "weight": 1.5}
+    ours = bytes(serialization.pytree_to_bytes(tree, meta))
+    assert ours == bytes(jax_serialization.pytree_to_bytes(tree, meta))
+    assert (serialization.wire_frame_length(tree, meta)
+            == jax_serialization.wire_frame_length(tree, meta) == len(ours))
+    for codec in (serialization, jax_serialization):
+        path = str(tmp_path / f"{codec.__name__}.npz")
+        codec.atomic_save_pytree_npz(path, tree, meta)
+        for reader in (serialization, jax_serialization):
+            got, got_meta = reader.load_pytree_npz(path)
+            assert got_meta == meta
+            assert (bytes(serialization.pytree_to_bytes(got, meta))
+                    == ours)
+        got, _ = serialization.bytes_to_pytree(ours)
+        assert bytes(jax_serialization.pytree_to_bytes(got, meta)) == ours
+    with pytest.raises(TypeError, match="convert to a dict"):
+        serialization.pytree_to_bytes({"l": [np.zeros(2)]})
+
+
+@pytest.mark.parametrize("scheme", ["none", "int8", "topk", "topk8"])
+def test_compression_copy_gives_the_jax_frames(scheme):
+    tree = {k: v for k, v in _wire_tree()["a"].items() if k == "w"}
+    ours, ometa = compression.compress_delta(tree, scheme, topk_fraction=0.2)
+    theirs, tmeta = jax_compression.compress_delta(tree, scheme,
+                                                   topk_fraction=0.2)
+    assert (bytes(serialization.pytree_to_bytes(ours, ometa))
+            == bytes(jax_serialization.pytree_to_bytes(theirs, tmeta)))
+    assert compression.SCHEMES == jax_compression.SCHEMES
+    assert compression.TOPK_FRACTION == jax_compression.TOPK_FRACTION
+
+
+def test_bench_baseline_is_the_jax_copy():
+    """``run_reference_style`` and the workloads are verbatim copies, so
+    ``vs_baseline`` divides by the same stand-in in both packages."""
+    assert (inspect.getsource(bench.run_reference_style)
+            == inspect.getsource(jax_bench.run_reference_style))
+    assert bench.TPU_WORKLOAD == jax_bench.TPU_WORKLOAD
+    assert bench.CPU_WORKLOAD == jax_bench.CPU_WORKLOAD
 
 
 @pytest.mark.parametrize("q", [0.01, 0.2, 1.0])
