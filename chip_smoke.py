@@ -82,7 +82,22 @@ Phases (any failure exits non-zero; no phase's error is caught):
    ``aggregate``'s mean delta and the new global model the old plus it,
    with K1-K3's and the fold's launches exact; 9c ``bench`` with its
    defaults, its JSON line printed;
-10. one JSON line of per-kernel results (launches summed over the paths),
+10. remat, the client mesh and the SP/TP options on one card: 10a two
+   rounds of config #4 (BERT-base, flash, 4 local steps) and of ViT-B/16
+   (phase 6's cut) without and with ``remat`` on the same plan, the
+   losses and params equal (bound 1e-4 rel / 2e-5 abs; expected 0.0),
+   both peak GiB and each round's seconds printed (the second is warm),
+   K1's launches exact under remat (one more per block and step: the
+   recomputed forward); 10b the client-mesh round at
+   world size 1 on NCCL (``init_device_mesh("cuda", (1,), ("clients",))`` from
+   a FileStore): config #4 at full width with 4 clients in full
+   participation and 4 steps, plain FedAvg, DP with secure aggregation,
+   and Krum, each equal to the single-device learner's round on the same
+   plan (2e-5), with exactly its path's collectives and exact launches;
+   10c ``train --attn-impl ring`` on one card runs the dense core and
+   gives the dense run's loss, and ``train --tp-size 2`` warns and gives
+   the untiled run's loss;
+11. one JSON line of per-kernel results (launches summed over the paths),
    then the result line.
 
 Needs a CUDA device and the repository beside it; it exits non-zero and
@@ -1380,6 +1395,210 @@ def bench_path():
     return out
 
 
+# ------------------------------------------------------------ phase 10
+REMAT_RTOL, REMAT_ATOL = 1e-4, 2e-5     # bound of the remat differences
+MESH_ATOL = 2e-5                         # world-1 mesh vs one device
+
+
+REMAT_ROUNDS = 2
+
+
+def remat_path(A, label, cfg):
+    """10a: ``REMAT_ROUNDS`` rounds of ``cfg`` without and with remat on
+    the same plan (the default draws of one seed): the losses and params
+    must agree (expected 0.0: the recomputed forward runs the same kernels
+    on the same inputs), and K1 launches once more per block and step
+    under remat.  The first round pays one-time costs; the second is the
+    warm s/round.  Returns the remat run's launches and the numbers."""
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+
+    runs = []
+    for remat in (False, True):
+        learner = FederatedLearner(cfg.replace(model=dataclasses.replace(
+            cfg.model, remat=remat)))
+        fresh_peak()
+        A.reset_launches()
+        losses, secs, steps = [], [], 0
+        for _ in range(REMAT_ROUNDS):
+            t0 = time.perf_counter()
+            losses.append(learner.run_round()["train_loss"])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            steps += int(learner.last_cohort["steps_run"].sum())
+        launches = dict(A.launches)
+        depth = cfg.model.depth
+        want = {"flash_forward": depth * steps * (2 if remat else 1),
+                "flash_backward_dq": depth * steps,
+                "flash_backward_dkv": depth * steps}
+        if launches != want:
+            raise AssertionError(f"{label} remat={remat}: kernel launches "
+                                 f"{launches}, expected {want}")
+        runs.append((losses, [p.clone() for p in learner.params.values()],
+                     torch.cuda.max_memory_allocated() / 2**30, secs,
+                     launches))
+        del learner
+    (l0, p0, peak0, s0, _), (l1, p1, peak1, s1, launches) = runs
+    loss_diff = max(abs(a - b) for a, b in zip(l0, l1))
+    param_diff = max(float((a - b).abs().max()) for a, b in zip(p0, p1))
+    bound = max(REMAT_ATOL + REMAT_RTOL * float(a.abs().max()) for a in p0)
+    log(f"  [{label}] remat vs plain: loss diff {loss_diff:.3e}, params max "
+        f"abs diff {param_diff:.3e} (bound {REMAT_RTOL:g} rel / "
+        f"{REMAT_ATOL:g} abs); peak {peak0:.3f} -> {peak1:.3f} GiB; "
+        f"s/round {[round(t, 3) for t in s0]} -> "
+        f"{[round(t, 3) for t in s1]}; K1 launches under remat "
+        f"{launches['flash_forward']} (exact); {card()}")
+    if not (loss_diff <= REMAT_ATOL + REMAT_RTOL * max(map(abs, l0))
+            and param_diff <= bound):
+        raise AssertionError(f"{label}: remat changed the round: loss "
+                             f"{loss_diff}, params {param_diff}")
+    return launches, dict(loss_diff=loss_diff, param_diff=param_diff,
+                          peak_gib=(peak0, peak1), s_round=(s0, s1))
+
+
+MESH_CASES = {
+    "fedavg": ({}, {"all_reduce": 3}),
+    "dp_secure_agg": (dict(dp_clip=1.0, dp_noise_multiplier=1.0,
+                           secure_agg=True),
+                      {"all_gather": 1, "all_reduce": 2}),
+    "krum": (dict(aggregator="krum", trim_fraction=0.25),
+             {"all_gather": 2, "all_reduce": 2}),
+}
+MESH_CLIENTS = 4
+
+
+def mesh_world1_path(A):
+    """10b: the client-mesh round at world size 1 on NCCL (a FileStore in
+    a temporary directory, ``init_device_mesh("cuda", (1,), ("clients",))``):
+    config #4 at full width, 4 clients in full participation, 4 steps,
+    plain FedAvg, DP with secure aggregation, and Krum; each round's
+    params equal the single-device learner's on the same plan, its
+    collectives are exactly those of its path, and the kernels' launches
+    are exact.  The process group is destroyed after the phase."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+    from colearn_federated_learning_tpu_torch.parallel import collectives
+
+    base = main_path_config()
+    depth = base.model.depth
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            f"{tmp}/store", 1), rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,),
+                                    mesh_dim_names=("clients",))
+            for label, (fed_kw, want_calls) in MESH_CASES.items():
+                cfg = base.replace(
+                    data=dataclasses.replace(base.data,
+                                             num_clients=MESH_CLIENTS),
+                    fed=dataclasses.replace(base.fed, cohort_size=0,
+                                            **fed_kw))
+                out = []
+                for m in (mesh, None):
+                    learner = FederatedLearner(cfg, mesh=m)
+                    A.reset_launches()
+                    collectives.reset_counts()
+                    t0 = time.perf_counter()
+                    rec = learner.run_round()
+                    torch.cuda.synchronize()
+                    sec = time.perf_counter() - t0
+                    calls = dict(collectives.counts)
+                    got = dict(A.launches)
+                    steps = int(learner.last_cohort["steps_run"].sum())
+                    want = {"flash_forward": depth * steps,
+                            "flash_backward_dq": depth * steps,
+                            "flash_backward_dkv": depth * steps}
+                    if got != want:
+                        raise AssertionError(f"10b {label}: launches {got}, "
+                                             f"expected {want}")
+                    if calls != (want_calls if m is not None else {}):
+                        raise AssertionError(f"10b {label}: collectives "
+                                             f"{calls}, expected {want_calls}")
+                    out.append((rec, [p.clone() for p in
+                                      learner.params.values()], sec, got))
+                    del learner
+                (rec, p_mesh, s_mesh, got), (ref, p_one, s_one, _) = out
+                diff = max(float((a - b).abs().max())
+                           for a, b in zip(p_mesh, p_one))
+                log(f"  [10b {label}] mesh vs one device: train_loss "
+                    f"{rec['train_loss']:.6f} / {ref['train_loss']:.6f}, "
+                    f"params max abs diff {diff:.3e} (bound {MESH_ATOL:g}); "
+                    f"collectives {want_calls} (exact); s/round "
+                    f"{s_mesh:.3f} / {s_one:.3f}; launches {got} (exact); "
+                    f"{card()}")
+                if not (diff <= MESH_ATOL
+                        and rec["completed"] == ref["completed"]
+                        == MESH_CLIENTS):
+                    raise AssertionError(f"10b {label}: mesh round differs "
+                                         f"({diff}, {rec}, {ref})")
+                launches[label] = got
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
+SINGLE_DEVICE = ["--config", "agnews_bert_fedavg", "--local-steps", "2",
+                 "--cohort-size", "4", "--rounds", "1"]
+
+
+def single_device_paths(A):
+    """10c: on one card ``train --attn-impl ring`` runs the dense core and
+    gives the dense run's loss, and ``train --tp-size 2`` warns and gives
+    the untiled run's loss (config #4, cohort 4, 2 local steps)."""
+    import warnings
+
+    losses = {}
+    for label, extra in (("dense", ["--attn-impl", "dense"]),
+                         ("ring", ["--attn-impl", "ring"]),
+                         ("tp2", ["--attn-impl", "dense", "--tp-size", "2"])):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            records, _, learner = cli_path(A, f"10c {label}",
+                                           SINGLE_DEVICE + extra)
+        warned = [str(w.message) for w in seen if "tp_size" in str(w.message)]
+        cores = {m.impl for m in learner.model.modules()
+                 if hasattr(m, "impl")}
+        losses[label] = records[-1]["train_loss"]
+        log(f"  [10c {label}] train_loss {losses[label]!r}; attention core "
+            f"{sorted(cores)}; mesh {learner.mesh}; tp warnings {warned}")
+        if cores != {"dense"} or learner.mesh is not None \
+                or len(warned) != (label == "tp2"):
+            raise AssertionError(f"10c {label}: cores {cores}, warnings "
+                                 f"{warned}")
+        del learner
+    if not losses["ring"] == losses["tp2"] == losses["dense"]:
+        raise AssertionError(f"10c: losses differ {losses}")
+
+
+def parallel_phase(A):
+    """Phase 10: remat, the client mesh at world size 1, and the
+    single-device semantics of the SP and TP options."""
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
+
+    paths, numbers = {}, {}
+    t0 = time.perf_counter()
+    vit = get_config("femnist_vit_cross_silo")
+    for label, cfg in (("bert", main_path_config()),
+                       ("vit", vit.replace(
+                           model=dataclasses.replace(vit.model,
+                                                     attn_impl="flash"),
+                           fed=dataclasses.replace(vit.fed, cohort_size=32)))):
+        paths[f"remat_{label}"], numbers[label] = remat_path(
+            A, f"10a {label}", cfg)
+    log(f"  10a in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for label, got in mesh_world1_path(A).items():
+        paths[f"mesh_{label}"] = got
+    log(f"  10b in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    single_device_paths(A)
+    log(f"  10c in {time.perf_counter() - t0:.2f} s")
+    log("phase 10 numbers " + json.dumps(numbers))
+    return paths
+
+
 def build_phase(_build):
     """Build the kernels; report each head-dim-64 instantiation's registers,
     spills and blocks per SM, and fail if any instantiation spills."""
@@ -1479,6 +1698,10 @@ def main() -> int:
     t0 = time.perf_counter()
     bench_path()
     log(f"  9c in {time.perf_counter() - t0:.2f} s")
+    log("phase 10: remat, the client mesh at world 1, single-device SP/TP")
+    t0 = time.perf_counter()
+    paths.update(parallel_phase(A))
+    log(f"  phase 10 in {time.perf_counter() - t0:.2f} s")
     log("launches per path " + json.dumps(paths))
 
     sources = {**{name: (SOURCE, rep) for name, (rep, _) in KERNELS.items()},

@@ -20,6 +20,14 @@ round's record to stderr as one JSON line and its summary to stdout, as in
 the JAX package; every command prints its result as one JSON line on
 stdout, and :func:`main` returns it.
 
+``train`` builds its learner with ``FederatedLearner.from_config``: in a
+plain process on one device, under ``torchrun --nproc-per-node N`` over a
+client mesh of the N ranks (NCCL; gloo with ``--backend cpu``), with a
+``seq`` axis for ``--attn-impl ring|ulysses`` and a ``model`` axis for
+``--tp-size``; only rank 0 prints.  On one device ``--attn-impl ring``
+runs the dense core and ``--tp-size 2`` warns and runs untiled, as in
+JAX; ``--remat`` checkpoints the transformer blocks' activations.
+
 A flag of the JAX command line whose feature is not ported yet is
 accepted by the parser and refused: the run exits with status 2 and names
 the ROADMAP item that ports it, and never runs without it.
@@ -47,11 +55,10 @@ _FED_KEYS = {"rounds", "cohort_size", "local_epochs", "local_steps",
              "edge_groups", "edge_sync_period", "compress",
              "compress_feedback", "topk_fraction", "min_cohort_fraction"}
 _DATA_KEYS = {"num_clients", "dataset", "partition", "dirichlet_alpha"}
-_MODEL_KEYS = {"attn_impl", "width", "stem", "norm"}
-_RUN_KEYS = {"seed", "eval_every", "log_every"}
+_MODEL_KEYS = {"attn_impl", "remat", "width", "stem", "norm"}
+_RUN_KEYS = {"seed", "tp_size", "eval_every", "log_every"}
 
 _LORA = "ROADMAP.md Queue A item 5 (LoRA)"
-_TP_SP = "ROADMAP.md Queue A item 7 (TP and SP)"
 _COMM = "ROADMAP.md Queue A item 8 (the socket planes and faults/)"
 _CKPT = "ROADMAP.md Queue A item 9 (fleetsim and checkpoints)"
 _OBS = "ROADMAP.md Queue A item 10 (telemetry, tracing and evaluation extras)"
@@ -62,8 +69,6 @@ _UNPORTED = {
     "lora_rank": ("--lora-rank", dict(type=int), _LORA),
     "lora_alpha": ("--lora-alpha", dict(type=float), _LORA),
     "lora_merge_every": ("--lora-merge-every", dict(type=int), _LORA),
-    "tp_size": ("--tp-size", dict(type=int), _TP_SP),
-    "remat": ("--remat", dict(action="store_true"), _TP_SP),
     "compress_down": ("--compress-down", dict(), _COMM),
     "topk_adaptive": ("--topk-adaptive", dict(action="store_true"), _COMM),
     "fold_device": ("--fold-device", dict(action="store_true"), _COMM),
@@ -155,7 +160,18 @@ def _add_override_flags(p: argparse.ArgumentParser) -> None:
                    help=">= 2 turns on hierarchical edge->cloud federation "
                         "(fed/hierarchical.py)")
     p.add_argument("--edge-sync-period", type=int, default=None)
-    p.add_argument("--attn-impl", default=None, choices=["dense", "flash"])
+    p.add_argument("--attn-impl", default=None,
+                   choices=["dense", "flash", "ring", "ulysses"],
+                   help="attention core (models/attention.py); ring and "
+                        "ulysses need a seq mesh axis (torchrun), and run "
+                        "the dense core on one device")
+    p.add_argument("--remat", action="store_true", default=None,
+                   help="checkpoint each transformer block's activations "
+                        "(recomputed in the backward pass)")
+    p.add_argument("--tp-size", type=int, default=None,
+                   help="model (tensor-parallel) axis size of the "
+                        "torchrun mesh; warns and runs untiled when it "
+                        "does not divide the world")
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--stem", default=None, choices=["conv", "space_to_depth"])
     p.add_argument("--norm", default=None, choices=["group", "none"])
@@ -293,14 +309,16 @@ def train(args: argparse.Namespace,
             config, num_groups=config.fed.edge_groups,
             sync_period=config.fed.edge_sync_period, device=device)
     else:
-        learner = FederatedLearner(config, device=device)
+        learner = FederatedLearner.from_config(config, device=device)
     if on_round is not None:
         on_round(learner, None)
     records = []
+    lead = is_lead()
 
     def log_fn(rec: dict) -> None:
         records.append(rec)
-        print(json.dumps(rec), file=sys.stderr, flush=True)
+        if lead:
+            print(json.dumps(rec), file=sys.stderr, flush=True)
         if on_round is not None:
             on_round(learner, rec)
 
@@ -316,17 +334,21 @@ def train(args: argparse.Namespace,
                 "final_loss": loss, "final_acc": acc,
                 "data_source": learner.dataset.source}
     if args.per_client_eval:
-        print(json.dumps(evaluation.sanitize_report(
-            learner.evaluate_per_client())), file=sys.stderr, flush=True)
+        report = learner.evaluate_per_client()
+        if lead:
+            print(json.dumps(evaluation.sanitize_report(report)),
+                  file=sys.stderr, flush=True)
+    n_chips = (learner.mesh.mesh.numel() if learner.mesh is not None else 1)
     out = {"name": config.run.name, "rounds": len(records),
            "elapsed_s": time.perf_counter() - t_start,
-           "device": str(learner.device)}
+           "device": str(learner.device), "n_chips": n_chips}
     timed = [r["round_time_s"] for r in records]
     if timed:
         out["rounds_per_sec"] = len(timed) / sum(timed)
         samples = (learner.cohort_size * learner.num_steps
                    * config.fed.batch_size)
-        out["client_samples_per_sec_per_chip"] = out["rounds_per_sec"] * samples
+        out["client_samples_per_sec_per_chip"] = (
+            out["rounds_per_sec"] * samples / n_chips)
     accs = [(r["round"], r["eval_acc"]) for r in records if "eval_acc" in r]
     if accs:
         out["final_acc"] = accs[-1][1]
@@ -340,6 +362,13 @@ def train(args: argparse.Namespace,
         out["dp_delta"] = records[-1]["dp_delta"]
     out["data_source"] = learner.dataset.source
     return out
+
+
+def is_lead() -> bool:
+    """Rank 0 of the world, or a plain process: the one that prints."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _device(args: argparse.Namespace) -> str:
@@ -401,7 +430,8 @@ def main(argv: Optional[list] = None,
     else:
         result = {"train": lambda a: train(a, on_round), "init": init,
                   "aggregate": aggregate, "eval": evaluate}[args.cmd](args)
-    print(json.dumps(result), flush=True)
+    if is_lead():
+        print(json.dumps(result), flush=True)
     return result
 
 

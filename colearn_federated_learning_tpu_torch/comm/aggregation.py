@@ -17,7 +17,7 @@ card, its plain version when ``device="cpu"``), bitwise equal to the host
 fold, which stays the parity oracle.
 
 The sharded server (``placement=``) is not ported: it raises, naming
-ROADMAP.md Queue A item 7.
+ROADMAP.md Queue A item 8 (its callers are the socket coordinators).
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ def _refuse_placement(placement: Any) -> None:
     if placement is not None:
         raise NotImplementedError(
             "the sharded server (placement=) is not ported yet; see "
-            "ROADMAP.md Queue A item 7 (TP and SP)")
+            "ROADMAP.md Queue A item 8 (the socket planes)")
 
 
 class UpdateFolder:

@@ -68,6 +68,41 @@ def flax_to_state_dict(flax_params: Any) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
 
 
+def flax_layout(name: str, shape: tuple,
+                num_heads: Optional[int] = None) -> tuple:
+    """Where the port's parameter ``name`` of torch ``shape`` lives in
+    flax, without touching data: ``(flax path, flax shape, to_torch)``,
+    ``to_torch[f]`` being the torch dim that flax axis ``f`` maps onto
+    (None for a flax axis folded into a torch dim after its leading
+    one, the head size of a query kernel)."""
+    path = name.split(".")
+    module, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
+    kind, n = _kind(module), len(shape)
+    if module in _QKV + ("out",) and leaf in ("weight", "bias") \
+            and num_heads is None:
+        raise ValueError(f"{name}: attention weights need num_heads")
+    if leaf == "weight" and kind == "Embed":
+        return (*path[:-1], "embedding"), shape, list(range(n))
+    if leaf == "weight" and kind in ("LayerNorm", "GroupNorm"):
+        return (*path[:-1], "scale"), shape, list(range(n))
+    if leaf == "weight":
+        kernel = (*path[:-1], "kernel")
+        if module in _QKV:
+            return kernel, (shape[1], num_heads, shape[0] // num_heads), \
+                [1, 0, None]
+        if module == "out":
+            return kernel, (num_heads, shape[1] // num_heads, shape[0]), \
+                [1, None, 0]
+        perm = (n - 1, n - 2, *range(n - 2))      # torch dim i <- flax perm[i]
+        fshape = [0] * n
+        for i, f in enumerate(perm):
+            fshape[f] = shape[i]
+        return kernel, tuple(fshape), [perm.index(f) for f in range(n)]
+    if leaf == "bias" and module in _QKV:
+        return tuple(path), (num_heads, shape[0] // num_heads), [0, None]
+    return tuple(path), shape, list(range(n))
+
+
 def state_dict_to_flax(state_dict: dict[str, torch.Tensor],
                        num_heads: Optional[int] = None) -> dict:
     """The port's ``state_dict`` -> flax params (numpy arrays);

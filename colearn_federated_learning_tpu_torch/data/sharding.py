@@ -61,3 +61,22 @@ def pack_client_shards(
     xs = xs.reshape((C, cap) + x.shape[1:])
     ys = np.asarray(y, np.int32)[tiled_all]
     return ClientShards(x=xs, y=ys, counts=counts)
+
+
+def pad_clients_to_multiple(shards: ClientShards, multiple: int) -> ClientShards:
+    """Pad the client axis so it divides the client mesh axis evenly.
+
+    Ghost clients get count 0, which zeroes their FedAvg weight — they train
+    on garbage (copies of client 0's rows) but contribute nothing.
+    """
+    C = shards.num_clients
+    rem = (-C) % multiple
+    if rem == 0:
+        return shards
+    pad_x = np.repeat(shards.x[:1], rem, axis=0)
+    pad_y = np.repeat(shards.y[:1], rem, axis=0)
+    return ClientShards(
+        x=np.concatenate([shards.x, pad_x], axis=0),
+        y=np.concatenate([shards.y, pad_y], axis=0),
+        counts=np.concatenate([shards.counts, np.zeros(rem, np.int32)]),
+    )

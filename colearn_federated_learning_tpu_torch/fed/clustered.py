@@ -12,8 +12,8 @@ the clients' own updates and trains one model per cluster:
 4. build one ``FederatedLearner`` per cluster over its members' shards,
    seeded from the warm global model, and train them independently.
 
-Evaluation is per client, on the members' own shards.  Not ported yet:
-the client mesh of the JAX learner (ROADMAP.md Queue A item 6).
+Evaluation is per client, on the members' own shards.  On a client mesh
+the cluster learners inherit the base learner's mesh, as in JAX.
 """
 
 from __future__ import annotations
@@ -66,7 +66,8 @@ class ClusteredLearner:
     Built on an existing ``FederatedLearner``, whose device shards
     (``base.x``, ``base.y``) are the ground truth of who owns which
     examples, so a caller may edit them before clustering.  The cluster
-    learners run on the base learner's device, with its draw plan.
+    learners run on the base learner's device and mesh, with its draw
+    plan.
     """
 
     def __init__(self, base: FederatedLearner, num_clusters: int = 2):
@@ -98,8 +99,7 @@ class ClusteredLearner:
         base = self.base
         self.labels = labels
         self.clusters, self.members = [], []
-        x = base.x.cpu().numpy()
-        y = base.y.cpu().numpy().astype(np.int32)     # callers may edit y
+        x, y = base.host_shards()                      # callers may edit y
         counts = np.asarray(base.counts)
         slots = base.id_order_slots()
         for j in range(self.num_clusters):
@@ -124,7 +124,8 @@ class ClusteredLearner:
             # The cluster runs with the base's seed, as in JAX, so the
             # base's draw plan serves it (keyed by the cluster's own ids).
             learner = FederatedLearner(cfg, dataset=ds, device=base.device,
-                                       plan=base.draws, partitions=parts)
+                                       plan=base.draws, partitions=parts,
+                                       mesh=base.mesh)
             with torch.no_grad():
                 torch._foreach_copy_(list(learner.params.values()),
                                      list(init_params[j].values()))

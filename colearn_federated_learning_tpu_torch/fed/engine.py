@@ -1,22 +1,36 @@
-"""Federated round orchestration on one CUDA device.
+"""Federated round orchestration, on one CUDA device or a client mesh.
 
-The counterpart of the JAX package's ``FederatedLearner`` on its
-single-device path: data, model and server state are built once, then
-each ``run_round`` samples the cohort, trains every client, folds the
-weighted deltas and applies the server step (``fed/programs.py``).  It
-validates the privacy and robustness knobs as the JAX engine does, keeps
-SCAFFOLD's per-client variates on the host, carries the adaptive DP clip
-from round to round as a device scalar and steps the RDP accountant.
+The counterpart of the JAX package's ``FederatedLearner``: data, model
+and server state are built once, then each ``run_round`` samples the
+cohort, trains every client, folds the weighted deltas and applies the
+server step (``fed/programs.py``).  It validates the privacy and
+robustness knobs as the JAX engine does, keeps SCAFFOLD's per-client
+variates on the host, carries the adaptive DP clip from round to round
+as a device scalar and steps the RDP accountant.
+
+``mesh``: an optional ``DeviceMesh`` (``parallel/mesh.py``) with a
+``clients`` axis, and optionally a ``seq`` axis (sequence parallelism,
+``attn_impl`` ring or ulysses) or a ``model`` axis (tensor parallelism,
+``parallel/tp.py``).  As in JAX the clients are padded with ghosts to a
+multiple of the client axis and interleaved, each rank holds its block
+of them (and under SP its slice of every sequence), and the round's sums
+run over the ``clients`` group.  Without a mesh everything runs on one
+device, and a ring or Ulysses config runs the dense core.
+:meth:`FederatedLearner.from_config` lays the mesh over the world that
+``torchrun`` starts, as JAX's lays it over the visible devices.
 
 ``device=None`` means ``"cuda"``; without a card the constructor raises
 instead of running somewhere else.  ``device="cpu"`` runs the same round
-with every kernel's plain PyTorch version (the tests do this).
+with every kernel's plain PyTorch version (the tests do this); a mesh's
+device type decides for it.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -25,10 +39,13 @@ import torch
 from colearn_federated_learning_tpu_torch import convert
 from colearn_federated_learning_tpu_torch.data import partition as partition_lib
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
-from colearn_federated_learning_tpu_torch.data.sharding import pack_client_shards
+from colearn_federated_learning_tpu_torch.data.sharding import (
+    ClientShards, pack_client_shards, pad_clients_to_multiple)
 from colearn_federated_learning_tpu_torch.fed import evaluation, local, programs
 from colearn_federated_learning_tpu_torch.fed import robust, strategies
 from colearn_federated_learning_tpu_torch.models import registry as model_registry
+from colearn_federated_learning_tpu_torch.parallel import collectives
+from colearn_federated_learning_tpu_torch.parallel import mesh as mesh_lib
 from colearn_federated_learning_tpu_torch.privacy import dp as dp_lib
 from colearn_federated_learning_tpu_torch.privacy.accountant import RdpAccountant
 from colearn_federated_learning_tpu_torch.utils import prng
@@ -42,10 +59,7 @@ def check_supported(config: ExperimentConfig) -> None:
     (``fed/hierarchical.py``) builds its groups from copies of a config
     that still carries it, as the JAX package's does."""
     f = config.fed
-    unported = {
-        "lora_rank > 0": f.lora_rank > 0,
-        "tp_size > 1": config.run.tp_size > 1,
-    }
+    unported = {"lora_rank > 0": f.lora_rank > 0}
     bad = [name for name, on in unported.items() if on]
     if f.strategy not in strategies.STRATEGIES:
         bad.insert(0, f"strategy {f.strategy!r}")
@@ -134,6 +148,30 @@ class VariateStore:
             r[slot].copy_(v)
 
 
+def _mesh_device(mesh, device) -> torch.device:
+    """The device of this rank: the mesh's device type (the current card
+    on an NCCL mesh), or ``device`` without a mesh.  A ``device`` of the
+    other type than the mesh's is refused."""
+    if mesh is None:
+        return resolve_device(device)
+    kind = mesh.device_type
+    if device is not None and torch.device(device).type != kind:
+        raise ValueError(f"device {device!r} does not match the mesh's "
+                         f"device type {kind!r}")
+    if kind == "cuda":
+        return resolve_device(torch.device("cuda",
+                                           torch.cuda.current_device()))
+    return torch.device(kind)
+
+
+def _tie_parameters(dst: torch.nn.Module, src: torch.nn.Module) -> None:
+    """Make every parameter of ``dst`` the same tensor as ``src``'s of
+    that name (a twin of the same architecture)."""
+    for name, p in src.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        setattr(dst.get_submodule(owner) if owner else dst, leaf, p)
+
+
 def partition_for_config(config: ExperimentConfig, labels: np.ndarray):
     """Per-client index lists for ``config.data`` (iid | dirichlet |
     pathological), as the JAX package's ``fed/setup.py`` derives them."""
@@ -161,37 +199,117 @@ def num_steps_for_config(config: ExperimentConfig, capacity: int) -> int:
 
 
 class FederatedLearner:
-    """End-to-end federated experiment on one device: data, model, round
-    loop, evaluation.
+    """End-to-end federated experiment: data, model, round loop,
+    evaluation, on one device or over a client mesh (``mesh``; see the
+    module docstring).
 
     ``partitions``: optional explicit per-client index lists into the
     dataset's train split, overriding ``config.data.partition`` (clustered
     FL injects its members' exact shards this way).
 
     ``plan``: optional object with the methods of
-    :class:`fed.programs.Draws` (``cohort``, ``batch_indices``,
-    ``step_budgets``, ``dp_noise``, ``pair_mask``, ``ring_order``,
-    ``clip_bit_noise``) supplying the round's random draws; by default
-    they come from ``utils/prng``.
+    :class:`fed.programs.Draws` (``cohort``, ``device_cohort``,
+    ``batch_indices``, ``step_budgets``, ``dp_noise``, ``pair_mask``,
+    ``ring_order``, ``clip_bit_noise``) supplying the round's random
+    draws; by default they come from ``utils/prng``.
 
-    ``last_cohort`` describes the last round's cohort (numpy arrays):
-    ``clients``, ``steps_run`` and ``contributed``, and with the options
-    that make them ``nova_a`` (FedNova's coefficients), ``partners``
-    (secure aggregation's partner table) and ``selected`` (the clients
-    Krum kept).
+    ``last_cohort`` describes the last round's cohort on this rank (numpy
+    arrays): ``clients``, ``steps_run`` and ``contributed``, and with the
+    options that make them ``nova_a`` (FedNova's coefficients),
+    ``partners`` (secure aggregation's partner table) and ``selected``
+    (the clients Krum kept, over the whole mesh).
     """
+
+    @classmethod
+    def from_config(cls, config: ExperimentConfig,
+                    dataset: Optional[data_registry.Dataset] = None,
+                    device=None, plan=None) -> "FederatedLearner":
+        """A learner laid out as the JAX ``from_config`` lays it: in a
+        plain process (a world of one) no mesh; under ``torchrun`` a
+        ``(clients,)`` mesh over the world — ``(clients, seq)`` with
+        ``attn_impl`` ring or ulysses, ``(clients, model)`` with
+        ``run.tp_size > 1`` — on NCCL, or on gloo when ``device`` is the
+        CPU.  A ``tp_size`` that does not divide the world warns and runs
+        without tensor parallelism."""
+        device = resolve_device(device)
+        r = config.run
+        if config.model.attn_impl in ("ring", "ulysses") and r.tp_size > 1:
+            raise ValueError(
+                "from_config cannot auto-lay a 3-D (clients, seq, model) "
+                "mesh; build it with parallel.mesh.make_mesh and pass "
+                "mesh= explicitly")
+        world = (torch.distributed.get_world_size()
+                 if torch.distributed.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", "1")))
+        if r.tp_size > 1 and world % r.tp_size != 0:
+            # The JAX engine also counts this in fed.mesh_fallback_total;
+            # that counter comes with the telemetry port (ROADMAP.md
+            # Queue A item 10).
+            warnings.warn(
+                f"tp_size={r.tp_size} needs a device count that is a "
+                f"multiple of it, have {world}; running without tensor "
+                "parallelism", stacklevel=2)
+        mesh = None
+        if world > 1:
+            mesh_lib.init_world(device.type)
+            kind = device.type
+            if config.model.attn_impl in ("ring", "ulysses"):
+                mesh = mesh_lib.make_mesh((r.mesh_axis, r.seq_axis),
+                                          device_type=kind)
+            elif r.tp_size > 1 and world % r.tp_size == 0:
+                mesh = mesh_lib.make_mesh((r.mesh_axis, r.tp_axis),
+                                          (-1, r.tp_size), device_type=kind)
+            else:
+                mesh = mesh_lib.make_mesh((r.mesh_axis,), device_type=kind)
+        return cls(config, dataset=dataset, device=device, plan=plan,
+                   mesh=mesh)
 
     def __init__(self, config: ExperimentConfig,
                  dataset: Optional[data_registry.Dataset] = None,
-                 device=None, plan=None, partitions: Optional[list] = None):
+                 device=None, plan=None, partitions: Optional[list] = None,
+                 mesh=None):
+        from colearn_federated_learning_tpu_torch.fed.setup import (
+            local_model_config)
+
         self.config = c = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _mesh_device(mesh, device)
         check_supported(c)
         check_fed_options(c.fed)
         local.check_strategy_optimizer(c.fed)
         self.scaffold = c.fed.strategy == "scaffold"
         self.fednova = c.fed.strategy == "fednova"
         self.robust = c.fed.aggregator != "mean"
+
+        # --- mesh axes (the JAX engine's checks and messages) ---------
+        self.client_axis = c.run.mesh_axis
+        self.seq_axis = c.run.seq_axis
+        self.tp_axis = c.run.tp_axis
+        if mesh is not None:
+            names = tuple(mesh.mesh_dim_names or ())
+            if self.client_axis not in names:
+                raise ValueError(
+                    f"mesh axes {names} lack the client axis "
+                    f"{self.client_axis!r}")
+            extra = set(names) - {self.client_axis, self.seq_axis,
+                                  self.tp_axis}
+            if extra:
+                raise ValueError(f"unsupported mesh axes {sorted(extra)}")
+        self.clients = mesh_lib.axis(mesh, self.client_axis)
+        self.seq = mesh_lib.axis(mesh, self.seq_axis)
+        self.tp = mesh_lib.axis(mesh, self.tp_axis)
+        self.clients_size, self.seq_size = self.clients.size, self.seq.size
+        self.tp_size = self.tp.size
+        self.sp = self.seq_size > 1
+        if self.sp and c.model.attn_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"a {self.seq_size}-way {self.seq_axis!r} mesh axis requires "
+                "model.attn_impl='ring' or 'ulysses'")
+        if (c.model.attn_impl in ("ring", "ulysses") and mesh is not None
+                and not self.sp):
+            raise ValueError(
+                f"attn_impl={c.model.attn_impl!r} on a mesh requires a "
+                f"{self.seq_axis!r} axis of size > 1")
 
         # --- data -----------------------------------------------------
         self.dataset = dataset or data_registry.get_dataset(
@@ -202,19 +320,74 @@ class FederatedLearner:
         shards = pack_client_shards(
             np.asarray(self.dataset.x_train), labels, parts,
             capacity=c.data.max_examples_per_client)
+        self.real_num_clients = shards.num_clients   # before ghost padding
+        if self.sp:
+            self._check_sp(shards)
+        if mesh is not None:
+            # Ghost-pad to the client axis, then interleave so real clients
+            # spread evenly over the devices; ``client_ids[slot]`` is each
+            # slot's original client id, on which every draw is keyed.
+            shards = pad_clients_to_multiple(shards, self.clients_size)
+            D = self.clients_size
+            L = shards.num_clients // D
+            order = np.array([j * D + d for d in range(D) for j in range(L)],
+                             dtype=np.int64)
+            shards = ClientShards(x=shards.x[order], y=shards.y[order],
+                                  counts=shards.counts[order])
+            self.client_ids = order
+        else:
+            self.client_ids = np.arange(shards.num_clients, dtype=np.int64)
         self.shards = shards
         self.num_clients = shards.num_clients
-        self.client_ids = np.arange(self.num_clients, dtype=np.int64)
         self.counts = shards.counts
-        self.x = torch.from_numpy(shards.x).to(self.device)
-        self.y = torch.from_numpy(shards.y.astype(np.int64)).to(self.device)
+        # This rank's block of clients (every client on one device), and
+        # under SP its slice of every sequence.
+        L = self.num_clients // self.clients_size
+        block = slice(self.clients.index * L, (self.clients.index + 1) * L)
+        self.block_ids = self.client_ids[block]
+        self.block_counts = self.counts[block]
+        x = shards.x[block]
+        if self.sp:
+            x = np.array_split(x, self.seq_size, axis=-1)[self.seq.index]
+        self.x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        self.y = torch.from_numpy(
+            shards.y[block].astype(np.int64)).to(self.device)
 
         # --- model and server state -----------------------------------
+        # Under SP the trained module runs on sequence shards; its
+        # dense-core twin, sharing its parameters, evaluates full
+        # sequences.  Without a seq axis a ring/Ulysses config runs the
+        # dense core, as in JAX.
+        train_cfg = c.model if self.sp else local_model_config(c.model)
         self.model = model_registry.build_model(
-            c.model, self.device, generator=prng.init_generator(c.run.seed),
-            input_shape=shards.x.shape[2:])
+            train_cfg, self.device, generator=prng.init_generator(c.run.seed),
+            input_shape=shards.x.shape[2:],
+            seq_group=self.seq.group if self.sp else None)
+        self.full_shapes = [p.shape for p in self.model.parameters()]
+        self.eval_model = self.model
+        if self.sp:
+            self.eval_model = model_registry.build_model(
+                local_model_config(c.model), self.device,
+                input_shape=shards.x.shape[2:])
+        self.tp_dims = None
+        if self.tp_size > 1:
+            from colearn_federated_learning_tpu_torch.parallel import tp as tp_lib
+
+            dims = tp_lib.shard_params(self.model, mesh, self.tp_axis)
+            if self.eval_model is not self.model:
+                tp_lib.shard_params(self.eval_model, mesh, self.tp_axis)
+            if any(d is not None for d in dims.values()):
+                self.tp_dims = [dims[n] for n, _ in
+                                self.model.named_parameters()]
+        if self.eval_model is not self.model:
+            _tie_parameters(self.eval_model, self.model)
         self.server_state = strategies.init_server_state(
             self._param_copy(), c.fed)
+        if self.scaffold and self.tp_size > 1:
+            raise ValueError(
+                "scaffold with a model (TP) axis is unsupported: the "
+                "host-resident variate store is unsharded and the per-round "
+                "gather/scatter would funnel TP shards through one host")
 
         # --- local trainer and cohort ---------------------------------
         self.num_steps = num_steps_for_config(c, shards.capacity)
@@ -226,24 +399,39 @@ class FederatedLearner:
             min_steps_fraction=c.fed.straggler_min_fraction,
             aux_loss_weight=(c.model.moe_aux_weight
                              if c.model.name.startswith("moe") else 0.0),
-            scaffold=self.scaffold, lr=c.fed.lr)
+            scaffold=self.scaffold, lr=c.fed.lr,
+            grad_sync_group=self.seq.group if self.sp else None,
+            tp=self.tp if self.tp_dims is not None else None,
+            sharded=(None if self.tp_dims is None
+                     else [d is not None for d in self.tp_dims]))
         self.variates = (VariateStore(self.server_state.params,
-                                      self.num_clients, self.device)
+                                      len(self.block_ids), self.device)
                          if self.scaffold else None)
         cohort = c.fed.cohort_size or self.num_clients
         self.cohort_size = min(cohort, self.num_clients)
+        if mesh is not None:
+            d = self.clients_size
+            # The per-device cohort must be equal on every device.
+            self.cohort_per_device = max(1, self.cohort_size // d)
+            adjusted = self.cohort_per_device * d
+            if adjusted != self.cohort_size:
+                warnings.warn(
+                    f"cohort_size={self.cohort_size} is not a multiple of the "
+                    f"{d}-way client axis; using {adjusted} "
+                    f"({self.cohort_per_device}/device)", stacklevel=2)
+            self.cohort_size = adjusted
         if self.robust:
             check_trim_at_cohort(c.fed, self.cohort_size)
         self.draws = plan if plan is not None else programs.Draws(c.run.seed)
         self.last_cohort: dict = {}
 
         # --- DP -------------------------------------------------------
-        # Noise is calibrated to the cohort (the JAX engine's dp_cohort,
-        # min(cohort, real clients), is cohort_size here: this engine pads
-        # no ghost clients).  With adaptive clipping the clip is a device
-        # scalar carried from round to round, and the bit query's noise is
-        # paid for by inflating the update noise, so the joint mechanism
-        # still costs z.
+        # Noise is calibrated to the real clients expected to contribute
+        # (ghost padding never does).  With adaptive clipping the clip is
+        # a device scalar carried from round to round, and the bit
+        # query's noise is paid for by inflating the update noise, so the
+        # joint mechanism still costs z.
+        self.dp_cohort = min(self.cohort_size, self.real_num_clients)
         self.adaptive_clip = c.fed.dp_adaptive_clip
         self.dp_z = self.dp_bit_noise = 0.0
         if self.adaptive_clip:
@@ -253,18 +441,38 @@ class FederatedLearner:
             z = c.fed.dp_noise_multiplier
             if z > 0.0:
                 self.dp_bit_noise = c.fed.dp_bit_noise or max(
-                    self.cohort_size / 20.0, 1.0)
+                    self.dp_cohort / 20.0, 1.0)
                 self.dp_z = dp_lib.adaptive_noise_multiplier(
                     z, self.dp_bit_noise)
         self.dp_clip = torch.tensor(c.fed.dp_clip, dtype=torch.float32,
                                     device=self.device)
         self.accountant = RdpAccountant.from_config(
-            c.fed, sampling_rate=self.cohort_size / self.num_clients)
+            c.fed, sampling_rate=self.dp_cohort / self.real_num_clients)
 
         self._eval_fn = evaluation.make_eval_fn(
-            self.model, self.dataset.x_test, self.dataset.y_test,
+            self.eval_model, self.dataset.x_test, self.dataset.y_test,
             batch=max(c.fed.batch_size, 64), device=self.device)
         self.history: list[dict] = []
+
+    def _check_sp(self, shards: ClientShards) -> None:
+        """The JAX engine's eager checks of a sequence-parallel layout."""
+        c = self.config
+        if shards.x.ndim != 3:
+            raise ValueError(
+                "sequence parallelism needs (tokens,)-shaped examples, "
+                f"got example shape {shards.x.shape[2:]}")
+        seq_len = shards.x.shape[-1]
+        if seq_len % self.seq_size:
+            raise ValueError(
+                f"seq_len {seq_len} is not divisible by the "
+                f"{self.seq_size}-way {self.seq_axis!r} axis")
+        if (c.model.attn_impl == "ulysses"
+                and c.model.num_heads % self.seq_size):
+            raise ValueError(
+                f"attn_impl='ulysses' needs num_heads "
+                f"({c.model.num_heads}) divisible by the "
+                f"{self.seq_size}-way {self.seq_axis!r} axis; use "
+                "attn_impl='ring'")
 
     def _param_copy(self) -> dict:
         return {name: p.detach().clone()
@@ -278,15 +486,47 @@ class FederatedLearner:
         if sorted(sd) != sorted(names):
             raise ValueError(f"flax params do not match the model: "
                              f"{sorted(set(sd) ^ set(names))}")
-        params = {n: sd[n].to(self.device, torch.float32).clone()
+        dims = dict(zip(names, self.tp_dims or [None] * len(names)))
+        from colearn_federated_learning_tpu_torch.parallel import partition
+
+        params = {n: partition.shard(sd[n], dims[n], self.tp_size,
+                                     self.tp.index).to(
+                      self.device, torch.float32).clone()
                   for n in names}
         self.server_state = strategies.init_server_state(params,
                                                          self.config.fed)
 
     @property
     def params(self) -> dict:
-        """The global model's parameters (name -> f32 tensor)."""
+        """The global model's parameters (name -> f32 tensor; under tensor
+        parallelism this rank's slices)."""
         return self.server_state.params
+
+    def full_params(self) -> dict:
+        """The global model's whole parameters: under tensor parallelism
+        the slices all-gathered over the model group (every rank of it
+        must call this), else :attr:`params` itself."""
+        if self.tp_dims is None:
+            return self.params
+        from colearn_federated_learning_tpu_torch.parallel import tp as tp_lib
+
+        names = list(self.params)
+        return tp_lib.gather_params(self.params,
+                                    dict(zip(names, self.tp_dims)), self.tp)
+
+    def host_shards(self) -> tuple:
+        """(x, y) numpy arrays of every client's padded shard in array-slot
+        order, read from the device tensors (which a caller may have
+        edited); on a mesh the blocks (and sequence slices) are
+        all-gathered, so every rank of the mesh must call this."""
+        x, y = self.x, self.y
+        if self.mesh is not None:
+            if self.sp:
+                x = collectives.all_gather(x.movedim(-1, 0).contiguous(),
+                                           self.seq.group).movedim(0, -1)
+            x = collectives.all_gather(x, self.clients.group)
+            y = collectives.all_gather(y, self.clients.group)
+        return x.cpu().numpy(), y.cpu().numpy().astype(np.int32)
 
     def _sync(self) -> None:
         """Wait for the card's queued work, so a host clock read after it
@@ -346,7 +586,11 @@ class FederatedLearner:
         aggregates and accuracy spread (``evaluation.summarize_per_client``)."""
         loss, acc = programs.build_client_eval_fn(self)(
             self.server_state.params.values())
-        counts = np.asarray(self.counts)
+        # Undo the mesh interleaving and drop ghost clients.
+        order = np.argsort(self.client_ids, kind="stable")
+        loss, acc, counts = loss[order], acc[order], np.asarray(self.counts)[order]
+        real = counts > 0
+        loss, acc, counts = loss[real], acc[real], counts[real]
         out = evaluation.summarize_per_client(loss, acc, counts)
         out.update(per_client_loss=loss, per_client_acc=acc,
                    num_examples=counts)
@@ -361,13 +605,21 @@ class FederatedLearner:
             raise NotImplementedError(
                 "clustering uses the plain local trainer; run it with a "
                 "stateless strategy")
-        return programs.build_similarity_fn(self, steps)(
+        sim = programs.build_similarity_fn(self, steps)(
             list(self.server_state.params.values()))
+        if self.mesh is not None:
+            keep = self.id_order_slots()
+            sim = sim[np.ix_(keep, keep)]
+        return sim
 
     def id_order_slots(self) -> np.ndarray:
-        """Array slot of every real client in client-id order: the
-        identity on one device (the JAX package's mesh interleaves them)."""
-        return np.arange(self.num_clients)
+        """Array slot of every real client in client-id order: the inverse
+        of the mesh interleaving with ghost padding dropped (ghosts are
+        the ids past the real clients); the identity on one device."""
+        if self.mesh is None:
+            return np.arange(self.num_clients)
+        order = np.argsort(self.client_ids, kind="stable")
+        return order[:self.real_num_clients]
 
     def fit(self, rounds: Optional[int] = None, log_fn=None) -> list[dict]:
         """Run ``rounds`` more rounds (default: up to ``config.fed.rounds``),

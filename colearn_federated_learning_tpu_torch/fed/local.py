@@ -131,7 +131,8 @@ def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
                       num_steps: int, prox_mu: float = 0.0,
                       min_steps_fraction: float = 0.25,
                       aux_loss_weight: float = 0.0, scaffold: bool = False,
-                      lr: float = 0.0) -> Callable:
+                      lr: float = 0.0, grad_sync_group=None, tp=None,
+                      sharded: Optional[list] = None) -> Callable:
     """Build ``local_update(global_params, x, y, count, batch_idx,
     step_budget, lr_scale=None) -> LocalResult``.
 
@@ -155,6 +156,15 @@ def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
     - With ``aux_loss_weight > 0`` it gains that weight times the mean of
       the load-balance losses the model's MoE layers left on themselves
       (the JAX trainer's sown ``moe_aux``).
+    - ``grad_sync_group``: the sequence-parallel group the model's
+      activations are sharded over.  Every step's grads are averaged over
+      it in one flat all-reduce; with the model's ``psum_for_grad_pmean``
+      pooling that is the exact full-sequence gradient on every shard, so
+      the params stay replicated through local training.
+    - ``tp`` (a ``parallel.mesh.Axis``) and ``sharded`` (one bool per
+      parameter): under tensor parallelism the prox term's sum over the
+      sharded slices is summed over the model group, so it counts every
+      entry once.
     """
     if scaffold and lr <= 0.0:
         raise ValueError("scaffold=True requires the client lr")
@@ -169,7 +179,16 @@ def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
             loss = loss + aux_loss_weight * aux
         if prox_mu > 0.0:
             diffs = torch._foreach_sub(params, global_params)
-            sq = torch.stack([(d * d).sum() for d in diffs]).sum()
+            sqs = [(d * d).sum() for d in diffs]
+            if tp is None:
+                sq = torch.stack(sqs).sum()
+            else:
+                from colearn_federated_learning_tpu_torch.parallel import (
+                    collectives)
+
+                rep = sum(q for q, s in zip(sqs, sharded) if not s)
+                shd = sum(q for q, s in zip(sqs, sharded) if s)
+                sq = rep + collectives.reduce_from_group(shd, tp.group)
             loss = loss + 0.5 * prox_mu * sq
         return loss
 
@@ -184,6 +203,11 @@ def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
             idx = batch_idx[t]
             loss = loss_fn(global_params, x[idx], y[idx])
             grads = torch.autograd.grad(loss, params)
+            if grad_sync_group is not None:
+                from colearn_federated_learning_tpu_torch.parallel import (
+                    collectives)
+
+                grads = collectives.mean_grads(grads, grad_sync_group)
             if correction is not None:
                 grads = torch._foreach_add(grads, correction)
             optimizer.step(params, grads, state, lr_scale)

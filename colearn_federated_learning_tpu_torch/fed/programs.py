@@ -15,6 +15,19 @@ f32 sum, so memory holds one client's delta at a time.  A robust
 aggregator needs the individual deltas: on that path the contributors'
 deltas are stacked (contributors only; the host knows who they are).
 
+On a client mesh (``ln.mesh``, the JAX ``_build_mesh_round``) every rank
+runs this same round over its own block of clients: the cohort is drawn
+per device among the block's clients (``Draws.device_cohort``, JAX's
+``fold_in(sampling_key, dev)``), the weighted sums are all-reduced over
+the ``clients`` group (the delta sum in one flat bucket, the round's
+scalars in another, ``norm_max`` by a MAX), a robust aggregator
+all-gathers the stacked deltas, and secure aggregation all-gathers the
+cohort ids for its partner table.  Under tensor parallelism each rank
+holds slices of the sharded parameters: norms sum the slices over the
+model group, and DP noise and masks are drawn on the full parameter
+shapes and sliced, so a round equals the unsharded round with the same
+draws.
+
 The round's random draws (cohort, batch indices, straggler budgets, DP
 noise, mask streams, the ring order, the clip bit's noise) come from a
 :class:`Draws` object; the default one uses the package's ``utils/prng``
@@ -24,11 +37,15 @@ round's own draws this way).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from colearn_federated_learning_tpu_torch.fed import local, robust
 from colearn_federated_learning_tpu_torch.fed import strategies
+from colearn_federated_learning_tpu_torch.parallel import collectives
+from colearn_federated_learning_tpu_torch.parallel import partition
 from colearn_federated_learning_tpu_torch.privacy import dp as dp_lib
 from colearn_federated_learning_tpu_torch.privacy import secure_agg
 from colearn_federated_learning_tpu_torch.utils import prng
@@ -66,6 +83,14 @@ class Draws:
         """Array slots of the ``k`` sampled clients."""
         return rank_cohort(prng.sampling_generator(self.seed, round_idx),
                            counts, k)
+
+    def device_cohort(self, round_idx: int, dev: int, counts: np.ndarray,
+                      k: int) -> np.ndarray:
+        """Block slots of the ``k`` clients that client-mesh device
+        ``dev`` samples among its block (``counts``) in one round."""
+        return rank_cohort(
+            prng.device_sampling_generator(self.seed, round_idx, dev),
+            counts, k)
 
     def batch_indices(self, round_idx: int, client_id: int, count: int,
                       num_steps: int, batch_size: int) -> np.ndarray:
@@ -118,6 +143,44 @@ class Draws:
                            dtype=torch.float32)
 
 
+def global_norm(ln, delta: list) -> torch.Tensor:
+    """L2 norm of a whole update; under tensor parallelism the sharded
+    slices' squares are summed over the model group (one all-reduce) and
+    the replicated tensors counted once."""
+    if ln.tp_dims is None:
+        return dp_lib.global_norm(delta)
+    def sq(sharded: bool) -> torch.Tensor:
+        ts = [d for d, dim in zip(delta, ln.tp_dims)
+              if (dim is not None) == sharded]
+        return (torch.stack(torch._foreach_norm(ts)).square().sum() if ts
+                else torch.zeros((), device=ln.device))
+
+    return torch.sqrt(sq(False) + collectives.all_reduce(sq(True),
+                                                         ln.tp.group))
+
+
+def _local(ln, draws):
+    """This rank's slices of full-shape draws (noise, masks)."""
+    if ln.tp_dims is None:
+        return draws
+    return (partition.shard(t, d, ln.tp.size, ln.tp.index)
+            for t, d in zip(draws, ln.tp_dims))
+
+
+def _flat_zeros(ln, params: list, rows: int = 0) -> tuple:
+    """One zeroed f32 buffer and its per-parameter views (with ``rows``,
+    a leading axis of that size), so a sum or a stack crosses the mesh as
+    one collective."""
+    shape = (rows,) if rows else ()
+    flat = torch.zeros(shape + (sum(p.numel() for p in params),),
+                       dtype=torch.float32, device=ln.device)
+    views, at = [], 0
+    for p in params:
+        views.append(flat[..., at:at + p.numel()].unflatten(-1, p.shape))
+        at += p.numel()
+    return flat, views
+
+
 def cohort_step(ln, params: list, sel: np.ndarray, round_idx: int) -> tuple:
     """Train every sampled client from ``params`` and fold its update.
 
@@ -131,7 +194,8 @@ def cohort_step(ln, params: list, sel: np.ndarray, round_idx: int) -> tuple:
     The adaptive clip is ``ln.dp_clip`` (a device scalar).
     """
     c = ln.config.fed
-    gids = ln.client_ids[sel]
+    gids = ln.block_ids[sel]
+    mesh = ln.mesh is not None
     if c.straggler_prob > 0.0:
         budgets = ln.draws.step_budgets(round_idx, gids, ln.num_steps,
                                         c.straggler_prob)
@@ -146,20 +210,26 @@ def cohort_step(ln, params: list, sel: np.ndarray, round_idx: int) -> tuple:
     # without either.
     track_norms = not (dp or c.secure_agg)
     uniform = dp or c.secure_agg or ln.scaffold or ln.robust
-    shapes = [p.shape for p in params]
+    shapes = ln.full_shapes
+    norm_fn = functools.partial(global_norm, ln)
     partners = None
     if c.secure_agg:
-        ring = (ln.draws.ring_order(round_idx, gids)
+        # Masks pair against the whole round's cohort, on a mesh the
+        # all-gather of every device's cohort ids.
+        cohort_ids = (collectives.all_gather(
+            torch.as_tensor(gids, dtype=torch.int64, device=dev),
+            ln.clients.group).cpu().numpy() if mesh else gids)
+        ring = (ln.draws.ring_order(round_idx, cohort_ids)
                 if c.secure_agg_neighbors > 0 else None)
-        partners = secure_agg.partner_table(gids, gids,
+        partners = secure_agg.partner_table(gids, cohort_ids,
                                             c.secure_agg_neighbors, ring)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    if ln.robust:
-        agg = [torch.empty((len(sel),) + p.shape, dtype=torch.float32,
-                           device=dev) for p in params]
+    if ln.scaffold:                     # SCAFFOLD's variate sum rides along
+        flat, views = _flat_zeros(ln, params * 2)
+        agg, dc_sum = views[:len(params)], views[len(params):]
     else:
-        agg = [torch.zeros_like(p) for p in params]
-    dc_sum = [torch.zeros_like(p) for p in params] if ln.scaffold else None
+        flat, agg = _flat_zeros(ln, params, len(sel) if ln.robust else 0)
+        dc_sum = None
     control = (list(ln.server_state.control.values()) if ln.scaffold
                else None)
     total_w = 0.0
@@ -169,7 +239,7 @@ def cohort_step(ln, params: list, sel: np.ndarray, round_idx: int) -> tuple:
     n_completed = 0
     steps_run, contributed, nova_a = [], [], []
     for k, (slot, gid, budget) in enumerate(zip(sel, gids, budgets)):
-        count = int(ln.counts[slot])
+        count = int(ln.block_counts[slot])
         idx = ln.draws.batch_indices(round_idx, int(gid), count, ln.num_steps,
                                      c.batch_size)
         idx = torch.as_tensor(idx, dtype=torch.long).to(dev, non_blocking=True)
@@ -196,19 +266,20 @@ def cohort_step(ln, params: list, sel: np.ndarray, round_idx: int) -> tuple:
             nova_sum = nova_sum + np.float32(weight) * a
             nova_a.append(float(a))
         if track_norms and contrib:
-            norm = dp_lib.global_norm(delta)
+            norm = norm_fn(delta)
             norm_sum += norm
             norm_max = torch.maximum(norm_max, norm)
         bit = None
         if dp and contrib:
-            noise = ln.draws.dp_noise(round_idx, int(gid), shapes, dev)
+            noise = _local(ln, ln.draws.dp_noise(round_idx, int(gid), shapes,
+                                                 dev))
             if ln.adaptive_clip:
                 delta, bit = dp_lib.clip_and_noise_with_bit(
-                    delta, ln.dp_clip, ln.dp_z, ln.cohort_size, noise)
+                    delta, ln.dp_clip, ln.dp_z, ln.dp_cohort, noise, norm_fn)
             else:
                 delta = dp_lib.clip_and_noise(
                     delta, c.dp_clip, c.dp_noise_multiplier,
-                    ln.cohort_size, noise)
+                    ln.dp_cohort, noise, norm_fn)
         if c.secure_agg:
             # Every cohort member masks its weight-scaled update (weight 1
             # or 0 here); the masks cancel in the plain sum.
@@ -217,8 +288,8 @@ def cohort_step(ln, params: list, sel: np.ndarray, round_idx: int) -> tuple:
             with torch.profiler.record_function("secure_agg.mask_update"):
                 secure_agg.mask_update(
                     masked, int(gid), partners[k],
-                    lambda a, b: ln.draws.pair_mask(round_idx, a, b, shapes,
-                                                    dev))
+                    lambda a, b: _local(ln, ln.draws.pair_mask(
+                        round_idx, a, b, shapes, dev)))
             torch._foreach_add_(agg, masked)
             if ln.adaptive_clip:
                 # The bit is a second payload, masked on its own streams.
@@ -249,15 +320,61 @@ def cohort_step(ln, params: list, sel: np.ndarray, round_idx: int) -> tuple:
     if partners is not None:
         detail["partners"] = np.asarray(partners)
     if ln.robust:
+        # Contributors' rows come first in each device's stack; on a mesh
+        # the stacks, and who contributed where, are all-gathered.
+        ids = gids[np.asarray(contributed, bool)]
+        rows = flat[:n_completed]
+        if mesh:
+            meta = torch.as_tensor(
+                np.concatenate([gids, np.asarray(contributed, np.int64)]),
+                dtype=torch.int64, device=dev)
+            meta = collectives.all_gather(meta[None], ln.clients.group)
+            meta = meta.cpu().numpy().reshape(ln.clients.size, 2, len(sel))
+            stacks = collectives.all_gather(flat, ln.clients.group)
+            keep = np.concatenate([
+                d * len(sel) + np.arange(int(m[1].sum()))
+                for d, m in enumerate(meta)])
+            ids = np.concatenate([m[0][m[1].astype(bool)] for m in meta])
+            rows = stacks[torch.as_tensor(keep, device=dev)]
+        views = [rows[:, at - p.numel():at].unflatten(1, p.shape)
+                 for p, at in zip(params, np.cumsum([p.numel()
+                                                     for p in params]))]
+        sharded = (None if ln.tp_dims is None
+                   else [d is not None for d in ln.tp_dims])
         with torch.profiler.record_function("robust.aggregate"):
             agg, chosen = robust.robust_aggregate(
-                [s[:n_completed] for s in agg], c.aggregator, c.trim_fraction)
+                views, c.aggregator, c.trim_fraction, sharded,
+                None if sharded is None else ln.tp.group)
         if chosen is not None:
-            detail["selected"] = gids[np.asarray(contributed)][
-                chosen.cpu().numpy()]
+            detail["selected"] = ids[chosen.cpu().numpy()]
     ln.last_cohort = detail
     stats = (loss_sum, n_completed, bit_sum, norm_sum, norm_max, nova_sum)
+    if mesh:
+        stats, total_w = _reduce_round(ln, flat, stats, total_w,
+                                       track_norms)
     return agg, total_w, stats, dc_sum
+
+
+def _reduce_round(ln, flat, stats, total_w, track_norms) -> tuple:
+    """The mesh round's sums over the ``clients`` group: the delta sum
+    (with SCAFFOLD's variate sum) in one flat all-reduce — a robust
+    aggregate is already global —, the round's scalars in another, and
+    ``norm_max`` by a MAX when norms are reported."""
+    g = ln.clients.group
+    loss_sum, n_completed, bit_sum, norm_sum, norm_max, nova_sum = stats
+    if not ln.robust:
+        collectives.all_reduce(flat, g)
+    host = torch.tensor([total_w, n_completed, nova_sum],
+                        dtype=torch.float32, device=ln.device)
+    vec = torch.stack([host[0], loss_sum, host[1], bit_sum, norm_sum,
+                       host[2]])
+    total_w, loss_sum, n_completed, bit_sum, norm_sum, nova_sum = \
+        collectives.all_reduce(vec, g).unbind(0)
+    if track_norms:
+        norm_max = collectives.all_reduce(norm_max.clone(), g, op="max")
+    stats = (loss_sum, int(round(float(n_completed))), bit_sum, norm_sum,
+             norm_max, np.float32(float(nova_sum)))
+    return stats, float(total_w)
 
 
 def finish_round(ln, agg: list, total_w: float, stats: tuple, dc_sum,
@@ -281,7 +398,7 @@ def finish_round(ln, agg: list, total_w: float, stats: tuple, dc_sum,
         torch._foreach_mul_(dc_sum, float(np.float32(1.0) / n)
                             if n_completed > 0 else 0.0)
         mean_dc = dict(zip(names, dc_sum))
-        participation = float(n / np.float32(ln.num_clients))
+        participation = float(n / np.float32(ln.real_num_clients))
     strategies.server_update(ln.server_state, dict(zip(names, agg)), c,
                              mean_delta_c=mean_dc,
                              participation=participation)
@@ -312,8 +429,16 @@ def finish_round(ln, agg: list, total_w: float, stats: tuple, dc_sum,
 
 
 def sample_cohort(ln, round_idx: int) -> np.ndarray:
-    """Array slots of the round's cohort (every client when the cohort is
-    the whole population)."""
+    """Block slots of this rank's share of the round's cohort: on one
+    device the whole cohort (every client when it is the whole
+    population); on a client mesh ``cohort_per_device`` clients drawn
+    among the device's own block."""
+    if ln.mesh is not None:
+        cpd, block = ln.cohort_per_device, len(ln.block_ids)
+        if cpd < block:
+            return np.asarray(ln.draws.device_cohort(
+                round_idx, ln.clients.index, ln.block_counts, cpd), np.int64)
+        return np.arange(block)
     if ln.cohort_size < ln.num_clients:
         return np.asarray(ln.draws.cohort(round_idx, ln.counts,
                                           ln.cohort_size), np.int64)
@@ -337,12 +462,14 @@ SIMILARITY_ROUND = 1 << 23
 
 def build_client_eval_fn(ln):
     """``fn(params) -> (loss, acc)``: numpy f32 arrays of every client's
-    mean loss and accuracy under ``params`` on its own shard, in chunks of
-    ``max(batch_size, 64)`` rows; only rows below the client's count
-    score, and chunks wholly past it do not run.  One host sync."""
+    mean loss and accuracy under ``params`` on its own shard, in array-slot
+    order, in chunks of ``max(batch_size, 64)`` rows; only rows below the
+    client's count score, and chunks wholly past it do not run.  On a
+    client mesh each rank scores its block and the results are
+    all-gathered over the ``clients`` group.  One host sync."""
     batch = max(ln.config.fed.batch_size, 64)
     model_params = list(ln.model.parameters())
-    counts = [int(c) for c in ln.counts]
+    counts = [int(c) for c in ln.block_counts]
 
     @torch.no_grad()
     def eval_fn(params):
@@ -360,7 +487,10 @@ def build_client_eval_fn(ln):
                 out[slot, 1] += (logits.argmax(dim=-1) == y).sum()
         out /= torch.tensor(counts, dtype=torch.float64,
                             device=ln.device).clamp(min=1.0)[:, None]
-        out = out.float().cpu().numpy()
+        out = out.float()
+        if ln.mesh is not None:
+            out = collectives.all_gather(out, ln.clients.group)
+        out = out.cpu().numpy()
         return out[:, 0], out[:, 1]
 
     return eval_fn
@@ -368,19 +498,23 @@ def build_client_eval_fn(ln):
 
 def build_similarity_fn(ln, steps: int):
     """``fn(params) -> (N, N)`` numpy cosine similarity of every client's
-    local update: each client runs ``min(steps, num_steps)`` steps of the
-    plain local trainer from ``params`` on batches drawn at
-    ``SIMILARITY_ROUND``; the flat f32 updates are row-normalised by
-    ``max(norm, 1e-12)``, stacked (N, P) and multiplied once."""
+    local update, in array-slot order: each client runs ``min(steps,
+    num_steps)`` steps of the plain local trainer from ``params`` on
+    batches drawn at ``SIMILARITY_ROUND``; the flat f32 updates are
+    row-normalised by ``max(norm, 1e-12)``, stacked (N, P) and multiplied
+    once.  On a client mesh each rank trains its block, the normalised
+    rows are all-gathered over the ``clients`` group and every rank forms
+    the whole matrix; under tensor parallelism the norms and the products
+    sum the slices over the model group."""
     budget = min(steps, ln.num_steps)
     c = ln.config.fed
 
     def sim_fn(params):
         size = sum(p.numel() for p in params)
-        xn = torch.empty((ln.num_clients, size), dtype=torch.float32,
+        xn = torch.empty((len(ln.block_ids), size), dtype=torch.float32,
                          device=ln.device)
-        for slot, gid in enumerate(ln.client_ids):
-            count = int(ln.counts[slot])
+        for slot, gid in enumerate(ln.block_ids):
+            count = int(ln.block_counts[slot])
             idx = ln.draws.batch_indices(SIMILARITY_ROUND, int(gid), count,
                                          ln.num_steps, c.batch_size)
             idx = torch.as_tensor(idx, dtype=torch.long).to(
@@ -391,8 +525,19 @@ def build_similarity_fn(ln, steps: int):
             for d in res.delta:
                 row[at:at + d.numel()].copy_(d.reshape(-1))
                 at += d.numel()
-            row /= torch.clamp(torch.linalg.vector_norm(row), min=1e-12)
+            norm = (torch.linalg.vector_norm(row) if ln.tp_dims is None
+                    else global_norm(ln, res.delta))
+            row /= torch.clamp(norm, min=1e-12)
             del res
-        return (xn @ xn.T).cpu().numpy()
+        if ln.mesh is not None:
+            xn = collectives.all_gather(xn, ln.clients.group)
+        if ln.tp_dims is None:
+            return (xn @ xn.T).cpu().numpy()
+        sharded = torch.cat([torch.full((p.numel(),), d is not None,
+                                        device=ln.device)
+                             for p, d in zip(params, ln.tp_dims)])
+        rep, shd = xn[:, ~sharded], xn[:, sharded]
+        gram = collectives.all_reduce(shd @ shd.T, ln.tp.group)
+        return (gram + rep @ rep.T).cpu().numpy()
 
     return sim_fn

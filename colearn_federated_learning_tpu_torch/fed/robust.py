@@ -45,25 +45,42 @@ def _trimmed_leaf(xs: torch.Tensor, k: int) -> torch.Tensor:
     return kept.sum(dim=0) / max(kept.shape[0], 1)
 
 
-def krum_select(stacked: list, byz_fraction: float) -> torch.Tensor:
+def _gram_terms(stacked: list, n: int, dev) -> torch.Tensor:
+    """(n, n + 2) f32: the rows' Gram matrix, their squared norms and
+    their count of non-finite entries, summed over ``stacked``."""
+    out = torch.zeros(n, n + 2, dtype=torch.float32, device=dev)
+    for leaf in stacked:
+        x = leaf.reshape(n, -1).float()
+        finite = torch.isfinite(x)
+        out[:, n + 1] += (~finite).sum(dim=1)
+        x = torch.where(finite, x, 0.0)
+        out[:, :n] += x @ x.T
+        out[:, n] += (x * x).sum(dim=1)
+    return out
+
+
+def krum_select(stacked: list, byz_fraction: float, sharded=None,
+                group=None) -> torch.Tensor:
     """Multi-Krum's selection (Blanchard et al., pattern only): score each
     row by the sum of its ``n − f − 2`` smallest squared distances to the
     other rows, keep the ``n − f`` best; ``f`` as :func:`_trim_count`.
     Rows with any non-finite entry are excluded everywhere: never
     selected, and never anyone's neighbour.  Returns the (n,) bool
-    selection."""
+    selection.  Under tensor parallelism (``sharded``: one bool per leaf,
+    ``group``: the model group) the sharded leaves' terms are summed over
+    the group in one all-reduce and the replicated ones counted once."""
     n = stacked[0].shape[0]
     dev = stacked[0].device
-    bad = torch.zeros(n, dtype=torch.bool, device=dev)
-    gram = torch.zeros(n, n, dtype=torch.float32, device=dev)
-    sq = torch.zeros(n, dtype=torch.float32, device=dev)
-    for leaf in stacked:
-        x = leaf.reshape(n, -1).float()
-        finite = torch.isfinite(x)
-        bad |= ~finite.all(dim=1)
-        x = torch.where(finite, x, 0.0)
-        gram += x @ x.T
-        sq += (x * x).sum(dim=1)
+    if group is None:
+        terms = _gram_terms(stacked, n, dev)
+    else:
+        from colearn_federated_learning_tpu_torch.parallel import collectives
+
+        part = collectives.all_reduce(_gram_terms(
+            [s for s, on in zip(stacked, sharded) if on], n, dev), group)
+        terms = part + _gram_terms(
+            [s for s, on in zip(stacked, sharded) if not on], n, dev)
+    gram, sq, bad = terms[:, :n], terms[:, n], terms[:, n + 1] > 0
     ok = ~bad
     d2 = sq[:, None] + sq[None, :] - 2.0 * gram
     invalid = ~(ok[:, None] & ok[None, :]) | torch.eye(n, dtype=torch.bool,
@@ -80,14 +97,16 @@ def krum_select(stacked: list, byz_fraction: float) -> torch.Tensor:
 
 
 def robust_aggregate(stacked: list, method: str,
-                     trim_fraction: float = 0.1) -> tuple:
+                     trim_fraction: float = 0.1, sharded=None,
+                     group=None) -> tuple:
     """Aggregate the contributors' deltas robustly.
 
     ``stacked``: one tensor per parameter with the contributors on axis 0
     (possibly none).  ``method``: "median" | "trimmed_mean" | "krum".
     ``trim_fraction``: the per-side trim of "trimmed_mean", the assumed
     Byzantine fraction of "krum" (both checked by the engine's
-    ``check_fed_options`` before any round runs).  Returns ``(aggregate, selected)``: one
+    ``check_fed_options`` before any round runs).  ``sharded``/``group``:
+    tensor parallelism, as :func:`krum_select`.  Returns ``(aggregate, selected)``: one
     f32 tensor per parameter, all zero when nobody contributed, and Krum's
     (n,) bool selection (None for the coordinate-wise statistics).
     """
@@ -97,7 +116,7 @@ def robust_aggregate(stacked: list, method: str,
                 for s in stacked], None
     if method == "krum":
         with torch.profiler.record_function("robust.krum_select"):
-            sel = krum_select(stacked, trim_fraction)
+            sel = krum_select(stacked, trim_fraction, sharded, group)
         w = sel.float()
         denom = w.sum().clamp_min(1.0)
         return [torch.where(torch.isfinite(s), s.float(), 0.0)

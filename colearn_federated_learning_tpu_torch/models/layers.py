@@ -7,6 +7,8 @@ compute dtype per call, as flax ``dtype=`` does.
 
 - :func:`linear`, :func:`conv`: ``nn.Dense`` and ``nn.Conv`` (``SAME``
   padding computed as XLA does, asymmetric where it must be);
+- :func:`mlp`: a transformer block's MLP, tensor-parallel when asked;
+- :func:`run_block`: a block, under activation checkpointing with remat;
 - :func:`layer_norm`, :func:`group_norm`: flax's statistics in f32 (fast
   variance E[x²] − E[x]² for GroupNorm), eps 1e-6, output in the dtype;
 - :func:`lecun_normal_`, :func:`flax_init_`: flax's default init.
@@ -32,6 +34,39 @@ def linear(x, layer: nn.Linear, dtype: torch.dtype):
     """``layer`` applied in ``dtype`` (f32 master weights cast per call)."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def mlp(x, up: nn.Linear, down: nn.Linear, dtype: torch.dtype, tp=None):
+    """A transformer block's ``Dense_0`` -> tanh-GELU -> ``Dense_1``.
+    Under tensor parallelism (``tp``, a ``parallel.mesh.Axis``) this rank
+    holds ``Dense_0``'s rows and ``Dense_1``'s columns of its hidden units:
+    the input's gradient is all-reduced over the model group, the down
+    product is all-reduced forward and its bias added once after the sum."""
+    if tp is None:
+        return linear(F.gelu(linear(x, up, dtype), approximate="tanh"), down,
+                      dtype)
+    from colearn_federated_learning_tpu_torch.parallel import collectives
+
+    h = F.gelu(linear(collectives.copy_to_group(x, tp.group), up, dtype),
+               approximate="tanh")
+    y = collectives.reduce_from_group(F.linear(h, down.weight.to(dtype)),
+                                      tp.group)
+    return y + down.bias.to(dtype)
+
+
+def run_block(block: nn.Module, remat: bool, *args):
+    """``block(*args)``; with ``remat`` (and autograd on) under activation
+    checkpointing, so its activations are recomputed in the backward pass
+    instead of kept (``use_reentrant=False``: the forward records the
+    graph as usual, so side outputs such as an MoE layer's load-balance
+    loss keep their gradient).  The blocks draw no random numbers, so no
+    RNG state is stashed for the recomputation."""
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(block, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return block(*args)
 
 
 def same_padding(n: int, k: int, stride: int, dilation: int) -> tuple[int, int]:

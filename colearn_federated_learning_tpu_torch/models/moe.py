@@ -12,6 +12,15 @@ compute dtype, the router runs in f32.
 flax ``sow``s the Switch load-balance loss E·Σ_e f_e·p_e into
 ``intermediates``; here each forward leaves it on the module as ``aux``,
 and the local trainer (``fed/local.py``) reads it from every MoE layer.
+
+Expert parallelism (``tp``, set by ``parallel/tp.py`` when the banks are
+sharded over the model axis): routing runs replicated on every rank
+(the router is not sharded), each rank runs its own contiguous block of
+experts on their dispatched tokens, and the combine over them is summed
+over the model group; the expert input and the combine weights get
+their gradients all-reduced, so the router's and everything upstream's
+are full on every rank.  Under sequence parallelism each shard routes its
+local tokens with local capacity, as in JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ TOP_K = 2
 
 
 class MoEFfn(nn.Module):
+    TP_KEY = "experts_up"
+
     def __init__(self, embed_dim: int, num_experts: int, mlp_ratio: int = 4,
                  capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.float32):
@@ -43,6 +54,7 @@ class MoEFfn(nn.Module):
         self.experts_down = nn.Parameter(torch.zeros(E, Fh, D))
         self.experts_down_bias = nn.Parameter(torch.zeros(E, D))
         self.aux = None
+        self.tp = None
 
     @torch.no_grad()
     def reset_experts(self, generator: torch.Generator) -> None:
@@ -84,11 +96,23 @@ class MoEFfn(nn.Module):
 
         up, b_up = self.experts_up.to(dt), self.experts_up_bias.to(dt)
         down, b_down = self.experts_down.to(dt), self.experts_down_bias.to(dt)
-        xin = torch.einsum("nec,nd->ecd", disp, xf.to(dt))
+        xe = xf
+        if self.tp is not None:
+            from colearn_federated_learning_tpu_torch.parallel import (
+                collectives)
+
+            lo = self.tp.index * up.shape[0]
+            xe = collectives.copy_to_group(xf, self.tp.group)
+            combine = collectives.copy_to_group(combine, self.tp.group)
+            disp = disp[:, lo:lo + up.shape[0]]
+            combine = combine[:, lo:lo + up.shape[0]]
+        xin = torch.einsum("nec,nd->ecd", disp, xe.to(dt))
         h = F.gelu(torch.einsum("ecd,edf->ecf", xin, up) + b_up[:, None, :],
                    approximate="tanh")
         y = torch.einsum("ecf,efd->ecd", h, down) + b_down[:, None, :]
         out = torch.einsum("nec,ecd->nd", combine, y)
+        if self.tp is not None:
+            out = collectives.reduce_from_group(out, self.tp.group)
 
         denom = mf.sum().clamp_min(1.0)
         f_e = onehot[:, 0, :].float().sum(0) / denom

@@ -7,7 +7,10 @@ takes p = 4, so 49 patches and a class token, L = 50), tokens in
 row-major (h', w') order, a zero-initialised class token, N(0, 0.02)
 position embeddings, tanh-GELU MLPs, a final LayerNorm in the dtype and an
 f32 head on the class token.  Attention is ``MultiHeadAttention`` with no
-key mask, so ``attn_impl="flash"`` runs kernels K1–K3.
+key mask, so ``attn_impl="flash"`` runs kernels K1–K3.  With ``remat``
+every block runs under activation checkpointing (``layers.run_block``);
+under tensor parallelism the blocks run on their local heads and hidden
+units (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -23,8 +26,9 @@ from colearn_federated_learning_tpu_torch.models.layers import (
     conv,
     flax_init_,
     layer_norm,
-    linear,
     ln,
+    mlp,
+    run_block,
 )
 
 
@@ -37,6 +41,8 @@ def patch_size_for(height: int, patch_size: int) -> int:
 
 
 class ViTBlock(nn.Module):
+    TP_KEY = "Dense_0.weight"
+
     def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "dense"):
         super().__init__()
@@ -47,23 +53,25 @@ class ViTBlock(nn.Module):
         self.LayerNorm_1 = ln(embed_dim)
         self.Dense_0 = nn.Linear(embed_dim, embed_dim * mlp_ratio)
         self.Dense_1 = nn.Linear(embed_dim * mlp_ratio, embed_dim)
+        self.tp = None
 
     def forward(self, x):
         dt = self.dtype
         x = x + self.MultiHeadAttention_0(layer_norm(x, self.LayerNorm_0, dt))
-        y = F.gelu(linear(layer_norm(x, self.LayerNorm_1, dt), self.Dense_0,
-                          dt), approximate="tanh")
-        return x + linear(y, self.Dense_1, dt)
+        return x + mlp(layer_norm(x, self.LayerNorm_1, dt), self.Dense_0,
+                       self.Dense_1, dt, self.tp)
 
 
 class ViT(nn.Module):
     def __init__(self, input_shape: tuple[int, ...] = (28, 28, 1),
                  num_classes: int = 62, embed_dim: int = 768, depth: int = 12,
                  num_heads: int = 12, patch_size: int = 16,
-                 dtype: torch.dtype = torch.float32, attn_impl: str = "dense"):
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "dense",
+                 remat: bool = False):
         super().__init__()
         H, W, C = input_shape
         self.dtype, self.depth, self.embed_dim = dtype, depth, embed_dim
+        self.remat = remat
         self.patch = p = patch_size_for(H, patch_size)
         tokens = -(-H // p) * -(-W // p) + 1
         self.Conv_0 = nn.Conv2d(C, embed_dim, p)
@@ -83,7 +91,7 @@ class ViT(nn.Module):
         x = torch.cat([self.cls.to(dt).expand(B, 1, self.embed_dim), x], 1)
         x = x + self.pos_embed.to(dt)
         for i in range(self.depth):
-            x = getattr(self, f"ViTBlock_{i}")(x)
+            x = run_block(getattr(self, f"ViTBlock_{i}"), self.remat, x)
         x = layer_norm(x, self.LayerNorm_0, dt)
         return F.linear(x[:, 0].float(), self.Dense_0.weight, self.Dense_0.bias)
 

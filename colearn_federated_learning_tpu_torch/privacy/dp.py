@@ -22,10 +22,12 @@ def global_norm(delta: list) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(delta)))
 
 
-def clip_by_global_norm(delta: list, clip) -> tuple[list, torch.Tensor]:
-    """Scale ``delta`` in place so its global norm is at most ``clip``;
-    returns it and its norm before the clip."""
-    norm = global_norm(delta)
+def clip_by_global_norm(delta: list, clip, norm_fn=global_norm
+                        ) -> tuple[list, torch.Tensor]:
+    """Scale ``delta`` in place so its global norm (``norm_fn``: over
+    every slice of a tensor-parallel delta) is at most ``clip``; returns
+    it and its norm before the clip."""
+    norm = norm_fn(delta)
     clip = torch.as_tensor(clip, dtype=torch.float32, device=norm.device)
     scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
     torch._foreach_mul_(delta, scale)
@@ -49,13 +51,13 @@ def add_gaussian_noise(delta: list, std, noise) -> list:
 
 
 def clip_and_noise_with_bit(delta: list, clip, noise_multiplier: float,
-                            cohort_size: int, noise
+                            cohort_size: int, noise, norm_fn=global_norm
                             ) -> tuple[list, torch.Tensor]:
     """Clip ``delta`` to ``clip`` and noise it for a central std of
     ``clip · noise_multiplier`` after summing ``cohort_size`` clients;
     also returns adaptive clipping's quantile bit ``1{‖Δ‖ ≤ clip}`` of the
     norm before the clip (Andrew et al., pattern only)."""
-    delta, norm = clip_by_global_norm(delta, clip)
+    delta, norm = clip_by_global_norm(delta, clip, norm_fn)
     if noise_multiplier > 0.0:
         add_gaussian_noise(
             delta, noise_std(clip, noise_multiplier, cohort_size), noise)
@@ -64,10 +66,10 @@ def clip_and_noise_with_bit(delta: list, clip, noise_multiplier: float,
 
 
 def clip_and_noise(delta: list, clip, noise_multiplier: float,
-                   cohort_size: int, noise) -> list:
+                   cohort_size: int, noise, norm_fn=global_norm) -> list:
     """:func:`clip_and_noise_with_bit` without the bit."""
     return clip_and_noise_with_bit(delta, clip, noise_multiplier,
-                                   cohort_size, noise)[0]
+                                   cohort_size, noise, norm_fn)[0]
 
 
 def adaptive_noise_multiplier(z: float, bit_noise: float) -> float:

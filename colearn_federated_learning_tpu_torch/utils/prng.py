@@ -59,6 +59,13 @@ def sampling_generator(seed: int, round_idx: int) -> torch.Generator:
     return generator(seed, TAG_SAMPLE, round_idx)
 
 
+def device_sampling_generator(seed: int, round_idx: int,
+                              dev: int) -> torch.Generator:
+    """The cohort sampling of one client-mesh device in one round (the
+    JAX mesh round's ``fold_in(sampling_key, dev)``)."""
+    return generator(seed, TAG_SAMPLE, round_idx, dev)
+
+
 def straggler_generator(seed: int, round_idx: int,
                         client_id: int) -> torch.Generator:
     """One client's simulated straggler budget in one round."""

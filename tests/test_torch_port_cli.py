@@ -74,7 +74,7 @@ def test_overrides_reach_the_config_as_in_jax(extra):
 @pytest.mark.parametrize("flag,item", [
     (["--lora-rank", "4"], "item 5"),
     (["--lora-alpha", "8", "--edge-groups", "2"], "item 5"),
-    (["--tp-size", "2"], "item 7"), (["--compress-down", "int8"], "item 8"),
+    (["--topk-adaptive"], "item 8"), (["--compress-down", "int8"], "item 8"),
     (["--fold-device"], "item 8"), (["--checkpoint-dir", "ck"], "item 9"),
     (["--resume"], "item 9"), (["--trace-dir", "tr"], "item 10"),
     (["--profile-dir", "pr"], "item 10")])

@@ -1,7 +1,9 @@
 """The flash-attention CUDA kernels (K1-K3) and the fold kernel (B4)
 against their plain PyTorch versions (the fold bit for bit), every model family's bf16 logits against the same model in
-f32 on the CPU, and the hierarchical sync, update similarity and
-per-client evaluation against the CPU, on the card.  Marked ``cuda``: without a CUDA device every
+f32 on the CPU, the hierarchical sync, update similarity and
+per-client evaluation against the CPU, remat's grads and K1 launches
+against the plain run, and the client-mesh round at world size 1 on NCCL
+against the single-device round, on the card.  Marked ``cuda``: without a CUDA device every
 test here skips.  On a machine with the card (no JAX needed):
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -p no:cacheprovider -q
@@ -477,3 +479,71 @@ def test_fold_rejects_an_index_outside_its_slot(cuda):
                                np.ones(1, np.float32), np.float32(1.0))])]
     with pytest.raises(IndexError, match="slot 1"):
         k.fold_sparse(None, bad)
+
+
+def _bert_small(remat, attn_impl="flash"):
+    return ModelConfig(name="bert", num_classes=4, width=128, depth=2,
+                       num_heads=2, seq_len=64, vocab_size=500,
+                       dtype="bfloat16", attn_impl=attn_impl, remat=remat)
+
+
+def test_remat_on_the_card_gives_the_same_grads_and_recomputes_k1(cuda):
+    """A bf16 BERT with the flash core: remat's grads are the plain run's
+    (the recomputed forward runs the same kernels on the same inputs), and
+    K1 launches once per block in the forward and once more per block in
+    the backward's recomputation; K2 and K3 once per block."""
+    from colearn_federated_learning_tpu_torch.fed import losses
+    from colearn_federated_learning_tpu_torch.utils import prng
+
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(1, 500, (8, 64), generator=g)
+    ids[0, 40:] = 0
+    ids, y = ids.to(cuda), torch.randint(0, 4, (8,), generator=g).to(cuda)
+    out = {}
+    for remat in (False, True):
+        model = registry.build_model(_bert_small(remat), cuda,
+                                     generator=prng.init_generator(0))
+        A.reset_launches()
+        loss = losses.softmax_cross_entropy(model(ids), y)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        out[remat] = (float(loss.detach()), grads, dict(A.launches))
+    assert out[False][0] == out[True][0]
+    for a, b in zip(out[False][1], out[True][1]):
+        assert torch.equal(a, b)
+    assert out[False][2] == {"flash_forward": 2, "flash_backward_dq": 2,
+                             "flash_backward_dkv": 2}
+    assert out[True][2] == {"flash_forward": 4, "flash_backward_dq": 2,
+                            "flash_backward_dkv": 2}
+
+
+def test_world1_nccl_mesh_round_equals_the_single_device_round(cuda,
+                                                                tmp_path):
+    """The client-mesh round at world size 1 on NCCL (a FileStore in the
+    test's directory): its all-reduces run, and the round equals the
+    single-device round on the same config and draws."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+    from colearn_federated_learning_tpu_torch.parallel import collectives
+
+    cfg = _mlp_config(cohort_size=4)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("clients",))
+        meshed = FederatedLearner(cfg, mesh=mesh)
+        plain = FederatedLearner(cfg, device=cuda)
+        # One device of the mesh samples its cohort with its own stream;
+        # hand both learners that cohort.
+        plain.draws.cohort = lambda r, counts, k: \
+            meshed.draws.device_cohort(r, 0, counts, k)
+        collectives.reset_counts()
+        a, b = meshed.run_round(), plain.run_round()
+        assert dict(collectives.counts) == {"all_reduce": 3}
+        assert a["train_loss"] == pytest.approx(b["train_loss"], rel=1e-6)
+        for k, v in meshed.params.items():
+            _close(v.cpu(), plain.params[k].cpu(), 1e-6)
+    finally:
+        dist.destroy_process_group()

@@ -1,5 +1,5 @@
 """Guards of the PyTorch port: its data copies give the JAX package's
-arrays exactly (its copy of the RDP accountant the same ε, its copy of
+arrays exactly (ghost padding and the mesh factoring too; its copy of the RDP accountant the same ε, its copy of
 the mask-cost model the same costs, its copies of the serialization and
 compression the same bytes, its bench the same baseline), neither it
 nor its card scripts import anything of JAX or the JAX package, it never
@@ -66,6 +66,29 @@ def test_partitions_and_shards_identical_to_jax(kind):
             assert np.array_equal(getattr(s, field), getattr(r, field))
 
 
+@pytest.mark.parametrize("multiple", [1, 3, 4, 8])
+def test_ghost_padding_identical_to_jax(multiple):
+    ds = registry.get_dataset("mnist_tiny", seed=1)
+    parts = partition.iid_partition(len(ds.y_train), 6, seed=2)
+    s = sharding.pad_clients_to_multiple(sharding.pack_client_shards(
+        ds.x_train, ds.y_train, parts), multiple)
+    r = jax_sharding.pad_clients_to_multiple(jax_sharding.pack_client_shards(
+        ds.x_train, ds.y_train, parts), multiple)
+    for field in ("x", "y", "counts"):
+        a, b = getattr(s, field), getattr(r, field)
+        assert a.dtype == b.dtype and np.array_equal(a, b), field
+
+
+def test_mesh_factoring_is_the_jax_copy():
+    from colearn_federated_learning_tpu.parallel import mesh as jax_mesh
+    from colearn_federated_learning_tpu_torch.parallel import mesh
+
+    for n in range(1, 17):
+        for axes in (1, 2, 3):
+            assert mesh.factor_devices(n, axes) == \
+                jax_mesh.factor_devices(n, axes), (n, axes)
+
+
 def test_configs_identical_to_jax():
     assert sorted(config.CONFIGS) == sorted(jax_config.CONFIGS)
     for name, cfg in config.CONFIGS.items():
@@ -83,7 +106,10 @@ def _imports(path: Path):
 
 NEW_MODULES = ["bench.py", "comm/aggregation.py", "fed/compression.py",
                "fed/offline.py", "fed/setup.py", "ops/fold.py",
-               "utils/serialization.py", "utils/trees.py"]
+               "utils/serialization.py", "utils/trees.py",
+               "parallel/__init__.py", "parallel/collectives.py",
+               "parallel/mesh.py", "parallel/partition.py", "parallel/ring.py",
+               "parallel/sp.py", "parallel/tp.py", "parallel/ulysses.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -217,7 +243,8 @@ def test_build_model_without_cuda_raises_instead_of_using_the_cpu(
 
 
 @pytest.mark.parametrize("fed_kw", [
-    dict(lora_rank=4), dict(lora_rank=4, edge_groups=2), dict(tp_size=2),
+    dict(lora_rank=4), dict(lora_rank=4, edge_groups=2),
+    dict(lora_rank=2, tp_size=2),
     dict(lora_rank=8, edge_groups=4), dict(strategy="fedsgd")])
 def test_unported_features_raise(fed_kw):
     base = config.get_config("agnews_bert_fedavg")

@@ -119,12 +119,22 @@ def test_port_init_matches_flax_init_statistics():
 
 
 def test_unported_families_and_cores_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build_model(ModelConfig(name="vit_b16", width=32, depth=1,
-                                         remat=True), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build_model(ModelConfig(**dict(SIZES, name="bert"),
-                                         attn_impl="ring"), "cpu")
-    cfg = dataclasses.replace(ModelConfig(**SIZES), remat=True)
-    with pytest.raises(NotImplementedError):
-        registry.build_model(cfg, "cpu")
+    """Remat on a family without transformer blocks is refused with the
+    JAX registry's message, and a sequence-parallel core outside a
+    sequence group refuses to run (remat and the ring/Ulysses cores are
+    ported; their tests are test_torch_port_remat.py and
+    test_torch_port_sp_tp.py)."""
+    for name in ("cnn", "mlp"):
+        cfg = ModelConfig(name=name, width=8, remat=True)
+        with pytest.raises(ValueError, match="remat is only implemented"):
+            registry.build_model(cfg, "cpu", input_shape=(8, 8, 3))
+        with pytest.raises(ValueError, match="remat is only implemented"):
+            jax_registry.build_model(JaxModelConfig(name=name, width=8,
+                                                    remat=True))
+    for impl in ("ring", "ulysses"):
+        model = registry.build_model(
+            ModelConfig(**dict(SIZES, name="bert"), attn_impl=impl), "cpu",
+            generator=prng.init_generator(0))
+        ids, _ = _batch()
+        with pytest.raises(ValueError, match="needs a sequence group"):
+            model(torch.from_numpy(ids).long())
