@@ -97,7 +97,29 @@ Phases (any failure exits non-zero; no phase's error is caught):
    10c ``train --attn-impl ring`` on one card runs the dense core and
    gives the dense run's loss, and ``train --tp-size 2`` warns and gives
    the untiled run's loss;
-11. one JSON line of per-kernel results (launches summed over the paths),
+11. the synchronous socket plane (``comm/``) on the card: 11a a broker, a
+   ``FederatedCoordinator`` and 4 ``DeviceWorker``s as threads (3
+   trainers and the evaluator) on config #4 (BERT-base, flash, 4 local
+   steps) with topk8 uplinks, error feedback and ``fold_device``, 2 rounds
+   and an evaluation: every record complete with a finite loss, the
+   params moved, round 0's updates folded again on the host bitwise equal
+   to the device fold, K1-K3's launches exact (depth x steps x trainers
+   per round, plus the evaluator's batches for K1) and ``fold_sparse``
+   once per contribution; the seconds per round, every ``phase_*_s``, the
+   fold's device us and the staging copy's per contribution, and
+   ``bytes_saved_uplink`` are printed; 11b DH secure aggregation with
+   dropout recovery, 4 trainers, 1 round, a FaultPlan losing trainer 2's
+   train reply after the share phase: 3 complete, ``unmask_failed``
+   false, the recovered aggregate equal to the survivors' unmasked sum to
+   1e-5 absolute (a masked entry is of order 1, so f32 leaves ~1e-6
+   after cancellation whatever the update's size), and the same sum with
+   one survivor's delta lost or doubled failing that bound; 11c ``cli
+   broker`` and 3 ``cli worker`` processes, and ``cli coordinate
+   --fold-device`` (config #2's CNN, num_clients 3; coordinate through
+   ``cli.main`` in this process, which counts the fold's launches),
+   every process exiting 0, the last record complete with a finite loss,
+   ``fold_dense`` launched once per round;
+12. one JSON line of per-kernel results (launches summed over the paths),
    then the result line.
 
 Needs a CUDA device and the repository beside it; it exits non-zero and
@@ -785,14 +807,14 @@ def hierarchical_path(A):
              "check_s": 0.0}
 
     def checked_sync(h, sync):
-        def run():
+        def run(*args):
             t0 = time.perf_counter()
             before = [[p.clone() for p in g.params.values()]
                       for g in h.groups]
             w = [x / sum(h.group_examples) for x in h.group_examples]
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            sync()
+            dropped = sync(*args)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             worst = 0.0
@@ -812,6 +834,7 @@ def hierarchical_path(A):
                 f"bit: {bitwise}")
             if not (worst <= SYNC_RTOL and bitwise):
                 raise AssertionError(f"8a: sync err {worst}, bitwise {bitwise}")
+            return dropped
         return run
 
     def timed_eval(evaluate):
@@ -1599,6 +1622,390 @@ def parallel_phase(A):
     return paths
 
 
+# ------------------------------------------------------------ phase 11
+SOCKET_CUTS = ("local_steps 150 -> 4; 3 enrolled trainers (+ the "
+               "evaluator), each one client of the 50-client partition")
+SOCKET_TIMEOUT = 300.0     # s per round: the first round is the warm-up
+# The masks' cancellation: 4x the f32 roundoff a sound recovery of
+# BERT-base leaves (2.5e-6 on an H100); 11b shows planted faults above it.
+CANCEL_ATOL = 1e-5
+
+
+class _Recorder:
+    """Patches ``comm.coordinator.StreamingFolder`` (and optionally
+    ``DeviceWorker._mask``) for one phase: keeps every folder the
+    coordinator makes with the updates it was given, and each worker's
+    delta before its masks."""
+
+    def __init__(self, masks: bool = False):
+        from colearn_federated_learning_tpu_torch.comm import (
+            aggregation, coordinator, worker)
+
+        self.folders, self.unmasked = [], {}
+        rec = self
+
+        class Recording(aggregation.StreamingFolder):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                self.received = []
+                rec.folders.append(self)
+
+            def add(self, meta, delta, weight=None):
+                self.received.append((dict(meta), delta))
+                return super().add(meta, delta, weight)
+
+        self._undo = [(coordinator, "StreamingFolder",
+                       coordinator.StreamingFolder)]
+        coordinator.StreamingFolder = Recording
+        if masks:
+            orig = worker.DeviceWorker._mask
+
+            def mask(w, round_idx, cohort, delta_np):
+                rec.unmasked[w.client_id] = delta_np
+                return orig(w, round_idx, cohort, delta_np)
+
+            self._undo.append((worker.DeviceWorker, "_mask", orig))
+            worker.DeviceWorker._mask = mask
+
+    def close(self):
+        for obj, name, orig in self._undo:
+            setattr(obj, name, orig)
+
+
+class _FoldTimer:
+    """CUDA events around the fold kernel's staging copies and its sparse
+    and dense folds while installed (device ms per call)."""
+
+    def __init__(self, F):
+        self.F, self.spans = F, {"stage": [], "sparse": [], "dense": []}
+        K = F.FoldKernel
+        self._orig = {n: getattr(K, n) for n in
+                      ("_upload", "fold_sparse_staged", "fold_dense_staged")}
+        for name, kind in (("_upload", "stage"),
+                           ("fold_sparse_staged", "sparse"),
+                           ("fold_dense_staged", "dense")):
+            setattr(K, name, self._timed(self._orig[name], kind))
+
+    def _timed(self, fn, kind):
+        def run(kernel, *args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(kernel, *args)
+            b.record()
+            rows = (len(args[1].weights) if kind == "sparse"
+                    else args[1].shape[0] if kind == "dense" else 1)
+            self.spans[kind].append((a, b, rows))
+            return out
+        return run
+
+    def per_contribution_us(self, kind):
+        """Device us of ``kind`` over the contributions folded sparse."""
+        torch.cuda.synchronize()
+        rows = sum(r for _, _, r in self.spans["sparse"])
+        return (1e3 * sum(a.elapsed_time(b) for a, b, _ in self.spans[kind])
+                / rows if rows else float("nan"))
+
+    def close(self):
+        for name, fn in self._orig.items():
+            setattr(self.F.FoldKernel, name, fn)
+
+
+def socket_config(**fed):
+    """Config #4 as the main path runs it (flash, 4 local steps), with the
+    socket plane's options."""
+    base = main_path_config()
+    run = {k: fed.pop(k) for k in list(fed)
+           if k in ("fold_device", "comm_retries")}
+    return base.replace(fed=dataclasses.replace(base.fed, **fed),
+                        run=dataclasses.replace(base.run, **run))
+
+
+def _federation(cfg, n_workers, want_evaluator, dataset):
+    """(broker, workers, coordinator) on the card, enrolled; the caller
+    stops them."""
+    from colearn_federated_learning_tpu_torch.comm.broker import MessageBroker
+    from colearn_federated_learning_tpu_torch.comm.coordinator import (
+        FederatedCoordinator)
+    from colearn_federated_learning_tpu_torch.comm.worker import DeviceWorker
+
+    broker = MessageBroker().start()
+    workers = []
+    try:
+        for i in range(n_workers):
+            workers.append(DeviceWorker(cfg, i, broker.host, broker.port,
+                                        dataset=dataset).start())
+        coord = FederatedCoordinator(cfg, broker.host, broker.port,
+                                     round_timeout=SOCKET_TIMEOUT,
+                                     want_evaluator=want_evaluator)
+        coord.enroll(min_devices=n_workers, timeout=120.0)
+    except BaseException:
+        for w in workers:
+            w.stop()
+        broker.stop()
+        raise
+    return broker, workers, coord
+
+
+def _stop(broker, workers, coord):
+    coord.close()
+    for w in workers:
+        w.stop()
+    broker.stop()
+
+
+def socket_round_path(A, F, dataset):
+    """11a: a broker, a FederatedCoordinator and 4 DeviceWorkers (3
+    trainers and the evaluator) on the card, config #4 with topk8 uplinks,
+    error feedback and the device fold, 2 rounds and an evaluation."""
+    from colearn_federated_learning_tpu_torch.comm.aggregation import (
+        StreamingFolder)
+    from colearn_federated_learning_tpu_torch.comm.downlink import host_params
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    cfg = socket_config(compress="topk8", compress_feedback=True,
+                        fold_device=True)
+    t0 = time.perf_counter()
+    rec_patch, timer = _Recorder(), None
+    broker, workers, coord = _federation(cfg, 4, True, dataset)
+    try:
+        log(f"  [11a] {cfg.run.name}: bert width {cfg.model.width} "
+            f"{cfg.model.dtype}, flash, topk8 + feedback, fold_device; "
+            f"trainers {[d.device_id for d in coord.trainers]}, evaluator "
+            f"{coord.evaluator.device_id}; cuts: {SOCKET_CUTS}; up in "
+            f"{time.perf_counter() - t0:.2f} s")
+        if len(coord.trainers) != 3 or coord.evaluator is None:
+            raise AssertionError("11a: roles not assigned as 3 + 1")
+        before = host_params(coord.params_tree())
+        A.reset_launches()
+        F.reset_launches()
+        timer = _FoldTimer(F)
+        records = []
+        for _ in range(2):
+            records.append(coord.run_round())
+        t1 = time.perf_counter()
+        ev = coord.evaluate()
+        eval_s = time.perf_counter() - t1
+        launches = {**A.launches, **F.launches}
+        after = host_params(coord.params_tree())
+        fold_us = timer.per_contribution_us("sparse")
+        stage_us = timer.per_contribution_us("stage")
+    finally:
+        if timer is not None:
+            timer.close()
+        rec_patch.close()
+        _stop(broker, workers, coord)
+    for r in records:
+        log(f"  [11a] round {r['round']}: {r['round_time_s']:.3f} s, "
+            f"train_loss {r['train_loss']:.6f}, completed {r['completed']}, "
+            f"phase_broadcast_collect_s {r['phase_broadcast_collect_s']:.3f}"
+            f", phase_aggregate_s {r['phase_aggregate_s']:.3f}, "
+            f"phase_fold_overlap_s {r['phase_fold_overlap_s']:.3f}, "
+            f"bytes_saved_uplink {r['bytes_saved_uplink']}")
+        if not (r["completed"] == 3 and not r["dropped"]
+                and math.isfinite(r["train_loss"])):
+            raise AssertionError(f"11a: bad round record {r}")
+    moved = sum(float(np.abs(a - b).sum()) for a, b in
+                zip(trees.leaves(after), trees.leaves(before)))
+    if not (moved > 0 and all(np.isfinite(a).all()
+                              for a in trees.leaves(after))
+            and math.isfinite(ev["eval_loss"])):
+        raise AssertionError(f"11a: params moved {moved}, eval {ev}")
+    # Round 0's updates folded again on the host: bitwise the device fold.
+    dev = rec_patch.folders[0]
+    host = StreamingFolder(coord._shapes_np,
+                           order=[str(c) for c in dev.folded_ids])
+    for meta, delta in dev.received:
+        host.add(meta, delta)
+    host.finalize()
+    bitwise = (host.total_w == dev.total_w and all(
+        x.tobytes() == y.tobytes() for x, y in
+        zip(trees.leaves(host.wsum), trees.leaves(dev.wsum))))
+    if not bitwise:
+        raise AssertionError("11a: the device fold differs from the host "
+                             "fold of the same updates")
+    depth, steps = cfg.model.depth, cfg.fed.local_steps
+    trained = 2 * 3 * steps
+    eval_batches = math.ceil(len(dataset.x_test)
+                             / max(cfg.fed.batch_size, 64))
+    want = {"flash_forward": depth * (trained + eval_batches),
+            "flash_backward_dq": depth * trained,
+            "flash_backward_dkv": depth * trained,
+            "fold_sparse": 2 * 3, "fold_dense": 0}
+    if launches != want:
+        raise AssertionError(f"11a: launches {launches}, expected {want}")
+    log(f"  [11a] evaluate: loss {ev['eval_loss']:.6f} acc "
+        f"{ev['eval_acc']:.4f} in {eval_s:.3f} s; params moved "
+        f"{moved:.6e}; device fold == host fold of round 0 (bitwise); "
+        f"fold_sparse {fold_us:.2f} us device per contribution, staging "
+        f"copy {stage_us:.2f} us device per contribution; launches "
+        f"{launches} (exact)")
+    return launches, [r["round_time_s"] for r in records], fold_us, stage_us
+
+
+DROP_REPLY_2 = {"seed": 0, "faults": [
+    {"kind": "corrupt_payload", "device_id": "2", "round": 0,
+     "op": "train"}]}
+
+
+def secure_socket_path(A, F, dataset):
+    """11b: wire secure aggregation with DH keys and dropout recovery on
+    BERT-base, 4 trainers, 1 round; a FaultPlan corrupts trainer 2's train
+    reply after the share phase (transport retries off, so the reply is
+    lost).  The round completes with the 3 others and the recovered
+    aggregate equals their unmasked sum."""
+    from colearn_federated_learning_tpu_torch import faults
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    cfg = socket_config(secure_agg=True, comm_retries=0)
+    t0 = time.perf_counter()
+    rec_patch = _Recorder(masks=True)
+    broker, workers, coord = _federation(cfg, 4, False, dataset)
+    try:
+        A.reset_launches()
+        F.reset_launches()
+        faults.install(faults.FaultPlan.from_json(json.dumps(DROP_REPLY_2)))
+        try:
+            rec = coord.run_round()
+        finally:
+            faults.uninstall()
+        launches = {**A.launches, **F.launches}
+    finally:
+        rec_patch.close()
+        _stop(broker, workers, coord)
+    if not (rec["completed"] == 3 and rec["dropped"] == ["2"]
+            and rec["unmask_failed"] is False):
+        raise AssertionError(f"11b: bad round record {rec}")
+    folder = rec_patch.folders[0]
+    survivors = [int(c) for c in folder.folded_ids]
+    plain = None
+    for c in survivors:
+        part = [np.asarray(l, np.float32)
+                for l in trees.leaves(rec_patch.unmasked[c])]
+        plain = part if plain is None else [p + q for p, q in zip(plain, part)]
+    got = trees.leaves(folder.wsum)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, plain))
+    top = max(float(np.abs(b).max()) for b in plain)
+    # f32's spacing at the largest masked entry the fold summed: the size
+    # of one rounding of the masked sum, whatever the update's size.
+    ulp = float(np.spacing(np.float32(max(
+        float(np.abs(np.asarray(l, np.float32)).max())
+        for _, delta in folder.received for l in trees.leaves(delta)))))
+    # Planted faults held against the same bound: the recovery that loses
+    # one survivor's delta, and the one that counts it twice (the smallest
+    # over the survivors).  Each must fail the bound, or the bound could
+    # not tell a wrong recovery from roundoff.
+    planted = {"lost": math.inf, "doubled": math.inf}
+    for c in survivors:
+        part = [np.asarray(l, np.float32)
+                for l in trees.leaves(rec_patch.unmasked[c])]
+        for name, sign in (("lost", -1), ("doubled", 1)):
+            planted[name] = min(planted[name], max(
+                float(np.abs(a - (b + sign * q)).max())
+                for a, b, q in zip(got, plain, part)))
+    depth, steps = cfg.model.depth, cfg.fed.local_steps
+    want = {"flash_forward": depth * 4 * steps,
+            "flash_backward_dq": depth * 4 * steps,
+            "flash_backward_dkv": depth * 4 * steps,
+            "fold_sparse": 0, "fold_dense": 0}
+    log(f"  [11b] secure DH round, 4 trainers, trainer 2's reply lost: "
+        f"survivors {survivors}, dropped {rec['dropped']}, unmask_failed "
+        f"{rec['unmask_failed']}; recovered sum vs the survivors' unmasked "
+        f"sum: max abs diff {err:.3e} (bound {CANCEL_ATOL}; largest entry "
+        f"{top:.3e}, relative {err / top:.3e}; f32 spacing at the largest "
+        f"masked entry {ulp:.3e}, {err / ulp:.2f} of it); planted faults "
+        f"against the same sum: one survivor's delta lost "
+        f"{planted['lost']:.3e}, doubled {planted['doubled']:.3e}; round "
+        f"{rec['round_time_s']:.3f} s; launches {launches}; path "
+        f"{time.perf_counter() - t0:.2f} s")
+    if survivors != [0, 1, 3] or not err <= CANCEL_ATOL:
+        raise AssertionError(f"11b: survivors {survivors}, error {err}")
+    if not min(planted.values()) > CANCEL_ATOL:
+        raise AssertionError(f"11b: a planted fault {planted} passes the "
+                             f"bound {CANCEL_ATOL}")
+    if launches != want:
+        raise AssertionError(f"11b: launches {launches}, expected {want}")
+    return launches
+
+
+SOCKET_CLI = ["--config", "cifar10_cnn_fedavg", "--num-clients", "3",
+              "--rounds", "2"]
+
+
+def socket_cli_path(F):
+    """11c: ``cli broker`` and 3 x ``cli worker`` as processes on the card,
+    then ``cli coordinate --min-devices 3 --rounds 2 --fold-device`` on
+    config #2's CNN (num_clients cut to 3; no evaluator, so all three
+    train) through ``cli.main`` in this process, which counts the fold
+    kernel's launches.  Every process exits 0 on SIGTERM."""
+    import os
+
+    from colearn_federated_learning_tpu_torch import cli
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    mod = [sys.executable, "-m", "colearn_federated_learning_tpu_torch.cli"]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        broker = subprocess.Popen([*mod, "broker"], env=env, cwd=root,
+                                  stdout=subprocess.PIPE, text=True)
+        procs.append(broker)
+        port = str(json.loads(broker.stdout.readline())["port"])
+        for i in range(3):
+            procs.append(subprocess.Popen(
+                [*mod, "worker", *SOCKET_CLI, "--client-id", str(i),
+                 "--broker-port", port], env=env, cwd=root,
+                stdout=subprocess.DEVNULL))
+        F.reset_launches()
+        last = cli.main(["coordinate", *SOCKET_CLI, "--broker-port", port,
+                         "--min-devices", "3", "--no-evaluator",
+                         "--fold-device", "--enroll-timeout", "300",
+                         "--round-timeout", str(SOCKET_TIMEOUT)])
+        launches = dict(F.launches)
+        for p in procs:
+            p.terminate()
+        codes = [p.wait(60) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    log(f"  [11c] broker + 3 worker processes + coordinate ({SOCKET_CLI}, "
+        f"cut: num_clients 100 -> 3): last record round {last['round']} "
+        f"completed {last['completed']} train_loss {last['train_loss']:.6f}"
+        f" in {last['round_time_s']:.3f} s; exit codes {codes}; fold "
+        f"launches {launches}; path {time.perf_counter() - t0:.2f} s")
+    if not (codes == [0, 0, 0, 0] and last["round"] == 1
+            and last["completed"] == 3 and math.isfinite(last["train_loss"])
+            and launches["fold_dense"] == 2 and launches["fold_sparse"] == 0):
+        raise AssertionError(f"11c: codes {codes}, record {last}, "
+                             f"launches {launches}")
+    return launches
+
+
+def socket_phase(A, F):
+    """Phase 11: the synchronous socket plane on the card."""
+    from colearn_federated_learning_tpu_torch.data import registry
+
+    cfg = main_path_config()
+    dataset = registry.get_dataset(cfg.data.dataset, seed=cfg.run.seed)
+    paths, numbers = {}, {}
+    t0 = time.perf_counter()
+    paths["socket_round"], numbers["11a_round_s"], numbers["11a_fold_us"], \
+        numbers["11a_stage_us"] = socket_round_path(A, F, dataset)
+    log(f"  11a in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["socket_secure"] = secure_socket_path(A, F, dataset)
+    log(f"  11b in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["socket_cli"] = socket_cli_path(F)
+    log(f"  11c in {time.perf_counter() - t0:.2f} s")
+    log("phase 11 numbers " + json.dumps(numbers))
+    return paths
+
+
 def build_phase(_build):
     """Build the kernels; report each head-dim-64 instantiation's registers,
     spills and blocks per SM, and fail if any instantiation spills."""
@@ -1702,6 +2109,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(parallel_phase(A))
     log(f"  phase 10 in {time.perf_counter() - t0:.2f} s")
+    log("phase 11: the synchronous socket plane")
+    t0 = time.perf_counter()
+    paths.update(socket_phase(A, F))
+    log(f"  phase 11 in {time.perf_counter() - t0:.2f} s")
     log("launches per path " + json.dumps(paths))
 
     sources = {**{name: (SOURCE, rep) for name, (rep, _) in KERNELS.items()},

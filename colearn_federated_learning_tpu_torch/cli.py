@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: ``train``, ``init``, ``aggregate``,
-``eval`` and ``bench``.
+``eval``, ``bench``, ``broker``, ``worker`` and ``coordinate``.
 
     python -m colearn_federated_learning_tpu_torch.cli train --config NAME \\
         [--backend gpu|cpu] [overrides]
@@ -13,7 +13,10 @@ aggregators; hierarchical edge → cloud federation (``--edge-groups`` >= 2,
 ``--edge-sync-period``); on the flat path, a per-client evaluation of the
 final model (``--per-client-eval``, its report on stderr); the file plane
 (``init``, ``train --role client`` with ``--compress``, ``aggregate``,
-``eval``; ``fed/offline.py``); and the headline benchmark (``bench``).
+``eval``; ``fed/offline.py``); the headline benchmark (``bench``); and the
+synchronous socket plane (``broker``, ``worker``, ``coordinate``;
+``comm/``), with ``--fault-plan`` installed on the process's transport.
+``broker`` and ``worker`` serve until SIGINT or SIGTERM and then exit 0.
 Everything runs on the card (``--backend gpu``, the default, which raises
 without one) or, only when asked, on the CPU.  ``train`` writes each
 round's record to stderr as one JSON line and its summary to stdout, as in
@@ -38,10 +41,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import signal
 import sys
+import threading
 import time
 from typing import Callable, Optional
 
+from colearn_federated_learning_tpu_torch import comm
 from colearn_federated_learning_tpu_torch.utils.config import (
     CONFIGS, ExperimentConfig, get_config)
 
@@ -53,15 +59,20 @@ _FED_KEYS = {"rounds", "cohort_size", "local_epochs", "local_steps",
              "dp_target_quantile", "dp_clip_lr", "dp_bit_noise",
              "secure_agg", "secure_agg_neighbors", "straggler_prob",
              "edge_groups", "edge_sync_period", "compress",
-             "compress_feedback", "topk_fraction", "min_cohort_fraction"}
+             "compress_feedback", "topk_fraction", "min_cohort_fraction",
+             "compress_down", "topk_adaptive", "topk_min_fraction",
+             "topk_max_fraction"}
 _DATA_KEYS = {"num_clients", "dataset", "partition", "dirichlet_alpha"}
 _MODEL_KEYS = {"attn_impl", "remat", "width", "stem", "norm"}
-_RUN_KEYS = {"seed", "tp_size", "eval_every", "log_every"}
+_RUN_KEYS = {"seed", "tp_size", "eval_every", "log_every", "evict_after",
+             "worker_enroll_timeout", "comm_retries", "comm_backoff_base",
+             "comm_backoff_max", "fault_plan", "fault_seed", "fold_device"}
 
-_LORA = "ROADMAP.md Queue A item 5 (LoRA)"
-_COMM = "ROADMAP.md Queue A item 8 (the socket planes and faults/)"
-_CKPT = "ROADMAP.md Queue A item 9 (fleetsim and checkpoints)"
-_OBS = "ROADMAP.md Queue A item 10 (telemetry, tracing and evaluation extras)"
+_LORA = comm.ITEM_LORA
+_CKPT = comm.ITEM_CKPT
+_OBS = comm.ITEM_OBS
+_TREE = comm.ITEM_TREE
+_ASYNC = comm.ITEM_ASYNC
 
 # dest -> (flag, argparse kwargs, the ROADMAP item that ports it): the
 # override flags every subcommand takes, and those of ``train`` alone.
@@ -69,24 +80,11 @@ _UNPORTED = {
     "lora_rank": ("--lora-rank", dict(type=int), _LORA),
     "lora_alpha": ("--lora-alpha", dict(type=float), _LORA),
     "lora_merge_every": ("--lora-merge-every", dict(type=int), _LORA),
-    "compress_down": ("--compress-down", dict(), _COMM),
-    "topk_adaptive": ("--topk-adaptive", dict(action="store_true"), _COMM),
-    "fold_device": ("--fold-device", dict(action="store_true"), _COMM),
-    "num_aggregators": ("--num-aggregators", dict(type=int), _COMM),
-    "fault_plan": ("--fault-plan", dict(), _COMM),
-    "fault_seed": ("--fault-seed", dict(type=int), _COMM),
-    "topk_min_fraction": ("--topk-min-fraction", dict(type=float), _COMM),
-    "topk_max_fraction": ("--topk-max-fraction", dict(type=float), _COMM),
+    "num_aggregators": ("--num-aggregators", dict(type=int), _TREE),
     "agg_heartbeat_timeout": ("--agg-heartbeat-timeout",
-                              dict(type=float), _COMM),
+                              dict(type=float), _TREE),
     "agg_buffer_interval_s": ("--agg-buffer-interval", dict(type=float),
-                              _COMM),
-    "evict_after": ("--evict-after", dict(type=int), _COMM),
-    "comm_retries": ("--comm-retries", dict(type=int), _COMM),
-    "comm_backoff_base": ("--comm-backoff-base", dict(type=float), _COMM),
-    "comm_backoff_max": ("--comm-backoff-max", dict(type=float), _COMM),
-    "worker_enroll_timeout": ("--worker-enroll-timeout", dict(type=float),
-                              _COMM),
+                              _TREE),
     "checkpoint_dir": ("--checkpoint-dir", dict(), _CKPT),
     "checkpoint_every": ("--checkpoint-every", dict(type=int), _CKPT),
     "ckpt_stream": ("--ckpt-stream", dict(action="store_true"), _CKPT),
@@ -103,6 +101,27 @@ _UNPORTED_TRAIN = {
     "personalize_steps": ("--personalize-steps", dict(type=int), _OBS),
     "detection_eval": ("--detection-eval", dict(action="store_true"), _OBS),
 }
+
+
+# The JAX coordinator's options of the paths not ported yet, and the
+# observability flags of broker/worker/coordinate.
+_COORDINATE_UNPORTED = {
+    "resume": ("--resume", dict(action="store_true"), _CKPT),
+    "per_type": ("--per-type", dict(action="store_true"), comm.ITEM_PER_TYPE),
+    "async_buffer": ("--async-buffer", dict(), _ASYNC),
+    "async_observe": ("--async-observe", dict(action="store_true"), _ASYNC),
+    "async_prune_after": ("--async-prune-after", dict(type=int), _ASYNC),
+    "async_prune_score": ("--async-prune-score", dict(type=float), _ASYNC),
+    "async_probation": ("--async-probation", dict(type=int), _ASYNC),
+}
+_OBSERVABILITY = {
+    "flight_dir": ("--flight-dir", dict(), _OBS),
+    "flight_heartbeat": ("--flight-heartbeat", dict(type=float), _OBS),
+    "flight_watchdog": ("--flight-watchdog", dict(type=float), _OBS),
+    "metrics_port": ("--metrics-port", dict(type=int), _OBS),
+    "events_file": ("--events-file", dict(), _OBS),
+}
+_UNPORTED_COMMANDS = {"aggregator": _TREE, "chaos": comm.ITEM_CHAOS}
 
 
 def _add_override_flags(p: argparse.ArgumentParser) -> None:
@@ -176,8 +195,9 @@ def _add_override_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--stem", default=None, choices=["conv", "space_to_depth"])
     p.add_argument("--norm", default=None, choices=["group", "none"])
     p.add_argument("--compress", default=None,
+                   choices=["none", "int8", "topk", "topk8"],
                    help="uplink codec of train --role client's update file "
-                        "(none|int8|topk|topk8)")
+                        "and of a worker's update")
     p.add_argument("--compress-feedback", action="store_true", default=None,
                    help="train --role client: carry the compression "
                         "residual to the next round (--residual-path)")
@@ -186,6 +206,29 @@ def _add_override_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--min-cohort-fraction", type=float, default=None,
                    help="aggregate: the share of update files that must "
                         "be usable for the round to commit")
+    p.add_argument("--compress-down", default=None,
+                   choices=["none", "int8", "topk"],
+                   help="coordinate: downlink codec of the broadcast")
+    p.add_argument("--topk-adaptive", action="store_true", default=None,
+                   help="worker: steer the topk density off the feedback "
+                        "residual's norm")
+    p.add_argument("--topk-min-fraction", type=float, default=None)
+    p.add_argument("--topk-max-fraction", type=float, default=None)
+    p.add_argument("--fold-device", action="store_true", default=None,
+                   help="coordinate: fold the updates with the fold "
+                        "kernel on the card")
+    p.add_argument("--evict-after", type=int, default=None,
+                   help="coordinate: evict a device after this many "
+                        "failed rounds in a row")
+    p.add_argument("--comm-retries", type=int, default=None)
+    p.add_argument("--comm-backoff-base", type=float, default=None)
+    p.add_argument("--comm-backoff-max", type=float, default=None)
+    p.add_argument("--worker-enroll-timeout", type=float, default=None,
+                   help="worker: seconds to wait for a role")
+    p.add_argument("--fault-plan", default=None,
+                   help="broker/worker/coordinate: install this FaultPlan "
+                        "JSON on the process's transport")
+    p.add_argument("--fault-seed", type=int, default=None)
     _add_unported(p, _UNPORTED)
 
 
@@ -238,6 +281,47 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser("bench", help="run the headline benchmark",
                    parents=[bench.build_parser(add_help=False)])
+
+    p = sub.add_parser("broker", help="run the pub/sub control-plane broker")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0)
+    _add_unported(p, _OBSERVABILITY)
+
+    p = sub.add_parser("worker", help="run a device worker process")
+    _add_override_flags(p)
+    p.add_argument("--client-id", type=int, default=None)
+    p.add_argument("--broker-host", default="127.0.0.1")
+    p.add_argument("--broker-port", type=int, required=True)
+    p.add_argument("--mud-profile", default=None,
+                   help="path to this device's RFC 8520 MUD JSON, "
+                        "announced on enrollment")
+    _add_unported(p, _OBSERVABILITY)
+
+    p = sub.add_parser("coordinate", help="run the federated coordinator "
+                                          "over enrolled workers")
+    _add_override_flags(p)
+    p.add_argument("--broker-host", default="127.0.0.1")
+    p.add_argument("--broker-port", type=int, required=True)
+    p.add_argument("--min-devices", type=int, default=2)
+    p.add_argument("--enroll-timeout", type=float, default=60.0)
+    p.add_argument("--round-timeout", type=float, default=120.0)
+    p.add_argument("--no-evaluator", action="store_true")
+    p.add_argument("--elastic", action="store_true",
+                   help="admit late-joining workers between rounds")
+    p.add_argument("--per-client-eval", action="store_true",
+                   help="report each trainer's own-shard accuracy after "
+                        "training (stderr)")
+    p.add_argument("--min-per-type", type=int, default=2,
+                   help="with --per-type only")
+    p.add_argument("--mud-require-profile", action="store_true",
+                   help="refuse devices that enroll without a MUD profile")
+    p.add_argument("--mud-allowed-types", default=None,
+                   help="comma-separated device types admitted")
+    _add_unported(p, {**_COORDINATE_UNPORTED, **_OBSERVABILITY})
+
+    # Subcommands not ported yet: refused before their flags are parsed.
+    for name in _UNPORTED_COMMANDS:
+        sub.add_parser(name, help="not ported yet (refused)")
     return parser
 
 
@@ -259,8 +343,12 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """Exit with status 2, naming the ROADMAP items, if any flag of a
-    feature that is not ported yet was given."""
-    flags = {**_UNPORTED, **_UNPORTED_TRAIN}
+    feature that is not ported yet was given (``--async-buffer 0`` is the
+    JAX default, the synchronous path)."""
+    if getattr(args, "async_buffer", None) in ("0",):
+        args.async_buffer = None
+    flags = {**_UNPORTED, **_UNPORTED_TRAIN, **_COORDINATE_UNPORTED,
+             **_OBSERVABILITY}
     given = [(flag, item) for dest, (flag, _, item) in flags.items()
              if getattr(args, dest, None) not in (None, False)]
     if given:
@@ -412,11 +500,107 @@ def evaluate(args: argparse.Namespace) -> dict:
                                    device=_device(args))
 
 
+def _install_fault_plan(config: ExperimentConfig) -> None:
+    """Install ``--fault-plan`` on this process's transport; a no-op
+    without it."""
+    if not config.run.fault_plan:
+        return
+    from colearn_federated_learning_tpu_torch import faults
+
+    plan = faults.FaultPlan.load(config.run.fault_plan,
+                                 seed=config.run.fault_seed or None)
+    faults.install(plan)
+    print(f"fault plan installed: {len(plan.faults)} spec(s), "
+          f"seed {plan.seed}", file=sys.stderr)
+
+
+def _stop_event() -> threading.Event:
+    """An event set by SIGINT or SIGTERM: a served process stops cleanly
+    and exits 0."""
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    return stop
+
+
+def broker(args: argparse.Namespace) -> None:
+    """``broker``: print the address as one JSON line, serve until
+    stopped."""
+    from colearn_federated_learning_tpu_torch.comm.broker import MessageBroker
+
+    stop = _stop_event()
+    b = MessageBroker(host=args.host, port=args.port).start()
+    print(json.dumps({"host": b.host, "port": b.port}), flush=True)
+    try:
+        stop.wait()
+    finally:
+        b.stop()
+
+
+def worker(args: argparse.Namespace) -> None:
+    """``worker``: enroll on the broker and serve until stopped."""
+    from colearn_federated_learning_tpu_torch.comm.worker import (
+        run_worker_forever)
+
+    config = config_from_args(args)
+    if args.client_id is None:
+        print("worker requires --client-id", file=sys.stderr)
+        raise SystemExit(2)
+    _install_fault_plan(config)
+    mud = None
+    if args.mud_profile:
+        with open(args.mud_profile) as f:
+            mud = f.read()
+    run_worker_forever(config, args.client_id, args.broker_host,
+                       args.broker_port, mud_profile=mud,
+                       device=_device(args), stop=_stop_event())
+
+
+def coordinate(args: argparse.Namespace) -> dict:
+    """``coordinate``: enroll ``--min-devices``, fit, and return the last
+    record; every record goes to stderr as one JSON line."""
+    from colearn_federated_learning_tpu_torch.comm.coordinator import (
+        FederatedCoordinator)
+
+    config = config_from_args(args)
+    _install_fault_plan(config)
+    mud_policy = None
+    if args.mud_require_profile or args.mud_allowed_types:
+        from colearn_federated_learning_tpu_torch.comm.mud import MudPolicy
+
+        mud_policy = MudPolicy(
+            require_profile=args.mud_require_profile,
+            allowed_types=tuple(
+                t for t in (args.mud_allowed_types or "").split(",") if t))
+    coord = FederatedCoordinator(config, args.broker_host, args.broker_port,
+                                 round_timeout=args.round_timeout,
+                                 want_evaluator=not args.no_evaluator,
+                                 mud_policy=mud_policy, device=_device(args))
+    with coord:
+        coord.enroll(min_devices=args.min_devices,
+                     timeout=args.enroll_timeout)
+        hist = coord.fit(
+            log_fn=lambda rec: print(json.dumps(rec), file=sys.stderr,
+                                     flush=True),
+            elastic=args.elastic)
+        if args.per_client_eval:
+            from colearn_federated_learning_tpu_torch.fed import evaluation
+
+            print(json.dumps(evaluation.sanitize_report(
+                coord.evaluate_per_client())), file=sys.stderr, flush=True)
+    return hist[-1]
+
+
 def main(argv: Optional[list] = None,
          on_round: Optional[Callable] = None) -> dict:
     """Parse ``argv``, run the command and print its result as one JSON
     line on stdout (``bench`` prints its own); returns the result.
     ``on_round`` is :func:`train`'s."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in _UNPORTED_COMMANDS:
+        print(f"the {argv[0]} command is not ported to the PyTorch package "
+              f"yet; see {_UNPORTED_COMMANDS[argv[0]]}", file=sys.stderr)
+        raise SystemExit(2)
     args = build_parser().parse_args(argv)
     if args.cmd == "bench":
         from colearn_federated_learning_tpu_torch import bench
@@ -429,8 +613,10 @@ def main(argv: Optional[list] = None,
         result = client(args)
     else:
         result = {"train": lambda a: train(a, on_round), "init": init,
-                  "aggregate": aggregate, "eval": evaluate}[args.cmd](args)
-    if is_lead():
+                  "aggregate": aggregate, "eval": evaluate,
+                  "broker": broker, "worker": worker,
+                  "coordinate": coordinate}[args.cmd](args)
+    if result is not None and is_lead():
         print(json.dumps(result), flush=True)
     return result
 

@@ -1,3 +1,27 @@
-"""Server-side folding of client updates (``aggregation.py``); the socket
-planes of the JAX package's ``comm/`` are not ported yet (ROADMAP.md
-Queue A item 8)."""
+"""Cross-process federation: the control plane and the tensor plane (the
+counterpart of the JAX package's ``comm/``; the same frames, topics and
+requests, so processes of the two packages federate together).
+
+- ``protocol``:    length-prefixed JSON header + binary body framing.
+- ``broker``:      the TCP pub/sub broker (the MQTT stand-in).
+- ``enrollment``:  device announce -> trainer/evaluator roles.
+- ``mud``:         RFC 8520 device profiles and the enrollment gate.
+- ``transport``:   per-device tensor server and client.
+- ``keyexchange``: DH pair keys for the wire plane's secure aggregation.
+- ``downlink``:    serialize-once broadcast and ``compress_down`` deltas.
+- ``worker``:      a device process: local shard and trainer on its card.
+- ``coordinator``: the synchronous round loop over enrolled devices.
+- ``aggregation``: the update folders, with the device fold (B4).
+
+Not ported yet; each is refused naming its ROADMAP.md Queue A item:
+"""
+
+ITEM_TREE = "ROADMAP.md Queue A item 12 (the aggregator tree)"
+ITEM_ASYNC = "ROADMAP.md Queue A item 13 (the asynchronous coordinator)"
+ITEM_PER_TYPE = "ROADMAP.md Queue A item 14 (per-type federation)"
+ITEM_SHARDED = "ROADMAP.md Queue A item 15 (the sharded server)"
+ITEM_CHAOS = "ROADMAP.md Queue A item 16 (the chaos soaks)"
+ITEM_LORA = "ROADMAP.md Queue A item 5 (LoRA)"
+ITEM_CKPT = "ROADMAP.md Queue A item 9 (fleetsim and checkpoints)"
+ITEM_OBS = ("ROADMAP.md Queue A item 10 (telemetry, tracing and "
+            "evaluation extras)")

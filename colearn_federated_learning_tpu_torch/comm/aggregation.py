@@ -17,12 +17,13 @@ card, its plain version when ``device="cpu"``), bitwise equal to the host
 fold, which stays the parity oracle.
 
 The sharded server (``placement=``) is not ported: it raises, naming
-ROADMAP.md Queue A item 8 (its callers are the socket coordinators).
+its ROADMAP.md Queue A item.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -76,9 +77,11 @@ def _merge_dense(acc: Any, contrib: Any) -> Any:
 
 def _refuse_placement(placement: Any) -> None:
     if placement is not None:
+        from colearn_federated_learning_tpu_torch import comm
+
         raise NotImplementedError(
             "the sharded server (placement=) is not ported yet; see "
-            "ROADMAP.md Queue A item 8 (the socket planes)")
+            f"{comm.ITEM_SHARDED}")
 
 
 class UpdateFolder:
@@ -146,6 +149,9 @@ class StreamingFolder(UpdateFolder):
                         if slices is not None else None)
         self.folded_ids: list[str] = []
         self.densify_avoided = 0
+        # Seconds add() spent decoding and staging: work a streaming
+        # caller overlaps with the replies still in flight.
+        self.fold_s = 0.0
         self._finalized = False
         self._device_fold = bool(device_fold)
         self._device = device
@@ -156,6 +162,7 @@ class StreamingFolder(UpdateFolder):
             weight: Optional[float] = None) -> float:
         if self._finalized:
             raise RuntimeError("StreamingFolder already finalized")
+        t0 = time.perf_counter()
         w = float(meta.get("weight", 1.0)) if weight is None else float(weight)
         if meta.get("compress") in compression.TOPK_SCHEMES:
             contrib = (self._stage_topk_raw(delta) if self._device_fold
@@ -170,6 +177,7 @@ class StreamingFolder(UpdateFolder):
         self._staged[cid] = (w, contrib,
                              float(meta.get("mean_loss", 0.0)) * w)
         self.count += 1
+        self.fold_s += time.perf_counter() - t0
         return w
 
     def _stage_topk(self, wire_tree: Any, w: float) -> _SparseStage:

@@ -1,0 +1,752 @@
+"""Federated coordinator over the socket planes: the synchronous path of
+the JAX package's ``comm/coordinator.py``.
+
+It enrolls devices on the broker, assigns trainer and evaluator roles,
+then per round: samples a cohort, broadcasts the global params once
+serialized, fans the train requests out on a thread per device against
+one deadline (a device that fails or is too slow is dropped from the
+round), folds the updates as they arrive in cohort order
+(``StreamingFolder``, on the card with ``run.fold_device``), removes
+secure aggregation's masks (DH share recovery or the shared seed),
+applies the server strategy on the coordinator's device, charges the DP
+accountant at the realized noise, and scores the evaluator.  Devices that
+fail ``evict_after`` rounds in a row are evicted; ``fit(elastic=True)``
+admits late joiners.  Round records carry the JAX package's keys under
+the same conditions; the ``phase_*_s`` values come from the port's own
+clock around the same phases.
+
+The server state lives on the coordinator's device (the card unless the
+caller passes ``device="cpu"``), in the flax layout the wire carries.
+
+Not ported yet, each refused naming its ROADMAP item: the aggregator tree
+(``run.num_aggregators``), LoRA, checkpoints and resume, the health
+ledger, the convergence observatory, and the sharded server (``tp_size``
+> 1 on a host with that many cards; with fewer the server runs
+replicated, as the JAX package's placement falls back).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import math
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from colearn_federated_learning_tpu_torch import comm
+from colearn_federated_learning_tpu_torch.comm import enrollment, keyexchange
+from colearn_federated_learning_tpu_torch.comm import protocol
+from colearn_federated_learning_tpu_torch.comm.aggregation import (
+    StreamingFolder)
+from colearn_federated_learning_tpu_torch.comm.broker import BrokerClient
+from colearn_federated_learning_tpu_torch.comm.downlink import (
+    DownlinkEncoder, host_params)
+from colearn_federated_learning_tpu_torch.comm.enrollment import (
+    DeviceInfo, EnrollmentManager)
+from colearn_federated_learning_tpu_torch.comm.transport import (
+    RetryPolicy, TensorClient, retries as transport_retries)
+from colearn_federated_learning_tpu_torch.fed import compression, evaluation
+from colearn_federated_learning_tpu_torch.fed import programs, strategies
+from colearn_federated_learning_tpu_torch.fed import setup as setup_lib
+from colearn_federated_learning_tpu_torch.privacy import dropout
+from colearn_federated_learning_tpu_torch.privacy import secure_agg as sa
+from colearn_federated_learning_tpu_torch.privacy.accountant import (
+    RdpAccountant)
+from colearn_federated_learning_tpu_torch.utils import trees
+from colearn_federated_learning_tpu_torch.utils.config import (
+    ExperimentConfig, validate_robustness)
+from colearn_federated_learning_tpu_torch.utils.device import resolve_device
+from colearn_federated_learning_tpu_torch.utils.serialization import (
+    pytree_to_bytes, wire_frame_length)
+
+# A masker too slow to distribute its recovery shares within this fraction
+# of the round budget is pruned before it masks.
+SHARE_TIMEOUT_FRACTION = 0.25
+
+
+def refuse_unported(config: ExperimentConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item of any option
+    the port's coordinator does not run yet."""
+    run = config.run
+    unported = [
+        (run.num_aggregators > 0, "the aggregator tree (num_aggregators)",
+         comm.ITEM_TREE),
+        (config.fed.lora_rank > 0, "LoRA (lora_rank)", comm.ITEM_LORA),
+        (bool(run.checkpoint_dir), "checkpoints and resume (checkpoint_dir)",
+         comm.ITEM_CKPT),
+        (bool(run.health_dir), "the health ledger (health_dir)",
+         comm.ITEM_OBS),
+        (run.learn_observe, "the convergence observatory (learn_observe)",
+         comm.ITEM_OBS)]
+    for given, what, item in unported:
+        if given:
+            raise NotImplementedError(
+                f"the socket coordinator's {what} is not ported yet; see "
+                f"{item}")
+
+
+def _shape_views(tree):
+    """Zero-stride f32 views shaped as ``tree``'s leaves (no memory)."""
+    return trees.map_leaves(
+        lambda a: np.broadcast_to(np.float32(0), np.shape(a)), tree)
+
+
+class FederatedCoordinator:
+    def __init__(
+        self,
+        config: ExperimentConfig,
+        broker_host: str,
+        broker_port: int,
+        round_timeout: float = 60.0,
+        want_evaluator: bool = True,
+        mud_policy=None,
+        device=None,
+    ):
+        """``mud_policy``: an optional :class:`comm.mud.MudPolicy` gating
+        enrollment by RFC 8520 identity."""
+        setup_lib.require_mean_aggregator(config, "the socket coordinator")
+        self.config = config
+        fed = config.fed
+        if fed.secure_agg and fed.secure_agg_neighbors and (
+            fed.secure_agg_neighbors % 2 or fed.secure_agg_neighbors < 2
+        ):
+            raise ValueError(
+                "secure_agg_neighbors must be an even integer >= 2, got "
+                f"{fed.secure_agg_neighbors}")
+        if fed.secure_agg and not 0.0 < fed.secure_agg_threshold <= 1.0:
+            raise ValueError(
+                "secure_agg_threshold must be in (0, 1], got "
+                f"{fed.secure_agg_threshold}")
+        validate_robustness(config)
+        refuse_unported(config)
+        self.device = resolve_device(device)
+        tp = config.run.tp_size
+        if tp > 1 and self.device.type == "cuda" \
+                and torch.cuda.device_count() >= tp:
+            raise NotImplementedError(
+                f"the sharded server (tp_size={tp}) is not ported yet; see "
+                f"{comm.ITEM_SHARDED}")
+        self.round_timeout = round_timeout
+        self.want_evaluator = want_evaluator
+        self.retry = (
+            RetryPolicy(max_retries=config.run.comm_retries,
+                        backoff_base=config.run.comm_backoff_base,
+                        backoff_max=config.run.comm_backoff_max)
+            if config.run.comm_retries > 0 else None)
+        # Sub-quorum rounds are explicit no-ops; 0 disables.
+        self.min_cohort_fraction = fed.min_cohort_fraction
+        self._broker_addr = (broker_host, broker_port)
+        self._mud_policy = mud_policy
+        self._broker = BrokerClient(broker_host, broker_port,
+                                    timeout=protocol.CONNECT_TIMEOUT)
+        self._enroll = EnrollmentManager(self._broker, mud_policy=mud_policy)
+        self._draws = programs.Draws(config.run.seed)
+        params = setup_lib.init_global_params(config, self.device)
+        self._shapes_np = _shape_views(params)
+        self._fold_device = bool(config.run.fold_device)
+        self._names = [str(i) for i in range(len(trees.leaves(params)))]
+        self._load_params(params)
+        self.history: list[dict] = []
+        self._clients: dict[str, TensorClient] = {}
+        self.trainers: list[DeviceInfo] = []
+        self.evaluator: Optional[DeviceInfo] = None
+        self._fail_counts: dict[str, int] = {}
+        self.evict_after = config.run.evict_after
+        # One fan-out pool per coordinator, grown and never shrunk.
+        self._pool: Optional[cf.ThreadPoolExecutor] = None
+        self._pool_size = 0
+        # Asks that could not be cancelled after a timeout keep running on
+        # their (closed) clients; see _fan_out.
+        self._abandoned: list[cf.Future] = []
+        self._downlink = DownlinkEncoder(fed.compress_down)
+        # Downlink bytes saved by delta sends and full-params resyncs, over
+        # the coordinator's life (fan-out threads add to them).
+        self.downlink_stats = {"bytes_saved": 0, "resyncs": 0}
+        self._stats_lock = threading.Lock()
+        # What a compressed uplink saves per update, priced once on zeros
+        # (frame lengths depend on shapes, never values).
+        self._uplink_saved_per_update = 0
+        if fed.compress != "none":
+            zeros = trees.map_leaves(
+                lambda a: np.zeros(np.shape(a), np.float32), self._shapes_np)
+            dense_len = wire_frame_length(
+                zeros, {"round": 0, "op": "train", "compress": "none"})
+            wire_up, meta_up = compression.compress_delta(
+                zeros, fed.compress, topk_fraction=fed.topk_fraction)
+            comp_len = wire_frame_length(
+                wire_up, {"round": 0, "op": "train", **meta_up})
+            self._uplink_saved_per_update = max(0, int(dense_len - comp_len))
+        # Each round is charged at the actual cohort fraction and the
+        # realized noise (membership is elastic, stragglers drop).
+        self.accountant = RdpAccountant.from_config(fed, sampling_rate=1.0)
+
+    # ------------------------------------------------------------------
+    def _load_params(self, tree) -> None:
+        """Start the server state from a flax-layout params tree."""
+        self.server_state = strategies.init_server_state(
+            {n: torch.from_numpy(np.array(l, np.float32)).to(self.device)
+             for n, l in zip(self._names, trees.leaves(tree))},
+            self.config.fed)
+
+    def params_tree(self) -> dict:
+        """The global params as a flax-layout tree of tensors on the
+        coordinator's device."""
+        return trees.unflatten(self._shapes_np, [
+            self.server_state.params[n] for n in self._names])
+
+    def enroll(self, min_devices: int, timeout: float = 30.0) -> None:
+        """Wait for devices, assign roles, open tensor connections."""
+        self._enroll.wait_for(min_devices, timeout)
+        self.trainers, self.evaluator = self._enroll.assign_roles(
+            want_evaluator=self.want_evaluator)
+        for d in self.trainers + ([self.evaluator] if self.evaluator else []):
+            self._clients[d.device_id] = TensorClient(
+                d.host, d.port, timeout=protocol.CONNECT_TIMEOUT,
+                ident=d.device_id)
+
+    def close(self) -> None:
+        for c in self._clients.values():
+            c.close()
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+        self._broker.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ------------------------------------------------------------------
+    def refresh_membership(self, poll: float = 0.1) -> list[str]:
+        """Elastic membership: admit devices that enrolled after
+        :meth:`enroll` as trainers of the next round."""
+        if not self._broker.alive():
+            # A restarted broker lost our subscription; workers re-announce
+            # through their own watchdogs.
+            self._rebuild_broker()
+        try:
+            return enrollment.admit_late_joiners(
+                self._enroll, self._broker, self.trainers, self.evaluator,
+                self._clients, poll)
+        except (OSError, protocol.ConnectionClosed):
+            self._rebuild_broker()
+            return []
+
+    def _rebuild_broker(self) -> None:
+        """Reconnect the control plane after a broker death (rounds run on
+        direct tensor connections either way)."""
+        try:
+            fresh = BrokerClient(self._broker_addr[0], self._broker_addr[1],
+                                 timeout=protocol.CONNECT_TIMEOUT)
+        except OSError:
+            return
+        self._broker.close()
+        self._broker = fresh
+        self._enroll = EnrollmentManager(fresh, mud_policy=self._mud_policy)
+
+    def _note_round_outcome(self, cohort, dropped) -> list[str]:
+        """Count consecutive failures; evict peers that failed
+        ``evict_after`` rounds in a row."""
+        dropped_set = set(dropped)
+        for d in cohort:
+            if d.device_id in dropped_set:
+                self._fail_counts[d.device_id] = (
+                    self._fail_counts.get(d.device_id, 0) + 1)
+            else:
+                self._fail_counts.pop(d.device_id, None)
+        evicted = [i for i, n in self._fail_counts.items()
+                   if n >= self.evict_after]
+        for dev_id in evicted:
+            self._fail_counts.pop(dev_id, None)
+            self.trainers = [t for t in self.trainers
+                             if t.device_id != dev_id]
+            cli = self._clients.pop(dev_id, None)
+            if cli is not None:
+                cli.close()
+        return evicted
+
+    def _reconnect(self, dev: DeviceInfo) -> None:
+        """Replace a device's connection after a failure: a late reply on
+        the old one would desynchronise the stream.  A dead peer stays
+        closed."""
+        self._clients[dev.device_id].close()
+        try:
+            self._clients[dev.device_id] = TensorClient(
+                dev.host, dev.port, timeout=protocol.CONNECT_TIMEOUT,
+                ident=dev.device_id)
+        except OSError:
+            pass
+
+    def _request(self, dev: DeviceInfo, header: dict, tree=None, meta=None,
+                 deadline=None, body=None):
+        """One device request under the retry policy, every attempt
+        budgeted against the shared ``deadline``."""
+        return self._clients[dev.device_id].request(
+            header, tree, meta=meta, timeout=self.round_timeout,
+            retry=self.retry, deadline=deadline, body=body)
+
+    def _executor(self, n: int) -> cf.ThreadPoolExecutor:
+        if self._pool is None or self._pool_size < n:
+            if self._pool is not None:
+                self._pool.shutdown(wait=False)
+            self._pool_size = max(1, n)
+            self._pool = cf.ThreadPoolExecutor(
+                max_workers=self._pool_size, thread_name_prefix="fanout")
+        return self._pool
+
+    def _fan_out(self, devs, ask, on_result=None, timeout=None):
+        """Fan ``ask(dev, deadline)`` out over ``devs`` against one shared
+        deadline (``timeout``, default ``round_timeout``).  Replies are
+        taken as they arrive on this thread (``on_result(dev, result)``,
+        so folders need no lock); a failed or late device is reconnected,
+        and an ask that cannot be cancelled is kept in ``_abandoned`` on
+        its closed client.  Returns (results, failed devices in ``devs``
+        order)."""
+        self._abandoned = [f for f in self._abandoned if not f.done()]
+        budget = self.round_timeout if timeout is None else timeout
+        results, failed_ids, handled = [], set(), set()
+        deadline = time.monotonic() + budget
+        pool = self._executor(len(devs))
+        futs = {pool.submit(ask, d, deadline): d for d in devs}
+
+        def take(fut, dev):
+            handled.add(fut)
+            try:
+                res = fut.result()
+            except Exception:
+                failed_ids.add(dev.device_id)
+                self._reconnect(dev)
+                return
+            if on_result is not None:
+                on_result(dev, res)
+            results.append(res)
+
+        try:
+            for fut in cf.as_completed(futs, timeout=budget):
+                take(fut, futs[fut])
+        except cf.TimeoutError:
+            pass                       # stragglers are handled below
+        for fut, dev in futs.items():
+            if fut in handled:
+                continue
+            if fut.done():             # finished in the race window
+                take(fut, dev)
+                continue
+            if not fut.cancel():
+                self._abandoned.append(fut)
+            failed_ids.add(dev.device_id)
+            self._reconnect(dev)
+        failed = [d for d in devs if d.device_id in failed_ids]
+        return results, failed
+
+    def _sample_cohort(self, round_idx: int) -> list[DeviceInfo]:
+        k = self.config.fed.cohort_size
+        if not k or k >= len(self.trainers):
+            return list(self.trainers)
+        rng = np.random.default_rng(self.config.run.seed * 100_003 + round_idx)
+        idx = rng.choice(len(self.trainers), size=k, replace=False)
+        return [self.trainers[i] for i in sorted(idx)]
+
+    def run_round(self) -> dict:
+        """One round: broadcast, parallel local training against the
+        deadline, weighted aggregation of the updates that made it."""
+        r = len(self.history)
+        retries_before = transport_retries.value
+        t0 = time.perf_counter()
+        rec = self._run_round(r)
+        rec["round_time_s"] = time.perf_counter() - t0
+        retries = transport_retries.value - retries_before
+        if retries:
+            rec["retries"] = int(retries)
+        self.history.append(rec)
+        return rec
+
+    def _run_round(self, r: int) -> dict:
+        fed = self.config.fed
+        cohort = self._sample_cohort(r)
+        cohort_full = list(cohort)
+        round_t0 = time.monotonic()
+        secure = fed.secure_agg
+        dh = secure and fed.secure_agg_key_exchange == "dh"
+        share_info = None
+        pruned: list[str] = []
+        if dh:
+            # Every member distributes its recovery shares before any mask
+            # is committed; members that miss the share deadline are
+            # pruned, so their death orphans no mask.
+            share_info, share_failed = self._share_phase(r, cohort)
+            if share_failed:
+                pruned = [d.device_id for d in share_failed]
+                cut = set(pruned)
+                cohort = [d for d in cohort if d.device_id not in cut]
+        # One encode for the whole cohort (serialize-once).
+        body, resync_body, saved = self._downlink.encode_round(
+            r, self.params_tree())
+        cohort_ids = sorted(int(d.device_id) for d in cohort)
+        stale: list[str] = []
+
+        def train_req(dev: DeviceInfo):
+            req = {"op": "train", "round": r}
+            if secure:
+                req["cohort"] = cohort_ids
+            if share_info is not None:
+                inbox = share_info["to"].get(dev.device_id)
+                if inbox:
+                    req["shares_in"] = inbox
+            return req
+
+        def ask(dev: DeviceInfo, deadline: float):
+            header, delta = self._request(dev, train_req(dev), body=body,
+                                          deadline=deadline)
+            if header.get("status") == "resync" and resync_body is not None:
+                # The worker's cache missed: one full-params send for it.
+                with self._stats_lock:
+                    self.downlink_stats["resyncs"] += 1
+                header, delta = self._request(dev, train_req(dev),
+                                              body=resync_body(),
+                                              deadline=deadline)
+            elif saved:
+                with self._stats_lock:
+                    self.downlink_stats["bytes_saved"] += saved
+            if header.get("status") != "ok":
+                raise RuntimeError(f"{dev.device_id}: {header.get('error')}")
+            return header["meta"], delta
+
+        # The sum is pinned to cohort order whatever the arrival order.
+        folder = StreamingFolder(
+            self._shapes_np, order=[str(int(d.device_id)) for d in cohort],
+            device_fold=self._fold_device, device=self.device)
+
+        def fold(dev: DeviceInfo, res) -> None:
+            meta, delta = res
+            if int(meta.get("round", r)) != r:     # stale update: refuse
+                stale.append(str(meta.get("client_id")))
+                return
+            folder.add(meta, delta)
+
+        t_collect = time.perf_counter()
+        train_timeout = max(1.0, self.round_timeout
+                            - (time.monotonic() - round_t0))
+        _, failed = self._fan_out(cohort, ask, on_result=fold,
+                                  timeout=train_timeout)
+        collect_s = time.perf_counter() - t_collect
+        dropped = pruned + [d.device_id for d in failed]
+
+        t_agg = time.perf_counter()
+        folder.finalize()
+        if stale:
+            pos = {str(int(d.device_id)): i for i, d in enumerate(cohort)}
+            dropped.extend(sorted(stale, key=lambda c: pos.get(c, len(pos))))
+        received = [int(c) for c in folder.folded_ids]
+        folded = folder.count
+        # Judged against the nominal sampled cohort.
+        quorum = (max(1, math.ceil(self.min_cohort_fraction
+                                   * len(cohort_full)))
+                  if self.min_cohort_fraction > 0 else 0)
+        skipped_quorum = bool(quorum) and folded < quorum
+        missing = sorted(set(cohort_ids) - set(received))
+        unmask_failed = False
+        if secure and folded and not skipped_quorum and (dh or missing):
+            if dh:
+                # Runs every dh round: the folded clients' self-masks come
+                # off even when nobody dropped.
+                ok = self._recover_dh(r, cohort_ids, received, missing,
+                                      folder, share_info)
+            else:
+                ok = self._recover_shared_seed(r, cohort_ids, received,
+                                               missing, folder)
+            unmask_failed = not ok
+        mean_delta, total_w, mean_loss = folder.mean()
+        if skipped_quorum or unmask_failed:
+            # A no-op round: orphaned masks or a sub-quorum average must
+            # never reach the model.
+            mean_delta = None
+            mean_loss = float("nan")
+        if secure:
+            mean_loss = float("nan")    # workers withhold per-client loss
+        if mean_delta is not None:
+            self.server_state = strategies.server_update(
+                self.server_state,
+                {n: torch.from_numpy(np.asarray(l)).to(self.device)
+                 for n, l in zip(self._names, trees.leaves(mean_delta))},
+                fed)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        agg_s = time.perf_counter() - t_agg
+        evicted = self._note_round_outcome(cohort_full, dropped)
+        rec = {
+            "round": r,
+            "completed": folded,
+            "cohort": len(cohort_full),
+            "dropped": dropped,
+            "evicted": evicted,
+            "train_loss": mean_loss,
+            "total_weight": total_w,
+            "phase_broadcast_collect_s": collect_s,
+            "phase_aggregate_s": agg_s,
+            # Decode and staging work the streaming fold overlapped with
+            # the stragglers.
+            "phase_fold_overlap_s": folder.fold_s,
+        }
+        if secure:
+            rec["unmask_failed"] = unmask_failed
+        if quorum:
+            rec["skipped_quorum"] = skipped_quorum
+        if fed.compress != "none":
+            rec["bytes_saved_uplink"] = self._uplink_saved_per_update * folded
+            rec["uplink_densify_avoided"] = folder.densify_avoided
+        if self.accountant is not None:
+            # Workers calibrate noise to the nominal cohort, so with only
+            # ``folded`` contributors the central noise is
+            # σ·C·sqrt(folded/nominal): charge that.  A round that released
+            # nothing costs nothing.
+            if folded > 0 and not (secure and unmask_failed) \
+                    and not skipped_quorum:
+                nominal = setup_lib.dp_effective_cohort(self.config)
+                sigma_eff = (fed.dp_noise_multiplier
+                             * math.sqrt(min(folded, nominal) / nominal))
+                q = len(cohort_full) / max(1, len(self.trainers))
+                self.accountant.step(sampling_rate=q,
+                                     noise_multiplier=sigma_eff)
+            rec["dp_epsilon"] = self.accountant.epsilon()
+            rec["dp_delta"] = self.accountant.delta
+        return rec
+
+    # ---- secure aggregation ---------------------------------------------
+    def _share_phase(self, r: int, cohort):
+        """Collect every member's encrypted recovery shares under the share
+        deadline.  Returns ``(share_info, failed devices)``; ``share_info``
+        routes each ciphertext to its destination's train request and
+        keeps each origin's threshold and self-mask commitment."""
+        cohort_ids = sorted(int(d.device_id) for d in cohort)
+
+        def ask(dev: DeviceInfo, deadline: float):
+            header, _ = self._request(
+                dev, {"op": "share_setup", "round": r, "cohort": cohort_ids},
+                deadline=deadline)
+            if header.get("status") != "ok":
+                raise RuntimeError(f"{dev.device_id}: {header.get('error')}")
+            return header["meta"]
+
+        got: dict[str, dict] = {}
+        share_timeout = max(1.0,
+                            self.round_timeout * SHARE_TIMEOUT_FRACTION)
+        _, failed = self._fan_out(
+            cohort, ask,
+            on_result=lambda dev, m: got.__setitem__(dev.device_id, m),
+            timeout=share_timeout)
+        info = {"t": {}, "commit": {}, "to": {}}
+        for dev_id, meta in got.items():
+            origin = str(meta.get("client_id", dev_id))
+            info["t"][origin] = int(meta.get("t", 0))
+            info["commit"][origin] = str(meta.get("b_commit", ""))
+            for dest, blob in (meta.get("shares") or {}).items():
+                info["to"].setdefault(str(dest), {})[origin] = blob
+        return info, failed
+
+    def _partners_of(self, r: int, members, cohort_ids) -> np.ndarray:
+        neighbors = self.config.fed.secure_agg_neighbors
+        ring = (self._draws.ring_order(r, np.asarray(cohort_ids))
+                if neighbors else None)
+        return np.asarray(sa.partner_table(np.asarray(members),
+                                           np.asarray(cohort_ids),
+                                           neighbors, ring))
+
+    def _recover_dh(self, r: int, cohort_ids, received, missing, folder,
+                    share_info) -> bool:
+        """Share-based mask recovery: collect t-of-n shares from the folded
+        survivors, reconstruct every folded client's self-mask seed and
+        every dead client's session secret, and subtract the self-masks
+        and the orphaned pair masks as one correction on the finalized
+        fold.  A reconstruction short of its threshold, or one that fails
+        its commitment or public key, discards the round (False)."""
+        by_id = {int(d.device_id): d for d in self.trainers}
+        devs = [by_id[cid] for cid in received if cid in by_id]
+        alive_masked = [u for u in received
+                        if int(share_info["t"].get(str(u), 0)) > 0]
+        s_shares: dict = {y: {} for y in missing}
+        b_shares: dict = {u: {} for u in alive_masked}
+        b_direct: dict = {}
+        if missing or alive_masked:
+            def ask(dev: DeviceInfo, deadline: float):
+                header, _ = self._request(
+                    dev, {"op": "unmask", "round": r, "dropped": missing,
+                          "alive": alive_masked}, deadline=deadline)
+                if header.get("status") != "ok":
+                    raise RuntimeError(
+                        f"{dev.device_id}: {header.get('error')}")
+                return header["meta"]
+
+            got: dict[str, dict] = {}
+            self._fan_out(devs, ask, on_result=lambda dev, m: got.__setitem__(
+                dev.device_id, m))
+            for dev in devs:
+                meta = got.get(dev.device_id)
+                if meta is None:
+                    continue    # t-of-n: silent survivors are tolerated
+                x = int(meta["client_id"]) + 1
+                for origin, val in (meta.get("s_shares") or {}).items():
+                    if int(origin) in s_shares:
+                        s_shares[int(origin)][x] = int(val, 16)
+                for origin, val in (meta.get("b_shares") or {}).items():
+                    if int(origin) in b_shares:
+                        b_shares[int(origin)][x] = int(val, 16)
+                if meta.get("b_self") is not None and (
+                        int(meta["client_id"]) in b_shares):
+                    b_direct[int(meta["client_id"])] = int(meta["b_self"], 16)
+
+        keys: list = []
+        signs: list = []
+        for u in alive_masked:
+            t_u = int(share_info["t"][str(u)])
+            try:
+                b = (b_direct[u] if u in b_direct
+                     else dropout.reconstruct(b_shares.get(u, {}), t_u))
+            except dropout.RecoveryError:
+                return False
+            if dropout.commitment(b) != share_info["commit"].get(str(u)):
+                return False            # shares interpolate to a wrong seed
+            keys.append(dropout.self_mask_key(b))
+            signs.append(1.0)
+        if missing:
+            table = self._partners_of(r, missing, cohort_ids)
+            folded_set = set(received)
+            info_cache: dict = {}
+            for y, row in zip(missing, table):
+                t_y = share_info["t"].get(str(y))
+                if t_y is None:
+                    return False
+                try:
+                    s_y = dropout.reconstruct(s_shares.get(y, {}), int(t_y))
+                except dropout.RecoveryError:
+                    return False
+                try:
+                    pub_y = keyexchange.decode_public(
+                        enrollment.fetch_device_info(
+                            self._broker, str(y), cache=info_cache).pubkey)
+                except (OSError, TimeoutError, ValueError):
+                    return False
+                if pow(keyexchange.GROUP14_G, s_y,
+                       keyexchange.GROUP14_P) != pub_y:
+                    return False        # the public key binds the secret
+                partners = sorted(
+                    ({int(p) for p in row.tolist()} & folded_set) - {y})
+                for v in partners:
+                    try:
+                        pub_v = keyexchange.decode_public(
+                            enrollment.fetch_device_info(
+                                self._broker, str(v),
+                                cache=info_cache).pubkey)
+                    except (OSError, TimeoutError, ValueError):
+                        return False
+                    secret = keyexchange.shared_secret(s_y, pub_v)
+                    keys.append(keyexchange.pair_prng_key(secret, v, y))
+                    # Survivor v folded sign(y − v)·PRG(k_vy): subtract it.
+                    signs.append(1.0 if y > v else -1.0)
+        if keys:
+            n = sum(int(np.prod(np.shape(l))) for l in
+                    trees.leaves(folder.shapes))
+            folder.apply_correction(sa.unflat_wire(
+                folder.shapes, sa.pairwise_mask_with_keys(
+                    n, keys, signs, r, self.device)))
+        return True
+
+    def _recover_shared_seed(self, r: int, cohort_ids, received, missing,
+                             folder) -> bool:
+        """Recovery under the coordinator-trusted ``shared_seed`` exchange:
+        every pair stream derives from the experiment seed, so the orphaned
+        halves are recomputed here, with no survivor round trip."""
+        table = self._partners_of(r, missing, cohort_ids)
+        folded_set = set(received)
+        refs = trees.leaves(folder.shapes)
+        shapes = [tuple(np.shape(l)) for l in refs]
+        correction = None
+        for y, row in zip(missing, table):
+            partners = sorted({int(p) for p in row.tolist()} & folded_set)
+            if not partners:
+                continue
+            # The mask y would have added is the exact negative of its
+            # orphaned halves in the folded sum.
+            mask_y = [torch.zeros(s, device=self.device) for s in shapes]
+            sa.mask_update(mask_y, y, partners,
+                           lambda a, b: self._draws.pair_mask(
+                               r, a, b, shapes, self.device))
+            neg = [(-m).cpu().numpy() for m in mask_y]
+            correction = (neg if correction is None
+                          else [np.add(c, n) for c, n in zip(correction, neg)])
+        if correction is not None:
+            folder.apply_correction(trees.unflatten(folder.shapes,
+                                                    correction))
+        return True
+
+    # ---- evaluation -------------------------------------------------------
+    def evaluate_per_client(self) -> dict:
+        """The global model on every trainer's own shard (``self_eval``),
+        one shared deadline; devices that fail are skipped.  Summarized
+        in trainer order."""
+        if self.config.fed.secure_agg:
+            raise NotImplementedError(
+                "per-client evaluation is disabled under secure_agg: "
+                "per-client statistics are exactly what the masks hide")
+        body = memoryview(pytree_to_bytes(host_params(self.params_tree())))
+
+        def ask(dev: DeviceInfo, deadline: float):
+            header, _ = self._request(dev, {"op": "self_eval"}, body=body,
+                                      deadline=deadline)
+            if header.get("status") != "ok":
+                raise RuntimeError(f"{dev.device_id}: {header.get('error')}")
+            return header["meta"]
+
+        got: dict[str, dict] = {}
+        self._fan_out(self.trainers, ask,
+                      on_result=lambda dev, m: got.__setitem__(
+                          dev.device_id, m))
+        metas = [got[d.device_id] for d in self.trainers
+                 if d.device_id in got]
+        if not metas:
+            return {"num_clients_evaluated": 0}
+        out = evaluation.summarize_per_client(
+            [m["self_loss"] for m in metas], [m["self_acc"] for m in metas],
+            [m["num_examples"] for m in metas])
+        out["num_clients_evaluated"] = len(metas)
+        out["per_client"] = {m["client_id"]: m["self_acc"] for m in metas}
+        return out
+
+    def evaluate(self) -> dict:
+        """Score the global model on the evaluator device."""
+        if self.evaluator is None:
+            raise RuntimeError("no evaluator was assigned")
+        header, _ = self._clients[self.evaluator.device_id].request(
+            {"op": "eval"}, host_params(self.params_tree()),
+            timeout=self.round_timeout)
+        if header.get("status") != "ok":
+            raise RuntimeError(f"evaluator failed: {header.get('error')}")
+        return header["meta"]
+
+    def fit(self, rounds: Optional[int] = None, log_fn=None,
+            eval_every: Optional[int] = None,
+            elastic: bool = False) -> list[dict]:
+        """Run ``rounds`` rounds (default: what remains of
+        ``config.fed.rounds``), scoring the evaluator every ``eval_every``
+        rounds and on the last.  ``elastic=True`` admits late joiners
+        between rounds."""
+        if rounds is None:
+            rounds = max(0, self.config.fed.rounds - len(self.history))
+        eval_every = eval_every or self.config.run.eval_every
+        last_round = len(self.history) + rounds - 1
+        for _ in range(rounds):
+            if elastic:
+                self.refresh_membership()
+            rec = self.run_round()
+            if self.evaluator is not None and (
+                    rec["round"] % max(1, eval_every) == 0
+                    or rec["round"] == last_round):
+                rec.update(self.evaluate())
+            if log_fn is not None:
+                log_fn(rec)
+        return self.history

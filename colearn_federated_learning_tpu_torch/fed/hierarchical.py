@@ -14,8 +14,10 @@ exactly params (fedavg, fedprox) are accepted.  Secure aggregation
 composes group-locally (each group masks over its own clients);
 :meth:`HierarchicalLearner.mask_cost_summary` prices the cut.
 
-Not ported yet: the FaultPlan branches of the sync (dropped downlinks and
-uplinks), which wait for the fault plane (ROADMAP.md Queue A item 8).
+Under an installed FaultPlan (``faults/``), a group's lost downlink keeps
+its stale model and a lost uplink leaves the cloud mean renormalized over
+the surviving groups (``faults/fileplane.py``'s hooks, hops ``seed`` and
+``sync``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
+from colearn_federated_learning_tpu_torch.faults import fileplane
 from colearn_federated_learning_tpu_torch.fed.engine import FederatedLearner
 from colearn_federated_learning_tpu_torch.privacy import dropout
 from colearn_federated_learning_tpu_torch.utils.config import ExperimentConfig
@@ -92,39 +95,62 @@ class HierarchicalLearner:
         # group.
         self.global_params = {k: v.clone()
                               for k, v in self.groups[0].params.items()}
-        w = np.asarray(self.group_examples, np.float64)
-        self._weights = [float(x) for x in w / w.sum()]
         self._seed_groups()
         # Group 0's evaluation program scores the global test set with
         # its model as scratch, as the cloud's would.
         self._eval_fn = self.groups[0]._eval_fn
         self.history: list[dict] = []
 
-    def _seed_groups(self) -> None:
+    def _seed_groups(self, round_idx: Optional[int] = None) -> None:
+        """Copy the cloud model into every group.  Under an installed
+        FaultPlan, a ``drop_silo`` spec on hop ``seed`` loses that group's
+        downlink: it keeps training from its own stale model."""
         cloud = list(self.global_params.values())
-        for g in self.groups:
+        for i, g in enumerate(self.groups):
+            if fileplane.should_drop(f"g{i}", round_idx, fileplane.HOP_SEED):
+                continue
             torch._foreach_copy_(list(g.params.values()), cloud)
 
     @torch.no_grad()
-    def _cloud_sync(self) -> None:
+    def _cloud_sync(self, round_idx: Optional[int] = None) -> list[str]:
         """Cloud aggregation: the example-count-weighted mean of the edge
         models, weights in float64 and applied in f32 in the JAX order
-        (w₀·p₀ + w₁·p₁ + …), then every group re-seeded from it."""
-        acc = torch._foreach_mul(list(self.groups[0].params.values()),
-                                 self._weights[0])
-        for w, g in zip(self._weights[1:], self.groups[1:]):
-            torch._foreach_add_(acc, torch._foreach_mul(
-                list(g.params.values()), w))
-        self.global_params = dict(zip(self.global_params, acc))
-        self._seed_groups()
+        (w₀·p₀ + w₁·p₁ + …), then every group re-seeded from it.
+
+        Under an installed FaultPlan, ``drop_silo`` specs keyed by group
+        (``g0``, ``g1``, ...) on hop ``sync`` lose that group's uplink:
+        the mean renormalizes over the survivors, each weighted by its
+        example count over theirs, as the JAX package's eager fallback
+        computes it (the cloud model stays stale when every uplink is
+        lost).  With no plan, or none that fires, every group survives
+        and the weights are the plain example shares.  Returns the
+        dropped group idents."""
+        dropped: list[str] = []
+        alive: list[tuple[float, list]] = []
+        for i, g in enumerate(self.groups):
+            ident = f"g{i}"
+            if fileplane.should_drop(ident, round_idx, fileplane.HOP_SYNC):
+                dropped.append(ident)
+                continue
+            alive.append((float(self.group_examples[i]),
+                          list(g.params.values())))
+        if alive:
+            total = sum(w for w, _ in alive)
+            acc = torch._foreach_mul(alive[0][1], alive[0][0] / total)
+            for w, p in alive[1:]:
+                torch._foreach_add_(acc, torch._foreach_mul(p, w / total))
+            self.global_params = dict(zip(self.global_params, acc))
+        self._seed_groups(round_idx)
+        return dropped
 
     def run_round(self) -> dict:
         """One edge round in every group; cloud sync on period boundaries."""
         r = len(self.history)
         recs = [g.run_round() for g in self.groups]
         synced = (r + 1) % self.sync_period == 0
+        dropped: list[str] = []
         if synced:
-            self._cloud_sync()
+            dropped = self._cloud_sync(r)
         out = {
             "round": r,
             "synced": synced,
@@ -132,6 +158,8 @@ class HierarchicalLearner:
             "completed": float(np.sum([x["completed"] for x in recs])),
             "group_losses": [float(x["train_loss"]) for x in recs],
         }
+        if dropped:
+            out["groups_dropped"] = dropped
         self.history.append(out)
         return out
 
@@ -168,8 +196,10 @@ class HierarchicalLearner:
         for _ in range(rounds):
             rec = self.run_round()
             if rec["round"] == last_round and not rec["synced"]:
-                self._cloud_sync()
+                dropped = self._cloud_sync(rec["round"])
                 rec["synced"] = True
+                if dropped:
+                    rec["groups_dropped"] = dropped
             if rec["synced"]:
                 rec["eval_loss"], rec["eval_acc"] = self.evaluate()
             if log_fn is not None and (rec["round"] % log_every == 0

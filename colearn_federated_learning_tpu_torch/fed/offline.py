@@ -10,10 +10,12 @@ either package is read by the other; update files carry
 ``fed/compression.py``'s frames.  Training and evaluation run on the card
 unless the caller passes ``device="cpu"``.
 
-Not ported yet: the fault-injection hooks of the JAX package's
-``faults/fileplane`` (identities without a fault plan, which the port's
-command line refuses) and the ``fed.offline_*`` counters (ROADMAP.md
-Queue A items 8 and 10); ``detection=True`` raises, naming item 10.
+Under an installed FaultPlan (``faults/``), ``client_update`` calls the
+file plane's fault hooks (``faults/fileplane.py``, hop ``update``): a
+dropped silo writes no file, a stale one stamps the previous round, a
+torn one is cut to half its bytes.  Not ported yet: the ``fed.offline_*``
+counters (ROADMAP.md Queue A item 10); ``detection=True`` raises, naming
+item 10.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
 from colearn_federated_learning_tpu_torch.data.sharding import pack_client_shards
+from colearn_federated_learning_tpu_torch.faults import fileplane
 from colearn_federated_learning_tpu_torch.fed import compression, evaluation
 from colearn_federated_learning_tpu_torch.fed import programs, strategies
 from colearn_federated_learning_tpu_torch.fed import setup as setup_lib
@@ -98,6 +101,12 @@ def client_update(
     params, meta = load_pytree_npz(global_path)
     round_idx = int(meta.get("round", round_idx))
 
+    silo = str(client_id)
+    if fileplane.should_drop(silo, round_idx, fileplane.HOP_UPDATE):
+        # An injected silo dropout: no update file this round.
+        return {"client_id": client_id, "round": round_idx, "weight": 0.0,
+                "dropped": True}
+
     ds = dataset or data_registry.get_dataset(c.data.dataset, seed=c.run.seed)
     labels = np.asarray(ds.y_train)
     parts = partition_for_config(c, labels)
@@ -149,11 +158,12 @@ def client_update(
     else:
         wire, cmeta = compression.compress_delta(
             delta_np, c.fed.compress, topk_fraction=c.fed.topk_fraction)
-    atomic_save_pytree_npz(
-        out_path, wire,
-        meta={"round": round_idx, "weight": weight, "client_id": client_id,
-              "num_examples": int(result.num_examples),
-              "mean_loss": mean_loss, **cmeta})
+    umeta = fileplane.stale_meta(
+        {"round": round_idx, "weight": weight, "client_id": client_id,
+         "num_examples": int(result.num_examples), "mean_loss": mean_loss,
+         **cmeta}, silo, round_idx, fileplane.HOP_UPDATE)
+    atomic_save_pytree_npz(out_path, wire, meta=umeta)
+    fileplane.maybe_truncate(out_path, silo, round_idx, fileplane.HOP_UPDATE)
     return {"client_id": client_id, "round": round_idx, "weight": weight,
             "mean_loss": mean_loss}
 

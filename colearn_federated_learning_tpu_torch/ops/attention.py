@@ -10,7 +10,8 @@ package's Pallas kernels in ``ops/attention.py``:
 Each wrapper runs its plain PyTorch version when the tensors lie on the
 CPU, and launches its kernel for CUDA tensors or raises — there is no
 fallback from one to the other.  ``launches`` counts kernel launches per
-wrapper.  :class:`FlashAttention` ties the three together for autograd
+wrapper, under a lock: threads that share the card (the socket plane's
+in-process workers) bump it together.  :class:`FlashAttention` ties the three together for autograd
 (the counterpart of the JAX ``_flash`` custom_vjp); Δ = rowsum(dO ⊙ O)
 stays a plain torch op, as it is plain XLA in the reference.
 
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -33,11 +35,13 @@ _HEAD_DIMS = (16, 32, 64, 128)
 
 launches = {"flash_forward": 0, "flash_backward_dq": 0,
             "flash_backward_dkv": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in launches:
+            launches[name] = 0
 
 
 def key_bias(kv_mask: Optional[torch.Tensor], batch: int, lk: int,
@@ -204,7 +208,8 @@ def _launch(fn, name, pointers, q, dims, causal):
                  1.0 / math.sqrt(D), int(causal), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    launches[name] += 1
+    with _LAUNCHES_LOCK:
+        launches[name] += 1
 
 
 def flash_forward(q, k, v, bias, causal: bool = False):

@@ -27,7 +27,8 @@ batch.  The accumulator lives on the kernel's device until
 staging feeds the plain versions, :func:`fold_sparse_reference` and
 :func:`fold_dense_reference` (``index_put_`` and in-order adds); on a card
 the kernel launches or raises, and never falls back.  ``launches`` counts
-kernel launches: one per sparse contribution, one per dense batch.
+kernel launches (one per sparse contribution, one per dense batch), under
+a lock, as threads may share the card.
 """
 
 from __future__ import annotations
@@ -42,12 +43,19 @@ import torch
 from colearn_federated_learning_tpu_torch.utils.device import resolve_device
 
 launches = {"fold_sparse": 0, "fold_dense": 0}
+_LAUNCHES_LOCK = threading.Lock()
 _ALIGN = 16
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in launches:
+            launches[name] = 0
+
+
+def _count(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        launches[name] += 1
 
 
 class SparseBatch(NamedTuple):
@@ -284,7 +292,7 @@ class FoldKernel:
                     self.slot_size.data_ptr(), nslots, lo, hi, float(w),
                     int(set_mode), _stream(self.device))
             _check_err("fold_sparse", err)
-            launches["fold_sparse"] += 1
+            _count("fold_sparse")
         return acc
 
     def fold_dense(self, acc: Optional[torch.Tensor],
@@ -306,7 +314,7 @@ class FoldKernel:
                                     x.shape[0], int(adopt),
                                     _stream(self.device))
         _check_err("fold_dense", err)
-        launches["fold_dense"] += 1
+        _count("fold_dense")
         return acc
 
     # ------------------------------------------------------- delivery --

@@ -16,14 +16,21 @@ time, so no full-model mask is ever held.
 Two pairing graphs: the complete graph (``neighbors`` 0), or a
 ``neighbors``-regular random ring over the cohort (Bell et al., pattern
 only), whose per-round order every member derives alike.
+
+The wire plane (``comm/worker.py``) masks with explicit keys instead
+(:func:`pairwise_mask_with_keys`): each pair's stream is seeded from the
+pair's Diffie-Hellman secret and drawn in one call over the flat wire
+tree; the port's masks are its own draws, not the JAX package's bits.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+from colearn_federated_learning_tpu_torch.utils import prng, trees
 
 # draw(a, b) -> iterator of standard-normal f32 tensors, one per parameter
 # tensor in order, of the stream clients a and b share.
@@ -96,3 +103,63 @@ def mask_scalar(value: torch.Tensor, client_id: int, partner_ids,
     from the update's."""
     (mask,) = _masks([value], client_id, partner_ids, draw, std)
     return value + mask
+
+
+# ------------------------------------------------------------ wire plane --
+def flat_wire(tree: Any, device) -> torch.Tensor:
+    """The tree's leaves (sorted-key order) as one flat f32 tensor on
+    ``device``: the layout the wire plane's masks cover."""
+    return torch.cat([torch.from_numpy(
+        np.ascontiguousarray(l, np.float32)).reshape(-1)
+        for l in trees.leaves(tree)]).to(device)
+
+
+def unflat_wire(ref: Any, flat: torch.Tensor) -> Any:
+    """Inverse of :func:`flat_wire`: host numpy leaves shaped as ``ref``'s,
+    in one device-to-host copy."""
+    host = flat.cpu().numpy()
+    out, at = [], 0
+    for leaf in trees.leaves(ref):
+        n = int(np.prod(np.shape(leaf), dtype=np.int64))
+        out.append(host[at:at + n].reshape(np.shape(leaf)))
+        at += n
+    return trees.unflatten(ref, out)
+
+
+def pair_stream(key: int, round_idx: int, n: int, device) -> torch.Tensor:
+    """The ``n`` standard-normal f32 draws of the stream ``key`` (a pair's
+    ``comm/keyexchange.pair_prng_key`` seed, or a self-mask's
+    ``privacy/dropout.self_mask_key``) in round ``round_idx``, drawn on
+    ``device`` in one call.  A CUDA and a CPU generator give different
+    draws, so every party to one secure round masks on one device type."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(prng.derive_seed(int(key), prng.TAG_MASK,
+                                     int(round_idx)))
+    return torch.randn(n, generator=gen, device=device, dtype=torch.float32)
+
+
+def pairwise_mask_with_keys(n: int, pair_keys, signs, round_idx: int,
+                            device, std: float = 1.0) -> torch.Tensor:
+    """The flat mask ``Σ_j sign_j · std · stream(key_j, round)`` over ``n``
+    entries, keys in order: the wire plane's, whose pair keys come from
+    Diffie-Hellman secrets the coordinator cannot derive.
+
+    ``signs``: +1 where this client's id is below the partner's, −1 above,
+    0 for the self-pair (skipped), as :func:`partner_table`'s complete
+    graph pairs them, so summed over the cohort the masks cancel.  The
+    flat layout is the wire tree's leaves (``utils/trees``) concatenated,
+    the same on every party."""
+    acc = torch.zeros(n, dtype=torch.float32, device=device)
+    for key, sign in zip(pair_keys, signs):
+        if sign:
+            acc.add_(pair_stream(key, round_idx, n, device),
+                     alpha=float(sign) * std)
+    return acc
+
+
+def mask_update_with_keys(flat: torch.Tensor, pair_keys, signs,
+                          round_idx: int, std: float = 1.0) -> torch.Tensor:
+    """``flat + pairwise_mask_with_keys(...)``: the mask is summed first and
+    then added, as the JAX package orders it."""
+    return flat + pairwise_mask_with_keys(flat.numel(), pair_keys, signs,
+                                          round_idx, flat.device, std)

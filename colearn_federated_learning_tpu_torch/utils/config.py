@@ -223,3 +223,72 @@ def get_config(name: str) -> ExperimentConfig:
     if name not in CONFIGS:
         raise KeyError(f"unknown config {name!r}; available: {sorted(CONFIGS)}")
     return CONFIGS[name]
+
+
+def validate_robustness(config: "ExperimentConfig") -> None:
+    """Hard checks on the comm plane's robustness knobs (the comm-plane
+    half of the JAX package's ``validate_robustness``; its LoRA checks come
+    with LoRA).  A quorum above 1.0 or an eviction threshold of 0 is not a
+    slow configuration but a meaningless one, so these raise.  Called by
+    the socket coordinator."""
+    run, fed = config.run, config.fed
+    if run.evict_after < 1:
+        raise ValueError(f"evict_after must be >= 1, got {run.evict_after}")
+    if not 0.0 <= fed.min_cohort_fraction <= 1.0:
+        raise ValueError(
+            "min_cohort_fraction must be in [0, 1], got "
+            f"{fed.min_cohort_fraction}"
+        )
+    if run.comm_retries < 0:
+        raise ValueError(
+            f"comm_retries must be >= 0, got {run.comm_retries}")
+    if run.comm_backoff_base < 0 or run.comm_backoff_max < 0:
+        raise ValueError("comm backoff values must be >= 0")
+    if fed.lr_spike_round < -1:
+        raise ValueError(
+            f"lr_spike_round must be >= -1, got {fed.lr_spike_round}")
+    if fed.lr_spike_multiplier <= 0:
+        raise ValueError(
+            "lr_spike_multiplier must be positive, got "
+            f"{fed.lr_spike_multiplier}")
+    if run.worker_enroll_timeout <= 0:
+        raise ValueError(
+            "worker_enroll_timeout must be positive, got "
+            f"{run.worker_enroll_timeout}"
+        )
+    from colearn_federated_learning_tpu_torch.fed.compression import SCHEMES
+
+    if fed.compress not in SCHEMES:
+        raise ValueError(
+            f"unknown compress {fed.compress!r} (use {SCHEMES})"
+        )
+    if fed.compress_down not in SCHEMES:
+        raise ValueError(
+            f"unknown compress_down {fed.compress_down!r} (use {SCHEMES})"
+        )
+    if not 0.0 < fed.topk_fraction <= 1.0:
+        raise ValueError(
+            f"topk_fraction must be in (0, 1], got {fed.topk_fraction}"
+        )
+    if fed.secure_agg and fed.compress_feedback:
+        raise ValueError(
+            "secure_agg cannot carry uplink error feedback: masked updates "
+            "are dense by construction (lossy compression would break the "
+            "pairwise mask cancellation), so there is no compression "
+            "residual to feed back"
+        )
+    if fed.topk_adaptive:
+        if (fed.compress not in ("topk", "topk8")
+                or not fed.compress_feedback):
+            raise ValueError(
+                "topk_adaptive steers density off the error-feedback "
+                "residual norm, so it needs compress='topk'/'topk8' AND "
+                "compress_feedback=True"
+            )
+        if not (0.0 < fed.topk_min_fraction
+                <= fed.topk_max_fraction <= 1.0):
+            raise ValueError(
+                "topk_adaptive needs 0 < topk_min_fraction <= "
+                "topk_max_fraction <= 1, got "
+                f"[{fed.topk_min_fraction}, {fed.topk_max_fraction}]"
+            )

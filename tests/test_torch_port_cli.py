@@ -4,7 +4,10 @@ do, a run on the CPU gives the round of ``FederatedLearner`` called
 directly, a flag of a feature not ported yet exits non-zero naming its
 ROADMAP item, and the default backend is the card, which raises without
 one.  The parser accepts every flag of the JAX ``train``, ``init``,
-``aggregate``, ``eval`` and ``bench`` parsers; the file plane's flags
+``aggregate``, ``eval``, ``bench``, ``broker``, ``worker`` and
+``coordinate`` parsers (the socket plane's flags are parsed into the
+config as JAX does; those of paths not ported yet exit 2 naming their
+ROADMAP item); the file plane's flags
 (``--role client``, ``--compress*``, ``--topk-fraction``,
 ``--min-cohort-fraction`` and the client's files) do in ``--role sim``
 what they do in JAX, which is nothing beyond the config; the
@@ -74,8 +77,9 @@ def test_overrides_reach_the_config_as_in_jax(extra):
 @pytest.mark.parametrize("flag,item", [
     (["--lora-rank", "4"], "item 5"),
     (["--lora-alpha", "8", "--edge-groups", "2"], "item 5"),
-    (["--topk-adaptive"], "item 8"), (["--compress-down", "int8"], "item 8"),
-    (["--fold-device"], "item 8"), (["--checkpoint-dir", "ck"], "item 9"),
+    (["--num-aggregators", "2"], "item 12"),
+    (["--agg-heartbeat-timeout", "2.0"], "item 12"),
+    (["--health-dir", "h"], "item 10"), (["--checkpoint-dir", "ck"], "item 9"),
     (["--resume"], "item 9"), (["--trace-dir", "tr"], "item 10"),
     (["--profile-dir", "pr"], "item 10")])
 def test_unported_override_exits_naming_its_roadmap_item(flag, item, capsys):
@@ -110,7 +114,9 @@ def test_every_jax_train_flag_is_accepted():
 
 
 # The flags of the JAX train parser that belong to the socket planes and
-# faults/, with a value of their type.
+# faults/, with a value of their type.  The aggregator tree's stay refused
+# (ROADMAP item 12); the rest are ported: ``train`` (the simulation role)
+# parses each into the config as JAX does and runs without reading it.
 COMM_FLAGS = [
     ("--agg-buffer-interval", "1.5"), ("--agg-heartbeat-timeout", "2.0"),
     ("--num-aggregators", "3"), ("--comm-backoff-base", "0.1"),
@@ -119,16 +125,44 @@ COMM_FLAGS = [
     ("--fault-plan", "plan.json"), ("--compress-down", "int8"),
     ("--compress-down", "topk8"), ("--topk-max-fraction", "0.3"),
     ("--topk-min-fraction", "0.02"), ("--worker-enroll-timeout", "5.0")]
+TREE_FLAGS = {"--agg-buffer-interval", "--agg-heartbeat-timeout",
+              "--num-aggregators"}
 
 
 @pytest.mark.parametrize("flag,value", COMM_FLAGS)
 def test_comm_plane_flag_exits_naming_item_8(flag, value, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["train", "--backend", "cpu", *TINY, flag, value])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{flag} is not ported" in err
-    assert "ROADMAP.md Queue A item 8" in err
+    """The aggregator tree's flags exit 2 naming its item; every other
+    comm-plane flag reaches the config as in JAX and ``train`` runs, or
+    its value is refused by the parser as JAX's refuses it."""
+    argv = ["train", "--backend", "cpu", *TINY, flag, value]
+    parser = argparse.ArgumentParser()
+    jax_cli._add_override_flags(parser)
+    try:
+        jax_args = parser.parse_args([*TINY, flag, value])
+    except SystemExit:
+        capsys.readouterr()
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv)
+        assert exc.value.code == 2
+        assert f"argument {flag}: invalid choice" in capsys.readouterr().err
+        return
+    if flag in TREE_FLAGS:
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv)
+        assert exc.value.code == 2
+        err = capsys.readouterr().err
+        assert f"{flag} is not ported" in err
+        assert "ROADMAP.md Queue A item 12 (the aggregator tree)" in err
+        return
+    ours = cli.config_from_args(cli.build_parser().parse_args(argv))
+    theirs = jax_cli.config_from_args(jax_args)
+    for section in ("fed", "data", "model"):
+        assert vars(getattr(ours, section)) == vars(getattr(theirs, section))
+    for key, val in vars(theirs.run).items():
+        if key in vars(ours.run) and key != "backend":
+            assert getattr(ours.run, key) == val, key
+    summary = cli.main(argv)
+    assert summary["rounds"] == 1 and summary["device"] == "cpu"
 
 
 EDGE = ["--config", "mnist_mlp_fedavg", "--dataset", "mnist_tiny",
@@ -234,9 +268,9 @@ def test_file_plane_flags_in_sim_run_the_plain_round(capsys):
     (["eval", "--global-model", "g.npz", "--detection-eval"], "item 10"),
     (["init", "--out", "g.npz", "--lora-rank", "4"], "item 5"),
     (["aggregate", "--global-model", "g.npz", "--updates", "u.npz", "--out",
-      "g1.npz", "--fault-plan", "p.json"], "item 8"),
+      "g1.npz", "--num-aggregators", "2"], "item 12"),
     (["train", "--role", "client", "--client-id", "0", "--global-model",
-      "g.npz", "--out", "u.npz", "--fold-device"], "item 8")])
+      "g.npz", "--out", "u.npz", "--agg-buffer-interval", "1.0"], "item 12")])
 def test_file_plane_refusals_name_their_items(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main([argv[0], "--backend", "cpu", *argv[1:]])
@@ -248,3 +282,58 @@ def test_file_plane_commands_raise_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["init", "--out", str(tmp_path / "g.npz")])
+
+
+@pytest.mark.parametrize("cmd", ["broker", "worker", "coordinate"])
+def test_every_jax_flag_of_the_socket_plane_is_accepted(cmd):
+    ours = set(cli.build_parser()._subparsers._group_actions[0]
+               .choices[cmd]._option_string_actions)
+    theirs = _jax_flags(cmd)
+    assert theirs and theirs <= ours, sorted(theirs - ours)
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["coordinate", "--broker-port", "1", "--resume"], "item 9"),
+    (["coordinate", "--broker-port", "1", "--per-type"], "item 14"),
+    (["coordinate", "--broker-port", "1", "--async-buffer", "4"], "item 13"),
+    (["coordinate", "--broker-port", "1", "--async-buffer", "auto"],
+     "item 13"),
+    (["coordinate", "--broker-port", "1", "--num-aggregators", "2"],
+     "item 12"),
+    (["worker", "--broker-port", "1", "--client-id", "0", "--metrics-port",
+      "9"], "item 10"),
+    (["broker", "--events-file", "e.jsonl"], "item 10"),
+    (["aggregator", "--agg-id", "0", "--broker-port", "1"], "item 12"),
+    (["chaos", "--rounds", "2"], "item 16")])
+def test_socket_plane_refusals_name_their_items(argv, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv)
+    assert exc.value.code == 2
+    assert f"ROADMAP.md Queue A {item}" in capsys.readouterr().err
+
+
+def test_socket_plane_commands_raise_without_a_card(monkeypatch):
+    """A worker or a coordinator (``--fold-device`` or not) built for the
+    card without one raises; neither moves to the CPU by itself."""
+    from colearn_federated_learning_tpu_torch.comm.broker import MessageBroker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with MessageBroker() as b:
+        for argv in (["worker", "--client-id", "0"],
+                     ["coordinate", "--fold-device"], ["coordinate"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                cli.main([*argv, *TINY, "--broker-port", str(b.port)])
+
+
+@pytest.mark.parametrize("flag,value", [("--compress", "gzip"),
+                                        ("--compress-down", "topk8")])
+def test_codec_flags_take_the_jax_parsers_choices(flag, value, capsys):
+    """A codec the JAX parser refuses, the port's refuses (exit 2)."""
+    parser = argparse.ArgumentParser()
+    jax_cli._add_override_flags(parser)
+    with pytest.raises(SystemExit) as theirs:
+        parser.parse_args([*TINY, flag, value])
+    with pytest.raises(SystemExit) as ours:
+        cli.main(["train", "--backend", "cpu", *TINY, flag, value])
+    assert ours.value.code == theirs.value.code == 2
+    assert f"argument {flag}: invalid choice" in capsys.readouterr().err

@@ -2,8 +2,9 @@
 against their plain PyTorch versions (the fold bit for bit), every model family's bf16 logits against the same model in
 f32 on the CPU, the hierarchical sync, update similarity and
 per-client evaluation against the CPU, remat's grads and K1 launches
-against the plain run, and the client-mesh round at world size 1 on NCCL
-against the single-device round, on the card.  Marked ``cuda``: without a CUDA device every
+against the plain run, the client-mesh round at world size 1 on NCCL
+against the single-device round, and a socket-plane round with the device
+fold against the host fold, on the card.  Marked ``cuda``: without a CUDA device every
 test here skips.  On a machine with the card (no JAX needed):
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -p no:cacheprovider -q
@@ -547,3 +548,55 @@ def test_world1_nccl_mesh_round_equals_the_single_device_round(cuda,
             _close(v.cpu(), plain.params[k].cpu(), 1e-6)
     finally:
         dist.destroy_process_group()
+
+
+def test_socket_round_with_the_device_fold_on_the_card(cuda, monkeypatch):
+    """A broker, 3 workers and a coordinator with ``fold_device`` (topk8
+    uplinks), all on the card: the round completes, the fold kernel
+    launches once per contribution, and the new params are the old plus
+    the host fold's mean of the same updates, bit for bit."""
+    from colearn_federated_learning_tpu_torch.comm import aggregation
+    from colearn_federated_learning_tpu_torch.comm import coordinator
+    from colearn_federated_learning_tpu_torch.comm.broker import MessageBroker
+    from colearn_federated_learning_tpu_torch.comm.downlink import host_params
+    from colearn_federated_learning_tpu_torch.comm.worker import DeviceWorker
+    from colearn_federated_learning_tpu_torch.utils import config, trees
+
+    cfg = config.ExperimentConfig(
+        data=config.DataConfig(dataset="mnist_tiny", num_clients=3),
+        model=config.ModelConfig(name="mlp", num_classes=10, hidden_dim=32,
+                                 depth=2),
+        fed=config.FedConfig(rounds=1, local_steps=2, batch_size=16, lr=0.1,
+                             compress="topk8"),
+        run=config.RunConfig(fold_device=True))
+    staged = []
+
+    class Recording(aggregation.StreamingFolder):
+        def add(self, meta, delta, weight=None):
+            staged.append((dict(meta), delta))
+            return super().add(meta, delta, weight)
+
+    monkeypatch.setattr(coordinator, "StreamingFolder", Recording)
+    with MessageBroker() as b:
+        workers = [DeviceWorker(cfg, i, b.host, b.port).start()
+                   for i in range(3)]
+        try:
+            with coordinator.FederatedCoordinator(
+                    cfg, b.host, b.port, want_evaluator=False) as coord:
+                coord.enroll(3, timeout=60.0)
+                before = host_params(coord.params_tree())
+                fold.reset_launches()
+                rec = coord.run_round()
+                after = host_params(coord.params_tree())
+        finally:
+            for w in workers:
+                w.stop()
+    assert fold.launches["fold_sparse"] == 3
+    assert rec["completed"] == 3 and not rec["dropped"]
+    host = aggregation.StreamingFolder(before, order=["0", "1", "2"])
+    for meta, delta in staged:
+        host.add(meta, delta)
+    mean, _, _ = host.mean()
+    for b0, m, a in zip(trees.leaves(before), trees.leaves(mean),
+                        trees.leaves(after)):
+        assert np.array_equal((b0 + m).astype(np.float32), a)

@@ -326,5 +326,5 @@ def test_device_fold_without_a_card_raises(monkeypatch):
 
 
 def test_sharded_server_is_refused_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 15"):
         StreamingFolder(_params(), placement=object())

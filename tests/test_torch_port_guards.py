@@ -109,7 +109,13 @@ NEW_MODULES = ["bench.py", "comm/aggregation.py", "fed/compression.py",
                "utils/serialization.py", "utils/trees.py",
                "parallel/__init__.py", "parallel/collectives.py",
                "parallel/mesh.py", "parallel/partition.py", "parallel/ring.py",
-               "parallel/sp.py", "parallel/tp.py", "parallel/ulysses.py"]
+               "parallel/sp.py", "parallel/tp.py", "parallel/ulysses.py",
+               "comm/__init__.py", "comm/broker.py", "comm/coordinator.py",
+               "comm/downlink.py", "comm/enrollment.py",
+               "comm/keyexchange.py", "comm/mud.py", "comm/protocol.py",
+               "comm/transport.py", "comm/worker.py", "faults/__init__.py",
+               "faults/fileplane.py", "faults/inject.py", "faults/plan.py",
+               "privacy/dropout.py", "privacy/secure_agg.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
