@@ -119,7 +119,34 @@ Phases (any failure exits non-zero; no phase's error is caught):
    ``cli.main`` in this process, which counts the fold's launches),
    every process exiting 0, the last record complete with a finite loss,
    ``fold_dense`` launched once per round;
-12. one JSON line of per-kernel results (launches summed over the paths),
+12. the aggregator tree and per-type federation (``comm/aggregator.py``,
+   ``comm/per_type.py``) on the card: 12a a broker, 4 trainer threads
+   (config #4, BERT-base, flash, 4 local steps, topk8 uplinks with error
+   feedback), 2 ``AggregatorServer`` threads and the coordinator
+   (``num_aggregators`` 2, heartbeat timeout 2 s, no evaluator), every
+   fold on the card, 3 rounds with aggregator 0 stopped after round 1:
+   each aggregator's partial bitwise its host fold, the root's sum
+   bitwise the host's slice-blocked fold of the round's contributions
+   (round 2's re-homed slice included), every record complete with 2
+   aggregators and round 2 with a failover, launches exact (K1-K3 12 x 4
+   trainers x 4 steps x 3 rounds, ``fold_sparse`` once per contribution,
+   ``fold_dense`` once per round on the root); 12b DH secure aggregation
+   through the tree, 4 trainers in 2 slices, trainer 3's train reply lost
+   after the share phase: 3 complete, each slice recovers on its own
+   (only slice 1 rebuilds a lost member's pair masks), the recovered sum
+   within 1e-5 of the survivors' unmasked sum and the same sum with one
+   survivor's delta lost or doubled failing that bound; 12c ``cli
+   broker``, 2 x ``cli aggregator --fold-device``, 3 x ``cli worker`` and
+   ``cli coordinate --num-aggregators 2 --fold-device`` (config #2's CNN,
+   3 clients, 2 rounds), every process exiting 0 and the root's
+   ``fold_dense`` launched once per round; 12d ``PerTypeFederation`` on
+   ``iot_traffic_tcn_fedavg`` (TCN width 64, depth 4, bf16) with 5 worker
+   threads announcing MUD profiles (camera, camera, bulb, bulb,
+   thermostat), 2 rounds with the device fold: the camera and bulb
+   federations run on their own devices, the thermostat is skipped, no
+   type fails, the two models are finite, moved and distinct, and
+   ``fold_dense`` launches 4 times;
+13. one JSON line of per-kernel results (launches summed over the paths),
    then the result line.
 
 Needs a CUDA device and the repository beside it; it exits non-zero and
@@ -1632,31 +1659,35 @@ CANCEL_ATOL = 1e-5
 
 
 class _Recorder:
-    """Patches ``comm.coordinator.StreamingFolder`` (and optionally
-    ``DeviceWorker._mask``) for one phase: keeps every folder the
-    coordinator makes with the updates it was given, and each worker's
-    delta before its masks."""
+    """Patches ``StreamingFolder`` in ``comm.coordinator`` and
+    ``comm.aggregator`` (and optionally ``DeviceWorker._mask``) for one
+    phase: keeps every folder the coordinator (``folders``) and the
+    aggregators (``agg_folders``) make, with the updates each was given,
+    and each worker's delta before its masks."""
 
     def __init__(self, masks: bool = False):
         from colearn_federated_learning_tpu_torch.comm import (
-            aggregation, coordinator, worker)
+            aggregation, aggregator, coordinator, worker)
 
-        self.folders, self.unmasked = [], {}
+        self.folders, self.agg_folders, self.unmasked = [], [], {}
         rec = self
 
-        class Recording(aggregation.StreamingFolder):
-            def __init__(self, *args, **kw):
-                super().__init__(*args, **kw)
-                self.received = []
-                rec.folders.append(self)
+        def recording(kept):
+            class Recording(aggregation.StreamingFolder):
+                def __init__(self, *args, **kw):
+                    super().__init__(*args, **kw)
+                    self.received = []
+                    kept.append(self)
 
-            def add(self, meta, delta, weight=None):
-                self.received.append((dict(meta), delta))
-                return super().add(meta, delta, weight)
+                def add(self, meta, delta, weight=None):
+                    self.received.append((dict(meta), delta))
+                    return super().add(meta, delta, weight)
+            return Recording
 
-        self._undo = [(coordinator, "StreamingFolder",
-                       coordinator.StreamingFolder)]
-        coordinator.StreamingFolder = Recording
+        self._undo = [(module, "StreamingFolder", module.StreamingFolder)
+                      for module in (coordinator, aggregator)]
+        coordinator.StreamingFolder = recording(self.folders)
+        aggregator.StreamingFolder = recording(self.agg_folders)
         if masks:
             orig = worker.DeviceWorker._mask
 
@@ -1706,9 +1737,36 @@ class _FoldTimer:
         return (1e3 * sum(a.elapsed_time(b) for a, b, _ in self.spans[kind])
                 / rows if rows else float("nan"))
 
+    def per_launch_us(self, kind):
+        """Device us of ``kind`` per call."""
+        torch.cuda.synchronize()
+        spans = self.spans[kind]
+        return (1e3 * sum(a.elapsed_time(b) for a, b, _ in spans)
+                / len(spans) if spans else float("nan"))
+
     def close(self):
         for name, fn in self._orig.items():
             setattr(self.F.FoldKernel, name, fn)
+
+
+def _host_fold(shapes, order, contributions, slices=None):
+    """The host fold (the parity oracle) of ``contributions``."""
+    from colearn_federated_learning_tpu_torch.comm.aggregation import (
+        StreamingFolder)
+
+    host = StreamingFolder(shapes, order=order, slices=slices)
+    for meta, delta in contributions:
+        host.add(meta, delta)
+    host.finalize()
+    return host
+
+
+def _same_fold(a, b):
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    return a.total_w == b.total_w and all(
+        x.tobytes() == y.tobytes() for x, y in
+        zip(trees.leaves(a.wsum), trees.leaves(b.wsum)))
 
 
 def socket_config(**fed):
@@ -1716,7 +1774,8 @@ def socket_config(**fed):
     socket plane's options."""
     base = main_path_config()
     run = {k: fed.pop(k) for k in list(fed)
-           if k in ("fold_device", "comm_retries")}
+           if k in ("fold_device", "comm_retries", "num_aggregators",
+                    "agg_heartbeat_timeout")}
     return base.replace(fed=dataclasses.replace(base.fed, **fed),
                         run=dataclasses.replace(base.run, **run))
 
@@ -1758,8 +1817,6 @@ def socket_round_path(A, F, dataset):
     """11a: a broker, a FederatedCoordinator and 4 DeviceWorkers (3
     trainers and the evaluator) on the card, config #4 with topk8 uplinks,
     error feedback and the device fold, 2 rounds and an evaluation."""
-    from colearn_federated_learning_tpu_torch.comm.aggregation import (
-        StreamingFolder)
     from colearn_federated_learning_tpu_torch.comm.downlink import host_params
     from colearn_federated_learning_tpu_torch.utils import trees
 
@@ -1813,15 +1870,8 @@ def socket_round_path(A, F, dataset):
         raise AssertionError(f"11a: params moved {moved}, eval {ev}")
     # Round 0's updates folded again on the host: bitwise the device fold.
     dev = rec_patch.folders[0]
-    host = StreamingFolder(coord._shapes_np,
-                           order=[str(c) for c in dev.folded_ids])
-    for meta, delta in dev.received:
-        host.add(meta, delta)
-    host.finalize()
-    bitwise = (host.total_w == dev.total_w and all(
-        x.tobytes() == y.tobytes() for x, y in
-        zip(trees.leaves(host.wsum), trees.leaves(dev.wsum))))
-    if not bitwise:
+    if not _same_fold(dev, _host_fold(coord._shapes_np, dev.folded_ids,
+                                      dev.received)):
         raise AssertionError("11a: the device fold differs from the host "
                              "fold of the same updates")
     depth, steps = cfg.model.depth, cfg.fed.local_steps
@@ -1841,6 +1891,45 @@ def socket_round_path(A, F, dataset):
         f"copy {stage_us:.2f} us device per contribution; launches "
         f"{launches} (exact)")
     return launches, [r["round_time_s"] for r in records], fold_us, stage_us
+
+
+def check_recovery(tag, got, unmasked, survivors, masked):
+    """Hold a recovered masked sum (``got``, its leaves) to the survivors'
+    unmasked sum within CANCEL_ATOL, and the same sum with one survivor's
+    delta lost, or doubled, to fail it (the smaller over the survivors), so
+    the bound tells a wrong recovery from roundoff.  ``unmasked`` maps a
+    survivor to its delta before the masks; ``masked`` are the masked
+    deltas the folds summed, f32's spacing at whose largest entry is the
+    size of one rounding of the masked sum.  Logs, then raises on either
+    failure."""
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    parts = {c: [np.asarray(l, np.float32) for l in trees.leaves(unmasked[c])]
+             for c in survivors}
+    plain = [sum(leaves) for leaves in zip(*parts.values())]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, plain))
+    top = max(float(np.abs(b).max()) for b in plain)
+    ulp = float(np.spacing(np.float32(max(
+        float(np.abs(np.asarray(l, np.float32)).max())
+        for delta in masked for l in trees.leaves(delta)))))
+    planted = {"lost": math.inf, "doubled": math.inf}
+    for part in parts.values():
+        for name, sign in (("lost", -1), ("doubled", 1)):
+            planted[name] = min(planted[name], max(
+                float(np.abs(a - (b + sign * q)).max())
+                for a, b, q in zip(got, plain, part)))
+    log(f"  [{tag}] recovered sum vs the survivors' unmasked sum: max abs "
+        f"diff {err:.3e} (bound {CANCEL_ATOL}; largest entry {top:.3e}, "
+        f"relative {err / top:.3e}; f32 spacing at the largest masked entry "
+        f"{ulp:.3e}, {err / ulp:.2f} of it); planted faults against the "
+        f"same sum: one survivor's delta lost {planted['lost']:.3e}, "
+        f"doubled {planted['doubled']:.3e}")
+    if not err <= CANCEL_ATOL:
+        raise AssertionError(f"{tag}: recovery error {err}")
+    if not min(planted.values()) > CANCEL_ATOL:
+        raise AssertionError(f"{tag}: a planted fault {planted} passes the "
+                             f"bound {CANCEL_ATOL}")
+    return err, planted
 
 
 DROP_REPLY_2 = {"seed": 0, "faults": [
@@ -1878,31 +1967,6 @@ def secure_socket_path(A, F, dataset):
         raise AssertionError(f"11b: bad round record {rec}")
     folder = rec_patch.folders[0]
     survivors = [int(c) for c in folder.folded_ids]
-    plain = None
-    for c in survivors:
-        part = [np.asarray(l, np.float32)
-                for l in trees.leaves(rec_patch.unmasked[c])]
-        plain = part if plain is None else [p + q for p, q in zip(plain, part)]
-    got = trees.leaves(folder.wsum)
-    err = max(float(np.abs(a - b).max()) for a, b in zip(got, plain))
-    top = max(float(np.abs(b).max()) for b in plain)
-    # f32's spacing at the largest masked entry the fold summed: the size
-    # of one rounding of the masked sum, whatever the update's size.
-    ulp = float(np.spacing(np.float32(max(
-        float(np.abs(np.asarray(l, np.float32)).max())
-        for _, delta in folder.received for l in trees.leaves(delta)))))
-    # Planted faults held against the same bound: the recovery that loses
-    # one survivor's delta, and the one that counts it twice (the smallest
-    # over the survivors).  Each must fail the bound, or the bound could
-    # not tell a wrong recovery from roundoff.
-    planted = {"lost": math.inf, "doubled": math.inf}
-    for c in survivors:
-        part = [np.asarray(l, np.float32)
-                for l in trees.leaves(rec_patch.unmasked[c])]
-        for name, sign in (("lost", -1), ("doubled", 1)):
-            planted[name] = min(planted[name], max(
-                float(np.abs(a - (b + sign * q)).max())
-                for a, b, q in zip(got, plain, part)))
     depth, steps = cfg.model.depth, cfg.fed.local_steps
     want = {"flash_forward": depth * 4 * steps,
             "flash_backward_dq": depth * 4 * steps,
@@ -1910,19 +1974,12 @@ def secure_socket_path(A, F, dataset):
             "fold_sparse": 0, "fold_dense": 0}
     log(f"  [11b] secure DH round, 4 trainers, trainer 2's reply lost: "
         f"survivors {survivors}, dropped {rec['dropped']}, unmask_failed "
-        f"{rec['unmask_failed']}; recovered sum vs the survivors' unmasked "
-        f"sum: max abs diff {err:.3e} (bound {CANCEL_ATOL}; largest entry "
-        f"{top:.3e}, relative {err / top:.3e}; f32 spacing at the largest "
-        f"masked entry {ulp:.3e}, {err / ulp:.2f} of it); planted faults "
-        f"against the same sum: one survivor's delta lost "
-        f"{planted['lost']:.3e}, doubled {planted['doubled']:.3e}; round "
-        f"{rec['round_time_s']:.3f} s; launches {launches}; path "
-        f"{time.perf_counter() - t0:.2f} s")
-    if survivors != [0, 1, 3] or not err <= CANCEL_ATOL:
-        raise AssertionError(f"11b: survivors {survivors}, error {err}")
-    if not min(planted.values()) > CANCEL_ATOL:
-        raise AssertionError(f"11b: a planted fault {planted} passes the "
-                             f"bound {CANCEL_ATOL}")
+        f"{rec['unmask_failed']}; round {rec['round_time_s']:.3f} s; "
+        f"launches {launches}; path {time.perf_counter() - t0:.2f} s")
+    if survivors != [0, 1, 3]:
+        raise AssertionError(f"11b: survivors {survivors}")
+    check_recovery("11b", trees.leaves(folder.wsum), rec_patch.unmasked,
+                   survivors, [delta for _, delta in folder.received])
     if launches != want:
         raise AssertionError(f"11b: launches {launches}, expected {want}")
     return launches
@@ -1932,12 +1989,15 @@ SOCKET_CLI = ["--config", "cifar10_cnn_fedavg", "--num-clients", "3",
               "--rounds", "2"]
 
 
-def socket_cli_path(F):
-    """11c: ``cli broker`` and 3 x ``cli worker`` as processes on the card,
-    then ``cli coordinate --min-devices 3 --rounds 2 --fold-device`` on
-    config #2's CNN (num_clients cut to 3; no evaluator, so all three
-    train) through ``cli.main`` in this process, which counts the fold
-    kernel's launches.  Every process exits 0 on SIGTERM."""
+def cli_federation(F, aggregators=0):
+    """``cli broker``, ``aggregators`` x ``cli aggregator --fold-device``
+    and 3 x ``cli worker`` as processes on the card, then ``cli coordinate
+    --min-devices 3 --rounds 2 --fold-device --no-evaluator`` (with
+    ``--num-aggregators`` when there are aggregators) on config #2's CNN
+    (num_clients cut to 3; no evaluator, so all three train) through
+    ``cli.main`` in this process, which counts the fold kernel's launches.
+    Every process is stopped with SIGTERM.  Returns (the last record, the
+    launches, the exit codes, seconds)."""
     import os
 
     from colearn_federated_learning_tpu_torch import cli
@@ -1953,15 +2013,21 @@ def socket_cli_path(F):
                                   stdout=subprocess.PIPE, text=True)
         procs.append(broker)
         port = str(json.loads(broker.stdout.readline())["port"])
+        for a in range(aggregators):
+            procs.append(subprocess.Popen(
+                [*mod, "aggregator", *SOCKET_CLI, "--agg-id", str(a),
+                 "--broker-port", port, "--fold-device"], env=env, cwd=root,
+                stdout=subprocess.DEVNULL))
         for i in range(3):
             procs.append(subprocess.Popen(
                 [*mod, "worker", *SOCKET_CLI, "--client-id", str(i),
                  "--broker-port", port], env=env, cwd=root,
                 stdout=subprocess.DEVNULL))
+        tree = ["--num-aggregators", str(aggregators)] if aggregators else []
         F.reset_launches()
         last = cli.main(["coordinate", *SOCKET_CLI, "--broker-port", port,
                          "--min-devices", "3", "--no-evaluator",
-                         "--fold-device", "--enroll-timeout", "300",
+                         "--fold-device", *tree, "--enroll-timeout", "300",
                          "--round-timeout", str(SOCKET_TIMEOUT)])
         launches = dict(F.launches)
         for p in procs:
@@ -1972,11 +2038,19 @@ def socket_cli_path(F):
             if p.poll() is None:
                 p.kill()
                 p.wait(10)
+    return last, launches, codes, time.perf_counter() - t0
+
+
+def socket_cli_path(F):
+    """11c: the broker, 3 worker processes and ``coordinate --fold-device``
+    on config #2's CNN (``cli_federation``): every process exits 0 and
+    ``fold_dense`` launches once per round on the coordinator."""
+    last, launches, codes, took = cli_federation(F)
     log(f"  [11c] broker + 3 worker processes + coordinate ({SOCKET_CLI}, "
         f"cut: num_clients 100 -> 3): last record round {last['round']} "
         f"completed {last['completed']} train_loss {last['train_loss']:.6f}"
         f" in {last['round_time_s']:.3f} s; exit codes {codes}; fold "
-        f"launches {launches}; path {time.perf_counter() - t0:.2f} s")
+        f"launches {launches}; path {took:.2f} s")
     if not (codes == [0, 0, 0, 0] and last["round"] == 1
             and last["completed"] == 3 and math.isfinite(last["train_loss"])
             and launches["fold_dense"] == 2 and launches["fold_sparse"] == 0):
@@ -2003,6 +2077,360 @@ def socket_phase(A, F):
     paths["socket_cli"] = socket_cli_path(F)
     log(f"  11c in {time.perf_counter() - t0:.2f} s")
     log("phase 11 numbers " + json.dumps(numbers))
+    return paths
+
+
+# ------------------------------------------------------------ phase 12
+TREE_CUTS = ("local_steps 150 -> 4; 4 enrolled trainers (clients 0-3 of "
+             "the 50-client partition), no evaluator; 2 aggregators")
+MUD_FLEET = ((0, "camera"), (1, "camera"), (2, "bulb"), (3, "bulb"),
+             (4, "thermostat"))
+
+
+def _tree(cfg, broker, n):
+    """``n`` AggregatorServers on ``broker``, each folding on the card
+    when ``cfg`` asks for the device fold."""
+    from colearn_federated_learning_tpu_torch.comm.aggregator import (
+        AggregatorServer)
+
+    aggs = []
+    try:
+        for a in range(n):
+            aggs.append(AggregatorServer(cfg, a, broker.host,
+                                         broker.port).start())
+    except BaseException:
+        for agg in aggs:
+            agg.stop()
+        raise
+    return aggs
+
+
+def tree_round_path(A, F, dataset):
+    """12a: a broker, 4 trainer threads, 2 AggregatorServers with the
+    device fold and the coordinator (num_aggregators 2, heartbeat timeout
+    2 s, no evaluator) on config #4 with topk8 uplinks and error feedback,
+    3 rounds; aggregator 0 is stopped after round 1, so round 2 re-homes
+    its slice.  Each aggregator's partial is bitwise its host fold, and
+    the root's sum is bitwise the host's slice-blocked fold of every
+    contribution of the round; the launches are exact."""
+    from colearn_federated_learning_tpu_torch.comm.aggregator import (
+        slice_cohort)
+
+    cfg = socket_config(compress="topk8", compress_feedback=True,
+                        fold_device=True, num_aggregators=2,
+                        agg_heartbeat_timeout=2.0)
+    t0 = time.perf_counter()
+    rec_patch, timer, aggs = _Recorder(), None, []
+    broker, workers, coord = _federation(cfg, 4, False, dataset)
+    try:
+        aggs = _tree(cfg, broker, 2)
+        enrolled = coord.enroll_aggregators(timeout=120.0)
+        order = [d.device_id for d in coord.trainers]
+        log(f"  [12a] {cfg.run.name}: bert width {cfg.model.width} "
+            f"{cfg.model.dtype}, flash, topk8 + feedback, fold_device on "
+            f"the aggregators and the root; trainers {order}, aggregators "
+            f"{enrolled}; cuts: {TREE_CUTS}; 3 rounds; up in "
+            f"{time.perf_counter() - t0:.2f} s")
+        A.reset_launches()
+        F.reset_launches()
+        timer = _FoldTimer(F)
+        records = []
+        for r in range(3):
+            records.append(coord.run_round())
+            if r == 1:
+                aggs[0].stop()          # its slice re-homes in round 2
+        launches = {**A.launches, **F.launches}
+        fold_us = timer.per_contribution_us("sparse")
+        stage_us = timer.per_contribution_us("stage")
+        dense_us = timer.per_launch_us("dense")
+    finally:
+        if timer is not None:
+            timer.close()
+        rec_patch.close()
+        for agg in aggs:
+            agg.stop()
+        _stop(broker, workers, coord)
+    for r in records:
+        log(f"  [12a] round {r['round']}: {r['round_time_s']:.3f} s, "
+            f"train_loss {r['train_loss']:.6f}, completed {r['completed']}, "
+            f"aggregators {r['aggregators']}, agg_failovers "
+            f"{r.get('agg_failovers', 0)}, phase_broadcast_collect_s "
+            f"{r['phase_broadcast_collect_s']:.3f}, phase_agg_fold_s "
+            f"{r['phase_agg_fold_s']:.3f}, phase_aggregate_s "
+            f"{r['phase_aggregate_s']:.3f}, phase_fold_overlap_s "
+            f"{r['phase_fold_overlap_s']:.3f}")
+        if not (r["aggregators"] == 2 and r["completed"] == 4
+                and not r["dropped"] and math.isfinite(r["train_loss"])):
+            raise AssertionError(f"12a: bad round record {r}")
+    if "agg_failovers" in records[0] or "agg_failovers" in records[1] \
+            or not records[2].get("agg_failovers", 0) >= 1:
+        raise AssertionError(f"12a: failovers "
+                             f"{[r.get('agg_failovers') for r in records]}")
+    # Each aggregator's partial against its host fold; the root's sum per
+    # round against the host's slice-blocked fold of the round's updates.
+    if len(rec_patch.agg_folders) != 6 or len(rec_patch.folders) != 3:
+        raise AssertionError(f"12a: {len(rec_patch.agg_folders)} slice "
+                             f"folds, {len(rec_patch.folders)} root folds")
+    by_round = {}
+    for f in rec_patch.agg_folders:
+        if not _same_fold(f, _host_fold(coord._shapes_np, f.folded_ids,
+                                        f.received)):
+            raise AssertionError("12a: an aggregator's device fold differs "
+                                 "from its host fold")
+        by_round.setdefault(int(f.received[0][0]["round"]), []).extend(
+            f.received)
+    for r, root in enumerate(rec_patch.folders):
+        host = _host_fold(coord._shapes_np, order, by_round[r],
+                          slice_cohort(order, 2))
+        if len(by_round[r]) != 4 or not _same_fold(root, host):
+            raise AssertionError(f"12a: round {r}'s root sum differs from "
+                                 f"the slice-blocked host fold")
+    # The same slice folds replayed on the card with nothing else running:
+    # in the rounds, the events on the shared stream also enclose the
+    # trainer threads' kernels queued between them.
+    timer = _FoldTimer(F)
+    try:
+        for f in rec_patch.agg_folders:
+            replay = _host_fold(coord._shapes_np, f.folded_ids, f.received)
+            again = type(replay)(coord._shapes_np, order=f.folded_ids,
+                                 device_fold=True)
+            for meta, delta in f.received:
+                again.add(meta, delta)
+            again.finalize()
+            if not _same_fold(again, replay):
+                raise AssertionError("12a: a replayed slice fold differs")
+        alone_us = timer.per_contribution_us("sparse")
+        alone_stage_us = timer.per_contribution_us("stage")
+    finally:
+        timer.close()
+    depth, steps = cfg.model.depth, cfg.fed.local_steps
+    trained = 3 * 4 * steps
+    want = {"flash_forward": depth * trained,
+            "flash_backward_dq": depth * trained,
+            "flash_backward_dkv": depth * trained,
+            "fold_sparse": 3 * 4, "fold_dense": 3}
+    log(f"  [12a] every slice fold == its host fold, every root sum == the "
+        f"slice-blocked host fold (bitwise, round 2's re-homed slice "
+        f"included); in the rounds (events on the stream the trainers "
+        f"share): fold_sparse {fold_us:.2f} us device per contribution, "
+        f"staging copy {stage_us:.2f} us; the slice folds replayed alone: "
+        f"fold_sparse {alone_us:.2f} us, staging copy {alone_stage_us:.2f} "
+        f"us per contribution; root fold_dense {dense_us:.2f} us device "
+        f"per launch of 2 partials; launches {launches}; path "
+        f"{time.perf_counter() - t0:.2f} s")
+    if launches != want:
+        raise AssertionError(f"12a: launches {launches}, expected {want}")
+    return (launches, [r["round_time_s"] for r in records],
+            [r["phase_agg_fold_s"] for r in records],
+            {"rounds": fold_us, "alone": alone_us},
+            {"rounds": stage_us, "alone": alone_stage_us, "root_dense":
+             dense_us})
+
+
+DROP_REPLY_3 = {"seed": 0, "faults": [
+    {"kind": "corrupt_payload", "device_id": "3", "round": 0,
+     "op": "train"}]}
+
+
+def tree_secure_path(A, F, dataset):
+    """12b: slice-local secure aggregation on BERT-base: 4 DH trainers in 2
+    slices (0, 1 | 2, 3) behind 2 aggregators, dense uplinks, 1 round; a
+    FaultPlan corrupts trainer 3's train reply after the share phase.
+    Each slice runs its own recovery (DH removes the self-masks every
+    round); only slice 1's rebuilds a lost member's pair masks."""
+    from colearn_federated_learning_tpu_torch import faults
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    cfg = socket_config(secure_agg=True, comm_retries=0, num_aggregators=2)
+    t0 = time.perf_counter()
+    rec_patch, aggs = _Recorder(masks=True), []
+    broker, workers, coord = _federation(cfg, 4, False, dataset)
+    recoveries = []
+    recover = coord._recover_dh
+
+    def traced(r, g_ids, g_recv, g_miss, folder, share_info):
+        recoveries.append((list(g_ids), list(g_recv), list(g_miss)))
+        return recover(r, g_ids, g_recv, g_miss, folder, share_info)
+
+    coord._recover_dh = traced
+    try:
+        aggs = _tree(cfg, broker, 2)
+        coord.enroll_aggregators(timeout=120.0)
+        A.reset_launches()
+        F.reset_launches()
+        faults.install(faults.FaultPlan.from_json(json.dumps(DROP_REPLY_3)))
+        try:
+            rec = coord.run_round()
+        finally:
+            faults.uninstall()
+        launches = {**A.launches, **F.launches}
+    finally:
+        rec_patch.close()
+        for agg in aggs:
+            agg.stop()
+        _stop(broker, workers, coord)
+    root = rec_patch.folders[0]
+    survivors = sorted(int(c) for f in rec_patch.agg_folders
+                       for c in f.folded_ids)
+    depth, steps = cfg.model.depth, cfg.fed.local_steps
+    want = {"flash_forward": depth * 4 * steps,
+            "flash_backward_dq": depth * 4 * steps,
+            "flash_backward_dkv": depth * 4 * steps,
+            "fold_sparse": 0, "fold_dense": 0}
+    log(f"  [12b] secure DH tree round, 4 trainers in 2 slices, trainer 3's "
+        f"reply lost: completed {rec['completed']}, dropped "
+        f"{rec['dropped']}, unmask_failed {rec['unmask_failed']}, survivors "
+        f"{survivors}; recoveries (slice ids, folded, missing) "
+        f"{recoveries}; round {rec['round_time_s']:.3f} s; launches "
+        f"{launches}; path {time.perf_counter() - t0:.2f} s")
+    if not (rec["completed"] == 3 and rec["dropped"] == ["3"]
+            and rec["unmask_failed"] is False and rec["aggregators"] == 2
+            and survivors == [0, 1, 2]):
+        raise AssertionError(f"12b: bad round record {rec}")
+    if sorted(recoveries) != [([0, 1], [0, 1], []), ([2, 3], [2], [3])]:
+        raise AssertionError(f"12b: per-slice recoveries {recoveries}")
+    check_recovery("12b", trees.leaves(root.wsum), rec_patch.unmasked,
+                   survivors, [d for f in rec_patch.agg_folders
+                               for _, d in f.received])
+    if launches != want:
+        raise AssertionError(f"12b: launches {launches}, expected {want}")
+    return launches
+
+
+def tree_cli_path(F):
+    """12c: ``cli_federation`` with 2 ``cli aggregator --fold-device``
+    processes and ``coordinate --num-aggregators 2``: every process exits 0
+    and the root's ``fold_dense`` launches once per round (one dense batch
+    of the 2 partials)."""
+    last, launches, codes, took = cli_federation(F, aggregators=2)
+    log(f"  [12c] broker + 2 aggregator + 3 worker processes + coordinate "
+        f"--num-aggregators 2 ({SOCKET_CLI}, cut: num_clients 100 -> 3): "
+        f"last record round {last['round']} completed {last['completed']} "
+        f"aggregators {last['aggregators']} train_loss "
+        f"{last['train_loss']:.6f} in {last['round_time_s']:.3f} s, "
+        f"phase_agg_fold_s {last['phase_agg_fold_s']:.3f}; exit codes "
+        f"{codes}; root fold launches {launches}; path {took:.2f} s")
+    if not (codes == [0] * 6 and last["round"] == 1
+            and last["completed"] == 3 and last["aggregators"] == 2
+            and math.isfinite(last["train_loss"])
+            and launches == {"fold_sparse": 0, "fold_dense": 2}):
+        raise AssertionError(f"12c: codes {codes}, record {last}, "
+                             f"launches {launches}")
+    return launches
+
+
+def mud_profile(device_type):
+    return json.dumps({"ietf-mud:mud": {
+        "mud-version": 1, "mud-url": f"https://mud.example/{device_type}",
+        "is-supported": True, "systeminfo": f"a {device_type}",
+        "mfg-name": "acme", "model-name": f"{device_type}-1",
+        "colearn:device-type": device_type, "cache-validity": 24}})
+
+
+def per_type_path(F):
+    """12d: per-type federation on ``iot_traffic_tcn_fedavg`` (TCN width
+    64, depth 4, bf16, at full width) with ``fold_device``: 5 worker
+    threads announcing MUD profiles (camera, camera, bulb, bulb,
+    thermostat), ``PerTypeFederation(min_devices_per_type=2)`` for 2
+    rounds.  The cameras and the bulbs each train their own model; the
+    lone thermostat is skipped; every type folds on the card."""
+    from colearn_federated_learning_tpu_torch.comm.broker import MessageBroker
+    from colearn_federated_learning_tpu_torch.comm.downlink import host_params
+    from colearn_federated_learning_tpu_torch.comm.per_type import (
+        PerTypeFederation)
+    from colearn_federated_learning_tpu_torch.comm.worker import DeviceWorker
+    from colearn_federated_learning_tpu_torch.data import registry
+    from colearn_federated_learning_tpu_torch.fed import setup as setup_lib
+    from colearn_federated_learning_tpu_torch.utils import trees
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
+
+    base = get_config("iot_traffic_tcn_fedavg")
+    cfg = base.replace(run=dataclasses.replace(base.run, fold_device=True))
+    dataset = registry.get_dataset(cfg.data.dataset, seed=cfg.run.seed)
+    start = host_params(setup_lib.init_global_params(cfg, "cuda"))
+    t0 = time.perf_counter()
+    broker = MessageBroker().start()
+    workers, fed = [], None
+    try:
+        for i, t in MUD_FLEET:
+            workers.append(DeviceWorker(cfg, i, broker.host, broker.port,
+                                        dataset=dataset,
+                                        mud_profile=mud_profile(t)).start())
+        fed = PerTypeFederation(cfg, broker.host, broker.port,
+                                round_timeout=SOCKET_TIMEOUT,
+                                min_devices_per_type=2)
+        F.reset_launches()
+        hists = fed.run(min_devices=len(MUD_FLEET), enroll_timeout=120.0,
+                        rounds=2)
+        launches = dict(F.launches)
+        finals = {t: host_params(c.params_tree())
+                  for t, c in fed.coordinators.items()}
+        members = {t: sorted(d.device_id for d in c.trainers)
+                   for t, c in fed.coordinators.items()}
+    finally:
+        if fed is not None:
+            fed.close()
+        for w in workers:
+            w.stop()
+        broker.stop()
+    for t, hist in sorted(hists.items()):
+        log(f"  [12d] {t}: trainers {members[t]}; rounds "
+            + "; ".join(f"{r['round']}: completed {r['completed']} "
+                        f"train_loss {r['train_loss']:.6f} "
+                        f"{r['round_time_s']:.3f} s" for r in hist))
+    log(f"  [12d] {cfg.run.name} (tcn width {cfg.model.width} depth "
+        f"{cfg.model.depth} {cfg.model.dtype}): histories "
+        f"{sorted(hists)}, skipped {fed.skipped}, errors {fed.errors}; "
+        f"fold launches {launches}; path {time.perf_counter() - t0:.2f} s")
+    if fed.errors or sorted(hists) != ["bulb", "camera"] \
+            or fed.skipped != {"thermostat": 1}:
+        raise AssertionError(f"12d: histories {sorted(hists)}, skipped "
+                             f"{fed.skipped}, errors {fed.errors}")
+    if members != {"camera": ["0", "1"], "bulb": ["2", "3"]} or not all(
+            len(h) == 2 and all(r["completed"] == 2 and not r["dropped"]
+                                and math.isfinite(r["train_loss"])
+                                for r in h) for h in hists.values()):
+        raise AssertionError(f"12d: members {members}, records {hists}")
+
+    def flat(tree):
+        return np.concatenate([np.ravel(np.asarray(l, np.float32))
+                               for l in trees.leaves(tree)])
+
+    cam, bulb, init = flat(finals["camera"]), flat(finals["bulb"]), flat(start)
+    if not (np.isfinite(cam).all() and np.isfinite(bulb).all()
+            and not np.array_equal(cam, init)
+            and not np.array_equal(bulb, init)
+            and not np.array_equal(cam, bulb)):
+        raise AssertionError("12d: the type models are not finite, moved "
+                             "and distinct")
+    if launches != {"fold_sparse": 0, "fold_dense": 4}:
+        raise AssertionError(f"12d: launches {launches}")
+    return launches
+
+
+def tree_phase(A, F):
+    """Phase 12: the aggregator tree and per-type federation on the
+    card."""
+    from colearn_federated_learning_tpu_torch.data import registry
+
+    cfg = main_path_config()
+    dataset = registry.get_dataset(cfg.data.dataset, seed=cfg.run.seed)
+    paths, numbers = {}, {}
+    t0 = time.perf_counter()
+    (paths["tree_round"], numbers["12a_round_s"], numbers["12a_agg_fold_s"],
+     numbers["12a_fold_us"], numbers["12a_stage_us"]) = tree_round_path(
+        A, F, dataset)
+    log(f"  12a in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["tree_secure"] = tree_secure_path(A, F, dataset)
+    log(f"  12b in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["tree_cli"] = tree_cli_path(F)
+    log(f"  12c in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["per_type"] = per_type_path(F)
+    log(f"  12d in {time.perf_counter() - t0:.2f} s")
+    log("phase 12 numbers " + json.dumps(numbers))
     return paths
 
 
@@ -2113,6 +2541,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(socket_phase(A, F))
     log(f"  phase 11 in {time.perf_counter() - t0:.2f} s")
+    log("phase 12: the aggregator tree and per-type federation")
+    t0 = time.perf_counter()
+    paths.update(tree_phase(A, F))
+    log(f"  phase 12 in {time.perf_counter() - t0:.2f} s")
     log("launches per path " + json.dumps(paths))
 
     sources = {**{name: (SOURCE, rep) for name, (rep, _) in KERNELS.items()},

@@ -1,5 +1,6 @@
 """Command line of the PyTorch port: ``train``, ``init``, ``aggregate``,
-``eval``, ``bench``, ``broker``, ``worker`` and ``coordinate``.
+``eval``, ``bench``, ``broker``, ``worker``, ``aggregator`` and
+``coordinate``.
 
     python -m colearn_federated_learning_tpu_torch.cli train --config NAME \\
         [--backend gpu|cpu] [overrides]
@@ -15,8 +16,12 @@ final model (``--per-client-eval``, its report on stderr); the file plane
 (``init``, ``train --role client`` with ``--compress``, ``aggregate``,
 ``eval``; ``fed/offline.py``); the headline benchmark (``bench``); and the
 synchronous socket plane (``broker``, ``worker``, ``coordinate``;
-``comm/``), with ``--fault-plan`` installed on the process's transport.
-``broker`` and ``worker`` serve until SIGINT or SIGTERM and then exit 0.
+``comm/``), with ``--fault-plan`` installed on the process's transport,
+its aggregator tree (``aggregator`` processes, ``coordinate
+--num-aggregators``) and per-type federation (``coordinate --per-type``,
+which exits 1 when a type's federation fails or none runs).  ``broker``,
+``worker`` and ``aggregator`` serve until SIGINT or SIGTERM and then exit
+0.
 Everything runs on the card (``--backend gpu``, the default, which raises
 without one) or, only when asked, on the CPU.  ``train`` writes each
 round's record to stderr as one JSON line and its summary to stdout, as in
@@ -66,12 +71,12 @@ _DATA_KEYS = {"num_clients", "dataset", "partition", "dirichlet_alpha"}
 _MODEL_KEYS = {"attn_impl", "remat", "width", "stem", "norm"}
 _RUN_KEYS = {"seed", "tp_size", "eval_every", "log_every", "evict_after",
              "worker_enroll_timeout", "comm_retries", "comm_backoff_base",
-             "comm_backoff_max", "fault_plan", "fault_seed", "fold_device"}
+             "comm_backoff_max", "fault_plan", "fault_seed", "fold_device",
+             "num_aggregators", "agg_heartbeat_timeout"}
 
 _LORA = comm.ITEM_LORA
 _CKPT = comm.ITEM_CKPT
 _OBS = comm.ITEM_OBS
-_TREE = comm.ITEM_TREE
 _ASYNC = comm.ITEM_ASYNC
 
 # dest -> (flag, argparse kwargs, the ROADMAP item that ports it): the
@@ -80,11 +85,8 @@ _UNPORTED = {
     "lora_rank": ("--lora-rank", dict(type=int), _LORA),
     "lora_alpha": ("--lora-alpha", dict(type=float), _LORA),
     "lora_merge_every": ("--lora-merge-every", dict(type=int), _LORA),
-    "num_aggregators": ("--num-aggregators", dict(type=int), _TREE),
-    "agg_heartbeat_timeout": ("--agg-heartbeat-timeout",
-                              dict(type=float), _TREE),
     "agg_buffer_interval_s": ("--agg-buffer-interval", dict(type=float),
-                              _TREE),
+                              _ASYNC),
     "checkpoint_dir": ("--checkpoint-dir", dict(), _CKPT),
     "checkpoint_every": ("--checkpoint-every", dict(type=int), _CKPT),
     "ckpt_stream": ("--ckpt-stream", dict(action="store_true"), _CKPT),
@@ -107,7 +109,6 @@ _UNPORTED_TRAIN = {
 # observability flags of broker/worker/coordinate.
 _COORDINATE_UNPORTED = {
     "resume": ("--resume", dict(action="store_true"), _CKPT),
-    "per_type": ("--per-type", dict(action="store_true"), comm.ITEM_PER_TYPE),
     "async_buffer": ("--async-buffer", dict(), _ASYNC),
     "async_observe": ("--async-observe", dict(action="store_true"), _ASYNC),
     "async_prune_after": ("--async-prune-after", dict(type=int), _ASYNC),
@@ -121,7 +122,7 @@ _OBSERVABILITY = {
     "metrics_port": ("--metrics-port", dict(type=int), _OBS),
     "events_file": ("--events-file", dict(), _OBS),
 }
-_UNPORTED_COMMANDS = {"aggregator": _TREE, "chaos": comm.ITEM_CHAOS}
+_UNPORTED_COMMANDS = {"chaos": comm.ITEM_CHAOS}
 
 
 def _add_override_flags(p: argparse.ArgumentParser) -> None:
@@ -220,6 +221,12 @@ def _add_override_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--evict-after", type=int, default=None,
                    help="coordinate: evict a device after this many "
                         "failed rounds in a row")
+    p.add_argument("--num-aggregators", type=int, default=None,
+                   help="coordinate: fan the round out through this many "
+                        "aggregator processes (0 = flat)")
+    p.add_argument("--agg-heartbeat-timeout", type=float, default=None,
+                   help="coordinate: an aggregator whose heartbeat is older "
+                        "than this many seconds is dead")
     p.add_argument("--comm-retries", type=int, default=None)
     p.add_argument("--comm-backoff-base", type=float, default=None)
     p.add_argument("--comm-backoff-max", type=float, default=None)
@@ -297,6 +304,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "announced on enrollment")
     _add_unported(p, _OBSERVABILITY)
 
+    p = sub.add_parser("aggregator", help="run one aggregator-tree process: "
+                                          "fold a cohort slice, send one "
+                                          "partial sum up")
+    _add_override_flags(p)
+    p.add_argument("--agg-id", type=int, default=None)
+    p.add_argument("--broker-host", default="127.0.0.1")
+    p.add_argument("--broker-port", type=int, required=True)
+    p.add_argument("--heartbeat", type=float, default=0.5,
+                   help="retained-announce heartbeat period (s); the "
+                        "coordinator's liveness signal")
+    _add_unported(p, _OBSERVABILITY)
+
     p = sub.add_parser("coordinate", help="run the federated coordinator "
                                           "over enrolled workers")
     _add_override_flags(p)
@@ -311,8 +330,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--per-client-eval", action="store_true",
                    help="report each trainer's own-shard accuracy after "
                         "training (stderr)")
+    p.add_argument("--per-type", action="store_true",
+                   help="one federation per MUD device type over the "
+                        "broker (comm/per_type.py)")
     p.add_argument("--min-per-type", type=int, default=2,
-                   help="with --per-type only")
+                   help="with --per-type: the fewest devices of a type that "
+                        "get their own federation")
     p.add_argument("--mud-require-profile", action="store_true",
                    help="refuse devices that enroll without a MUD profile")
     p.add_argument("--mud-allowed-types", default=None,
@@ -556,8 +579,59 @@ def worker(args: argparse.Namespace) -> None:
                        device=_device(args), stop=_stop_event())
 
 
+def aggregator(args: argparse.Namespace) -> None:
+    """``aggregator``: announce on the broker, heartbeat and serve folds
+    until stopped."""
+    from colearn_federated_learning_tpu_torch.comm.aggregator import (
+        run_aggregator_forever)
+
+    config = config_from_args(args)
+    if args.agg_id is None:
+        print("aggregator requires --agg-id", file=sys.stderr)
+        raise SystemExit(2)
+    _install_fault_plan(config)
+    run_aggregator_forever(config, args.agg_id, args.broker_host,
+                           args.broker_port, heartbeat_s=args.heartbeat,
+                           device=_device(args), stop=_stop_event())
+
+
+def per_type(args: argparse.Namespace, config: ExperimentConfig,
+             mud_policy) -> dict:
+    """``coordinate --per-type``: one federation per MUD device type; each
+    record goes to stderr with its ``type``.  The summary holds each
+    type's last record, the skipped types and the failed ones; it is
+    printed and the process exits 1 when a type failed or none ran."""
+    from colearn_federated_learning_tpu_torch.comm.per_type import (
+        PerTypeFederation)
+
+    fed = PerTypeFederation(
+        config, args.broker_host, args.broker_port,
+        round_timeout=args.round_timeout, mud_policy=mud_policy,
+        min_devices_per_type=args.min_per_type, device=_device(args))
+
+    def log_line(t, rec):
+        # One write per record: the federations log from their threads.
+        sys.stderr.write(json.dumps({"type": t, **rec}) + "\n")
+        sys.stderr.flush()
+
+    try:
+        hists = fed.run(min_devices=args.min_devices,
+                        enroll_timeout=args.enroll_timeout,
+                        want_evaluator=not args.no_evaluator,
+                        log_fn=log_line)
+    finally:
+        fed.close()
+    summary = {"types": {t: (h[-1] if h else None) for t, h in hists.items()},
+               "skipped": fed.skipped, "errors": fed.errors}
+    if not hists or fed.errors:
+        print(json.dumps(summary), flush=True)
+        raise SystemExit(1)
+    return summary
+
+
 def coordinate(args: argparse.Namespace) -> dict:
-    """``coordinate``: enroll ``--min-devices``, fit, and return the last
+    """``coordinate``: enroll ``--min-devices`` (and, with
+    ``--num-aggregators``, the aggregators), fit, and return the last
     record; every record goes to stderr as one JSON line."""
     from colearn_federated_learning_tpu_torch.comm.coordinator import (
         FederatedCoordinator)
@@ -572,6 +646,8 @@ def coordinate(args: argparse.Namespace) -> dict:
             require_profile=args.mud_require_profile,
             allowed_types=tuple(
                 t for t in (args.mud_allowed_types or "").split(",") if t))
+    if args.per_type:
+        return per_type(args, config, mud_policy)
     coord = FederatedCoordinator(config, args.broker_host, args.broker_port,
                                  round_timeout=args.round_timeout,
                                  want_evaluator=not args.no_evaluator,
@@ -579,6 +655,11 @@ def coordinate(args: argparse.Namespace) -> dict:
     with coord:
         coord.enroll(min_devices=args.min_devices,
                      timeout=args.enroll_timeout)
+        if coord.num_aggregators:
+            aggs = coord.enroll_aggregators(timeout=args.enroll_timeout)
+            print(json.dumps({"event": "aggregators_enrolled",
+                              "aggregators": aggs}), file=sys.stderr,
+                  flush=True)
         hist = coord.fit(
             log_fn=lambda rec: print(json.dumps(rec), file=sys.stderr,
                                      flush=True),
@@ -615,6 +696,7 @@ def main(argv: Optional[list] = None,
         result = {"train": lambda a: train(a, on_round), "init": init,
                   "aggregate": aggregate, "eval": evaluate,
                   "broker": broker, "worker": worker,
+                  "aggregator": aggregator,
                   "coordinate": coordinate}[args.cmd](args)
     if result is not None and is_lead():
         print(json.dumps(result), flush=True)

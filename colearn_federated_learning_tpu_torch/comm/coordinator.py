@@ -15,14 +15,21 @@ admits late joiners.  Round records carry the JAX package's keys under
 the same conditions; the ``phase_*_s`` values come from the port's own
 clock around the same phases.
 
+With ``run.num_aggregators`` > 0 the train fan-out goes through the
+aggregator tree (``comm/aggregator.py``): one fold request per cohort
+slice, a dead aggregator's slice re-homed to a live sibling or dropped,
+secure aggregation's masks paired and recovered per slice, and the root
+folding one partial per slice.  ``device_type`` restricts enrollment to
+one MUD device type (``comm/per_type.py`` runs one coordinator per type).
+
 The server state lives on the coordinator's device (the card unless the
 caller passes ``device="cpu"``), in the flax layout the wire carries.
 
-Not ported yet, each refused naming its ROADMAP item: the aggregator tree
-(``run.num_aggregators``), LoRA, checkpoints and resume, the health
-ledger, the convergence observatory, and the sharded server (``tp_size``
-> 1 on a host with that many cards; with fewer the server runs
-replicated, as the JAX package's placement falls back).
+Not ported yet, each refused naming its ROADMAP item: LoRA, checkpoints
+and resume, the health ledger, the convergence observatory, and the
+sharded server (``tp_size`` > 1 on a host with that many cards; with
+fewer the server runs replicated, as the JAX package's placement falls
+back).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from colearn_federated_learning_tpu_torch import comm
+from colearn_federated_learning_tpu_torch.comm import aggregator as agg_lib
 from colearn_federated_learning_tpu_torch.comm import enrollment, keyexchange
 from colearn_federated_learning_tpu_torch.comm import protocol
 from colearn_federated_learning_tpu_torch.comm.aggregation import (
@@ -72,8 +80,6 @@ def refuse_unported(config: ExperimentConfig) -> None:
     the port's coordinator does not run yet."""
     run = config.run
     unported = [
-        (run.num_aggregators > 0, "the aggregator tree (num_aggregators)",
-         comm.ITEM_TREE),
         (config.fed.lora_rank > 0, "LoRA (lora_rank)", comm.ITEM_LORA),
         (bool(run.checkpoint_dir), "checkpoints and resume (checkpoint_dir)",
          comm.ITEM_CKPT),
@@ -103,10 +109,12 @@ class FederatedCoordinator:
         round_timeout: float = 60.0,
         want_evaluator: bool = True,
         mud_policy=None,
+        device_type: Optional[str] = None,
         device=None,
     ):
         """``mud_policy``: an optional :class:`comm.mud.MudPolicy` gating
-        enrollment by RFC 8520 identity."""
+        enrollment by RFC 8520 identity.  ``device_type``: federate ONLY
+        devices of this MUD type (the per-type topology)."""
         setup_lib.require_mean_aggregator(config, "the socket coordinator")
         self.config = config
         fed = config.fed
@@ -122,6 +130,17 @@ class FederatedCoordinator:
                 f"{fed.secure_agg_threshold}")
         validate_robustness(config)
         refuse_unported(config)
+        self.num_aggregators = int(config.run.num_aggregators)
+        if self.num_aggregators and fed.compress_down != "none":
+            raise ValueError(
+                "the aggregator tree requires compress_down='none': the "
+                "per-device resync protocol is not relayed through the "
+                "fold tier"
+            )
+        self._aggs: dict[int, dict] = {}       # agg_id -> host/port/ts
+        self._agg_clients: dict[int, TensorClient] = {}
+        self._agg_sub: Optional[BrokerClient] = None
+        self.agg_heartbeat_timeout = float(config.run.agg_heartbeat_timeout)
         self.device = resolve_device(device)
         tp = config.run.tp_size
         if tp > 1 and self.device.type == "cuda" \
@@ -140,9 +159,11 @@ class FederatedCoordinator:
         self.min_cohort_fraction = fed.min_cohort_fraction
         self._broker_addr = (broker_host, broker_port)
         self._mud_policy = mud_policy
+        self._device_type = device_type
         self._broker = BrokerClient(broker_host, broker_port,
                                     timeout=protocol.CONNECT_TIMEOUT)
-        self._enroll = EnrollmentManager(self._broker, mud_policy=mud_policy)
+        self._enroll = EnrollmentManager(self._broker, mud_policy=mud_policy,
+                                         device_type=device_type)
         self._draws = programs.Draws(config.run.seed)
         params = setup_lib.init_global_params(config, self.device)
         self._shapes_np = _shape_views(params)
@@ -207,7 +228,65 @@ class FederatedCoordinator:
                 d.host, d.port, timeout=protocol.CONNECT_TIMEOUT,
                 ident=d.device_id)
 
+    # ---- aggregator tier (comm/aggregator.py) ----------------------------
+    def enroll_aggregators(self, n: Optional[int] = None,
+                           timeout: float = 30.0) -> list[int]:
+        """Discover ``n`` (default ``num_aggregators``) aggregators from
+        their retained announce records and connect to them.  Raises
+        ``TimeoutError`` when fewer announce in time."""
+        n = self.num_aggregators if n is None else int(n)
+        if self._agg_sub is None:
+            self._agg_sub = BrokerClient(self._broker_addr[0],
+                                         self._broker_addr[1],
+                                         timeout=protocol.CONNECT_TIMEOUT)
+            self._agg_sub.subscribe(agg_lib.AGG_TOPIC + "#")
+        deadline = time.monotonic() + timeout
+        while True:
+            agg_lib.fetch_aggregators(self._agg_sub, self._aggs,
+                                      drain_timeout=0.2)
+            if len(self._aggs) >= n:
+                break
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"only {len(self._aggs)}/{n} aggregators announced "
+                    f"within {timeout:.0f}s"
+                )
+        for agg_id in sorted(self._aggs):
+            self._agg_connect(agg_id)
+        return sorted(self._aggs)
+
+    def _agg_connect(self, agg_id: int) -> None:
+        info = self._aggs[agg_id]
+        old = self._agg_clients.pop(agg_id, None)
+        if old is not None:
+            old.close()
+        try:
+            self._agg_clients[agg_id] = TensorClient(
+                info["host"], info["port"], timeout=protocol.CONNECT_TIMEOUT,
+                ident=f"agg:{agg_id}")
+        except OSError:
+            pass                # dead at enrollment: its heartbeat expires
+
+    def _live_aggregators(self) -> list[int]:
+        """Aggregators whose retained heartbeat is younger than
+        ``agg_heartbeat_timeout``."""
+        if self._agg_sub is not None:
+            try:
+                agg_lib.fetch_aggregators(self._agg_sub, self._aggs,
+                                          drain_timeout=0.02)
+            except protocol.ConnectionClosed:
+                self._agg_sub = None    # the broker died
+        now = time.time()
+        return [agg_id for agg_id in sorted(self._aggs)
+                if now - self._aggs[agg_id]["ts"]
+                <= self.agg_heartbeat_timeout]
+
     def close(self) -> None:
+        for c in self._agg_clients.values():
+            c.close()
+        if self._agg_sub is not None:
+            self._agg_sub.close()
+            self._agg_sub = None
         for c in self._clients.values():
             c.close()
         if self._pool is not None:
@@ -247,7 +326,8 @@ class FederatedCoordinator:
             return
         self._broker.close()
         self._broker = fresh
-        self._enroll = EnrollmentManager(fresh, mud_policy=self._mud_policy)
+        self._enroll = EnrollmentManager(fresh, mud_policy=self._mud_policy,
+                                         device_type=self._device_type)
 
     def _note_round_outcome(self, cohort, dropped) -> list[str]:
         """Count consecutive failures; evict peers that failed
@@ -373,13 +453,29 @@ class FederatedCoordinator:
         round_t0 = time.monotonic()
         secure = fed.secure_agg
         dh = secure and fed.secure_agg_key_exchange == "dh"
+        tree_mode = self.num_aggregators > 0
         share_info = None
         pruned: list[str] = []
+        slices_full: list[list[DeviceInfo]] = []
+        cohort_of = None
+        if tree_mode:
+            # The slice layout is fixed over the SAMPLED cohort, before the
+            # share phase prunes, so each device's pairing cohort at
+            # share_setup is its slice at train time: every mask pair
+            # lives inside one aggregator's partial.
+            slices_full = agg_lib.slice_cohort(cohort, self.num_aggregators)
+            if secure:
+                cohort_of = {}
+                for sl in slices_full:
+                    ids = sorted(int(d.device_id) for d in sl)
+                    for d in sl:
+                        cohort_of[d.device_id] = ids
         if dh:
             # Every member distributes its recovery shares before any mask
             # is committed; members that miss the share deadline are
             # pruned, so their death orphans no mask.
-            share_info, share_failed = self._share_phase(r, cohort)
+            share_info, share_failed = self._share_phase(r, cohort,
+                                                         cohort_of)
             if share_failed:
                 pruned = [d.device_id for d in share_failed]
                 cut = set(pruned)
@@ -389,7 +485,140 @@ class FederatedCoordinator:
             r, self.params_tree())
         cohort_ids = sorted(int(d.device_id) for d in cohort)
         stale: list[str] = []
+        if tree_mode:
+            # The share phase's survivors, grouped by the original layout;
+            # the root folds one partial per slice, keyed in slice order.
+            alive = {d.device_id for d in cohort}
+            slices = [[d for d in sl if d.device_id in alive]
+                      for sl in slices_full]
+            folder = StreamingFolder(
+                self._shapes_np,
+                order=[f"slice:{i}" for i in range(len(slices))],
+                device_fold=self._fold_device, device=self.device)
+            t_collect = time.perf_counter()
+            train_timeout = max(1.0, self.round_timeout
+                                - (time.monotonic() - round_t0))
+            tree_stats = self._tree_collect(r, slices, body, share_info,
+                                            folder, train_timeout, secure,
+                                            stale)
+            collect_s = time.perf_counter() - t_collect
+            dropped = pruned + tree_stats["failed"]
+        else:
+            folder, collect_s, failed = self._flat_collect(
+                r, cohort, cohort_ids, body, resync_body, saved, share_info,
+                secure, stale, round_t0)
+            dropped = pruned + [d.device_id for d in failed]
 
+        t_agg = time.perf_counter()
+        folder.finalize()
+        if stale:
+            pos = {str(int(d.device_id)): i for i, d in enumerate(cohort)}
+            dropped.extend(sorted(stale, key=lambda c: pos.get(c, len(pos))))
+        # Under the tree the folded ids are slice keys; the devices come
+        # from the partials' metas, in slice order.
+        received = (tree_stats["received"] if tree_mode
+                    else [int(c) for c in folder.folded_ids])
+        folded = folder.count
+        # Judged against the nominal sampled cohort.
+        quorum = (max(1, math.ceil(self.min_cohort_fraction
+                                   * len(cohort_full)))
+                  if self.min_cohort_fraction > 0 else 0)
+        skipped_quorum = bool(quorum) and folded < quorum
+        missing = sorted(set(cohort_ids) - set(received))
+        unmask_failed = False
+        if secure and folded and not skipped_quorum and (dh or missing):
+            # Masks pair within a group: the whole cohort, or one slice of
+            # the tree.  Each group with a folded member gets its own
+            # recovery; a fully dropped slice orphans no mask half.
+            if tree_mode:
+                groups = [(ids, recv) for ids, recv
+                          in zip(tree_stats["slice_ids"],
+                                 tree_stats["slice_received"]) if recv]
+            else:
+                groups = [(cohort_ids, received)]
+            for g_ids, g_recv in groups:
+                g_miss = sorted(set(g_ids) - set(g_recv))
+                if dh:
+                    # Runs every dh round: the folded clients' self-masks
+                    # come off even when nobody dropped.
+                    ok = self._recover_dh(r, g_ids, g_recv, g_miss, folder,
+                                          share_info)
+                elif g_miss:
+                    ok = self._recover_shared_seed(r, g_ids, g_recv, g_miss,
+                                                   folder)
+                else:
+                    ok = True
+                if not ok:
+                    unmask_failed = True
+                    break
+        mean_delta, total_w, mean_loss = folder.mean()
+        if skipped_quorum or unmask_failed:
+            # A no-op round: orphaned masks or a sub-quorum average must
+            # never reach the model.
+            mean_delta = None
+            mean_loss = float("nan")
+        if secure:
+            mean_loss = float("nan")    # workers withhold per-client loss
+        if mean_delta is not None:
+            self.server_state = strategies.server_update(
+                self.server_state,
+                {n: torch.from_numpy(np.asarray(l)).to(self.device)
+                 for n, l in zip(self._names, trees.leaves(mean_delta))},
+                fed)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        agg_s = time.perf_counter() - t_agg
+        evicted = self._note_round_outcome(cohort_full, dropped)
+        rec = {
+            "round": r,
+            "completed": folded,
+            "cohort": len(cohort_full),
+            "dropped": dropped,
+            "evicted": evicted,
+            "train_loss": mean_loss,
+            "total_weight": total_w,
+            "phase_broadcast_collect_s": collect_s,
+            "phase_aggregate_s": agg_s,
+            # Decode and staging work the streaming fold overlapped with
+            # the stragglers (the tier's included).
+            "phase_fold_overlap_s": folder.fold_s,
+        }
+        if secure:
+            rec["unmask_failed"] = unmask_failed
+        if quorum:
+            rec["skipped_quorum"] = skipped_quorum
+        if fed.compress != "none":
+            rec["bytes_saved_uplink"] = self._uplink_saved_per_update * folded
+            rec["uplink_densify_avoided"] = folder.densify_avoided
+        if tree_mode:
+            rec["aggregators"] = self.num_aggregators
+            # The tier's critical path: its slowest slice fold.
+            rec["phase_agg_fold_s"] = tree_stats["fold_wall_s"]
+            if tree_stats["failovers"]:
+                rec["agg_failovers"] = tree_stats["failovers"]
+
+        if self.accountant is not None:
+            # Workers calibrate noise to the nominal cohort, so with only
+            # ``folded`` contributors the central noise is
+            # σ·C·sqrt(folded/nominal): charge that.  A round that released
+            # nothing costs nothing.
+            if folded > 0 and not (secure and unmask_failed) \
+                    and not skipped_quorum:
+                nominal = setup_lib.dp_effective_cohort(self.config)
+                sigma_eff = (fed.dp_noise_multiplier
+                             * math.sqrt(min(folded, nominal) / nominal))
+                q = len(cohort_full) / max(1, len(self.trainers))
+                self.accountant.step(sampling_rate=q,
+                                     noise_multiplier=sigma_eff)
+            rec["dp_epsilon"] = self.accountant.epsilon()
+            rec["dp_delta"] = self.accountant.delta
+        return rec
+
+    def _flat_collect(self, r, cohort, cohort_ids, body, resync_body, saved,
+                      share_info, secure, stale, round_t0):
+        """The flat collect: every cohort member's train request from here,
+        folded as it arrives.  Returns (folder, collect seconds, failed
+        devices)."""
         def train_req(dev: DeviceInfo):
             req = {"op": "train", "round": r}
             if secure:
@@ -434,100 +663,142 @@ class FederatedCoordinator:
                             - (time.monotonic() - round_t0))
         _, failed = self._fan_out(cohort, ask, on_result=fold,
                                   timeout=train_timeout)
-        collect_s = time.perf_counter() - t_collect
-        dropped = pruned + [d.device_id for d in failed]
+        return folder, time.perf_counter() - t_collect, failed
 
-        t_agg = time.perf_counter()
-        folder.finalize()
-        if stale:
-            pos = {str(int(d.device_id)): i for i, d in enumerate(cohort)}
-            dropped.extend(sorted(stale, key=lambda c: pos.get(c, len(pos))))
-        received = [int(c) for c in folder.folded_ids]
-        folded = folder.count
-        # Judged against the nominal sampled cohort.
-        quorum = (max(1, math.ceil(self.min_cohort_fraction
-                                   * len(cohort_full)))
-                  if self.min_cohort_fraction > 0 else 0)
-        skipped_quorum = bool(quorum) and folded < quorum
-        missing = sorted(set(cohort_ids) - set(received))
-        unmask_failed = False
-        if secure and folded and not skipped_quorum and (dh or missing):
-            if dh:
-                # Runs every dh round: the folded clients' self-masks come
-                # off even when nobody dropped.
-                ok = self._recover_dh(r, cohort_ids, received, missing,
-                                      folder, share_info)
-            else:
-                ok = self._recover_shared_seed(r, cohort_ids, received,
-                                               missing, folder)
-            unmask_failed = not ok
-        mean_delta, total_w, mean_loss = folder.mean()
-        if skipped_quorum or unmask_failed:
-            # A no-op round: orphaned masks or a sub-quorum average must
-            # never reach the model.
-            mean_delta = None
-            mean_loss = float("nan")
-        if secure:
-            mean_loss = float("nan")    # workers withhold per-client loss
-        if mean_delta is not None:
-            self.server_state = strategies.server_update(
-                self.server_state,
-                {n: torch.from_numpy(np.asarray(l)).to(self.device)
-                 for n, l in zip(self._names, trees.leaves(mean_delta))},
-                fed)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        agg_s = time.perf_counter() - t_agg
-        evicted = self._note_round_outcome(cohort_full, dropped)
-        rec = {
-            "round": r,
-            "completed": folded,
-            "cohort": len(cohort_full),
-            "dropped": dropped,
-            "evicted": evicted,
-            "train_loss": mean_loss,
-            "total_weight": total_w,
-            "phase_broadcast_collect_s": collect_s,
-            "phase_aggregate_s": agg_s,
-            # Decode and staging work the streaming fold overlapped with
-            # the stragglers.
-            "phase_fold_overlap_s": folder.fold_s,
-        }
-        if secure:
-            rec["unmask_failed"] = unmask_failed
-        if quorum:
-            rec["skipped_quorum"] = skipped_quorum
-        if fed.compress != "none":
-            rec["bytes_saved_uplink"] = self._uplink_saved_per_update * folded
-            rec["uplink_densify_avoided"] = folder.densify_avoided
-        if self.accountant is not None:
-            # Workers calibrate noise to the nominal cohort, so with only
-            # ``folded`` contributors the central noise is
-            # σ·C·sqrt(folded/nominal): charge that.  A round that released
-            # nothing costs nothing.
-            if folded > 0 and not (secure and unmask_failed) \
-                    and not skipped_quorum:
-                nominal = setup_lib.dp_effective_cohort(self.config)
-                sigma_eff = (fed.dp_noise_multiplier
-                             * math.sqrt(min(folded, nominal) / nominal))
-                q = len(cohort_full) / max(1, len(self.trainers))
-                self.accountant.step(sampling_rate=q,
-                                     noise_multiplier=sigma_eff)
-            rec["dp_epsilon"] = self.accountant.epsilon()
-            rec["dp_delta"] = self.accountant.delta
-        return rec
+    def _tree_collect(self, r: int, slices, body, share_info, folder,
+                      timeout: float, secure: bool, stale: list) -> dict:
+        """The tree's collect: ONE fold request per cohort slice, to
+        aggregator ``i mod N``.  A failed request (expired heartbeat,
+        refused connection, death mid-fold) re-homes the WHOLE slice to
+        the next live sibling within what is left of the budget, on a
+        fresh connection per attempt; devices retrain on the relayed
+        duplicate.  A slice with no live sibling is dropped and the mean
+        renormalises.  Partials fold through ``add_partial``.  Returns the
+        per-slice bookkeeping the masks' recovery needs."""
+        live = self._live_aggregators()
+        agg_order = sorted(self._aggs)
+        deadline = time.monotonic() + timeout
+        slice_ids = [sorted(int(d.device_id) for d in sl) for sl in slices]
+
+        def ask_slice(i: int, devs):
+            req = {"op": "fold", "round": r,
+                   "devices": [[int(d.device_id), d.host, d.port]
+                               for d in devs]}
+            if secure:
+                req["cohort"] = slice_ids[i]
+            if share_info is not None:
+                inboxes = {d.device_id: share_info["to"][d.device_id]
+                           for d in devs
+                           if share_info["to"].get(d.device_id)}
+                if inboxes:
+                    req["shares_in"] = inboxes
+            assigned = agg_order[i % len(agg_order)] if agg_order else None
+            candidates = (([assigned] if assigned in live else [])
+                          + [a for a in live if a != assigned])
+            for agg_id in candidates:
+                info = self._aggs[agg_id]
+                # What is left of the round at THIS attempt: a re-home does
+                # not restart the clock.
+                req["timeout"] = max(1.0, deadline - time.monotonic())
+                try:
+                    cli = TensorClient(info["host"], info["port"],
+                                       timeout=protocol.CONNECT_TIMEOUT,
+                                       ident=f"agg:{agg_id}")
+                except OSError:
+                    continue            # dead aggregator: the next one
+                try:
+                    hdr, tree = cli.request(req, body=body, timeout=timeout,
+                                            retry=self.retry,
+                                            deadline=deadline)
+                    if hdr.get("status") != "ok":
+                        raise RuntimeError(
+                            f"agg {agg_id}: {hdr.get('error')}")
+                    return hdr["meta"], tree, agg_id != assigned
+                except (OSError, protocol.ConnectionClosed, TimeoutError,
+                        RuntimeError):
+                    continue            # died mid-fold: the next one
+                finally:
+                    cli.close()
+            raise RuntimeError(f"slice {i}: no live aggregator")
+
+        results: dict[int, tuple[dict, bool]] = {}
+        work = [(i, sl) for i, sl in enumerate(slices) if sl]
+        if work:
+            with cf.ThreadPoolExecutor(
+                    max_workers=len(work),
+                    thread_name_prefix="tree-collect") as pool:
+                futs = {pool.submit(ask_slice, i, sl): i for i, sl in work}
+                pending = dict(futs)
+
+                def take(fut, i):
+                    try:
+                        meta, tree, rehomed = fut.result()
+                    except Exception:
+                        return          # the slice is dropped: charged below
+                    protocol.pop_trace_spans(meta)
+                    results[i] = (meta, rehomed)
+                    # Arrival order is immaterial: finalize folds in slice
+                    # order.
+                    folder.add_partial(
+                        f"slice:{i}", float(meta.get("total_w", 0.0)),
+                        tree, float(meta.get("loss_sum", 0.0)),
+                        count=len(meta.get("folded_ids") or []))
+
+                try:
+                    for fut in cf.as_completed(futs, timeout=timeout):
+                        take(fut, pending.pop(fut))
+                except cf.TimeoutError:
+                    pass
+                for fut, i in pending.items():
+                    if fut.done():
+                        take(fut, i)    # finished in the race window
+                    else:
+                        fut.cancel()
+
+        rehomes = drops = 0
+        received: list[int] = []
+        failed: list[str] = []
+        fold_walls: list[float] = []
+        slice_recv: list[list[int]] = [[] for _ in slices]
+        for i, sl in enumerate(slices):
+            got = results.get(i)
+            if got is None:
+                if sl:
+                    drops += 1
+                    failed.extend(d.device_id for d in sl)
+                continue
+            meta, rehomed = got
+            rehomes += int(rehomed)
+            recv = [int(c) for c in meta.get("folded_ids") or []]
+            slice_recv[i] = recv
+            received.extend(recv)
+            failed.extend(str(f) for f in meta.get("failed") or [])
+            stale.extend(str(c) for c in meta.get("stale") or [])
+            # The tier's decode and staging time, in the root's overlap
+            # slot.
+            folder.fold_s += float(meta.get("fold_s", 0.0))
+            folder.densify_avoided += int(meta.get("densify_avoided", 0))
+            fold_walls.append(float(meta.get("fold_wall_s", 0.0)))
+        return {"received": received, "failed": failed,
+                "slice_ids": slice_ids, "slice_received": slice_recv,
+                "failovers": rehomes + drops,
+                "fold_wall_s": max(fold_walls) if fold_walls else 0.0}
 
     # ---- secure aggregation ---------------------------------------------
-    def _share_phase(self, r: int, cohort):
+    def _share_phase(self, r: int, cohort, cohort_of=None):
         """Collect every member's encrypted recovery shares under the share
         deadline.  Returns ``(share_info, failed devices)``; ``share_info``
         routes each ciphertext to its destination's train request and
-        keeps each origin's threshold and self-mask commitment."""
+        keeps each origin's threshold and self-mask commitment.
+        ``cohort_of`` (the tree) maps each device to its slice's ids, its
+        pairing cohort."""
         cohort_ids = sorted(int(d.device_id) for d in cohort)
 
         def ask(dev: DeviceInfo, deadline: float):
+            ids = (cohort_of.get(dev.device_id, cohort_ids)
+                   if cohort_of else cohort_ids)
             header, _ = self._request(
-                dev, {"op": "share_setup", "round": r, "cohort": cohort_ids},
+                dev, {"op": "share_setup", "round": r, "cohort": ids},
                 deadline=deadline)
             if header.get("status") != "ok":
                 raise RuntimeError(f"{dev.device_id}: {header.get('error')}")

@@ -148,11 +148,17 @@ class EnrollmentManager:
     devices enrolled; everyone else trains.
     """
 
-    def __init__(self, client: BrokerClient, mud_policy=None):
+    def __init__(self, client: BrokerClient, mud_policy=None,
+                 device_type: Optional[str] = None):
         """``mud_policy``: optional :class:`comm.mud.MudPolicy` — the
         CoLearn enrollment gate.  Devices whose MUD profile fails the
         policy (or is malformed) are REFUSED: recorded in ``rejected``
-        with the reason, never listed in ``devices()``."""
+        with the reason, never listed in ``devices()``.
+
+        ``device_type``: restrict this manager to ONE MUD device type —
+        the per-type-federation topology (one coordinator per type over
+        the same broker; devices of other types are simply not-mine,
+        skipped without rejection).  Implies a profile is required."""
         self._client = client
         self._client.subscribe(ENROLL_TOPIC + "#")
         self._lock = threading.Lock()
@@ -160,6 +166,7 @@ class EnrollmentManager:
         self._profiles: dict[str, object] = {}    # device_id -> MudProfile
         self._order: list[str] = []
         self._mud_policy = mud_policy
+        self._device_type = device_type
         self.rejected: dict[str, str] = {}        # device_id -> reason
 
     def _admit(self, info: DeviceInfo) -> None:
@@ -192,6 +199,14 @@ class EnrollmentManager:
                     # straggler/eviction machinery), not the manager's.
                     self._withdraw_locked(info.device_id)
                 return
+        if self._device_type is not None and (
+            profile is None or profile.device_type != self._device_type
+        ):
+            # Another type's device (or profile-less): not-mine, not a
+            # rejection — a sibling per-type manager owns it.
+            with self._lock:
+                self._withdraw_locked(info.device_id)
+            return
         with self._lock:
             self.rejected.pop(info.device_id, None)
             if info.device_id not in self._devices:

@@ -28,7 +28,11 @@ staging feeds the plain versions, :func:`fold_sparse_reference` and
 :func:`fold_dense_reference` (``index_put_`` and in-order adds); on a card
 the kernel launches or raises, and never falls back.  ``launches`` counts
 kernel launches (one per sparse contribution, one per dense batch), under
-a lock, as threads may share the card.
+a lock, as threads may share the card.  Folders on several threads share
+one cached kernel (an aggregator tree's tiers in one process, per-type
+coordinators): :meth:`FoldKernel.fold_sparse` and
+:meth:`FoldKernel.fold_dense` stage and fold one batch at a time, so the
+pinned buffer is never written while another batch is staged from it.
 """
 
 from __future__ import annotations
@@ -148,6 +152,7 @@ class FoldKernel:
                                       device=self.device)
         self._pinned: Optional[torch.Tensor] = None
         self._copied: Optional[torch.cuda.Event] = None
+        self._lock = threading.Lock()      # one batch staged at a time
 
     @property
     def on_card(self) -> bool:
@@ -265,7 +270,8 @@ class FoldKernel:
                     batch: Sequence) -> Optional[torch.Tensor]:
         if not batch:
             return acc
-        return self.fold_sparse_staged(acc, self.stage_sparse(batch))
+        with self._lock:
+            return self.fold_sparse_staged(acc, self.stage_sparse(batch))
 
     def fold_sparse_staged(self, acc: Optional[torch.Tensor],
                            st: SparseBatch) -> torch.Tensor:
@@ -299,7 +305,8 @@ class FoldKernel:
                    batch: Sequence) -> Optional[torch.Tensor]:
         if not batch:
             return acc
-        return self.fold_dense_staged(acc, self.stage_dense(batch))
+        with self._lock:
+            return self.fold_dense_staged(acc, self.stage_dense(batch))
 
     def fold_dense_staged(self, acc: Optional[torch.Tensor],
                           x: torch.Tensor) -> torch.Tensor:

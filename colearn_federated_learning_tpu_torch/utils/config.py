@@ -292,3 +292,16 @@ def validate_robustness(config: "ExperimentConfig") -> None:
                 "topk_max_fraction <= 1, got "
                 f"[{fed.topk_min_fraction}, {fed.topk_max_fraction}]"
             )
+    if run.num_aggregators < 0:
+        raise ValueError(
+            f"num_aggregators must be >= 0, got {run.num_aggregators}")
+    if run.num_aggregators and run.agg_heartbeat_timeout <= 0:
+        raise ValueError(
+            "agg_heartbeat_timeout must be positive, got "
+            f"{run.agg_heartbeat_timeout}"
+        )
+    if run.agg_buffer_interval_s <= 0:
+        raise ValueError(
+            "agg_buffer_interval_s must be positive, got "
+            f"{run.agg_buffer_interval_s}"
+        )

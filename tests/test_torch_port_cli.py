@@ -21,6 +21,7 @@ import json
 import re
 from contextlib import redirect_stdout
 
+import numpy as np
 import pytest
 import torch
 
@@ -77,8 +78,8 @@ def test_overrides_reach_the_config_as_in_jax(extra):
 @pytest.mark.parametrize("flag,item", [
     (["--lora-rank", "4"], "item 5"),
     (["--lora-alpha", "8", "--edge-groups", "2"], "item 5"),
-    (["--num-aggregators", "2"], "item 12"),
-    (["--agg-heartbeat-timeout", "2.0"], "item 12"),
+    (["--agg-buffer-interval", "2.0"], "item 13"),
+    (["--lora-merge-every", "2"], "item 5"),
     (["--health-dir", "h"], "item 10"), (["--checkpoint-dir", "ck"], "item 9"),
     (["--resume"], "item 9"), (["--trace-dir", "tr"], "item 10"),
     (["--profile-dir", "pr"], "item 10")])
@@ -114,9 +115,10 @@ def test_every_jax_train_flag_is_accepted():
 
 
 # The flags of the JAX train parser that belong to the socket planes and
-# faults/, with a value of their type.  The aggregator tree's stay refused
-# (ROADMAP item 12); the rest are ported: ``train`` (the simulation role)
-# parses each into the config as JAX does and runs without reading it.
+# faults/, with a value of their type.  The buffered-async tree's interval
+# stays refused (ROADMAP item 13); the rest are ported: ``train`` (the
+# simulation role) parses each into the config as JAX does and runs
+# without reading it.
 COMM_FLAGS = [
     ("--agg-buffer-interval", "1.5"), ("--agg-heartbeat-timeout", "2.0"),
     ("--num-aggregators", "3"), ("--comm-backoff-base", "0.1"),
@@ -125,15 +127,15 @@ COMM_FLAGS = [
     ("--fault-plan", "plan.json"), ("--compress-down", "int8"),
     ("--compress-down", "topk8"), ("--topk-max-fraction", "0.3"),
     ("--topk-min-fraction", "0.02"), ("--worker-enroll-timeout", "5.0")]
-TREE_FLAGS = {"--agg-buffer-interval", "--agg-heartbeat-timeout",
-              "--num-aggregators"}
+ASYNC_FLAGS = {"--agg-buffer-interval"}
 
 
 @pytest.mark.parametrize("flag,value", COMM_FLAGS)
 def test_comm_plane_flag_exits_naming_item_8(flag, value, capsys):
-    """The aggregator tree's flags exit 2 naming its item; every other
-    comm-plane flag reaches the config as in JAX and ``train`` runs, or
-    its value is refused by the parser as JAX's refuses it."""
+    """The buffered-async tree's interval exits 2 naming its item; every
+    other comm-plane flag, the aggregator tree's included, reaches the
+    config as in JAX and ``train`` runs, or its value is refused by the
+    parser as JAX's refuses it."""
     argv = ["train", "--backend", "cpu", *TINY, flag, value]
     parser = argparse.ArgumentParser()
     jax_cli._add_override_flags(parser)
@@ -146,13 +148,14 @@ def test_comm_plane_flag_exits_naming_item_8(flag, value, capsys):
         assert exc.value.code == 2
         assert f"argument {flag}: invalid choice" in capsys.readouterr().err
         return
-    if flag in TREE_FLAGS:
+    if flag in ASYNC_FLAGS:
         with pytest.raises(SystemExit) as exc:
             cli.main(argv)
         assert exc.value.code == 2
         err = capsys.readouterr().err
         assert f"{flag} is not ported" in err
-        assert "ROADMAP.md Queue A item 12 (the aggregator tree)" in err
+        assert ("ROADMAP.md Queue A item 13 (the asynchronous coordinator)"
+                in err)
         return
     ours = cli.config_from_args(cli.build_parser().parse_args(argv))
     theirs = jax_cli.config_from_args(jax_args)
@@ -268,14 +271,35 @@ def test_file_plane_flags_in_sim_run_the_plain_round(capsys):
     (["eval", "--global-model", "g.npz", "--detection-eval"], "item 10"),
     (["init", "--out", "g.npz", "--lora-rank", "4"], "item 5"),
     (["aggregate", "--global-model", "g.npz", "--updates", "u.npz", "--out",
-      "g1.npz", "--num-aggregators", "2"], "item 12"),
+      "g1.npz", "--agg-buffer-interval", "2"], "item 13"),
     (["train", "--role", "client", "--client-id", "0", "--global-model",
-      "g.npz", "--out", "u.npz", "--agg-buffer-interval", "1.0"], "item 12")])
+      "g.npz", "--out", "u.npz", "--agg-buffer-interval", "1.0"], "item 13")])
 def test_file_plane_refusals_name_their_items(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main([argv[0], "--backend", "cpu", *argv[1:]])
     assert exc.value.code == 2
     assert f"ROADMAP.md Queue A {item}" in capsys.readouterr().err
+
+
+def test_file_plane_takes_the_tree_flags_as_jax(tmp_path, capsys):
+    """``--num-aggregators`` and ``--agg-heartbeat-timeout`` are taken by
+    every command whose JAX parser takes them; only ``coordinate`` reads
+    them, so the file plane runs as without them."""
+    tree = ["--num-aggregators", "2", "--agg-heartbeat-timeout", "1.0"]
+    g0, u0 = str(tmp_path / "g0.npz"), str(tmp_path / "u0.npz")
+    base = ["--backend", "cpu", *TINY]
+    cli.main(["init", *base, *tree, "--out", g0])
+    cli.main(["train", *base, *tree, "--role", "client", "--client-id", "0",
+              "--global-model", g0, "--out", u0])
+    out = {}
+    for name, extra in (("tree", tree), ("plain", [])):
+        out[name] = str(tmp_path / f"g1_{name}.npz")
+        cli.main(["aggregate", *base, *extra, "--global-model", g0,
+                  "--updates", u0, "--out", out[name]])
+    capsys.readouterr()
+    a, b = (np.load(out[n]) for n in ("tree", "plain"))
+    assert sorted(a.files) == sorted(b.files)
+    assert all(np.array_equal(a[k], b[k]) for k in a.files)
 
 
 def test_file_plane_commands_raise_without_a_card(monkeypatch, tmp_path):
@@ -284,7 +308,8 @@ def test_file_plane_commands_raise_without_a_card(monkeypatch, tmp_path):
         cli.main(["init", "--out", str(tmp_path / "g.npz")])
 
 
-@pytest.mark.parametrize("cmd", ["broker", "worker", "coordinate"])
+@pytest.mark.parametrize("cmd", ["broker", "worker", "aggregator",
+                                 "coordinate"])
 def test_every_jax_flag_of_the_socket_plane_is_accepted(cmd):
     ours = set(cli.build_parser()._subparsers._group_actions[0]
                .choices[cmd]._option_string_actions)
@@ -294,16 +319,17 @@ def test_every_jax_flag_of_the_socket_plane_is_accepted(cmd):
 
 @pytest.mark.parametrize("argv,item", [
     (["coordinate", "--broker-port", "1", "--resume"], "item 9"),
-    (["coordinate", "--broker-port", "1", "--per-type"], "item 14"),
+    (["coordinate", "--broker-port", "1", "--agg-buffer-interval", "1.0"],
+     "item 13"),
     (["coordinate", "--broker-port", "1", "--async-buffer", "4"], "item 13"),
     (["coordinate", "--broker-port", "1", "--async-buffer", "auto"],
      "item 13"),
-    (["coordinate", "--broker-port", "1", "--num-aggregators", "2"],
-     "item 12"),
+    (["coordinate", "--broker-port", "1", "--async-observe"], "item 13"),
     (["worker", "--broker-port", "1", "--client-id", "0", "--metrics-port",
       "9"], "item 10"),
     (["broker", "--events-file", "e.jsonl"], "item 10"),
-    (["aggregator", "--agg-id", "0", "--broker-port", "1"], "item 12"),
+    (["aggregator", "--agg-id", "0", "--broker-port", "1", "--flight-dir",
+      "f"], "item 10"),
     (["chaos", "--rounds", "2"], "item 16")])
 def test_socket_plane_refusals_name_their_items(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -312,14 +338,26 @@ def test_socket_plane_refusals_name_their_items(argv, item, capsys):
     assert f"ROADMAP.md Queue A {item}" in capsys.readouterr().err
 
 
+def test_aggregator_requires_an_agg_id_as_jax(capsys):
+    argv = ["aggregator", "--broker-port", "1", "--backend", "cpu"]
+    assert jax_cli.main(argv) == 2
+    theirs = capsys.readouterr().err.strip()
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv)
+    assert exc.value.code == 2
+    assert capsys.readouterr().err.strip() == theirs
+
+
 def test_socket_plane_commands_raise_without_a_card(monkeypatch):
-    """A worker or a coordinator (``--fold-device`` or not) built for the
-    card without one raises; neither moves to the CPU by itself."""
+    """A worker, an aggregator with ``--fold-device`` or a coordinator
+    (``--fold-device`` or not) built for the card without one raises;
+    none moves to the CPU by itself."""
     from colearn_federated_learning_tpu_torch.comm.broker import MessageBroker
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with MessageBroker() as b:
         for argv in (["worker", "--client-id", "0"],
+                     ["aggregator", "--agg-id", "0", "--fold-device"],
                      ["coordinate", "--fold-device"], ["coordinate"]):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 cli.main([*argv, *TINY, "--broker-port", str(b.port)])

@@ -3,8 +3,9 @@ against their plain PyTorch versions (the fold bit for bit), every model family'
 f32 on the CPU, the hierarchical sync, update similarity and
 per-client evaluation against the CPU, remat's grads and K1 launches
 against the plain run, the client-mesh round at world size 1 on NCCL
-against the single-device round, and a socket-plane round with the device
-fold against the host fold, on the card.  Marked ``cuda``: without a CUDA device every
+against the single-device round, and socket-plane rounds with the device
+fold (flat, and through a two-aggregator tree) against the host fold, on
+the card.  Marked ``cuda``: without a CUDA device every
 test here skips.  On a machine with the card (no JAX needed):
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -p no:cacheprovider -q
@@ -594,6 +595,68 @@ def test_socket_round_with_the_device_fold_on_the_card(cuda, monkeypatch):
     assert fold.launches["fold_sparse"] == 3
     assert rec["completed"] == 3 and not rec["dropped"]
     host = aggregation.StreamingFolder(before, order=["0", "1", "2"])
+    for meta, delta in staged:
+        host.add(meta, delta)
+    mean, _, _ = host.mean()
+    for b0, m, a in zip(trees.leaves(before), trees.leaves(mean),
+                        trees.leaves(after)):
+        assert np.array_equal((b0 + m).astype(np.float32), a)
+
+
+def test_tree_round_with_the_device_fold_on_the_card(cuda, monkeypatch):
+    """A broker, 4 workers, 2 aggregators and a coordinator, every fold on
+    the card (topk8 uplinks): ``fold_sparse`` launches once per
+    contribution on the aggregators, ``fold_dense`` once on the root over
+    the 2 partials, and the new params are the old plus the mean of the
+    host's slice-blocked fold of the same updates, bit for bit."""
+    from colearn_federated_learning_tpu_torch.comm import aggregation
+    from colearn_federated_learning_tpu_torch.comm import aggregator
+    from colearn_federated_learning_tpu_torch.comm import coordinator
+    from colearn_federated_learning_tpu_torch.comm.broker import MessageBroker
+    from colearn_federated_learning_tpu_torch.comm.downlink import host_params
+    from colearn_federated_learning_tpu_torch.comm.worker import DeviceWorker
+    from colearn_federated_learning_tpu_torch.utils import config, trees
+
+    cfg = config.ExperimentConfig(
+        data=config.DataConfig(dataset="mnist_tiny", num_clients=4),
+        model=config.ModelConfig(name="mlp", num_classes=10, hidden_dim=32,
+                                 depth=2),
+        fed=config.FedConfig(rounds=1, local_steps=2, batch_size=16, lr=0.1,
+                             compress="topk8"),
+        run=config.RunConfig(fold_device=True, num_aggregators=2))
+    staged = []
+
+    class Recording(aggregation.StreamingFolder):
+        def add(self, meta, delta, weight=None):
+            staged.append((dict(meta), delta))
+            return super().add(meta, delta, weight)
+
+    monkeypatch.setattr(aggregator, "StreamingFolder", Recording)
+    with MessageBroker() as b:
+        workers = [DeviceWorker(cfg, i, b.host, b.port).start()
+                   for i in range(4)]
+        aggs = [aggregator.AggregatorServer(cfg, a, b.host, b.port).start()
+                for a in range(2)]
+        try:
+            with coordinator.FederatedCoordinator(
+                    cfg, b.host, b.port, want_evaluator=False) as coord:
+                coord.enroll(4, timeout=60.0)
+                coord.enroll_aggregators(timeout=60.0)
+                order = [d.device_id for d in coord.trainers]
+                before = host_params(coord.params_tree())
+                fold.reset_launches()
+                rec = coord.run_round()
+                after = host_params(coord.params_tree())
+        finally:
+            for a in aggs:
+                a.stop()
+            for w in workers:
+                w.stop()
+    assert fold.launches == {"fold_sparse": 4, "fold_dense": 1}
+    assert rec["completed"] == 4 and rec["aggregators"] == 2
+    assert not rec["dropped"]
+    host = aggregation.StreamingFolder(
+        before, order=order, slices=aggregator.slice_cohort(order, 2))
     for meta, delta in staged:
         host.add(meta, delta)
     mean, _, _ = host.mean()

@@ -6,6 +6,9 @@ record's keys (``phase_sync_s``, ``phase_eval_s`` on evaluated rounds,
 which both sides write only where the device reports its memory);
 ``round_time_s`` is the round alone, the evaluation being timed on its
 own; and ``log_fn`` fires on the rounds JAX's does under ``log_every``.
+The socket coordinator's records through the aggregator tree carry JAX's
+keys too (``aggregators``, ``phase_agg_fold_s``, and the codec's and
+secure aggregation's keys under the tree).
 """
 
 import time
@@ -79,3 +82,20 @@ def test_round_time_excludes_evaluation(monkeypatch):
         assert rec["phase_eval_s"] >= 0.3
         phases = rec["phase_update_s"] + rec["phase_sync_s"]
         assert phases <= rec["round_time_s"] < phases + 0.3
+
+
+@pytest.mark.parametrize("fed_kw", [{}, dict(compress="topk8"),
+                                    dict(secure_agg=True)],
+                         ids=["dense", "topk8", "secure_agg"])
+def test_tree_round_records_have_the_jax_keys(fed_kw):
+    from test_torch_port_tree import tree_configs, tree_run
+
+    cfgs = tree_configs(4, **fed_kw)
+    # Secure rounds draw their masks from the port's own streams.
+    kw = dict(worker_kw={"draws": None}) if fed_kw.get("secure_agg") else {}
+    ours, _ = tree_run(cfgs, 4, rounds=1, **kw)
+    theirs, _ = tree_run(cfgs, 4, rounds=1, coord="jax", aggs="jax",
+                         workers="jax")
+    assert [sorted(set(r) - {"retries"}) for r in ours] == [
+        sorted(set(r) - {"retries"}) for r in theirs]
+    assert {"aggregators", "phase_agg_fold_s"} <= set(ours[0])

@@ -501,7 +501,8 @@ def test_cli_broker_worker_coordinate_processes():
 
 
 @pytest.mark.parametrize("fed,run,item", [
-    ({}, dict(num_aggregators=2), "item 12"), (dict(lora_rank=4), {}, "item 5"),
+    (dict(compress_down="int8"), dict(num_aggregators=2), "tree"),
+    (dict(lora_rank=4), {}, "item 5"),
     ({}, dict(checkpoint_dir="ck"), "item 9"),
     ({}, dict(health_dir="h"), "item 10"),
     ({}, dict(learn_observe=True), "item 10"),
@@ -509,11 +510,20 @@ def test_cli_broker_worker_coordinate_processes():
 def test_coordinator_refuses_what_is_not_ported(fed, run, item):
     """Each unported option raises naming its ROADMAP item; ``tp_size`` 2
     on a host without two cards runs replicated, as JAX's placement falls
-    back."""
-    _, tcfg = configs(num_clients=2, run_kw=run, **fed)
+    back; the aggregator tree with ``compress_down`` raises JAX's
+    ValueError."""
+    jcfg, tcfg = configs(num_clients=2, run_kw=run, **fed)
     with broker.MessageBroker() as b:
         if item is None:
             FederatedCoordinator(tcfg, b.host, b.port, device="cpu").close()
+            return
+        if item == "tree":
+            with pytest.raises(ValueError) as theirs:
+                jax_coord.FederatedCoordinator(jcfg, b.host, b.port)
+            with pytest.raises(ValueError, match="requires compress_down="
+                               "'none'") as ours:
+                FederatedCoordinator(tcfg, b.host, b.port, device="cpu")
+            assert str(ours.value) == str(theirs.value)
             return
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md Queue A {item}"):
