@@ -2140,8 +2140,6 @@ def tree_round_path(A, F, dataset):
             if r == 1:
                 aggs[0].stop()          # its slice re-homes in round 2
         launches = {**A.launches, **F.launches}
-        fold_us = timer.per_contribution_us("sparse")
-        stage_us = timer.per_contribution_us("stage")
         dense_us = timer.per_launch_us("dense")
     finally:
         if timer is not None:
@@ -2185,9 +2183,10 @@ def tree_round_path(A, F, dataset):
         if len(by_round[r]) != 4 or not _same_fold(root, host):
             raise AssertionError(f"12a: round {r}'s root sum differs from "
                                  f"the slice-blocked host fold")
-    # The same slice folds replayed on the card with nothing else running:
-    # in the rounds, the events on the shared stream also enclose the
-    # trainer threads' kernels queued between them.
+    # The slice folds are timed replayed on the card with nothing else
+    # running: in the rounds, events on the stream the trainer threads
+    # share would also enclose their kernels.  The root's fold_dense runs
+    # after the collect, with the trainers idle, so it is timed in place.
     timer = _FoldTimer(F)
     try:
         for f in rec_patch.agg_folders:
@@ -2211,20 +2210,17 @@ def tree_round_path(A, F, dataset):
             "fold_sparse": 3 * 4, "fold_dense": 3}
     log(f"  [12a] every slice fold == its host fold, every root sum == the "
         f"slice-blocked host fold (bitwise, round 2's re-homed slice "
-        f"included); in the rounds (events on the stream the trainers "
-        f"share): fold_sparse {fold_us:.2f} us device per contribution, "
-        f"staging copy {stage_us:.2f} us; the slice folds replayed alone: "
-        f"fold_sparse {alone_us:.2f} us, staging copy {alone_stage_us:.2f} "
-        f"us per contribution; root fold_dense {dense_us:.2f} us device "
+        f"included); the slice folds replayed alone: fold_sparse "
+        f"{alone_us:.2f} us device, staging copy {alone_stage_us:.2f} us "
+        f"per contribution; root fold_dense {dense_us:.2f} us device "
         f"per launch of 2 partials; launches {launches}; path "
         f"{time.perf_counter() - t0:.2f} s")
     if launches != want:
         raise AssertionError(f"12a: launches {launches}, expected {want}")
     return (launches, [r["round_time_s"] for r in records],
             [r["phase_agg_fold_s"] for r in records],
-            {"rounds": fold_us, "alone": alone_us},
-            {"rounds": stage_us, "alone": alone_stage_us, "root_dense":
-             dense_us})
+            {"fold_sparse_alone": alone_us, "stage_alone": alone_stage_us,
+             "root_fold_dense": dense_us})
 
 
 DROP_REPLY_3 = {"seed": 0, "faults": [
@@ -2418,8 +2414,7 @@ def tree_phase(A, F):
     paths, numbers = {}, {}
     t0 = time.perf_counter()
     (paths["tree_round"], numbers["12a_round_s"], numbers["12a_agg_fold_s"],
-     numbers["12a_fold_us"], numbers["12a_stage_us"]) = tree_round_path(
-        A, F, dataset)
+     numbers["12a_fold_us"]) = tree_round_path(A, F, dataset)
     log(f"  12a in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     paths["tree_secure"] = tree_secure_path(A, F, dataset)

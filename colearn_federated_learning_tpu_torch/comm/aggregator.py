@@ -284,8 +284,10 @@ class AggregatorServer:
 
 
 def combine_partial_weights(total_ws: Sequence[float]) -> float:
-    """The root's sequential sum of partial weights (the arithmetic the
-    coordinator's fold runs)."""
+    """The root's sequential sum of partial weights, as JAX's root computes
+    it.  Nothing in the port calls it: ``StreamingFolder.add_partial`` runs
+    the same sum as it folds the partials; it is kept to hold that
+    arithmetic to JAX's in the tests."""
     total = 0.0
     for t in total_ws:
         total += float(t)

@@ -138,7 +138,6 @@ class FederatedCoordinator:
                 "fold tier"
             )
         self._aggs: dict[int, dict] = {}       # agg_id -> host/port/ts
-        self._agg_clients: dict[int, TensorClient] = {}
         self._agg_sub: Optional[BrokerClient] = None
         self.agg_heartbeat_timeout = float(config.run.agg_heartbeat_timeout)
         self.device = resolve_device(device)
@@ -229,12 +228,12 @@ class FederatedCoordinator:
                 ident=d.device_id)
 
     # ---- aggregator tier (comm/aggregator.py) ----------------------------
-    def enroll_aggregators(self, n: Optional[int] = None,
-                           timeout: float = 30.0) -> list[int]:
-        """Discover ``n`` (default ``num_aggregators``) aggregators from
-        their retained announce records and connect to them.  Raises
-        ``TimeoutError`` when fewer announce in time."""
-        n = self.num_aggregators if n is None else int(n)
+    def enroll_aggregators(self, timeout: float = 30.0) -> list[int]:
+        """Discover ``num_aggregators`` aggregators from their retained
+        announce records.  Raises ``TimeoutError`` when fewer announce in
+        time.  Each fold request opens its own connection
+        (``_tree_collect``), so nothing is held open here."""
+        n = self.num_aggregators
         if self._agg_sub is None:
             self._agg_sub = BrokerClient(self._broker_addr[0],
                                          self._broker_addr[1],
@@ -251,21 +250,7 @@ class FederatedCoordinator:
                     f"only {len(self._aggs)}/{n} aggregators announced "
                     f"within {timeout:.0f}s"
                 )
-        for agg_id in sorted(self._aggs):
-            self._agg_connect(agg_id)
         return sorted(self._aggs)
-
-    def _agg_connect(self, agg_id: int) -> None:
-        info = self._aggs[agg_id]
-        old = self._agg_clients.pop(agg_id, None)
-        if old is not None:
-            old.close()
-        try:
-            self._agg_clients[agg_id] = TensorClient(
-                info["host"], info["port"], timeout=protocol.CONNECT_TIMEOUT,
-                ident=f"agg:{agg_id}")
-        except OSError:
-            pass                # dead at enrollment: its heartbeat expires
 
     def _live_aggregators(self) -> list[int]:
         """Aggregators whose retained heartbeat is younger than
@@ -282,8 +267,6 @@ class FederatedCoordinator:
                 <= self.agg_heartbeat_timeout]
 
     def close(self) -> None:
-        for c in self._agg_clients.values():
-            c.close()
         if self._agg_sub is not None:
             self._agg_sub.close()
             self._agg_sub = None

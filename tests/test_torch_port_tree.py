@@ -243,7 +243,7 @@ def tree_run(cfgs, n, rounds=2, coord="port", aggs="port", workers="port",
         stack.callback(c.close)
         c.enroll(min_devices=n, timeout=WAIT)
         if n_agg:
-            assert c.enroll_aggregators(n=n_agg, timeout=WAIT) == list(
+            assert c.enroll_aggregators(timeout=WAIT) == list(
                 range(n_agg))
         hist = []
         for r in range(rounds):
