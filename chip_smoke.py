@@ -68,12 +68,18 @@ Phases (any failure exits non-zero; no phase's error is caught):
 9. the server's fold kernel (B4, ``csrc/fold.cu``) and the file plane:
    9a the kernel against its plain version BIT FOR BIT (int32 views) at
    BERT-base's slot layout (198 slots, 108.6 M float32 entries): 10
-   topk8 and 10 topk contributions at 5 % density drawn from a seed,
-   folded from zeros and onto an accumulator, one contribution alone,
-   10 dense contributions, and a -0.0 that must survive; then its device
-   time per launch (CUDA-graph replay), the staging copy's, the plain
-   version's, ``index_add_``'s (the yardstick the port never calls) and
-   the bytes bound, counting the 32-byte sectors a scatter touches; 9b
+   topk8 and 10 topk contributions at 5 % density drawn from a seed
+   (int64 indices, staged as int32), folded from zeros, onto an
+   accumulator and through the overlapped ``fold_sparse`` call, one
+   contribution alone, 10 dense contributions, and a -0.0 that must
+   survive; then, for topk8 and topk, its device time per launch
+   (CUDA-graph replay), the copy of one contribution's staged bytes, the
+   plain version's, ``index_add_``'s (the yardstick the port never calls)
+   and the bytes bound (the staged tensors' bytes from their element
+   sizes, and the 32-byte sectors a scatter touches), and the overlapped
+   call per contribution: the host's pack, the copy's and the kernel's
+   spans and the whole call by the host clock to a sync; ``fold_dense``
+   of the root's 2 partials beside ``torch.sum``; 9b
    ``init``, 4 silos of ``train --role client --compress topk8``,
    ``aggregate`` and ``eval`` on BERT-base (flash, 4 local steps)
    through ``cli.main``, then the 4 update files through
@@ -1105,27 +1111,29 @@ def sparse_batch(sizes, rows, int8, seed):
 def plain_sparse(F, kernel, st, acc):
     """The plain version over a staged batch, contribution by contribution
     as the kernel's launches go."""
-    n = len(kernel.sizes)
-    for r, w in enumerate(st.weights):
+    for part in st.parts:
         set_mode = acc is None
         if set_mode:
             acc = torch.zeros(kernel.total, dtype=torch.float32,
                               device="cuda")
-        F.fold_sparse_reference(
-            acc, st.idx, st.vals, st.begin[r * n:(r + 1) * n + 1],
-            st.scales[r * n:(r + 1) * n], kernel.slot_off,
-            int(st.begin_host[r * n]), int(st.begin_host[(r + 1) * n]),
-            float(w), set_mode)
+        F.fold_sparse_reference(acc, part.idx, part.vals, part.begin,
+                                part.scales, kernel.slot_off,
+                                float(part.weight), set_mode)
     return acc
 
 
-def global_entries(kernel, st, r):
-    """Contribution ``r``'s flat accumulator indices and per-entry scales."""
-    n = len(kernel.sizes)
-    lo, hi = int(st.begin_host[r * n]), int(st.begin_host[(r + 1) * n])
-    e = torch.arange(lo, hi, device="cuda")
-    s = torch.searchsorted(st.begin[r * n:(r + 1) * n + 1], e, right=True) - 1
-    return kernel.slot_off[s] + st.idx[lo:hi], st.scales[r * n:][s], lo, hi
+def global_entries(kernel, part):
+    """A staged contribution's flat accumulator indices and per-entry
+    scales."""
+    e = torch.arange(part.idx.numel(), device="cuda")
+    s = torch.searchsorted(part.begin, e, right=True) - 1
+    return kernel.slot_off[s] + part.idx.long(), part.scales[s]
+
+
+def staged_bytes(part) -> int:
+    """Bytes of one staged contribution's tensors (each read once)."""
+    return sum(t.numel() * t.element_size() for t in
+               (part.idx, part.vals, part.begin, part.scales, part.tiles))
 
 
 def bits_equal(what, got, want):
@@ -1142,7 +1150,9 @@ def bits_equal(what, got, want):
 def fold_check_phase(F):
     """9a: the fold kernel against its plain version at BERT-base's slot
     layout, bitwise; then its device time, the staging copy's, the plain
-    version's, ``index_add_``'s and the bound."""
+    version's, ``index_add_``'s and the bound, and the overlapped
+    ``fold_sparse`` call per contribution: its pack, copy and kernel times
+    and its whole time by the host clock up to a sync."""
     from colearn_federated_learning_tpu_torch.fed import setup
     from colearn_federated_learning_tpu_torch.utils import trees
 
@@ -1161,7 +1171,8 @@ def fold_check_phase(F):
         st = kernel.stage_sparse(batch)
         torch.cuda.synchronize()
         t_stage = time.perf_counter() - t0
-        k = int(st.begin_host[-1])
+        if {p.idx.dtype for p in st.parts} != {torch.int32}:
+            raise AssertionError(f"9a {label}: indices not staged as int32")
         got = kernel.fold_sparse_staged(None, st)
         want = plain_sparse(F, kernel, st, None)
         errs["fold_sparse"] = max(errs["fold_sparse"], bits_equal(
@@ -1171,15 +1182,22 @@ def fold_check_phase(F):
             f"9a {label} onto an accumulator",
             kernel.fold_sparse_staged(got, st), plain_sparse(F, kernel, st,
                                                              want)))
+        # The overlapped call (pack, copy and launch per contribution).
+        errs["fold_sparse"] = max(errs["fold_sparse"], bits_equal(
+            f"9a {label} through fold_sparse",
+            kernel.fold_sparse(None, batch), plain_sparse(F, kernel, st,
+                                                          None)))
         first = kernel.stage_sparse(batch[:1])
         bits_equal(f"9a {label} first contribution",
                    kernel.fold_sparse_staged(None, first),
                    plain_sparse(F, kernel, first, None))
         staged[label] = (st, batch)
-        log(f"  {label}: {FOLD_ROWS} contributions of {k / FOLD_ROWS:.0f} "
-            f"entries on average bitwise equal to the plain version (from "
-            f"zeros, onto an accumulator, a first contribution alone); "
-            f"drawn in {t_draw:.2f} s, staged in {t_stage:.2f} s")
+        log(f"  {label}: {FOLD_ROWS} contributions of "
+            f"{st.entries / FOLD_ROWS:.0f} entries on average bitwise equal "
+            f"to the plain version (from zeros, onto an accumulator, "
+            f"through the overlapped fold_sparse, a first contribution "
+            f"alone); drawn in {t_draw:.2f} s, staged in {t_stage:.2f} s")
+        del got, want
     # A -0.0 assigned first and touched by nothing later survives.
     empty = [(np.zeros(0, np.int64), np.zeros(0, np.float32),
               np.float32(1.0))] * len(sizes)
@@ -1198,7 +1216,10 @@ def fold_check_phase(F):
     bits_equal("9a -0.0", got, plain_sparse(F, kernel, st, None))
     if not (float(got[3]) == 0.0 and math.copysign(1.0, float(got[3])) < 0):
         raise AssertionError("9a: the staged -0.0 did not survive")
+    bits_equal("9a -0.0 through fold_sparse", kernel.fold_sparse(None, nz),
+               got)
     log("  a -0.0 assigned by the first contribution survives the rest")
+    del got
 
     # Dense: 10 full-width contributions, adopted then added in order.
     g = torch.Generator(device="cuda").manual_seed(93)
@@ -1227,7 +1248,7 @@ def fold_check_phase(F):
     # version and ``index_add_`` by events around a host loop (they are
     # not captured: the plain version's index_put_ sorts).  Sparse times
     # are per contribution (one launch), onto a standing accumulator.
-    for label in ("topk8", "topk"):
+    for int8, label in ((True, "topk8"), (False, "topk")):
         st, batch = staged[label]
         acc = torch.zeros(kernel.total, dtype=torch.float32, device="cuda")
         ms = device_ms(lambda s: kernel.fold_sparse_staged(acc, s),
@@ -1236,38 +1257,51 @@ def fold_check_phase(F):
                           iters=5) / FOLD_ROWS
         plain = time_ms(lambda: plain_sparse(F, kernel, st, acc),
                         iters=3) / FOLD_ROWS
-        entries = [global_entries(kernel, st, r) for r in range(FOLD_ROWS)]
-        vals = st.vals
+        entries = [global_entries(kernel, p) for p in st.parts]
 
         def yardstick():
-            for (gi, sc, lo, hi), w in zip(entries, st.weights):
-                acc.index_add_(0, gi, (vals[lo:hi].float() * sc) * float(w))
+            for (gi, sc), p in zip(entries, st.parts):
+                acc.index_add_(0, gi, (p.vals.float() * sc) * float(p.weight))
 
         library = time_ms(yardstick, iters=3) / FOLD_ROWS
-        nbytes = int(st.begin_host[-1]) * (8 + vals.element_size())
-        nbytes += sum(SECTOR * 2 * int(torch.unique_consecutive(
-            gi // (SECTOR // 4)).numel()) for gi, *_ in entries)
+        # The bound: each staged byte read once (from the tensors' own
+        # element sizes), and each touched 32-byte sector of the
+        # accumulator read and written once.
+        in_bytes = sum(staged_bytes(p) for p in st.parts)
+        nbytes = in_bytes + sum(SECTOR * 2 * int(torch.unique_consecutive(
+            gi // (SECTOR // 4)).numel()) for gi, _ in entries)
         nbytes /= FOLD_ROWS
-        flops = 3 * int(st.begin_host[-1]) / FOLD_ROWS
+        flops = 3 * st.entries / FOLD_ROWS
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-        h2d_bytes = (st.idx.numel() * 8 + vals.numel() * vals.element_size()
-                     + st.begin.numel() * 8 + st.scales.numel() * 4)
-        h2d = time_ms(lambda: kernel._pinned[:h2d_bytes].to(
-            "cuda", non_blocking=True), iters=5) / FOLD_ROWS
+        # The copy of one contribution's region, pinned host -> device.
+        h2d_bytes = max(staged_bytes(p) for p in st.parts)
+        dst = torch.empty(h2d_bytes, dtype=torch.uint8, device="cuda")
+        h2d = time_ms(lambda: dst.copy_(kernel._pinned[:h2d_bytes],
+                                        non_blocking=True), iters=5)
+        overlap = fold_call_times(F, kernel, acc, batch)
         row = {"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
                "library_ms": library, "h2d_ms": h2d,
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "max_abs_err": errs["fold_sparse"]}
+               "max_abs_err": errs["fold_sparse"], **overlap}
         log(f"  fold_sparse {label} per contribution: {ms * 1e3:.2f} us "
             f"device ({row['bound_ms'] / ms:.1%} of bound "
             f"{row['bound_ms'] * 1e3:.2f} us, {row['bound_by']}: "
-            f"{nbytes / 1e6:.1f} MB with 32-byte sectors); wrapper loop "
-            f"{wrapper * 1e3:.2f} us; H2D staging copy {h2d * 1e3:.2f} us; "
-            f"plain {plain * 1e3:.2f} us; index_add_ {library * 1e3:.2f} us")
-        if label == "topk8":
+            f"{nbytes / 1e6:.2f} MB with 32-byte sectors, "
+            f"{in_bytes / st.entries:.3f} staged bytes per entry); wrapper "
+            f"loop {wrapper * 1e3:.2f} us; H2D copy of "
+            f"{h2d_bytes / 1e6:.2f} MB {h2d * 1e3:.2f} us; plain "
+            f"{plain * 1e3:.2f} us; index_add_ {library * 1e3:.2f} us")
+        log(f"  fold_sparse {label} call per contribution (overlapped): "
+            f"pack {overlap['pack_ms'] * 1e3:.2f} us host, copy "
+            f"{overlap['copy_ms'] * 1e3:.2f} us, kernel "
+            f"{overlap['kernel_ms'] * 1e3:.2f} us device; whole call "
+            f"{overlap['call_ms'] * 1e3:.2f} us by the host clock to a sync "
+            f"(median of {overlap['calls']} calls of {FOLD_ROWS}); "
+            + json.dumps({"label": label, **row}))
+        if int8:
             rows["fold_sparse"] = row
-        del entries
+        del entries, acc, dst
     dense_bytes = x.numel() * 4 + kernel.total * 4
     ms = device_ms(lambda s: kernel.fold_dense_staged(None, s), [x])
     out = torch.empty(kernel.total, dtype=torch.float32, device="cuda")
@@ -1291,7 +1325,39 @@ def fold_check_phase(F):
         f"{r['bound_ms'] * 1e3:.2f} us, {r['bound_by']}); H2D staging copy "
         f"{h2d * 1e3:.2f} us; plain {plain * 1e3:.2f} us; torch.sum "
         f"{library * 1e3:.2f} us; {card()}")
+    # The root's shape in 12a: 2 partials, adopted and added.
+    two = x[:2]
+    sum2 = device_ms(lambda s: torch.sum(s, dim=0), [two])
+    dense2 = device_ms(lambda s: kernel.fold_dense_staged(None, s), [two])
+    log(f"  fold_dense of 2 partials (the root's shape in 12a): "
+        f"{dense2 * 1e3:.2f} us device; torch.sum {sum2 * 1e3:.2f} us")
     return rows
+
+
+def fold_call_times(F, kernel, acc, batch, calls: int = 5) -> dict:
+    """The overlapped ``fold_sparse`` call folding ``batch`` onto ``acc``,
+    per contribution: the median whole call by the host clock from a sync
+    to a sync, and, in calls of their own, the host's pack, the copy's and
+    the kernel's device spans (means)."""
+    n = len(batch)
+    whole = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernel.fold_sparse(acc, batch)
+        torch.cuda.synchronize()
+        whole.append((time.perf_counter() - t0) / n)
+    timer = _FoldTimer(F)
+    try:
+        for _ in range(calls):
+            kernel.fold_sparse(acc, batch)
+        spans = {k: timer.per_contribution_us(k)
+                 for k in ("pack", "stage", "sparse")}
+    finally:
+        timer.close()
+    return {"call_ms": float(np.median(whole)) * 1e3,
+            "pack_ms": spans["pack"] / 1e3, "copy_ms": spans["stage"] / 1e3,
+            "kernel_ms": spans["sparse"] / 1e3, "calls": calls}
 
 
 def file_plane_path(A, F, workdir):
@@ -1704,38 +1770,60 @@ class _Recorder:
 
 
 class _FoldTimer:
-    """CUDA events around the fold kernel's staging copies and its sparse
-    and dense folds while installed (device ms per call)."""
+    """While installed: CUDA events around the fold kernel's staging copies
+    (a sparse contribution's on the kernel's copy stream, a dense batch's
+    on the current stream), its sparse launches and its dense folds
+    (device ms per call), and the host clock around the packing of each
+    sparse contribution."""
 
     def __init__(self, F):
-        self.F, self.spans = F, {"stage": [], "sparse": [], "dense": []}
+        self.F = F
+        self.spans = {"stage": [], "sparse": [], "dense": []}
+        self.pack_s = []
         K = F.FoldKernel
-        self._orig = {n: getattr(K, n) for n in
-                      ("_upload", "fold_sparse_staged", "fold_dense_staged")}
-        for name, kind in (("_upload", "stage"),
-                           ("fold_sparse_staged", "sparse"),
-                           ("fold_dense_staged", "dense")):
-            setattr(K, name, self._timed(self._orig[name], kind))
+        self._orig = {n: K.__dict__[n] for n in
+                      ("_upload", "_upload_part", "_pack_part", "_fold_part",
+                       "fold_dense_staged")}
+        K._upload = self._timed(self._orig["_upload"], "stage")
+        K._upload_part = self._timed(self._orig["_upload_part"], "stage",
+                                     copy_stream=True)
+        K._fold_part = self._timed(self._orig["_fold_part"], "sparse")
+        K.fold_dense_staged = self._timed(self._orig["fold_dense_staged"],
+                                          "dense")
+        pack = self._orig["_pack_part"].__func__
 
-    def _timed(self, fn, kind):
+        def timed_pack(*args):
+            t0 = time.perf_counter()
+            out = pack(*args)
+            self.pack_s.append(time.perf_counter() - t0)
+            return out
+        K._pack_part = staticmethod(timed_pack)
+
+    def _timed(self, fn, kind, copy_stream=False):
         def run(kernel, *args):
+            stream = (kernel._copy_stream if copy_stream
+                      else torch.cuda.current_stream())
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
-            a.record()
+            a.record(stream)
             out = fn(kernel, *args)
-            b.record()
-            rows = (len(args[1].weights) if kind == "sparse"
-                    else args[1].shape[0] if kind == "dense" else 1)
+            b.record(stream)
+            rows = args[1].shape[0] if kind == "dense" else 1
             self.spans[kind].append((a, b, rows))
             return out
         return run
 
     def per_contribution_us(self, kind):
-        """Device us of ``kind`` over the contributions folded sparse."""
+        """Device us of ``kind`` (host us for ``"pack"``) over the
+        contributions folded sparse."""
         torch.cuda.synchronize()
         rows = sum(r for _, _, r in self.spans["sparse"])
-        return (1e3 * sum(a.elapsed_time(b) for a, b, _ in self.spans[kind])
-                / rows if rows else float("nan"))
+        if not rows:
+            return float("nan")
+        if kind == "pack":
+            return 1e6 * sum(self.pack_s) / rows
+        return 1e3 * sum(a.elapsed_time(b) for a, b, _ in self.spans[kind]
+                         ) / rows
 
     def per_launch_us(self, kind):
         """Device us of ``kind`` per call."""

@@ -1,13 +1,13 @@
 """Command line of the PyTorch port: ``train``, ``init``, ``aggregate``,
-``eval``, ``bench``, ``broker``, ``worker``, ``aggregator`` and
-``coordinate``.
+``eval``, ``configs``, ``bench``, ``broker``, ``worker``, ``aggregator``
+and ``coordinate``.
 
     python -m colearn_federated_learning_tpu_torch.cli train --config NAME \\
         [--backend gpu|cpu] [overrides]
 
 The counterpart of the JAX package's ``colearn`` command line (its
 ``config_from_args``, ``cmd_train``, ``cmd_init``, ``cmd_aggregate``,
-``cmd_eval`` and ``cmd_bench``) for what this package runs: the
+``cmd_eval``, ``cmd_configs`` and ``cmd_bench``) for what this package runs: the
 single-device federated round with every strategy, DP (fixed or adaptive
 clipping, with the RDP accountant), secure aggregation and the robust
 aggregators; hierarchical edge → cloud federation (``--edge-groups`` >= 2,
@@ -38,7 +38,10 @@ JAX; ``--remat`` checkpoints the transformer blocks' activations.
 
 A flag of the JAX command line whose feature is not ported yet is
 accepted by the parser and refused: the run exits with status 2 and names
-the ROADMAP item that ports it, and never runs without it.
+the ROADMAP item that ports it, and never runs without it; so is each
+JAX subcommand not ported yet (``chaos``, ``fleetsim``, ``lint``,
+``trace-summary``, ``postmortem``, ``top``, ``sentinel``, ``health``,
+``converge``).  ``configs`` prints JAX's lines, not a JSON result.
 """
 
 from __future__ import annotations
@@ -122,7 +125,17 @@ _OBSERVABILITY = {
     "metrics_port": ("--metrics-port", dict(type=int), _OBS),
     "events_file": ("--events-file", dict(), _OBS),
 }
-_UNPORTED_COMMANDS = {"chaos": comm.ITEM_CHAOS}
+_UNPORTED_COMMANDS = {
+    "chaos": comm.ITEM_CHAOS,
+    "postmortem": comm.ITEM_CHAOS,
+    "fleetsim": comm.ITEM_CKPT,
+    "trace-summary": comm.ITEM_TELEMETRY,
+    "health": comm.ITEM_TELEMETRY,
+    "top": comm.ITEM_OBS_REST,
+    "converge": comm.ITEM_OBS_REST,
+    "lint": comm.ITEM_ANALYSIS,
+    "sentinel": comm.ITEM_ANALYSIS,
+}
 
 
 def _add_override_flags(p: argparse.ArgumentParser) -> None:
@@ -285,6 +298,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--global-model", required=True)
     p.add_argument("--detection-eval", action="store_true", default=None,
                    help="not ported yet (refused)")
+
+    sub.add_parser("configs", help="list experiment configs")
 
     sub.add_parser("bench", help="run the headline benchmark",
                    parents=[bench.build_parser(add_help=False)])
@@ -672,6 +687,13 @@ def coordinate(args: argparse.Namespace) -> dict:
     return hist[-1]
 
 
+def list_configs() -> None:
+    """Print one line per experiment config, in the JAX CLI's format."""
+    for name, cfg in sorted(CONFIGS.items()):
+        print(f"{name}: {cfg.model.name} on {cfg.data.dataset}, "
+              f"{cfg.data.num_clients} clients, {cfg.fed.strategy}")
+
+
 def main(argv: Optional[list] = None,
          on_round: Optional[Callable] = None) -> dict:
     """Parse ``argv``, run the command and print its result as one JSON
@@ -687,6 +709,8 @@ def main(argv: Optional[list] = None,
         from colearn_federated_learning_tpu_torch import bench
 
         return bench.run(args)
+    if args.cmd == "configs":
+        return list_configs()
     if args.cmd == "train":
         refuse_edge_unsupported(args, config_from_args(args))
     refuse_unported(args)

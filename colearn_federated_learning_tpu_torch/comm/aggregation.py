@@ -44,7 +44,8 @@ class _SparseStage:
 
 class _RawSparseStage:
     """One topk contribution staged for the fold kernel: per slot,
-    ``(flat_idx int64, raw_values, dequant_scale)``, topk8 values still
+    ``(flat_idx, raw_values, dequant_scale)`` (the frame's int32 indices,
+    which the kernel stages as they are), topk8 values still
     int8 and the weight not applied (the kernel applies ``(value * scale)
     * weight`` itself)."""
 
@@ -192,13 +193,14 @@ class StreamingFolder(UpdateFolder):
         return _SparseStage(leaves)
 
     def _stage_topk_raw(self, wire_tree: Any) -> _RawSparseStage:
-        """Raw ``(int64 indices, values, scale)`` per slot for the kernel."""
+        """Raw ``(indices, values, scale)`` per slot for the kernel, the
+        frame's int32 indices as they came."""
         slots = []
         vdt = np.dtype(np.float32)
         for node in trees.flatten_up_to(self.shapes, wire_tree):
             idx, vals, scale, _ = compression.topk_leaf_raw(node)
             vdt = vals.dtype
-            slots.append((np.ascontiguousarray(idx, np.int64), vals, scale))
+            slots.append((idx, vals, scale))
         return _RawSparseStage(slots, vdt)
 
     def add_partial(self, key: str, total_w: float, tree: Any,

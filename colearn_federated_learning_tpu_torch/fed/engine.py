@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from colearn_federated_learning_tpu_torch import convert
+from colearn_federated_learning_tpu_torch.comm import ITEM_CKPT, ITEM_LORA, ITEM_OBS
 from colearn_federated_learning_tpu_torch.data import partition as partition_lib
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
 from colearn_federated_learning_tpu_torch.data.sharding import (
@@ -58,14 +59,21 @@ def check_supported(config: ExperimentConfig) -> None:
     ``edge_groups`` is not refused: the hierarchical learner
     (``fed/hierarchical.py``) builds its groups from copies of a config
     that still carries it, as the JAX package's does."""
-    f = config.fed
-    unported = {"lora_rank > 0": f.lora_rank > 0}
-    bad = [name for name, on in unported.items() if on]
+    f, run = config.fed, config.run
+    unported = {
+        "lora_rank > 0": (f.lora_rank > 0, ITEM_LORA),
+        "run.checkpoint_dir": (bool(run.checkpoint_dir), ITEM_CKPT),
+        "run.checkpoint_every > 0": (run.checkpoint_every > 0, ITEM_CKPT),
+        "run.trace_dir": (bool(run.trace_dir), ITEM_OBS),
+        "run.trace_rounds > 0": (run.trace_rounds > 0, ITEM_OBS),
+        "run.profile_dir": (bool(run.profile_dir), ITEM_OBS),
+    }
+    bad = [f"{name} ({item})" for name, (on, item) in unported.items() if on]
     if f.strategy not in strategies.STRATEGIES:
         bad.insert(0, f"strategy {f.strategy!r}")
     if bad:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(bad)}; see ROADMAP.md Queue A")
+            f"not ported yet: {'; '.join(bad)}; see ROADMAP.md Queue A")
 
 
 def check_fed_options(fed) -> None:

@@ -375,3 +375,42 @@ def test_codec_flags_take_the_jax_parsers_choices(flag, value, capsys):
         cli.main(["train", "--backend", "cpu", *TINY, flag, value])
     assert ours.value.code == theirs.value.code == 2
     assert f"argument {flag}: invalid choice" in capsys.readouterr().err
+
+
+def _subcommands(main) -> set:
+    out = io.StringIO()
+    with redirect_stdout(out), pytest.raises(SystemExit):
+        main(["--help"])
+    return set(re.search(r"\{([a-z,-]+)\}", out.getvalue()).group(1)
+               .split(","))
+
+
+def test_every_jax_subcommand_is_ported_or_refused():
+    theirs = _subcommands(jax_cli.main)
+    assert _subcommands(cli.main) == theirs
+    assert set(cli._UNPORTED_COMMANDS) < theirs
+
+
+def test_configs_prints_the_jax_lines(capsys):
+    assert jax_cli.main(["configs"]) == 0
+    theirs = capsys.readouterr().out
+    assert cli.main(["configs"]) is None
+    ours = capsys.readouterr().out
+    assert ours.splitlines() == theirs.splitlines() and len(ours) > 0
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["fleetsim", "--devices", "64"], "item 9"),
+    (["trace-summary", "t.json"], "item 10a"),
+    (["health", "h"], "item 10a"),
+    (["postmortem", "f"], "item 16"),
+    (["top"], "item 10b"),
+    (["converge", "r.jsonl"], "item 10b"),
+    (["lint"], "item 17"),
+    (["sentinel", "--root", "r"], "item 17")])
+def test_unported_commands_exit_naming_their_items(argv, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv)
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert f"ROADMAP.md Queue A {item} " in err and argv[0] in err

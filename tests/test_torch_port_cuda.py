@@ -430,6 +430,91 @@ def test_fold_sparse_kernel_is_bitwise_its_plain_version(cuda, vdt):
                        _bits(host.fold_sparse(want, more)))
 
 
+# The tile plan's edge cases (tests/test_torch_port_fold.py PLAN_CASES):
+# entries per slot of each contribution over EDGE_SIZES.
+EDGE_SIZES = [5000, 0, 3, 2049, 1, 70, 70, 9000, 2048]
+EDGE_CASES = {
+    "unaligned_runs": [[1234, 0, 3, 2049, 1, 17, 70, 4001, 2048]],
+    "empty_slots": [[5000, 0, 0, 1, 0, 0, 70, 0, 1]],
+    "empty_contribution": [[0] * 9, [3, 0, 1, 5, 0, 0, 0, 9, 0], [0] * 9],
+    "one_entry": [[0, 0, 0, 0, 1, 0, 0, 0, 0]],
+    "whole_tiles": [[2048, 0, 0, 2048, 0, 0, 0, 2048, 2048]],
+}
+
+
+def _edge_batch(rng, counts, vdt):
+    batch = []
+    for row in counts:
+        slots = []
+        for n, c in zip(EDGE_SIZES, row):
+            idx = np.sort(rng.choice(n, c, replace=False)).astype(np.int32)
+            vals = (rng.integers(-127, 128, c).astype(np.int8)
+                    if vdt == np.int8
+                    else rng.standard_normal(c).astype(np.float32))
+            slots.append((idx, vals, np.float32(rng.uniform(1e-4, 1e-2))))
+        batch.append((np.float32(rng.uniform(1.0, 300.0)), slots))
+    return batch
+
+
+@pytest.mark.parametrize("vdt", [np.int8, np.float32])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_fold_sparse_kernel_edge_cases_are_bitwise(cuda, vdt, case):
+    """Empty slots, empty contributions, a one-entry contribution, runs
+    starting anywhere in a tile: from zeros and onto an accumulator, one
+    launch per contribution, bitwise the plain version."""
+    rng = np.random.default_rng(7)
+    batch = _edge_batch(rng, EDGE_CASES[case] * 2, vdt)
+    card = fold.FoldKernel(EDGE_SIZES, cuda)
+    host = fold.FoldKernel(EDGE_SIZES, "cpu")
+    fold.reset_launches()
+    got = card.fold_sparse(None, batch)
+    got = card.fold_sparse(got, batch[:1])
+    torch.cuda.synchronize()
+    assert fold.launches["fold_sparse"] == len(batch) + 1
+    want = host.fold_sparse(host.fold_sparse(None, batch), batch[:1])
+    assert torch.equal(_bits(got), _bits(want))
+    # A staged batch folds the same, with no wait across streams.
+    st = card.stage_sparse(batch)
+    assert torch.equal(_bits(card.fold_sparse_staged(None, st)),
+                       _bits(host.fold_sparse(None, batch)))
+
+
+def test_fold_sparse_shared_kernel_on_two_threads_is_bitwise(cuda):
+    """Two threads folding their own batches through one cached kernel
+    (an aggregator tree's tiers in one process): each result is bitwise
+    its plain version and every contribution launched once."""
+    import threading
+
+    rng = np.random.default_rng(8)
+    batches = [_fold_batch(rng, FOLD_SIZES, 6, vdt)
+               for vdt in (np.int8, np.float32)]
+    card = fold.get_kernel(FOLD_SIZES, cuda)
+    host = fold.FoldKernel(FOLD_SIZES, "cpu")
+    fold.reset_launches()
+    out = [None, None]
+
+    def work(i):
+        acc = None
+        for _ in range(3):
+            acc = card.fold_sparse(acc, batches[i])
+        torch.cuda.current_stream().synchronize()
+        out[i] = acc
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert fold.launches["fold_sparse"] == 2 * 3 * 6
+    for i, batch in enumerate(batches):
+        want = None
+        for _ in range(3):
+            want = host.fold_sparse(want, batch)
+        assert torch.equal(_bits(out[i]), _bits(want))
+    fold.clear_kernel_cache()
+
+
 @pytest.mark.parametrize("sizes", [FOLD_SIZES, [4096, 8, 12]])
 def test_fold_dense_kernel_is_bitwise_its_plain_version(cuda, sizes):
     rng = np.random.default_rng(6)

@@ -11,6 +11,13 @@ first contribution assigned and the rest added in cohort order.  Mirrors
 frame type, partial cohorts, ``slices`` (the aggregator-tree layout),
 pre-folded partials, ``apply_correction``, batched against one-at-a-time
 folding, a staged ``-0.0``, the kernel cache and staging ownership.
+
+The kernel's staging is checked here too: int32 indices whatever the
+caller's integer dtype, 5 (topk8) or 8 (topk) staged bytes per entry, the
+whole batch checked before anything is written, int32-sized slots, and
+the tile plan (``fold.tile_table``) walked as ``csrc/fold.cu`` walks it:
+every entry exactly once, in its own slot, over empty slots, empty
+contributions, a one-entry contribution and runs that start unaligned.
 """
 
 import os
@@ -19,6 +26,7 @@ import random
 import jax
 import numpy as np
 import pytest
+import torch
 
 from colearn_federated_learning_tpu.comm.aggregation import (
     StreamingFolder as JaxFolder)
@@ -328,3 +336,159 @@ def test_device_fold_without_a_card_raises(monkeypatch):
 def test_sharded_server_is_refused_naming_its_item():
     with pytest.raises(NotImplementedError, match="item 15"):
         StreamingFolder(_params(), placement=object())
+
+
+# ------------------------------------------------------- the kernel's plan
+KERNEL_THREADS, KERNEL_U = 128, 8          # csrc/fold.cu kSparseThreads, kU
+
+
+def _walk(begin, tiles):
+    """The slot ``csrc/fold.cu`` gives each entry: per tile, warp and lane,
+    the lane's first entry's slot searched within the tile's range, then a
+    walk forward across run boundaries over its entries 32 apart.  Returns
+    ``(entry, slot)`` pairs."""
+    k = int(begin[-1])
+    assert KERNEL_THREADS * KERNEL_U == fold.TILE
+    seen = []
+    for t in range(-(-k // fold.TILE)):
+        for tid in range(KERNEL_THREADS):
+            base = t * fold.TILE + (tid // 32) * 32 * KERNEL_U + tid % 32
+            if base >= k:
+                continue
+            lo, hi = int(tiles[t]), int(tiles[t + 1])
+            while lo < hi:
+                mid = (lo + hi + 1) >> 1
+                lo, hi = (mid, hi) if begin[mid] <= base else (lo, mid - 1)
+            s = lo
+            for e in range(base, min(base + 32 * KERNEL_U, k), 32):
+                while e >= begin[s + 1]:
+                    s += 1
+                seen.append((e, s))
+    return seen
+
+
+def _sparse_batch(rng, sizes, counts, vdt=np.float32, idx_dtype=np.int32):
+    """Contributions with ``counts[r][s]`` entries in slot s (unique, sorted
+    indices), raw values of ``vdt``, per-slot scales, float32 weights."""
+    batch = []
+    for row in counts:
+        slots = []
+        for n, c in zip(sizes, row):
+            idx = np.sort(rng.choice(n, c, replace=False)).astype(idx_dtype)
+            vals = (rng.integers(-127, 128, c).astype(np.int8)
+                    if vdt == np.int8
+                    else rng.standard_normal(c).astype(np.float32))
+            slots.append((idx, vals, np.float32(rng.uniform(1e-4, 1e-2))))
+        batch.append((np.float32(rng.uniform(1.0, 300.0)), slots))
+    return batch
+
+
+PLAN_SIZES = [5000, 0, 3, 2049, 1, 70, 70, 9000, 2048]
+PLAN_CASES = {
+    # runs of every length, so slot starts fall anywhere in a tile
+    "unaligned_runs": [[1234, 0, 3, 2049, 1, 17, 70, 4001, 2048]],
+    "empty_slots": [[5000, 0, 0, 1, 0, 0, 70, 0, 1]],
+    "empty_contribution": [[0] * 9, [3, 0, 1, 5, 0, 0, 0, 9, 0], [0] * 9],
+    "one_entry": [[0, 0, 0, 0, 1, 0, 0, 0, 0]],
+    "whole_tiles": [[2048, 0, 0, 2048, 0, 0, 0, 2048, 2048]],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_tile_plan_covers_every_entry_once(case):
+    rng = np.random.default_rng(11)
+    batch = _sparse_batch(rng, PLAN_SIZES, PLAN_CASES[case])
+    st = fold.FoldKernel(PLAN_SIZES, "cpu").stage_sparse(batch)
+    assert len(st.parts) == len(batch)
+    for part, (_, slots) in zip(st.parts, batch):
+        begin = part.begin_host
+        assert begin[0] == 0 and list(np.diff(begin)) == [
+            idx.size for idx, _, _ in slots]
+        tiles = part.tiles.numpy()
+        assert tiles.size == -(-int(begin[-1]) // fold.TILE) + 1
+        seen = sorted(_walk(begin, tiles))
+        assert [e for e, _ in seen] == list(range(int(begin[-1])))
+        for e, s in seen:
+            assert begin[s] <= e < begin[s + 1]
+
+
+@pytest.mark.parametrize("vdt,per_entry", [(np.int8, 5), (np.float32, 8)])
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64, np.uint16])
+def test_staged_indices_are_int32(vdt, per_entry, idx_dtype):
+    """Any integer index dtype stages as int32: 5 bytes per topk8 entry,
+    8 per topk entry, each contribution's arrays 16-byte aligned."""
+    rng = np.random.default_rng(12)
+    batch = _sparse_batch(rng, PLAN_SIZES, PLAN_CASES["unaligned_runs"] * 2,
+                          vdt, idx_dtype)
+    st = fold.FoldKernel(PLAN_SIZES, "cpu").stage_sparse(batch)
+    for part, (w, slots) in zip(st.parts, batch):
+        assert part.idx.dtype == torch.int32 and part.weight == w
+        assert part.idx.element_size() + part.vals.element_size() == per_entry
+        assert part.idx.data_ptr() % 16 == 0 and part.vals.data_ptr() % 16 == 0
+        assert np.array_equal(part.idx.numpy(), np.concatenate(
+            [idx for idx, _, _ in slots]).astype(np.int32))
+        assert np.array_equal(part.vals.numpy(), np.concatenate(
+            [vals for _, vals, _ in slots]))
+        assert np.array_equal(part.scales.numpy(),
+                              [scale for _, _, scale in slots])
+
+
+@pytest.mark.parametrize("bad", [-1, 4, 2 ** 32 + 1])
+def test_out_of_range_index_raises_before_any_write(bad):
+    """A bad index in the last contribution: nothing of the batch is
+    folded, the accumulator keeps its bits and nothing launches."""
+    k = fold.FoldKernel([8, 4], "cpu")
+    good = (np.array([1, 5], np.int64), np.ones(2, np.float32),
+            np.float32(1.0))
+    batch = [(np.float32(1.0), [good, (np.array([0], np.int64),
+                                       np.ones(1, np.float32),
+                                       np.float32(1.0))]),
+             (np.float32(2.0), [good, (np.array([bad], np.int64),
+                                       np.ones(1, np.float32),
+                                       np.float32(1.0))])]
+    acc = torch.arange(12, dtype=torch.float32)
+    before = acc.clone()
+    fold.reset_launches()
+    with pytest.raises(IndexError, match="slot 1 of 4"):
+        k.fold_sparse(acc, batch)
+    assert torch.equal(acc, before)
+    with pytest.raises(TypeError, match="integers"):
+        k.fold_sparse(acc, [(np.float32(1.0), [
+            good, (np.array([0.0]), np.ones(1, np.float32),
+                   np.float32(1.0))])])
+    assert fold.launches == {"fold_sparse": 0, "fold_dense": 0}
+
+
+def test_a_slot_of_2_31_entries_is_refused():
+    with pytest.raises(ValueError, match="int32 indices"):
+        fold.FoldKernel([8, 2 ** 31], "cpu")
+    assert fold.FoldKernel([8, 2 ** 31 - 1], "cpu").total == 2 ** 31 + 7
+
+
+@pytest.mark.parametrize("vdt", [np.int8, np.float32])
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_edge_batches_fold_as_the_host_scatter(vdt, case):
+    """The staged edge cases through the plain version equal a numpy
+    scatter of ``(value * scale) * weight``, assigned then added."""
+    rng = np.random.default_rng(13)
+    batch = _sparse_batch(rng, PLAN_SIZES, PLAN_CASES[case] * 2, vdt)
+    kernel = fold.FoldKernel(PLAN_SIZES, "cpu")
+    got = kernel.fold_sparse(None, batch).numpy()
+    want = np.zeros(kernel.total, np.float32)
+    for r, (w, slots) in enumerate(batch):
+        for off, (idx, vals, scale) in zip(kernel.offsets, slots):
+            v = (vals.astype(np.float32) * scale) * w
+            if r == 0:
+                want[off + idx] = v
+            else:
+                want[off + idx] += v
+    assert got.tobytes() == want.tobytes()
+
+
+def test_device_fold_stages_the_frames_int32_indices():
+    shapes = _params()
+    f = StreamingFolder(shapes, device_fold=True, device="cpu")
+    meta, wire = _updates("topk8", n=1)[0]
+    f.add(meta, wire)
+    (_, stage, _), = f._staged.values()
+    assert {idx.dtype for idx, _, _ in stage.slots} == {np.dtype(np.int32)}

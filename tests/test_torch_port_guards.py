@@ -133,7 +133,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "scripts/torch_port_profile.py",
-                                    "scripts/torch_port_ab_round.py"])
+                                    "scripts/torch_port_ab_round.py",
+                                    "scripts/torch_port_ab_fold.py",
+                                    "scripts/torch_port_fold_layouts.py"])
 def test_card_scripts_import_no_jax_and_nothing_of_the_jax_package(script):
     for mod in _imports(ROOT / script):
         assert mod.split(".")[0] not in FORBIDDEN, f"{script} imports {mod}"
@@ -263,3 +265,47 @@ def test_unported_features_raise(fed_kw):
         run=dataclasses.replace(base.run, **run_kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FederatedLearner(cfg, device="cpu")
+
+
+def _tiny_mlp(**run_kw):
+    base = config.get_config("mnist_mlp_fedavg")
+    return base.replace(
+        data=dataclasses.replace(base.data, dataset="mnist_tiny"),
+        fed=dataclasses.replace(base.fed, rounds=1, local_steps=1),
+        run=dataclasses.replace(base.run, **run_kw))
+
+
+@pytest.mark.parametrize("run_kw,item", [
+    (dict(checkpoint_dir="ckpt"), "item 9"),
+    (dict(checkpoint_every=2), "item 9"),
+    (dict(trace_dir="trace"), "item 10"),
+    (dict(trace_rounds=3), "item 10"),
+    (dict(profile_dir="prof"), "item 10")])
+def test_checkpoint_and_trace_options_are_refused(run_kw, item, tmp_path,
+                                                  monkeypatch):
+    """The JAX learner's ``fit`` writes checkpoints and trace/profiler
+    windows; the port's refuses them, naming the item that ports them,
+    before it writes anything, and so do the learners built on it."""
+    from colearn_federated_learning_tpu_torch.fed import HierarchicalLearner
+
+    monkeypatch.chdir(tmp_path)
+    run_kw = {k: (str(tmp_path / v) if isinstance(v, str) else v)
+              for k, v in run_kw.items()}
+    cfg = _tiny_mlp(**run_kw)
+    name = next(iter(run_kw))
+    for build in (lambda: FederatedLearner(cfg, device="cpu"),
+                  lambda: HierarchicalLearner(cfg, 2, 1, device="cpu")):
+        with pytest.raises(NotImplementedError,
+                           match=f"run.{name}.*ROADMAP.md Queue A {item} "):
+            build()
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_the_default_run_options_are_accepted():
+    cfg = _tiny_mlp()
+    assert not (cfg.run.checkpoint_dir or cfg.run.checkpoint_every
+                or cfg.run.trace_dir or cfg.run.trace_rounds
+                or cfg.run.profile_dir)
+    learner = FederatedLearner(cfg, device="cpu")
+    learner.fit(rounds=1)
+    assert len(learner.history) == 1
