@@ -152,7 +152,29 @@ Phases (any failure exits non-zero; no phase's error is caught):
    federations run on their own devices, the thermostat is skipped, no
    type fails, the two models are finite, moved and distinct, and
    ``fold_dense`` launches 4 times;
-13. one JSON line of per-kernel results (launches summed over the paths),
+13. the telemetry core (``telemetry/``, ``metrics.py``) on config #4:
+   13a ``train`` through ``cli.main`` for 3 rounds without and with
+   ``--trace-dir --trace-rounds 2 --log-file --tensorboard-dir`` on the
+   same plan: the same record keys, the losses and params within 10a's
+   bound (expected 0.0), the trace's ``round``/``client_update``/
+   ``sync_metrics`` spans of rounds 0-1 only, ``client_update`` equal to
+   each record's ``phase_update_s``, the JSONL lines the records, the
+   ``trace-summary`` text and both runs' seconds per round printed, and
+   K1-K3's launches exact; 13b 11a's federation with a trace and a
+   health ledger, 2 rounds and an evaluation: each trainer's adopted
+   ``worker.train`` (with ``local_train`` and ``compress_delta`` inside)
+   lies in ``broadcast_collect``, the ledger holds the 3 trainers, the
+   records carry the ``health_*`` keys, ``fed.rounds_total`` is 2 and the
+   frames sent equal the frames received; the collect's split per round
+   (the slowest trainer's ``deserialize_params``, ``local_train`` and
+   ``compress_delta``, and the rest) is printed; launches as 11a's; 13c
+   12a's tree with a trace and ledgers, 1 round: the tier's
+   ``aggregator.fold`` spans parent onto the root's round and the
+   trainers' spans onto them, the ledgers hold the 4 trainers with their
+   aggregator, ranked by latency ``assign_slices`` puts the slowest in
+   the last slice, ``fold_sparse`` 4 and ``fold_dense`` 1 launch as in a
+   12a round; the tier's fold seconds against the collect are printed;
+14. one JSON line of per-kernel results (launches summed over the paths),
    then the result line.
 
 Needs a CUDA device and the repository beside it; it exits non-zero and
@@ -166,6 +188,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1863,7 +1886,7 @@ def socket_config(**fed):
     base = main_path_config()
     run = {k: fed.pop(k) for k in list(fed)
            if k in ("fold_device", "comm_retries", "num_aggregators",
-                    "agg_heartbeat_timeout")}
+                    "agg_heartbeat_timeout", "trace_dir", "health_dir")}
     return base.replace(fed=dataclasses.replace(base.fed, **fed),
                         run=dataclasses.replace(base.run, **run))
 
@@ -2517,6 +2540,334 @@ def tree_phase(A, F):
     return paths
 
 
+# ------------------------------------------------------------ phase 13
+TRACE_WINDOW = 2           # 13a traces the first 2 of its 3 rounds
+BERT_TRACE = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
+              "--local-steps", "4", "--rounds", "3", "--eval-every", "10"]
+CLOCK_SLACK_S = 1e-3       # wall-clock anchors vs perf_counter durations
+
+
+def traced_engine_path(A, workdir):
+    """13a: ``train`` through ``cli.main`` on config #4 (BERT-base, flash,
+    4 local steps, 3 rounds) without and with ``--trace-dir
+    --trace-rounds 2 --log-file --tensorboard-dir``, on the same plan: the
+    record keys are the same, the losses and params agree within phase
+    10a's bound (expected 0.0: tracing adds no work to the round), the
+    trace holds ``round``/``client_update``/``sync_metrics`` of rounds 0-1
+    only, loads through the port's ``load_trace``, and its
+    ``client_update`` durations are the records' ``phase_update_s``; the
+    JSONL log holds the records.  K1-K3 launch exactly in both runs."""
+    from colearn_federated_learning_tpu_torch import telemetry
+
+    trace_dir = os.path.join(workdir, "13a_trace")
+    log_file = os.path.join(workdir, "13a_log.jsonl")
+    tb_dir = os.path.join(workdir, "13a_tb")
+    runs, paths = {}, {}
+    for traced in (False, True):
+        argv = list(BERT_TRACE)
+        if traced:
+            argv += ["--trace-dir", trace_dir, "--trace-rounds",
+                     str(TRACE_WINDOW), "--log-file", log_file,
+                     "--tensorboard-dir", tb_dir]
+        label = "13a traced" if traced else "13a untraced"
+        records, launches, learner = cli_path(A, label, argv)
+        runs[traced] = (records, [p.clone() for p in
+                                  learner.params.values()],
+                        learner.last_trace_path)
+        paths["traced_engine" if traced else "untraced_engine"] = launches
+        del learner
+    (plain, p0, none_path), (recs, p1, path) = runs[False], runs[True]
+    if none_path is not None or path is None:
+        raise AssertionError(f"13a: trace paths {none_path}, {path}")
+    if [sorted(r) for r in recs] != [sorted(r) for r in plain]:
+        raise AssertionError("13a: tracing changed the record keys")
+    loss_diff = max(abs(a["train_loss"] - b["train_loss"])
+                    for a, b in zip(recs, plain))
+    param_diff = max(float((a - b).abs().max()) for a, b in zip(p0, p1))
+    bound = max(REMAT_ATOL + REMAT_RTOL * float(a.abs().max()) for a in p0)
+    if not (loss_diff <= REMAT_ATOL + REMAT_RTOL * max(
+            abs(r["train_loss"]) for r in plain) and param_diff <= bound):
+        raise AssertionError(f"13a: tracing changed the round: loss "
+                             f"{loss_diff}, params {param_diff}")
+    doc = telemetry.load_trace(path)
+    spans = telemetry.trace_spans(doc)
+    by_round = {}
+    for sp in spans:
+        if "round" in sp.attrs:
+            by_round.setdefault(int(sp.attrs["round"]), []).append(sp.name)
+    want = {r: ["client_update", "round", "sync_metrics"]
+            for r in range(TRACE_WINDOW)}
+    if {r: sorted(n) for r, n in by_round.items()} != want:
+        raise AssertionError(f"13a: traced spans by round {by_round}")
+    for sp in spans:
+        if sp.name == "client_update":
+            got = recs[int(sp.attrs["round"])]["phase_update_s"]
+            if abs(sp.duration_s - got) > 1e-6:
+                raise AssertionError(f"13a: client_update {sp.duration_s} "
+                                     f"s, phase_update_s {got} s")
+    with open(log_file) as f:
+        logged = [json.loads(line) for line in f]
+    if [{k: v for k, v in r.items() if k not in ("name", "ts")}
+            for r in logged] != json.loads(json.dumps(recs)):
+        raise AssertionError("13a: the JSONL log differs from the records")
+    tb = (sorted(os.listdir(tb_dir)) if os.path.isdir(tb_dir)
+          else "not written (no tensorboard package: the mirror is off)")
+    # The registry's snapshot closes the summary: that of every phase.
+    for line in telemetry.summarize_trace(doc).split(
+            "\nmetrics:")[0].splitlines():
+        log(f"  [13a] {line}")
+    traced_s = [r["round_time_s"] for r in recs]
+    plain_s = [r["round_time_s"] for r in plain]
+    log(f"  [13a] s/round traced {[round(t, 4) for t in traced_s]}, "
+        f"untraced {[round(t, 4) for t in plain_s]}; loss diff "
+        f"{loss_diff:.3e}, params max abs diff {param_diff:.3e} (bound "
+        f"{REMAT_RTOL:g} rel / {REMAT_ATOL:g} abs); client_update == "
+        f"phase_update_s; {len(logged)} JSONL lines; tensorboard {tb}; "
+        f"{card()}")
+    return paths, {"traced_round_s": traced_s, "untraced_round_s": plain_s}
+
+
+def _contains(outer, inner) -> bool:
+    return (inner.t_wall >= outer.t_wall - CLOCK_SLACK_S
+            and inner.t_wall + inner.duration_s
+            <= outer.t_wall + outer.duration_s + CLOCK_SLACK_S)
+
+
+def collect_split(spans):
+    """Per round of a flat socket trace: ``broadcast_collect``'s seconds,
+    and its slowest trainer's ``worker.train`` split into
+    ``deserialize_params``, ``local_train`` and ``compress_delta``, with
+    the rest of the collect (frames, decode, fold, the other trainers'
+    wait) beside them.  Checks the spans' nesting."""
+    rounds = {sp.span_id: sp for sp in spans if sp.name == "round"}
+    split = []
+    for rid, rnd in sorted(rounds.items(), key=lambda kv: kv[1].t_wall):
+        collect = [sp for sp in spans if sp.name == "broadcast_collect"
+                   and sp.parent_id == rid]
+        trains = [sp for sp in spans if sp.name == "worker.train"
+                  and sp.parent_id == rid]
+        if len(collect) != 1 or not trains or not all(
+                _contains(collect[0], t) for t in trains):
+            raise AssertionError(f"13b: round {rnd.attrs}: collect "
+                                 f"{len(collect)}, trains {len(trains)}, "
+                                 "or a train outside the collect")
+        slow = max(trains, key=lambda t: t.duration_s)
+        parts = {sp.name: sp.duration_s for sp in spans
+                 if sp.parent_id == slow.span_id}
+        if not {"deserialize_params", "local_train",
+                "compress_delta"} <= set(parts):
+            raise AssertionError(f"13b: worker.train children {parts}")
+        split.append({
+            "round": rnd.attrs.get("round"),
+            "broadcast_collect_s": collect[0].duration_s,
+            "slowest": slow.attrs.get("client_id"),
+            "worker_train_s": slow.duration_s,
+            **{f"{k}_s": parts[k] for k in ("deserialize_params",
+                                            "local_train", "compress_delta")},
+            "rest_s": collect[0].duration_s - slow.duration_s})
+    return split
+
+
+def traced_socket_path(A, F, dataset, workdir):
+    """13b: 11a's federation (3 trainers and the evaluator, topk8 with
+    feedback, the device fold) with a trace and a health ledger, 2 rounds
+    and an evaluation: the trace file loads, its collect holds each
+    trainer's adopted ``worker.train`` with ``local_train`` and
+    ``compress_delta`` inside, the ledger has the 3 trainers, the records
+    carry the ``health_*`` keys, ``fed.rounds_total`` is 2 and every frame
+    sent in the process was received; launches are 11a's.  Prints the
+    collect's split per round."""
+    from colearn_federated_learning_tpu_torch import telemetry
+
+    trace_dir = os.path.join(workdir, "13b_trace")
+    health_dir = os.path.join(workdir, "13b_health")
+    cfg = socket_config(compress="topk8", compress_feedback=True,
+                        fold_device=True, trace_dir=trace_dir,
+                        health_dir=health_dir)
+    reg = telemetry.get_registry()
+    reg.reset()
+    broker, workers, coord = _federation(cfg, 4, True, dataset)
+    try:
+        trainers = sorted(d.device_id for d in coord.trainers)
+        A.reset_launches()
+        F.reset_launches()
+        records = [coord.run_round() for _ in range(2)]
+        ev = coord.evaluate()
+        launches = {**A.launches, **F.launches}
+        path = telemetry.write_tracer(trace_dir, cfg.run.name, coord.tracer,
+                                      metrics=reg.snapshot())
+    finally:
+        _stop(broker, workers, coord)
+    # A sender counts a frame once its write returned, which may be after
+    # the receiver counted it: wait (bounded) for the last ones.
+    deadline = time.monotonic() + 10.0
+    snap = reg.snapshot()
+    while (snap["comm.messages_sent"] != snap["comm.messages_received"]
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+        snap = reg.snapshot()
+    depth, steps = cfg.model.depth, cfg.fed.local_steps
+    trained = 2 * 3 * steps
+    eval_batches = math.ceil(len(dataset.x_test)
+                             / max(cfg.fed.batch_size, 64))
+    want = {"flash_forward": depth * (trained + eval_batches),
+            "flash_backward_dq": depth * trained,
+            "flash_backward_dkv": depth * trained,
+            "fold_sparse": 2 * 3, "fold_dense": 0}
+    if launches != want:
+        raise AssertionError(f"13b: launches {launches}, expected {want}")
+    fleet = telemetry.load_health(health_dir)
+    if sorted(fleet) != trainers or any(h.rounds != 2
+                                        for h in fleet.values()):
+        raise AssertionError(f"13b: ledger {sorted(fleet)} vs trainers "
+                             f"{trainers}")
+    for r in records:
+        if not (r["completed"] == 3 and r["health_devices"] == 3
+                and r["health_lat_p99_s"] > 0
+                and math.isfinite(r["train_loss"])):
+            raise AssertionError(f"13b: bad round record {r}")
+    if not (snap["fed.rounds_total"] == 2 and snap["comm.messages_sent"]
+            == snap["comm.messages_received"] > 0
+            and math.isfinite(ev["eval_loss"])):
+        raise AssertionError(f"13b: rounds {snap.get('fed.rounds_total')}, "
+                             f"messages {snap.get('comm.messages_sent')} "
+                             f"sent, {snap.get('comm.messages_received')} "
+                             "received")
+    doc = telemetry.load_trace(path)
+    split = collect_split(telemetry.trace_spans(doc))
+    summary = telemetry.summarize_trace(doc)
+    for line in summary.split("\nmetrics:")[0].splitlines():
+        log(f"  [13b] {line}")
+    for sp in split:
+        log("  [13b] collect split " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in sp.items()}))
+    mean = {k: sum(sp[k] for sp in split) / len(split)
+            for k in ("broadcast_collect_s", "deserialize_params_s",
+                      "local_train_s", "compress_delta_s", "rest_s")}
+    log(f"  [13b] rounds {[round(r['round_time_s'], 3) for r in records]} "
+        f"s; ledger {sorted(fleet)} (lat ewma "
+        f"{[round(fleet[d].lat_ewma, 3) for d in sorted(fleet)]} s); "
+        f"messages {snap['comm.messages_sent']:.0f} sent = received; "
+        f"bytes {snap['comm.bytes_sent']:.0f}; launches {launches} (exact); "
+        f"{card()}")
+    return launches, {"split": split, "mean": mean,
+                      "round_s": [r["round_time_s"] for r in records]}
+
+
+def traced_tree_path(A, F, dataset, workdir):
+    """13c: 12a's tree (4 trainers, 2 aggregator threads, the device fold)
+    with a trace and health ledgers, 1 round: the tier's
+    ``aggregator.fold`` spans parent onto the root's round (the root's
+    fold requests carried its context) and the trainers' spans onto them;
+    ``fold_sparse`` and ``fold_dense`` launch as in a 12a round; the
+    ledgers hold the 4 trainers with their aggregator, and ranked by
+    their latency ``assign_slices`` puts the slowest in the last slice."""
+    from colearn_federated_learning_tpu_torch import telemetry
+    from colearn_federated_learning_tpu_torch.comm.aggregator import (
+        assign_slices)
+
+    trace_dir = os.path.join(workdir, "13c_trace")
+    health_dir = os.path.join(workdir, "13c_health")
+    cfg = socket_config(compress="topk8", compress_feedback=True,
+                        fold_device=True, num_aggregators=2,
+                        agg_heartbeat_timeout=2.0, trace_dir=trace_dir,
+                        health_dir=health_dir)
+    reg = telemetry.get_registry()
+    reg.reset()
+    aggs = []
+    broker, workers, coord = _federation(cfg, 4, False, dataset)
+    try:
+        aggs = _tree(cfg, broker, 2)
+        coord.enroll_aggregators(timeout=120.0)
+        trainers = list(coord.trainers)
+        A.reset_launches()
+        F.reset_launches()
+        rec = coord.run_round()
+        launches = {**A.launches, **F.launches}
+        path = telemetry.write_tracer(trace_dir, cfg.run.name, coord.tracer,
+                                      metrics=reg.snapshot())
+    finally:
+        for agg in aggs:
+            agg.stop()
+        _stop(broker, workers, coord)
+    depth, steps = cfg.model.depth, cfg.fed.local_steps
+    want = {"flash_forward": depth * 4 * steps,
+            "flash_backward_dq": depth * 4 * steps,
+            "flash_backward_dkv": depth * 4 * steps,
+            "fold_sparse": 4, "fold_dense": 1}
+    if launches != want:
+        raise AssertionError(f"13c: launches {launches}, expected {want}")
+    if not (rec["completed"] == 4 and rec["health_devices"] == 4
+            and math.isfinite(rec["train_loss"])):
+        raise AssertionError(f"13c: bad round record {rec}")
+    spans = telemetry.trace_spans(telemetry.load_trace(path))
+    by_id = {sp.span_id: sp for sp in spans}
+    rnd = [sp for sp in spans if sp.name == "round"]
+    folds = [sp for sp in spans if sp.name == "aggregator.fold"]
+    trains = [sp for sp in spans if sp.name == "worker.train"]
+    collect = [sp for sp in spans if sp.name == "broadcast_collect"]
+    if not (len(rnd) == 1 and len(folds) == 2 and len(trains) == 4
+            and len(collect) == 1
+            and all(f.parent_id == rnd[0].span_id for f in folds)
+            and all(by_id[t.parent_id].name == "aggregator.fold"
+                    for t in trains)
+            and {f.process for f in folds} == {"aggregator-0",
+                                               "aggregator-1"}):
+        raise AssertionError(
+            f"13c: spans {[(s.name, s.process) for s in spans]}")
+    fleet = telemetry.load_health(health_dir)
+    ids = sorted(d.device_id for d in trainers)
+    if sorted(fleet) != ids or {h.agg for h in fleet.values()} != {"0", "1"}:
+        raise AssertionError(
+            f"13c: ledgers {[(d, h.agg) for d, h in fleet.items()]}")
+    lat = {d: h.lat_ewma for d, h in fleet.items()}
+    ranked = assign_slices(trainers, 2, scores=lat)
+    slowest = max(lat, key=lat.get)
+    if ranked[-1][-1].device_id != slowest:
+        raise AssertionError(f"13c: slices {ranked} by latency {lat}")
+    fold_s = sorted(f.duration_s for f in folds)
+    log(f"  [13c] round {rec['round_time_s']:.3f} s: broadcast_collect "
+        f"{collect[0].duration_s:.3f} s, the tier's aggregator.fold "
+        f"{[round(t, 3) for t in fold_s]} s (phase_agg_fold_s "
+        f"{rec['phase_agg_fold_s']:.3f}); each fold span's parent is the "
+        f"root's round, each worker.train's a fold span; ledgers "
+        f"{ {d: fleet[d].agg for d in ids} }; by latency "
+        f"{ {d: round(v, 3) for d, v in lat.items()} } the slices are "
+        f"{[[d.device_id for d in sl] for sl in ranked]}; launches "
+        f"{launches} (exact); {card()}")
+    return launches, {"round_s": rec["round_time_s"],
+                      "collect_s": collect[0].duration_s,
+                      "agg_fold_s": fold_s}
+
+
+def telemetry_phase(A, F, _build):
+    """Phase 13: the telemetry core on the card, on config #4."""
+    from colearn_federated_learning_tpu_torch.data import registry
+
+    cfg = main_path_config()
+    dataset = registry.get_dataset(cfg.data.dataset, seed=cfg.run.seed)
+    paths, numbers = {}, {}
+    # Traces, logs and ledgers go to a temporary directory inside the
+    # gitignored build directory, removed afterwards.
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        t0 = time.perf_counter()
+        engine_paths, numbers["13a"] = traced_engine_path(A, workdir)
+        paths.update(engine_paths)
+        log(f"  13a in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        paths["traced_socket"], numbers["13b"] = traced_socket_path(
+            A, F, dataset, workdir)
+        log(f"  13b in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        paths["traced_tree"], numbers["13c"] = traced_tree_path(
+            A, F, dataset, workdir)
+        log(f"  13c in {time.perf_counter() - t0:.2f} s")
+    log("phase 13 numbers " + json.dumps(numbers))
+    return paths
+
+
 def build_phase(_build):
     """Build the kernels; report each head-dim-64 instantiation's registers,
     spills and blocks per SM, and fail if any instantiation spills."""
@@ -2628,6 +2979,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(tree_phase(A, F))
     log(f"  phase 12 in {time.perf_counter() - t0:.2f} s")
+    log("phase 13: the telemetry core (traces, counters, health ledgers)")
+    t0 = time.perf_counter()
+    paths.update(telemetry_phase(A, F, _build))
+    log(f"  phase 13 in {time.perf_counter() - t0:.2f} s")
     log("launches per path " + json.dumps(paths))
 
     sources = {**{name: (SOURCE, rep) for name, (rep, _) in KERNELS.items()},

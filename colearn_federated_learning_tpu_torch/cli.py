@@ -21,7 +21,13 @@ its aggregator tree (``aggregator`` processes, ``coordinate
 --num-aggregators``) and per-type federation (``coordinate --per-type``,
 which exits 1 when a type's federation fails or none runs).  ``broker``,
 ``worker`` and ``aggregator`` serve until SIGINT or SIGTERM and then exit
-0.
+0.  Telemetry (``telemetry/``): ``train --log-file`` and
+``--tensorboard-dir`` log the records through ``MetricsLogger``;
+``--trace-dir`` (with ``--trace-rounds`` on ``train``) writes the
+Chrome-trace JSON of ``train``, ``coordinate`` and ``aggregator``, which
+``trace-summary`` breaks down; ``--health-dir`` keeps the per-device
+health ledgers of ``coordinate`` and ``aggregator``, which ``health``
+renders.  Both print the JAX command's text and exit with its codes.
 Everything runs on the card (``--backend gpu``, the default, which raises
 without one) or, only when asked, on the CPU.  ``train`` writes each
 round's record to stderr as one JSON line and its summary to stdout, as in
@@ -40,8 +46,8 @@ A flag of the JAX command line whose feature is not ported yet is
 accepted by the parser and refused: the run exits with status 2 and names
 the ROADMAP item that ports it, and never runs without it; so is each
 JAX subcommand not ported yet (``chaos``, ``fleetsim``, ``lint``,
-``trace-summary``, ``postmortem``, ``top``, ``sentinel``, ``health``,
-``converge``).  ``configs`` prints JAX's lines, not a JSON result.
+``postmortem``, ``top``, ``sentinel``, ``converge``).  ``configs``,
+``trace-summary`` and ``health`` print JAX's text, not a JSON result.
 """
 
 from __future__ import annotations
@@ -75,12 +81,14 @@ _MODEL_KEYS = {"attn_impl", "remat", "width", "stem", "norm"}
 _RUN_KEYS = {"seed", "tp_size", "eval_every", "log_every", "evict_after",
              "worker_enroll_timeout", "comm_retries", "comm_backoff_base",
              "comm_backoff_max", "fault_plan", "fault_seed", "fold_device",
-             "num_aggregators", "agg_heartbeat_timeout"}
+             "num_aggregators", "agg_heartbeat_timeout", "trace_dir",
+             "trace_rounds", "health_dir"}
 
 _LORA = comm.ITEM_LORA
 _CKPT = comm.ITEM_CKPT
-_OBS = comm.ITEM_OBS
+_OBS = comm.ITEM_OBS_REST
 _ASYNC = comm.ITEM_ASYNC
+_FLIGHT = comm.ITEM_CHAOS
 
 # dest -> (flag, argparse kwargs, the ROADMAP item that ports it): the
 # override flags every subcommand takes, and those of ``train`` alone.
@@ -93,12 +101,7 @@ _UNPORTED = {
     "checkpoint_dir": ("--checkpoint-dir", dict(), _CKPT),
     "checkpoint_every": ("--checkpoint-every", dict(type=int), _CKPT),
     "ckpt_stream": ("--ckpt-stream", dict(action="store_true"), _CKPT),
-    "trace_dir": ("--trace-dir", dict(), _OBS),
-    "trace_rounds": ("--trace-rounds", dict(type=int), _OBS),
     "profile_dir": ("--profile-dir", dict(), _OBS),
-    "log_file": ("--log-file", dict(), _OBS),
-    "tensorboard_dir": ("--tensorboard-dir", dict(), _OBS),
-    "health_dir": ("--health-dir", dict(), _OBS),
     "learn_observe": ("--learn-observe", dict(action="store_true"), _OBS),
 }
 _UNPORTED_TRAIN = {
@@ -119,9 +122,9 @@ _COORDINATE_UNPORTED = {
     "async_probation": ("--async-probation", dict(type=int), _ASYNC),
 }
 _OBSERVABILITY = {
-    "flight_dir": ("--flight-dir", dict(), _OBS),
-    "flight_heartbeat": ("--flight-heartbeat", dict(type=float), _OBS),
-    "flight_watchdog": ("--flight-watchdog", dict(type=float), _OBS),
+    "flight_dir": ("--flight-dir", dict(), _FLIGHT),
+    "flight_heartbeat": ("--flight-heartbeat", dict(type=float), _FLIGHT),
+    "flight_watchdog": ("--flight-watchdog", dict(type=float), _FLIGHT),
     "metrics_port": ("--metrics-port", dict(type=int), _OBS),
     "events_file": ("--events-file", dict(), _OBS),
 }
@@ -129,8 +132,6 @@ _UNPORTED_COMMANDS = {
     "chaos": comm.ITEM_CHAOS,
     "postmortem": comm.ITEM_CHAOS,
     "fleetsim": comm.ITEM_CKPT,
-    "trace-summary": comm.ITEM_TELEMETRY,
-    "health": comm.ITEM_TELEMETRY,
     "top": comm.ITEM_OBS_REST,
     "converge": comm.ITEM_OBS_REST,
     "lint": comm.ITEM_ANALYSIS,
@@ -249,6 +250,20 @@ def _add_override_flags(p: argparse.ArgumentParser) -> None:
                    help="broker/worker/coordinate: install this FaultPlan "
                         "JSON on the process's transport")
     p.add_argument("--fault-seed", type=int, default=None)
+    p.add_argument("--log-file", default=None)
+    p.add_argument("--tensorboard-dir", default=None,
+                   help="mirror scalar round metrics to TensorBoard")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a Chrome-trace JSON of per-round phase spans "
+                        "here (open in Perfetto / chrome://tracing, or use "
+                        "`trace-summary`)")
+    p.add_argument("--trace-rounds", type=int, default=None,
+                   help="span-trace only the first N rounds (0 = all)")
+    p.add_argument("--health-dir", default=None,
+                   help="per-device health ledger directory "
+                        "(telemetry/health.py): coordinator/aggregator "
+                        "durably record deadline misses, retries, latency "
+                        "sketches per device (`health` reads it)")
     _add_unported(p, _UNPORTED)
 
 
@@ -357,6 +372,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated device types admitted")
     _add_unported(p, {**_COORDINATE_UNPORTED, **_OBSERVABILITY})
 
+    p = sub.add_parser("trace-summary",
+                       help="print a per-phase time breakdown of a "
+                            "--trace-dir Chrome-trace JSON file")
+    p.add_argument("trace_file", help="path to the *_trace.json file")
+    p.add_argument("--root", default="round",
+                   help="span name used as the per-round denominator")
+
+    p = sub.add_parser("health",
+                       help="per-device fleet health from a --health-dir "
+                            "run: top offenders, straggler tail, "
+                            "per-aggregator skew")
+    p.add_argument("health_dir",
+                   help="directory holding health_*.jsonl ledgers "
+                        "(searched recursively)")
+    p.add_argument("--top", type=int, default=10,
+                   help="offender rows to show")
+    p.add_argument("--format", choices=["text", "json"], default="text")
+
     # Subcommands not ported yet: refused before their flags are parsed.
     for name in _UNPORTED_COMMANDS:
         sub.add_parser(name, help="not ported yet (refused)")
@@ -422,20 +455,35 @@ def train(args: argparse.Namespace,
     >= 2), fit, evaluate; returns the summary.  ``on_round(learner,
     record)`` is called before the first round (with ``record`` None) and
     with each logged record.  The flat summary's rates are taken over the
-    logged records' ``round_time_s``, which excludes evaluation."""
+    logged records' ``round_time_s``, which excludes evaluation.  The lead
+    rank also logs the records to ``--log-file`` and ``--tensorboard-dir``;
+    with ``--trace-dir`` the summary names the trace file."""
     from colearn_federated_learning_tpu_torch.fed import (
-        FederatedLearner, HierarchicalLearner, evaluation)
+        FederatedLearner, HierarchicalLearner)
+    from colearn_federated_learning_tpu_torch.metrics import MetricsLogger
 
     config = config_from_args(args)
     device = "cuda" if args.backend == "gpu" else "cpu"
     t_start = time.perf_counter()
-    hierarchical = config.fed.edge_groups >= 2
-    if hierarchical:
+    if config.fed.edge_groups >= 2:
         learner = HierarchicalLearner(
             config, num_groups=config.fed.edge_groups,
             sync_period=config.fed.edge_sync_period, device=device)
     else:
         learner = FederatedLearner.from_config(config, device=device)
+    lead = is_lead()            # the world exists once the learner does
+    with MetricsLogger(path=args.log_file if lead else None,
+                       name=config.run.name,
+                       tensorboard_dir=(args.tensorboard_dir if lead
+                                        else None)) as logger:
+        return _fit(args, config, learner, on_round, logger, t_start)
+
+
+def _fit(args: argparse.Namespace, config: ExperimentConfig, learner,
+         on_round: Optional[Callable], logger, t_start: float) -> dict:
+    """``train``'s fit and summary (see :func:`train`)."""
+    from colearn_federated_learning_tpu_torch.fed import evaluation
+
     if on_round is not None:
         on_round(learner, None)
     records = []
@@ -444,12 +492,13 @@ def train(args: argparse.Namespace,
     def log_fn(rec: dict) -> None:
         records.append(rec)
         if lead:
+            logger.log(rec)
             print(json.dumps(rec), file=sys.stderr, flush=True)
         if on_round is not None:
             on_round(learner, rec)
 
     learner.fit(log_fn=log_fn)
-    if hierarchical:
+    if config.fed.edge_groups >= 2:
         # fit() ends on a synced, evaluated round: its score is the cloud
         # model's.
         last = learner.history[-1] if learner.history else {}
@@ -487,6 +536,8 @@ def train(args: argparse.Namespace,
         out["dp_epsilon"] = records[-1]["dp_epsilon"]
         out["dp_delta"] = records[-1]["dp_delta"]
     out["data_source"] = learner.dataset.source
+    if learner.last_trace_path:
+        out["trace_file"] = learner.last_trace_path
     return out
 
 
@@ -596,7 +647,7 @@ def worker(args: argparse.Namespace) -> None:
 
 def aggregator(args: argparse.Namespace) -> None:
     """``aggregator``: announce on the broker, heartbeat and serve folds
-    until stopped."""
+    until stopped; then, with ``--trace-dir``, write the tier's spans."""
     from colearn_federated_learning_tpu_torch.comm.aggregator import (
         run_aggregator_forever)
 
@@ -605,9 +656,23 @@ def aggregator(args: argparse.Namespace) -> None:
         print("aggregator requires --agg-id", file=sys.stderr)
         raise SystemExit(2)
     _install_fault_plan(config)
-    run_aggregator_forever(config, args.agg_id, args.broker_host,
-                           args.broker_port, heartbeat_s=args.heartbeat,
-                           device=_device(args), stop=_stop_event())
+    agg = run_aggregator_forever(config, args.agg_id, args.broker_host,
+                                 args.broker_port, heartbeat_s=args.heartbeat,
+                                 device=_device(args), stop=_stop_event())
+    _write_trace(config, f"{config.run.name}_aggregator{args.agg_id}",
+                 agg.tracer)
+
+
+def _write_trace(config: ExperimentConfig, name: str, tracer) -> None:
+    """With ``--trace-dir``, write ``tracer``'s spans (and the registry's
+    snapshot) as Chrome-trace JSON, as JAX's coordinator does."""
+    if not config.run.trace_dir:
+        return
+    from colearn_federated_learning_tpu_torch import telemetry
+
+    path = telemetry.write_tracer(config.run.trace_dir, name, tracer,
+                                  metrics=telemetry.get_registry().snapshot())
+    print(f"trace written to {path}", file=sys.stderr)
 
 
 def per_type(args: argparse.Namespace, config: ExperimentConfig,
@@ -684,7 +749,41 @@ def coordinate(args: argparse.Namespace) -> dict:
 
             print(json.dumps(evaluation.sanitize_report(
                 coord.evaluate_per_client())), file=sys.stderr, flush=True)
+        _write_trace(config, config.run.name, coord.tracer)
     return hist[-1]
+
+
+def trace_summary(args: argparse.Namespace) -> None:
+    """``trace-summary``: the per-phase breakdown of a trace file; exits 2
+    when the file cannot be read, as JAX's does."""
+    from colearn_federated_learning_tpu_torch import telemetry
+
+    try:
+        doc = telemetry.load_trace(args.trace_file)
+    except (OSError, ValueError) as e:
+        print(f"cannot read trace {args.trace_file}: {e}", file=sys.stderr)
+        raise SystemExit(2)
+    print(telemetry.summarize_trace(doc, root=args.root))
+
+
+def health(args: argparse.Namespace) -> None:
+    """``health``: render the per-device ledgers of a ``--health-dir`` run;
+    exits 2 when they cannot be read and 1 when they hold no device, as
+    JAX's does."""
+    from colearn_federated_learning_tpu_torch import telemetry
+
+    try:
+        devices = telemetry.load_health(args.health_dir)
+    except (OSError, ValueError) as e:
+        print(f"colearn health: cannot read {args.health_dir}: {e}",
+              file=sys.stderr)
+        raise SystemExit(2)
+    if args.format == "json":
+        print(json.dumps({d: h.to_dict() for d, h in devices.items()}))
+    else:
+        print(telemetry.render_health(devices, top=args.top))
+    if not devices:
+        raise SystemExit(1)
 
 
 def list_configs() -> None:
@@ -711,6 +810,10 @@ def main(argv: Optional[list] = None,
         return bench.run(args)
     if args.cmd == "configs":
         return list_configs()
+    if args.cmd == "trace-summary":
+        return trace_summary(args)
+    if args.cmd == "health":
+        return health(args)
     if args.cmd == "train":
         refuse_edge_unsupported(args, config_from_args(args))
     refuse_unported(args)

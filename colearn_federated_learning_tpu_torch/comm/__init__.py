@@ -23,9 +23,6 @@ ITEM_SHARDED = "ROADMAP.md Queue A item 15 (the sharded server)"
 ITEM_CHAOS = "ROADMAP.md Queue A item 16 (the chaos soaks)"
 ITEM_LORA = "ROADMAP.md Queue A item 5 (LoRA)"
 ITEM_CKPT = "ROADMAP.md Queue A item 9 (fleetsim and checkpoints)"
-ITEM_OBS = ("ROADMAP.md Queue A item 10 (telemetry, tracing and "
-            "evaluation extras)")
-ITEM_TELEMETRY = "ROADMAP.md Queue A item 10a (the telemetry core)"
 ITEM_OBS_REST = ("ROADMAP.md Queue A item 10b (the exporter, convergence "
                  "and evaluation extras)")
 ITEM_ANALYSIS = "ROADMAP.md Queue A item 17 (the analysis tools)"

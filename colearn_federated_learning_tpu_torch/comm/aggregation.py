@@ -28,6 +28,7 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 
+from colearn_federated_learning_tpu_torch import telemetry
 from colearn_federated_learning_tpu_torch.fed import compression
 from colearn_federated_learning_tpu_torch.utils import trees
 
@@ -169,6 +170,8 @@ class StreamingFolder(UpdateFolder):
             contrib = (self._stage_topk_raw(delta) if self._device_fold
                        else self._stage_topk(delta, w))
             self.densify_avoided += 1
+            telemetry.get_registry().counter(
+                "comm.uplink_densify_avoided_total").inc()
         else:
             # int8 and none are dense by nature.
             delta = compression.decompress_delta(delta, meta,
@@ -270,7 +273,7 @@ class StreamingFolder(UpdateFolder):
             self._kernel = fold.get_kernel(sizes, self._device)
         kernel = self._kernel
         acc = None
-        tw, ls = 0.0, 0.0
+        tw, ls, folded = 0.0, 0.0, 0
         cap = self._fold_batch_max or len(ids) or 1
         sparse_run: list = []
         dense_run: list = []
@@ -299,14 +302,19 @@ class StreamingFolder(UpdateFolder):
                     flush_sparse()
                 run_dtype = contrib.vals_dtype
                 sparse_run.append((np.float32(w), contrib.slots))
+                folded += 1
             elif contrib is not None:
                 if sparse_run:
                     flush_sparse()
                 dense_run.append([np.asarray(leaf).reshape(-1) for leaf
                                   in trees.flatten_up_to(self.shapes,
                                                          contrib)])
+                folded += 1
         flush_sparse()
         flush_dense()
+        if folded:
+            telemetry.get_registry().counter(
+                "comm.fold_device_total").inc(folded)
         if acc is None:
             return None, tw, ls
         flat = kernel.to_host(acc)

@@ -30,10 +30,17 @@ folds through the fold kernel on the aggregator's device (the card unless
 ``device="cpu"``, raising without one); without it the fold is the host
 fold in numpy.
 
+Telemetry: a slice fold runs under an ``aggregator.fold`` span parented
+on the root's span context; each relayed train request carries that
+span's context, and the reply ships the workers' spans and the tier's own
+up to the root.  Folds count in ``comm.agg_folds_total`` and
+``comm.agg_fold_time_s`` per aggregator.  With ``run.health_dir`` the
+aggregator keeps its own health ledger of its slice's devices, and the
+root ranks its slices by the ledgers' scores (:func:`assign_slices`).
+
 Not ported yet: the buffered-async ops (``aprep``, ``abuf``, ``adrain``,
 auto-K) of ROADMAP.md Queue A item 13 get an error reply naming it, as a
-fold of LoRA factors does item 5; health-ranked slices (``assign_slices``),
-spans and counters are item 10, and ``expected_ingest`` item 9.
+fold of LoRA factors does item 5, and ``expected_ingest`` is item 9.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ import threading
 import time
 from typing import Any, Optional, Sequence
 
-from colearn_federated_learning_tpu_torch import comm
+from colearn_federated_learning_tpu_torch import comm, telemetry
 from colearn_federated_learning_tpu_torch.comm import protocol
 from colearn_federated_learning_tpu_torch.comm.aggregation import (
     StreamingFolder)
@@ -77,6 +84,31 @@ def slice_cohort(cohort: Sequence[Any], n: int) -> list[list[Any]]:
     return out
 
 
+def _device_key(d: Any) -> str:
+    """Canonical string id of a cohort entry: device tuples ``(id, host,
+    port)`` on the synchronous plane, bare ids on the asynchronous one."""
+    if isinstance(d, (tuple, list)):
+        return str(int(d[0]))
+    return str(getattr(d, "device_id", d))
+
+
+def assign_slices(cohort: Sequence[Any], n: int,
+                  scores: Optional[dict] = None) -> list[list[Any]]:
+    """Health-driven slice assignment: ``n`` slices of the sizes of
+    :func:`slice_cohort`, over the cohort ordered by the health ledger's
+    straggler ``scores`` (canonical device id -> score, ascending), so
+    chronic stragglers gather in the last slices.  ``None``, or scores
+    that are all equal, give :func:`slice_cohort` exactly (the sort is
+    stable over the cohort order)."""
+    if scores is None:
+        return slice_cohort(cohort, n)
+    vals = [float(scores.get(_device_key(d), 0.0)) for d in cohort]
+    if len(set(vals)) <= 1:
+        return slice_cohort(cohort, n)
+    order = sorted(range(len(cohort)), key=lambda i: (vals[i], i))
+    return slice_cohort([cohort[i] for i in order], n)
+
+
 class AggregatorServer:
     """One aggregator: a tensor server folding its device slice.
 
@@ -97,6 +129,16 @@ class AggregatorServer:
         self._fold_device = bool(config.run.fold_device)
         # Only the device fold touches a device; the host fold is numpy.
         self.device = resolve_device(device) if self._fold_device else None
+        # Spans are captured per fold and shipped up to the root, which
+        # owns the stitched trace; the local buffer keeps the tier's own.
+        self.tracer = telemetry.Tracer(process=f"aggregator-{self.agg_id}",
+                                       max_spans=4096)
+        # The slice's devices in a ledger of its own, only with
+        # run.health_dir.
+        self.health = None
+        if config.run.health_dir:
+            self.health = telemetry.HealthLedger(
+                config.run.health_dir, f"aggregator{self.agg_id}")
         self._server = TensorServer(self._handle, host=host, port=port,
                                     ident=f"agg:{self.agg_id}")
         self._broker_addr = (broker_host, broker_port)
@@ -140,6 +182,8 @@ class AggregatorServer:
         self._server.stop()
         if self._broker is not None:
             self._broker.close()
+        if self.health is not None:
+            self.health.close()
 
     def __enter__(self):
         return self.start()
@@ -168,7 +212,8 @@ class AggregatorServer:
                     self._broker = fresh
                 self._announce()
             except OSError:
-                continue            # broker down: retry at the next beat
+                protocol.count_suppressed()   # broker down: the next beat
+                continue
 
     def _handle(self, header: dict, tree: Any) -> tuple[dict, Any]:
         op = header.get("op")
@@ -185,7 +230,12 @@ class AggregatorServer:
 
     def _fold(self, header: dict, tree: Any) -> tuple[dict, Any]:
         """Relay the broadcast to this slice's devices under one deadline,
-        fold their replies in slice order, reply with ONE partial sum."""
+        fold their replies in slice order, reply with ONE partial sum.
+
+        The fold runs under an ``aggregator.fold`` span parented on the
+        root's context; each relayed request carries this span's context,
+        so the workers' spans parent onto the tier that dispatched them,
+        and the reply ships them up with the tier's own spans."""
         if tree is None:
             return ({"status": "error",
                      "error": "fold request carried no params frame"}, None)
@@ -194,7 +244,6 @@ class AggregatorServer:
             return ({"status": "error",
                      "error": "a fold of LoRA factors is not ported yet; "
                               f"see {comm.ITEM_LORA}"}, None)
-        t0 = time.perf_counter()
         r = int(header.get("round", 0))
         devices = header.get("devices") or []
         cohort = header.get("cohort")
@@ -212,9 +261,10 @@ class AggregatorServer:
         worker_spans: list = []
         deadline = time.monotonic() + budget
 
-        def ask(dev):
+        def ask(dev, fold_ctx):
             did, dhost, dport = str(int(dev[0])), str(dev[1]), int(dev[2])
-            req = protocol.attach_trace({"op": "train", "round": r}, ctx)
+            req = protocol.attach_trace({"op": "train", "round": r},
+                                        fold_ctx)
             if cohort is not None:
                 req["cohort"] = cohort
             inbox = shares_in.get(did)
@@ -237,49 +287,78 @@ class AggregatorServer:
             except Exception:
                 failed.append(did)
                 return
-            # A worker of the JAX package may ship its spans: they go up
-            # with the partial when the root traces the round.
-            worker_spans.extend(meta.pop(protocol.TRACE_SPANS_KEY, None)
-                                or [])
+            # The worker's spans go up with the partial; its train span
+            # is the device's round latency for the ledger.
+            spans = meta.pop(protocol.TRACE_SPANS_KEY, None) or []
+            worker_spans.extend(spans)
+            if self.health is not None:
+                for sd in spans:
+                    if str(sd.get("name")) == "worker.train":
+                        self.health.record(
+                            did, round=r, agg=str(self.agg_id),
+                            latency_s=float(sd.get("duration_s", 0.0)))
             if int(meta.get("round", r)) != r:
                 stale.append(str(meta.get("client_id", did)))
                 return
             folder.add(meta, delta)
 
-        if devices:
-            with cf.ThreadPoolExecutor(
-                    max_workers=len(devices),
-                    thread_name_prefix=f"agg{self.agg_id}-fanout") as pool:
-                futs = {pool.submit(ask, d): str(int(d[0])) for d in devices}
-                pending = dict(futs)
-                try:
-                    for fut in cf.as_completed(futs, timeout=budget):
-                        take(fut, pending.pop(fut))
-                except cf.TimeoutError:
-                    pass                # stragglers are charged below
-                for fut, did in pending.items():
-                    if fut.done():      # finished in the race window
-                        take(fut, did)
-                    else:
-                        fut.cancel()
-                        failed.append(did)
-        folder.finalize()
+        with self.tracer.capture() as captured:
+            with self.tracer.span("aggregator.fold", parent=ctx,
+                                  agg=self.agg_id, round=r) as fold_sp:
+                # The pool's threads have empty span stacks: they get the
+                # fold span's identity explicitly.
+                fold_ctx = fold_sp.context
+                if devices:
+                    with cf.ThreadPoolExecutor(
+                            max_workers=len(devices),
+                            thread_name_prefix=f"agg{self.agg_id}-fanout"
+                    ) as pool:
+                        futs = {pool.submit(ask, d, fold_ctx): str(int(d[0]))
+                                for d in devices}
+                        pending = dict(futs)
+                        try:
+                            for fut in cf.as_completed(futs, timeout=budget):
+                                take(fut, pending.pop(fut))
+                        except cf.TimeoutError:
+                            pass        # stragglers are charged below
+                        for fut, did in pending.items():
+                            if fut.done():  # finished in the race window
+                                take(fut, did)
+                            else:
+                                fut.cancel()
+                                failed.append(did)
+                folder.finalize()
+        reg = telemetry.get_registry()
+        reg.counter("comm.agg_folds_total",
+                    labels={"agg": str(self.agg_id)}).inc()
+        reg.histogram("comm.agg_fold_time_s",
+                      labels={"agg": str(self.agg_id)}).observe(
+                          fold_sp.duration_s)
+        failed_ids = sorted(set(failed), key=order.index)
+        if self.health is not None:
+            for did in failed_ids:
+                self.health.record(did, round=r, agg=str(self.agg_id),
+                                   deadline_miss=1)
+            self.health.flush()
         out_meta = {
             "agg_id": self.agg_id,
             "round": r,
             "total_w": folder.total_w,
             "loss_sum": folder.loss_sum,
             "folded_ids": folder.folded_ids,
-            "failed": sorted(set(failed), key=order.index),
+            "failed": failed_ids,
             "stale": stale,
             "fold_s": folder.fold_s,
-            # The tier's wall time, relay and fold together; fold_s is the
-            # part spent inside the folder's add.
-            "fold_wall_s": time.perf_counter() - t0,
+            # The tier's wall time, relay and fold together (the span's
+            # clock); fold_s is the part spent inside the folder's add.
+            "fold_wall_s": fold_sp.duration_s,
             "densify_avoided": folder.densify_avoided,
         }
         if ctx is not None:
-            out_meta[protocol.TRACE_SPANS_KEY] = worker_spans
+            # The whole tier's trace goes up: the workers' spans and the
+            # tier's own (the fold span and anything under it).
+            out_meta[protocol.TRACE_SPANS_KEY] = (
+                worker_spans + [s.to_dict() for s in captured])
         return {"meta": out_meta}, folder.wsum
 
 
@@ -297,15 +376,18 @@ def combine_partial_weights(total_ws: Sequence[float]) -> float:
 def run_aggregator_forever(config: ExperimentConfig, agg_id: int,
                            broker_host: str, broker_port: int,
                            heartbeat_s: float = 0.5, device=None,
-                           stop: Optional[threading.Event] = None) -> None:
+                           stop: Optional[threading.Event] = None
+                           ) -> AggregatorServer:
     """Announce, heartbeat and serve folds until ``stop`` is set (never,
-    without one)."""
+    without one); returns the stopped server (its ``tracer`` holds the
+    tier's spans)."""
     agg = AggregatorServer(config, agg_id, broker_host, broker_port,
                            heartbeat_s=heartbeat_s, device=device).start()
     try:
         (stop or threading.Event()).wait()
     finally:
         agg.stop()
+    return agg
 
 
 def fetch_aggregators(sub: BrokerClient, known: dict,
@@ -330,4 +412,5 @@ def fetch_aggregators(sub: BrokerClient, known: dict,
                              "port": int(header["port"]),
                              "ts": float(header.get("ts", 0.0))}
         except (KeyError, TypeError, ValueError):
-            continue                # a malformed announce never crashes
+            protocol.count_suppressed()   # a malformed announce: skipped
+            continue

@@ -96,8 +96,10 @@ class MessageBroker:
                     self._publish(header, body)
                 elif op == "ping":
                     self._send(conn, {"op": "pong"}, b"")
-        except (protocol.ConnectionClosed, OSError, ValueError):
-            pass                       # the client left or misbehaved
+        except protocol.ConnectionClosed:
+            pass                       # the client left
+        except (OSError, ValueError):
+            protocol.count_suppressed()   # a flaky or buggy peer: drop it
         finally:
             with self._lock:
                 self._subs.pop(conn, None)
@@ -115,7 +117,7 @@ class MessageBroker:
         except OSError:
             # A dead subscriber must not break the fan-out; its serve
             # thread reaps it.
-            pass
+            protocol.count_suppressed()
 
     def _subscribe(self, conn: socket.socket, pattern: str,
                    ack: bool = False) -> None:

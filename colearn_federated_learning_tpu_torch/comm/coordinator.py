@@ -25,25 +25,37 @@ one MUD device type (``comm/per_type.py`` runs one coordinator per type).
 The server state lives on the coordinator's device (the card unless the
 caller passes ``device="cpu"``), in the flax layout the wire carries.
 
+Telemetry is JAX's: the coordinator's tracer is always on; a round runs
+under a ``round`` span with ``share_setup``, ``serialize_params``,
+``broadcast_collect``, ``aggregate`` and ``unmask`` inside it (and
+``evaluate`` for the evaluator), every request carries the span context
+of the phase that sends it, and the spans the workers and aggregators
+ship back are adopted, so one trace covers the federation.  The
+``fed.*``, ``comm.*`` and ``privacy.*`` instruments count at JAX's sites.
+With ``run.health_dir`` a :class:`telemetry.HealthLedger` records each
+device's latency (its own ``worker.train`` span), deadline misses,
+secure-aggregation dropouts, evictions and retries, the records gain the
+``health_*`` keys, and the tree ranks its slices by the ledger's scores
+(``aggregator.assign_slices``).
+
 Not ported yet, each refused naming its ROADMAP item: LoRA, checkpoints
-and resume, the health ledger, the convergence observatory, and the
-sharded server (``tp_size`` > 1 on a host with that many cards; with
-fewer the server runs replicated, as the JAX package's placement falls
-back).
+and resume, the convergence observatory, and the sharded server
+(``tp_size`` > 1 on a host with that many cards; with fewer the server
+runs replicated, as the JAX package's placement falls back).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import math
-import threading
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from colearn_federated_learning_tpu_torch import comm
+from colearn_federated_learning_tpu_torch import comm, telemetry
 from colearn_federated_learning_tpu_torch.comm import aggregator as agg_lib
 from colearn_federated_learning_tpu_torch.comm import enrollment, keyexchange
 from colearn_federated_learning_tpu_torch.comm import protocol
@@ -55,7 +67,7 @@ from colearn_federated_learning_tpu_torch.comm.downlink import (
 from colearn_federated_learning_tpu_torch.comm.enrollment import (
     DeviceInfo, EnrollmentManager)
 from colearn_federated_learning_tpu_torch.comm.transport import (
-    RetryPolicy, TensorClient, retries as transport_retries)
+    RetryPolicy, TensorClient)
 from colearn_federated_learning_tpu_torch.fed import compression, evaluation
 from colearn_federated_learning_tpu_torch.fed import programs, strategies
 from colearn_federated_learning_tpu_torch.fed import setup as setup_lib
@@ -63,6 +75,7 @@ from colearn_federated_learning_tpu_torch.privacy import dropout
 from colearn_federated_learning_tpu_torch.privacy import secure_agg as sa
 from colearn_federated_learning_tpu_torch.privacy.accountant import (
     RdpAccountant)
+from colearn_federated_learning_tpu_torch.telemetry import health as _hl
 from colearn_federated_learning_tpu_torch.utils import trees
 from colearn_federated_learning_tpu_torch.utils.config import (
     ExperimentConfig, validate_robustness)
@@ -83,10 +96,8 @@ def refuse_unported(config: ExperimentConfig) -> None:
         (config.fed.lora_rank > 0, "LoRA (lora_rank)", comm.ITEM_LORA),
         (bool(run.checkpoint_dir), "checkpoints and resume (checkpoint_dir)",
          comm.ITEM_CKPT),
-        (bool(run.health_dir), "the health ledger (health_dir)",
-         comm.ITEM_OBS),
         (run.learn_observe, "the convergence observatory (learn_observe)",
-         comm.ITEM_OBS)]
+         comm.ITEM_OBS_REST)]
     for given, what, item in unported:
         if given:
             raise NotImplementedError(
@@ -156,6 +167,17 @@ class FederatedCoordinator:
             if config.run.comm_retries > 0 else None)
         # Sub-quorum rounds are explicit no-ops; 0 disables.
         self.min_cohort_fraction = fed.min_cohort_fraction
+        # Round spans live here, and the workers' spans are adopted from
+        # their replies, so one trace covers the federation; the CLI
+        # writes it to run.trace_dir after fit.
+        self.tracer = telemetry.Tracer(process="coordinator")
+        # The per-device health ledger, only with run.health_dir: the
+        # default path writes nothing and its records keep their keys.
+        self.health = None
+        self._health_retry_seen: dict[str, float] = {}
+        if config.run.health_dir:
+            self.health = telemetry.HealthLedger(config.run.health_dir,
+                                                 "coordinator")
         self._broker_addr = (broker_host, broker_port)
         self._mud_policy = mud_policy
         self._device_type = device_type
@@ -182,10 +204,6 @@ class FederatedCoordinator:
         # their (closed) clients; see _fan_out.
         self._abandoned: list[cf.Future] = []
         self._downlink = DownlinkEncoder(fed.compress_down)
-        # Downlink bytes saved by delta sends and full-params resyncs, over
-        # the coordinator's life (fan-out threads add to them).
-        self.downlink_stats = {"bytes_saved": 0, "resyncs": 0}
-        self._stats_lock = threading.Lock()
         # What a compressed uplink saves per update, priced once on zeros
         # (frame lengths depend on shapes, never values).
         self._uplink_saved_per_update = 0
@@ -262,9 +280,17 @@ class FederatedCoordinator:
             except protocol.ConnectionClosed:
                 self._agg_sub = None    # the broker died
         now = time.time()
-        return [agg_id for agg_id in sorted(self._aggs)
-                if now - self._aggs[agg_id]["ts"]
-                <= self.agg_heartbeat_timeout]
+        live = []
+        reg = telemetry.get_registry()
+        for agg_id in sorted(self._aggs):
+            age = now - self._aggs[agg_id]["ts"]
+            reg.gauge("comm.agg_heartbeat_age_s",
+                      labels={"agg": str(agg_id)}).set(age)
+            if age <= self.agg_heartbeat_timeout:
+                live.append(agg_id)
+            else:
+                reg.counter("comm.agg_heartbeat_expired_total").inc()
+        return live
 
     def close(self) -> None:
         if self._agg_sub is not None:
@@ -276,6 +302,9 @@ class FederatedCoordinator:
             self._pool.shutdown(wait=False, cancel_futures=True)
             self._pool = None
         self._broker.close()
+        if self.health is not None:
+            self.health.flush()
+            self.health.close()
 
     def __enter__(self):
         return self
@@ -301,16 +330,22 @@ class FederatedCoordinator:
 
     def _rebuild_broker(self) -> None:
         """Reconnect the control plane after a broker death (rounds run on
-        direct tensor connections either way)."""
+        direct tensor connections either way); the outcome counts in
+        ``comm.broker_reconnects_total``."""
+        reg = telemetry.get_registry()
         try:
             fresh = BrokerClient(self._broker_addr[0], self._broker_addr[1],
                                  timeout=protocol.CONNECT_TIMEOUT)
         except OSError:
+            reg.counter("comm.broker_reconnects_total",
+                        labels={"outcome": "failed"}).inc()
             return
         self._broker.close()
         self._broker = fresh
         self._enroll = EnrollmentManager(fresh, mud_policy=self._mud_policy,
                                          device_type=self._device_type)
+        reg.counter("comm.broker_reconnects_total",
+                    labels={"outcome": "ok"}).inc()
 
     def _note_round_outcome(self, cohort, dropped) -> list[str]:
         """Count consecutive failures; evict peers that failed
@@ -336,14 +371,15 @@ class FederatedCoordinator:
     def _reconnect(self, dev: DeviceInfo) -> None:
         """Replace a device's connection after a failure: a late reply on
         the old one would desynchronise the stream.  A dead peer stays
-        closed."""
+        closed, counted."""
         self._clients[dev.device_id].close()
         try:
             self._clients[dev.device_id] = TensorClient(
                 dev.host, dev.port, timeout=protocol.CONNECT_TIMEOUT,
                 ident=dev.device_id)
         except OSError:
-            pass
+            telemetry.get_registry().counter(
+                "comm.reconnect_failures_total").inc()
 
     def _request(self, dev: DeviceInfo, header: dict, tree=None, meta=None,
                  deadline=None, body=None):
@@ -419,20 +455,36 @@ class FederatedCoordinator:
         """One round: broadcast, parallel local training against the
         deadline, weighted aggregation of the updates that made it."""
         r = len(self.history)
-        retries_before = transport_retries.value
-        t0 = time.perf_counter()
-        rec = self._run_round(r)
-        rec["round_time_s"] = time.perf_counter() - t0
-        retries = transport_retries.value - retries_before
+        reg = telemetry.get_registry()
+        retries_before = reg.counter("comm.retry_total").value
+        with self.tracer.span("round", round=r) as round_sp:
+            rec = self._run_round(r)
+        rec["round_time_s"] = round_sp.duration_s
+        retries = reg.counter("comm.retry_total").value - retries_before
         if retries:
             rec["retries"] = int(retries)
+        reg.counter("fed.rounds_total").inc()
+        reg.counter("fed.clients_dropped").inc(len(rec["dropped"]))
+        reg.counter("fed.clients_evicted").inc(len(rec["evicted"]))
+        reg.histogram("fed.round_time_s").observe(rec["round_time_s"])
+        # Per-phase latency, as labelled children of one family.
+        for phase, key in (("broadcast_collect", "phase_broadcast_collect_s"),
+                           ("aggregate", "phase_aggregate_s"),
+                           ("agg_fold", "phase_agg_fold_s")):
+            if key in rec:
+                reg.histogram("fed.phase_time_s",
+                              labels={"phase": phase}).observe(rec[key])
         self.history.append(rec)
         return rec
 
     def _run_round(self, r: int) -> dict:
         fed = self.config.fed
+        tracer = self.tracer
         cohort = self._sample_cohort(r)
         cohort_full = list(cohort)
+        # The round span's context, taken here: the fan-out's asks run on
+        # pool threads, where it is not implicit.
+        ctx = tracer.current_context()
         round_t0 = time.monotonic()
         secure = fed.secure_agg
         dh = secure and fed.secure_agg_key_exchange == "dh"
@@ -441,12 +493,23 @@ class FederatedCoordinator:
         pruned: list[str] = []
         slices_full: list[list[DeviceInfo]] = []
         cohort_of = None
+        tree_stats = None
         if tree_mode:
             # The slice layout is fixed over the SAMPLED cohort, before the
             # share phase prunes, so each device's pairing cohort at
             # share_setup is its slice at train time: every mask pair
-            # lives inside one aggregator's partial.
-            slices_full = agg_lib.slice_cohort(cohort, self.num_aggregators)
+            # lives inside one aggregator's partial.  With a ledger the
+            # cohort is ranked by straggler score first (chronic
+            # stragglers go to the last slices); without one, or with
+            # equal scores, this is the contiguous slice_cohort.
+            scores = None
+            if self.health is not None:
+                fleet_now = self.health.devices()
+                if fleet_now:
+                    scores = {str(d): h.score()
+                              for d, h in fleet_now.items()}
+            slices_full = agg_lib.assign_slices(cohort, self.num_aggregators,
+                                                scores=scores)
             if secure:
                 cohort_of = {}
                 for sl in slices_full:
@@ -457,15 +520,17 @@ class FederatedCoordinator:
             # Every member distributes its recovery shares before any mask
             # is committed; members that miss the share deadline are
             # pruned, so their death orphans no mask.
-            share_info, share_failed = self._share_phase(r, cohort,
-                                                         cohort_of)
+            with tracer.span("share_setup", cohort=len(cohort)):
+                share_info, share_failed = self._share_phase(
+                    r, cohort, ctx, cohort_of)
             if share_failed:
                 pruned = [d.device_id for d in share_failed]
                 cut = set(pruned)
                 cohort = [d for d in cohort if d.device_id not in cut]
-        # One encode for the whole cohort (serialize-once).
-        body, resync_body, saved = self._downlink.encode_round(
-            r, self.params_tree())
+        with tracer.span("serialize_params"):
+            # One encode for the whole cohort (serialize-once).
+            body, resync_body, saved = self._downlink.encode_round(
+                r, self.params_tree())
         cohort_ids = sorted(int(d.device_id) for d in cohort)
         stale: list[str] = []
         if tree_mode:
@@ -478,79 +543,88 @@ class FederatedCoordinator:
                 self._shapes_np,
                 order=[f"slice:{i}" for i in range(len(slices))],
                 device_fold=self._fold_device, device=self.device)
-            t_collect = time.perf_counter()
-            train_timeout = max(1.0, self.round_timeout
-                                - (time.monotonic() - round_t0))
-            tree_stats = self._tree_collect(r, slices, body, share_info,
-                                            folder, train_timeout, secure,
-                                            stale)
-            collect_s = time.perf_counter() - t_collect
+            with tracer.span("broadcast_collect",
+                             cohort=len(cohort)) as collect_sp:
+                train_timeout = max(1.0, self.round_timeout
+                                    - (time.monotonic() - round_t0))
+                tree_stats = self._tree_collect(
+                    r, slices, body, share_info, folder, train_timeout,
+                    secure, stale, ctx)
             dropped = pruned + tree_stats["failed"]
         else:
-            folder, collect_s, failed = self._flat_collect(
-                r, cohort, cohort_ids, body, resync_body, saved, share_info,
-                secure, stale, round_t0)
+            with tracer.span("broadcast_collect",
+                             cohort=len(cohort)) as collect_sp:
+                folder, failed = self._flat_collect(
+                    r, cohort, cohort_ids, body, resync_body, saved,
+                    share_info, secure, stale, round_t0, ctx)
             dropped = pruned + [d.device_id for d in failed]
 
-        t_agg = time.perf_counter()
-        folder.finalize()
-        if stale:
-            pos = {str(int(d.device_id)): i for i, d in enumerate(cohort)}
-            dropped.extend(sorted(stale, key=lambda c: pos.get(c, len(pos))))
-        # Under the tree the folded ids are slice keys; the devices come
-        # from the partials' metas, in slice order.
-        received = (tree_stats["received"] if tree_mode
-                    else [int(c) for c in folder.folded_ids])
-        folded = folder.count
-        # Judged against the nominal sampled cohort.
-        quorum = (max(1, math.ceil(self.min_cohort_fraction
-                                   * len(cohort_full)))
-                  if self.min_cohort_fraction > 0 else 0)
-        skipped_quorum = bool(quorum) and folded < quorum
-        missing = sorted(set(cohort_ids) - set(received))
-        unmask_failed = False
-        if secure and folded and not skipped_quorum and (dh or missing):
-            # Masks pair within a group: the whole cohort, or one slice of
-            # the tree.  Each group with a folded member gets its own
-            # recovery; a fully dropped slice orphans no mask half.
-            if tree_mode:
-                groups = [(ids, recv) for ids, recv
-                          in zip(tree_stats["slice_ids"],
-                                 tree_stats["slice_received"]) if recv]
-            else:
-                groups = [(cohort_ids, received)]
-            for g_ids, g_recv in groups:
-                g_miss = sorted(set(g_ids) - set(g_recv))
-                if dh:
-                    # Runs every dh round: the folded clients' self-masks
-                    # come off even when nobody dropped.
-                    ok = self._recover_dh(r, g_ids, g_recv, g_miss, folder,
-                                          share_info)
-                elif g_miss:
-                    ok = self._recover_shared_seed(r, g_ids, g_recv, g_miss,
-                                                   folder)
+        with tracer.span("aggregate") as agg_sp:
+            folder.finalize()
+            if stale:
+                pos = {str(int(d.device_id)): i
+                       for i, d in enumerate(cohort)}
+                dropped.extend(sorted(stale,
+                                      key=lambda c: pos.get(c, len(pos))))
+            # Under the tree the folded ids are slice keys; the devices
+            # come from the partials' metas, in slice order.
+            received = (tree_stats["received"] if tree_mode
+                        else [int(c) for c in folder.folded_ids])
+            folded = folder.count
+            # Judged against the nominal sampled cohort.
+            quorum = (max(1, math.ceil(self.min_cohort_fraction
+                                       * len(cohort_full)))
+                      if self.min_cohort_fraction > 0 else 0)
+            skipped_quorum = bool(quorum) and folded < quorum
+            missing = sorted(set(cohort_ids) - set(received))
+            unmask_failed = False
+            if secure and folded and not skipped_quorum and (dh or missing):
+                # Masks pair within a group: the whole cohort, or one
+                # slice of the tree.  Each group with a folded member gets
+                # its own recovery; a fully dropped slice orphans no mask
+                # half.
+                if tree_mode:
+                    groups = [(ids, recv) for ids, recv
+                              in zip(tree_stats["slice_ids"],
+                                     tree_stats["slice_received"]) if recv]
                 else:
-                    ok = True
-                if not ok:
-                    unmask_failed = True
-                    break
-        mean_delta, total_w, mean_loss = folder.mean()
-        if skipped_quorum or unmask_failed:
-            # A no-op round: orphaned masks or a sub-quorum average must
-            # never reach the model.
-            mean_delta = None
-            mean_loss = float("nan")
-        if secure:
-            mean_loss = float("nan")    # workers withhold per-client loss
-        if mean_delta is not None:
-            self.server_state = strategies.server_update(
-                self.server_state,
-                {n: torch.from_numpy(np.asarray(l)).to(self.device)
-                 for n, l in zip(self._names, trees.leaves(mean_delta))},
-                fed)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        agg_s = time.perf_counter() - t_agg
+                    groups = [(cohort_ids, received)]
+                with tracer.span("unmask", dropped=len(missing)):
+                    for g_ids, g_recv in groups:
+                        g_miss = sorted(set(g_ids) - set(g_recv))
+                        if dh:
+                            # Runs every dh round: the folded clients'
+                            # self-masks come off even when nobody
+                            # dropped.
+                            ok = self._recover_dh(r, g_ids, g_recv, g_miss,
+                                                  folder, share_info)
+                        elif g_miss:
+                            ok = self._recover_shared_seed(
+                                r, g_ids, g_recv, g_miss, folder)
+                        else:
+                            ok = True
+                        if not ok:
+                            unmask_failed = True
+                            break
+            mean_delta, total_w, mean_loss = folder.mean()
+            if skipped_quorum:
+                telemetry.get_registry().counter(
+                    "fed.rounds_skipped_quorum").inc()
+            if skipped_quorum or unmask_failed:
+                # A no-op round: orphaned masks or a sub-quorum average
+                # must never reach the model.
+                mean_delta = None
+                mean_loss = float("nan")
+            if secure:
+                mean_loss = float("nan")  # workers withhold per-client loss
+            if mean_delta is not None:
+                self.server_state = strategies.server_update(
+                    self.server_state,
+                    {n: torch.from_numpy(np.asarray(l)).to(self.device)
+                     for n, l in zip(self._names, trees.leaves(mean_delta))},
+                    fed)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         evicted = self._note_round_outcome(cohort_full, dropped)
         rec = {
             "round": r,
@@ -560,8 +634,8 @@ class FederatedCoordinator:
             "evicted": evicted,
             "train_loss": mean_loss,
             "total_weight": total_w,
-            "phase_broadcast_collect_s": collect_s,
-            "phase_aggregate_s": agg_s,
+            "phase_broadcast_collect_s": collect_sp.duration_s,
+            "phase_aggregate_s": agg_sp.duration_s,
             # Decode and staging work the streaming fold overlapped with
             # the stragglers (the tier's included).
             "phase_fold_overlap_s": folder.fold_s,
@@ -595,15 +669,58 @@ class FederatedCoordinator:
                                      noise_multiplier=sigma_eff)
             rec["dp_epsilon"] = self.accountant.epsilon()
             rec["dp_delta"] = self.accountant.delta
+        if self.health is not None:
+            # The health_* keys only when the ledger is on.
+            rec.update(_hl.health_record_keys(self._health_round_feed(
+                r, pruned, dropped, evicted, tree_mode, tree_stats)))
         return rec
 
+    # ---- health ledger (telemetry/health.py) -----------------------------
+    def _health_note_worker(self, meta: dict, r: int) -> None:
+        """A device's round latency, read from its own ``worker.train``
+        span in the reply meta (flat; under the tree the owning aggregator
+        records its slice)."""
+        for sd in meta.get(protocol.TRACE_SPANS_KEY) or []:
+            if str(sd.get("name")) != "worker.train":
+                continue
+            did = str((sd.get("attrs") or {}).get(
+                "client_id", meta.get("client_id", "")))
+            if did:
+                self.health.record(
+                    did, round=r, latency_s=float(sd.get("duration_s", 0.0)))
+
+    def _health_round_feed(self, r: int, pruned, dropped, evicted,
+                           tree_mode: bool, tree_stats) -> dict:
+        """The round's attribution: deadline misses (under the tree only
+        whole-slice drops; the owning aggregator records its devices'),
+        share-phase prunes as secure-aggregation dropouts, evictions and
+        the transport's per-device retries; one durable flush.  Returns
+        the merged view of every ledger in the directory (under the tree
+        the latencies are in the aggregators' files)."""
+        pruned_set = set(pruned)
+        miss = (tree_stats["slice_dropped"] if tree_mode
+                else [d for d in dropped if d not in pruned_set])
+        for did in miss:
+            self.health.record(str(did), round=r, deadline_miss=1)
+        for did in pruned:
+            self.health.record(str(did), round=r, secure_dropout=1)
+        for did in evicted:
+            self.health.record(str(did), round=r, eviction=1)
+        _hl.feed_transport_retries(self.health, self._health_retry_seen)
+        self.health.flush()
+        fleet = _hl.load_health(os.path.dirname(self.health.path))
+        _hl.export_gauges(fleet)
+        return fleet
+
     def _flat_collect(self, r, cohort, cohort_ids, body, resync_body, saved,
-                      share_info, secure, stale, round_t0):
+                      share_info, secure, stale, round_t0, ctx):
         """The flat collect: every cohort member's train request from here,
-        folded as it arrives.  Returns (folder, collect seconds, failed
-        devices)."""
+        under the round's span context ``ctx``, folded as it arrives.
+        Returns (folder, failed devices)."""
+        reg = telemetry.get_registry()
+
         def train_req(dev: DeviceInfo):
-            req = {"op": "train", "round": r}
+            req = protocol.attach_trace({"op": "train", "round": r}, ctx)
             if secure:
                 req["cohort"] = cohort_ids
             if share_info is not None:
@@ -617,16 +734,17 @@ class FederatedCoordinator:
                                           deadline=deadline)
             if header.get("status") == "resync" and resync_body is not None:
                 # The worker's cache missed: one full-params send for it.
-                with self._stats_lock:
-                    self.downlink_stats["resyncs"] += 1
+                reg.counter("comm.resync_total").inc()
                 header, delta = self._request(dev, train_req(dev),
                                               body=resync_body(),
                                               deadline=deadline)
             elif saved:
-                with self._stats_lock:
-                    self.downlink_stats["bytes_saved"] += saved
+                reg.counter("comm.bytes_saved_downlink").inc(saved)
             if header.get("status") != "ok":
                 raise RuntimeError(f"{dev.device_id}: {header.get('error')}")
+            if self._uplink_saved_per_update:
+                reg.counter("comm.bytes_saved_uplink").inc(
+                    self._uplink_saved_per_update)
             return header["meta"], delta
 
         # The sum is pinned to cohort order whatever the arrival order.
@@ -636,37 +754,47 @@ class FederatedCoordinator:
 
         def fold(dev: DeviceInfo, res) -> None:
             meta, delta = res
+            if self.health is not None:
+                # The device's latency, from its own train span, read
+                # before the spans are adopted.
+                self._health_note_worker(meta, r)
+            protocol.pop_trace_spans(meta, self.tracer)
             if int(meta.get("round", r)) != r:     # stale update: refuse
                 stale.append(str(meta.get("client_id")))
                 return
             folder.add(meta, delta)
 
-        t_collect = time.perf_counter()
+        # The train fan-out races what is left of the round's budget after
+        # the share phase.
         train_timeout = max(1.0, self.round_timeout
                             - (time.monotonic() - round_t0))
         _, failed = self._fan_out(cohort, ask, on_result=fold,
                                   timeout=train_timeout)
-        return folder, time.perf_counter() - t_collect, failed
+        return folder, failed
 
     def _tree_collect(self, r: int, slices, body, share_info, folder,
-                      timeout: float, secure: bool, stale: list) -> dict:
+                      timeout: float, secure: bool, stale: list,
+                      ctx=None) -> dict:
         """The tree's collect: ONE fold request per cohort slice, to
         aggregator ``i mod N``.  A failed request (expired heartbeat,
         refused connection, death mid-fold) re-homes the WHOLE slice to
         the next live sibling within what is left of the budget, on a
         fresh connection per attempt; devices retrain on the relayed
         duplicate.  A slice with no live sibling is dropped and the mean
-        renormalises.  Partials fold through ``add_partial``.  Returns the
-        per-slice bookkeeping the masks' recovery needs."""
+        renormalises.  Partials fold through ``add_partial``; the tier's
+        spans are adopted.  Returns the per-slice bookkeeping the masks'
+        recovery needs."""
+        reg = telemetry.get_registry()
         live = self._live_aggregators()
         agg_order = sorted(self._aggs)
         deadline = time.monotonic() + timeout
         slice_ids = [sorted(int(d.device_id) for d in sl) for sl in slices]
 
         def ask_slice(i: int, devs):
-            req = {"op": "fold", "round": r,
-                   "devices": [[int(d.device_id), d.host, d.port]
-                               for d in devs]}
+            req = protocol.attach_trace({
+                "op": "fold", "round": r,
+                "devices": [[int(d.device_id), d.host, d.port]
+                            for d in devs]}, ctx)
             if secure:
                 req["cohort"] = slice_ids[i]
             if share_info is not None:
@@ -688,7 +816,8 @@ class FederatedCoordinator:
                                        timeout=protocol.CONNECT_TIMEOUT,
                                        ident=f"agg:{agg_id}")
                 except OSError:
-                    continue            # dead aggregator: the next one
+                    protocol.count_suppressed()   # dead: the next one
+                    continue
                 try:
                     hdr, tree = cli.request(req, body=body, timeout=timeout,
                                             retry=self.retry,
@@ -699,13 +828,20 @@ class FederatedCoordinator:
                     return hdr["meta"], tree, agg_id != assigned
                 except (OSError, protocol.ConnectionClosed, TimeoutError,
                         RuntimeError):
-                    continue            # died mid-fold: the next one
+                    protocol.count_suppressed()   # died mid-fold: the next
+                    continue
                 finally:
                     cli.close()
             raise RuntimeError(f"slice {i}: no live aggregator")
 
         results: dict[int, tuple[dict, bool]] = {}
         work = [(i, sl) for i, sl in enumerate(slices) if sl]
+        if agg_order:
+            for i, sl in work:
+                # The slice size at dispatch, per assigned aggregator.
+                reg.gauge("comm.agg_slice_devices",
+                          labels={"agg": str(agg_order[i % len(agg_order)])}
+                          ).set(len(sl))
         if work:
             with cf.ThreadPoolExecutor(
                     max_workers=len(work),
@@ -718,7 +854,12 @@ class FederatedCoordinator:
                         meta, tree, rehomed = fut.result()
                     except Exception:
                         return          # the slice is dropped: charged below
-                    protocol.pop_trace_spans(meta)
+                    # The tier's spans (its fold span and the worker spans
+                    # it harvested) join the round's trace.
+                    protocol.pop_trace_spans(meta, self.tracer)
+                    reg.counter("comm.agg_partials_folded_total",
+                                labels={"agg": str(meta.get("agg_id", "?"))}
+                                ).inc()
                     results[i] = (meta, rehomed)
                     # Arrival order is immaterial: finalize folds in slice
                     # order.
@@ -741,6 +882,7 @@ class FederatedCoordinator:
         rehomes = drops = 0
         received: list[int] = []
         failed: list[str] = []
+        slice_dropped: list[str] = []
         fold_walls: list[float] = []
         slice_recv: list[list[int]] = [[] for _ in slices]
         for i, sl in enumerate(slices):
@@ -749,6 +891,9 @@ class FederatedCoordinator:
                 if sl:
                     drops += 1
                     failed.extend(d.device_id for d in sl)
+                    # A whole slice lost (its aggregator died): no
+                    # aggregator recorded these devices, the root does.
+                    slice_dropped.extend(d.device_id for d in sl)
                 continue
             meta, rehomed = got
             rehomes += int(rehomed)
@@ -762,13 +907,23 @@ class FederatedCoordinator:
             folder.fold_s += float(meta.get("fold_s", 0.0))
             folder.densify_avoided += int(meta.get("densify_avoided", 0))
             fold_walls.append(float(meta.get("fold_wall_s", 0.0)))
+        if rehomes:
+            reg.counter("comm.agg_failovers_total",
+                        labels={"action": "rehome"}).inc(rehomes)
+        if drops:
+            reg.counter("comm.agg_failovers_total",
+                        labels={"action": "drop"}).inc(drops)
+        if self._uplink_saved_per_update and received:
+            reg.counter("comm.bytes_saved_uplink").inc(
+                self._uplink_saved_per_update * len(received))
         return {"received": received, "failed": failed,
                 "slice_ids": slice_ids, "slice_received": slice_recv,
                 "failovers": rehomes + drops,
+                "slice_dropped": slice_dropped,
                 "fold_wall_s": max(fold_walls) if fold_walls else 0.0}
 
     # ---- secure aggregation ---------------------------------------------
-    def _share_phase(self, r: int, cohort, cohort_of=None):
+    def _share_phase(self, r: int, cohort, ctx, cohort_of=None):
         """Collect every member's encrypted recovery shares under the share
         deadline.  Returns ``(share_info, failed devices)``; ``share_info``
         routes each ciphertext to its destination's train request and
@@ -781,7 +936,8 @@ class FederatedCoordinator:
             ids = (cohort_of.get(dev.device_id, cohort_ids)
                    if cohort_of else cohort_ids)
             header, _ = self._request(
-                dev, {"op": "share_setup", "round": r, "cohort": ids},
+                dev, protocol.attach_trace(
+                    {"op": "share_setup", "round": r, "cohort": ids}, ctx),
                 deadline=deadline)
             if header.get("status") != "ok":
                 raise RuntimeError(f"{dev.device_id}: {header.get('error')}")
@@ -795,12 +951,18 @@ class FederatedCoordinator:
             on_result=lambda dev, m: got.__setitem__(dev.device_id, m),
             timeout=share_timeout)
         info = {"t": {}, "commit": {}, "to": {}}
+        total = 0
         for dev_id, meta in got.items():
+            protocol.pop_trace_spans(meta, self.tracer)
             origin = str(meta.get("client_id", dev_id))
             info["t"][origin] = int(meta.get("t", 0))
             info["commit"][origin] = str(meta.get("b_commit", ""))
             for dest, blob in (meta.get("shares") or {}).items():
                 info["to"].setdefault(str(dest), {})[origin] = blob
+                total += 1
+        if total:
+            telemetry.get_registry().counter(
+                "privacy.shares_distributed_total").inc(total)
         return info, failed
 
     def _partners_of(self, r: int, members, cohort_ids) -> np.ndarray:
@@ -818,7 +980,15 @@ class FederatedCoordinator:
         every dead client's session secret, and subtract the self-masks
         and the orphaned pair masks as one correction on the finalized
         fold.  A reconstruction short of its threshold, or one that fails
-        its commitment or public key, discards the round (False)."""
+        its commitment or public key, discards the round (False), counted
+        in ``privacy.share_recovery_failures_total`` by stage."""
+        reg = telemetry.get_registry()
+
+        def fail(stage: str) -> bool:
+            reg.counter("privacy.share_recovery_failures_total",
+                        labels={"stage": stage}).inc()
+            return False
+
         by_id = {int(d.device_id): d for d in self.trainers}
         devs = [by_id[cid] for cid in received if cid in by_id]
         alive_masked = [u for u in received
@@ -827,10 +997,13 @@ class FederatedCoordinator:
         b_shares: dict = {u: {} for u in alive_masked}
         b_direct: dict = {}
         if missing or alive_masked:
+            ctx = self.tracer.current_context()
+
             def ask(dev: DeviceInfo, deadline: float):
                 header, _ = self._request(
-                    dev, {"op": "unmask", "round": r, "dropped": missing,
-                          "alive": alive_masked}, deadline=deadline)
+                    dev, protocol.attach_trace(
+                        {"op": "unmask", "round": r, "dropped": missing,
+                         "alive": alive_masked}, ctx), deadline=deadline)
                 if header.get("status") != "ok":
                     raise RuntimeError(
                         f"{dev.device_id}: {header.get('error')}")
@@ -839,20 +1012,26 @@ class FederatedCoordinator:
             got: dict[str, dict] = {}
             self._fan_out(devs, ask, on_result=lambda dev, m: got.__setitem__(
                 dev.device_id, m))
+            collected = 0
             for dev in devs:
                 meta = got.get(dev.device_id)
                 if meta is None:
                     continue    # t-of-n: silent survivors are tolerated
+                protocol.pop_trace_spans(meta, self.tracer)
                 x = int(meta["client_id"]) + 1
                 for origin, val in (meta.get("s_shares") or {}).items():
                     if int(origin) in s_shares:
                         s_shares[int(origin)][x] = int(val, 16)
+                        collected += 1
                 for origin, val in (meta.get("b_shares") or {}).items():
                     if int(origin) in b_shares:
                         b_shares[int(origin)][x] = int(val, 16)
+                        collected += 1
                 if meta.get("b_self") is not None and (
                         int(meta["client_id"]) in b_shares):
                     b_direct[int(meta["client_id"])] = int(meta["b_self"], 16)
+                    collected += 1
+            reg.counter("privacy.shares_collected_total").inc(collected)
 
         keys: list = []
         signs: list = []
@@ -862,11 +1041,14 @@ class FederatedCoordinator:
                 b = (b_direct[u] if u in b_direct
                      else dropout.reconstruct(b_shares.get(u, {}), t_u))
             except dropout.RecoveryError:
-                return False
+                return fail("self_mask")
             if dropout.commitment(b) != share_info["commit"].get(str(u)):
-                return False            # shares interpolate to a wrong seed
+                return fail("self_mask_commit")   # a wrong seed
             keys.append(dropout.self_mask_key(b))
             signs.append(1.0)
+        if alive_masked:
+            reg.counter("privacy.self_masks_removed_total").inc(
+                len(alive_masked))
         if missing:
             table = self._partners_of(r, missing, cohort_ids)
             folded_set = set(received)
@@ -874,20 +1056,21 @@ class FederatedCoordinator:
             for y, row in zip(missing, table):
                 t_y = share_info["t"].get(str(y))
                 if t_y is None:
-                    return False
+                    return fail("no_share_setup")
                 try:
                     s_y = dropout.reconstruct(s_shares.get(y, {}), int(t_y))
                 except dropout.RecoveryError:
-                    return False
+                    return fail("session_secret")
                 try:
                     pub_y = keyexchange.decode_public(
                         enrollment.fetch_device_info(
                             self._broker, str(y), cache=info_cache).pubkey)
                 except (OSError, TimeoutError, ValueError):
-                    return False
+                    return fail("pubkey_lookup")
                 if pow(keyexchange.GROUP14_G, s_y,
                        keyexchange.GROUP14_P) != pub_y:
-                    return False        # the public key binds the secret
+                    # The public key binds the secret.
+                    return fail("session_secret_verify")
                 partners = sorted(
                     ({int(p) for p in row.tolist()} & folded_set) - {y})
                 for v in partners:
@@ -897,11 +1080,13 @@ class FederatedCoordinator:
                                 self._broker, str(v),
                                 cache=info_cache).pubkey)
                     except (OSError, TimeoutError, ValueError):
-                        return False
+                        return fail("pubkey_lookup")
                     secret = keyexchange.shared_secret(s_y, pub_v)
                     keys.append(keyexchange.pair_prng_key(secret, v, y))
                     # Survivor v folded sign(y − v)·PRG(k_vy): subtract it.
                     signs.append(1.0 if y > v else -1.0)
+                reg.counter("privacy.masks_recovered_total",
+                            labels={"device": str(y)}).inc()
         if keys:
             n = sum(int(np.prod(np.shape(l))) for l in
                     trees.leaves(folder.shapes))
@@ -933,6 +1118,9 @@ class FederatedCoordinator:
             neg = [(-m).cpu().numpy() for m in mask_y]
             correction = (neg if correction is None
                           else [np.add(c, n) for c, n in zip(correction, neg)])
+            telemetry.get_registry().counter(
+                "privacy.masks_recovered_total",
+                labels={"device": str(y)}).inc()
         if correction is not None:
             folder.apply_correction(trees.unflatten(folder.shapes,
                                                     correction))
@@ -948,10 +1136,13 @@ class FederatedCoordinator:
                 "per-client evaluation is disabled under secure_agg: "
                 "per-client statistics are exactly what the masks hide")
         body = memoryview(pytree_to_bytes(host_params(self.params_tree())))
+        telemetry.get_registry().counter("comm.broadcast_encode_total").inc()
+        ctx = self.tracer.current_context()
 
         def ask(dev: DeviceInfo, deadline: float):
-            header, _ = self._request(dev, {"op": "self_eval"}, body=body,
-                                      deadline=deadline)
+            header, _ = self._request(
+                dev, protocol.attach_trace({"op": "self_eval"}, ctx),
+                body=body, deadline=deadline)
             if header.get("status") != "ok":
                 raise RuntimeError(f"{dev.device_id}: {header.get('error')}")
             return header["meta"]
@@ -962,6 +1153,8 @@ class FederatedCoordinator:
                           dev.device_id, m))
         metas = [got[d.device_id] for d in self.trainers
                  if d.device_id in got]
+        for m in metas:
+            protocol.pop_trace_spans(m, self.tracer)
         if not metas:
             return {"num_clients_evaluated": 0}
         out = evaluation.summarize_per_client(
@@ -975,12 +1168,17 @@ class FederatedCoordinator:
         """Score the global model on the evaluator device."""
         if self.evaluator is None:
             raise RuntimeError("no evaluator was assigned")
-        header, _ = self._clients[self.evaluator.device_id].request(
-            {"op": "eval"}, host_params(self.params_tree()),
-            timeout=self.round_timeout)
+        params_np = host_params(self.params_tree())
+        with self.tracer.span("evaluate"):
+            header, _ = self._clients[self.evaluator.device_id].request(
+                protocol.attach_trace({"op": "eval"},
+                                      self.tracer.current_context()),
+                params_np, timeout=self.round_timeout)
         if header.get("status") != "ok":
             raise RuntimeError(f"evaluator failed: {header.get('error')}")
-        return header["meta"]
+        meta = header["meta"]
+        protocol.pop_trace_spans(meta, self.tracer)
+        return meta
 
     def fit(self, rounds: Optional[int] = None, log_fn=None,
             eval_every: Optional[int] = None,

@@ -24,6 +24,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from colearn_federated_learning_tpu_torch import telemetry
 from colearn_federated_learning_tpu_torch.fed import compression
 from colearn_federated_learning_tpu_torch.utils import trees
 from colearn_federated_learning_tpu_torch.utils.serialization import (
@@ -63,8 +64,8 @@ def host_params(tree: Any) -> Any:
 
 class DownlinkEncoder:
     """Per-round broadcast encoder (coordinator side): one CLW1 encode per
-    round, whose frame every cohort send shares read-only
-    (serialize-once)."""
+    round — counted in ``comm.broadcast_encode_total`` — whose frame every
+    cohort send shares read-only (serialize-once)."""
 
     def __init__(self, scheme: str = "none"):
         if scheme not in compression.SCHEMES:
@@ -84,13 +85,16 @@ class DownlinkEncoder:
         once, the full rebuilt params for workers that answered
         "resync"; ``bytes_saved_per_send`` is what a delta send saves over
         a full-params one.  ``params`` is a tree of tensors or arrays."""
+        reg = telemetry.get_registry()
         params_np = host_params(params)
         if self.scheme == "none":
-            return memoryview(pytree_to_bytes(params_np, {"round": r})), \
-                None, 0
+            body = pytree_to_bytes(params_np, {"round": r})
+            reg.counter("comm.broadcast_encode_total").inc()
+            return memoryview(body), None, 0
         if self._base is None:
             body = pytree_to_bytes(params_np,
                                    {"round": r, DOWN_KEY: MODE_FULL})
+            reg.counter("comm.broadcast_encode_total").inc()
             self._base = (r, params_np)
             return memoryview(body), self._resync_fn(r, params_np), 0
 
@@ -102,6 +106,7 @@ class DownlinkEncoder:
         meta = {"round": r, DOWN_KEY: MODE_DELTA, DOWN_BASE_KEY: base_round,
                 **cmeta}
         body = pytree_to_bytes(wire, meta)
+        reg.counter("comm.broadcast_encode_total").inc()
         recon = apply_dense_delta(
             base, compression.decompress_delta(wire, cmeta, shapes=base))
         self._base = (r, recon)
@@ -121,6 +126,8 @@ class DownlinkEncoder:
         def resync_body() -> memoryview:
             with lock:
                 if not cache:
+                    telemetry.get_registry().counter(
+                        "comm.broadcast_encode_total").inc()
                     cache.append(memoryview(pytree_to_bytes(
                         recon, {"round": r, DOWN_KEY: MODE_FULL})))
                 return cache[0]

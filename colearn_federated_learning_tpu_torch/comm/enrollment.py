@@ -302,8 +302,8 @@ def admit_late_joiners(enroll: "EnrollmentManager", broker, trainers: list,
                 ident=d.device_id)
         except OSError:
             # Announced but unreachable (died between enroll and admit):
-            # skip it this poll.
-            pass
+            # skip it this poll, counted.
+            protocol.count_suppressed()
             continue
         broker.publish(ROLE_TOPIC + d.device_id,
                        {"role": "trainer"}, retain=True)

@@ -60,19 +60,28 @@ class InvalidPublicKeyError(ValueError):
         super().__init__(f"invalid DH public key ({reason})")
 
 
+def _reject(reason: str) -> InvalidPublicKeyError:
+    from colearn_federated_learning_tpu_torch import telemetry
+
+    telemetry.get_registry().counter(
+        "comm.keyexchange_rejected_total", labels={"reason": reason}).inc()
+    return InvalidPublicKeyError(reason)
+
+
 def validate_public(pub: int) -> int:
     """Reject the small-subgroup elements {0, 1, p-1} by name, and any
     value out of range: a peer publishing one would force the pair's
-    secret into a guessable set."""
+    secret into a guessable set.  Each refusal counts in
+    ``comm.keyexchange_rejected_total`` by reason."""
     pub = int(pub)
     if pub == 0:
-        raise InvalidPublicKeyError("zero")
+        raise _reject("zero")
     if pub == 1:
-        raise InvalidPublicKeyError("identity")
+        raise _reject("identity")
     if pub == GROUP14_P - 1:
-        raise InvalidPublicKeyError("order_two")
+        raise _reject("order_two")
     if not 1 < pub < GROUP14_P - 1:
-        raise InvalidPublicKeyError("out_of_range")
+        raise _reject("out_of_range")
     return pub
 
 

@@ -11,9 +11,12 @@ Every frame carries a CRC32 over header and body, so a corrupted frame is
 a :class:`CorruptFrame` at the receiver: that one peer's failure, never
 garbage folded into an aggregate.
 
-The trace fields (``attach_trace``/``extract_trace``/``pop_trace_spans``)
-pass through unchanged; the port emits no spans yet, and its transport
-keeps no metric counters (ROADMAP.md Queue A item 10).
+Requests carry the sender's span context (``attach_trace``), and a
+reply's worker spans are adopted into the receiver's trace
+(``pop_trace_spans``).  Every frame counts in ``comm.messages_sent`` /
+``comm.messages_received`` and ``comm.bytes_sent`` / ``comm.bytes_received``,
+a corrupt one in ``comm.corrupt_frames_total``, and a teardown error that
+is survived in ``comm.suppressed_oserrors_total``, as in JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import socket
 import struct
 import zlib
 from typing import Optional
+
+from colearn_federated_learning_tpu_torch.telemetry import registry as _metrics
 
 _HDR = struct.Struct(">I")     # header length
 _BODY = struct.Struct(">QI")   # body length, crc32(header bytes + body)
@@ -57,11 +62,14 @@ def extract_trace(header: dict):
     return (trace_id, span_id)
 
 
-def pop_trace_spans(meta) -> None:
-    """Strip a reply's worker-side spans from its metadata (a JAX worker
-    may ship them), so they never leak into round records."""
-    if isinstance(meta, dict):
-        meta.pop(TRACE_SPANS_KEY, None)
+def pop_trace_spans(meta, tracer) -> None:
+    """Stitch a reply's worker-side spans into ``tracer`` and strip them
+    from the metadata, so they never leak into round records."""
+    if not isinstance(meta, dict):
+        return
+    spans = meta.pop(TRACE_SPANS_KEY, None)
+    if spans:
+        tracer.adopt(spans)
 
 
 class ConnectionClosed(Exception):
@@ -85,6 +93,11 @@ def _recv_exact(sock: socket.socket, n: int) -> bytearray:
             raise ConnectionClosed(f"peer closed after {got}/{n} bytes")
         got += r
     return buf
+
+
+def _corrupt(msg: str) -> CorruptFrame:
+    _metrics.get_registry().counter("comm.corrupt_frames_total").inc()
+    return CorruptFrame(f"corrupt frame: {msg}")
 
 
 def frame_crc(hdr: bytes, body: bytes) -> int:
@@ -111,23 +124,31 @@ def send_msg(sock: socket.socket, header: dict, body=b"") -> None:
                 sock.sendall(memoryview(body)[sent - len(prefix):])
     else:
         sock.sendall(prefix)
+    reg = _metrics.get_registry()
+    reg.counter("comm.messages_sent").inc()
+    reg.counter("comm.bytes_sent").inc(
+        _HDR.size + len(hdr) + _BODY.size + len(body))
 
 
 def recv_msg(sock: socket.socket) -> tuple[dict, bytes]:
     (hlen,) = _HDR.unpack(_recv_exact(sock, _HDR.size))
     if hlen > MAX_HEADER:
-        raise CorruptFrame(f"corrupt frame: header length {hlen}")
+        raise _corrupt(f"header length {hlen}")
     hdr = _recv_exact(sock, hlen)
     (blen, crc) = _BODY.unpack(_recv_exact(sock, _BODY.size))
     if blen > MAX_BODY:
-        raise CorruptFrame(f"corrupt frame: body length {blen}")
+        raise _corrupt(f"body length {blen}")
     body = _recv_exact(sock, blen) if blen else b""
     if frame_crc(hdr, body) != crc:
-        raise CorruptFrame("corrupt frame: crc32 mismatch")
+        raise _corrupt("crc32 mismatch")
     try:
         header = json.loads(hdr.decode())
     except (UnicodeDecodeError, json.JSONDecodeError) as e:
-        raise CorruptFrame(f"corrupt frame: undecodable header ({e})") from None
+        raise _corrupt(f"undecodable header ({e})") from None
+    reg = _metrics.get_registry()
+    reg.counter("comm.messages_received").inc()
+    reg.counter("comm.bytes_received").inc(
+        _HDR.size + hlen + _BODY.size + blen)
     return header, body
 
 
@@ -138,19 +159,26 @@ def connect(host: str, port: int,
     return sock
 
 
+def count_suppressed(n: int = 1) -> None:
+    """Count an error that is survived on purpose (a teardown, a dead
+    peer): never silent."""
+    _metrics.get_registry().counter("comm.suppressed_oserrors_total").inc(n)
+
+
 def close_quietly(sock: socket.socket, shutdown: bool = False) -> None:
-    """Teardown close; the peer may already be gone.  ``shutdown=True``
-    shuts the stream down first, which (unlike close alone) unblocks a
-    thread reading it."""
+    """Teardown close; the peer may already be gone (its OSError counts in
+    ``comm.suppressed_oserrors_total``).  ``shutdown=True`` shuts the
+    stream down first, which (unlike close alone) unblocks a thread
+    reading it."""
     if shutdown:
         try:
             sock.shutdown(socket.SHUT_RDWR)
         except OSError:
-            pass
+            count_suppressed()
     try:
         sock.close()
     except OSError:
-        pass
+        count_suppressed()
 
 
 def wake_accept(host: str, port: int, timeout: float = 1.0) -> None:
@@ -161,4 +189,4 @@ def wake_accept(host: str, port: int, timeout: float = 1.0) -> None:
     try:
         socket.create_connection((host, port), timeout=timeout).close()
     except OSError:
-        pass
+        count_suppressed()

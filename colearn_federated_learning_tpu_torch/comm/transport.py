@@ -29,6 +29,7 @@ import zlib
 from typing import Any, Callable, Optional
 
 from colearn_federated_learning_tpu_torch.comm import protocol
+from colearn_federated_learning_tpu_torch.telemetry import registry as _metrics
 from colearn_federated_learning_tpu_torch.utils.serialization import (
     bytes_to_pytree, pytree_to_bytes)
 
@@ -69,22 +70,6 @@ def install_interposer(obj: Optional[TransportInterposer]) -> None:
 
 def current_interposer() -> Optional[TransportInterposer]:
     return _interposer
-
-
-class _RetryCount:
-    """Retries made by every client of this process (the round record's
-    ``retries`` key)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.value = 0
-
-    def inc(self) -> None:
-        with self._lock:
-            self.value += 1
-
-
-retries = _RetryCount()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,8 +167,10 @@ class TensorServer:
                 if ip is not None:
                     ip.server_reply(self, conn, header)
                 protocol.send_msg(conn, out_header, out_body)
-        except (protocol.ConnectionClosed, OSError, ValueError):
-            pass                       # the peer left or misbehaved
+        except protocol.ConnectionClosed:
+            pass                       # the peer left
+        except (OSError, ValueError):
+            protocol.count_suppressed()   # a flaky or buggy peer: drop it
         finally:
             with self._conns_lock:
                 self._conns.discard(conn)
@@ -240,6 +227,10 @@ class TensorClient:
         if self.closed:
             raise protocol.ConnectionClosed(f"{self.ident}: client closed")
         attempts = 1 + (retry.max_retries if retry is not None else 0)
+        # Labelled per peer: the aggregate counts every retry, and the
+        # {device=...} children say who is flaky.
+        peer_retries = _metrics.get_registry().counter(
+            "comm.retry_total", labels={"device": self.ident})
         for attempt in range(attempts):
             attempt_timeout = timeout
             if deadline is not None:
@@ -263,7 +254,7 @@ class TensorClient:
             except _RETRYABLE:
                 if attempt + 1 >= attempts:
                     raise
-                retries.inc()
+                peer_retries.inc()
                 delay = retry.delay(attempt, self._rng)
                 if deadline is not None:
                     delay = min(delay, max(0.0, deadline - time.monotonic()))

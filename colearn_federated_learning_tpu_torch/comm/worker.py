@@ -29,6 +29,14 @@ Secure aggregation masks the flat wire tree on the worker's device with
 the port's own streams (``privacy/secure_agg.py``), so every party to a
 secure round runs on one device type.  LoRA is not ported yet (ROADMAP.md
 Queue A item 5).
+
+Every request runs under a ``worker.<op>`` span; a train request's
+``deserialize_params``, ``local_train``, ``secure_mask`` and
+``compress_delta`` spans run inside it.  When the request carries a span
+context, the spans finished while handling it go back in the reply
+meta's ``trace_spans``, where the coordinator adopts them; the worker's
+own tracer records nothing (a long-lived worker must not grow a span
+log), as in JAX.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from colearn_federated_learning_tpu_torch import convert
+from colearn_federated_learning_tpu_torch import convert, telemetry
 from colearn_federated_learning_tpu_torch.comm import downlink, enrollment
 from colearn_federated_learning_tpu_torch.comm import keyexchange, protocol
 from colearn_federated_learning_tpu_torch.comm.broker import BrokerClient
@@ -179,6 +187,10 @@ class DeviceWorker:
         self._model_lock = threading.Lock()
         self._eval_fn = None
         self._self_eval_fn = None
+        # Spans are captured per request and shipped in the reply; the
+        # local buffer stays off.
+        self.tracer = telemetry.Tracer(process=f"worker-{self.client_id}",
+                                       enabled=False)
         self._server = TensorServer(self._handle, host=host, port=port,
                                     ident=str(self.client_id))
         self._broker: Optional[BrokerClient] = None
@@ -236,7 +248,8 @@ class DeviceWorker:
 
     def _watch_broker(self, poll: float = 0.5) -> None:
         """When the broker connection dies, reconnect with backoff and
-        re-announce (the retained enrollment died with the old broker)."""
+        re-announce (the retained enrollment died with the old broker);
+        each recovery counts in ``comm.reenroll_total``."""
         bh, bp = self._broker_addr
         backoff = poll
         while not self._watch_stop.wait(poll):
@@ -259,6 +272,7 @@ class DeviceWorker:
                         self._dh_lookup.close()
                         self._dh_lookup = None
             self._announce(fresh)
+            telemetry.get_registry().counter("comm.reenroll_total").inc()
             backoff = poll
 
     def await_role(self, timeout: float = 30.0) -> str:
@@ -291,7 +305,23 @@ class DeviceWorker:
 
     # ------------------------------------------------------------------
     def _handle(self, header: dict, tree: Any) -> tuple[dict, Any]:
+        """Dispatch one request under a ``worker.<op>`` span, parented on
+        the request's span context; with a context, every span finished
+        while handling it goes back in the reply meta."""
         op = header.get("op")
+        ctx = protocol.extract_trace(header)
+        attrs = {"client_id": self.client_id}
+        if "round" in header:
+            attrs["round"] = header["round"]
+        with self.tracer.capture() as captured:
+            with self.tracer.span(f"worker.{op}", parent=ctx, **attrs):
+                out_header, out_tree = self._dispatch(op, header, tree)
+        if ctx is not None and "meta" in out_header:
+            out_header["meta"][protocol.TRACE_SPANS_KEY] = [
+                s.to_dict() for s in captured]
+        return out_header, out_tree
+
+    def _dispatch(self, op, header: dict, tree: Any) -> tuple[dict, Any]:
         if op == "train":
             return self._train(int(header.get("round", 0)), tree,
                                cohort=header.get("cohort"),
@@ -500,57 +530,82 @@ class DeviceWorker:
             self._param_cache = downlink.WorkerParamCache()
         return self._param_cache.resolve(round_idx, meta or {}, tree)
 
+    def _settle(self) -> None:
+        """Wait for the card's queued work, so the span around it covers
+        the work and not only its queueing."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _train(self, round_idx: int, global_params: Any, cohort=None,
                meta=None, shares_in=None) -> tuple[dict, Any]:
         c = self.config
-        full = self._resolve_params(round_idx, meta, global_params)
-        if full is None:
-            self._uplink_residual = None
-            self._last_residual_norm = None
-            return ({"status": "resync",
-                     "error": f"client {self.client_id} has no cached "
-                              f"base for round {round_idx} delta"}, None)
+        tracer = self.tracer
         with self._model_lock:
-            params = setup_lib.flax_to_params(self._model, full, self.device)
-            idx = self._draws.batch_indices(round_idx, self.client_id,
-                                            self.num_examples,
-                                            self._num_steps,
-                                            c.fed.batch_size)
-            result = self._update_fn(
-                params, self._x, self._y, self.num_examples,
-                torch.as_tensor(np.asarray(idx), dtype=torch.long).to(
-                    self.device),
-                self._num_steps,
-                strategies.lr_scale_for_round(c.fed, round_idx))
+            with tracer.span("deserialize_params"):
+                full = self._resolve_params(round_idx, meta, global_params)
+                if full is None:
+                    # The residual belongs to an update that never made it
+                    # into the fold: it goes with the stale base.
+                    self._uplink_residual = None
+                    self._last_residual_norm = None
+                    return ({"status": "resync",
+                             "error": f"client {self.client_id} has no "
+                                      f"cached base for round {round_idx} "
+                                      "delta"}, None)
+                params = setup_lib.flax_to_params(self._model, full,
+                                                  self.device)
+            with tracer.span("local_train", steps=self._num_steps):
+                idx = self._draws.batch_indices(round_idx, self.client_id,
+                                                self.num_examples,
+                                                self._num_steps,
+                                                c.fed.batch_size)
+                result = self._update_fn(
+                    params, self._x, self._y, self.num_examples,
+                    torch.as_tensor(np.asarray(idx), dtype=torch.long).to(
+                        self.device),
+                    self._num_steps,
+                    strategies.lr_scale_for_round(c.fed, round_idx))
+                self._settle()
             delta, weight = setup_lib.finalize_client_delta(
                 c, result, self.client_id, round_idx, self._draws)
-            delta_np = setup_lib.params_to_flax(self._model, delta, c)
             mean_loss = float(result.mean_loss)
-        if c.fed.secure_agg:
+        fed = c.fed
+        delta_np = None
+        if fed.secure_agg:
             if not cohort:
                 return ({"status": "error",
                          "error": "secure_agg train request lacks the "
                                   "round cohort"}, None)
             if self._dh_mode and shares_in:
                 self._stash_shares(round_idx, shares_in)
-            delta_np = self._mask(round_idx, cohort, delta_np)
+            with tracer.span("secure_mask", dh=self._dh_mode):
+                # The masks run on the flax-layout wire tree.
+                delta_np = self._mask(round_idx, cohort,
+                                      setup_lib.params_to_flax(
+                                          self._model, delta, c))
             weight = 1.0      # masked aggregation is a plain sum
         out_meta = {"round": round_idx, "weight": weight,
                     "client_id": self.client_id,
                     "num_examples": int(result.num_examples)}
-        if not c.fed.secure_agg:
+        if not fed.secure_agg:
             # The per-client loss is what the masks hide.
             out_meta["mean_loss"] = mean_loss
-        fed = c.fed
-        if fed.compress_feedback and not fed.secure_agg \
-                and fed.compress != "none":
-            wire, cmeta, self._uplink_residual = compression.feedback_compress(
-                delta_np, self._uplink_residual, fed.compress,
-                topk_fraction=self._topk_fraction)
-            self._adapt_topk(tree_global_norm(self._uplink_residual))
-        else:
-            wire, cmeta = compression.compress_delta(
-                delta_np, fed.compress, topk_fraction=fed.topk_fraction)
+        with tracer.span("compress_delta", codec=fed.compress):
+            if delta_np is None:
+                delta_np = setup_lib.params_to_flax(self._model, delta, c)
+            if fed.compress_feedback and not fed.secure_agg \
+                    and fed.compress != "none":
+                wire, cmeta, self._uplink_residual = \
+                    compression.feedback_compress(
+                        delta_np, self._uplink_residual, fed.compress,
+                        topk_fraction=self._topk_fraction)
+                norm = tree_global_norm(self._uplink_residual)
+                telemetry.get_registry().gauge(
+                    "fed.uplink_residual_norm").set(norm)
+                self._adapt_topk(norm)
+            else:
+                wire, cmeta = compression.compress_delta(
+                    delta_np, fed.compress, topk_fraction=fed.topk_fraction)
         out_meta.update(cmeta)
         return ({"meta": out_meta}, wire)
 
@@ -593,6 +648,8 @@ class DeviceWorker:
         self._topk_fraction = min(
             float(fed.topk_max_fraction),
             max(float(fed.topk_min_fraction), self._topk_fraction))
+        telemetry.get_registry().gauge(
+            "fed.topk_fraction_effective").set(self._topk_fraction)
 
     def _wire_shapes(self) -> Any:
         """The flax-layout tree of this worker's wire payload, as

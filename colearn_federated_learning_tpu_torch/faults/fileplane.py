@@ -36,8 +36,11 @@ def _match(kind: str, ident: str, round_idx: Optional[int],
     if plan is None:
         return False
     # ``op`` mirrors the hop so plans may key on either field.
-    return bool(plan.match(ident, round_idx, hop if hop != ANY else "",
-                           kinds=(kind,), site="server", hop=hop))
+    fired = plan.match(ident, round_idx, hop if hop != ANY else "",
+                       kinds=(kind,), site="server", hop=hop)
+    if fired:
+        inject._count(kind, ident)
+    return bool(fired)
 
 
 def should_drop(ident: str, round_idx: Optional[int],

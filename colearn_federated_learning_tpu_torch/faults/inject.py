@@ -15,6 +15,9 @@ control flow:
                       ``CorruptFrame``;
 - ``crash_worker``    stop the device's whole server: every later request
                       meets a dead peer.
+
+Every fault that fires counts in ``fault.injected_total{device,kind}`` and
+``fault.injected.<kind>``, as in JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import time
 
 from colearn_federated_learning_tpu_torch.comm import protocol, transport
 from colearn_federated_learning_tpu_torch.faults.plan import FaultPlan
+from colearn_federated_learning_tpu_torch.telemetry import registry as _metrics
 
 _REQUEST_KINDS = ("delay", "drop_request", "flap_reconnect", "crash_worker")
 _REPLY_KINDS = ("corrupt_payload",)
@@ -41,6 +45,13 @@ def active_plan() -> FaultPlan | None:
 def _key(header: dict) -> tuple:
     rnd = header.get("round")
     return (None if rnd is None else int(rnd)), str(header.get("op", ""))
+
+
+def _count(kind: str, device: str = "") -> None:
+    reg = _metrics.get_registry()
+    reg.counter("fault.injected_total",
+                labels={"device": str(device), "kind": kind}).inc()
+    reg.counter(f"fault.injected.{kind}").inc()
 
 
 def send_corrupt_frame(sock: socket.socket) -> None:
@@ -61,6 +72,7 @@ class FaultInjector(transport.TransportInterposer):
         self.plan = plan
 
     def _apply(self, fault, server) -> None:
+        _count(fault.kind, server.ident if server is not None else "")
         if fault.kind == "delay":
             time.sleep(fault.ms / 1000.0)
         elif fault.kind == "drop_request":
@@ -82,6 +94,7 @@ class FaultInjector(transport.TransportInterposer):
         rnd, op = _key(header)
         for f in self.plan.match(server.ident, rnd, op,
                                  kinds=_REPLY_KINDS, site="server"):
+            _count(f.kind, server.ident)
             send_corrupt_frame(conn)
             raise protocol.ConnectionClosed(f"injected corruption ({f})")
 
@@ -90,6 +103,7 @@ class FaultInjector(transport.TransportInterposer):
         for f in self.plan.match(client.ident, rnd, op,
                                  kinds=("delay", "flap_reconnect"),
                                  site="client"):
+            _count(f.kind, client.ident)
             if f.kind == "delay":
                 time.sleep(f.ms / 1000.0)
             else:

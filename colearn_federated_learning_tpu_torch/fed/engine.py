@@ -23,6 +23,22 @@ device, and a ring or Ulysses config runs the dense core.
 instead of running somewhere else.  ``device="cpu"`` runs the same round
 with every kernel's plain PyTorch version (the tests do this); a mesh's
 device type decides for it.
+
+Telemetry is JAX's: the spans ``round``, ``h2d_transfer``,
+``cohort_sample`` (SCAFFOLD), ``client_update``, ``scatter_variates``,
+``sync_metrics`` and ``evaluate`` on the learner's own tracer, recorded
+while ``run.trace_dir`` opens a window (``run.trace_rounds`` bounds it)
+and written by ``fit`` as Chrome-trace JSON (``last_trace_path``), and
+the counters ``engine.rounds_total``, ``engine.round_time_s`` and
+``engine.h2d_transfer_s`` in the process registry.  ``client_update`` is
+the span ``phase_update_s`` reads; it waits for the card only where the
+round already did (``sync=True``) or while spans are recorded.
+Departures: SCAFFOLD's variates go back to the host as each contributor
+finishes (the device holds O(model) of them), so ``scatter_variates`` is
+one span per contributor inside ``client_update``; and a traced record
+carries no ``flops_per_round`` (JAX's comes from XLA's AOT cost
+analysis; ROADMAP.md Queue A item 10b).  ``hbm_used_gb`` comes from the
+card's allocator, on every round on the card.
 """
 
 from __future__ import annotations
@@ -36,8 +52,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from colearn_federated_learning_tpu_torch import convert
-from colearn_federated_learning_tpu_torch.comm import ITEM_CKPT, ITEM_LORA, ITEM_OBS
+from colearn_federated_learning_tpu_torch import convert, telemetry
+from colearn_federated_learning_tpu_torch.comm import (
+    ITEM_CKPT, ITEM_LORA, ITEM_OBS_REST)
 from colearn_federated_learning_tpu_torch.data import partition as partition_lib
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
 from colearn_federated_learning_tpu_torch.data.sharding import (
@@ -64,9 +81,7 @@ def check_supported(config: ExperimentConfig) -> None:
         "lora_rank > 0": (f.lora_rank > 0, ITEM_LORA),
         "run.checkpoint_dir": (bool(run.checkpoint_dir), ITEM_CKPT),
         "run.checkpoint_every > 0": (run.checkpoint_every > 0, ITEM_CKPT),
-        "run.trace_dir": (bool(run.trace_dir), ITEM_OBS),
-        "run.trace_rounds > 0": (run.trace_rounds > 0, ITEM_OBS),
-        "run.profile_dir": (bool(run.profile_dir), ITEM_OBS),
+        "run.profile_dir": (bool(run.profile_dir), ITEM_OBS_REST),
     }
     bad = [f"{name} ({item})" for name, (on, item) in unported.items() if on]
     if f.strategy not in strategies.STRATEGIES:
@@ -250,9 +265,11 @@ class FederatedLearner:
                  if torch.distributed.is_initialized()
                  else int(os.environ.get("WORLD_SIZE", "1")))
         if r.tp_size > 1 and world % r.tp_size != 0:
-            # The JAX engine also counts this in fed.mesh_fallback_total;
-            # that counter comes with the telemetry port (ROADMAP.md
-            # Queue A item 10).
+            # Observable both ways, as in JAX: a warning, and a labelled
+            # counter for dashboards and soaks.
+            telemetry.get_registry().counter(
+                "fed.mesh_fallback_total",
+                labels={"reason": "indivisible_devices"}).inc()
             warnings.warn(
                 f"tp_size={r.tp_size} needs a device count that is a "
                 f"multiple of it, have {world}; running without tensor "
@@ -357,9 +374,16 @@ class FederatedLearner:
         x = shards.x[block]
         if self.sp:
             x = np.array_split(x, self.seq_size, axis=-1)[self.seq.index]
-        self.x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        self.y = torch.from_numpy(
-            shards.y[block].astype(np.int64)).to(self.device)
+        # Recording stays off until fit() opens a trace window; span()
+        # still times either way.
+        self.tracer = telemetry.Tracer(process="engine", enabled=False)
+        self.last_trace_path: Optional[str] = None
+        with self.tracer.span("h2d_transfer") as sp:
+            self.x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            self.y = torch.from_numpy(
+                shards.y[block].astype(np.int64)).to(self.device)
+        telemetry.get_registry().gauge("engine.h2d_transfer_s").set(
+            sp.duration_s)
 
         # --- model and server state -----------------------------------
         # Under SP the trained module runs on sequence shards; its
@@ -545,30 +569,42 @@ class FederatedLearner:
     def run_round(self, sync: bool = True) -> dict:
         """One federated round; returns its metrics (one host sync).
 
-        ``phase_update_s`` runs from the cohort draw until the card has
-        finished the round; ``phase_sync_s`` is the metrics' copy to the
-        host; under SCAFFOLD ``phase_cohort_sample_s`` is the cohort draw,
-        as in the JAX record.  ``sync=False`` leaves the metrics on the
-        device and does not wait for the card, so rounds queue back to
-        back (``phase_update_s`` is then the host's time to queue the
-        round); :meth:`finalize_history` turns them into floats."""
+        ``phase_update_s`` is the ``client_update`` span: from the cohort
+        draw (under SCAFFOLD, after it) until the card has finished the
+        round; ``phase_sync_s`` (``sync_metrics``) is the metrics' copy to
+        the host; under SCAFFOLD ``phase_cohort_sample_s`` is the cohort
+        draw (``cohort_sample``), as in the JAX record.  ``sync=False``
+        leaves the metrics on the device and, unless spans are being
+        recorded, does not wait for the card, so rounds queue back to back
+        (``phase_update_s`` is then the host's time to queue the round);
+        :meth:`finalize_history` turns them into floats."""
         r = len(self.history)
-        t0 = time.perf_counter()
-        sel = programs.sample_cohort(self, r)
-        t_sample = time.perf_counter() - t0
-        metrics = programs.run_round(self, r, sel)
+        tracer = self.tracer
+        sample_sp = None
+        if self.scaffold:
+            with tracer.span("cohort_sample", round=r) as sample_sp:
+                sel = programs.sample_cohort(self, r)
+        # The round is one span; it waits for the card where the round
+        # already did (sync=True), or while a trace window is open, so
+        # the span covers the card's work and not only its queueing.
+        with tracer.span("client_update", round=r,
+                         cohort=self.cohort_size) as update_sp:
+            if sample_sp is None:
+                sel = programs.sample_cohort(self, r)
+            metrics = programs.run_round(self, r, sel)
+            if sync or tracer.enabled:
+                self._sync()
         if self.adaptive_clip:
             self.dp_clip = metrics["dp_clip"]
-        if sync:
-            self._sync()
-        t1 = time.perf_counter()
-        out = ({k: float(v) for k, v in metrics.items()} if sync
-               else dict(metrics))
+        with tracer.span("sync_metrics", round=r) as sync_sp:
+            out = ({k: float(v) for k, v in metrics.items()} if sync
+                   else dict(metrics))
         out["round"] = r
-        out["phase_update_s"] = t1 - t0
-        out["phase_sync_s"] = time.perf_counter() - t1
-        if self.scaffold:
-            out["phase_cohort_sample_s"] = t_sample
+        out["phase_update_s"] = update_sp.duration_s
+        out["phase_sync_s"] = sync_sp.duration_s
+        if sample_sp is not None:
+            out["phase_cohort_sample_s"] = sample_sp.duration_s
+        telemetry.get_registry().counter("engine.rounds_total").inc()
         if self.accountant is not None:
             self.accountant.step()
             out["dp_epsilon"] = self.accountant.epsilon()
@@ -635,26 +671,43 @@ class FederatedLearner:
         handing every ``run.log_every``-th record and the last to
         ``log_fn``.  ``round_time_s`` is the round alone; an evaluation's
         time is its own ``phase_eval_s``.  On the card the record also
-        carries ``hbm_used_gb``, the memory allocated after the round."""
+        carries ``hbm_used_gb``, the memory allocated after the round.
+        With ``run.trace_dir`` the rounds of the window are traced and the
+        trace written (``last_trace_path``), even when a round raises."""
         if rounds is None:
             rounds = max(0, self.config.fed.rounds - len(self.history))
         run = self.config.run
         eval_every = max(1, run.eval_every)
         log_every = max(1, run.log_every)
         last_round = len(self.history) + rounds - 1
-        for _ in range(rounds):
-            t0 = time.perf_counter()
-            rec = self.run_round()
-            rec["round_time_s"] = time.perf_counter() - t0
-            if self.device.type == "cuda":
-                rec["hbm_used_gb"] = round(
-                    torch.cuda.memory_allocated(self.device) / 2**30, 3)
-            if rec["round"] % eval_every == 0 or rec["round"] == last_round:
-                t1 = time.perf_counter()
-                rec["eval_loss"], rec["eval_acc"] = self.evaluate()
-                self._sync()
-                rec["phase_eval_s"] = time.perf_counter() - t1
-            if log_fn is not None and (rec["round"] % log_every == 0
-                                       or rec["round"] == last_round):
-                log_fn(rec)
+        telem = telemetry.RoundTelemetry(run, self.tracer)
+        try:
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                telem.before_round(len(self.history))
+                with self.tracer.span("round", round=len(self.history)):
+                    rec = self.run_round()
+                    rec["round_time_s"] = time.perf_counter() - t0
+                    if self.device.type == "cuda":
+                        rec["hbm_used_gb"] = round(
+                            torch.cuda.memory_allocated(self.device) / 2**30,
+                            3)
+                    if (rec["round"] % eval_every == 0
+                            or rec["round"] == last_round):
+                        with self.tracer.span("evaluate") as ev_sp:
+                            rec["eval_loss"], rec["eval_acc"] = \
+                                self.evaluate()
+                            self._sync()
+                        rec["phase_eval_s"] = ev_sp.duration_s
+                    if log_fn is not None and (
+                            rec["round"] % log_every == 0
+                            or rec["round"] == last_round):
+                        log_fn(rec)
+                telemetry.get_registry().histogram(
+                    "engine.round_time_s").observe(rec["round_time_s"])
+                # After the round span closed: an early flush of the
+                # window must include the last traced round.
+                telem.end_round(rec["round"])
+        finally:
+            self.last_trace_path = telem.close()
         return self.history

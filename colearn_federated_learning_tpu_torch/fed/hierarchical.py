@@ -32,6 +32,7 @@ from colearn_federated_learning_tpu_torch.data import registry as data_registry
 from colearn_federated_learning_tpu_torch.faults import fileplane
 from colearn_federated_learning_tpu_torch.fed.engine import FederatedLearner
 from colearn_federated_learning_tpu_torch.privacy import dropout
+from colearn_federated_learning_tpu_torch.telemetry import get_registry
 from colearn_federated_learning_tpu_torch.utils.config import ExperimentConfig
 
 
@@ -131,6 +132,8 @@ class HierarchicalLearner:
             ident = f"g{i}"
             if fileplane.should_drop(ident, round_idx, fileplane.HOP_SYNC):
                 dropped.append(ident)
+                get_registry().counter("fed.hier_groups_dropped_total",
+                                       labels={"group": ident}).inc()
                 continue
             alive.append((float(self.group_examples[i]),
                           list(g.params.values())))

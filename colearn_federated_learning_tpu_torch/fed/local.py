@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from colearn_federated_learning_tpu_torch.fed import losses
+from colearn_federated_learning_tpu_torch.telemetry import get_registry
 from colearn_federated_learning_tpu_torch.models.moe import MoEFfn
 
 
@@ -169,6 +170,9 @@ def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
     if scaffold and lr <= 0.0:
         raise ValueError("scaffold=True requires the client lr")
     min_steps = max(1, int(num_steps * min_steps_fraction))
+    reg = get_registry()
+    reg.counter("local.trainers_built").inc()
+    reg.gauge("local.steps_per_round").set(num_steps)
     params = list(model.parameters())
     moe_layers = [m for m in model.modules() if isinstance(m, MoEFfn)]
 

@@ -13,9 +13,11 @@ unless the caller passes ``device="cpu"``.
 Under an installed FaultPlan (``faults/``), ``client_update`` calls the
 file plane's fault hooks (``faults/fileplane.py``, hop ``update``): a
 dropped silo writes no file, a stale one stamps the previous round, a
-torn one is cut to half its bytes.  Not ported yet: the ``fed.offline_*``
-counters (ROADMAP.md Queue A item 10); ``detection=True`` raises, naming
-item 10.
+torn one is cut to half its bytes.  A residual that cannot be carried
+counts in ``fed.offline_residual_resets_total`` and a skipped update file
+in ``fed.offline_updates_rejected_total``, each by reason, as in JAX.
+Not ported yet: ``detection=True`` raises, naming ROADMAP.md Queue A item
+10b.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from colearn_federated_learning_tpu_torch.comm import ITEM_OBS_REST
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
 from colearn_federated_learning_tpu_torch.data.sharding import pack_client_shards
 from colearn_federated_learning_tpu_torch.faults import fileplane
@@ -35,6 +38,7 @@ from colearn_federated_learning_tpu_torch.fed import programs, strategies
 from colearn_federated_learning_tpu_torch.fed import setup as setup_lib
 from colearn_federated_learning_tpu_torch.fed.engine import partition_for_config
 from colearn_federated_learning_tpu_torch.models import registry as model_registry
+from colearn_federated_learning_tpu_torch.telemetry import get_registry
 from colearn_federated_learning_tpu_torch.utils import trees
 from colearn_federated_learning_tpu_torch.utils.config import ExperimentConfig
 from colearn_federated_learning_tpu_torch.utils.device import resolve_device
@@ -60,14 +64,20 @@ def _load_residual(residual_path: str, round_idx: int):
     """The carried error-feedback residual for ``round_idx``, or None: a
     residual counts only if it was written in the round just before (a
     gap means the silo's last update was rejected or rounds were
-    skipped), and a torn file resets it."""
+    skipped), and a torn file resets it.  Resets count in
+    ``fed.offline_residual_resets_total`` by reason."""
+    reg = get_registry()
     try:
         prev, rmeta = load_pytree_npz(residual_path)
     except FileNotFoundError:
         return None
     except _BAD_UPDATE_ERRORS:
+        reg.counter("fed.offline_residual_resets_total",
+                    labels={"reason": "torn"}).inc()
         return None
     if int(rmeta.get("round", -1)) != round_idx - 1:
+        reg.counter("fed.offline_residual_resets_total",
+                    labels={"reason": "stale"}).inc()
         return None
     return prev
 
@@ -148,6 +158,8 @@ def client_update(
         except ValueError:
             # The carried tree no longer fits the model (the config
             # changed between rounds): reset and compress uncompensated.
+            get_registry().counter("fed.offline_residual_resets_total",
+                                   labels={"reason": "shape"}).inc()
             wire, cmeta, new_residual = compression.feedback_compress(
                 delta_np, None, c.fed.compress,
                 topk_fraction=c.fed.topk_fraction)
@@ -174,34 +186,41 @@ def mean_update(config: ExperimentConfig, params, round_idx: int,
     tree) at ``round_idx``: ``{"mean_delta": flax tree of float32 tensors
     on ``device`` or None, "accepted", "total_weight", "rejected"}``.
     Torn, stale, undecodable and non-positive-weight files are skipped,
-    each with its reason."""
+    each with its reason, and counted in
+    ``fed.offline_updates_rejected_total`` by reason."""
     device = resolve_device(device)
+    reg = get_registry()
     wsum = None
     total_w = 0.0
     accepted = 0
     rejected: list[str] = []
+
+    def reject(why: str, reason: str) -> None:
+        reg.counter("fed.offline_updates_rejected_total",
+                    labels={"reason": reason}).inc()
+        rejected.append(why)
+
     for p in update_paths:
         try:
             delta, umeta = load_pytree_npz(p)
         except _BAD_UPDATE_ERRORS as e:
-            rejected.append(f"bad update {p}: {type(e).__name__}: {e}")
+            reject(f"bad update {p}: {type(e).__name__}: {e}", "torn")
             continue
         # An update computed against another global round must not be
         # folded in.
         if "round" in umeta and int(umeta["round"]) != round_idx:
-            rejected.append(f"stale update {p}: computed at round "
-                            f"{umeta['round']}, global model is at round "
-                            f"{round_idx}")
+            reject(f"stale update {p}: computed at round {umeta['round']}, "
+                   f"global model is at round {round_idx}", "stale")
             continue
         try:
             delta = compression.decompress_delta(delta, umeta, shapes=params)
             leaves = trees.flatten_up_to(params, delta)
         except _BAD_UPDATE_ERRORS as e:
-            rejected.append(f"bad update {p}: {type(e).__name__}: {e}")
+            reject(f"bad update {p}: {type(e).__name__}: {e}", "decode")
             continue
         w = float(umeta.get("weight", 1.0))
         if w <= 0:
-            rejected.append(f"bad update {p}: non-positive weight {w}")
+            reject(f"bad update {p}: non-positive weight {w}", "weight")
             continue
         contrib = [torch.from_numpy(np.asarray(l)).to(device) * w
                    for l in leaves]
@@ -275,8 +294,7 @@ def evaluate_global(config: ExperimentConfig, global_path: str,
     "eval_loss", "eval_acc"}``."""
     if detection:
         raise NotImplementedError(
-            "the detection report is not ported yet; see ROADMAP.md Queue A "
-            "item 10 (telemetry, tracing and evaluation extras)")
+            f"the detection report is not ported yet; see {ITEM_OBS_REST}")
     device = resolve_device(device)
     params, meta = load_pytree_npz(global_path)
     ds = dataset or data_registry.get_dataset(config.data.dataset,

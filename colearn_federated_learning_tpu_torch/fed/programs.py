@@ -306,9 +306,11 @@ def cohort_step(ln, params: list, sel: np.ndarray, round_idx: int) -> tuple:
             if bit is not None:
                 bit_sum += bit
         if ln.scaffold and contrib:
-            # Contributors' variates only are refreshed.
+            # Contributors' variates only are refreshed, each as it
+            # finishes (JAX scatters the cohort's after the round).
             torch._foreach_add_(dc_sum, sres.delta_c)
-            ln.variates.scatter(slot, sres.c_new)
+            with ln.tracer.span("scatter_variates", round=round_idx):
+                ln.variates.scatter(slot, sres.c_new)
         total_w += weight
         loss_sum += res.mean_loss * weight
         n_completed += int(contrib)

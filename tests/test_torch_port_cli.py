@@ -80,15 +80,39 @@ def test_overrides_reach_the_config_as_in_jax(extra):
     (["--lora-alpha", "8", "--edge-groups", "2"], "item 5"),
     (["--agg-buffer-interval", "2.0"], "item 13"),
     (["--lora-merge-every", "2"], "item 5"),
-    (["--health-dir", "h"], "item 10"), (["--checkpoint-dir", "ck"], "item 9"),
-    (["--resume"], "item 9"), (["--trace-dir", "tr"], "item 10"),
-    (["--profile-dir", "pr"], "item 10")])
+    (["--checkpoint-dir", "ck"], "item 9"), (["--resume"], "item 9"),
+    (["--profile-dir", "pr"], "item 10b"), (["--learn-observe"], "item 10b")])
 def test_unported_override_exits_naming_its_roadmap_item(flag, item, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["train", "--backend", "cpu", *TINY, *flag])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert flag[0] in err and f"ROADMAP.md Queue A {item}" in err
+
+
+@pytest.mark.parametrize("flag", ["--health-dir", "--trace-dir"])
+def test_telemetry_override_runs_as_jax(flag, tmp_path, capsys):
+    """``--health-dir`` and ``--trace-dir`` were refused until the
+    telemetry core was ported.  On ``train`` the ledger flag changes
+    nothing (only the socket plane keeps ledgers, in JAX too); the trace
+    flag writes a trace that JAX's loader reads, named in the summary."""
+    where = str(tmp_path / "out")
+    with_flag = cli.main(["train", "--backend", "cpu", *TINY, flag, where])
+    plain = cli.main(["train", "--backend", "cpu", *TINY])
+    capsys.readouterr()
+    assert with_flag["final_loss"] == plain["final_loss"]
+    if flag == "--health-dir":
+        assert "trace_file" not in with_flag
+        assert not (tmp_path / "out").exists()
+        return
+    from colearn_federated_learning_tpu import telemetry as jax_telemetry
+
+    assert with_flag["trace_file"] == str(
+        tmp_path / "out" / "mnist_mlp_fedavg_trace.json")
+    spans = jax_telemetry.trace_spans(
+        jax_telemetry.load_trace(with_flag["trace_file"]))
+    assert sorted(sp.name for sp in spans) == [
+        "client_update", "evaluate", "round", "sync_metrics"]
 
 
 def test_default_backend_raises_without_a_card(monkeypatch):
@@ -326,10 +350,10 @@ def test_every_jax_flag_of_the_socket_plane_is_accepted(cmd):
      "item 13"),
     (["coordinate", "--broker-port", "1", "--async-observe"], "item 13"),
     (["worker", "--broker-port", "1", "--client-id", "0", "--metrics-port",
-      "9"], "item 10"),
-    (["broker", "--events-file", "e.jsonl"], "item 10"),
+      "9"], "item 10b"),
+    (["broker", "--events-file", "e.jsonl"], "item 10b"),
     (["aggregator", "--agg-id", "0", "--broker-port", "1", "--flight-dir",
-      "f"], "item 10"),
+      "f"], "item 16"),
     (["chaos", "--rounds", "2"], "item 16")])
 def test_socket_plane_refusals_name_their_items(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -401,8 +425,6 @@ def test_configs_prints_the_jax_lines(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["fleetsim", "--devices", "64"], "item 9"),
-    (["trace-summary", "t.json"], "item 10a"),
-    (["health", "h"], "item 10a"),
     (["postmortem", "f"], "item 16"),
     (["top"], "item 10b"),
     (["converge", "r.jsonl"], "item 10b"),
@@ -414,3 +436,60 @@ def test_unported_commands_exit_naming_their_items(argv, item, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert f"ROADMAP.md Queue A {item} " in err and argv[0] in err
+
+
+def _telemetry_files(tmp_path):
+    """A trace with nested spans of two processes, and a health directory
+    of two ledgers (an aggregator's and the coordinator's), written by the
+    port."""
+    from colearn_federated_learning_tpu_torch import telemetry
+
+    tracer = telemetry.Tracer(process="coordinator")
+    for r in range(2):
+        with tracer.span("round", round=r):
+            with tracer.span("broadcast_collect", cohort=3):
+                with tracer.span("worker.train", client_id=1):
+                    pass
+            with tracer.span("aggregate"):
+                pass
+    trace = telemetry.write_tracer(str(tmp_path), "run", tracer,
+                                   metrics={"fed.rounds_total": 2.0})
+    health_dir = tmp_path / "health"
+    for source, agg in (("coordinator", None), ("aggregator0", "0")):
+        ledger = telemetry.HealthLedger(str(health_dir), source)
+        for r in range(3):
+            for d in range(3):
+                ledger.record(str(d), round=r, agg=agg,
+                              latency_s=0.1 * (d + 1) + 0.01 * r,
+                              deadline_miss=int(d == 2 and r == 1))
+        ledger.flush()
+        ledger.close()
+    (tmp_path / "empty").mkdir()
+    return {"trace": trace, "missing": str(tmp_path / "nope.json"),
+            "health": str(health_dir), "empty": str(tmp_path / "empty")}
+
+
+@pytest.mark.parametrize("argv", [
+    ["trace-summary", "trace"], ["trace-summary", "trace", "--root",
+                                 "broadcast_collect"],
+    ["trace-summary", "missing"], ["health", "health"],
+    ["health", "health", "--format", "json", "--top", "2"],
+    ["health", "empty"]])
+def test_trace_summary_and_health_print_jax_text(argv, tmp_path, capsys):
+    """``trace-summary`` and ``health`` were refused until the telemetry
+    core was ported; now they print the JAX commands' text for the same
+    files and exit with their codes (0, 2 for an unreadable trace, 1 for
+    a health directory with no device)."""
+    files = _telemetry_files(tmp_path)
+    argv = [argv[0], *(files.get(a, a) for a in argv[1:])]
+    rc_jax = jax_cli.main(argv)
+    theirs = capsys.readouterr()
+    try:
+        cli.main(argv)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code
+    ours = capsys.readouterr()
+    assert rc == rc_jax
+    assert (ours.out, ours.err) == (theirs.out, theirs.err)
+    assert (ours.out or ours.err).strip()

@@ -3,9 +3,9 @@ against their plain PyTorch versions (the fold bit for bit), every model family'
 f32 on the CPU, the hierarchical sync, update similarity and
 per-client evaluation against the CPU, remat's grads and K1 launches
 against the plain run, the client-mesh round at world size 1 on NCCL
-against the single-device round, and socket-plane rounds with the device
-fold (flat, and through a two-aggregator tree) against the host fold, on
-the card.  Marked ``cuda``: without a CUDA device every
+against the single-device round, socket-plane rounds with the device
+fold (flat, and through a two-aggregator tree) against the host fold, and
+a traced engine round's spans against its record, on the card.  Marked ``cuda``: without a CUDA device every
 test here skips.  On a machine with the card (no JAX needed):
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -p no:cacheprovider -q
@@ -374,6 +374,31 @@ def test_fit_records_on_the_card_carry_memory_and_eval_time(cuda):
     for rec in hist:
         assert rec["hbm_used_gb"] >= 0.0 and rec["phase_eval_s"] > 0.0
         assert rec["phase_update_s"] <= rec["round_time_s"]
+
+
+def test_traced_round_on_the_card_times_the_card(cuda, tmp_path):
+    """A traced engine round on the card: the trace holds the round's
+    spans, ``client_update`` is ``phase_update_s`` to the trace's
+    microsecond, and the traced records carry the untraced keys, with the
+    same losses (tracing adds no work to the round)."""
+    from colearn_federated_learning_tpu_torch import telemetry
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+
+    cfg = _mlp_config(rounds=2)
+    plain = FederatedLearner(cfg, device=cuda).fit()
+    traced_cfg = cfg.replace(run=dataclasses.replace(
+        cfg.run, trace_dir=str(tmp_path), trace_rounds=1))
+    learner = FederatedLearner(traced_cfg, device=cuda)
+    hist = learner.fit()
+    spans = telemetry.trace_spans(telemetry.load_trace(
+        learner.last_trace_path))
+    assert sorted(s.name for s in spans) == [
+        "client_update", "evaluate", "round", "sync_metrics"]
+    update = next(s for s in spans if s.name == "client_update")
+    assert abs(update.duration_s - hist[0]["phase_update_s"]) < 1e-6
+    assert [sorted(r) for r in hist] == [sorted(r) for r in plain]
+    assert [r["train_loss"] for r in hist] == [r["train_loss"]
+                                               for r in plain]
 
 
 # ---------------------------------------------------------------- fold (B4)

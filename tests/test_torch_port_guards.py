@@ -116,7 +116,12 @@ NEW_MODULES = ["bench.py", "comm/aggregation.py", "fed/compression.py",
                "comm/keyexchange.py", "comm/mud.py", "comm/protocol.py",
                "comm/transport.py", "comm/worker.py", "faults/__init__.py",
                "faults/fileplane.py", "faults/inject.py", "faults/plan.py",
-               "privacy/dropout.py", "privacy/secure_agg.py"]
+               "privacy/dropout.py", "privacy/secure_agg.py",
+               "analysis/__init__.py", "analysis/metric_catalog.py",
+               "metrics.py", "telemetry/__init__.py", "telemetry/arrival.py",
+               "telemetry/export.py", "telemetry/health.py",
+               "telemetry/lifecycle.py", "telemetry/registry.py",
+               "telemetry/tracer.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -129,6 +134,17 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {mod}"
+
+
+@pytest.mark.parametrize("module", ["analysis/metric_catalog.py",
+                                    "telemetry/arrival.py"])
+def test_telemetry_copies_are_their_sources_verbatim(module):
+    """The metric catalog (which the registry's strict mode reads) and the
+    arrival estimator need nothing of JAX: the port keeps them as exact
+    copies of the JAX package's files."""
+    ours = (ROOT / "colearn_federated_learning_tpu_torch" / module).read_text()
+    theirs = (ROOT / "colearn_federated_learning_tpu" / module).read_text()
+    assert ours == theirs
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
@@ -278,14 +294,13 @@ def _tiny_mlp(**run_kw):
 @pytest.mark.parametrize("run_kw,item", [
     (dict(checkpoint_dir="ckpt"), "item 9"),
     (dict(checkpoint_every=2), "item 9"),
-    (dict(trace_dir="trace"), "item 10"),
-    (dict(trace_rounds=3), "item 10"),
-    (dict(profile_dir="prof"), "item 10")])
+    (dict(profile_dir="prof"), "item 10b")])
 def test_checkpoint_and_trace_options_are_refused(run_kw, item, tmp_path,
                                                   monkeypatch):
-    """The JAX learner's ``fit`` writes checkpoints and trace/profiler
-    windows; the port's refuses them, naming the item that ports them,
-    before it writes anything, and so do the learners built on it."""
+    """The JAX learner's ``fit`` writes checkpoints and a profiler window;
+    the port's refuses them, naming the item that ports them, before it
+    writes anything, and so do the learners built on it.  (The span-trace
+    window is ported: see the test below.)"""
     from colearn_federated_learning_tpu_torch.fed import HierarchicalLearner
 
     monkeypatch.chdir(tmp_path)
@@ -299,6 +314,32 @@ def test_checkpoint_and_trace_options_are_refused(run_kw, item, tmp_path,
                            match=f"run.{name}.*ROADMAP.md Queue A {item} "):
             build()
     assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("run_kw,traced", [
+    (dict(trace_dir="trace"), True), (dict(trace_rounds=3), False)])
+def test_trace_options_open_a_trace_window(run_kw, traced, tmp_path,
+                                           monkeypatch):
+    """``trace_dir`` and ``trace_rounds`` were refused until the telemetry
+    core was ported; now the learners take them, and ``fit`` writes the
+    trace file only with a ``trace_dir`` (``trace_rounds`` alone traces
+    nothing, as in JAX)."""
+    from colearn_federated_learning_tpu_torch.fed import HierarchicalLearner
+
+    monkeypatch.chdir(tmp_path)
+    run_kw = {k: (str(tmp_path / v) if isinstance(v, str) else v)
+              for k, v in run_kw.items()}
+    cfg = _tiny_mlp(**run_kw)
+    HierarchicalLearner(cfg, 2, 1, device="cpu")
+    learner = FederatedLearner(cfg, device="cpu")
+    learner.fit(rounds=1)
+    written = sorted(p.name for p in tmp_path.rglob("*") if p.is_file())
+    if traced:
+        assert written == ["mnist_mlp_fedavg_trace.json"]
+        assert learner.last_trace_path == str(
+            tmp_path / "trace" / "mnist_mlp_fedavg_trace.json")
+    else:
+        assert written == [] and learner.last_trace_path is None
 
 
 def test_the_default_run_options_are_accepted():

@@ -261,16 +261,27 @@ def test_broker_serves_either_packages_clients(broker_side, client_side):
     _, Client = SIDES[client_side]
     with Broker() as b:
         sub = Client(b.host, b.port)
-        sub.subscribe("a/b")
+        # The suback orders the subscription before the publish, which
+        # comes on another connection (a loaded host may serve that one
+        # first, and a message nobody subscribed to yet is dropped).
+        sub.subscribe("a/b", ack=True)
+        assert sub.recv(timeout=WAIT)[0] == {"op": "suback", "topic": "a/b"}
         pub = Client(b.host, b.port)
         pub.publish("a/b", {"x": 1}, body=b"payload")
         header, body = sub.recv(timeout=WAIT)
         assert header["topic"] == "a/b" and header["x"] == 1
         assert bytes(body) == b"payload"
         # A retained message reaches a late subscriber; the wildcard
-        # matches; suback follows the replay.
+        # matches; suback follows the replay.  ``sub`` sees both
+        # publishes first, so the broker holds them before ``late``
+        # subscribes (on a third connection).
+        sub.subscribe("roles/#", ack=True)
+        assert sub.recv(timeout=WAIT)[0] == {"op": "suback",
+                                             "topic": "roles/#"}
         pub.publish("roles/7", {"role": "trainer"}, retain=True)
         pub.publish("roles/8", {"role": "evaluator"}, retain=True)
+        assert [sub.recv(timeout=WAIT)[0]["topic"] for _ in range(2)] == [
+            "roles/7", "roles/8"]
         late = Client(b.host, b.port)
         late.subscribe("roles/#", ack=True)
         got = [late.recv(timeout=WAIT)[0] for _ in range(3)]
@@ -430,15 +441,20 @@ def test_downlink_frames_are_byte_equal_to_jax(scheme):
 
 def test_downlink_int8_federation_tracks_the_full_broadcast():
     """compress_down=int8 lands near the plain federation (JAX's bounds),
-    saves downlink bytes after the base round and never resyncs."""
+    saves downlink bytes after the base round and never resyncs (JAX's
+    counters ``comm.bytes_saved_downlink`` and ``comm.resync_total``)."""
+    from colearn_federated_learning_tpu_torch import telemetry
+
     base, bp = _run(configs(num_clients=3, momentum=0.0, lr=0.05), 3, 3)
     cfgs = configs(num_clients=3, momentum=0.0, lr=0.05,
                    compress_down="int8")
+    reg = telemetry.get_registry()
+    reg.reset()
     with Federation(cfgs, 3) as f:
         hist = f.coord.fit(rounds=3)
-        stats = dict(f.coord.downlink_stats)
         dp = params_of(f.coord)
-    assert stats["bytes_saved"] > 0 and stats["resyncs"] == 0
+    assert reg.counter("comm.bytes_saved_downlink").value > 0
+    assert reg.counter("comm.resync_total").value == 0
     np.testing.assert_allclose([r["train_loss"] for r in hist],
                                [r["train_loss"] for r in base],
                                rtol=0.15, atol=0.05)
@@ -504,18 +520,28 @@ def test_cli_broker_worker_coordinate_processes():
     (dict(compress_down="int8"), dict(num_aggregators=2), "tree"),
     (dict(lora_rank=4), {}, "item 5"),
     ({}, dict(checkpoint_dir="ck"), "item 9"),
-    ({}, dict(health_dir="h"), "item 10"),
-    ({}, dict(learn_observe=True), "item 10"),
+    ({}, dict(health_dir="h"), "ledger"),
+    ({}, dict(learn_observe=True), "item 10b"),
     ({}, dict(tp_size=2), None)])
-def test_coordinator_refuses_what_is_not_ported(fed, run, item):
+def test_coordinator_refuses_what_is_not_ported(fed, run, item, tmp_path,
+                                                monkeypatch):
     """Each unported option raises naming its ROADMAP item; ``tp_size`` 2
     on a host without two cards runs replicated, as JAX's placement falls
     back; the aggregator tree with ``compress_down`` raises JAX's
-    ValueError."""
+    ValueError.  ``health_dir``, refused until the telemetry core was
+    ported, now opens the coordinator's ledger file there."""
+    monkeypatch.chdir(tmp_path)
     jcfg, tcfg = configs(num_clients=2, run_kw=run, **fed)
     with broker.MessageBroker() as b:
         if item is None:
             FederatedCoordinator(tcfg, b.host, b.port, device="cpu").close()
+            return
+        if item == "ledger":
+            coord = FederatedCoordinator(tcfg, b.host, b.port, device="cpu")
+            coord.close()
+            assert coord.health.path == os.path.join(
+                "h", "health_coordinator.jsonl")
+            assert (tmp_path / "h").is_dir()
             return
         if item == "tree":
             with pytest.raises(ValueError) as theirs:

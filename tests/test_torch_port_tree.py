@@ -320,11 +320,11 @@ def test_mixed_tiers_fold_as_the_one_package_tree(coord_side, other):
         for key in ("completed", "dropped", "total_weight", "aggregators"):
             assert a[key] == b[key], key
         assert a["train_loss"] == b["train_loss"]
-    # Both roots send the same fold request, but for the trace context
-    # (the port's root traces nothing yet: ROADMAP item 10).
+    # Both roots send the same fold request, the trace context included.
     assert len(seen_mixed) == len(seen_same) == 4
-    assert {tuple(sorted(set(h) - {"trace"})) for h, _ in seen_mixed} == {
-        tuple(sorted(set(h) - {"trace"})) for h, _ in seen_same}
+    assert {tuple(sorted(h)) for h, _ in seen_mixed} == {
+        tuple(sorted(h)) for h, _ in seen_same}
+    assert all("trace" in h for h, _ in seen_mixed + seen_same)
 
 
 def test_port_aggregator_replies_with_jax_meta_keys():
@@ -541,10 +541,14 @@ def test_fetch_aggregators_returns_while_heartbeats_flow():
 
 
 # -------------------------------------------------------------------- CLI --
-def test_cli_tree_processes():
+def test_cli_tree_processes(tmp_path):
+    """The tree as processes, with ``--trace-dir`` and ``--health-dir``:
+    the root and each aggregator write their traces and the aggregators
+    their ledgers, which ``trace-summary`` and ``health`` read."""
     args = ["--config", "mnist_mlp_fedavg", "--dataset", "mnist_tiny",
             "--num-clients", "3", "--local-steps", "2", "--rounds", "2",
-            "--backend", "cpu"]
+            "--backend", "cpu", "--trace-dir", str(tmp_path / "trace"),
+            "--health-dir", str(tmp_path / "health")]
     mod = [sys.executable, "-m", "colearn_federated_learning_tpu_torch.cli"]
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
@@ -580,9 +584,26 @@ def test_cli_tree_processes():
         assert lines[0] == {"event": "aggregators_enrolled",
                             "aggregators": [0, 1]}
         assert [r["round"] for r in lines[1:]] == [0, 1]
+        assert all(r["health_devices"] == 3 for r in lines[1:])
         for p in procs:
             p.terminate()
         assert [p.wait(WAIT) for p in procs] == [0] * 6
     finally:
         for p in procs:
             p.kill()
+    from colearn_federated_learning_tpu_torch import telemetry
+
+    assert sorted(os.listdir(tmp_path / "trace")) == [
+        "mnist_mlp_fedavg_aggregator0_trace.json",
+        "mnist_mlp_fedavg_aggregator1_trace.json",
+        "mnist_mlp_fedavg_trace.json"]
+    root = telemetry.trace_spans(telemetry.load_trace(
+        str(tmp_path / "trace" / "mnist_mlp_fedavg_trace.json")))
+    names = [sp.name for sp in root]
+    assert names.count("round") == 2 and names.count("aggregator.fold") == 4
+    assert names.count("worker.train") == 6
+    tier = telemetry.trace_spans(telemetry.load_trace(str(
+        tmp_path / "trace" / "mnist_mlp_fedavg_aggregator0_trace.json")))
+    assert [sp.name for sp in tier] == ["aggregator.fold"] * 2
+    assert sorted(telemetry.load_health(str(tmp_path / "health"))) == [
+        "0", "1", "2"]
