@@ -32,7 +32,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    batch 32, its own 34-step budget — for 2 rounds and an evaluation;
 6. one round and one evaluation of each other family at full width, each
    cut listed in its line: config #1 (MLP), config #3 (ResNet-18,
-   FedProx), ``iot_traffic_tcn_fedavg`` (TCN), config #5 (ViT-B/16 with
+   FedProx, cohort cut to 10), ``iot_traffic_tcn_fedavg`` (TCN), config #5 (ViT-B/16 with
    ``attn_impl="flash"``, cohort cut to 32) and MoE-BERT (BERT-base width,
    4 experts, flash, cohort 4, 2 local steps).  Every path resets the
    launch counts before it and checks them after: depth × (steps +
@@ -58,7 +58,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    groups' to 1e-6 of its largest entry, the groups part after round 0,
    and the launches are exact over the groups' rounds and the two cloud
    evaluations); 8b ``ClusteredLearner`` on config #2 with a second
-   concept planted on clients 50-99 (y -> 9 - y): 2 warm-up rounds, the
+   concept planted on clients 50-99 (y -> 9 - y): 1 warm-up round, the
    (100, 100) update similarity after 3 steps (symmetric to 1e-5, unit
    diagonal to 1e-4), k-means into two clusters that partition the
    clients, one round of each cluster and their per-client report (the
@@ -80,9 +80,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    call per contribution: the host's pack, the copy's and the kernel's
    spans and the whole call by the host clock to a sync; ``fold_dense``
    of the root's 2 partials beside ``torch.sum``; 9b
-   ``init``, 4 silos of ``train --role client --compress topk8``,
+   ``init``, 3 silos of ``train --role client --compress topk8``,
    ``aggregate`` and ``eval`` on BERT-base (flash, 4 local steps)
-   through ``cli.main``, then the 4 update files through
+   through ``cli.main``, then the 3 update files through
    ``StreamingFolder(device_fold=True)``, flat and as a two-aggregator
    tree, each bitwise equal to its host fold, the mean within 1e-6 of
    ``aggregate``'s mean delta and the new global model the old plus it,
@@ -90,7 +90,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    defaults, its JSON line printed;
 10. remat, the client mesh and the SP/TP options on one card: 10a two
    rounds of config #4 (BERT-base, flash, 4 local steps) and of ViT-B/16
-   (phase 6's cut) without and with ``remat`` on the same plan, the
+   (cohort 16) without and with ``remat`` on the same plan, the
    losses and params equal (bound 1e-4 rel / 2e-5 abs; expected 0.0),
    both peak GiB and each round's seconds printed (the second is warm),
    K1's launches exact under remat (one more per block and step: the
@@ -130,12 +130,12 @@ Phases (any failure exits non-zero; no phase's error is caught):
    (config #4, BERT-base, flash, 4 local steps, topk8 uplinks with error
    feedback), 2 ``AggregatorServer`` threads and the coordinator
    (``num_aggregators`` 2, heartbeat timeout 2 s, no evaluator), every
-   fold on the card, 3 rounds with aggregator 0 stopped after round 1:
+   fold on the card, 2 rounds with aggregator 0 stopped after round 0:
    each aggregator's partial bitwise its host fold, the root's sum
    bitwise the host's slice-blocked fold of the round's contributions
-   (round 2's re-homed slice included), every record complete with 2
-   aggregators and round 2 with a failover, launches exact (K1-K3 12 x 4
-   trainers x 4 steps x 3 rounds, ``fold_sparse`` once per contribution,
+   (round 1's re-homed slice included), every record complete with 2
+   aggregators and round 1 with a failover, launches exact (K1-K3 12 x 4
+   trainers x 4 steps x 2 rounds, ``fold_sparse`` once per contribution,
    ``fold_dense`` once per round on the root); 12b DH secure aggregation
    through the tree, 4 trainers in 2 slices, trainer 3's train reply lost
    after the share phase: 3 complete, each slice recovers on its own
@@ -174,7 +174,39 @@ Phases (any failure exits non-zero; no phase's error is caught):
    aggregator, ranked by latency ``assign_slices`` puts the slowest in
    the last slice, ``fold_sparse`` 4 and ``fold_dense`` 1 launch as in a
    12a round; the tier's fold seconds against the collect are printed;
-14. one JSON line of per-kernel results (launches summed over the paths),
+14. the asynchronous coordinator (``comm/async_coordinator.py`` and the
+   aggregators' buffered ops) on the card: 14a a broker, 4 trainer threads
+   and the evaluator, and ``AsyncFederatedCoordinator(buffer_size=2,
+   observe=True)`` with a trace and a health ledger on config #4 (flash, 4
+   local steps, topk8 uplinks with error feedback, the device fold), 6
+   aggregations and an evaluation: JAX's record keys with the observe and
+   ``health_*`` keys, versions 1-6, 2 contributors each, staleness within
+   ``max_staleness``, a finite loss and moved params, aggregation 0's
+   staged contributions folded again on the host bitwise equal to the
+   device fold, every ``fold_update`` span parented on its
+   ``dispatch_train``, and exact launches (``fold_sparse`` once per folded
+   update, K1-K3 depth x steps per dispatch from the ``dispatch_train``
+   spans plus the evaluator's K1 batches); per aggregation its seconds,
+   the collect and apply phases, the staleness mean, max and p90, the
+   arrival rate and the discards, and the aggregations per second over
+   aggregations 1-5 are printed; 14b the same config through 2
+   ``AggregatorServer`` threads with the device fold (``num_aggregators``
+   2, ``agg_buffer_interval_s`` 2, heartbeat timeout 2 s, 4 trainers, no
+   evaluator), 4 aggregations, aggregator 0 stopping as the first
+   contribution after aggregation 1 reaches it: every drained partial
+   bitwise the host fold of its keys, every dispatched contribution
+   drained at most once or still in flight, a record with the failover,
+   launches exact (``fold_sparse`` once per contribution in a drained
+   partial, ``fold_dense`` once per applied partial on the root); 14c
+   ``cli broker`` and 3 ``cli worker`` processes and ``cli coordinate
+   --async-buffer 3 --fold-device --no-evaluator`` on 11c's config (K = 3
+   = trainers, so each aggregation is a full round): every process exits
+   0, ``fold_dense`` launches once per aggregation, each aggregation's
+   ``total_weight`` equals 11c's round's, and aggregation 0's
+   ``train_loss``, mean update and global params after the step equal
+   11c's round 0 within f32 rtol 1e-4 / atol 2e-5 (aggregation 1's too
+   when the two round-0 folds are bitwise equal: the fold order differs);
+15. one JSON line of per-kernel results (launches summed over the paths),
    then the result line.
 
 Needs a CUDA device and the repository beside it; it exits non-zero and
@@ -630,9 +662,12 @@ def family_paths():
 
     vit = get_config("femnist_vit_cross_silo")
     moe = get_config("agnews_bert_fedavg")
+    resnet = get_config("cifar100_resnet18_fedprox")
     return [
         ("mlp", get_config("mnist_mlp_fedavg"), "none"),
-        ("resnet18", get_config("cifar100_resnet18_fedprox"), "none"),
+        ("resnet18", resnet.replace(
+            fed=dataclasses.replace(resnet.fed, cohort_size=10)),
+         "cohort_size 20 -> 10"),
         ("tcn", get_config("iot_traffic_tcn_fedavg"), "none"),
         ("vit", vit.replace(
             model=dataclasses.replace(vit.model, attn_impl="flash"),
@@ -968,7 +1003,7 @@ def hierarchical_path(A):
 
 def clustered_path(A):
     """8b: clustered FL on config #2 with a second concept planted on
-    clients 50-99 (y -> 9 - y): 2 warm-up rounds, the update similarity
+    clients 50-99 (y -> 9 - y): 1 warm-up round, the update similarity
     after 3 steps, two clusters, one round each, per-client report."""
     from colearn_federated_learning_tpu_torch.fed import (
         ClusteredLearner, FederatedLearner)
@@ -993,7 +1028,7 @@ def clustered_path(A):
     fresh_peak()
     A.reset_launches()
     t0 = time.perf_counter()
-    labels = clustered.cluster_and_specialize(warmup_rounds=2, sim_steps=3)
+    labels = clustered.cluster_and_specialize(warmup_rounds=1, sim_steps=3)
     times["cluster_and_specialize"] = time.perf_counter() - t0
     sim = seen["sim"]
     asym = float(np.abs(sim - sim.T).max())
@@ -1102,7 +1137,7 @@ SECTOR = 32                    # bytes the card moves per scattered access
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 FILE_PLANE = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
               "--local-steps", "4"]
-SILOS = 4
+SILOS = 3
 
 
 def sparse_batch(sizes, rows, int8, seed):
@@ -1723,7 +1758,7 @@ def parallel_phase(A):
                        ("vit", vit.replace(
                            model=dataclasses.replace(vit.model,
                                                      attn_impl="flash"),
-                           fed=dataclasses.replace(vit.fed, cohort_size=32)))):
+                           fed=dataclasses.replace(vit.fed, cohort_size=16)))):
         paths[f"remat_{label}"], numbers[label] = remat_path(
             A, f"10a {label}", cfg)
     log(f"  10a in {time.perf_counter() - t0:.2f} s")
@@ -1748,15 +1783,17 @@ CANCEL_ATOL = 1e-5
 
 
 class _Recorder:
-    """Patches ``StreamingFolder`` in ``comm.coordinator`` and
-    ``comm.aggregator`` (and optionally ``DeviceWorker._mask``) for one
-    phase: keeps every folder the coordinator (``folders``) and the
-    aggregators (``agg_folders``) make, with the updates each was given,
-    and each worker's delta before its masks."""
+    """Patches ``StreamingFolder`` in ``comm.coordinator``,
+    ``comm.async_coordinator`` and ``comm.aggregator`` (and optionally
+    ``DeviceWorker._mask``) for one phase: keeps every folder the
+    coordinators (``folders``) and the aggregators (``agg_folders``) make,
+    with the updates each was given (``received``), the weights passed
+    beside them (``weights``) and the seconds of its finalize
+    (``finalize_s``), and each worker's delta before its masks."""
 
     def __init__(self, masks: bool = False):
         from colearn_federated_learning_tpu_torch.comm import (
-            aggregation, aggregator, coordinator, worker)
+            aggregation, aggregator, async_coordinator, coordinator, worker)
 
         self.folders, self.agg_folders, self.unmasked = [], [], {}
         rec = self
@@ -1765,17 +1802,26 @@ class _Recorder:
             class Recording(aggregation.StreamingFolder):
                 def __init__(self, *args, **kw):
                     super().__init__(*args, **kw)
-                    self.received = []
+                    self.received, self.weights = [], []
+                    self.finalize_s = 0.0
                     kept.append(self)
 
                 def add(self, meta, delta, weight=None):
                     self.received.append((dict(meta), delta))
+                    self.weights.append(weight)
                     return super().add(meta, delta, weight)
+
+                def finalize(self):
+                    t0 = time.perf_counter()
+                    super().finalize()
+                    self.finalize_s += time.perf_counter() - t0
             return Recording
 
         self._undo = [(module, "StreamingFolder", module.StreamingFolder)
-                      for module in (coordinator, aggregator)]
+                      for module in (coordinator, async_coordinator,
+                                     aggregator)]
         coordinator.StreamingFolder = recording(self.folders)
+        async_coordinator.StreamingFolder = coordinator.StreamingFolder
         aggregator.StreamingFolder = recording(self.agg_folders)
         if masks:
             orig = worker.DeviceWorker._mask
@@ -1860,14 +1906,16 @@ class _FoldTimer:
             setattr(self.F.FoldKernel, name, fn)
 
 
-def _host_fold(shapes, order, contributions, slices=None):
-    """The host fold (the parity oracle) of ``contributions``."""
+def _host_fold(shapes, order, contributions, slices=None, weights=None):
+    """The host fold (the parity oracle) of ``contributions``, each with
+    its weight from ``weights`` where given (else its meta's)."""
     from colearn_federated_learning_tpu_torch.comm.aggregation import (
         StreamingFolder)
 
     host = StreamingFolder(shapes, order=order, slices=slices)
-    for meta, delta in contributions:
-        host.add(meta, delta)
+    for (meta, delta), w in zip(contributions,
+                                weights or [None] * len(contributions)):
+        host.add(meta, delta, w)
     host.finalize()
     return host
 
@@ -1886,14 +1934,18 @@ def socket_config(**fed):
     base = main_path_config()
     run = {k: fed.pop(k) for k in list(fed)
            if k in ("fold_device", "comm_retries", "num_aggregators",
-                    "agg_heartbeat_timeout", "trace_dir", "health_dir")}
+                    "agg_heartbeat_timeout", "agg_buffer_interval_s",
+                    "trace_dir", "health_dir")}
     return base.replace(fed=dataclasses.replace(base.fed, **fed),
                         run=dataclasses.replace(base.run, **run))
 
 
-def _federation(cfg, n_workers, want_evaluator, dataset):
+def _federation(cfg, n_workers, want_evaluator, dataset, **async_kw):
     """(broker, workers, coordinator) on the card, enrolled; the caller
-    stops them."""
+    stops them.  With ``async_kw`` the coordinator is the
+    ``AsyncFederatedCoordinator`` built with them."""
+    from colearn_federated_learning_tpu_torch.comm.async_coordinator import (
+        AsyncFederatedCoordinator)
     from colearn_federated_learning_tpu_torch.comm.broker import MessageBroker
     from colearn_federated_learning_tpu_torch.comm.coordinator import (
         FederatedCoordinator)
@@ -1905,9 +1957,15 @@ def _federation(cfg, n_workers, want_evaluator, dataset):
         for i in range(n_workers):
             workers.append(DeviceWorker(cfg, i, broker.host, broker.port,
                                         dataset=dataset).start())
-        coord = FederatedCoordinator(cfg, broker.host, broker.port,
-                                     round_timeout=SOCKET_TIMEOUT,
-                                     want_evaluator=want_evaluator)
+        if async_kw:
+            coord = AsyncFederatedCoordinator(
+                cfg, broker.host, broker.port,
+                request_timeout=SOCKET_TIMEOUT,
+                want_evaluator=want_evaluator, **async_kw)
+        else:
+            coord = FederatedCoordinator(cfg, broker.host, broker.port,
+                                         round_timeout=SOCKET_TIMEOUT,
+                                         want_evaluator=want_evaluator)
         coord.enroll(min_devices=n_workers, timeout=120.0)
     except BaseException:
         for w in workers:
@@ -2098,20 +2156,29 @@ def secure_socket_path(A, F, dataset):
 
 SOCKET_CLI = ["--config", "cifar10_cnn_fedavg", "--num-clients", "3",
               "--rounds", "2"]
+# Records kept from one phase for a later one's comparison (11c's rounds
+# for 14c).
+RECORDS: dict = {}
 
 
-def cli_federation(F, aggregators=0):
+def cli_federation(F, aggregators=0, coordinate=()):
     """``cli broker``, ``aggregators`` x ``cli aggregator --fold-device``
     and 3 x ``cli worker`` as processes on the card, then ``cli coordinate
     --min-devices 3 --rounds 2 --fold-device --no-evaluator`` (with
-    ``--num-aggregators`` when there are aggregators) on config #2's CNN
-    (num_clients cut to 3; no evaluator, so all three train) through
-    ``cli.main`` in this process, which counts the fold kernel's launches.
-    Every process is stopped with SIGTERM.  Returns (the last record, the
+    ``--num-aggregators`` when there are aggregators, and the
+    ``coordinate`` flags) on config #2's CNN (num_clients cut to 3; no
+    evaluator, so all three train) through ``cli.main`` in this process,
+    which counts the fold kernel's launches.  Every process is stopped
+    with SIGTERM.  Returns (every record of the coordinator, the global
+    params on the host after each record's round or aggregation, the
     launches, the exit codes, seconds)."""
     import os
 
     from colearn_federated_learning_tpu_torch import cli
+    from colearn_federated_learning_tpu_torch.comm import (
+        async_coordinator, coordinator)
+    from colearn_federated_learning_tpu_torch.comm.downlink import (
+        host_params)
 
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep
@@ -2136,10 +2203,30 @@ def cli_federation(F, aggregators=0):
                 stdout=subprocess.DEVNULL))
         tree = ["--num-aggregators", str(aggregators)] if aggregators else []
         F.reset_launches()
-        last = cli.main(["coordinate", *SOCKET_CLI, "--broker-port", port,
-                         "--min-devices", "3", "--no-evaluator",
-                         "--fold-device", *tree, "--enroll-timeout", "300",
-                         "--round-timeout", str(SOCKET_TIMEOUT)])
+        records, params = [], []
+        undo = []
+        for cls, name in ((coordinator.FederatedCoordinator, "run_round"),
+                          (async_coordinator.AsyncFederatedCoordinator,
+                           "run_aggregation")):
+            def kept(self, _orig=getattr(cls, name)):
+                rec = _orig(self)
+                records.append(rec)
+                params.append(host_params(self.params_tree()))
+                return rec
+            undo.append((cls, name, getattr(cls, name)))
+            setattr(cls, name, kept)
+        try:
+            last = cli.main(["coordinate", *SOCKET_CLI, "--broker-port",
+                             port, "--min-devices", "3", "--no-evaluator",
+                             "--fold-device", *tree, *coordinate,
+                             "--enroll-timeout", "300",
+                             "--round-timeout", str(SOCKET_TIMEOUT)])
+        finally:
+            for cls, name, orig in undo:
+                setattr(cls, name, orig)
+        if not records or records[-1] is not last:
+            raise AssertionError("the coordinator's last record is not the "
+                                 "one cli.main returned")
         launches = dict(F.launches)
         for p in procs:
             p.terminate()
@@ -2149,14 +2236,21 @@ def cli_federation(F, aggregators=0):
             if p.poll() is None:
                 p.kill()
                 p.wait(10)
-    return last, launches, codes, time.perf_counter() - t0
+    return records, params, launches, codes, time.perf_counter() - t0
 
 
 def socket_cli_path(F):
     """11c: the broker, 3 worker processes and ``coordinate --fold-device``
     on config #2's CNN (``cli_federation``): every process exits 0 and
-    ``fold_dense`` launches once per round on the coordinator."""
-    last, launches, codes, took = cli_federation(F)
+    ``fold_dense`` launches once per round on the coordinator.  Its
+    records, params and folds are kept for 14c."""
+    rec_patch = _Recorder()
+    try:
+        records, params, launches, codes, took = cli_federation(F)
+    finally:
+        rec_patch.close()
+    RECORDS["11c"] = (records, params, rec_patch.folders)
+    last = records[-1]
     log(f"  [11c] broker + 3 worker processes + coordinate ({SOCKET_CLI}, "
         f"cut: num_clients 100 -> 3): last record round {last['round']} "
         f"completed {last['completed']} train_loss {last['train_loss']:.6f}"
@@ -2216,12 +2310,15 @@ def _tree(cfg, broker, n):
     return aggs
 
 
+TREE_ROUNDS = 2           # 12a: a plain round, then one re-homing a slice
+
+
 def tree_round_path(A, F, dataset):
     """12a: a broker, 4 trainer threads, 2 AggregatorServers with the
     device fold and the coordinator (num_aggregators 2, heartbeat timeout
     2 s, no evaluator) on config #4 with topk8 uplinks and error feedback,
-    3 rounds; aggregator 0 is stopped after round 1, so round 2 re-homes
-    its slice.  Each aggregator's partial is bitwise its host fold, and
+    ``TREE_ROUNDS`` rounds; aggregator 0 is stopped after round 0, so
+    round 1 re-homes its slice.  Each aggregator's partial is bitwise its host fold, and
     the root's sum is bitwise the host's slice-blocked fold of every
     contribution of the round; the launches are exact."""
     from colearn_federated_learning_tpu_torch.comm.aggregator import (
@@ -2240,16 +2337,16 @@ def tree_round_path(A, F, dataset):
         log(f"  [12a] {cfg.run.name}: bert width {cfg.model.width} "
             f"{cfg.model.dtype}, flash, topk8 + feedback, fold_device on "
             f"the aggregators and the root; trainers {order}, aggregators "
-            f"{enrolled}; cuts: {TREE_CUTS}; 3 rounds; up in "
+            f"{enrolled}; cuts: {TREE_CUTS}; {TREE_ROUNDS} rounds; up in "
             f"{time.perf_counter() - t0:.2f} s")
         A.reset_launches()
         F.reset_launches()
         timer = _FoldTimer(F)
         records = []
-        for r in range(3):
+        for r in range(TREE_ROUNDS):
             records.append(coord.run_round())
-            if r == 1:
-                aggs[0].stop()          # its slice re-homes in round 2
+            if r == 0:
+                aggs[0].stop()          # its slice re-homes in round 1
         launches = {**A.launches, **F.launches}
         dense_us = timer.per_launch_us("dense")
     finally:
@@ -2271,13 +2368,14 @@ def tree_round_path(A, F, dataset):
         if not (r["aggregators"] == 2 and r["completed"] == 4
                 and not r["dropped"] and math.isfinite(r["train_loss"])):
             raise AssertionError(f"12a: bad round record {r}")
-    if "agg_failovers" in records[0] or "agg_failovers" in records[1] \
-            or not records[2].get("agg_failovers", 0) >= 1:
+    if "agg_failovers" in records[0] \
+            or not records[1].get("agg_failovers", 0) >= 1:
         raise AssertionError(f"12a: failovers "
                              f"{[r.get('agg_failovers') for r in records]}")
     # Each aggregator's partial against its host fold; the root's sum per
     # round against the host's slice-blocked fold of the round's updates.
-    if len(rec_patch.agg_folders) != 6 or len(rec_patch.folders) != 3:
+    if len(rec_patch.agg_folders) != 2 * TREE_ROUNDS \
+            or len(rec_patch.folders) != TREE_ROUNDS:
         raise AssertionError(f"12a: {len(rec_patch.agg_folders)} slice "
                              f"folds, {len(rec_patch.folders)} root folds")
     by_round = {}
@@ -2314,13 +2412,13 @@ def tree_round_path(A, F, dataset):
     finally:
         timer.close()
     depth, steps = cfg.model.depth, cfg.fed.local_steps
-    trained = 3 * 4 * steps
+    trained = TREE_ROUNDS * 4 * steps
     want = {"flash_forward": depth * trained,
             "flash_backward_dq": depth * trained,
             "flash_backward_dkv": depth * trained,
-            "fold_sparse": 3 * 4, "fold_dense": 3}
+            "fold_sparse": TREE_ROUNDS * 4, "fold_dense": TREE_ROUNDS}
     log(f"  [12a] every slice fold == its host fold, every root sum == the "
-        f"slice-blocked host fold (bitwise, round 2's re-homed slice "
+        f"slice-blocked host fold (bitwise, round 1's re-homed slice "
         f"included); the slice folds replayed alone: fold_sparse "
         f"{alone_us:.2f} us device, staging copy {alone_stage_us:.2f} us "
         f"per contribution; root fold_dense {dense_us:.2f} us device "
@@ -2409,7 +2507,8 @@ def tree_cli_path(F):
     processes and ``coordinate --num-aggregators 2``: every process exits 0
     and the root's ``fold_dense`` launches once per round (one dense batch
     of the 2 partials)."""
-    last, launches, codes, took = cli_federation(F, aggregators=2)
+    records, _, launches, codes, took = cli_federation(F, aggregators=2)
+    last = records[-1]
     log(f"  [12c] broker + 2 aggregator + 3 worker processes + coordinate "
         f"--num-aggregators 2 ({SOCKET_CLI}, cut: num_clients 100 -> 3): "
         f"last record round {last['round']} completed {last['completed']} "
@@ -2868,6 +2967,417 @@ def telemetry_phase(A, F, _build):
     return paths
 
 
+# ------------------------------------------------------------ phase 14
+ASYNC_CUTS = ("local_steps 150 -> 4; 4 enrolled trainers (clients 0-3 of "
+              "the 50-client partition)")
+ASYNC_K = 2                # 14a's buffer: K = 2 of 4 trainers
+ASYNC_AGGS = 6             # 14a's aggregations (0 warms up)
+TREE_ASYNC_AGGS = 4        # 14b's; aggregator 0 stops after aggregation 1
+BASE_KEYS = {"aggregation", "model_version", "buffer_size", "staleness_mean",
+             "staleness_max", "discarded", "contributors", "train_loss",
+             "total_weight", "agg_time_s", "phase_collect_s",
+             "phase_apply_s"}
+OBSERVE_KEYS = {"mass_folded", "mass_discarded", "arrival_rate_per_s",
+                "staleness_p50", "staleness_p90", "staleness_p99"}
+TREE_KEYS = {"agg_id", "agg_buffer_k", "agg_buffer_rate_per_s",
+             "oldest_version", "folded_keys", "agg_failovers",
+             "rehomed_devices", "rehomed_total"}
+
+
+def _async_launches_want(cfg, dispatches, eval_batches=0, fold_sparse=0,
+                         fold_dense=0):
+    depth, steps = cfg.model.depth, cfg.fed.local_steps
+    return {"flash_forward": depth * (steps * dispatches + eval_batches),
+            "flash_backward_dq": depth * steps * dispatches,
+            "flash_backward_dkv": depth * steps * dispatches,
+            "fold_sparse": fold_sparse, "fold_dense": fold_dense}
+
+
+def flat_async_path(A, F, dataset, workdir):
+    """14a: a broker, 4 trainer threads and the evaluator, and the
+    ``AsyncFederatedCoordinator`` (K = 2, ``observe``, a trace and a
+    health ledger) on config #4 with topk8 uplinks, error feedback and the
+    device fold: 6 aggregations and an evaluation."""
+    from colearn_federated_learning_tpu_torch import telemetry
+    from colearn_federated_learning_tpu_torch.comm.downlink import host_params
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    cfg = socket_config(compress="topk8", compress_feedback=True,
+                        fold_device=True,
+                        trace_dir=os.path.join(workdir, "14a_trace"),
+                        health_dir=os.path.join(workdir, "14a_health"))
+    t0 = time.perf_counter()
+    rec_patch = _Recorder()
+    broker, workers, coord = _federation(cfg, 5, True, dataset,
+                                         buffer_size=ASYNC_K, observe=True)
+    try:
+        log(f"  [14a] {cfg.run.name}: bert width {cfg.model.width} "
+            f"{cfg.model.dtype}, flash, topk8 + feedback, fold_device; "
+            f"trainers {[d.device_id for d in coord.trainers]}, evaluator "
+            f"{coord.evaluator.device_id}; K = {ASYNC_K}; cuts: "
+            f"{ASYNC_CUTS}; up in {time.perf_counter() - t0:.2f} s")
+        if len(coord.trainers) != 4 or coord.evaluator is None:
+            raise AssertionError("14a: roles not assigned as 4 + 1")
+        before = host_params(coord.params_tree())
+        A.reset_launches()
+        F.reset_launches()
+        records = [coord.run_aggregation() for _ in range(ASYNC_AGGS)]
+        t1 = time.perf_counter()
+        ev = coord.evaluate()
+        eval_s = time.perf_counter() - t1
+        after = host_params(coord.params_tree())
+        # Closing joins the pumps: every dispatch in flight ends, and its
+        # training is in the launch counts.
+        coord.close()
+        torch.cuda.synchronize()
+        launches = {**A.launches, **F.launches}
+        spans = coord.tracer.snapshot()
+        path = telemetry.write_tracer(cfg.run.trace_dir, cfg.run.name,
+                                      coord.tracer)
+    finally:
+        rec_patch.close()
+        _stop(broker, workers, coord)
+    for r in records:
+        keys = set(r)
+        if not (BASE_KEYS | OBSERVE_KEYS | {"health_devices"} <= keys
+                and all(k.startswith("health_") for k in keys - BASE_KEYS
+                        - OBSERVE_KEYS)):
+            raise AssertionError(f"14a: record keys {sorted(keys)}")
+        log(f"  [14a] aggregation {r['aggregation']}: agg_time_s "
+            f"{r['agg_time_s']:.3f}, phase_collect_s "
+            f"{r['phase_collect_s']:.3f}, phase_apply_s "
+            f"{r['phase_apply_s']:.3f}, staleness mean "
+            f"{r['staleness_mean']:.3f} max {r['staleness_max']} p90 "
+            f"{r['staleness_p90']}, arrival_rate_per_s "
+            f"{r['arrival_rate_per_s']:.4f}, discarded {r['discarded']}, "
+            f"contributors {r['contributors']}, train_loss "
+            f"{r['train_loss']:.6f}")
+    if [r["model_version"] for r in records] != list(
+            range(1, ASYNC_AGGS + 1)):
+        raise AssertionError("14a: model versions "
+                             f"{[r['model_version'] for r in records]}")
+    for r in records:
+        if not (len(r["contributors"]) == ASYNC_K
+                and r["staleness_max"] <= coord.max_staleness
+                and math.isfinite(r["train_loss"])):
+            raise AssertionError(f"14a: bad record {r}")
+    moved = sum(float(np.abs(a - b).sum()) for a, b in
+                zip(trees.leaves(after), trees.leaves(before)))
+    if not (moved > 0 and all(np.isfinite(a).all()
+                              for a in trees.leaves(after))
+            and math.isfinite(ev["eval_loss"])):
+        raise AssertionError(f"14a: params moved {moved}, eval {ev}")
+    # Aggregation 0's staged contributions, folded again on the host.
+    dev = rec_patch.folders[0]
+    if not _same_fold(dev, _host_fold(dev.shapes, None, dev.received,
+                                      weights=dev.weights)):
+        raise AssertionError("14a: the device fold differs from the host "
+                             "fold of the same contributions")
+    # Every fold_update parents onto its dispatch_train.
+    dispatch = {sp.span_id: sp for sp in spans
+                if sp.name == "dispatch_train"}
+    folds = [sp for sp in spans if sp.name == "fold_update"]
+    orphans = [sp.attrs for sp in folds
+               if sp.parent_id not in dispatch
+               or dispatch[sp.parent_id].trace_id != sp.trace_id
+               or dispatch[sp.parent_id].attrs["device"]
+               != sp.attrs["device"]]
+    folded = sum(len(r["contributors"]) for r in records)
+    if orphans or len(folds) != folded + sum(r["discarded"]
+                                             for r in records):
+        raise AssertionError(f"14a: {len(folds)} fold_update spans, "
+                             f"orphans {orphans}")
+    if coord.failures:
+        raise AssertionError(f"14a: failed dispatches {coord.failures}")
+    eval_batches = math.ceil(len(dataset.x_test)
+                             / max(cfg.fed.batch_size, 64))
+    want = _async_launches_want(cfg, len(dispatch), eval_batches,
+                                fold_sparse=folded)
+    if launches != want:
+        raise AssertionError(f"14a: launches {launches}, expected {want} "
+                             f"({len(dispatch)} dispatches)")
+    warm = records[1:]
+    rate = len(warm) / sum(r["agg_time_s"] for r in warm)
+    taus = [r["staleness_mean"] for r in warm]
+    log(f"  [14a] evaluate: loss {ev['eval_loss']:.6f} acc "
+        f"{ev['eval_acc']:.4f} in {eval_s:.3f} s; params moved "
+        f"{moved:.6e}; {len(dispatch)} dispatches, {folded} folded; "
+        f"device fold == host fold of aggregation 0 (bitwise); every "
+        f"fold_update parents onto its dispatch_train; {rate:.4f} "
+        f"aggregations/s over aggregations 1-{ASYNC_AGGS - 1}, mean tau "
+        f"{sum(taus) / len(taus):.3f}; trace {os.path.basename(path)}; "
+        f"launches {launches} (exact); path "
+        f"{time.perf_counter() - t0:.2f} s; {card()}")
+    return launches, {
+        "agg_time_s": [r["agg_time_s"] for r in records],
+        "phase_collect_s": [r["phase_collect_s"] for r in records],
+        "phase_apply_s": [r["phase_apply_s"] for r in records],
+        "staleness_mean": [r["staleness_mean"] for r in records],
+        "staleness_max": [r["staleness_max"] for r in records],
+        "staleness_p90": [r["staleness_p90"] for r in records],
+        "arrival_rate_per_s": [r["arrival_rate_per_s"] for r in records],
+        "discarded": [r["discarded"] for r in records],
+        "aggregations_per_s_warm": rate, "dispatches": len(dispatch)}
+
+
+def _die_at_next_abuf(agg):
+    """Make ``agg`` stop as the next contribution reaches it (an
+    aggregator that dies mid-staging): the pump's request fails and the
+    contribution falls back to a live sibling."""
+    handle = agg._handle
+
+    def handler(header, tree):
+        if header.get("op") == "abuf":
+            agg._server._handler = handle
+            agg.stop()
+            raise ConnectionError(f"aggregator {agg.agg_id} stopped")
+        return handle(header, tree)
+
+    agg._server._handler = handler
+
+
+def tree_async_path(A, F, dataset):
+    """14b: 14a's config through the tree: 4 trainer threads, 2
+    ``AggregatorServer`` threads with the device fold, ``num_aggregators``
+    2, ``agg_buffer_interval_s`` 2.0, heartbeat timeout 2 s, no
+    evaluator; 4 aggregations.  After aggregation 1, aggregator 0 stops as
+    the next contribution reaches it; the next aggregation starts once
+    that contribution has failed over to aggregator 1."""
+    cfg = socket_config(compress="topk8", compress_feedback=True,
+                        fold_device=True, num_aggregators=2,
+                        agg_buffer_interval_s=2.0,
+                        agg_heartbeat_timeout=2.0)
+    t0 = time.perf_counter()
+    rec_patch, aggs = _Recorder(), []
+    broker, workers, coord = _federation(cfg, 4, False, dataset,
+                                         buffer_size=ASYNC_K)
+    consumed = []                  # every partial the root took
+    take = coord._partials.get
+
+    def kept_get(*args, **kw):
+        item = take(*args, **kw)
+        consumed.append(item[0])
+        return item
+
+    coord._partials.get = kept_get
+    try:
+        aggs = _tree(cfg, broker, 2)
+        enrolled = coord.enroll_aggregators(timeout=120.0)
+        log(f"  [14b] {cfg.run.name}: trainers "
+            f"{[d.device_id for d in coord.trainers]}, aggregators "
+            f"{enrolled}, slices {coord._assign}; interval "
+            f"{cfg.run.agg_buffer_interval_s} s; cuts: {ASYNC_CUTS}, no "
+            f"evaluator; up in {time.perf_counter() - t0:.2f} s")
+        A.reset_launches()
+        F.reset_launches()
+        records = []
+        for i in range(TREE_ASYNC_AGGS):
+            records.append(coord.run_aggregation())
+            if i == 1:
+                _die_at_next_abuf(aggs[0])
+                deadline = time.monotonic() + SOCKET_TIMEOUT
+                while (not coord._failovers_pending
+                       and time.monotonic() < deadline):
+                    time.sleep(0.05)
+        coord.close()
+        for agg in aggs:
+            agg.stop()
+        torch.cuda.synchronize()
+        launches = {**A.launches, **F.launches}
+        spans = [sp for sp in coord.tracer.snapshot()
+                 if sp.name == "dispatch_train"]
+        # Drained but not taken (read in place: a get would count them
+        # as taken).
+        queued = [item[0] for item in list(coord._partials.queue)]
+        inflight = set(coord._inflight)
+    finally:
+        rec_patch.close()
+        for agg in aggs:
+            agg.stop()
+        _stop(broker, workers, coord)
+    for r in records:
+        log(f"  [14b] aggregation {r['aggregation']}: agg {r['agg_id']} "
+            f"keys {r['folded_keys']}, agg_buffer_k {r['agg_buffer_k']}, "
+            f"oldest_version {r['oldest_version']}, staleness max "
+            f"{r['staleness_max']}, discarded {r['discarded']}, "
+            f"agg_failovers {r['agg_failovers']}, rehomed "
+            f"{r['rehomed_devices']}, agg_time_s {r['agg_time_s']:.3f}, "
+            f"phase_collect_s {r['phase_collect_s']:.3f} (the root waiting "
+            f"on the tier: {r['phase_collect_s'] / r['agg_time_s']:.1%}), "
+            f"phase_apply_s {r['phase_apply_s']:.3f}, train_loss "
+            f"{r['train_loss']:.6f}")
+        if not (TREE_KEYS | BASE_KEYS <= set(r)
+                and math.isfinite(r["train_loss"])):
+            raise AssertionError(f"14b: bad record {r}")
+    if not any(r["agg_failovers"] for r in records):
+        raise AssertionError("14b: no record carries a failover")
+    # Every drained partial against the host fold of its keys (a stopped
+    # aggregator's last drain included: its thread outlives the stop,
+    # though its reply never reaches the root).
+    drained = [f for f in rec_patch.agg_folders if f._finalized]
+    for f in drained:
+        if not _same_fold(f, _host_fold(f.shapes, f.folded_ids,
+                                        f.received)):
+            raise AssertionError("14b: a drained partial differs from the "
+                                 "host fold of its keys")
+    # Every dispatched contribution folded once: drained exactly once
+    # (applied or discarded), queued at the root, or still in flight.
+    dispatched = sorted(f"{sp.attrs['version']:08d}@{sp.attrs['device']}"
+                        for sp in spans)
+    taken = [k for m in consumed + queued for k in m["keys"]]
+    if coord.failures or len(taken) != len(set(taken)) \
+            or set(taken) & inflight \
+            or sorted(set(taken) | inflight) != dispatched:
+        raise AssertionError(f"14b: dispatched {dispatched}, drained "
+                             f"{taken}, in flight {sorted(inflight)}, "
+                             f"failures {coord.failures}")
+    staged = sum(len(f.folded_ids) for f in drained)
+    applied = sum(1 for r in records if not r.get("skipped_quorum"))
+    want = _async_launches_want(cfg, len(spans), fold_sparse=staged,
+                                fold_dense=applied)
+    if launches != want:
+        raise AssertionError(f"14b: launches {launches}, expected {want}")
+    parts = [{"agg": m["agg_id"], "count": m["count"],
+              "buffer_k": m["buffer_k"], "dedup": m["dedup"],
+              "rehomed": m["rehomed"], "fold_s": round(m["fold_s"], 4)}
+             for m in consumed]
+    finals = [round(f.finalize_s, 4) for f in drained]
+    log(f"  [14b] partials taken by the root {parts}; the drains' "
+        f"finalize (device fold and copy back) {finals} s; "
+        f"{len(spans)} dispatches, {len(taken)} drained once, "
+        f"{len(inflight)} in flight at the end; every drained partial == "
+        f"the host fold of its keys (bitwise); launches {launches} "
+        f"(exact); path {time.perf_counter() - t0:.2f} s; {card()}")
+    return launches, {
+        "agg_time_s": [r["agg_time_s"] for r in records],
+        "phase_collect_s": [r["phase_collect_s"] for r in records],
+        "phase_apply_s": [r["phase_apply_s"] for r in records],
+        "buffer_k": [m["buffer_k"] for m in consumed],
+        "fold_s": [m["fold_s"] for m in consumed],
+        "finalize_s": finals,
+        "failovers": [r["agg_failovers"] for r in records]}
+
+
+def _by_device(folder):
+    """A coordinator fold's updates by device id (the async staging keys
+    are ``f"{idx:08d}@{dev}"``)."""
+    return {str(m["client_id"]).split("@")[-1]: d for m, d in folder.received}
+
+
+def _leaves_equal(a, b) -> bool:
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    return all(np.asarray(x).tobytes() == np.asarray(y).tobytes()
+               for x, y in zip(trees.leaves(a), trees.leaves(b)))
+
+
+def _max_abs_diff(a, b) -> float:
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    return max(float(np.max(np.abs(np.asarray(x) - np.asarray(y))))
+               for x, y in zip(trees.leaves(a), trees.leaves(b)))
+
+
+def _close_f32(a, b) -> bool:
+    """Every leaf within f32 rtol 1e-4 / atol 2e-5."""
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    return all(np.allclose(x, y, rtol=1e-4, atol=2e-5)
+               for x, y in zip(trees.leaves(a), trees.leaves(b)))
+
+
+def async_cli_path(F):
+    """14c: ``cli_federation`` with ``coordinate --async-buffer 3`` (K = 3
+    = trainers: every aggregation folds one fresh update per trainer, a
+    full-participation round up to the fold order): every process exits
+    0, ``fold_dense`` launches once per aggregation, each aggregation's
+    weight equals the matching 11c round's, and aggregation 0 is 11c's
+    round 0 on every run: the same loss, every trainer's update bit for
+    bit, the mean and the global params after the server step within f32
+    rtol 1e-4 / atol 2e-5.  Both planes fold in an order the processes'
+    timing sets (11c: enrollment, 14c: arrival), and the bf16 CNN's next
+    round amplifies a last-bit difference of the params (11c against
+    itself: 0.116805-0.116936 across runs), so aggregation 1's loss,
+    updates, mean and params are held to 11c's round 1 when the two folds
+    of round 0 are bitwise equal, and otherwise printed with their
+    difference."""
+    rec_patch = _Recorder()
+    try:
+        records, params, launches, codes, took = cli_federation(
+            F, coordinate=["--async-buffer", "3"])
+    finally:
+        rec_patch.close()
+    sync, sync_params, sync_folds = RECORDS["11c"]
+    log(f"  [14c] broker + 3 worker processes + coordinate --async-buffer 3 "
+        f"({SOCKET_CLI}, cut: num_clients 100 -> 3): exit codes {codes}; "
+        f"fold launches {launches}; path {took:.2f} s")
+    if not (codes == [0, 0, 0, 0] and len(records) == len(sync) == 2
+            and len(params) == len(sync_params) == 2
+            and len(rec_patch.folders) == len(sync_folds) == 2
+            and launches == {"fold_sparse": 0, "fold_dense": 2}):
+        raise AssertionError(f"14c: codes {codes}, records {records}, "
+                             f"launches {launches}")
+    comparable = True
+    for r, (a, s, pa, ps, fa, fs) in enumerate(zip(
+            records, sync, params, sync_params, rec_patch.folders,
+            sync_folds)):
+        ups_a, ups_s = _by_device(fa), _by_device(fs)
+        same_ups = sorted(ups_a) == sorted(ups_s) == ["0", "1", "2"] and all(
+            _leaves_equal(ups_a[d], ups_s[d]) for d in ups_s)
+        mean_a, mean_s = fa.mean()[0], fs.mean()[0]
+        err = _max_abs_diff(mean_a, mean_s)
+        perr = _max_abs_diff(pa, ps)
+        rel = abs(a["train_loss"] - s["train_loss"]) / abs(s["train_loss"])
+        log(f"  [14c] aggregation {r}: train_loss {a['train_loss']!r} "
+            f"total_weight {a['total_weight']} fold order {fa.folded_ids} "
+            f"agg_time_s {a['agg_time_s']:.3f}; 11c round {r}: train_loss "
+            f"{s['train_loss']!r} total_weight {s['total_weight']} fold "
+            f"order {fs.folded_ids}; updates bitwise 11c's: {same_ups}; "
+            f"mean max abs diff {err:.3e}; params max abs diff {perr:.3e}; "
+            f"loss rel diff {rel:.3e}; held to 11c: {comparable}")
+        if not (sorted(a["contributors"]) == ["0", "1", "2"]
+                and a["staleness_max"] == 0
+                and a["total_weight"] == s["total_weight"]):
+            raise AssertionError(f"14c: not 11c's full round {r}: {a}")
+        if not comparable:
+            continue
+        if not (same_ups and _close_f32(mean_a, mean_s)
+                and _close_f32(pa, ps)
+                and math.isclose(a["train_loss"], s["train_loss"],
+                                 rel_tol=1e-4, abs_tol=2e-5)):
+            raise AssertionError(f"14c: aggregation {r} is not 11c's round "
+                                 f"{r} (updates bitwise {same_ups}, mean "
+                                 f"diff {err}, params diff {perr}, loss "
+                                 f"{a['train_loss']} vs {s['train_loss']})")
+        # The next round trains from these params: comparable only if the
+        # two folds gave the same bits.
+        comparable = _leaves_equal(mean_a, mean_s)
+    return launches
+
+
+def async_phase(A, F, _build):
+    """Phase 14: the buffered-asynchronous coordinator on the card."""
+    from colearn_federated_learning_tpu_torch.data import registry
+
+    cfg = main_path_config()
+    dataset = registry.get_dataset(cfg.data.dataset, seed=cfg.run.seed)
+    paths, numbers = {}, {}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        t0 = time.perf_counter()
+        paths["async_flat"], numbers["14a"] = flat_async_path(
+            A, F, dataset, workdir)
+        log(f"  14a in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["async_tree"], numbers["14b"] = tree_async_path(A, F, dataset)
+    log(f"  14b in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["async_cli"] = async_cli_path(F)
+    log(f"  14c in {time.perf_counter() - t0:.2f} s")
+    log("phase 14 numbers " + json.dumps(numbers))
+    return paths
+
+
 def build_phase(_build):
     """Build the kernels; report each head-dim-64 instantiation's registers,
     spills and blocks per SM, and fail if any instantiation spills."""
@@ -2983,6 +3493,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(telemetry_phase(A, F, _build))
     log(f"  phase 13 in {time.perf_counter() - t0:.2f} s")
+    log("phase 14: the asynchronous coordinator (flat, the tree, processes)")
+    t0 = time.perf_counter()
+    paths.update(async_phase(A, F, _build))
+    log(f"  phase 14 in {time.perf_counter() - t0:.2f} s")
     log("launches per path " + json.dumps(paths))
 
     sources = {**{name: (SOURCE, rep) for name, (rep, _) in KERNELS.items()},

@@ -18,8 +18,10 @@ final model (``--per-client-eval``, its report on stderr); the file plane
 synchronous socket plane (``broker``, ``worker``, ``coordinate``;
 ``comm/``), with ``--fault-plan`` installed on the process's transport,
 its aggregator tree (``aggregator`` processes, ``coordinate
---num-aggregators``) and per-type federation (``coordinate --per-type``,
-which exits 1 when a type's federation fails or none runs).  ``broker``,
+--num-aggregators``), per-type federation (``coordinate --per-type``,
+which exits 1 when a type's federation fails or none runs) and the
+buffered-asynchronous coordinator (``coordinate --async-buffer N|auto``,
+through the aggregators' slice buffers with ``--num-aggregators``).  ``broker``,
 ``worker`` and ``aggregator`` serve until SIGINT or SIGTERM and then exit
 0.  Telemetry (``telemetry/``): ``train --log-file`` and
 ``--tensorboard-dir`` log the records through ``MetricsLogger``;
@@ -81,13 +83,13 @@ _MODEL_KEYS = {"attn_impl", "remat", "width", "stem", "norm"}
 _RUN_KEYS = {"seed", "tp_size", "eval_every", "log_every", "evict_after",
              "worker_enroll_timeout", "comm_retries", "comm_backoff_base",
              "comm_backoff_max", "fault_plan", "fault_seed", "fold_device",
-             "num_aggregators", "agg_heartbeat_timeout", "trace_dir",
-             "trace_rounds", "health_dir"}
+             "num_aggregators", "agg_heartbeat_timeout",
+             "agg_buffer_interval_s", "trace_dir", "trace_rounds",
+             "health_dir"}
 
 _LORA = comm.ITEM_LORA
 _CKPT = comm.ITEM_CKPT
 _OBS = comm.ITEM_OBS_REST
-_ASYNC = comm.ITEM_ASYNC
 _FLIGHT = comm.ITEM_CHAOS
 
 # dest -> (flag, argparse kwargs, the ROADMAP item that ports it): the
@@ -96,8 +98,6 @@ _UNPORTED = {
     "lora_rank": ("--lora-rank", dict(type=int), _LORA),
     "lora_alpha": ("--lora-alpha", dict(type=float), _LORA),
     "lora_merge_every": ("--lora-merge-every", dict(type=int), _LORA),
-    "agg_buffer_interval_s": ("--agg-buffer-interval", dict(type=float),
-                              _ASYNC),
     "checkpoint_dir": ("--checkpoint-dir", dict(), _CKPT),
     "checkpoint_every": ("--checkpoint-every", dict(type=int), _CKPT),
     "ckpt_stream": ("--ckpt-stream", dict(action="store_true"), _CKPT),
@@ -115,11 +115,6 @@ _UNPORTED_TRAIN = {
 # observability flags of broker/worker/coordinate.
 _COORDINATE_UNPORTED = {
     "resume": ("--resume", dict(action="store_true"), _CKPT),
-    "async_buffer": ("--async-buffer", dict(), _ASYNC),
-    "async_observe": ("--async-observe", dict(action="store_true"), _ASYNC),
-    "async_prune_after": ("--async-prune-after", dict(type=int), _ASYNC),
-    "async_prune_score": ("--async-prune-score", dict(type=float), _ASYNC),
-    "async_probation": ("--async-probation", dict(type=int), _ASYNC),
 }
 _OBSERVABILITY = {
     "flight_dir": ("--flight-dir", dict(), _FLIGHT),
@@ -241,6 +236,12 @@ def _add_override_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--agg-heartbeat-timeout", type=float, default=None,
                    help="coordinate: an aggregator whose heartbeat is older "
                         "than this many seconds is dead")
+    p.add_argument("--agg-buffer-interval", type=float, default=None,
+                   dest="agg_buffer_interval_s",
+                   help="coordinate --async-buffer with aggregators: each "
+                        "slice buffer aims at one partial per this many "
+                        "seconds (its depth follows the slice's arrival "
+                        "rate)")
     p.add_argument("--comm-retries", type=int, default=None)
     p.add_argument("--comm-backoff-base", type=float, default=None)
     p.add_argument("--comm-backoff-max", type=float, default=None)
@@ -271,6 +272,17 @@ def _add_unported(p: argparse.ArgumentParser, flags: dict) -> None:
     for dest, (flag, kwargs, _) in flags.items():
         p.add_argument(flag, dest=dest, default=None,
                        help="not ported yet (refused)", **kwargs)
+
+
+def _async_buffer_arg(value: str):
+    """``--async-buffer``: 0 (off), a positive int K, or ``auto``."""
+    if value == "auto":
+        return "auto"
+    try:
+        return int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an integer or 'auto', got {value!r}") from None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -370,6 +382,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="refuse devices that enroll without a MUD profile")
     p.add_argument("--mud-allowed-types", default=None,
                    help="comma-separated device types admitted")
+    p.add_argument("--async-buffer", type=_async_buffer_arg, default=0,
+                   help="> 0: buffered-asynchronous aggregation, the "
+                        "staleness-weighted mean applied every N updates "
+                        "instead of synchronous rounds; 'auto' sizes N "
+                        "from the observed arrival rate")
+    p.add_argument("--async-observe", action="store_true",
+                   help="stamp the observatory keys (contribution mass, "
+                        "arrival rate, staleness tail) into the async "
+                        "records (implied by --async-buffer auto)")
+    p.add_argument("--async-prune-after", type=int, default=0,
+                   help="pause a device's pump after this many "
+                        "consecutive too-stale discards (needs "
+                        "--health-dir)")
+    p.add_argument("--async-prune-score", type=float, default=0.0,
+                   help="pause pumps whose health score reaches this; 0 "
+                        "disables (needs --health-dir)")
+    p.add_argument("--async-probation", type=int, default=8,
+                   help="aggregations a paused device sits out")
     _add_unported(p, {**_COORDINATE_UNPORTED, **_OBSERVABILITY})
 
     p = sub.add_parser("trace-summary",
@@ -414,10 +444,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """Exit with status 2, naming the ROADMAP items, if any flag of a
-    feature that is not ported yet was given (``--async-buffer 0`` is the
-    JAX default, the synchronous path)."""
-    if getattr(args, "async_buffer", None) in ("0",):
-        args.async_buffer = None
+    feature that is not ported yet was given."""
     flags = {**_UNPORTED, **_UNPORTED_TRAIN, **_COORDINATE_UNPORTED,
              **_OBSERVABILITY}
     given = [(flag, item) for dest, (flag, _, item) in flags.items()
@@ -728,6 +755,8 @@ def coordinate(args: argparse.Namespace) -> dict:
                 t for t in (args.mud_allowed_types or "").split(",") if t))
     if args.per_type:
         return per_type(args, config, mud_policy)
+    if args.async_buffer:
+        return coordinate_async(args, config, mud_policy)
     coord = FederatedCoordinator(config, args.broker_host, args.broker_port,
                                  round_timeout=args.round_timeout,
                                  want_evaluator=not args.no_evaluator,
@@ -749,6 +778,40 @@ def coordinate(args: argparse.Namespace) -> dict:
 
             print(json.dumps(evaluation.sanitize_report(
                 coord.evaluate_per_client())), file=sys.stderr, flush=True)
+        _write_trace(config, config.run.name, coord.tracer)
+    return hist[-1]
+
+
+def coordinate_async(args: argparse.Namespace, config: ExperimentConfig,
+                     mud_policy) -> dict:
+    """``coordinate --async-buffer N|auto``: the buffered-asynchronous
+    coordinator (through the aggregators' slice buffers with
+    ``--num-aggregators``) for the config's ``rounds`` aggregations;
+    every record goes to stderr, the last is returned."""
+    from colearn_federated_learning_tpu_torch.comm.async_coordinator import (
+        AsyncFederatedCoordinator)
+
+    coord = AsyncFederatedCoordinator(
+        config, args.broker_host, args.broker_port,
+        buffer_size=args.async_buffer, request_timeout=args.round_timeout,
+        want_evaluator=not args.no_evaluator, mud_policy=mud_policy,
+        prune_after=args.async_prune_after,
+        prune_score=args.async_prune_score,
+        probation=args.async_probation, observe=args.async_observe,
+        device=_device(args))
+    with coord:
+        coord.enroll(min_devices=args.min_devices,
+                     timeout=args.enroll_timeout)
+        if coord.tree_mode:
+            aggs = coord.enroll_aggregators(timeout=args.enroll_timeout)
+            print(json.dumps({"event": "aggregators_enrolled",
+                              "aggregators": aggs}), file=sys.stderr,
+                  flush=True)
+        hist = coord.fit(
+            aggregations=max(0, config.fed.rounds - len(coord.history)),
+            log_fn=lambda rec: print(json.dumps(rec), file=sys.stderr,
+                                     flush=True),
+            elastic=args.elastic)
         _write_trace(config, config.run.name, coord.tracer)
     return hist[-1]
 

@@ -11,14 +11,16 @@ requests, so processes of the two packages federate together).
 - ``downlink``:    serialize-once broadcast and ``compress_down`` deltas.
 - ``worker``:      a device process: local shard and trainer on its card.
 - ``coordinator``: the synchronous round loop over enrolled devices.
-- ``aggregator``:  the aggregator tree's middle tier (slice folds).
+- ``async_coordinator``: the buffered-asynchronous coordinator (FedBuff
+  style), flat or through the aggregator tree's slice buffers.
+- ``aggregator``:  the aggregator tree's middle tier (slice folds and the
+  asynchronous slice buffers).
 - ``per_type``:    one federation per MUD device type.
 - ``aggregation``: the update folders, with the device fold (B4).
 
 Not ported yet; each is refused naming its ROADMAP.md Queue A item:
 """
 
-ITEM_ASYNC = "ROADMAP.md Queue A item 13 (the asynchronous coordinator)"
 ITEM_SHARDED = "ROADMAP.md Queue A item 15 (the sharded server)"
 ITEM_CHAOS = "ROADMAP.md Queue A item 16 (the chaos soaks)"
 ITEM_LORA = "ROADMAP.md Queue A item 5 (LoRA)"

@@ -213,10 +213,12 @@ class StreamingFolder(UpdateFolder):
         ``loss_sum`` its weight and weighted loss."""
         if self._finalized:
             raise RuntimeError("StreamingFolder already finalized")
+        t0 = time.perf_counter()
         contrib = (None if tree is None
                    else trees.map_leaves(_own_leaf, tree))
         self._staged[str(key)] = (float(total_w), contrib, float(loss_sum))
         self.count += int(count)
+        self.fold_s += time.perf_counter() - t0
 
     def discard(self, key: str) -> bool:
         """Drop one staged contribution before finalize; True if one was

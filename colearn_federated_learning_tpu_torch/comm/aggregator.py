@@ -1,5 +1,5 @@
 """Aggregator tier: distributed ingest between devices and the root (the
-synchronous part of the JAX package's ``comm/aggregator.py``).
+counterpart of the JAX package's ``comm/aggregator.py``).
 
 One coordinator folding every uplink byte caps the federation at one
 host's ingest bandwidth and fold time.  N :class:`AggregatorServer`
@@ -38,9 +38,21 @@ up to the root.  Folds count in ``comm.agg_folds_total`` and
 aggregator keeps its own health ledger of its slice's devices, and the
 root ranks its slices by the ledgers' scores (:func:`assign_slices`).
 
-Not ported yet: the buffered-async ops (``aprep``, ``abuf``, ``adrain``,
-auto-K) of ROADMAP.md Queue A item 13 get an error reply naming it, as a
-fold of LoRA factors does item 5, and ``expected_ingest`` is item 9.
+The buffered-asynchronous half (``comm/async_coordinator.py``'s tree
+mode): ``aprep`` installs the shapes template and opens an empty slice
+buffer; ``abuf`` stages one contribution under its dedup key
+(``{version:08d}@{device}``; a repeated key replaces the staged copy, so
+a re-homed contribution folds once); ``adrain`` long-polls until the
+buffer holds the slice's auto-K (its own arrival estimator's K for one
+partial per ``interval_s``, slew-limited to [K/2, 3K/2] per drain) or
+the poll's budget ends, swaps in a fresh buffer under the condition,
+finalizes the old one outside it and replies one partial with the
+versions the root resolves staleness against.  Arrivals racing a drain
+stage into the next partial.  Staging is host work; the device fold runs
+in the drain, on the shared fold kernel that stages one batch at a time.
+
+Not ported yet: a fold (or a buffer) of LoRA factors gets an error reply
+naming ROADMAP.md Queue A item 5, and ``expected_ingest`` is item 9.
 """
 
 from __future__ import annotations
@@ -65,8 +77,6 @@ from colearn_federated_learning_tpu_torch.utils.serialization import (
 
 # Retained announce/heartbeat topic per aggregator (control plane).
 AGG_TOPIC = "colearn/agg/"
-
-_ASYNC_OPS = ("aprep", "abuf", "adrain")
 
 
 def slice_cohort(cohort: Sequence[Any], n: int) -> list[list[Any]]:
@@ -153,6 +163,15 @@ class AggregatorServer:
                         backoff_base=config.run.comm_backoff_base,
                         backoff_max=config.run.comm_backoff_max)
             if config.run.comm_retries > 0 else None)
+        # The buffered half: one slice buffer the root fills by ``abuf``
+        # and drains by ``adrain``, sized by this slice's arrival rate.
+        self.arrival = telemetry.ArrivalEstimator()
+        self._abuf_cv = threading.Condition()
+        self._abuf_folder: Optional[StreamingFolder] = None
+        self._abuf_shapes = None
+        self._abuf_entries: dict[str, dict] = {}   # dedup key -> its entry
+        self._abuf_k: Optional[int] = None         # the slew's anchor
+        self._abuf_dedup = 0
 
     @property
     def host(self) -> str:
@@ -219,14 +238,168 @@ class AggregatorServer:
         op = header.get("op")
         if op == "fold":
             return self._fold(header, tree)
-        if op in _ASYNC_OPS:
-            return ({"status": "error",
-                     "error": f"the buffered-async op {op!r} is not ported "
-                              f"yet; see {comm.ITEM_ASYNC}"}, None)
+        if op == "aprep":
+            return self._aprep(header, tree)
+        if op == "abuf":
+            return self._abuf(header, tree)
+        if op == "adrain":
+            return self._adrain(header)
         if op == "info":
             return ({"meta": {"agg_id": self.agg_id,
                               "host": self.host, "port": self.port}}, None)
         return ({"status": "error", "error": f"unknown op {op!r}"}, None)
+
+    # ------------------------------------------------- buffered (async) --
+    def _new_buffer(self) -> StreamingFolder:
+        return StreamingFolder(self._abuf_shapes,
+                               device_fold=self._fold_device,
+                               device=self.device)
+
+    def _aprep(self, header: dict, tree: Any) -> tuple[dict, Any]:
+        """Install the shapes template and (re)open an empty buffer: once
+        per root connection, at enrollment and after a restart (a restarted
+        process announces a fresh port with nothing staged)."""
+        if tree is None:
+            return ({"status": "error",
+                     "error": "aprep carried no shapes template"}, None)
+        if (header.get("meta") or {}).get("lora"):
+            return ({"status": "error",
+                     "error": "a buffer of LoRA factors is not ported yet; "
+                              f"see {comm.ITEM_LORA}"}, None)
+        with self._abuf_cv:
+            self._abuf_shapes = tree
+            self._abuf_folder = self._new_buffer()
+            self._abuf_entries = {}
+            self._abuf_dedup = 0
+            self._abuf_cv.notify_all()
+        return ({"meta": {"agg_id": self.agg_id, "prepared": True}}, None)
+
+    def _abuf(self, header: dict, tree: Any) -> tuple[dict, Any]:
+        """Stage ONE contribution in the open buffer under
+        ``header["key"]``: a repeated key (a re-homed copy racing the
+        original, a retry) replaces the staged copy."""
+        if tree is None:
+            return ({"status": "error",
+                     "error": "abuf carried no delta"}, None)
+        key = str(header.get("key"))
+        dev = str(header.get("device"))
+        meta = dict(header.get("meta") or {})
+        meta["client_id"] = key
+        reg = telemetry.get_registry()
+        with self._abuf_cv:
+            if self._abuf_folder is None:
+                return ({"status": "error",
+                         "error": "aggregator buffer not prepared "
+                                  "(aprep first)"}, None)
+            dup = self._abuf_folder.discard(key)
+            if dup:
+                self._abuf_dedup += 1
+                reg.counter("comm.agg_buffer_dedup_total",
+                            labels={"agg": str(self.agg_id)}).inc()
+            self._abuf_folder.add(meta, tree)
+            self._abuf_entries[key] = {
+                "device": dev,
+                "version": int(header.get("version", 0)),
+                "weight": float(meta.get("weight", 1.0)),
+                "rehomed": bool(header.get("rehomed")),
+            }
+            self.arrival.observe(dev, now=time.monotonic())
+            staged = len(self._abuf_entries)
+            self._abuf_cv.notify_all()
+        reg.counter("comm.agg_buffer_staged_total",
+                    labels={"agg": str(self.agg_id)}).inc()
+        reg.gauge("comm.agg_buffer_occupancy",
+                  labels={"agg": str(self.agg_id)}).set(staged)
+        return ({"meta": {"agg_id": self.agg_id, "staged": staged,
+                          "dedup": dup}}, None)
+
+    def _auto_k(self, interval_s: float, slice_devices: int) -> int:
+        """The slice's K: one partial per ``interval_s`` at its observed
+        arrival rate, clamped to the slice size (2^10 when unknown) and
+        slew-limited to [K/2, 3K/2] per drain.  Caller holds
+        ``_abuf_cv``."""
+        hi = max(1, int(slice_devices)) if slice_devices else 1 << 10
+        cur = self._abuf_k if self._abuf_k is not None else min(4, hi)
+        k = self.arrival.recommend_buffer(interval_s, lo=1, hi=hi,
+                                          current=cur)
+        k = max(max(1, cur // 2), min(k, max(2, cur * 3 // 2)))
+        k = max(1, min(k, hi))
+        self._abuf_k = k
+        return k
+
+    def _adrain(self, header: dict) -> tuple[dict, Any]:
+        """Long-poll: wait until the buffer holds the slice's K (or the
+        poll's budget ends), then ship ONE partial with the dispatch
+        versions of its contributions; an empty expiry replies
+        ``count: 0``."""
+        interval = float(header.get("interval_s", 2.0))
+        budget = float(header.get("timeout", max(2.0 * interval, 1.0)))
+        slice_n = int(header.get("slice_devices", 0))
+        deadline = time.monotonic() + budget
+        reg = telemetry.get_registry()
+        with self._abuf_cv:
+            if self._abuf_folder is None:
+                return ({"status": "error",
+                         "error": "aggregator buffer not prepared "
+                                  "(aprep first)"}, None)
+            while True:
+                k = self._auto_k(interval, slice_n)
+                if len(self._abuf_entries) >= k:
+                    break
+                remaining = deadline - time.monotonic()
+                if remaining <= 0.0:
+                    break
+                self._abuf_cv.wait(timeout=min(remaining, 0.05))
+                if self._abuf_folder is None:
+                    return ({"status": "error",
+                             "error": "buffer reset mid-drain"}, None)
+            rate = self.arrival.rate()
+            reg.gauge("comm.agg_buffer_k",
+                      labels={"agg": str(self.agg_id)}).set(k)
+            reg.gauge("comm.agg_arrival_rate_per_s",
+                      labels={"agg": str(self.agg_id)}).set(rate)
+            if not self._abuf_entries:
+                return ({"meta": {"agg_id": self.agg_id, "count": 0,
+                                  "buffer_k": k,
+                                  "arrival_rate_per_s": rate}}, None)
+            folder = self._abuf_folder
+            entries = self._abuf_entries
+            dedup = self._abuf_dedup
+            # Arrivals racing this drain stage into the NEXT partial.
+            self._abuf_folder = self._new_buffer()
+            self._abuf_entries = {}
+            self._abuf_dedup = 0
+        folder.finalize()
+        keys = folder.folded_ids     # sorted: version, then device
+        devices = [entries[c]["device"] for c in keys]
+        versions = [entries[c]["version"] for c in keys]
+        weights = [entries[c]["weight"] for c in keys]
+        rehomed = sorted({entries[c]["device"] for c in keys
+                          if entries[c]["rehomed"]})
+        reg.counter("comm.agg_partials_shipped_total",
+                    labels={"agg": str(self.agg_id)}).inc()
+        reg.counter("comm.agg_folds_total",
+                    labels={"agg": str(self.agg_id)}).inc()
+        reg.gauge("comm.agg_buffer_occupancy",
+                  labels={"agg": str(self.agg_id)}).set(0)
+        out_meta = {
+            "agg_id": self.agg_id,
+            "count": len(keys),
+            "keys": keys,
+            "devices": devices,
+            "versions": versions,
+            "weights": weights,
+            "rehomed": rehomed,
+            "oldest_version": min(versions),
+            "total_w": folder.total_w,
+            "loss_sum": folder.loss_sum,
+            "buffer_k": k,
+            "dedup": dedup,
+            "fold_s": folder.fold_s,
+            "densify_avoided": folder.densify_avoided,
+            "arrival_rate_per_s": rate,
+        }
+        return ({"meta": out_meta}, folder.wsum)
 
     def _fold(self, header: dict, tree: Any) -> tuple[dict, Any]:
         """Relay the broadcast to this slice's devices under one deadline,

@@ -24,6 +24,10 @@ one MUD device type (``comm/per_type.py`` runs one coordinator per type).
 
 The server state lives on the coordinator's device (the card unless the
 caller passes ``device="cpu"``), in the flax layout the wire carries.
+:class:`CoordinatorCore` holds what this coordinator shares with the
+asynchronous one (``comm/async_coordinator.py``): the device, the control
+plane, the aggregator tier's discovery, the server state, the ledger's
+flush and the evaluator.
 
 Telemetry is JAX's: the coordinator's tracer is always on; a round runs
 under a ``round`` span with ``share_setup``, ``serialize_params``,
@@ -49,6 +53,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import math
 import os
+import threading
 import time
 from typing import Optional
 
@@ -88,6 +93,11 @@ from colearn_federated_learning_tpu_torch.utils.serialization import (
 SHARE_TIMEOUT_FRACTION = 0.25
 
 
+# How long _refresh_aggs may read the aggregators' announce topic: the
+# backlog of heartbeats is read in windows until one comes back empty.
+REFRESH_BUDGET_S = 1.0
+
+
 def refuse_unported(config: ExperimentConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of any option
     the port's coordinator does not run yet."""
@@ -111,7 +121,236 @@ def _shape_views(tree):
         lambda a: np.broadcast_to(np.float32(0), np.shape(a)), tree)
 
 
-class FederatedCoordinator:
+class CoordinatorCore:
+    """What the synchronous and the asynchronous coordinators share
+    (``FederatedCoordinator`` here, ``comm/async_coordinator.py``'s
+    ``AsyncFederatedCoordinator``): the coordinator's device and the
+    sharded server's refusal, the control plane (enrollment, late joiners,
+    the broker's rebuild), the aggregator tier's discovery, the server
+    state in the flax layout on that device, the tracer, the health
+    ledger's flush and the evaluator."""
+
+    def _init_core(self, config: ExperimentConfig, broker_host: str,
+                   broker_port: int, want_evaluator: bool, mud_policy,
+                   device_type: Optional[str], device, process: str) -> None:
+        """Everything but the validation, which each coordinator runs
+        first.  ``process`` names the tracer's process and the ledger's
+        file (``health_<process>.jsonl``)."""
+        self.config = config
+        self.device = resolve_device(device)
+        tp = config.run.tp_size
+        if tp > 1 and self.device.type == "cuda" \
+                and torch.cuda.device_count() >= tp:
+            raise NotImplementedError(
+                f"the sharded server (tp_size={tp}) is not ported yet; see "
+                f"{comm.ITEM_SHARDED}")
+        self.want_evaluator = want_evaluator
+        # The coordinator's spans live here, and the workers' spans are
+        # adopted from their replies, so one trace covers the federation;
+        # the CLI writes it to run.trace_dir after fit.
+        self.tracer = telemetry.Tracer(process=process)
+        # The per-device health ledger, only with run.health_dir: the
+        # default path writes nothing and its records keep their keys.
+        self.health = None
+        self._health_retry_seen: dict[str, float] = {}
+        if config.run.health_dir:
+            self.health = telemetry.HealthLedger(config.run.health_dir,
+                                                 process)
+        self._broker_addr = (broker_host, broker_port)
+        self._mud_policy = mud_policy
+        self._device_type = device_type
+        self._broker = BrokerClient(broker_host, broker_port,
+                                    timeout=protocol.CONNECT_TIMEOUT)
+        self._enroll = EnrollmentManager(self._broker, mud_policy=mud_policy,
+                                         device_type=device_type)
+        # The aggregator tier (comm/aggregator.py), found from its retained
+        # announcements: agg_id -> host/port/ts.
+        self.num_aggregators = int(config.run.num_aggregators)
+        self._agg_lock = threading.Lock()
+        self._aggs: dict[int, dict] = {}
+        # Serializes _refresh_aggs's broker reads (try-acquired only).
+        self._agg_refreshing = threading.Lock()
+        self._agg_sub: Optional[BrokerClient] = None
+        params = setup_lib.init_global_params(config, self.device)
+        self._shapes_np = _shape_views(params)
+        self._fold_device = bool(config.run.fold_device)
+        self._names = [str(i) for i in range(len(trees.leaves(params)))]
+        self._load_params(params)
+        self.history: list[dict] = []
+        self._clients: dict[str, TensorClient] = {}
+        self.trainers: list[DeviceInfo] = []
+        self.evaluator: Optional[DeviceInfo] = None
+        # Charged at the realized noise of what each step released.
+        self.accountant = RdpAccountant.from_config(config.fed,
+                                                    sampling_rate=1.0)
+
+    def _load_params(self, tree) -> None:
+        """Start the server state from a flax-layout params tree."""
+        self.server_state = strategies.init_server_state(
+            {n: torch.from_numpy(np.array(l, np.float32)).to(self.device)
+             for n, l in zip(self._names, trees.leaves(tree))},
+            self.config.fed)
+
+    def params_tree(self) -> dict:
+        """The global params as a flax-layout tree of tensors on the
+        coordinator's device."""
+        return trees.unflatten(self._shapes_np, [
+            self.server_state.params[n] for n in self._names])
+
+    def _server_step(self, mean_delta) -> None:
+        """Apply the server strategy to a flax-layout mean delta (host
+        arrays) on the coordinator's device."""
+        self.server_state = strategies.server_update(
+            self.server_state,
+            {n: torch.from_numpy(np.asarray(l)).to(self.device)
+             for n, l in zip(self._names, trees.leaves(mean_delta))},
+            self.config.fed)
+
+    def enroll(self, min_devices: int, timeout: float = 30.0) -> None:
+        """Wait for devices, assign roles, open tensor connections."""
+        self._enroll.wait_for(min_devices, timeout)
+        self.trainers, self.evaluator = self._enroll.assign_roles(
+            want_evaluator=self.want_evaluator)
+        for d in self.trainers + ([self.evaluator] if self.evaluator else []):
+            self._clients[d.device_id] = TensorClient(
+                d.host, d.port, timeout=protocol.CONNECT_TIMEOUT,
+                ident=d.device_id)
+
+    def _admit_late_joiners(self, poll: float) -> list[str]:
+        """Admit devices that enrolled after :meth:`enroll` as trainers,
+        rebuilding the control plane first if the broker died."""
+        if not self._broker.alive():
+            # A restarted broker lost our subscription; workers re-announce
+            # through their own watchdogs.
+            self._rebuild_broker()
+        try:
+            return enrollment.admit_late_joiners(
+                self._enroll, self._broker, self.trainers, self.evaluator,
+                self._clients, poll)
+        except (OSError, protocol.ConnectionClosed):
+            self._rebuild_broker()
+            return []
+
+    def _rebuild_broker(self) -> None:
+        """Reconnect the control plane after a broker death (training runs
+        on direct tensor connections either way); the outcome counts in
+        ``comm.broker_reconnects_total``."""
+        reg = telemetry.get_registry()
+        try:
+            fresh = BrokerClient(self._broker_addr[0], self._broker_addr[1],
+                                 timeout=protocol.CONNECT_TIMEOUT)
+        except OSError:
+            reg.counter("comm.broker_reconnects_total",
+                        labels={"outcome": "failed"}).inc()
+            return
+        self._broker.close()
+        self._broker = fresh
+        self._enroll = EnrollmentManager(fresh, mud_policy=self._mud_policy,
+                                         device_type=self._device_type)
+        reg.counter("comm.broker_reconnects_total",
+                    labels={"outcome": "ok"}).inc()
+
+    def enroll_aggregators(self, timeout: float = 30.0) -> list[int]:
+        """Discover ``num_aggregators`` aggregators from their retained
+        announcements and return their ids.  Raises ``TimeoutError`` when
+        fewer announce in time."""
+        deadline = time.monotonic() + timeout
+        while True:
+            self._refresh_aggs(drain_timeout=0.2)
+            with self._agg_lock:
+                ids = sorted(self._aggs)
+            if len(ids) >= self.num_aggregators:
+                return ids
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"only {len(ids)}/{self.num_aggregators} aggregators "
+                    f"announced within {timeout:.0f}s")
+
+    def _refresh_aggs(self, drain_timeout: float = 0.02) -> None:
+        """Read the retained announce topic into ``_aggs`` (the latest
+        record per agg_id wins), subscribing again after a broker
+        restart.  Broker reads happen under no lock: a caller that finds
+        another refresh in flight returns at once.  ``fetch_aggregators``
+        bounds each read by ``drain_timeout``, so the backlog is read in
+        such windows until one brings nothing, within
+        ``REFRESH_BUDGET_S``."""
+        if not self._agg_refreshing.acquire(blocking=False):
+            return
+        try:
+            with self._agg_lock:
+                sub = self._agg_sub
+            if sub is None:
+                try:
+                    sub = BrokerClient(self._broker_addr[0],
+                                       self._broker_addr[1],
+                                       timeout=protocol.CONNECT_TIMEOUT)
+                    sub.subscribe(agg_lib.AGG_TOPIC + "#")
+                except OSError:
+                    telemetry.get_registry().counter(
+                        "comm.broker_reconnects_total",
+                        labels={"outcome": "failed"}).inc()
+                    return
+                with self._agg_lock:
+                    self._agg_sub = sub
+            fresh: dict = {}
+            budget = time.monotonic() + REFRESH_BUDGET_S
+            try:
+                while True:
+                    window: dict = {}
+                    agg_lib.fetch_aggregators(sub, window,
+                                              drain_timeout=drain_timeout)
+                    fresh.update(window)
+                    if not window or time.monotonic() >= budget:
+                        break
+            except (protocol.ConnectionClosed, OSError):
+                with self._agg_lock:
+                    if self._agg_sub is sub:
+                        self._agg_sub = None  # broker died; rebuilt next
+                try:
+                    sub.close()
+                except OSError:
+                    protocol.count_suppressed()
+                return
+            if fresh:
+                with self._agg_lock:
+                    self._aggs.update(fresh)
+        finally:
+            self._agg_refreshing.release()
+
+    def _close_agg_sub(self) -> None:
+        with self._agg_lock:
+            sub, self._agg_sub = self._agg_sub, None
+        if sub is not None:
+            sub.close()
+
+    def _health_flush(self) -> dict:
+        """Fold the transport's per-device retries into the ledger, flush
+        it durably, and return the merged view of every ledger in its
+        directory (exported as gauges)."""
+        _hl.feed_transport_retries(self.health, self._health_retry_seen)
+        self.health.flush()
+        fleet = _hl.load_health(os.path.dirname(self.health.path))
+        _hl.export_gauges(fleet)
+        return fleet
+
+    def _ask_evaluator(self, timeout: float) -> dict:
+        """Score the global model on the evaluator device."""
+        if self.evaluator is None:
+            raise RuntimeError("no evaluator was assigned")
+        params_np = host_params(self.params_tree())
+        with self.tracer.span("evaluate"):
+            header, _ = self._clients[self.evaluator.device_id].request(
+                protocol.attach_trace({"op": "eval"},
+                                      self.tracer.current_context()),
+                params_np, timeout=timeout)
+        if header.get("status") != "ok":
+            raise RuntimeError(f"evaluator failed: {header.get('error')}")
+        meta = header["meta"]
+        protocol.pop_trace_spans(meta, self.tracer)
+        return meta
+
+
+class FederatedCoordinator(CoordinatorCore):
     def __init__(
         self,
         config: ExperimentConfig,
@@ -127,7 +366,6 @@ class FederatedCoordinator:
         enrollment by RFC 8520 identity.  ``device_type``: federate ONLY
         devices of this MUD type (the per-type topology)."""
         setup_lib.require_mean_aggregator(config, "the socket coordinator")
-        self.config = config
         fed = config.fed
         if fed.secure_agg and fed.secure_agg_neighbors and (
             fed.secure_agg_neighbors % 2 or fed.secure_agg_neighbors < 2
@@ -141,25 +379,14 @@ class FederatedCoordinator:
                 f"{fed.secure_agg_threshold}")
         validate_robustness(config)
         refuse_unported(config)
-        self.num_aggregators = int(config.run.num_aggregators)
-        if self.num_aggregators and fed.compress_down != "none":
+        if config.run.num_aggregators and fed.compress_down != "none":
             raise ValueError(
                 "the aggregator tree requires compress_down='none': the "
                 "per-device resync protocol is not relayed through the "
                 "fold tier"
             )
-        self._aggs: dict[int, dict] = {}       # agg_id -> host/port/ts
-        self._agg_sub: Optional[BrokerClient] = None
         self.agg_heartbeat_timeout = float(config.run.agg_heartbeat_timeout)
-        self.device = resolve_device(device)
-        tp = config.run.tp_size
-        if tp > 1 and self.device.type == "cuda" \
-                and torch.cuda.device_count() >= tp:
-            raise NotImplementedError(
-                f"the sharded server (tp_size={tp}) is not ported yet; see "
-                f"{comm.ITEM_SHARDED}")
         self.round_timeout = round_timeout
-        self.want_evaluator = want_evaluator
         self.retry = (
             RetryPolicy(max_retries=config.run.comm_retries,
                         backoff_base=config.run.comm_backoff_base,
@@ -167,34 +394,9 @@ class FederatedCoordinator:
             if config.run.comm_retries > 0 else None)
         # Sub-quorum rounds are explicit no-ops; 0 disables.
         self.min_cohort_fraction = fed.min_cohort_fraction
-        # Round spans live here, and the workers' spans are adopted from
-        # their replies, so one trace covers the federation; the CLI
-        # writes it to run.trace_dir after fit.
-        self.tracer = telemetry.Tracer(process="coordinator")
-        # The per-device health ledger, only with run.health_dir: the
-        # default path writes nothing and its records keep their keys.
-        self.health = None
-        self._health_retry_seen: dict[str, float] = {}
-        if config.run.health_dir:
-            self.health = telemetry.HealthLedger(config.run.health_dir,
-                                                 "coordinator")
-        self._broker_addr = (broker_host, broker_port)
-        self._mud_policy = mud_policy
-        self._device_type = device_type
-        self._broker = BrokerClient(broker_host, broker_port,
-                                    timeout=protocol.CONNECT_TIMEOUT)
-        self._enroll = EnrollmentManager(self._broker, mud_policy=mud_policy,
-                                         device_type=device_type)
+        self._init_core(config, broker_host, broker_port, want_evaluator,
+                        mud_policy, device_type, device, "coordinator")
         self._draws = programs.Draws(config.run.seed)
-        params = setup_lib.init_global_params(config, self.device)
-        self._shapes_np = _shape_views(params)
-        self._fold_device = bool(config.run.fold_device)
-        self._names = [str(i) for i in range(len(trees.leaves(params)))]
-        self._load_params(params)
-        self.history: list[dict] = []
-        self._clients: dict[str, TensorClient] = {}
-        self.trainers: list[DeviceInfo] = []
-        self.evaluator: Optional[DeviceInfo] = None
         self._fail_counts: dict[str, int] = {}
         self.evict_after = config.run.evict_after
         # One fan-out pool per coordinator, grown and never shrunk.
@@ -217,73 +419,20 @@ class FederatedCoordinator:
             comp_len = wire_frame_length(
                 wire_up, {"round": 0, "op": "train", **meta_up})
             self._uplink_saved_per_update = max(0, int(dense_len - comp_len))
-        # Each round is charged at the actual cohort fraction and the
-        # realized noise (membership is elastic, stragglers drop).
-        self.accountant = RdpAccountant.from_config(fed, sampling_rate=1.0)
 
     # ------------------------------------------------------------------
-    def _load_params(self, tree) -> None:
-        """Start the server state from a flax-layout params tree."""
-        self.server_state = strategies.init_server_state(
-            {n: torch.from_numpy(np.array(l, np.float32)).to(self.device)
-             for n, l in zip(self._names, trees.leaves(tree))},
-            self.config.fed)
-
-    def params_tree(self) -> dict:
-        """The global params as a flax-layout tree of tensors on the
-        coordinator's device."""
-        return trees.unflatten(self._shapes_np, [
-            self.server_state.params[n] for n in self._names])
-
-    def enroll(self, min_devices: int, timeout: float = 30.0) -> None:
-        """Wait for devices, assign roles, open tensor connections."""
-        self._enroll.wait_for(min_devices, timeout)
-        self.trainers, self.evaluator = self._enroll.assign_roles(
-            want_evaluator=self.want_evaluator)
-        for d in self.trainers + ([self.evaluator] if self.evaluator else []):
-            self._clients[d.device_id] = TensorClient(
-                d.host, d.port, timeout=protocol.CONNECT_TIMEOUT,
-                ident=d.device_id)
-
     # ---- aggregator tier (comm/aggregator.py) ----------------------------
-    def enroll_aggregators(self, timeout: float = 30.0) -> list[int]:
-        """Discover ``num_aggregators`` aggregators from their retained
-        announce records.  Raises ``TimeoutError`` when fewer announce in
-        time.  Each fold request opens its own connection
-        (``_tree_collect``), so nothing is held open here."""
-        n = self.num_aggregators
-        if self._agg_sub is None:
-            self._agg_sub = BrokerClient(self._broker_addr[0],
-                                         self._broker_addr[1],
-                                         timeout=protocol.CONNECT_TIMEOUT)
-            self._agg_sub.subscribe(agg_lib.AGG_TOPIC + "#")
-        deadline = time.monotonic() + timeout
-        while True:
-            agg_lib.fetch_aggregators(self._agg_sub, self._aggs,
-                                      drain_timeout=0.2)
-            if len(self._aggs) >= n:
-                break
-            if time.monotonic() >= deadline:
-                raise TimeoutError(
-                    f"only {len(self._aggs)}/{n} aggregators announced "
-                    f"within {timeout:.0f}s"
-                )
-        return sorted(self._aggs)
-
     def _live_aggregators(self) -> list[int]:
         """Aggregators whose retained heartbeat is younger than
         ``agg_heartbeat_timeout``."""
-        if self._agg_sub is not None:
-            try:
-                agg_lib.fetch_aggregators(self._agg_sub, self._aggs,
-                                          drain_timeout=0.02)
-            except protocol.ConnectionClosed:
-                self._agg_sub = None    # the broker died
+        self._refresh_aggs()
         now = time.time()
+        with self._agg_lock:
+            ts = {a: info["ts"] for a, info in self._aggs.items()}
         live = []
         reg = telemetry.get_registry()
-        for agg_id in sorted(self._aggs):
-            age = now - self._aggs[agg_id]["ts"]
+        for agg_id in sorted(ts):
+            age = now - ts[agg_id]
             reg.gauge("comm.agg_heartbeat_age_s",
                       labels={"agg": str(agg_id)}).set(age)
             if age <= self.agg_heartbeat_timeout:
@@ -293,9 +442,7 @@ class FederatedCoordinator:
         return live
 
     def close(self) -> None:
-        if self._agg_sub is not None:
-            self._agg_sub.close()
-            self._agg_sub = None
+        self._close_agg_sub()
         for c in self._clients.values():
             c.close()
         if self._pool is not None:
@@ -316,36 +463,7 @@ class FederatedCoordinator:
     def refresh_membership(self, poll: float = 0.1) -> list[str]:
         """Elastic membership: admit devices that enrolled after
         :meth:`enroll` as trainers of the next round."""
-        if not self._broker.alive():
-            # A restarted broker lost our subscription; workers re-announce
-            # through their own watchdogs.
-            self._rebuild_broker()
-        try:
-            return enrollment.admit_late_joiners(
-                self._enroll, self._broker, self.trainers, self.evaluator,
-                self._clients, poll)
-        except (OSError, protocol.ConnectionClosed):
-            self._rebuild_broker()
-            return []
-
-    def _rebuild_broker(self) -> None:
-        """Reconnect the control plane after a broker death (rounds run on
-        direct tensor connections either way); the outcome counts in
-        ``comm.broker_reconnects_total``."""
-        reg = telemetry.get_registry()
-        try:
-            fresh = BrokerClient(self._broker_addr[0], self._broker_addr[1],
-                                 timeout=protocol.CONNECT_TIMEOUT)
-        except OSError:
-            reg.counter("comm.broker_reconnects_total",
-                        labels={"outcome": "failed"}).inc()
-            return
-        self._broker.close()
-        self._broker = fresh
-        self._enroll = EnrollmentManager(fresh, mud_policy=self._mud_policy,
-                                         device_type=self._device_type)
-        reg.counter("comm.broker_reconnects_total",
-                    labels={"outcome": "ok"}).inc()
+        return self._admit_late_joiners(poll)
 
     def _note_round_outcome(self, cohort, dropped) -> list[str]:
         """Count consecutive failures; evict peers that failed
@@ -618,11 +736,7 @@ class FederatedCoordinator:
             if secure:
                 mean_loss = float("nan")  # workers withhold per-client loss
             if mean_delta is not None:
-                self.server_state = strategies.server_update(
-                    self.server_state,
-                    {n: torch.from_numpy(np.asarray(l)).to(self.device)
-                     for n, l in zip(self._names, trees.leaves(mean_delta))},
-                    fed)
+                self._server_step(mean_delta)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         evicted = self._note_round_outcome(cohort_full, dropped)
@@ -706,11 +820,7 @@ class FederatedCoordinator:
             self.health.record(str(did), round=r, secure_dropout=1)
         for did in evicted:
             self.health.record(str(did), round=r, eviction=1)
-        _hl.feed_transport_retries(self.health, self._health_retry_seen)
-        self.health.flush()
-        fleet = _hl.load_health(os.path.dirname(self.health.path))
-        _hl.export_gauges(fleet)
-        return fleet
+        return self._health_flush()
 
     def _flat_collect(self, r, cohort, cohort_ids, body, resync_body, saved,
                       share_info, secure, stale, round_t0, ctx):
@@ -786,7 +896,9 @@ class FederatedCoordinator:
         recovery needs."""
         reg = telemetry.get_registry()
         live = self._live_aggregators()
-        agg_order = sorted(self._aggs)
+        with self._agg_lock:
+            aggs = {a: dict(info) for a, info in self._aggs.items()}
+        agg_order = sorted(aggs)
         deadline = time.monotonic() + timeout
         slice_ids = [sorted(int(d.device_id) for d in sl) for sl in slices]
 
@@ -807,7 +919,7 @@ class FederatedCoordinator:
             candidates = (([assigned] if assigned in live else [])
                           + [a for a in live if a != assigned])
             for agg_id in candidates:
-                info = self._aggs[agg_id]
+                info = aggs[agg_id]
                 # What is left of the round at THIS attempt: a re-home does
                 # not restart the clock.
                 req["timeout"] = max(1.0, deadline - time.monotonic())
@@ -1166,19 +1278,7 @@ class FederatedCoordinator:
 
     def evaluate(self) -> dict:
         """Score the global model on the evaluator device."""
-        if self.evaluator is None:
-            raise RuntimeError("no evaluator was assigned")
-        params_np = host_params(self.params_tree())
-        with self.tracer.span("evaluate"):
-            header, _ = self._clients[self.evaluator.device_id].request(
-                protocol.attach_trace({"op": "eval"},
-                                      self.tracer.current_context()),
-                params_np, timeout=self.round_timeout)
-        if header.get("status") != "ok":
-            raise RuntimeError(f"evaluator failed: {header.get('error')}")
-        meta = header["meta"]
-        protocol.pop_trace_spans(meta, self.tracer)
-        return meta
+        return self._ask_evaluator(self.round_timeout)
 
     def fit(self, rounds: Optional[int] = None, log_fn=None,
             eval_every: Optional[int] = None,

@@ -28,6 +28,7 @@ import torch
 from colearn_federated_learning_tpu import cli as jax_cli
 from colearn_federated_learning_tpu_torch import cli
 from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+from colearn_federated_learning_tpu_torch.utils.config import RunConfig
 
 TINY = ["--config", "mnist_mlp_fedavg", "--dataset", "mnist_tiny",
         "--num-clients", "4", "--cohort-size", "2", "--local-steps", "2",
@@ -78,7 +79,6 @@ def test_overrides_reach_the_config_as_in_jax(extra):
 @pytest.mark.parametrize("flag,item", [
     (["--lora-rank", "4"], "item 5"),
     (["--lora-alpha", "8", "--edge-groups", "2"], "item 5"),
-    (["--agg-buffer-interval", "2.0"], "item 13"),
     (["--lora-merge-every", "2"], "item 5"),
     (["--checkpoint-dir", "ck"], "item 9"), (["--resume"], "item 9"),
     (["--profile-dir", "pr"], "item 10b"), (["--learn-observe"], "item 10b")])
@@ -139,8 +139,7 @@ def test_every_jax_train_flag_is_accepted():
 
 
 # The flags of the JAX train parser that belong to the socket planes and
-# faults/, with a value of their type.  The buffered-async tree's interval
-# stays refused (ROADMAP item 13); the rest are ported: ``train`` (the
+# faults/, with a value of their type.  All are ported: ``train`` (the
 # simulation role) parses each into the config as JAX does and runs
 # without reading it.
 COMM_FLAGS = [
@@ -151,15 +150,14 @@ COMM_FLAGS = [
     ("--fault-plan", "plan.json"), ("--compress-down", "int8"),
     ("--compress-down", "topk8"), ("--topk-max-fraction", "0.3"),
     ("--topk-min-fraction", "0.02"), ("--worker-enroll-timeout", "5.0")]
-ASYNC_FLAGS = {"--agg-buffer-interval"}
 
 
 @pytest.mark.parametrize("flag,value", COMM_FLAGS)
 def test_comm_plane_flag_exits_naming_item_8(flag, value, capsys):
-    """The buffered-async tree's interval exits 2 naming its item; every
-    other comm-plane flag, the aggregator tree's included, reaches the
-    config as in JAX and ``train`` runs, or its value is refused by the
-    parser as JAX's refuses it."""
+    """Every comm-plane flag, the aggregator tree's and the buffered-async
+    tree's interval included (refused until the asynchronous coordinator
+    was ported), reaches the config as in JAX and ``train`` runs, or its
+    value is refused by the parser as JAX's refuses it."""
     argv = ["train", "--backend", "cpu", *TINY, flag, value]
     parser = argparse.ArgumentParser()
     jax_cli._add_override_flags(parser)
@@ -171,15 +169,6 @@ def test_comm_plane_flag_exits_naming_item_8(flag, value, capsys):
             cli.main(argv)
         assert exc.value.code == 2
         assert f"argument {flag}: invalid choice" in capsys.readouterr().err
-        return
-    if flag in ASYNC_FLAGS:
-        with pytest.raises(SystemExit) as exc:
-            cli.main(argv)
-        assert exc.value.code == 2
-        err = capsys.readouterr().err
-        assert f"{flag} is not ported" in err
-        assert ("ROADMAP.md Queue A item 13 (the asynchronous coordinator)"
-                in err)
         return
     ours = cli.config_from_args(cli.build_parser().parse_args(argv))
     theirs = jax_cli.config_from_args(jax_args)
@@ -293,11 +282,7 @@ def test_file_plane_flags_in_sim_run_the_plain_round(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["eval", "--global-model", "g.npz", "--detection-eval"], "item 10"),
-    (["init", "--out", "g.npz", "--lora-rank", "4"], "item 5"),
-    (["aggregate", "--global-model", "g.npz", "--updates", "u.npz", "--out",
-      "g1.npz", "--agg-buffer-interval", "2"], "item 13"),
-    (["train", "--role", "client", "--client-id", "0", "--global-model",
-      "g.npz", "--out", "u.npz", "--agg-buffer-interval", "1.0"], "item 13")])
+    (["init", "--out", "g.npz", "--lora-rank", "4"], "item 5")])
 def test_file_plane_refusals_name_their_items(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main([argv[0], "--backend", "cpu", *argv[1:]])
@@ -343,12 +328,6 @@ def test_every_jax_flag_of_the_socket_plane_is_accepted(cmd):
 
 @pytest.mark.parametrize("argv,item", [
     (["coordinate", "--broker-port", "1", "--resume"], "item 9"),
-    (["coordinate", "--broker-port", "1", "--agg-buffer-interval", "1.0"],
-     "item 13"),
-    (["coordinate", "--broker-port", "1", "--async-buffer", "4"], "item 13"),
-    (["coordinate", "--broker-port", "1", "--async-buffer", "auto"],
-     "item 13"),
-    (["coordinate", "--broker-port", "1", "--async-observe"], "item 13"),
     (["worker", "--broker-port", "1", "--client-id", "0", "--metrics-port",
       "9"], "item 10b"),
     (["broker", "--events-file", "e.jsonl"], "item 10b"),
@@ -360,6 +339,73 @@ def test_socket_plane_refusals_name_their_items(argv, item, capsys):
         cli.main(argv)
     assert exc.value.code == 2
     assert f"ROADMAP.md Queue A {item}" in capsys.readouterr().err
+
+
+# The asynchronous coordinator's flags, refused until it was ported: each
+# is parsed as JAX's parser parses it, and nothing refuses it.
+ASYNC_ARGV = [
+    ["train", *TINY, "--agg-buffer-interval", "1.5"],
+    ["aggregate", "--global-model", "g.npz", "--updates", "u.npz", "--out",
+     "g1.npz", "--agg-buffer-interval", "2.5"],
+    ["train", "--role", "client", "--client-id", "0", "--global-model",
+     "g.npz", "--out", "u.npz", "--agg-buffer-interval", "1.0"],
+    ["coordinate", "--broker-port", "1", "--agg-buffer-interval", "1.0"],
+    ["coordinate", "--broker-port", "1", "--async-buffer", "4"],
+    ["coordinate", "--broker-port", "1", "--async-buffer", "auto"],
+    ["coordinate", "--broker-port", "1", "--async-observe",
+     "--async-prune-after", "3", "--async-prune-score", "2.5",
+     "--async-probation", "4"]]
+ASYNC_DESTS = ("async_buffer", "async_observe", "async_prune_after",
+               "async_prune_score", "async_probation")
+
+
+def _jax_args(argv):
+    """JAX's parser's namespace for ``argv``."""
+    seen = {}
+    real = argparse.ArgumentParser.parse_args
+
+    def keep(parser, args=None, namespace=None):
+        seen["args"] = real(parser, args, namespace)
+        raise SystemExit(0)
+
+    argparse.ArgumentParser.parse_args = keep
+    try:
+        with pytest.raises(SystemExit):
+            jax_cli.main(argv)
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    return seen["args"]
+
+
+@pytest.mark.parametrize("argv", ASYNC_ARGV,
+                         ids=lambda a: "-".join(a[:1] + a[-2:]))
+def test_async_flags_are_accepted_as_jax(argv):
+    ours = cli.build_parser().parse_args([*argv, "--backend", "cpu"])
+    theirs = _jax_args(argv)
+    cli.refuse_unported(ours)              # nothing refuses them
+    for dest in ASYNC_DESTS + ("agg_buffer_interval_s",):
+        if hasattr(theirs, dest):
+            assert getattr(ours, dest) == getattr(theirs, dest), dest
+    if argv[0] == "coordinate":
+        assert cli.build_parser().parse_args(
+            ["coordinate", "--broker-port", "1"]).async_buffer == 0
+        return
+    assert (cli.config_from_args(ours).run.agg_buffer_interval_s
+            == jax_cli.config_from_args(theirs).run.agg_buffer_interval_s
+            != RunConfig().agg_buffer_interval_s)
+
+
+def test_async_buffer_refuses_what_jax_refuses(capsys):
+    """``--async-buffer`` takes an integer or ``auto``, as JAX's."""
+    argv = ["coordinate", "--broker-port", "1", "--async-buffer", "many"]
+    with pytest.raises(SystemExit):
+        jax_cli.main(argv)
+    theirs = capsys.readouterr().err.strip().splitlines()[-1]
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv)
+    assert exc.value.code == 2
+    ours = capsys.readouterr().err.strip().splitlines()[-1]
+    assert ours.split(": ", 1)[1] == theirs.split(": ", 1)[1]
 
 
 def test_aggregator_requires_an_agg_id_as_jax(capsys):

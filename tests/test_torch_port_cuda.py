@@ -4,7 +4,8 @@ f32 on the CPU, the hierarchical sync, update similarity and
 per-client evaluation against the CPU, remat's grads and K1 launches
 against the plain run, the client-mesh round at world size 1 on NCCL
 against the single-device round, socket-plane rounds with the device
-fold (flat, and through a two-aggregator tree) against the host fold, and
+fold (flat, through a two-aggregator tree, and one asynchronous
+aggregation) against the host fold, and
 a traced engine round's spans against its record, on the card.  Marked ``cuda``: without a CUDA device every
 test here skips.  On a machine with the card (no JAX needed):
 
@@ -769,6 +770,63 @@ def test_tree_round_with_the_device_fold_on_the_card(cuda, monkeypatch):
         before, order=order, slices=aggregator.slice_cohort(order, 2))
     for meta, delta in staged:
         host.add(meta, delta)
+    mean, _, _ = host.mean()
+    for b0, m, a in zip(trees.leaves(before), trees.leaves(mean),
+                        trees.leaves(after)):
+        assert np.array_equal((b0 + m).astype(np.float32), a)
+
+
+def test_async_aggregation_with_the_device_fold_on_the_card(cuda,
+                                                            monkeypatch):
+    """A broker, 3 workers and the asynchronous coordinator with
+    ``fold_device`` (topk8 uplinks, K = 3 = trainers), all on the card: one
+    aggregation folds one fresh update per trainer, ``fold_sparse``
+    launches once per update, and the new params are the old plus the host
+    fold's mean of the same updates (arrival-keyed), bit for bit."""
+    from colearn_federated_learning_tpu_torch.comm import aggregation
+    from colearn_federated_learning_tpu_torch.comm import async_coordinator
+    from colearn_federated_learning_tpu_torch.comm.broker import MessageBroker
+    from colearn_federated_learning_tpu_torch.comm.downlink import host_params
+    from colearn_federated_learning_tpu_torch.comm.worker import DeviceWorker
+    from colearn_federated_learning_tpu_torch.utils import config, trees
+
+    cfg = config.ExperimentConfig(
+        data=config.DataConfig(dataset="mnist_tiny", num_clients=3),
+        model=config.ModelConfig(name="mlp", num_classes=10, hidden_dim=32,
+                                 depth=2),
+        fed=config.FedConfig(rounds=1, local_steps=2, batch_size=16, lr=0.1,
+                             compress="topk8"),
+        run=config.RunConfig(fold_device=True))
+    staged = []
+
+    class Recording(aggregation.StreamingFolder):
+        def add(self, meta, delta, weight=None):
+            staged.append((dict(meta), delta, weight))
+            return super().add(meta, delta, weight)
+
+    monkeypatch.setattr(async_coordinator, "StreamingFolder", Recording)
+    with MessageBroker() as b:
+        workers = [DeviceWorker(cfg, i, b.host, b.port).start()
+                   for i in range(3)]
+        try:
+            with async_coordinator.AsyncFederatedCoordinator(
+                    cfg, b.host, b.port, buffer_size=3,
+                    want_evaluator=False) as coord:
+                coord.enroll(3, timeout=60.0)
+                before = host_params(coord.params_tree())
+                fold.reset_launches()
+                rec = coord.run_aggregation()
+                after = host_params(coord.params_tree())
+                launches = dict(fold.launches)
+        finally:
+            for w in workers:
+                w.stop()
+    assert launches == {"fold_sparse": 3, "fold_dense": 0}
+    assert sorted(rec["contributors"]) == ["0", "1", "2"]
+    assert rec["staleness_max"] == 0
+    host = aggregation.StreamingFolder(before)
+    for meta, delta, weight in staged:
+        host.add(meta, delta, weight)
     mean, _, _ = host.mean()
     for b0, m, a in zip(trees.leaves(before), trees.leaves(mean),
                         trees.leaves(after)):

@@ -110,7 +110,8 @@ NEW_MODULES = ["bench.py", "comm/aggregation.py", "fed/compression.py",
                "parallel/__init__.py", "parallel/collectives.py",
                "parallel/mesh.py", "parallel/partition.py", "parallel/ring.py",
                "parallel/sp.py", "parallel/tp.py", "parallel/ulysses.py",
-               "comm/__init__.py", "comm/aggregator.py", "comm/broker.py",
+               "comm/__init__.py", "comm/aggregator.py",
+               "comm/async_coordinator.py", "comm/broker.py",
                "comm/coordinator.py", "comm/per_type.py",
                "comm/downlink.py", "comm/enrollment.py",
                "comm/keyexchange.py", "comm/mud.py", "comm/protocol.py",

@@ -40,6 +40,15 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
+@pytest.fixture(autouse=True)
+def _fresh_registries():
+    """A coordinator charges the transport's per-device retry counters to
+    its ledger: retries that tests run before in this process (the fault
+    plane's) must not count, so each test starts from empty registries."""
+    registry.get_registry().reset()
+    jax_registry.get_registry().reset()
+
+
 def _write(mod, directory):
     """Two writers' ledgers: the coordinator's compacts (max_lines 6) and
     gets a torn final line; an aggregator's records its slice."""
