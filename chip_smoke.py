@@ -39,7 +39,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    evaluation batches) for K1 and depth × steps for K2 and K3 on a flash
    path, none elsewhere;
 7. the federated round's other branches through the port's command line
-   (``cli.main``) at full width: 7a SCAFFOLD on config #2 (2 rounds; the
+   (``cli.main``) at full width: 7a SCAFFOLD on config #2 (1 round; the
    server variate moves and exactly the contributors' variate rows
    change), 7b FedNova on config #2 with stragglers (the clients' step
    counts, and so their a_i, differ), 7c DP with adaptive clipping and
@@ -88,8 +88,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    ``aggregate``'s mean delta and the new global model the old plus it,
    with K1-K3's and the fold's launches exact; 9c ``bench`` with its
    defaults, its JSON line printed;
-10. remat, the client mesh and the SP/TP options on one card: 10a two
-   rounds of config #4 (BERT-base, flash, 4 local steps) and of ViT-B/16
+10. remat, the client mesh and the SP/TP options on one card: 10a one
+   round of config #4 (BERT-base, flash, 4 local steps) and of ViT-B/16
    (cohort 16) without and with ``remat`` on the same plan, the
    losses and params equal (bound 1e-4 rel / 2e-5 abs; expected 0.0),
    both peak GiB and each round's seconds printed (the second is warm),
@@ -107,7 +107,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    ``FederatedCoordinator`` and 4 ``DeviceWorker``s as threads (3
    trainers and the evaluator) on config #4 (BERT-base, flash, 4 local
    steps) with topk8 uplinks, error feedback and ``fold_device``, 2 rounds
-   and an evaluation: every record complete with a finite loss, the
+   and an evaluation, with a trace and a health ledger (13b's checks run
+   on this federation): every record complete with a finite loss, the
    params moved, round 0's updates folded again on the host bitwise equal
    to the device fold, K1-K3's launches exact (depth x steps x trainers
    per round, plus the evaluator's batches for K1) and ``fold_sparse``
@@ -153,15 +154,16 @@ Phases (any failure exits non-zero; no phase's error is caught):
    type fails, the two models are finite, moved and distinct, and
    ``fold_dense`` launches 4 times;
 13. the telemetry core (``telemetry/``, ``metrics.py``) on config #4:
-   13a ``train`` through ``cli.main`` for 3 rounds without and with
-   ``--trace-dir --trace-rounds 2 --log-file --tensorboard-dir`` on the
+   13a ``train`` through ``cli.main`` for 2 rounds without and with
+   ``--trace-dir --trace-rounds 1 --log-file --tensorboard-dir`` on the
    same plan: the same record keys, the losses and params within 10a's
    bound (expected 0.0), the trace's ``round``/``client_update``/
-   ``sync_metrics`` spans of rounds 0-1 only, ``client_update`` equal to
+   ``sync_metrics`` spans of round 0 only, ``client_update`` equal to
    each record's ``phase_update_s``, the JSONL lines the records, the
    ``trace-summary`` text and both runs' seconds per round printed, and
-   K1-K3's launches exact; 13b 11a's federation with a trace and a
-   health ledger, 2 rounds and an evaluation: each trainer's adopted
+   K1-K3's launches exact; 13b on 11a's federation (run in phase 11 with
+   a trace and a health ledger, 2 rounds and an evaluation): each
+   trainer's adopted
    ``worker.train`` (with ``local_train`` and ``compress_delta`` inside)
    lies in ``broadcast_collect``, the ledger holds the 3 trainers, the
    records carry the ``health_*`` keys, ``fed.rounds_total`` is 2 and the
@@ -206,8 +208,42 @@ Phases (any failure exits non-zero; no phase's error is caught):
    ``train_loss``, mean update and global params after the step equal
    11c's round 0 within f32 rtol 1e-4 / atol 2e-5 (aggregation 1's too
    when the two round-0 folds are bitwise equal: the fold order differs);
-15. one JSON line of per-kernel results (launches summed over the paths),
+15. LoRA adapter federation (``fed/lora.py``, rank 8, alpha 16, a merge
+   every 2 aggregations) on the card: 15a 11a's federation (3 trainers and
+   the evaluator, config #4, the device fold) with dense factor uplinks, 3
+   rounds and an evaluation: every update is the factor tree (146 leaves,
+   1,577,424 float32), ``bytes_saved_uplink`` is the dense frame's length
+   less the factor frame's per update (JAX's pricing), every round's
+   ``fold_dense`` of the 3 factor updates bitwise its host fold, round 0
+   leaves the base bit for bit and moves the factors, ``lora_merged``
+   reads [False, True, False], round 1's base within f32 rtol 1e-4 / atol
+   2e-5 of ``merge_adapters`` on the host with B zero and A kept, the
+   evaluation scores the temporary merge and leaves the base bit for bit,
+   launches exact; the merge's seconds against its bytes bound and the
+   trainer's seconds per local step are printed; 15b 12a's tree (4
+   trainers, 2 aggregators with the device fold) with topk8 factor
+   uplinks and error feedback, 2 rounds, no failover: every slice's
+   ``fold_sparse`` bitwise its host fold, the root's ``fold_dense`` of the
+   2 factor partials bitwise the slice-blocked host fold, the ``lora``
+   marker on every trainer's frame through the tier, launches exact; 15c
+   11b's DH secure round over the factors (trainer 2's reply lost): the
+   recovered aggregate within 1e-5 of the survivors' unmasked factor sum
+   (``check_recovery``); 15d ``cli broker``, 3 x ``cli worker --lora-rank
+   4`` and ``cli coordinate --lora-rank 4 --lora-merge-every 2
+   --fold-device --no-evaluator`` on config #2's CNN, 2 rounds: every
+   process exits 0, every round complete, the updates adapt exactly the
+   Conv (HWIO) and Dense kernels, ``lora_merged`` reads [False, True]
+   (the loss is printed: config #2's SGD diverges under the adapters'
+   alpha/r = 4, JAX's trainer too); then the fold kernel at
+   the factor layout (``fold_dense`` of 3 contributions and of 2
+   partials, ``fold_sparse`` of topk8 contributions) bitwise its plain
+   version and timed as in 9a;
+16. one JSON line of per-kernel results (launches summed over the paths),
    then the result line.
+
+Every synthetic dataset is drawn once in the process and copied to each
+later caller (``cache_synthetic_data``): a draw is a function of the
+dataset and the seed, and CIFAR-10's takes seconds on the host.
 
 Needs a CUDA device and the repository beside it; it exits non-zero and
 prints no result otherwise.
@@ -781,7 +817,7 @@ def scaffold_path(A):
             del seen["rows"]
 
     return cli_path(A, "7a", ["--config", "cifar10_cnn_fedavg", "--strategy",
-                              "scaffold", "--momentum", "0", "--rounds", "2"],
+                              "scaffold", "--momentum", "0", "--rounds", "1"],
                     watch)[1]
 
 
@@ -1574,7 +1610,7 @@ REMAT_RTOL, REMAT_ATOL = 1e-4, 2e-5     # bound of the remat differences
 MESH_ATOL = 2e-5                         # world-1 mesh vs one device
 
 
-REMAT_ROUNDS = 2
+REMAT_ROUNDS = 1           # cut from 2 to keep the script in its budget
 
 
 def remat_path(A, label, cfg):
@@ -1582,8 +1618,9 @@ def remat_path(A, label, cfg):
     the same plan (the default draws of one seed): the losses and params
     must agree (expected 0.0: the recomputed forward runs the same kernels
     on the same inputs), and K1 launches once more per block and step
-    under remat.  The first round pays one-time costs; the second is the
-    warm s/round.  Returns the remat run's launches and the numbers."""
+    under remat.  The round pays one-time costs (cudnn's and the
+    allocator's warm-up).  Returns the remat run's launches and the
+    numbers."""
     from colearn_federated_learning_tpu_torch.fed import FederatedLearner
 
     runs = []
@@ -1982,15 +2019,23 @@ def _stop(broker, workers, coord):
     broker.stop()
 
 
-def socket_round_path(A, F, dataset):
+def socket_round_path(A, F, dataset, workdir):
     """11a: a broker, a FederatedCoordinator and 4 DeviceWorkers (3
     trainers and the evaluator) on the card, config #4 with topk8 uplinks,
-    error feedback and the device fold, 2 rounds and an evaluation."""
+    error feedback and the device fold, 2 rounds and an evaluation, with a
+    trace and a health ledger, which 13b's checks read
+    (``traced_socket_checks``)."""
+    from colearn_federated_learning_tpu_torch import telemetry
     from colearn_federated_learning_tpu_torch.comm.downlink import host_params
     from colearn_federated_learning_tpu_torch.utils import trees
 
+    trace_dir = os.path.join(workdir, "13b_trace")
+    health_dir = os.path.join(workdir, "13b_health")
     cfg = socket_config(compress="topk8", compress_feedback=True,
-                        fold_device=True)
+                        fold_device=True, trace_dir=trace_dir,
+                        health_dir=health_dir)
+    reg = telemetry.get_registry()
+    reg.reset()
     t0 = time.perf_counter()
     rec_patch, timer = _Recorder(), None
     broker, workers, coord = _federation(cfg, 4, True, dataset)
@@ -2002,6 +2047,7 @@ def socket_round_path(A, F, dataset):
             f"{time.perf_counter() - t0:.2f} s")
         if len(coord.trainers) != 3 or coord.evaluator is None:
             raise AssertionError("11a: roles not assigned as 3 + 1")
+        trainers = sorted(d.device_id for d in coord.trainers)
         before = host_params(coord.params_tree())
         A.reset_launches()
         F.reset_launches()
@@ -2016,6 +2062,11 @@ def socket_round_path(A, F, dataset):
         after = host_params(coord.params_tree())
         fold_us = timer.per_contribution_us("sparse")
         stage_us = timer.per_contribution_us("stage")
+        trace_path = telemetry.write_tracer(trace_dir, cfg.run.name,
+                                            coord.tracer,
+                                            metrics=reg.snapshot())
+        local_s = [sp.duration_s for sp in coord.tracer.snapshot()
+                   if sp.name == "local_train"]
     finally:
         if timer is not None:
             timer.close()
@@ -2059,7 +2110,12 @@ def socket_round_path(A, F, dataset):
         f"fold_sparse {fold_us:.2f} us device per contribution, staging "
         f"copy {stage_us:.2f} us device per contribution; launches "
         f"{launches} (exact)")
-    return launches, [r["round_time_s"] for r in records], fold_us, stage_us
+    traced = traced_socket_checks(cfg, trainers, records, ev, trace_path,
+                                  health_dir)
+    traced["local_train_s_per_step"] = (sum(local_s) / len(local_s)
+                                        / cfg.fed.local_steps)
+    return (launches, [r["round_time_s"] for r in records], fold_us,
+            stage_us, traced)
 
 
 def check_recovery(tag, got, unmasked, survivors, masked):
@@ -2161,12 +2217,13 @@ SOCKET_CLI = ["--config", "cifar10_cnn_fedavg", "--num-clients", "3",
 RECORDS: dict = {}
 
 
-def cli_federation(F, aggregators=0, coordinate=()):
+def cli_federation(F, aggregators=0, coordinate=(), worker=()):
     """``cli broker``, ``aggregators`` x ``cli aggregator --fold-device``
     and 3 x ``cli worker`` as processes on the card, then ``cli coordinate
     --min-devices 3 --rounds 2 --fold-device --no-evaluator`` (with
     ``--num-aggregators`` when there are aggregators, and the
-    ``coordinate`` flags) on config #2's CNN (num_clients cut to 3; no
+    ``coordinate`` flags; the workers take the ``worker`` flags) on config
+    #2's CNN (num_clients cut to 3; no
     evaluator, so all three train) through ``cli.main`` in this process,
     which counts the fold kernel's launches.  Every process is stopped
     with SIGTERM.  Returns (every record of the coordinator, the global
@@ -2198,7 +2255,7 @@ def cli_federation(F, aggregators=0, coordinate=()):
                 stdout=subprocess.DEVNULL))
         for i in range(3):
             procs.append(subprocess.Popen(
-                [*mod, "worker", *SOCKET_CLI, "--client-id", str(i),
+                [*mod, "worker", *SOCKET_CLI, *worker, "--client-id", str(i),
                  "--broker-port", port], env=env, cwd=root,
                 stdout=subprocess.DEVNULL))
         tree = ["--num-aggregators", str(aggregators)] if aggregators else []
@@ -2264,17 +2321,23 @@ def socket_cli_path(F):
     return launches
 
 
-def socket_phase(A, F):
-    """Phase 11: the synchronous socket plane on the card."""
+def socket_phase(A, F, _build):
+    """Phase 11: the synchronous socket plane on the card (11a also runs
+    13b's checks of the telemetry core)."""
     from colearn_federated_learning_tpu_torch.data import registry
 
     cfg = main_path_config()
     dataset = registry.get_dataset(cfg.data.dataset, seed=cfg.run.seed)
     paths, numbers = {}, {}
     t0 = time.perf_counter()
-    paths["socket_round"], numbers["11a_round_s"], numbers["11a_fold_us"], \
-        numbers["11a_stage_us"] = socket_round_path(A, F, dataset)
-    log(f"  11a in {time.perf_counter() - t0:.2f} s")
+    # 11a's trace and ledger go to a temporary directory inside the
+    # gitignored build directory, removed afterwards.
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        paths["socket_round"], numbers["11a_round_s"], \
+            numbers["11a_fold_us"], numbers["11a_stage_us"], \
+            numbers["13b"] = socket_round_path(A, F, dataset, workdir)
+    log(f"  11a (with 13b's checks) in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     paths["socket_secure"] = secure_socket_path(A, F, dataset)
     log(f"  11b in {time.perf_counter() - t0:.2f} s")
@@ -2640,19 +2703,19 @@ def tree_phase(A, F):
 
 
 # ------------------------------------------------------------ phase 13
-TRACE_WINDOW = 2           # 13a traces the first 2 of its 3 rounds
+TRACE_WINDOW = 1           # 13a traces the first of its 2 rounds
 BERT_TRACE = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
-              "--local-steps", "4", "--rounds", "3", "--eval-every", "10"]
+              "--local-steps", "4", "--rounds", "2", "--eval-every", "10"]
 CLOCK_SLACK_S = 1e-3       # wall-clock anchors vs perf_counter durations
 
 
 def traced_engine_path(A, workdir):
     """13a: ``train`` through ``cli.main`` on config #4 (BERT-base, flash,
-    4 local steps, 3 rounds) without and with ``--trace-dir
-    --trace-rounds 2 --log-file --tensorboard-dir``, on the same plan: the
+    4 local steps, 2 rounds) without and with ``--trace-dir
+    --trace-rounds 1 --log-file --tensorboard-dir``, on the same plan: the
     record keys are the same, the losses and params agree within phase
     10a's bound (expected 0.0: tracing adds no work to the round), the
-    trace holds ``round``/``client_update``/``sync_metrics`` of rounds 0-1
+    trace holds ``round``/``client_update``/``sync_metrics`` of round 0
     only, loads through the port's ``load_trace``, and its
     ``client_update`` durations are the records' ``phase_update_s``; the
     JSONL log holds the records.  K1-K3 launch exactly in both runs."""
@@ -2767,36 +2830,17 @@ def collect_split(spans):
     return split
 
 
-def traced_socket_path(A, F, dataset, workdir):
-    """13b: 11a's federation (3 trainers and the evaluator, topk8 with
-    feedback, the device fold) with a trace and a health ledger, 2 rounds
-    and an evaluation: the trace file loads, its collect holds each
-    trainer's adopted ``worker.train`` with ``local_train`` and
-    ``compress_delta`` inside, the ledger has the 3 trainers, the records
-    carry the ``health_*`` keys, ``fed.rounds_total`` is 2 and every frame
-    sent in the process was received; launches are 11a's.  Prints the
-    collect's split per round."""
+def traced_socket_checks(cfg, trainers, records, ev, path, health_dir):
+    """13b, on 11a's federation (3 trainers and the evaluator, topk8 with
+    feedback, the device fold, a trace and a health ledger, 2 rounds and an
+    evaluation): the trace file loads, its collect holds each trainer's
+    adopted ``worker.train`` with ``local_train`` and ``compress_delta``
+    inside, the ledger has the 3 trainers, the records carry the
+    ``health_*`` keys, ``fed.rounds_total`` is 2 and every frame sent in
+    the process was received.  Prints the collect's split per round."""
     from colearn_federated_learning_tpu_torch import telemetry
 
-    trace_dir = os.path.join(workdir, "13b_trace")
-    health_dir = os.path.join(workdir, "13b_health")
-    cfg = socket_config(compress="topk8", compress_feedback=True,
-                        fold_device=True, trace_dir=trace_dir,
-                        health_dir=health_dir)
     reg = telemetry.get_registry()
-    reg.reset()
-    broker, workers, coord = _federation(cfg, 4, True, dataset)
-    try:
-        trainers = sorted(d.device_id for d in coord.trainers)
-        A.reset_launches()
-        F.reset_launches()
-        records = [coord.run_round() for _ in range(2)]
-        ev = coord.evaluate()
-        launches = {**A.launches, **F.launches}
-        path = telemetry.write_tracer(trace_dir, cfg.run.name, coord.tracer,
-                                      metrics=reg.snapshot())
-    finally:
-        _stop(broker, workers, coord)
     # A sender counts a frame once its write returned, which may be after
     # the receiver counted it: wait (bounded) for the last ones.
     deadline = time.monotonic() + 10.0
@@ -2805,16 +2849,6 @@ def traced_socket_path(A, F, dataset, workdir):
            and time.monotonic() < deadline):
         time.sleep(0.01)
         snap = reg.snapshot()
-    depth, steps = cfg.model.depth, cfg.fed.local_steps
-    trained = 2 * 3 * steps
-    eval_batches = math.ceil(len(dataset.x_test)
-                             / max(cfg.fed.batch_size, 64))
-    want = {"flash_forward": depth * (trained + eval_batches),
-            "flash_backward_dq": depth * trained,
-            "flash_backward_dkv": depth * trained,
-            "fold_sparse": 2 * 3, "fold_dense": 0}
-    if launches != want:
-        raise AssertionError(f"13b: launches {launches}, expected {want}")
     fleet = telemetry.load_health(health_dir)
     if sorted(fleet) != trainers or any(h.rounds != 2
                                         for h in fleet.values()):
@@ -2848,10 +2882,10 @@ def traced_socket_path(A, F, dataset, workdir):
         f"s; ledger {sorted(fleet)} (lat ewma "
         f"{[round(fleet[d].lat_ewma, 3) for d in sorted(fleet)]} s); "
         f"messages {snap['comm.messages_sent']:.0f} sent = received; "
-        f"bytes {snap['comm.bytes_sent']:.0f}; launches {launches} (exact); "
+        f"bytes {snap['comm.bytes_sent']:.0f}; launches as 11a's; "
         f"{card()}")
-    return launches, {"split": split, "mean": mean,
-                      "round_s": [r["round_time_s"] for r in records]}
+    return {"split": split, "mean": mean,
+            "round_s": [r["round_time_s"] for r in records]}
 
 
 def traced_tree_path(A, F, dataset, workdir):
@@ -2955,10 +2989,6 @@ def telemetry_phase(A, F, _build):
         engine_paths, numbers["13a"] = traced_engine_path(A, workdir)
         paths.update(engine_paths)
         log(f"  13a in {time.perf_counter() - t0:.2f} s")
-        t0 = time.perf_counter()
-        paths["traced_socket"], numbers["13b"] = traced_socket_path(
-            A, F, dataset, workdir)
-        log(f"  13b in {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
         paths["traced_tree"], numbers["13c"] = traced_tree_path(
             A, F, dataset, workdir)
@@ -3378,6 +3408,594 @@ def async_phase(A, F, _build):
     return paths
 
 
+# ------------------------------------------------------------ phase 15
+LORA = dict(lora_rank=8, lora_alpha=16.0, lora_merge_every=2)
+LORA_CUTS = ("local_steps 150 -> 4; {n} enrolled trainers (clients "
+             "0-{last} of the 50-client partition){more}")
+LORA_ROUNDS = 3            # 15a: round 1 merges, rounds 0 and 2 do not
+# BERT-base's 73 adapted weights at r = 8: 146 factor leaves holding
+# 1,577,424 float32 entries (the JAX package's lora.init_factors).
+LORA_LEAVES, LORA_ENTRIES = 146, 1_577_424
+MERGE_RTOL, MERGE_ATOL = 1e-4, 2e-5
+
+
+def lora_config(**fed):
+    """Config #4 as the socket paths run it, with rank-8 adapters (α 16,
+    a merge every 2 aggregations)."""
+    return socket_config(**LORA, **fed)
+
+
+def _cpu_tree(tree):
+    """A flax-layout tree of host arrays as CPU tensors."""
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    return trees.map_leaves(
+        lambda l: torch.from_numpy(np.array(l, np.float32)), tree)
+
+
+def _leaf_bytes(tree) -> list:
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    return [np.asarray(l).tobytes() for l in trees.leaves(tree)]
+
+
+def _check_close(tag, got, want):
+    """``got`` (host arrays) within the f32 merge bound of ``want``
+    (tensors or arrays), leaf by leaf; returns the max abs difference."""
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    worst = 0.0
+    for a, b in zip(trees.leaves(got), trees.leaves(want)):
+        b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+        a = np.asarray(a)
+        if not np.allclose(a, b, rtol=MERGE_RTOL, atol=MERGE_ATOL):
+            raise AssertionError(f"{tag}: {np.abs(a - b).max()} off the "
+                                 f"host merge (rtol {MERGE_RTOL}, atol "
+                                 f"{MERGE_ATOL})")
+        worst = max(worst, float(np.abs(a - b).max()))
+    return worst
+
+
+def _factor_shaped(tag, fold_shapes, folders):
+    """Every update the folders received is a factor tree (in the wire's
+    frame for the codecs): LORA_LEAVES leaves of LORA_ENTRIES entries."""
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    want = [tuple(np.shape(l)) for l in trees.leaves(fold_shapes)]
+    n = 0
+    for folder in folders:
+        for _, delta in folder.received:
+            nodes = trees.flatten_up_to(fold_shapes, delta)
+            if len(nodes) != LORA_LEAVES:
+                raise AssertionError(f"{tag}: an update of {len(nodes)} "
+                                     "leaves")
+            dense = [np.shape(x) for x in nodes if not isinstance(x, dict)]
+            if dense and dense != want:
+                raise AssertionError(f"{tag}: an update's shapes differ "
+                                     "from the factors'")
+            n += 1
+    if sum(int(np.prod(s)) for s in want) != LORA_ENTRIES \
+            or len(want) != LORA_LEAVES:
+        raise AssertionError(f"{tag}: the factor template has {len(want)} "
+                             f"leaves of {sum(int(np.prod(s)) for s in want)}"
+                             " entries")
+    return n
+
+
+def lora_flat_path(A, F, dataset):
+    """15a: a broker, a FederatedCoordinator and 4 DeviceWorkers (3
+    trainers and the evaluator) on config #4 with rank-8 adapters (α 16, a
+    merge every 2), dense factor uplinks and the device fold, 3 rounds and
+    an evaluation.  Every update is the factor tree; ``bytes_saved_uplink``
+    is the dense frame's length less the factor frame's per update (JAX's
+    pricing); each round's ``fold_dense`` is bitwise its host fold; round
+    0 leaves the base bit for bit and moves the factors; only round 1
+    merges, its base within f32 rtol 1e-4 / atol 2e-5 of the host's merge
+    of the base and the factors it merged, B zero and A kept; the
+    evaluation scores the temporary merge and leaves the base bit for bit;
+    launches exact."""
+    from colearn_federated_learning_tpu_torch.comm.downlink import host_params
+    from colearn_federated_learning_tpu_torch.fed import lora
+    from colearn_federated_learning_tpu_torch.utils import trees
+    from colearn_federated_learning_tpu_torch.utils.serialization import (
+        wire_frame_length)
+
+    cfg = lora_config(fold_device=True)
+    fed = cfg.fed
+    t0 = time.perf_counter()
+    rec_patch = _Recorder()
+    broker, workers, coord = _federation(cfg, 4, True, dataset)
+    evaluated, merge_s = [], []
+    try:
+        if len(coord.trainers) != 3 or coord.evaluator is None:
+            raise AssertionError("15a: roles not assigned as 3 + 1")
+        log(f"  [15a] {cfg.run.name}: bert width {cfg.model.width} "
+            f"{cfg.model.dtype}, flash, LoRA r {fed.lora_rank} alpha "
+            f"{fed.lora_alpha} merge every {fed.lora_merge_every}, dense "
+            f"factor uplinks, fold_device; trainers "
+            f"{[d.device_id for d in coord.trainers]}, evaluator "
+            f"{coord.evaluator.device_id}; cuts: {SOCKET_CUTS}; up in "
+            f"{time.perf_counter() - t0:.2f} s")
+        base0 = host_params(coord.params_tree())
+        eval_params, merge = coord._eval_params, coord._merge_lora
+
+        def recorded_eval():
+            params = eval_params()
+            evaluated.append(host_params(params))
+            return params
+
+        def timed_merge():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            merge()
+            torch.cuda.synchronize()
+            merge_s.append(time.perf_counter() - t)
+
+        coord._eval_params, coord._merge_lora = recorded_eval, timed_merge
+        A.reset_launches()
+        F.reset_launches()
+        records, snaps = [], []
+        for _ in range(LORA_ROUNDS):
+            records.append(coord.run_round())
+            snaps.append((host_params(coord.params_tree()),
+                          host_params(coord._factors)))
+        t1 = time.perf_counter()
+        ev = coord.evaluate()
+        eval_s = time.perf_counter() - t1
+        launches = {**A.launches, **F.launches}
+        after_eval = host_params(coord.params_tree())
+        local_s = [sp.duration_s for sp in coord.tracer.snapshot()
+                   if sp.name == "local_train"]
+        shapes, fold_shapes = coord._shapes_np, coord._fold_shapes
+    finally:
+        rec_patch.close()
+        _stop(broker, workers, coord)
+    for r in records:
+        log(f"  [15a] round {r['round']}: {r['round_time_s']:.3f} s, "
+            f"train_loss {r['train_loss']:.6f}, completed {r['completed']}, "
+            f"lora_merged {r['lora_merged']}, phase_broadcast_collect_s "
+            f"{r['phase_broadcast_collect_s']:.3f}, phase_aggregate_s "
+            f"{r['phase_aggregate_s']:.3f}, bytes_saved_uplink "
+            f"{r['bytes_saved_uplink']}")
+        if not (r["completed"] == 3 and not r["dropped"]
+                and math.isfinite(r["train_loss"])):
+            raise AssertionError(f"15a: bad round record {r}")
+    if [r["lora_merged"] for r in records] != [False, True, False]:
+        raise AssertionError(f"15a: lora_merged "
+                             f"{[r['lora_merged'] for r in records]}")
+    # JAX's pricing: the dense frame less the factor frame, per update.
+    meta = {"round": 0, "op": "train", "compress": "none"}
+    saved = (wire_frame_length(shapes, meta)
+             - wire_frame_length(fold_shapes, meta))
+    if [r["bytes_saved_uplink"] for r in records] != [3 * saved] * 3:
+        raise AssertionError(f"15a: bytes_saved_uplink "
+                             f"{[r['bytes_saved_uplink'] for r in records]}"
+                             f", expected {3 * saved} per round")
+    updates = _factor_shaped("15a", fold_shapes, rec_patch.folders)
+    for r, folder in enumerate(rec_patch.folders):
+        if not _same_fold(folder, _host_fold(fold_shapes, folder.folded_ids,
+                                             folder.received)):
+            raise AssertionError(f"15a: round {r}'s device fold differs "
+                                 "from its host fold")
+    (b0, f0), (b1, f1), (b2, f2) = snaps
+    if _leaf_bytes(b0) != _leaf_bytes(base0):
+        raise AssertionError("15a: round 0 moved the base")
+    if not any(np.any(b != 0) for _, b in lora.factor_index(f0).values()):
+        raise AssertionError("15a: round 0 left B at zero")
+    # Round 1: the factors it merged are round 0's plus the mean delta.
+    mean1, _, _ = rec_patch.folders[1].mean()
+    merged_f = trees.map_leaves(
+        lambda f, d: f + np.float32(fed.server_lr) * d, f0, mean1)
+    err1 = _check_close("15a round 1", b1, lora.merge_adapters(
+        _cpu_tree(b0), _cpu_tree(merged_f), fed.lora_alpha, fed.lora_rank))
+    for path, (a, b) in lora.factor_index(f1).items():
+        if np.any(b != 0) or not np.array_equal(
+                a, lora.factor_index(merged_f)[path][0]):
+            raise AssertionError(f"15a: after the merge {path}'s B is not "
+                                 "zero or its A changed")
+    if _leaf_bytes(b2) != _leaf_bytes(b1):
+        raise AssertionError("15a: round 2 moved the base")
+    err_eval = _check_close("15a evaluation", evaluated[0], lora.merge_adapters(
+        _cpu_tree(b2), _cpu_tree(f2), fed.lora_alpha, fed.lora_rank))
+    if _leaf_bytes(after_eval) != _leaf_bytes(b2) \
+            or not math.isfinite(ev["eval_loss"]):
+        raise AssertionError(f"15a: the evaluation moved the base or gave "
+                             f"{ev}")
+    depth, steps = cfg.model.depth, fed.local_steps
+    trained = LORA_ROUNDS * 3 * steps
+    eval_batches = math.ceil(len(dataset.x_test)
+                             / max(fed.batch_size, 64))
+    want = {"flash_forward": depth * (trained + eval_batches),
+            "flash_backward_dq": depth * trained,
+            "flash_backward_dkv": depth * trained,
+            "fold_sparse": 0, "fold_dense": LORA_ROUNDS}
+    # The merge reads and writes every adapted weight once (the factors
+    # are 1.5 % of it).
+    adapted = sum(int(np.prod(s)) for s in lora.target_paths(
+        shapes, model_name=cfg.model.name).values())
+    merge_bound_ms = 1e3 * (8 * adapted + 4 * LORA_ENTRIES) / HBM_BYTES_PER_S
+    per_step = sum(local_s) / len(local_s) / steps
+    log(f"  [15a] {updates} updates, each {LORA_LEAVES} factor leaves of "
+        f"{LORA_ENTRIES} f32 ({4 * LORA_ENTRIES / 1e6:.2f} MB); "
+        f"bytes_saved_uplink {saved} per update (dense frame less factor "
+        f"frame); every round's device fold == its host fold (bitwise); "
+        f"round 0 kept the base bit for bit; round 1's merge within "
+        f"{err1:.3e} of the host merge, B zero, A kept; the evaluation "
+        f"scored the temporary merge ({err_eval:.3e} off the host merge) "
+        f"and left the base bit for bit: loss {ev['eval_loss']:.6f} acc "
+        f"{ev['eval_acc']:.4f} in {eval_s:.3f} s; merge "
+        f"{[round(t * 1e3, 3) for t in merge_s]} ms (bound "
+        f"{merge_bound_ms:.3f} ms, {8 * adapted / 1e6:.1f} MB of adapted "
+        f"base read and written); local_train {per_step * 1e3:.2f} ms per "
+        f"step; launches {launches}; path "
+        f"{time.perf_counter() - t0:.2f} s; {card()}")
+    if launches != want:
+        raise AssertionError(f"15a: launches {launches}, expected {want}")
+    return launches, {"round_s": [r["round_time_s"] for r in records],
+                      "collect_s": [r["phase_broadcast_collect_s"]
+                                    for r in records],
+                      "merge_ms": [t * 1e3 for t in merge_s],
+                      "merge_bound_ms": merge_bound_ms,
+                      "local_train_s_per_step": per_step}, fold_shapes
+
+
+def lora_tree_path(A, F, dataset):
+    """15b: 12a's tree (4 trainer threads, 2 AggregatorServers with the
+    device fold, heartbeat timeout 2 s, no evaluator) with rank-8 adapters
+    and topk8 factor uplinks with error feedback, 2 rounds and no
+    failover: each slice's ``fold_sparse`` of factor updates is bitwise its
+    host fold, the root's ``fold_dense`` of the 2 factor partials bitwise
+    the slice-blocked host fold, every trainer's frame carried the
+    ``lora`` marker through the tier, round 1 merges; launches exact."""
+    from colearn_federated_learning_tpu_torch.comm import worker as worker_lib
+    from colearn_federated_learning_tpu_torch.comm.aggregation import (
+        StreamingFolder)
+    from colearn_federated_learning_tpu_torch.comm.aggregator import (
+        slice_cohort)
+
+    cfg = lora_config(compress="topk8", compress_feedback=True,
+                      fold_device=True, num_aggregators=2,
+                      agg_heartbeat_timeout=2.0)
+    t0 = time.perf_counter()
+    seen = []
+    train = worker_lib.DeviceWorker._train
+
+    def recorded_train(w, round_idx, global_params, cohort=None, meta=None,
+                       shares_in=None):
+        seen.append((w.client_id, round_idx, dict(meta or {})))
+        return train(w, round_idx, global_params, cohort=cohort, meta=meta,
+                     shares_in=shares_in)
+
+    worker_lib.DeviceWorker._train = recorded_train
+    rec_patch, timer, aggs = _Recorder(), None, []
+    try:
+        broker, workers, coord = _federation(cfg, 4, False, dataset)
+        try:
+            aggs = _tree(cfg, broker, 2)
+            coord.enroll_aggregators(timeout=120.0)
+            order = [d.device_id for d in coord.trainers]
+            A.reset_launches()
+            F.reset_launches()
+            timer = _FoldTimer(F)
+            records = [coord.run_round() for _ in range(2)]
+            launches = {**A.launches, **F.launches}
+            dense_us = timer.per_launch_us("dense")
+            fold_shapes = coord._fold_shapes
+        finally:
+            if timer is not None:
+                timer.close()
+            for agg in aggs:
+                agg.stop()
+            _stop(broker, workers, coord)
+    finally:
+        rec_patch.close()
+        worker_lib.DeviceWorker._train = train
+    for r in records:
+        log(f"  [15b] round {r['round']}: {r['round_time_s']:.3f} s, "
+            f"train_loss {r['train_loss']:.6f}, completed {r['completed']}, "
+            f"aggregators {r['aggregators']}, lora_merged {r['lora_merged']}"
+            f", phase_broadcast_collect_s "
+            f"{r['phase_broadcast_collect_s']:.3f}, phase_agg_fold_s "
+            f"{r['phase_agg_fold_s']:.3f}")
+        if not (r["aggregators"] == 2 and r["completed"] == 4
+                and not r["dropped"] and "agg_failovers" not in r
+                and math.isfinite(r["train_loss"])):
+            raise AssertionError(f"15b: bad round record {r}")
+    if [r["lora_merged"] for r in records] != [False, True]:
+        raise AssertionError("15b: lora_merged "
+                             f"{[r['lora_merged'] for r in records]}")
+    markers = sorted((c, r, m.get("lora")) for c, r, m in seen)
+    if markers != sorted((int(c), r, LORA["lora_rank"]) for c in order
+                         for r in range(2)):
+        raise AssertionError(f"15b: the trainers' frames carried {markers}")
+    if len(rec_patch.agg_folders) != 4 or len(rec_patch.folders) != 2:
+        raise AssertionError(f"15b: {len(rec_patch.agg_folders)} slice "
+                             f"folds, {len(rec_patch.folders)} root folds")
+    updates = _factor_shaped("15b", fold_shapes, rec_patch.agg_folders)
+    by_round = {}
+    for f in rec_patch.agg_folders:
+        if not _same_fold(f, _host_fold(fold_shapes, f.folded_ids,
+                                        f.received)):
+            raise AssertionError("15b: a slice's fold_sparse differs from "
+                                 "its host fold")
+        by_round.setdefault(int(f.received[0][0]["round"]), []).extend(
+            f.received)
+    for r, root in enumerate(rec_patch.folders):
+        host = _host_fold(fold_shapes, order, by_round[r],
+                          slice_cohort(order, 2))
+        if len(by_round[r]) != 4 or not _same_fold(root, host):
+            raise AssertionError(f"15b: round {r}'s root fold_dense differs "
+                                 "from the slice-blocked host fold")
+    # The slice folds replayed alone on the card, as 12a's.
+    timer = _FoldTimer(F)
+    try:
+        for f in rec_patch.agg_folders:
+            again = StreamingFolder(fold_shapes, order=f.folded_ids,
+                                    device_fold=True)
+            for meta, delta in f.received:
+                again.add(meta, delta)
+            again.finalize()
+            if not _same_fold(again, f):
+                raise AssertionError("15b: a replayed slice fold differs")
+        sparse_us = timer.per_contribution_us("sparse")
+        stage_us = timer.per_contribution_us("stage")
+    finally:
+        timer.close()
+    depth, steps = cfg.model.depth, cfg.fed.local_steps
+    trained = 2 * 4 * steps
+    want = {"flash_forward": depth * trained,
+            "flash_backward_dq": depth * trained,
+            "flash_backward_dkv": depth * trained,
+            "fold_sparse": 2 * 4, "fold_dense": 2}
+    log(f"  [15b] {updates} topk8 factor updates; every slice fold == its "
+        f"host fold and every root sum == the slice-blocked host fold "
+        f"(bitwise); the lora marker reached all {len(seen)} train "
+        f"requests through the tier; replayed alone: fold_sparse "
+        f"{sparse_us:.2f} us device, staging copy {stage_us:.2f} us per "
+        f"factor contribution; root fold_dense {dense_us:.2f} us per "
+        f"launch of 2 factor partials; launches {launches}; path "
+        f"{time.perf_counter() - t0:.2f} s; {card()}")
+    if launches != want:
+        raise AssertionError(f"15b: launches {launches}, expected {want}")
+    return launches, {"round_s": [r["round_time_s"] for r in records],
+                      "fold_sparse_us": sparse_us, "stage_us": stage_us,
+                      "root_fold_dense_us": dense_us}
+
+
+def lora_secure_path(A, F, dataset):
+    """15c: 11b's DH secure aggregation with rank-8 adapters: 4 trainers, 1
+    round, trainer 2's train reply lost after the share phase; the masks
+    and their recovery run on the factor tree, and the recovered aggregate
+    is the survivors' unmasked factor sum within 1e-5 (11b's
+    ``check_recovery``)."""
+    from colearn_federated_learning_tpu_torch import faults
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    cfg = lora_config(secure_agg=True, comm_retries=0)
+    t0 = time.perf_counter()
+    rec_patch = _Recorder(masks=True)
+    broker, workers, coord = _federation(cfg, 4, False, dataset)
+    try:
+        A.reset_launches()
+        F.reset_launches()
+        faults.install(faults.FaultPlan.from_json(json.dumps(DROP_REPLY_2)))
+        try:
+            rec = coord.run_round()
+        finally:
+            faults.uninstall()
+        launches = {**A.launches, **F.launches}
+        fold_shapes = coord._fold_shapes
+    finally:
+        rec_patch.close()
+        _stop(broker, workers, coord)
+    if not (rec["completed"] == 3 and rec["dropped"] == ["2"]
+            and rec["unmask_failed"] is False):
+        raise AssertionError(f"15c: bad round record {rec}")
+    folder = rec_patch.folders[0]
+    survivors = [int(c) for c in folder.folded_ids]
+    _factor_shaped("15c", fold_shapes, [folder])
+    depth, steps = cfg.model.depth, cfg.fed.local_steps
+    want = {"flash_forward": depth * 4 * steps,
+            "flash_backward_dq": depth * 4 * steps,
+            "flash_backward_dkv": depth * 4 * steps,
+            "fold_sparse": 0, "fold_dense": 0}
+    log(f"  [15c] secure DH round over the factors, 4 trainers, trainer 2's "
+        f"reply lost: survivors {survivors}, dropped {rec['dropped']}, "
+        f"unmask_failed {rec['unmask_failed']}; round "
+        f"{rec['round_time_s']:.3f} s; launches {launches}; path "
+        f"{time.perf_counter() - t0:.2f} s")
+    if survivors != [0, 1, 3]:
+        raise AssertionError(f"15c: survivors {survivors}")
+    check_recovery("15c", trees.leaves(folder.wsum), rec_patch.unmasked,
+                   survivors, [delta for _, delta in folder.received])
+    if launches != want:
+        raise AssertionError(f"15c: launches {launches}, expected {want}")
+    return launches
+
+
+LORA_CLI = ["--lora-rank", "4"]
+
+
+def lora_cli_path(F):
+    """15d: ``cli broker``, 3 x ``cli worker --lora-rank 4`` and ``cli
+    coordinate --lora-rank 4 --lora-merge-every 2 --fold-device
+    --no-evaluator`` on config #2's CNN (``cli_federation``), 2 rounds:
+    every process exits 0, every round is complete, the updates adapt
+    exactly the CNN's Conv (HWIO) and Dense kernels, round 1 merges,
+    ``fold_dense`` launches once per round.  The loss is printed, not
+    held: config #2's SGD (lr 0.05, momentum 0.9) diverges under the
+    adapters' α/r = 4 over its 34 local steps, the JAX package's trainer
+    as the port's (ROADMAP Queue C)."""
+    from colearn_federated_learning_tpu_torch import cli
+    from colearn_federated_learning_tpu_torch.fed import lora, setup
+
+    coordinate = [*LORA_CLI, "--lora-merge-every", "2"]
+    rec_patch = _Recorder()
+    try:
+        records, _, launches, codes, took = cli_federation(
+            F, coordinate=coordinate, worker=LORA_CLI)
+    finally:
+        rec_patch.close()
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["coordinate", *SOCKET_CLI, *coordinate, "--broker-port", "0"]))
+    shapes = setup.init_global_params(cfg, "cpu")
+    kernels = sorted(
+        "/".join(path) for path, _ in lora._leaves_with_path(shapes)
+        if path[-1] == "kernel" and path[-2].startswith(("Conv", "Dense")))
+    targets = sorted(lora.target_paths(shapes, model_name=cfg.model.name))
+    got = sorted(lora.factor_index(rec_patch.folders[0].received[0][1]))
+    merged = [r.get("lora_merged") for r in records]
+    log(f"  [15d] broker + 3 worker processes ({LORA_CLI}) + coordinate "
+        f"({SOCKET_CLI}, cut: num_clients 100 -> 3): lora_merged {merged}; "
+        f"adapted {got}; train_loss {[r['train_loss'] for r in records]} "
+        f"(config #2's SGD diverges under alpha/r = 4, JAX's too); exit "
+        f"codes {codes}; fold "
+        f"launches {launches}; path {took:.2f} s")
+    if not (codes == [0, 0, 0, 0] and merged == [False, True]
+            and all(r["completed"] == 3 and not r["dropped"]
+                    for r in records)
+            and launches["fold_dense"] == 2 and launches["fold_sparse"] == 0):
+        raise AssertionError(f"15d: codes {codes}, records {records}, "
+                             f"launches {launches}")
+    if not (kernels and got == targets == kernels):
+        raise AssertionError(f"15d: adapted {got}, the rules target "
+                             f"{targets}, the Conv/Dense kernels {kernels}")
+    return launches
+
+
+def factor_fold_rows(F, fold_shapes):
+    """The fold kernel at BERT-base's factor layout (146 slots, r = 8):
+    ``fold_dense`` of 3 contributions (15a's batch) and of 2 partials (15b's
+    root) and ``fold_sparse`` of topk8 contributions at 5 % density (15b's
+    slices), each bitwise its plain version, then timed as 9a times them
+    (device time by CUDA-graph replay over input sets of more than twice
+    the L2, the staging copy, the plain version, ``torch.sum`` or
+    ``index_add_``, and the bound)."""
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    sizes = [int(np.prod(np.shape(l))) for l in trees.leaves(fold_shapes)]
+    kernel = F.get_kernel(sizes)
+    g = torch.Generator(device="cuda").manual_seed(151)
+    offs = kernel.offsets
+    rows = {}
+    for label, n in (("fold_dense x3", 3), ("fold_dense x2", 2)):
+        nsets = max(4, math.ceil(2 * L2_BYTES / (4 * n * kernel.total)))
+        sets = []
+        for _ in range(nsets):
+            flat = torch.randn(n, kernel.total, generator=g,
+                               device="cuda").cpu().numpy()
+            sets.append(kernel.stage_dense([
+                [row[a:b] for a, b in zip(offs[:-1], offs[1:])]
+                for row in flat]))
+        x = sets[0]
+        got = kernel.fold_dense_staged(None, x)
+        bits_equal(f"15 {label}", got, F.fold_dense_reference(
+            torch.empty_like(got), x, True))
+        ms = device_ms(lambda s: kernel.fold_dense_staged(None, s), sets)
+        out = torch.empty(kernel.total, dtype=torch.float32, device="cuda")
+        plain = time_ms(lambda: F.fold_dense_reference(out, x, True),
+                        iters=10)
+        library = device_ms(lambda s: torch.sum(s, dim=0), sets)
+        h2d = time_ms(lambda: kernel._pinned[:x.numel() * 4].to(
+            "cuda", non_blocking=True), iters=10)
+        t_bytes = (x.numel() + kernel.total) * 4 / HBM_BYTES_PER_S
+        t_ops = x.numel() / F32_FLOP_PER_S
+        rows[label] = {"ms": ms, "plain_ms": plain, "library_ms": library,
+                       "h2d_ms": h2d, "bound_ms": 1e3 * max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations"}
+    batch = sparse_batch(sizes, FOLD_ROWS, True, 152)
+    st = kernel.stage_sparse(batch)
+    bits_equal("15 fold_sparse topk8", kernel.fold_sparse_staged(None, st),
+               plain_sparse(F, kernel, st, None))
+    naccs = max(4, math.ceil(2 * L2_BYTES / (4 * kernel.total)))
+    accs = [torch.zeros(kernel.total, dtype=torch.float32, device="cuda")
+            for _ in range(naccs)]
+    ms = device_ms(lambda acc: kernel.fold_sparse_staged(acc, st),
+                   accs) / FOLD_ROWS
+    plain = time_ms(lambda: plain_sparse(F, kernel, st, accs[0]),
+                    iters=3) / FOLD_ROWS
+    entries = [global_entries(kernel, p) for p in st.parts]
+
+    def yardstick():
+        for (gi, sc), p in zip(entries, st.parts):
+            accs[0].index_add_(0, gi, (p.vals.float() * sc) * float(p.weight))
+
+    library = time_ms(yardstick, iters=3) / FOLD_ROWS
+    in_bytes = sum(staged_bytes(p) for p in st.parts)
+    nbytes = (in_bytes + sum(SECTOR * 2 * int(torch.unique_consecutive(
+        gi // (SECTOR // 4)).numel()) for gi, _ in entries)) / FOLD_ROWS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * st.entries / FOLD_ROWS / F32_FLOP_PER_S
+    h2d_bytes = max(staged_bytes(p) for p in st.parts)
+    dst = torch.empty(h2d_bytes, dtype=torch.uint8, device="cuda")
+    h2d = time_ms(lambda: dst.copy_(kernel._pinned[:h2d_bytes],
+                                    non_blocking=True), iters=10)
+    rows["fold_sparse topk8"] = {
+        "ms": ms, "plain_ms": plain, "library_ms": library, "h2d_ms": h2d,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    for label, r in rows.items():
+        log(f"  [15] {label} at the factor layout ({len(sizes)} slots, "
+            f"{kernel.total} entries): {r['ms'] * 1e3:.2f} us device "
+            f"({r['bound_ms'] / r['ms']:.1%} of bound "
+            f"{r['bound_ms'] * 1e3:.2f} us, {r['bound_by']}); staging copy "
+            f"{r['h2d_ms'] * 1e3:.2f} us; plain {r['plain_ms'] * 1e3:.2f} "
+            f"us; {'index_add_' if 'sparse' in label else 'torch.sum'} "
+            f"{r['library_ms'] * 1e3:.2f} us; {card()}")
+    return rows
+
+
+def lora_phase(A, F):
+    """Phase 15: LoRA adapter federation on the card, on config #4 (and
+    config #2 through the processes)."""
+    from colearn_federated_learning_tpu_torch.data import registry
+
+    cfg = main_path_config()
+    dataset = registry.get_dataset(cfg.data.dataset, seed=cfg.run.seed)
+    paths, numbers = {}, {}
+    t0 = time.perf_counter()
+    paths["lora_flat"], numbers["15a"], fold_shapes = lora_flat_path(
+        A, F, dataset)
+    log(f"  15a in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["lora_tree"], numbers["15b"] = lora_tree_path(A, F, dataset)
+    log(f"  15b in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["lora_secure"] = lora_secure_path(A, F, dataset)
+    log(f"  15c in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["lora_cli"] = lora_cli_path(F)
+    log(f"  15d in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    numbers["factor_folds"] = factor_fold_rows(F, fold_shapes)
+    log(f"  factor-layout folds in {time.perf_counter() - t0:.2f} s")
+    log("phase 15 numbers " + json.dumps(numbers))
+    return paths
+
+
+def cache_synthetic_data():
+    """Draw each synthetic dataset once in this process: every later draw
+    of the same (dataset, seed) gets a copy of the first one's arrays
+    (equal to a fresh draw; a copy, so that no path sees another's edits).
+    The engines, coordinators and silos of the paths draw CIFAR-10 about
+    ten times, each a 614 MB draw of several seconds on the host."""
+    from colearn_federated_learning_tpu_torch.data import registry
+
+    made = {}
+    draw = registry._make_synthetic
+
+    def cached(spec, seed):
+        if (spec.name, seed) not in made:
+            made[spec.name, seed] = draw(spec, seed)
+        ds = made[spec.name, seed]
+        return dataclasses.replace(
+            ds, x_train=ds.x_train.copy(), y_train=ds.y_train.copy(),
+            x_test=ds.x_test.copy(), y_test=ds.y_test.copy())
+
+    registry._make_synthetic = cached
+
+
 def build_phase(_build):
     """Build the kernels; report each head-dim-64 instantiation's registers,
     spills and blocks per SM, and fail if any instantiation spills."""
@@ -3423,6 +4041,7 @@ def main() -> int:
     from colearn_federated_learning_tpu_torch.ops import attention as A
     from colearn_federated_learning_tpu_torch.utils.config import get_config
 
+    cache_synthetic_data()
     log("phase 1: device")
     log(card())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3483,7 +4102,7 @@ def main() -> int:
     log(f"  phase 10 in {time.perf_counter() - t0:.2f} s")
     log("phase 11: the synchronous socket plane")
     t0 = time.perf_counter()
-    paths.update(socket_phase(A, F))
+    paths.update(socket_phase(A, F, _build))
     log(f"  phase 11 in {time.perf_counter() - t0:.2f} s")
     log("phase 12: the aggregator tree and per-type federation")
     t0 = time.perf_counter()
@@ -3497,6 +4116,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(async_phase(A, F, _build))
     log(f"  phase 14 in {time.perf_counter() - t0:.2f} s")
+    log("phase 15: LoRA adapter federation (flat, the tree, secure, "
+        "processes)")
+    t0 = time.perf_counter()
+    paths.update(lora_phase(A, F))
+    log(f"  phase 15 in {time.perf_counter() - t0:.2f} s")
     log("launches per path " + json.dumps(paths))
 
     sources = {**{name: (SOURCE, rep) for name, (rep, _) in KERNELS.items()},

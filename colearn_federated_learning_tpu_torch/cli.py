@@ -77,7 +77,8 @@ _FED_KEYS = {"rounds", "cohort_size", "local_epochs", "local_steps",
              "edge_groups", "edge_sync_period", "compress",
              "compress_feedback", "topk_fraction", "min_cohort_fraction",
              "compress_down", "topk_adaptive", "topk_min_fraction",
-             "topk_max_fraction"}
+             "topk_max_fraction", "lora_rank", "lora_alpha",
+             "lora_merge_every"}
 _DATA_KEYS = {"num_clients", "dataset", "partition", "dirichlet_alpha"}
 _MODEL_KEYS = {"attn_impl", "remat", "width", "stem", "norm"}
 _RUN_KEYS = {"seed", "tp_size", "eval_every", "log_every", "evict_after",
@@ -87,7 +88,6 @@ _RUN_KEYS = {"seed", "tp_size", "eval_every", "log_every", "evict_after",
              "agg_buffer_interval_s", "trace_dir", "trace_rounds",
              "health_dir"}
 
-_LORA = comm.ITEM_LORA
 _CKPT = comm.ITEM_CKPT
 _OBS = comm.ITEM_OBS_REST
 _FLIGHT = comm.ITEM_CHAOS
@@ -95,9 +95,6 @@ _FLIGHT = comm.ITEM_CHAOS
 # dest -> (flag, argparse kwargs, the ROADMAP item that ports it): the
 # override flags every subcommand takes, and those of ``train`` alone.
 _UNPORTED = {
-    "lora_rank": ("--lora-rank", dict(type=int), _LORA),
-    "lora_alpha": ("--lora-alpha", dict(type=float), _LORA),
-    "lora_merge_every": ("--lora-merge-every", dict(type=int), _LORA),
     "checkpoint_dir": ("--checkpoint-dir", dict(), _CKPT),
     "checkpoint_every": ("--checkpoint-every", dict(type=int), _CKPT),
     "ckpt_stream": ("--ckpt-stream", dict(action="store_true"), _CKPT),
@@ -224,6 +221,16 @@ def _add_override_flags(p: argparse.ArgumentParser) -> None:
                         "residual's norm")
     p.add_argument("--topk-min-fraction", type=float, default=None)
     p.add_argument("--topk-max-fraction", type=float, default=None)
+    p.add_argument("--lora-rank", type=int, default=None,
+                   help="coordinate/worker: rank-r LoRA adapter federation "
+                        "(fed/lora.py); workers train and ship rank-r "
+                        "factors instead of dense deltas (0 = off)")
+    p.add_argument("--lora-alpha", type=float, default=None,
+                   help="LoRA scaling numerator: the merged delta is "
+                        "B·A·(alpha/rank)")
+    p.add_argument("--lora-merge-every", type=int, default=None,
+                   help="coordinate: merge the aggregated factors into the "
+                        "global model every N aggregations")
     p.add_argument("--fold-device", action="store_true", default=None,
                    help="coordinate: fold the updates with the fold "
                         "kernel on the card")

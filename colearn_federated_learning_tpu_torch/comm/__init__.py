@@ -23,7 +23,6 @@ Not ported yet; each is refused naming its ROADMAP.md Queue A item:
 
 ITEM_SHARDED = "ROADMAP.md Queue A item 15 (the sharded server)"
 ITEM_CHAOS = "ROADMAP.md Queue A item 16 (the chaos soaks)"
-ITEM_LORA = "ROADMAP.md Queue A item 5 (LoRA)"
 ITEM_CKPT = "ROADMAP.md Queue A item 9 (fleetsim and checkpoints)"
 ITEM_OBS_REST = ("ROADMAP.md Queue A item 10b (the exporter, convergence "
                  "and evaluation extras)")

@@ -51,8 +51,12 @@ versions the root resolves staleness against.  Arrivals racing a drain
 stage into the next partial.  Staging is host work; the device fold runs
 in the drain, on the shared fold kernel that stages one batch at a time.
 
-Not ported yet: a fold (or a buffer) of LoRA factors gets an error reply
-naming ROADMAP.md Queue A item 5, and ``expected_ingest`` is item 9.
+Under LoRA the broadcast is a ``{"base", "factors"}`` composite whose
+meta carries the ``lora`` marker: its ``factors`` half is the fold (or
+buffer) template, since the replies are factor deltas, and the relay
+re-encodes the composite with its meta.
+
+Not ported yet: ``expected_ingest`` (ROADMAP.md Queue A item 9).
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ import threading
 import time
 from typing import Any, Optional, Sequence
 
-from colearn_federated_learning_tpu_torch import comm, telemetry
+from colearn_federated_learning_tpu_torch import telemetry
 from colearn_federated_learning_tpu_torch.comm import protocol
 from colearn_federated_learning_tpu_torch.comm.aggregation import (
     StreamingFolder)
@@ -262,12 +266,11 @@ class AggregatorServer:
         if tree is None:
             return ({"status": "error",
                      "error": "aprep carried no shapes template"}, None)
-        if (header.get("meta") or {}).get("lora"):
-            return ({"status": "error",
-                     "error": "a buffer of LoRA factors is not ported yet; "
-                              f"see {comm.ITEM_LORA}"}, None)
+        # Under LoRA the template is the composite's factor half.
+        shapes = tree["factors"] if (header.get("meta") or {}).get(
+            "lora") else tree
         with self._abuf_cv:
-            self._abuf_shapes = tree
+            self._abuf_shapes = shapes
             self._abuf_folder = self._new_buffer()
             self._abuf_entries = {}
             self._abuf_dedup = 0
@@ -413,10 +416,6 @@ class AggregatorServer:
             return ({"status": "error",
                      "error": "fold request carried no params frame"}, None)
         meta_in = header.get("meta") or {}
-        if meta_in.get("lora"):
-            return ({"status": "error",
-                     "error": "a fold of LoRA factors is not ported yet; "
-                              f"see {comm.ITEM_LORA}"}, None)
         r = int(header.get("round", 0))
         devices = header.get("devices") or []
         cohort = header.get("cohort")
@@ -426,7 +425,11 @@ class AggregatorServer:
         # Serialize-once per tier: one re-encode, shared by every send.
         body = memoryview(pytree_to_bytes(tree, meta_in or None))
         order = [str(int(d[0])) for d in devices]
-        folder = StreamingFolder(tree, order=order,
+        # The decoded broadcast is the fold template (only its shapes are
+        # read); under LoRA its factor half, since the replies are factor
+        # deltas.
+        shapes = tree["factors"] if meta_in.get("lora") else tree
+        folder = StreamingFolder(shapes, order=order,
                                  device_fold=self._fold_device,
                                  device=self.device)
         stale: list[str] = []

@@ -58,10 +58,14 @@ span with ``collect_updates`` and ``apply_update`` inside, and one
 locks are plain ``threading`` locks (JAX wraps its own in a lock witness
 for the chaos soaks, ROADMAP item 16).
 
-Not ported yet, each refused naming its ROADMAP item: LoRA, checkpoints
-and resume, the convergence observatory (``learn_observe``), and the
-sharded server (``tp_size`` > 1 on a host with that many cards; with
-fewer the server runs replicated).
+LoRA is refused in the port's own words: the JAX package's asynchronous
+coordinator has no LoRA branch (it broadcasts a plain params frame, which
+a LoRA worker cannot read, so every dispatch fails).
+
+Not ported yet, each refused naming its ROADMAP item: checkpoints and
+resume, the convergence observatory (``learn_observe``), and the sharded
+server (``tp_size`` > 1 on a host with that many cards; with fewer the
+server runs replicated).
 """
 
 from __future__ import annotations
@@ -172,6 +176,13 @@ class AsyncFederatedCoordinator(CoordinatorCore):
             )
         setup_lib.require_mean_aggregator(config, "the async coordinator")
         validate_robustness(config)
+        if config.fed.lora_rank > 0:
+            raise NotImplementedError(
+                "asynchronous aggregation with LoRA is unsupported: the "
+                "async coordinator broadcasts a plain params frame, which "
+                "a LoRA worker cannot read (the reference coordinator has "
+                "no LoRA branch, so every dispatch fails there); use the "
+                "synchronous coordinator")
         refuse_unported(config)
         # Quorum over DISTINCT contributors; 0 disables.
         self.min_cohort_fraction = config.fed.min_cohort_fraction

@@ -42,8 +42,15 @@ secure-aggregation dropouts, evictions and retries, the records gain the
 ``health_*`` keys, and the tree ranks its slices by the ledger's scores
 (``aggregator.assign_slices``).
 
-Not ported yet, each refused naming its ROADMAP item: LoRA, checkpoints
-and resume, the convergence observatory, and the sharded server
+With ``fed.lora_rank`` > 0 (``fed/lora.py``) the server keeps the frozen
+base and a small factor tree on its device: rounds broadcast one
+``{"base", "factors"}`` composite with the ``lora`` meta marker, fold the
+workers' factor deltas (flat or through the tree), step the factors, and
+every ``lora_merge_every`` aggregations merge B·A·(α/r) into the base and
+zero B.  The evaluator scores a temporary merge.
+
+Not ported yet, each refused naming its ROADMAP item: checkpoints and
+resume, the convergence observatory, and the sharded server
 (``tp_size`` > 1 on a host with that many cards; with fewer the server
 runs replicated, as the JAX package's placement falls back).
 """
@@ -74,6 +81,7 @@ from colearn_federated_learning_tpu_torch.comm.enrollment import (
 from colearn_federated_learning_tpu_torch.comm.transport import (
     RetryPolicy, TensorClient)
 from colearn_federated_learning_tpu_torch.fed import compression, evaluation
+from colearn_federated_learning_tpu_torch.fed import lora as lora_lib
 from colearn_federated_learning_tpu_torch.fed import programs, strategies
 from colearn_federated_learning_tpu_torch.fed import setup as setup_lib
 from colearn_federated_learning_tpu_torch.privacy import dropout
@@ -103,7 +111,6 @@ def refuse_unported(config: ExperimentConfig) -> None:
     the port's coordinator does not run yet."""
     run = config.run
     unported = [
-        (config.fed.lora_rank > 0, "LoRA (lora_rank)", comm.ITEM_LORA),
         (bool(run.checkpoint_dir), "checkpoints and resume (checkpoint_dir)",
          comm.ITEM_CKPT),
         (run.learn_observe, "the convergence observatory (learn_observe)",
@@ -196,6 +203,10 @@ class CoordinatorCore:
         coordinator's device."""
         return trees.unflatten(self._shapes_np, [
             self.server_state.params[n] for n in self._names])
+
+    def _eval_params(self) -> dict:
+        """The params the evaluator scores (flax layout, on the device)."""
+        return self.params_tree()
 
     def _server_step(self, mean_delta) -> None:
         """Apply the server strategy to a flax-layout mean delta (host
@@ -337,7 +348,7 @@ class CoordinatorCore:
         """Score the global model on the evaluator device."""
         if self.evaluator is None:
             raise RuntimeError("no evaluator was assigned")
-        params_np = host_params(self.params_tree())
+        params_np = host_params(self._eval_params())
         with self.tracer.span("evaluate"):
             header, _ = self._clients[self.evaluator.device_id].request(
                 protocol.attach_trace({"op": "eval"},
@@ -406,18 +417,41 @@ class FederatedCoordinator(CoordinatorCore):
         # their (closed) clients; see _fan_out.
         self._abandoned: list[cf.Future] = []
         self._downlink = DownlinkEncoder(fed.compress_down)
-        # What a compressed uplink saves per update, priced once on zeros
-        # (frame lengths depend on shapes, never values).
+        # The LoRA adapters (fed/lora.py): the factors live beside the
+        # frozen base, in the flax layout on the coordinator's device.
+        self._lora = fed.lora_rank > 0
+        self._factors = None
+        self._lora_agg_count = 0
+        if self._lora:
+            self._factors = setup_lib.init_lora_factors(
+                config, self._shapes_np, self.device)
+            reg = telemetry.get_registry()
+            reg.gauge("fed.lora_rank").set(fed.lora_rank)
+            reg.gauge("fed.lora_factor_params").set(
+                lora_lib.count_factor_params(self._factors))
+        # The fold and mask template: what the uplink ships.
+        self._fold_shapes = (_shape_views(self._factors) if self._lora
+                             else self._shapes_np)
+        # What a compressed (or factor) uplink saves per update against the
+        # dense one, priced once on zeros (frame lengths depend on shapes,
+        # never values).
         self._uplink_saved_per_update = 0
-        if fed.compress != "none":
+        if fed.compress != "none" or self._lora:
             zeros = trees.map_leaves(
                 lambda a: np.zeros(np.shape(a), np.float32), self._shapes_np)
             dense_len = wire_frame_length(
                 zeros, {"round": 0, "op": "train", "compress": "none"})
-            wire_up, meta_up = compression.compress_delta(
-                zeros, fed.compress, topk_fraction=fed.topk_fraction)
-            comp_len = wire_frame_length(
-                wire_up, {"round": 0, "op": "train", **meta_up})
+            sample = (trees.map_leaves(
+                lambda a: np.zeros(np.shape(a), np.float32),
+                self._fold_shapes) if self._lora else zeros)
+            if fed.compress != "none":
+                wire_up, meta_up = compression.compress_delta(
+                    sample, fed.compress, topk_fraction=fed.topk_fraction)
+                comp_len = wire_frame_length(
+                    wire_up, {"round": 0, "op": "train", **meta_up})
+            else:
+                comp_len = wire_frame_length(
+                    sample, {"round": 0, "op": "train", "compress": "none"})
             self._uplink_saved_per_update = max(0, int(dense_len - comp_len))
 
     # ------------------------------------------------------------------
@@ -647,8 +681,11 @@ class FederatedCoordinator(CoordinatorCore):
                 cohort = [d for d in cohort if d.device_id not in cut]
         with tracer.span("serialize_params"):
             # One encode for the whole cohort (serialize-once).
-            body, resync_body, saved = self._downlink.encode_round(
-                r, self.params_tree())
+            if self._lora:
+                body, resync_body, saved = self._encode_lora_round(r)
+            else:
+                body, resync_body, saved = self._downlink.encode_round(
+                    r, self.params_tree())
         cohort_ids = sorted(int(d.device_id) for d in cohort)
         stale: list[str] = []
         if tree_mode:
@@ -658,7 +695,7 @@ class FederatedCoordinator(CoordinatorCore):
             slices = [[d for d in sl if d.device_id in alive]
                       for sl in slices_full]
             folder = StreamingFolder(
-                self._shapes_np,
+                self._fold_shapes,
                 order=[f"slice:{i}" for i in range(len(slices))],
                 device_fold=self._fold_device, device=self.device)
             with tracer.span("broadcast_collect",
@@ -735,8 +772,12 @@ class FederatedCoordinator(CoordinatorCore):
                 mean_loss = float("nan")
             if secure:
                 mean_loss = float("nan")  # workers withhold per-client loss
+            lora_merged = False
             if mean_delta is not None:
-                self._server_step(mean_delta)
+                if self._lora:
+                    lora_merged = self._apply_lora_update(mean_delta)
+                else:
+                    self._server_step(mean_delta)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         evicted = self._note_round_outcome(cohort_full, dropped)
@@ -758,9 +799,11 @@ class FederatedCoordinator(CoordinatorCore):
             rec["unmask_failed"] = unmask_failed
         if quorum:
             rec["skipped_quorum"] = skipped_quorum
-        if fed.compress != "none":
+        if fed.compress != "none" or self._lora:
             rec["bytes_saved_uplink"] = self._uplink_saved_per_update * folded
             rec["uplink_densify_avoided"] = folder.densify_avoided
+        if self._lora:
+            rec["lora_merged"] = lora_merged
         if tree_mode:
             rec["aggregators"] = self.num_aggregators
             # The tier's critical path: its slowest slice fold.
@@ -859,7 +902,7 @@ class FederatedCoordinator(CoordinatorCore):
 
         # The sum is pinned to cohort order whatever the arrival order.
         folder = StreamingFolder(
-            self._shapes_np, order=[str(int(d.device_id)) for d in cohort],
+            self._fold_shapes, order=[str(int(d.device_id)) for d in cohort],
             device_fold=self._fold_device, device=self.device)
 
         def fold(dev: DeviceInfo, res) -> None:
@@ -1238,6 +1281,67 @@ class FederatedCoordinator(CoordinatorCore):
                                                     correction))
         return True
 
+    # ---- LoRA adapters (fed/lora.py) -------------------------------------
+    def _load_factors(self, tree) -> None:
+        """Start the factors from a flax-layout factor tree."""
+        self._factors = trees.map_leaves(
+            lambda l: torch.from_numpy(np.array(l, np.float32)).to(
+                self.device), tree)
+
+    def _encode_lora_round(self, r: int):
+        """The round's one composite frame (the base and this cycle's
+        factors) with the ``lora`` meta marker the aggregator tier reads;
+        (body, resync_body, saved) as ``DownlinkEncoder.encode_round``
+        gives them (no resync: workers keep no delta cache under LoRA)."""
+        composite = {"base": host_params(self.params_tree()),
+                     "factors": host_params(self._factors)}
+        body = pytree_to_bytes(
+            composite, {"round": r, "lora": self.config.fed.lora_rank})
+        telemetry.get_registry().counter("comm.broadcast_encode_total").inc()
+        return memoryview(body), None, 0
+
+    @torch.no_grad()
+    def _apply_lora_update(self, mean_delta) -> bool:
+        """factors += server_lr · mean factor delta (FedAvg/FedProx's step;
+        the adaptive server optimizers are refused under LoRA) and, every
+        ``lora_merge_every`` aggregations, the merge.  True when this
+        round merged."""
+        f = trees.leaves(self._factors)
+        d = [torch.from_numpy(np.asarray(l)).to(self.device)
+             for l in trees.flatten_up_to(self._factors, mean_delta)]
+        torch._foreach_add_(f, torch._foreach_mul(d, self.config.fed.server_lr))
+        self.server_state.round_idx += 1
+        self._lora_agg_count += 1
+        if self._lora_agg_count < self.config.fed.lora_merge_every:
+            return False
+        self._merge_lora()
+        return True
+
+    @torch.no_grad()
+    def _merge_lora(self) -> None:
+        """Merge B·A·(α/r) into the base, then zero B (A is kept, so the
+        factors' shapes never change); counted in
+        ``fed.lora_merges_total``."""
+        fed = self.config.fed
+        merged = lora_lib.merge_adapters(self.params_tree(), self._factors,
+                                         fed.lora_alpha, fed.lora_rank)
+        for n, leaf in zip(self._names, trees.leaves(merged)):
+            self.server_state.params[n] = leaf
+        self._factors = lora_lib.reset_factors(self._factors)
+        self._lora_agg_count = 0
+        telemetry.get_registry().counter("fed.lora_merges_total").inc()
+
+    def _eval_params(self) -> dict:
+        """Under LoRA a temporary merge, so the unmerged cycle counts; the
+        base itself is left as it is."""
+        params = self.params_tree()
+        if self._lora:
+            fed = self.config.fed
+            with torch.no_grad():
+                params = lora_lib.merge_adapters(params, self._factors,
+                                                 fed.lora_alpha, fed.lora_rank)
+        return params
+
     # ---- evaluation -------------------------------------------------------
     def evaluate_per_client(self) -> dict:
         """The global model on every trainer's own shard (``self_eval``),
@@ -1247,7 +1351,7 @@ class FederatedCoordinator(CoordinatorCore):
             raise NotImplementedError(
                 "per-client evaluation is disabled under secure_agg: "
                 "per-client statistics are exactly what the masks hide")
-        body = memoryview(pytree_to_bytes(host_params(self.params_tree())))
+        body = memoryview(pytree_to_bytes(host_params(self._eval_params())))
         telemetry.get_registry().counter("comm.broadcast_encode_total").inc()
         ctx = self.tracer.current_context()
 

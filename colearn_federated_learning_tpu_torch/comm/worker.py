@@ -27,8 +27,13 @@ Requests:
 
 Secure aggregation masks the flat wire tree on the worker's device with
 the port's own streams (``privacy/secure_agg.py``), so every party to a
-secure round runs on one device type.  LoRA is not ported yet (ROADMAP.md
-Queue A item 5).
+secure round runs on one device type.
+
+With ``fed.lora_rank`` > 0 the broadcast is a ``{"base", "factors"}``
+composite (``fed/lora.py``): the worker trains the factors only
+(``fed/setup.lora_trainer_for_config``) and ships the factor delta, to
+which DP, the uplink codec with its feedback and the masks apply, as in
+JAX.
 
 Every request runs under a ``worker.<op>`` span; a train request's
 ``deserialize_params``, ``local_train``, ``secure_mask`` and
@@ -66,8 +71,6 @@ from colearn_federated_learning_tpu_torch.utils import trees
 from colearn_federated_learning_tpu_torch.utils.config import ExperimentConfig
 from colearn_federated_learning_tpu_torch.utils.device import resolve_device
 
-_LORA = "ROADMAP.md Queue A item 5 (LoRA)"
-
 
 def tree_global_norm(tree: Any) -> float:
     """sqrt of the f32 sum of squares, as the JAX package's
@@ -100,10 +103,6 @@ class DeviceWorker:
         self.config = config
         self.client_id = int(client_id)
         c = config
-        if c.fed.lora_rank > 0:
-            raise NotImplementedError(
-                f"the socket worker's LoRA adapters are not ported yet; see "
-                f"{_LORA}")
         setup_lib.require_stateless_strategy(c, "the socket worker")
         if c.fed.secure_agg and c.fed.secure_agg_neighbors and (
             c.fed.secure_agg_neighbors % 2 or c.fed.secure_agg_neighbors < 2
@@ -180,8 +179,18 @@ class DeviceWorker:
         self._model = model_registry.build_model(
             setup_lib.local_model_config(c.model), self.device,
             input_shape=shard.x.shape[2:])
-        self._update_fn, self._num_steps = setup_lib.local_trainer_for_config(
-            c, self._model, shard.capacity)
+        self._lora = c.fed.lora_rank > 0
+        self._wire_template = None      # built on first use
+        if self._lora:
+            # The factor-only trainer: the base stays frozen and the reply
+            # is the factor delta.
+            self._update_fn, self._num_steps = (
+                setup_lib.lora_trainer_for_config(c, self._model,
+                                                  shard.capacity))
+        else:
+            self._update_fn, self._num_steps = (
+                setup_lib.local_trainer_for_config(c, self._model,
+                                                   shard.capacity))
         # One request at a time uses the model (a late request abandoned
         # by the coordinator may overlap the next one).
         self._model_lock = threading.Lock()
@@ -552,15 +561,26 @@ class DeviceWorker:
                              "error": f"client {self.client_id} has no "
                                       f"cached base for round {round_idx} "
                                       "delta"}, None)
-                params = setup_lib.flax_to_params(self._model, full,
-                                                  self.device)
+                if self._lora:
+                    # Composite broadcast: the frozen base and this
+                    # cycle's factors (compress_down is refused under
+                    # LoRA, so this is the plain decoded frame).
+                    args = (setup_lib.flax_to_params(
+                        self._model, full["base"], self.device),
+                        trees.map_leaves(
+                            lambda l: torch.from_numpy(
+                                np.array(l, np.float32)).to(self.device),
+                            full["factors"]))
+                else:
+                    args = (setup_lib.flax_to_params(self._model, full,
+                                                     self.device),)
             with tracer.span("local_train", steps=self._num_steps):
                 idx = self._draws.batch_indices(round_idx, self.client_id,
                                                 self.num_examples,
                                                 self._num_steps,
                                                 c.fed.batch_size)
                 result = self._update_fn(
-                    params, self._x, self._y, self.num_examples,
+                    *args, self._x, self._y, self.num_examples,
                     torch.as_tensor(np.asarray(idx), dtype=torch.long).to(
                         self.device),
                     self._num_steps,
@@ -581,8 +601,7 @@ class DeviceWorker:
             with tracer.span("secure_mask", dh=self._dh_mode):
                 # The masks run on the flax-layout wire tree.
                 delta_np = self._mask(round_idx, cohort,
-                                      setup_lib.params_to_flax(
-                                          self._model, delta, c))
+                                      self._wire_tree(delta))
             weight = 1.0      # masked aggregation is a plain sum
         out_meta = {"round": round_idx, "weight": weight,
                     "client_id": self.client_id,
@@ -592,7 +611,7 @@ class DeviceWorker:
             out_meta["mean_loss"] = mean_loss
         with tracer.span("compress_delta", codec=fed.compress):
             if delta_np is None:
-                delta_np = setup_lib.params_to_flax(self._model, delta, c)
+                delta_np = self._wire_tree(delta)
             if fed.compress_feedback and not fed.secure_agg \
                     and fed.compress != "none":
                 wire, cmeta, self._uplink_residual = \
@@ -651,9 +670,21 @@ class DeviceWorker:
         telemetry.get_registry().gauge(
             "fed.topk_fraction_effective").set(self._topk_fraction)
 
+    def _wire_tree(self, delta: list) -> Any:
+        """A delta (tensors in the trainer's order) as the flax-layout
+        tree of f32 numpy arrays that goes on the wire: the model's tree,
+        or the factor tree under LoRA."""
+        if self._lora:
+            return trees.unflatten(self._wire_shapes(), [
+                d.detach().float().cpu().numpy() for d in delta])
+        return setup_lib.params_to_flax(self._model, delta, self.config)
+
     def _wire_shapes(self) -> Any:
         """The flax-layout tree of this worker's wire payload, as
-        zero-stride f32 views (shape only)."""
+        zero-stride f32 views (shape only): the model's tree, or under
+        LoRA its factor tree (the template of masks and recovery)."""
+        if self._wire_template is not None:
+            return self._wire_template
         shapes = {}
         for name, p in self._model.named_parameters():
             path, fshape, _ = convert.flax_layout(
@@ -662,6 +693,14 @@ class DeviceWorker:
             for key in path[:-1]:
                 node = node.setdefault(key, {})
             node[path[-1]] = np.broadcast_to(np.float32(0), fshape)
+        if self._lora:
+            from colearn_federated_learning_tpu_torch.fed import lora
+
+            shapes = trees.map_leaves(
+                lambda t: np.broadcast_to(np.float32(0), tuple(t.shape)),
+                lora.init_factors(shapes, self.config.fed.lora_rank,
+                                  model_name=self.config.model.name))
+        self._wire_template = shapes
         return shapes
 
     def _unmask(self, round_idx: int, dropped: list,

@@ -42,30 +42,37 @@ def _leaves(tree, path=()):
             yield path + (key,), np.asarray(value)
 
 
+def leaf_to_torch(path: tuple, a: torch.Tensor) -> tuple[str, torch.Tensor]:
+    """One flax leaf at ``path`` as the port's ``(name, tensor)``.  Only
+    reshapes and permutes (views where they can be), so it is safe under
+    autograd: the LoRA trainer maps its adapted weights with it."""
+    module, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
+    prefix = ".".join(path[:-1])
+    if leaf == "kernel":
+        if module in _QKV:
+            a = a.reshape(a.shape[0], -1).T
+        elif module == "out":
+            a = a.reshape(-1, a.shape[-1]).T
+        else:                         # Dense (in, out); Conv (*k, in, out)
+            a = a.permute(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))
+        name = "weight"
+    elif leaf == "bias":
+        a = a.reshape(-1) if module in _QKV else a
+        name = "bias"
+    elif leaf in ("scale", "embedding"):
+        name = "weight"
+    else:
+        name = leaf
+    return (f"{prefix}.{name}" if prefix else name), a
+
+
 def flax_to_state_dict(flax_params: Any) -> dict[str, torch.Tensor]:
     """flax params -> the port's ``state_dict`` (CPU tensors)."""
     sd = {}
     for path, a in _leaves(flax_params):
-        module, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
-        prefix = ".".join(path[:-1])
-        if leaf == "kernel":
-            if module in _QKV:
-                a = a.reshape(a.shape[0], -1).T
-            elif module == "out":
-                a = a.reshape(-1, a.shape[-1]).T
-            else:                     # Dense (in, out); Conv (*k, in, out)
-                a = np.transpose(a, (a.ndim - 1, a.ndim - 2,
-                                     *range(a.ndim - 2)))
-            name = "weight"
-        elif leaf == "bias":
-            a = a.reshape(-1) if module in _QKV else a
-            name = "bias"
-        elif leaf in ("scale", "embedding"):
-            name = "weight"
-        else:
-            name = leaf
-        sd[f"{prefix}.{name}" if prefix else name] = a
-    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
+        name, t = leaf_to_torch(path, torch.from_numpy(np.array(a, copy=True)))
+        sd[name] = t.contiguous()
+    return sd
 
 
 def flax_layout(name: str, shape: tuple,

@@ -53,8 +53,7 @@ import numpy as np
 import torch
 
 from colearn_federated_learning_tpu_torch import convert, telemetry
-from colearn_federated_learning_tpu_torch.comm import (
-    ITEM_CKPT, ITEM_LORA, ITEM_OBS_REST)
+from colearn_federated_learning_tpu_torch.comm import ITEM_CKPT, ITEM_OBS_REST
 from colearn_federated_learning_tpu_torch.data import partition as partition_lib
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
 from colearn_federated_learning_tpu_torch.data.sharding import (
@@ -78,7 +77,6 @@ def check_supported(config: ExperimentConfig) -> None:
     that still carries it, as the JAX package's does."""
     f, run = config.fed, config.run
     unported = {
-        "lora_rank > 0": (f.lora_rank > 0, ITEM_LORA),
         "run.checkpoint_dir": (bool(run.checkpoint_dir), ITEM_CKPT),
         "run.checkpoint_every > 0": (run.checkpoint_every > 0, ITEM_CKPT),
         "run.profile_dir": (bool(run.profile_dir), ITEM_OBS_REST),
@@ -422,6 +420,7 @@ class FederatedLearner:
                 "gather/scatter would funnel TP shards through one host")
 
         # --- local trainer and cohort ---------------------------------
+        local.check_dense_trainer(c.fed)
         self.num_steps = num_steps_for_config(c, shards.capacity)
         optimizer = local.make_optimizer(c.fed.lr, c.fed.momentum,
                                          c.fed.local_optimizer)

@@ -116,6 +116,18 @@ def check_strategy_optimizer(fed) -> None:
             f"refresh is biased under momentum (got momentum={fed.momentum})")
 
 
+def check_dense_trainer(fed) -> None:
+    """The dense trainer's refusal of LoRA, with the JAX package's words:
+    the adapters run on the socket plane only (``comm/worker.py``)."""
+    if fed.lora_rank < 0:
+        raise ValueError(f"lora_rank must be >= 0, got {fed.lora_rank}")
+    if fed.lora_rank > 0:
+        raise ValueError(
+            "lora_rank > 0 requires the socket federation plane "
+            "(coordinate/worker); this in-process trainer would ignore "
+            "the adapters and train dense")
+
+
 def fednova_coefficient(steps_run: float, momentum: float) -> np.float32:
     """FedNova's a_i for ``steps_run`` executed steps of SGD at
     ``momentum`` m: ``(τ − m(1 − m^τ)/(1 − m))/(1 − m)``, or τ without
@@ -259,3 +271,111 @@ def make_local_update(model: torch.nn.Module, optimizer: Optimizer,
         return refresh(result, c_i, c, lr_scale)
 
     return scaffold_update
+
+
+def make_lora_local_update(model: torch.nn.Module, optimizer: Optimizer,
+                           num_steps: int, rank: int, alpha: float,
+                           num_heads: Optional[int] = None,
+                           prox_mu: float = 0.0,
+                           min_steps_fraction: float = 0.25,
+                           aux_loss_weight: float = 0.0) -> Callable:
+    """Build ``lora_update(base_params, factors, x, y, count, batch_idx,
+    step_budget, lr_scale=None) -> LocalResult``: the factor-only twin of
+    :func:`make_local_update` (the JAX package's
+    ``make_lora_local_update``).
+
+    - ``base_params``: the frozen base, f32 tensors in
+      ``model.parameters()`` order, copied into the model, which gets no
+      gradient.
+    - ``factors``: the received factor tree (``fed/lora.py``, flax
+      layout).  Every step adds ``(α/r)·reshape(B @ A)`` to each adapted
+      weight, maps it to the port's layout with ``convert.leaf_to_torch``
+      and runs the model through ``torch.func.functional_call``; the
+      gradient is taken with respect to the factors only.
+    - The optimizer starts afresh on the factors at every call; FedProx's
+      pull (``prox_mu``) acts on the factors; the MoE auxiliary term, the
+      ``step_budget`` cut and ``lr_scale`` are :func:`make_local_update`'s.
+    - The result's ``delta`` is the trained factors minus the received
+      ones, one f32 tensor per factor leaf in the tree's sorted-key order
+      (A before B at each adapted leaf).
+    """
+    from torch.func import functional_call
+
+    from colearn_federated_learning_tpu_torch import convert
+    from colearn_federated_learning_tpu_torch.fed import lora
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    min_steps = max(1, int(num_steps * min_steps_fraction))
+    reg = get_registry()
+    reg.counter("local.trainers_built").inc()
+    reg.gauge("local.steps_per_round").set(num_steps)
+    params = list(model.parameters())
+    for p in params:
+        p.requires_grad_(False)         # the base is frozen
+    named = dict(model.named_parameters())
+    flax_shape = {}                     # flax path -> its leaf's flax shape
+    for name, p in named.items():
+        path, fshape, _ = convert.flax_layout(name, tuple(p.shape), num_heads)
+        flax_shape["/".join(path)] = fshape
+    moe_layers = [m for m in model.modules() if isinstance(m, MoEFfn)]
+
+    def targets_of(factors) -> list:
+        """(flax path, flax shape, index of A, index of B) per adapted leaf,
+        the indices into ``trees.leaves(factors)``."""
+        order = {"/".join(p): i for i, (p, _) in
+                 enumerate(lora._leaves_with_path(factors))}
+        out = []
+        for path in sorted(lora.factor_index(factors)):
+            if path not in flax_shape:
+                raise ValueError(f"factor {path!r} adapts no model weight")
+            out.append((tuple(path.split("/")), flax_shape[path],
+                        order[f"{path}/{lora.A_KEY}"],
+                        order[f"{path}/{lora.B_KEY}"]))
+        return out
+
+    def loss_fn(f, f_global, targets, xb, yb):
+        eff = {}
+        for path, fshape, ia, ib in targets:
+            delta = lora.adapter_delta(f[ia], f[ib], fshape, alpha, rank)
+            name, delta = convert.leaf_to_torch(path, delta)
+            eff[name] = lora.adapt_leaf(named[name], delta)
+        loss = losses.softmax_cross_entropy(
+            functional_call(model, eff, (xb,)), yb)
+        if aux_loss_weight > 0.0 and moe_layers:
+            aux = sum(m.aux for m in moe_layers) / len(moe_layers)
+            loss = loss + aux_loss_weight * aux
+        if prox_mu > 0.0:
+            diffs = torch._foreach_sub(f, f_global)
+            sq = torch.stack([(d * d).sum() for d in diffs]).sum()
+            loss = loss + 0.5 * prox_mu * sq
+        return loss
+
+    def lora_update(base_params, factors, x, y, count: int, batch_idx,
+                    step_budget: int, lr_scale: Optional[float] = None
+                    ) -> LocalResult:
+        with torch.no_grad():
+            torch._foreach_copy_(params, base_params)
+        targets = targets_of(factors)
+        f_in = [t.detach().to(x.device, torch.float32)
+                for t in trees.leaves(factors)]
+        f = [t.clone().requires_grad_(True) for t in f_in]
+        state = optimizer.init(f)
+        executed = min(int(step_budget), num_steps)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for t in range(executed):
+            idx = batch_idx[t]
+            loss = loss_fn(f, f_in, targets, x[idx], y[idx])
+            grads = torch.autograd.grad(loss, f)
+            optimizer.step(f, grads, state, lr_scale)
+            loss_sum += loss.detach()
+        with torch.no_grad():
+            delta = torch._foreach_sub(f, f_in)
+        return LocalResult(
+            delta=delta,
+            num_examples=int(count),
+            completed=int(step_budget) >= min_steps,
+            mean_loss=loss_sum / max(float(executed), 1.0),
+            steps_run=float(executed),
+        )
+
+    return lora_update

@@ -39,13 +39,7 @@ def local_trainer_for_config(config: ExperimentConfig,
     """(local_update fn, num_steps) for one client round under ``config``,
     with the JAX package's refusals."""
     c = config.fed
-    if c.lora_rank < 0:
-        raise ValueError(f"lora_rank must be >= 0, got {c.lora_rank}")
-    if c.lora_rank > 0:
-        raise ValueError(
-            "lora_rank > 0 requires the socket federation plane "
-            "(coordinate/worker); this in-process trainer would ignore "
-            "the adapters and train dense")
+    local_lib.check_dense_trainer(c)
     local_lib.check_strategy_optimizer(c)
     num_steps = num_steps_for_config(config, capacity)
     optimizer = local_lib.make_optimizer(c.lr, c.momentum, c.local_optimizer)
@@ -56,6 +50,41 @@ def local_trainer_for_config(config: ExperimentConfig,
         aux_loss_weight=(config.model.moe_aux_weight
                          if config.model.name.startswith("moe") else 0.0))
     return update_fn, num_steps
+
+
+def lora_trainer_for_config(config: ExperimentConfig,
+                            model: torch.nn.Module,
+                            capacity: int) -> tuple[Callable, int]:
+    """(lora_update fn, num_steps): the factor-only twin of
+    :func:`local_trainer_for_config`, with its step budget and optimizer
+    (the strategy's restriction to fedavg/fedprox is
+    ``validate_robustness``'s)."""
+    c = config.fed
+    num_steps = num_steps_for_config(config, capacity)
+    optimizer = local_lib.make_optimizer(c.lr, c.momentum, c.local_optimizer)
+    update_fn = local_lib.make_lora_local_update(
+        model, optimizer, num_steps, rank=c.lora_rank, alpha=c.lora_alpha,
+        num_heads=config.model.num_heads,
+        prox_mu=c.prox_mu if c.strategy == "fedprox" else 0.0,
+        min_steps_fraction=c.straggler_min_fraction,
+        aux_loss_weight=(config.model.moe_aux_weight
+                         if config.model.name.startswith("moe") else 0.0))
+    return update_fn, num_steps
+
+
+def init_lora_factors(config: ExperimentConfig, params: Any,
+                      device=None) -> dict:
+    """The seed-deterministic factor tree of ``params`` (a flax-layout
+    tree; only its shapes are read) under ``config``, on ``device``: A
+    from the port's LoRA init generator (``utils/prng``, JAX's tag
+    0x10AA), B zero."""
+    from colearn_federated_learning_tpu_torch.fed import lora
+    from colearn_federated_learning_tpu_torch.utils import prng
+
+    return lora.init_factors(
+        params, config.fed.lora_rank,
+        generator=prng.lora_init_generator(config.run.seed),
+        model_name=config.model.name, device=device)
 
 
 def require_stateless_strategy(config: ExperimentConfig, where: str) -> None:

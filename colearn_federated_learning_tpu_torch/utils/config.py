@@ -84,7 +84,7 @@ class FedConfig:
     secure_agg_neighbors: int = 0
     secure_agg_key_exchange: str = "dh"
     secure_agg_threshold: float = 0.5
-    # Wire-plane compression and adapters (not run by this package yet).
+    # Wire-plane compression and the LoRA adapters (the socket plane).
     compress: str = "none"
     compress_feedback: bool = False
     topk_fraction: float = 0.05
@@ -226,9 +226,8 @@ def get_config(name: str) -> ExperimentConfig:
 
 
 def validate_robustness(config: "ExperimentConfig") -> None:
-    """Hard checks on the comm plane's robustness knobs (the comm-plane
-    half of the JAX package's ``validate_robustness``; its LoRA checks come
-    with LoRA).  A quorum above 1.0 or an eviction threshold of 0 is not a
+    """Hard checks on the comm plane's robustness and LoRA knobs (the JAX
+    package's ``validate_robustness``, with its words).  A quorum above 1.0 or an eviction threshold of 0 is not a
     slow configuration but a meaningless one, so these raise.  Called by
     the socket coordinator."""
     run, fed = config.run, config.fed
@@ -292,6 +291,32 @@ def validate_robustness(config: "ExperimentConfig") -> None:
                 "topk_max_fraction <= 1, got "
                 f"[{fed.topk_min_fraction}, {fed.topk_max_fraction}]"
             )
+    if fed.lora_rank < 0:
+        raise ValueError(f"lora_rank must be >= 0, got {fed.lora_rank}")
+    if fed.lora_rank > 0:
+        if fed.lora_alpha <= 0:
+            raise ValueError(
+                f"lora_alpha must be positive, got {fed.lora_alpha}")
+        if fed.lora_merge_every < 1:
+            raise ValueError(
+                "lora_merge_every must be >= 1, got "
+                f"{fed.lora_merge_every}"
+            )
+        if fed.compress_down != "none":
+            raise ValueError(
+                "lora_rank > 0 replaces the broadcast with a base+factor "
+                "frame; the downlink delta-cache protocol (compress_down) "
+                "does not compose with it — factor uplink compression "
+                "(fed.compress) is the supported knob"
+            )
+        if fed.strategy not in ("fedavg", "fedprox"):
+            raise ValueError(
+                "lora_rank > 0 folds FACTOR deltas, which the adaptive "
+                "server optimizers' params-shaped moment state cannot "
+                f"consume — use fedavg/fedprox, not {fed.strategy!r}"
+            )
+        # The sparse codecs (and their feedback) apply to the factors, and
+        # secure aggregation masks the dense factor tree: both allowed.
     if run.num_aggregators < 0:
         raise ValueError(
             f"num_aggregators must be >= 0, got {run.num_aggregators}")

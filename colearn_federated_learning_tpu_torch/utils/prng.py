@@ -24,6 +24,8 @@ TAG_INIT = 0x6
 TAG_DATA = 0x7
 TAG_MASK_RING = 0x8
 TAG_CLIP_BIT = 0x9
+# The LoRA A-factor init (the JAX package's ``fed/setup._LORA_INIT_TAG``).
+TAG_LORA_INIT = 0x10AA
 
 
 def derive_seed(seed: int, tag: int, *ids: int) -> int:
@@ -46,6 +48,12 @@ def generator(seed: int, tag: int, *ids: int, device=None) -> torch.Generator:
 def init_generator(seed: int) -> torch.Generator:
     """Model-initialization draws."""
     return generator(seed, TAG_INIT)
+
+
+def lora_init_generator(seed: int) -> torch.Generator:
+    """The LoRA A factors' init draws (on the host, so every device type
+    starts from the same factors)."""
+    return generator(seed, TAG_LORA_INIT)
 
 
 def client_round_generator(seed: int, client_id: int,

@@ -449,14 +449,16 @@ def test_refusals_are_jax_refusals(fed, run_kw, kw):
 
 
 @pytest.mark.parametrize("fed,run_kw,item", [
-    (dict(lora_rank=4), {}, "item 5"),
+    (dict(lora_rank=4), {}, "no LoRA branch"),
     ({}, dict(checkpoint_dir="ck"), "item 9"),
     ({}, dict(learn_observe=True), "item 10b"),
     ({}, dict(tp_size=2), "item 15")])
 def test_port_refusals_name_their_items(fed, run_kw, item, monkeypatch):
     """What the port does not run yet; ``tp_size`` 2 only on a host with
     two cards (with fewer the server runs replicated, as JAX falls
-    back)."""
+    back).  LoRA is refused in the port's own words: the JAX
+    coordinator has no LoRA branch (it constructs, and every dispatch to a
+    LoRA worker fails)."""
     _, tcfg = configs(run_kw=run_kw, **fed)
     if item == "item 15":
         with broker.MessageBroker() as b:
@@ -464,8 +466,9 @@ def test_port_refusals_name_their_items(fed, run_kw, item, monkeypatch):
                                       device="cpu").close()
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue A {item}"):
+    match = (f"ROADMAP.md Queue A {item}" if item.startswith("item ")
+             else item)
+    with pytest.raises(NotImplementedError, match=match):
         AsyncFederatedCoordinator(tcfg, "127.0.0.1", 1,
                                   device=None if item == "item 15"
                                   else "cpu")

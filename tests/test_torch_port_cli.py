@@ -77,9 +77,6 @@ def test_overrides_reach_the_config_as_in_jax(extra):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--lora-rank", "4"], "item 5"),
-    (["--lora-alpha", "8", "--edge-groups", "2"], "item 5"),
-    (["--lora-merge-every", "2"], "item 5"),
     (["--checkpoint-dir", "ck"], "item 9"), (["--resume"], "item 9"),
     (["--profile-dir", "pr"], "item 10b"), (["--learn-observe"], "item 10b")])
 def test_unported_override_exits_naming_its_roadmap_item(flag, item, capsys):
@@ -88,6 +85,49 @@ def test_unported_override_exits_naming_its_roadmap_item(flag, item, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert flag[0] in err and f"ROADMAP.md Queue A {item}" in err
+
+
+@pytest.mark.parametrize("cmd,flag,rest", [
+    ("train", ["--lora-rank", "4"], []),
+    ("train", ["--lora-alpha", "8"], ["--edge-groups", "2"]),
+    ("train", ["--lora-merge-every", "2"], []),
+    ("init", ["--lora-rank", "4"], [])])
+def test_lora_flags_do_in_train_and_init_what_jax_s_do(cmd, flag, rest,
+                                                       tmp_path, capsys):
+    """The ``--lora-*`` flags, refused until LoRA was ported, reach the
+    config as JAX's; ``train`` with a rank raises JAX's ``ValueError``
+    (LoRA runs on the socket plane only), without one it trains as without
+    the flags, and ``init`` writes the same model file, as JAX's."""
+    base = TINY if cmd == "train" else ["--config", "mnist_mlp_fedavg"]
+    argv = [*base, *rest, *flag]
+    out = [] if cmd == "train" else ["--out", "g.npz"]
+    ours = cli.config_from_args(cli.build_parser().parse_args(
+        [cmd, *argv, *out]))
+    parser = argparse.ArgumentParser()
+    jax_cli._add_override_flags(parser)
+    theirs = jax_cli.config_from_args(parser.parse_args(argv))
+    assert vars(ours.fed) == vars(theirs.fed)
+    if cmd == "init":
+        files = []
+        for extra in (flag, []):
+            out = str(tmp_path / f"g{len(files)}.npz")
+            cli.main(["init", "--backend", "cpu", "--config",
+                      "mnist_mlp_fedavg", *extra, "--out", out])
+            files.append(np.load(out))
+        assert sorted(files[0]) == sorted(files[1])
+        for key in files[1]:
+            assert files[0][key].tobytes() == files[1][key].tobytes()
+        return
+    if ours.fed.lora_rank > 0:
+        for main in (cli.main, jax_cli.main):
+            with pytest.raises(ValueError,
+                               match="requires the socket federation plane"):
+                main(["train", "--backend", "cpu", *argv])
+        return
+    with_flag = cli.main(["train", "--backend", "cpu", *argv])
+    without = cli.main(["train", "--backend", "cpu", *base, *rest])
+    capsys.readouterr()
+    assert with_flag["final_loss"] == without["final_loss"]
 
 
 @pytest.mark.parametrize("flag", ["--health-dir", "--trace-dir"])
@@ -281,8 +321,7 @@ def test_file_plane_flags_in_sim_run_the_plain_round(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["eval", "--global-model", "g.npz", "--detection-eval"], "item 10"),
-    (["init", "--out", "g.npz", "--lora-rank", "4"], "item 5")])
+    (["eval", "--global-model", "g.npz", "--detection-eval"], "item 10")])
 def test_file_plane_refusals_name_their_items(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main([argv[0], "--backend", "cpu", *argv[1:]])

@@ -5,8 +5,9 @@ per-client evaluation against the CPU, remat's grads and K1 launches
 against the plain run, the client-mesh round at world size 1 on NCCL
 against the single-device round, socket-plane rounds with the device
 fold (flat, through a two-aggregator tree, and one asynchronous
-aggregation) against the host fold, and
-a traced engine round's spans against its record, on the card.  Marked ``cuda``: without a CUDA device every
+aggregation) against the host fold, a traced engine round's spans
+against its record, and a LoRA factor-only update against the CPU and the
+fold at the factor layout against its plain version, on the card.  Marked ``cuda``: without a CUDA device every
 test here skips.  On a machine with the card (no JAX needed):
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -p no:cacheprovider -q
@@ -831,3 +832,87 @@ def test_async_aggregation_with_the_device_fold_on_the_card(cuda,
     for b0, m, a in zip(trees.leaves(before), trees.leaves(mean),
                         trees.leaves(after)):
         assert np.array_equal((b0 + m).astype(np.float32), a)
+
+
+# ----------------------------------------------------------------- LoRA
+def _lora_update(model, device, base, factors, x, y, idx):
+    """One factor-only local update (SGD, 3 steps, rank 4, alpha 16) of
+    ``model`` on ``device``."""
+    from colearn_federated_learning_tpu_torch.fed import local
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    update = local.make_lora_local_update(
+        model, local.make_optimizer(0.05, 0.0, "sgd"), 3, rank=4,
+        alpha=16.0, num_heads=2)
+    res = update([t.to(device) for t in base],
+                 trees.map_leaves(lambda t: t.to(device), factors),
+                 x.to(device), y.to(device), x.shape[0], idx.to(device), 3)
+    return [d.cpu() for d in res.delta], float(res.mean_loss)
+
+
+def test_lora_local_update_on_the_card_matches_the_cpu(cuda):
+    """The factor-only trainer on the card (K1-K3 in bf16, their gradients
+    flowing into the query/key/value/out factors) against the same update
+    on the CPU (the plain attention): the deltas within 5 % of their norm
+    and the losses within 2e-2, bf16 rounding at other points on each
+    side."""
+    from colearn_federated_learning_tpu_torch import convert
+    from colearn_federated_learning_tpu_torch.fed import lora
+
+    cfg = _bert_small(remat=False)
+    host = registry.build_model(cfg, "cpu",
+                                generator=torch.Generator().manual_seed(1))
+    card = registry.build_model(cfg, cuda)
+    card.load_state_dict(host.state_dict())
+    base = [p.detach().clone() for p in host.parameters()]
+    flax = convert.state_dict_to_flax(
+        {n: p.detach() for n, p in host.named_parameters()}, num_heads=2)
+    factors = lora.init_factors(flax, 4, generator=torch.Generator()
+                                .manual_seed(2), model_name="bert")
+    g = torch.Generator().manual_seed(3)
+    for _, b in lora.factor_index(factors).values():
+        b.copy_(0.05 * torch.randn(b.shape, generator=g))
+    x = torch.randint(0, cfg.vocab_size, (24, cfg.seq_len), generator=g,
+                      dtype=torch.int32)
+    y = torch.randint(0, cfg.num_classes, (24,), generator=g)
+    idx = torch.randint(0, 24, (3, 8), generator=g)
+    A.reset_launches()
+    got, got_loss = _lora_update(card, cuda, base, factors, x, y, idx)
+    torch.cuda.synchronize()
+    assert A.launches == {"flash_forward": 2 * 3, "flash_backward_dq": 2 * 3,
+                          "flash_backward_dkv": 2 * 3}
+    want, want_loss = _lora_update(host, "cpu", base, factors, x, y, idx)
+    assert abs(got_loss - want_loss) <= 2e-2
+    num = sum(float((a - b).square().sum()) for a, b in zip(got, want))
+    den = sum(float(b.square().sum()) for b in want)
+    assert den > 0 and num <= 0.05 ** 2 * den
+
+
+def test_fold_at_the_lora_factor_layout_is_bitwise_its_plain_version(cuda):
+    """``fold_dense`` of 3 factor updates and of 2 partials and
+    ``fold_sparse`` of topk8 factor updates at a BERT factor layout (rank
+    8: (m, 8) and (8, n) slots), card against CPU bit for bit."""
+    from colearn_federated_learning_tpu_torch import convert
+    from colearn_federated_learning_tpu_torch.fed import lora
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    cfg = _bert_small(remat=False)
+    model = registry.build_model(cfg, "cpu",
+                                 generator=torch.Generator().manual_seed(1))
+    flax = convert.state_dict_to_flax(
+        {n: p.detach() for n, p in model.named_parameters()}, num_heads=2)
+    sizes = [l.numel() for l in trees.leaves(
+        lora.init_factors(flax, 8, model_name="bert"))]
+    card, host = fold.FoldKernel(sizes, cuda), fold.FoldKernel(sizes, "cpu")
+    rng = np.random.default_rng(8)
+    fold.reset_launches()
+    for rows in (3, 2):
+        batch = [[rng.standard_normal(n).astype(np.float32) for n in sizes]
+                 for _ in range(rows)]
+        assert torch.equal(_bits(card.fold_dense(None, batch)),
+                           _bits(host.fold_dense(None, batch)))
+    batch = _fold_batch(rng, sizes, 4, np.int8, frac=0.05)
+    assert torch.equal(_bits(card.fold_sparse(None, batch)),
+                       _bits(host.fold_sparse(None, batch)))
+    torch.cuda.synchronize()
+    assert fold.launches == {"fold_sparse": 4, "fold_dense": 2}

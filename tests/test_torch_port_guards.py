@@ -270,8 +270,31 @@ def test_build_model_without_cuda_raises_instead_of_using_the_cpu(
 
 @pytest.mark.parametrize("fed_kw", [
     dict(lora_rank=4), dict(lora_rank=4, edge_groups=2),
-    dict(lora_rank=2, tp_size=2),
-    dict(lora_rank=8, edge_groups=4), dict(strategy="fedsgd")])
+    dict(lora_rank=2, tp_size=2), dict(lora_rank=8, edge_groups=4)])
+def test_lora_in_process_raises_jax_s_value_error(fed_kw):
+    """LoRA runs on the socket plane only: the in-process learner raises
+    the JAX learner's ``ValueError``, word for word."""
+    from colearn_federated_learning_tpu.fed import (
+        FederatedLearner as JaxLearner)
+
+    run_kw = {k: v for k, v in fed_kw.items() if k == "tp_size"}
+    fed_kw = {k: v for k, v in fed_kw.items() if k != "tp_size"}
+    errors = []
+    for mod, make in ((jax_config, JaxLearner),
+                      (config, lambda c: FederatedLearner(c, device="cpu"))):
+        base = mod.get_config("mnist_mlp_fedavg")
+        cfg = base.replace(
+            data=dataclasses.replace(base.data, dataset="mnist_tiny"),
+            fed=dataclasses.replace(base.fed, **fed_kw),
+            run=dataclasses.replace(base.run, **run_kw))
+        with pytest.raises(ValueError) as exc:
+            make(cfg)
+        errors.append(str(exc.value))
+    assert errors[0] == errors[1]
+    assert "requires the socket federation plane" in errors[1]
+
+
+@pytest.mark.parametrize("fed_kw", [dict(strategy="fedsgd")])
 def test_unported_features_raise(fed_kw):
     base = config.get_config("agnews_bert_fedavg")
     run_kw = {k: v for k, v in fed_kw.items() if k == "tp_size"}

@@ -518,7 +518,6 @@ def test_cli_broker_worker_coordinate_processes():
 
 @pytest.mark.parametrize("fed,run,item", [
     (dict(compress_down="int8"), dict(num_aggregators=2), "tree"),
-    (dict(lora_rank=4), {}, "item 5"),
     ({}, dict(checkpoint_dir="ck"), "item 9"),
     ({}, dict(health_dir="h"), "ledger"),
     ({}, dict(learn_observe=True), "item 10b"),

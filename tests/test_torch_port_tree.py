@@ -514,24 +514,6 @@ def test_aggregator_serves_the_buffered_ops_as_jax(op):
             assert ours["meta"].get(key) == theirs["meta"].get(key), key
 
 
-@pytest.mark.parametrize("op,meta,item", [
-    ("fold", {"lora": True}, "item 5")])
-def test_aggregator_refuses_what_is_not_ported(op, meta, item):
-    _, tcfg = tree_configs()
-    with aggregator.AggregatorServer(tcfg, 0) as agg:
-        cli = TensorClient(agg.host, agg.port, timeout=WAIT)
-        try:
-            header, _ = cli.request({"op": op, "round": 0},
-                                    {"w": np.zeros(3, np.float32)},
-                                    meta=meta, timeout=WAIT)
-            info, _ = cli.request({"op": "info"}, timeout=WAIT)
-        finally:
-            cli.close()
-    assert header["status"] == "error"
-    assert f"ROADMAP.md Queue A {item}" in header["error"]
-    assert info["meta"]["agg_id"] == 0
-
-
 def test_device_fold_aggregator_raises_without_a_card(monkeypatch):
     """With ``fold_device`` the aggregator resolves its device and raises
     without a card; without it, it folds on the host and needs none."""

@@ -164,20 +164,6 @@ def test_buffered_ops_answer_as_jax(scheme, device_fold):
     assert i_o["meta"]["count"] == i_t["meta"]["count"] == 0
 
 
-def test_buffered_ops_refuse_lora_factors():
-    """A buffer of LoRA factors waits for LoRA (ROADMAP item 5)."""
-    agg = _serve("port")
-    cli = TensorClient(agg.host, agg.port, timeout=WAIT)
-    try:
-        hdr, _ = cli.request({"op": "aprep", "meta": {"lora": True}},
-                             {"factors": _shapes()}, timeout=WAIT)
-    finally:
-        cli.close()
-        agg.stop()
-    assert hdr["status"] == "error"
-    assert "ROADMAP.md Queue A item 5" in hdr["error"]
-
-
 def _auto_k_sequence(side, steps):
     est = (arrival if side == "port" else jax_arrival).ArrivalEstimator()
     ns = types.SimpleNamespace(arrival=est, _abuf_k=None)
