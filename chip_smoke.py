@@ -238,7 +238,29 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the factor layout (``fold_dense`` of 3 contributions and of 2
    partials, ``fold_sparse`` of topk8 contributions) bitwise its plain
    version and timed as in 9a;
-16. one JSON line of per-kernel results (launches summed over the paths),
+16. checkpoints and resume (``ckpt/``) on the card: 16a ``train`` on
+   config #4 (BERT-base, flash, 4 local steps) for 1 round with
+   ``--checkpoint-dir``, then ``--rounds 2 --resume``: stderr says
+   ``resumed at round 1``, K1-K3 launch exactly, and the step-2
+   checkpoint, read leaf by leaf, equals that of 13a's untraced run
+   (which saves its last round) bit for bit; 16b 11c's processes with
+   ``coordinate --checkpoint-dir --checkpoint-every 1 --ckpt-stream`` as
+   a process, SIGKILLed as soon as round 0's record line is out, then
+   ``coordinate --resume`` through ``cli.main`` against the live broker
+   and workers: the ``resumed`` event at round 1 with no generation
+   discarded and generation 1's ``load_generation_host`` digest,
+   ``challenge_verified`` with the 3 workers and no rejection, 2 WAL
+   entries, round 1 through ``fold_dense`` once, its params bitwise
+   11c's round 1 when the killed run's round-0 state is 11c's and the
+   round-1 fold orders agree (else the difference is printed); 16c 11a's
+   and 14a's federations save their live state as streaming generations
+   after their rounds (BERT-base width), and a fresh coordinator of each
+   kind restores it: params bitwise the live ones, the version (14a) and
+   ``round_idx`` equal, ``last_restore_digest`` equal to
+   ``load_generation_host``'s; ``ckpt.save_s`` and ``ckpt.restore_s``
+   with their MB and MB/s, the shard count and the CRC pass's share of
+   the save are printed;
+17. one JSON line of per-kernel results (launches summed over the paths),
    then the result line.
 
 Every synthetic dataset is drawn once in the process and copied to each
@@ -251,16 +273,21 @@ prints no result otherwise.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from types import SimpleNamespace
 
@@ -1972,7 +1999,8 @@ def socket_config(**fed):
     run = {k: fed.pop(k) for k in list(fed)
            if k in ("fold_device", "comm_retries", "num_aggregators",
                     "agg_heartbeat_timeout", "agg_buffer_interval_s",
-                    "trace_dir", "health_dir")}
+                    "trace_dir", "health_dir", "checkpoint_dir",
+                    "ckpt_stream")}
     return base.replace(fed=dataclasses.replace(base.fed, **fed),
                         run=dataclasses.replace(base.run, **run))
 
@@ -2024,7 +2052,8 @@ def socket_round_path(A, F, dataset, workdir):
     trainers and the evaluator) on the card, config #4 with topk8 uplinks,
     error feedback and the device fold, 2 rounds and an evaluation, with a
     trace and a health ledger, which 13b's checks read
-    (``traced_socket_checks``)."""
+    (``traced_socket_checks``); the live state is then saved as a
+    streaming generation, which 16c restores."""
     from colearn_federated_learning_tpu_torch import telemetry
     from colearn_federated_learning_tpu_torch.comm.downlink import host_params
     from colearn_federated_learning_tpu_torch.utils import trees
@@ -2033,7 +2062,9 @@ def socket_round_path(A, F, dataset, workdir):
     health_dir = os.path.join(workdir, "13b_health")
     cfg = socket_config(compress="topk8", compress_feedback=True,
                         fold_device=True, trace_dir=trace_dir,
-                        health_dir=health_dir)
+                        health_dir=health_dir,
+                        checkpoint_dir=ckpt_dir("16c_sync"),
+                        ckpt_stream=True)
     reg = telemetry.get_registry()
     reg.reset()
     t0 = time.perf_counter()
@@ -2067,6 +2098,9 @@ def socket_round_path(A, F, dataset, workdir):
                                             metrics=reg.snapshot())
         local_s = [sp.duration_s for sp in coord.tracer.snapshot()
                    if sp.name == "local_train"]
+        # 16c: the live state saved as fit's last round saves it (this
+        # path runs its rounds without fit).
+        save_checkpoint_of(coord, "16c_sync", after)
     finally:
         if timer is not None:
             timer.close()
@@ -2718,7 +2752,9 @@ def traced_engine_path(A, workdir):
     trace holds ``round``/``client_update``/``sync_metrics`` of round 0
     only, loads through the port's ``load_trace``, and its
     ``client_update`` durations are the records' ``phase_update_s``; the
-    JSONL log holds the records.  K1-K3 launch exactly in both runs."""
+    JSONL log holds the records.  K1-K3 launch exactly in both runs.  The
+    untraced run saves its last round with ``--checkpoint-dir``: 16a's
+    uninterrupted reference."""
     from colearn_federated_learning_tpu_torch import telemetry
 
     trace_dir = os.path.join(workdir, "13a_trace")
@@ -2731,6 +2767,9 @@ def traced_engine_path(A, workdir):
             argv += ["--trace-dir", trace_dir, "--trace-rounds",
                      str(TRACE_WINDOW), "--log-file", log_file,
                      "--tensorboard-dir", tb_dir]
+        else:
+            # 16a's uninterrupted reference: its last round saves.
+            argv += ["--checkpoint-dir", ckpt_dir("16a_straight")]
         label = "13a traced" if traced else "13a untraced"
         records, launches, learner = cli_path(A, label, argv)
         runs[traced] = (records, [p.clone() for p in
@@ -2741,7 +2780,9 @@ def traced_engine_path(A, workdir):
     (plain, p0, none_path), (recs, p1, path) = runs[False], runs[True]
     if none_path is not None or path is None:
         raise AssertionError(f"13a: trace paths {none_path}, {path}")
-    if [sorted(r) for r in recs] != [sorted(r) for r in plain]:
+    # The untraced run's last record also carries its checkpoint's time.
+    if [sorted(r) for r in recs] != [sorted(set(r) - {"phase_checkpoint_s"})
+                                     for r in plain]:
         raise AssertionError("13a: tracing changed the record keys")
     loss_diff = max(abs(a["train_loss"] - b["train_loss"])
                     for a, b in zip(recs, plain))
@@ -3027,7 +3068,8 @@ def flat_async_path(A, F, dataset, workdir):
     """14a: a broker, 4 trainer threads and the evaluator, and the
     ``AsyncFederatedCoordinator`` (K = 2, ``observe``, a trace and a
     health ledger) on config #4 with topk8 uplinks, error feedback and the
-    device fold: 6 aggregations and an evaluation."""
+    device fold: 6 aggregations and an evaluation; the live state is then
+    saved as a streaming generation, which 16c restores."""
     from colearn_federated_learning_tpu_torch import telemetry
     from colearn_federated_learning_tpu_torch.comm.downlink import host_params
     from colearn_federated_learning_tpu_torch.utils import trees
@@ -3035,7 +3077,9 @@ def flat_async_path(A, F, dataset, workdir):
     cfg = socket_config(compress="topk8", compress_feedback=True,
                         fold_device=True,
                         trace_dir=os.path.join(workdir, "14a_trace"),
-                        health_dir=os.path.join(workdir, "14a_health"))
+                        health_dir=os.path.join(workdir, "14a_health"),
+                        checkpoint_dir=ckpt_dir("16c_async"),
+                        ckpt_stream=True)
     t0 = time.perf_counter()
     rec_patch = _Recorder()
     broker, workers, coord = _federation(cfg, 5, True, dataset,
@@ -3056,6 +3100,10 @@ def flat_async_path(A, F, dataset, workdir):
         ev = coord.evaluate()
         eval_s = time.perf_counter() - t1
         after = host_params(coord.params_tree())
+        t1 = time.perf_counter()
+        save_checkpoint_of(coord, "16c_async", after)
+        CKPT["16c_async"]["version"] = coord.version
+        CKPT["16c_async"]["path_s"] = time.perf_counter() - t1
         # Closing joins the pumps: every dispatch in flight ends, and its
         # training is in the launch counts.
         coord.close()
@@ -3974,6 +4022,337 @@ def lora_phase(A, F):
     return paths
 
 
+# ------------------------------------------------------------ phase 16
+# Phase 16's checkpoints live under one temporary directory inside the
+# gitignored build directory (main() makes it and removes it): 13a's
+# untraced run, 11a's and 14a's federations save into it, and phase 16
+# checks what they saved.  ``CKPT[name]`` keeps what a save left to check.
+CKPT: dict = {"root": None}
+
+
+def ckpt_dir(name: str) -> str:
+    return os.path.join(CKPT["root"], name)
+
+
+def save_checkpoint_of(coord, name: str, params) -> None:
+    """Save a coordinator's live state through its checkpointer (streaming
+    with ``ckpt_stream``), as ``fit``'s last round would, and keep the
+    config, the host params at the save and the save's numbers for 16c."""
+    t0 = time.perf_counter()
+    coord.save_checkpoint()
+    CKPT[name] = {"cfg": coord.config, "params": params,
+                  "round_idx": coord.server_state.round_idx,
+                  "step": len(coord.history),
+                  "stats": dict(coord._ckpt.last_save_stats),
+                  "wall_s": time.perf_counter() - t0}
+
+
+def _stderr_of(fn):
+    """Run ``fn()`` with this process's stderr captured; the text is
+    written to the real stderr afterwards and returned beside the
+    result."""
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            out = fn()
+    finally:
+        sys.stderr.write(err.getvalue())
+        sys.stderr.flush()
+    return out, err.getvalue()
+
+
+def _events(text: str) -> dict:
+    return {e["event"]: e for e in (json.loads(line) for line in
+                                    text.splitlines()
+                                    if line.startswith('{"event"'))}
+
+
+def resume_engine_path(A):
+    """16a: ``train`` through ``cli.main`` on config #4 (BERT-base, flash,
+    4 local steps) for 1 round with ``--checkpoint-dir D``, then ``train
+    --rounds 2 --checkpoint-dir D --resume``: stderr says ``resumed at
+    round 1``, the second run trains round 1 alone with exact K1-K3
+    launches, and its step-2 checkpoint, read leaf by leaf, equals 13a's
+    uninterrupted run's step-2 checkpoint bit for bit."""
+    from colearn_federated_learning_tpu_torch.ckpt import RoundCheckpointer
+
+    d = ckpt_dir("16a_resumed")
+    first = list(BERT_TRACE)
+    first[first.index("--rounds") + 1] = "1"
+    _, l1, learner = cli_path(A, "16a first", [*first, "--checkpoint-dir", d])
+    del learner
+    (recs, l2, learner), err = _stderr_of(lambda: cli_path(
+        A, "16a resumed", [*BERT_TRACE, "--checkpoint-dir", d, "--resume"]))
+    del learner
+    if "resumed at round 1" not in err.splitlines():
+        raise AssertionError("16a: no 'resumed at round 1' on stderr")
+    if [r["round"] for r in recs] != [1]:
+        raise AssertionError(f"16a: resumed rounds "
+                             f"{[r['round'] for r in recs]}")
+    straight = RoundCheckpointer(ckpt_dir("16a_straight"))
+    resumed = RoundCheckpointer(d)
+    if not straight.latest_step() == resumed.latest_step() == 2:
+        raise AssertionError(f"16a: steps {straight.latest_step()}, "
+                             f"{resumed.latest_step()}")
+    n, nbytes, differ = 0, 0, []
+    for (pa, a), (pb, b) in zip(straight.load_leaves(2),
+                                resumed.load_leaves(2)):
+        n += 1
+        nbytes += a.numel() * a.element_size()
+        if pa != pb or a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"16a: leaf {pa} against {pb}")
+        if not torch.equal(a, b):
+            differ.append((pa, float((a.double() - b.double()).abs().max())))
+    log(f"  [16a] train --rounds 1, then --rounds 2 --resume (cut as 13a: "
+        f"local_steps 150 -> 4): 'resumed at round 1'; step 2 against 13a's "
+        f"uninterrupted step 2: {n} leaves, {nbytes / 1e6:.1f} MB, "
+        f"{len(differ)} differ {differ[:3]}; {card()}")
+    if differ or n == 0:
+        raise AssertionError(f"16a: the resumed checkpoint differs from the "
+                             f"uninterrupted one in {differ}")
+    return {"resume_engine_first": l1, "resume_engine": l2}
+
+
+def _line_queue(stream):
+    """A queue of ``stream``'s lines read on a thread (``None`` at EOF)."""
+    import queue
+
+    q = queue.Queue()
+
+    def pump():
+        for line in stream:
+            q.put(line)
+        q.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return q
+
+
+def resume_cli_path(F):
+    """16b: ``cli broker`` and 3 ``cli worker`` processes and a ``cli
+    coordinate --fold-device --no-evaluator --checkpoint-dir D
+    --checkpoint-every 1 --ckpt-stream`` process on 11c's config, the
+    coordinator SIGKILLed as soon as round 0's record line is out (its
+    checkpoint is committed before the line), then ``coordinate ...
+    --resume`` through ``cli.main`` in this process against the live
+    broker and workers: the ``resumed`` event says round 1, no generation
+    discarded, and the digest of ``load_generation_host(D)`` at
+    generation 1; ``challenge_verified`` lists the 3 workers and no
+    rejection; the WAL holds 2 entries; round 1 runs through
+    ``fold_dense`` once.  Its params are held to 11c's round 1 bit for
+    bit when the killed run's round-0 state is 11c's bit for bit and the
+    two round-1 folds' orders agree; otherwise the difference is
+    printed."""
+    from colearn_federated_learning_tpu_torch import cli
+    from colearn_federated_learning_tpu_torch.ckpt import (
+        RoundWal, load_generation_host)
+    from colearn_federated_learning_tpu_torch.comm import coordinator
+    from colearn_federated_learning_tpu_torch.comm.downlink import (
+        host_params)
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    d = ckpt_dir("16b")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    mod = [sys.executable, "-m", "colearn_federated_learning_tpu_torch.cli"]
+    procs, t0 = [], time.perf_counter()
+    records, params = [], []
+    rec_patch = _Recorder()
+    try:
+        broker = subprocess.Popen([*mod, "broker"], env=env, cwd=root,
+                                  stdout=subprocess.PIPE, text=True)
+        procs.append(broker)
+        port = str(json.loads(broker.stdout.readline())["port"])
+        for i in range(3):
+            procs.append(subprocess.Popen(
+                [*mod, "worker", *SOCKET_CLI, "--client-id", str(i),
+                 "--broker-port", port], env=env, cwd=root,
+                stdout=subprocess.DEVNULL))
+        argv = ["coordinate", *SOCKET_CLI, "--broker-port", port,
+                "--min-devices", "3", "--no-evaluator", "--fold-device",
+                "--checkpoint-dir", d, "--checkpoint-every", "1",
+                "--ckpt-stream", "--enroll-timeout", "300",
+                "--round-timeout", str(SOCKET_TIMEOUT)]
+        victim = subprocess.Popen([*mod, *argv], env=env, cwd=root,
+                                  stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.PIPE, text=True)
+        lines = _line_queue(victim.stderr)
+        deadline = time.monotonic() + 600.0
+        while True:
+            line = lines.get(timeout=max(1.0, deadline - time.monotonic()))
+            if line is None:
+                raise AssertionError("16b: the coordinator exited before "
+                                     "round 0's record")
+            sys.stderr.write(line)
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if (isinstance(rec, dict) and rec.get("round") == 0
+                    and "event" not in rec):
+                victim.send_signal(signal.SIGKILL)
+                break
+        victim_code = victim.wait(60)
+        killed_s = time.perf_counter() - t0
+        F.reset_launches()
+        orig = coordinator.FederatedCoordinator.run_round
+
+        def kept(self):
+            rec = orig(self)
+            records.append(rec)
+            params.append(host_params(self.params_tree()))
+            return rec
+
+        coordinator.FederatedCoordinator.run_round = kept
+        try:
+            last, err = _stderr_of(lambda: cli.main([*argv, "--resume"]))
+        finally:
+            coordinator.FederatedCoordinator.run_round = orig
+        launches = dict(F.launches)
+        for p in procs[:4]:
+            p.terminate()
+        codes = [p.wait(60) for p in procs[:4]]
+    finally:
+        rec_patch.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    events = _events(err)
+    gen, gstep, digest = load_generation_host(d, step=1)
+    wal = RoundWal(d).load()
+    resumed, verdict = events.get("resumed", {}), events.get(
+        "challenge_verified", {})
+    log(f"  [16b] broker + 3 worker processes + coordinate ({SOCKET_CLI}, "
+        f"cut: num_clients 100 -> 3) SIGKILLed after round 0's record "
+        f"(exit {victim_code}, {killed_s:.2f} s), then coordinate --resume "
+        f"in this process: {json.dumps(resumed)}; "
+        f"{json.dumps(verdict)}; WAL rounds {[e['round'] for e in wal]}; "
+        f"exit codes {codes}; fold launches {launches}; path "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (victim_code == -signal.SIGKILL and codes == [0, 0, 0, 0]
+            and resumed.get("round") == 1
+            and resumed.get("ckpt_discarded") == 0
+            and resumed.get("ckpt_digest") == digest and gstep == 1
+            and sorted(verdict.get("verified", [])) == ["0", "1", "2"]
+            and verdict.get("rejected") == []
+            and [e["round"] for e in wal] == [0, 1]
+            and [r["round"] for r in records] == [1] and last is records[-1]
+            and last["completed"] == 3 and math.isfinite(last["train_loss"])
+            and launches == {"fold_sparse": 0, "fold_dense": 1}):
+        raise AssertionError(f"16b: victim {victim_code}, codes {codes}, "
+                             f"events {events}, WAL {wal}, records "
+                             f"{records}, launches {launches}")
+    sync, sync_params, sync_folds = RECORDS["11c"]
+    state0 = [v for k, v in gen.items() if k.startswith("0/params/")]
+    same0 = all(a.numpy().tobytes() == np.asarray(b).tobytes()
+                for a, b in zip(state0, trees.leaves(sync_params[0])))
+    order, order_11c = (rec_patch.folders[0].folded_ids,
+                        sync_folds[1].folded_ids)
+    comparable = same0 and list(order) == list(order_11c)
+    diff = _max_abs_diff(params[0], sync_params[1])
+    log(f"  [16b] round 1 train_loss {last['train_loss']!r} (11c's "
+        f"{sync[1]['train_loss']!r}); round-0 state bitwise 11c's: {same0};"
+        f" round-1 fold order {list(order)} (11c's {list(order_11c)}); "
+        f"params after round 1 max abs diff from 11c's {diff:.3e}; held "
+        f"bitwise: {comparable}; {card()}")
+    if comparable and not _leaves_equal(params[0], sync_params[1]):
+        raise AssertionError(f"16b: round 1 after the resume differs from "
+                             f"11c's round 1 by {diff}")
+    return launches
+
+
+def restore_check(name: str) -> dict:
+    """16c: a fresh coordinator of the saved one's kind and config
+    restores the streaming checkpoint that ``save_checkpoint_of`` made:
+    the restored params equal the live ones bit for bit (the version and
+    ``round_idx`` too), and ``last_restore_digest`` equals
+    ``load_generation_host``'s.  Returns the save's and the restore's
+    numbers."""
+    from colearn_federated_learning_tpu_torch.ckpt import (
+        load_generation_host)
+    from colearn_federated_learning_tpu_torch.comm.async_coordinator import (
+        AsyncFederatedCoordinator)
+    from colearn_federated_learning_tpu_torch.comm.broker import MessageBroker
+    from colearn_federated_learning_tpu_torch.comm.coordinator import (
+        FederatedCoordinator)
+    from colearn_federated_learning_tpu_torch.comm.downlink import host_params
+
+    saved = CKPT[name]
+    cfg = saved["cfg"]
+    # No trace or ledger for the fresh coordinator: their directories are
+    # gone with their phase.
+    cfg = cfg.replace(run=dataclasses.replace(cfg.run, trace_dir=None,
+                                              health_dir=None))
+    t0 = time.perf_counter()
+    broker = MessageBroker().start()
+    try:
+        if "version" in saved:
+            coord = AsyncFederatedCoordinator(cfg, broker.host, broker.port,
+                                              buffer_size=ASYNC_K)
+        else:
+            coord = FederatedCoordinator(cfg, broker.host, broker.port)
+        try:
+            step = coord.restore_checkpoint()
+            restored = host_params(coord.params_tree())
+            ckpt = coord._ckpt
+            digest, stats = ckpt.last_restore_digest, ckpt.last_restore_stats
+            version = getattr(coord, "version", None)
+            round_idx = coord.server_state.round_idx
+        finally:
+            coord.close()
+    finally:
+        broker.stop()
+    _, gstep, host_digest = load_generation_host(ckpt_dir(name))
+    save = saved["stats"]
+    mb = save["bytes"] / 1e6
+    out = {"save_s": save["save_s"], "save_MB": mb,
+           "save_MB_per_s": mb / save["save_s"], "shards": save["shards"],
+           "crc_share": save["crc_s"] / save["save_s"],
+           "restore_s": stats["restore_s"],
+           "restore_MB_per_s": stats["bytes"] / 1e6 / stats["restore_s"],
+           "path_s": time.perf_counter() - t0}
+    equal = _leaves_equal(restored, saved["params"])
+    log(f"  [16c {name}] step {step} (generation {gstep}), version "
+        f"{version}, round_idx {round_idx}: params bitwise the live ones: "
+        f"{equal}; digest {digest[:16]}... == load_generation_host's: "
+        f"{digest == host_digest}; ckpt.save_s {save['save_s']:.3f} s for "
+        f"{mb:.1f} MB ({out['save_MB_per_s']:.1f} MB/s), {save['shards']} "
+        f"shard file(s), the CRC pass {100 * out['crc_share']:.1f} % of the "
+        f"save; ckpt.restore_s {stats['restore_s']:.3f} s "
+        f"({out['restore_MB_per_s']:.1f} MB/s); path "
+        f"{out['path_s']:.2f} s; {card()}")
+    if not (equal and digest == host_digest and step == gstep
+            == saved["step"] and round_idx == saved["round_idx"]
+            and version == saved.get("version")):
+        raise AssertionError(f"16c {name}: restored step {step}, version "
+                             f"{version}, round_idx {round_idx}, params "
+                             f"equal {equal}, digests {digest} "
+                             f"{host_digest}")
+    return out
+
+
+def resume_phase(A, F):
+    """Phase 16: checkpoints and resume on the card (16a the engine, 16b
+    the processes with a SIGKILL, 16c the streaming restores of 11a's and
+    14a's federations)."""
+    paths, numbers = {}, {}
+    t0 = time.perf_counter()
+    paths.update(resume_engine_path(A))
+    log(f"  16a in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["resume_cli"] = resume_cli_path(F)
+    log(f"  16b in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    numbers["16c_sync"] = restore_check("16c_sync")
+    numbers["16c_async"] = restore_check("16c_async")
+    numbers["16c_async"]["save_path_s"] = CKPT["16c_async"]["path_s"]
+    log(f"  16c in {time.perf_counter() - t0:.2f} s")
+    log("phase 16 numbers " + json.dumps(numbers))
+    return paths
+
+
 def cache_synthetic_data():
     """Draw each synthetic dataset once in this process: every later draw
     of the same (dataset, seed) gets a copy of the first one's arrays
@@ -4037,6 +4416,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from colearn_federated_learning_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    CKPT["root"] = tempfile.mkdtemp(dir=_build.BUILD_DIR, prefix="ckpt-")
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(CKPT["root"], ignore_errors=True)
+
+
+def run_phases() -> int:
+    """Phases 1-16 and the two result lines (see the module docstring)."""
     from colearn_federated_learning_tpu_torch.ops import _build
     from colearn_federated_learning_tpu_torch.ops import attention as A
     from colearn_federated_learning_tpu_torch.utils.config import get_config
@@ -4121,6 +4512,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(lora_phase(A, F))
     log(f"  phase 15 in {time.perf_counter() - t0:.2f} s")
+    log("phase 16: checkpoints and resume (the engine, a SIGKILLed "
+        "coordinator, streaming restores)")
+    t0 = time.perf_counter()
+    paths.update(resume_phase(A, F))
+    log(f"  phase 16 in {time.perf_counter() - t0:.2f} s")
     log("launches per path " + json.dumps(paths))
 
     sources = {**{name: (SOURCE, rep) for name, (rep, _) in KERNELS.items()},

@@ -30,6 +30,12 @@ Chrome-trace JSON of ``train``, ``coordinate`` and ``aggregator``, which
 ``trace-summary`` breaks down; ``--health-dir`` keeps the per-device
 health ledgers of ``coordinate`` and ``aggregator``, which ``health``
 renders.  Both print the JAX command's text and exit with its codes.
+Checkpoints (``ckpt/``): ``--checkpoint-dir`` and ``--checkpoint-every``
+save the state of ``train`` and ``coordinate`` (``--ckpt-stream`` picks
+the streaming format); ``train --resume`` prints ``resumed at round k``
+and runs the remaining rounds, ``coordinate --resume`` prints the event
+``resume_cold`` or ``resumed`` and, on the synchronous plane, after
+enrollment ``challenge_verified``.
 Everything runs on the card (``--backend gpu``, the default, which raises
 without one) or, only when asked, on the CPU.  ``train`` writes each
 round's record to stderr as one JSON line and its summary to stdout, as in
@@ -86,33 +92,25 @@ _RUN_KEYS = {"seed", "tp_size", "eval_every", "log_every", "evict_after",
              "comm_backoff_max", "fault_plan", "fault_seed", "fold_device",
              "num_aggregators", "agg_heartbeat_timeout",
              "agg_buffer_interval_s", "trace_dir", "trace_rounds",
-             "health_dir"}
+             "health_dir", "checkpoint_dir", "checkpoint_every",
+             "ckpt_stream"}
 
-_CKPT = comm.ITEM_CKPT
 _OBS = comm.ITEM_OBS_REST
 _FLIGHT = comm.ITEM_CHAOS
 
 # dest -> (flag, argparse kwargs, the ROADMAP item that ports it): the
 # override flags every subcommand takes, and those of ``train`` alone.
 _UNPORTED = {
-    "checkpoint_dir": ("--checkpoint-dir", dict(), _CKPT),
-    "checkpoint_every": ("--checkpoint-every", dict(type=int), _CKPT),
-    "ckpt_stream": ("--ckpt-stream", dict(action="store_true"), _CKPT),
     "profile_dir": ("--profile-dir", dict(), _OBS),
     "learn_observe": ("--learn-observe", dict(action="store_true"), _OBS),
 }
 _UNPORTED_TRAIN = {
-    "resume": ("--resume", dict(action="store_true"), _CKPT),
     "personalize_steps": ("--personalize-steps", dict(type=int), _OBS),
     "detection_eval": ("--detection-eval", dict(action="store_true"), _OBS),
 }
 
 
-# The JAX coordinator's options of the paths not ported yet, and the
-# observability flags of broker/worker/coordinate.
-_COORDINATE_UNPORTED = {
-    "resume": ("--resume", dict(action="store_true"), _CKPT),
-}
+# The observability flags of broker/worker/coordinate.
 _OBSERVABILITY = {
     "flight_dir": ("--flight-dir", dict(), _FLIGHT),
     "flight_heartbeat": ("--flight-heartbeat", dict(type=float), _FLIGHT),
@@ -123,7 +121,7 @@ _OBSERVABILITY = {
 _UNPORTED_COMMANDS = {
     "chaos": comm.ITEM_CHAOS,
     "postmortem": comm.ITEM_CHAOS,
-    "fleetsim": comm.ITEM_CKPT,
+    "fleetsim": comm.ITEM_FLEETSIM,
     "top": comm.ITEM_OBS_REST,
     "converge": comm.ITEM_OBS_REST,
     "lint": comm.ITEM_ANALYSIS,
@@ -272,6 +270,17 @@ def _add_override_flags(p: argparse.ArgumentParser) -> None:
                         "(telemetry/health.py): coordinator/aggregator "
                         "durably record deadline misses, retries, latency "
                         "sketches per device (`health` reads it)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save the server state here (train, coordinate); "
+                        "--resume restores the latest step")
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="save every N rounds (the last round always "
+                        "saves with --checkpoint-dir)")
+    p.add_argument("--ckpt-stream", action="store_true", default=None,
+                   help="coordinate: streaming checkpoints "
+                        "(ckpt/streaming.py): CRC-checked shard files and "
+                        "a manifest commit marker written last, in the "
+                        "JAX package's format")
     _add_unported(p, _UNPORTED)
 
 
@@ -314,6 +323,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--per-client-eval", action="store_true", default=None,
                    help="report the final model's per-client accuracy "
                         "spread (stderr)")
+    p.add_argument("--resume", action="store_true", default=None,
+                   help="restore the latest checkpoint of --checkpoint-dir "
+                        "and run the remaining rounds")
     _add_unported(p, _UNPORTED_TRAIN)
 
     p = sub.add_parser("init", help="write an initial global model file")
@@ -407,7 +419,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "disables (needs --health-dir)")
     p.add_argument("--async-probation", type=int, default=8,
                    help="aggregations a paused device sits out")
-    _add_unported(p, {**_COORDINATE_UNPORTED, **_OBSERVABILITY})
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint of --checkpoint-dir "
+                        "(cold start when there is none); the synchronous "
+                        "coordinator then readmits only the devices its "
+                        "enrollment ledger verifies")
+    _add_unported(p, _OBSERVABILITY)
 
     p = sub.add_parser("trace-summary",
                        help="print a per-phase time breakdown of a "
@@ -452,8 +469,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
 def refuse_unported(args: argparse.Namespace) -> None:
     """Exit with status 2, naming the ROADMAP items, if any flag of a
     feature that is not ported yet was given."""
-    flags = {**_UNPORTED, **_UNPORTED_TRAIN, **_COORDINATE_UNPORTED,
-             **_OBSERVABILITY}
+    flags = {**_UNPORTED, **_UNPORTED_TRAIN, **_OBSERVABILITY}
     given = [(flag, item) for dest, (flag, _, item) in flags.items()
              if getattr(args, dest, None) not in (None, False)]
     if given:
@@ -518,10 +534,14 @@ def _fit(args: argparse.Namespace, config: ExperimentConfig, learner,
     """``train``'s fit and summary (see :func:`train`)."""
     from colearn_federated_learning_tpu_torch.fed import evaluation
 
+    lead = is_lead()
+    if args.resume:
+        step = learner.restore_checkpoint()
+        if lead:
+            print(f"resumed at round {step}", file=sys.stderr, flush=True)
     if on_round is not None:
         on_round(learner, None)
     records = []
-    lead = is_lead()
 
     def log_fn(rec: dict) -> None:
         records.append(rec)
@@ -769,8 +789,16 @@ def coordinate(args: argparse.Namespace) -> dict:
                                  want_evaluator=not args.no_evaluator,
                                  mud_policy=mud_policy, device=_device(args))
     with coord:
+        if args.resume:
+            _coordinator_resume(coord)
         coord.enroll(min_devices=args.min_devices,
                      timeout=args.enroll_timeout)
+        if args.resume:
+            # Challenge-on-resume: retained announcements alone readmit
+            # nobody; ledger-known devices that answer the challenge do.
+            verdict = coord.verify_resumed_devices()
+            print(json.dumps({"event": "challenge_verified", **verdict}),
+                  file=sys.stderr, flush=True)
         if coord.num_aggregators:
             aggs = coord.enroll_aggregators(timeout=args.enroll_timeout)
             print(json.dumps({"event": "aggregators_enrolled",
@@ -787,6 +815,33 @@ def coordinate(args: argparse.Namespace) -> dict:
                 coord.evaluate_per_client())), file=sys.stderr, flush=True)
         _write_trace(config, config.run.name, coord.tracer)
     return hist[-1]
+
+
+def _coordinator_resume(coord) -> None:
+    """``coordinate --resume``: restore the latest checkpoint if there is
+    one, else start cold; prints the event ``resume_cold`` or ``resumed``
+    (with, for a streaming restore, the restored generation's digest, the
+    generations discarded on the way and the re-cut count) on stderr."""
+    from colearn_federated_learning_tpu_torch import telemetry
+
+    try:
+        step = coord.restore_checkpoint()
+    except FileNotFoundError:
+        print(json.dumps({"event": "resume_cold"}), file=sys.stderr,
+              flush=True)
+        return
+    reg = telemetry.get_registry()
+    event = {"event": "resumed", "round": step,
+             "rounds_resumed_total": reg.counter(
+                 "fed.rounds_resumed_total").value}
+    ckpt = coord._ckpt
+    digest = getattr(ckpt, "last_restore_digest", None)
+    if digest is not None:
+        event["ckpt_digest"] = digest
+        event["ckpt_discarded"] = sum(ckpt.generations_discarded.values())
+        event["resharded"] = reg.counter(
+            "ckpt.resharded_resumes_total").value
+    print(json.dumps(event), file=sys.stderr, flush=True)
 
 
 def coordinate_async(args: argparse.Namespace, config: ExperimentConfig,
@@ -807,6 +862,8 @@ def coordinate_async(args: argparse.Namespace, config: ExperimentConfig,
         probation=args.async_probation, observe=args.async_observe,
         device=_device(args))
     with coord:
+        if args.resume:
+            _coordinator_resume(coord)
         coord.enroll(min_devices=args.min_devices,
                      timeout=args.enroll_timeout)
         if coord.tree_mode:

@@ -23,7 +23,7 @@ Not ported yet; each is refused naming its ROADMAP.md Queue A item:
 
 ITEM_SHARDED = "ROADMAP.md Queue A item 15 (the sharded server)"
 ITEM_CHAOS = "ROADMAP.md Queue A item 16 (the chaos soaks)"
-ITEM_CKPT = "ROADMAP.md Queue A item 9 (fleetsim and checkpoints)"
+ITEM_FLEETSIM = "ROADMAP.md Queue A item 9b (fleetsim)"
 ITEM_OBS_REST = ("ROADMAP.md Queue A item 10b (the exporter, convergence "
                  "and evaluation extras)")
 ITEM_ANALYSIS = "ROADMAP.md Queue A item 17 (the analysis tools)"

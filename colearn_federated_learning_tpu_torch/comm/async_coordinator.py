@@ -62,10 +62,17 @@ LoRA is refused in the port's own words: the JAX package's asynchronous
 coordinator has no LoRA branch (it broadcasts a plain params frame, which
 a LoRA worker cannot read, so every dispatch fails).
 
-Not ported yet, each refused naming its ROADMAP item: checkpoints and
-resume, the convergence observatory (``learn_observe``), and the sharded
-server (``tp_size`` > 1 on a host with that many cards; with fewer the
-server runs replicated).
+With ``run.checkpoint_dir`` the state ``(server_state,)`` is saved keyed
+by ``version``, after the record is logged, every
+``run.checkpoint_every`` aggregations and after the last (JAX's order);
+``restore_checkpoint`` sets the version under the state lock, drops the
+snapshot cache and rebuilds the accountant by replaying each record's
+``dp_z_eff``.  As JAX's, it keeps no enrollment ledger and runs no
+challenge on resume.
+
+Not ported yet, each refused naming its ROADMAP item: the convergence
+observatory (``learn_observe``), and the sharded server (``tp_size`` > 1
+on a host with that many cards; with fewer the server runs replicated).
 """
 
 from __future__ import annotations
@@ -260,6 +267,9 @@ class AsyncFederatedCoordinator(CoordinatorCore):
             c.close()
         self._close_agg_sub()
         self._broker.close()
+        if self._ckpt is not None:
+            self._ckpt.close()
+            self._ckpt = None
         if self.health is not None:
             with self._health_lock:
                 self.health.flush()
@@ -1119,13 +1129,49 @@ class AsyncFederatedCoordinator(CoordinatorCore):
         """Score the global model on the evaluator device."""
         return self._ask_evaluator(self.request_timeout)
 
+    # ---- checkpoint/resume (ckpt/) ----------------------------------------
+    def save_checkpoint(self) -> None:
+        """Save ``(server_state,)`` and the history at step ``version``."""
+        self._checkpointer().save(
+            self.version, (self._checkpoint_server_state(),), self.history)
+
+    def restore_checkpoint(self) -> int:
+        """Restore the latest checkpoint; returns the resumed model
+        version.  Call it before ``enroll`` and ``fit``: the pumps
+        snapshot the restored state on their first cycle."""
+        template = self._checkpoint_server_state()
+        state, history, step = self._checkpointer().restore((template,))
+        with self._state_lock:
+            self._restore_server_state(template, state[0])
+            self._host_np = host_params(self.params_tree())
+            self.history = history
+            self.version = step
+            self._snap_cache = None
+        if self.accountant is not None:
+            # The mechanism varies per aggregation (z_eff follows the
+            # buffer's staleness weights), so the budget is rebuilt by
+            # replaying each record's charge; the reset first makes a
+            # repeated restore charge nothing twice.
+            self.accountant.steps = 0
+            for rec in history:
+                if "dp_z_eff" in rec:
+                    self.accountant.step(1, sampling_rate=1.0,
+                                         noise_multiplier=rec["dp_z_eff"])
+        telemetry.get_registry().counter("fed.rounds_resumed_total").inc()
+        return step
+
     def fit(self, aggregations: int, log_fn=None,
             eval_every: Optional[int] = None,
             elastic: bool = False) -> list[dict]:
         """Run ``aggregations`` aggregations, scoring the evaluator every
         ``eval_every`` (cumulative index) and on the last; ``elastic``
-        admits late joiners before each."""
+        admits late joiners before each.  With ``run.checkpoint_dir`` the
+        state is saved after the record is logged, every
+        ``run.checkpoint_every`` aggregations and after the last."""
         eval_every = eval_every or self.config.run.eval_every
+        run = self.config.run
+        ckpt_every = max(0, run.checkpoint_every)
+        want_ckpt = bool(run.checkpoint_dir)
         last = len(self.history) + aggregations - 1
         for _ in range(aggregations):
             if elastic:
@@ -1137,4 +1183,9 @@ class AsyncFederatedCoordinator(CoordinatorCore):
                 rec.update(self.evaluate())
             if log_fn is not None:
                 log_fn(rec)
+            if want_ckpt and (
+                    (ckpt_every
+                     and (rec["aggregation"] + 1) % ckpt_every == 0)
+                    or rec["aggregation"] == last):
+                self.save_checkpoint()
         return self.history

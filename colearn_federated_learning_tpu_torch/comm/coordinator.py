@@ -49,15 +49,30 @@ workers' factor deltas (flat or through the tree), step the factors, and
 every ``lora_merge_every`` aggregations merge B·A·(α/r) into the base and
 zero B.  The evaluator scores a temporary merge.
 
-Not ported yet, each refused naming its ROADMAP item: checkpoints and
-resume, the convergence observatory, and the sharded server
-(``tp_size`` > 1 on a host with that many cards; with fewer the server
-runs replicated, as the JAX package's placement falls back).
+With ``run.checkpoint_dir`` (``ckpt/``) each round is logged first in
+the round WAL (``round``, ``accepted``, ``completed``, ``total_weight``)
+and its state saved second, before the record is logged, every
+``run.checkpoint_every`` rounds and after the last; ``run.ckpt_stream``
+picks the streaming checkpointer.  The state saved is ``(server_state,
+acct_rdp)``.  ``restore_checkpoint`` (a ``resume`` span) restores it,
+the accountant's RDP vector and steps, and rewinds the WAL past the
+restored step.  Every admission goes to the durable enrollment ledger,
+and after a resume :meth:`FederatedCoordinator.verify_resumed_devices`
+readmits only the devices the previous incarnation's ledger knows that
+answer a nonce challenge under their recorded key.  As in JAX, the
+asynchronous coordinator shares the checkpointer but keeps no ledger and
+runs no challenge.
+
+Not ported yet, each refused naming its ROADMAP item: the convergence
+observatory, and the sharded server (``tp_size`` > 1 on a host with that
+many cards; with fewer the server runs replicated, as the JAX package's
+placement falls back).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import hashlib
 import math
 import os
 import threading
@@ -111,8 +126,6 @@ def refuse_unported(config: ExperimentConfig) -> None:
     the port's coordinator does not run yet."""
     run = config.run
     unported = [
-        (bool(run.checkpoint_dir), "checkpoints and resume (checkpoint_dir)",
-         comm.ITEM_CKPT),
         (run.learn_observe, "the convergence observatory (learn_observe)",
          comm.ITEM_OBS_REST)]
     for given, what, item in unported:
@@ -190,6 +203,41 @@ class CoordinatorCore:
         # Charged at the realized noise of what each step released.
         self.accountant = RdpAccountant.from_config(config.fed,
                                                     sampling_rate=1.0)
+        self._ckpt = None
+
+    # ---- checkpoint/resume (ckpt/): the round checkpointer, or the
+    # streaming one with run.ckpt_stream ------------------------------------
+    def _checkpointer(self):
+        if self._ckpt is None:
+            from colearn_federated_learning_tpu_torch.ckpt import (
+                RoundCheckpointer, StreamingCheckpointer)
+
+            cls = (StreamingCheckpointer if self.config.run.ckpt_stream
+                   else RoundCheckpointer)
+            self._ckpt = cls.for_run(self.config.run)
+        return self._ckpt
+
+    def _checkpoint_server_state(self) -> strategies.ServerState:
+        """The server state in the JAX coordinator's layout, as views of
+        the live tensors: flax-layout trees, ``round_idx`` an int32 ``()``
+        array."""
+        s = self.server_state
+
+        def tree(d):
+            return None if d is None else trees.unflatten(
+                self._shapes_np, [d[n] for n in self._names])
+
+        return strategies.ServerState(
+            params=tree(s.params), opt_m=tree(s.opt_m), opt_v=tree(s.opt_v),
+            control=tree(s.control),
+            round_idx=np.asarray(s.round_idx, np.int32))
+
+    def _restore_server_state(self, template, restored) -> None:
+        """Copy a restored server state into the live tensors."""
+        from colearn_federated_learning_tpu_torch.ckpt import streaming
+
+        streaming.copy_leaves(template, restored)
+        self.server_state.round_idx = int(restored.round_idx)
 
     def _load_params(self, tree) -> None:
         """Start the server state from a flax-layout params tree."""
@@ -407,6 +455,14 @@ class FederatedCoordinator(CoordinatorCore):
         self.min_cohort_fraction = fed.min_cohort_fraction
         self._init_core(config, broker_host, broker_port, want_evaluator,
                         mud_policy, device_type, device, "coordinator")
+        self._wal = None
+        # The durable enrollment ledger (ckpt/wal.EnrollmentLedger) and
+        # what the previous incarnation admitted, read before this process
+        # appends: challenge-on-resume verifies against it.
+        self._ledger = None
+        self._ledger_prior: Optional[dict] = None
+        # The accepted-update manifest of the last round, for the WAL.
+        self._last_accepted: list[int] = []
         self._draws = programs.Draws(config.run.seed)
         self._fail_counts: dict[str, int] = {}
         self.evict_after = config.run.evict_after
@@ -477,12 +533,21 @@ class FederatedCoordinator(CoordinatorCore):
 
     def close(self) -> None:
         self._close_agg_sub()
+        if self._ledger is not None:
+            self._ledger.close()
+            self._ledger = None
         for c in self._clients.values():
             c.close()
         if self._pool is not None:
             self._pool.shutdown(wait=False, cancel_futures=True)
             self._pool = None
         self._broker.close()
+        if self._ckpt is not None:
+            self._ckpt.close()
+            self._ckpt = None
+        if self._wal is not None:
+            self._wal.close()
+            self._wal = None
         if self.health is not None:
             self.health.flush()
             self.health.close()
@@ -494,10 +559,117 @@ class FederatedCoordinator(CoordinatorCore):
         self.close()
 
     # ------------------------------------------------------------------
+    def enroll(self, min_devices: int, timeout: float = 30.0) -> None:
+        """Wait for devices, assign roles, open tensor connections; with a
+        ``checkpoint_dir`` every admission is appended to the durable
+        enrollment ledger, which challenge-on-resume verifies against."""
+        super().enroll(min_devices, timeout)
+        for d in self.trainers + ([self.evaluator] if self.evaluator else []):
+            self._ledger_admit(d)
+
     def refresh_membership(self, poll: float = 0.1) -> list[str]:
         """Elastic membership: admit devices that enrolled after
-        :meth:`enroll` as trainers of the next round."""
-        return self._admit_late_joiners(poll)
+        :meth:`enroll` as trainers of the next round (and to the
+        ledger)."""
+        admitted = self._admit_late_joiners(poll)
+        if admitted:
+            fresh = set(admitted)
+            for d in self.trainers:
+                if d.device_id in fresh:
+                    self._ledger_admit(d)
+        return admitted
+
+    # ---- durable enrollment and challenge-on-resume ----------------------
+    def _enroll_ledger(self):
+        if self._ledger is None and self.config.run.checkpoint_dir:
+            from colearn_federated_learning_tpu_torch.ckpt import (
+                EnrollmentLedger)
+
+            self._ledger = EnrollmentLedger(self.config.run.checkpoint_dir)
+            # What the PREVIOUS incarnation admitted, before this process
+            # appends anything: this process's own admissions come from
+            # the replayable announcements the challenge distrusts.
+            self._ledger_prior = self._ledger.devices()
+        return self._ledger
+
+    def _ledger_admit(self, d: DeviceInfo) -> None:
+        ledger = self._enroll_ledger()
+        if ledger is not None:
+            ledger.admit(d)
+
+    def verify_resumed_devices(self) -> dict:
+        """Challenge-on-resume: after a resumed coordinator re-enrolls,
+        readmit only devices the previous incarnation's ledger knows and,
+        where the ledger holds an identity pubkey, only once the device
+        proves it holds the matching private key (a nonce echoed under a
+        fresh ephemeral DH pairing).  A rejected device is dropped from
+        the federation, revoked in the ledger and counted in
+        ``comm.enroll_challenge_rejected_total{reason}`` (``not_in_ledger``,
+        ``bad_ledger_key``, ``unreachable``, ``bad_tag``).  An entry
+        without a pubkey (a device enrolled by a pre-identity build) is
+        admitted on its presence alone.  Returns ``{"verified": [...],
+        "rejected": [...]}``."""
+        ledger = self._enroll_ledger()
+        reg = telemetry.get_registry()
+        out = {"verified": [], "rejected": []}
+        if ledger is None:
+            return out
+        known = self._ledger_prior or {}
+        eph_priv, eph_pub = keyexchange.generate_keypair()
+        pub_s = keyexchange.encode_public(eph_pub)
+
+        def reject(dev: DeviceInfo, reason: str) -> None:
+            reg.counter("comm.enroll_challenge_rejected_total",
+                        labels={"reason": reason}).inc()
+            # Retract the admission this enrollment just recorded from the
+            # announcement, so it cannot pass a later resume either.
+            ledger.revoke(dev.device_id)
+            out["rejected"].append(dev.device_id)
+            self.trainers = [t for t in self.trainers
+                             if t.device_id != dev.device_id]
+            if (self.evaluator is not None
+                    and self.evaluator.device_id == dev.device_id):
+                self.evaluator = None
+            cli = self._clients.pop(dev.device_id, None)
+            if cli is not None:
+                cli.close()
+
+        devices = list(self.trainers)
+        if self.evaluator is not None:
+            devices.append(self.evaluator)
+        for dev in devices:
+            rec = known.get(str(dev.device_id))
+            if rec is None:
+                reject(dev, "not_in_ledger")
+                continue
+            pubkey = rec.get("pubkey", "")
+            if not pubkey:
+                out["verified"].append(dev.device_id)
+                continue
+            nonce = os.urandom(16).hex()
+            try:
+                secret = keyexchange.shared_secret(
+                    eph_priv, keyexchange.decode_public(pubkey))
+            except ValueError:
+                reject(dev, "bad_ledger_key")
+                continue
+            expect = hashlib.sha256(
+                secret + bytes.fromhex(nonce)).hexdigest()
+            try:
+                header, _ = self._clients[dev.device_id].request(
+                    {"op": "challenge", "nonce": nonce, "pub": pub_s},
+                    timeout=self.round_timeout)
+                tag = (header.get("meta") or {}).get("tag", "")
+            except (OSError, protocol.ConnectionClosed, TimeoutError):
+                reject(dev, "unreachable")
+                continue
+            if header.get("status") != "ok" or tag != expect:
+                # Whoever answered does not hold the key the ledger bound
+                # this device id to.
+                reject(dev, "bad_tag")
+                continue
+            out["verified"].append(dev.device_id)
+        return out
 
     def _note_round_outcome(self, cohort, dropped) -> list[str]:
         """Count consecutive failures; evict peers that failed
@@ -726,6 +898,9 @@ class FederatedCoordinator(CoordinatorCore):
             received = (tree_stats["received"] if tree_mode
                         else [int(c) for c in folder.folded_ids])
             folded = folder.count
+            # The accepted-update manifest for the round WAL (not a key of
+            # the record, whose layout is JAX's).
+            self._last_accepted = received
             # Judged against the nominal sampled cohort.
             quorum = (max(1, math.ceil(self.min_cohort_fraction
                                        * len(cohort_full)))
@@ -1384,25 +1559,95 @@ class FederatedCoordinator(CoordinatorCore):
         """Score the global model on the evaluator device."""
         return self._ask_evaluator(self.round_timeout)
 
+    # ---- checkpoint/resume ------------------------------------------------
+    def _round_wal(self):
+        if self._wal is None:
+            from colearn_federated_learning_tpu_torch.ckpt import RoundWal
+
+            if not self.config.run.checkpoint_dir:
+                raise ValueError("config.run.checkpoint_dir is not set")
+            self._wal = RoundWal(self.config.run.checkpoint_dir)
+        return self._wal
+
+    def _acct_rdp(self) -> np.ndarray:
+        # "No accountant" is a (1,) zero, as in JAX's checkpoints.
+        return (self.accountant.total_rdp if self.accountant is not None
+                else np.zeros(1))
+
+    def save_checkpoint(self) -> None:
+        """Save ``(server_state, acct_rdp)`` and the history at step
+        ``len(history)``: the RDP vector rides along, since per-round
+        sampling rates follow the membership."""
+        self._checkpointer().save(
+            len(self.history),
+            (self._checkpoint_server_state(), self._acct_rdp()),
+            self.history)
+
+    def restore_checkpoint(self) -> int:
+        """Restore the latest checkpoint; returns the resumed round index.
+        Workers are stateless between rounds, so the server state, the
+        history and the privacy budget are all that survive.  Rounds the
+        WAL logged past the restored step never committed their state:
+        they are rewound (``ckpt.wal_uncommitted_discarded_total``) and
+        run again."""
+        reg = telemetry.get_registry()
+        with self.tracer.span("resume"):
+            template = self._checkpoint_server_state()
+            state, history, step = self._checkpointer().restore(
+                (template, self._acct_rdp()))
+            restored, acct_rdp = state
+            self._restore_server_state(template, restored)
+            self.history = history
+            if self.accountant is not None:
+                self.accountant.total_rdp = np.asarray(acct_rdp)
+                self.accountant._steps = step
+            wal = self._round_wal()
+            logged = wal.load()
+            if len(logged) > step:
+                reg.counter("ckpt.wal_uncommitted_discarded_total").inc(
+                    len(logged) - step)
+                wal.rewind(step)
+        reg.counter("fed.rounds_resumed_total").inc()
+        return step
+
     def fit(self, rounds: Optional[int] = None, log_fn=None,
             eval_every: Optional[int] = None,
             elastic: bool = False) -> list[dict]:
         """Run ``rounds`` rounds (default: what remains of
         ``config.fed.rounds``), scoring the evaluator every ``eval_every``
         rounds and on the last.  ``elastic=True`` admits late joiners
-        between rounds."""
+        between rounds.  With ``run.checkpoint_dir`` each round goes to
+        the WAL first and its state is saved before the record is logged
+        (every ``run.checkpoint_every`` rounds and after the last), so a
+        kill keyed on a record line lands on a committed checkpoint."""
         if rounds is None:
             rounds = max(0, self.config.fed.rounds - len(self.history))
         eval_every = eval_every or self.config.run.eval_every
+        run = self.config.run
+        ckpt_every = max(0, run.checkpoint_every)
+        want_ckpt = bool(run.checkpoint_dir)
         last_round = len(self.history) + rounds - 1
         for _ in range(rounds):
             if elastic:
                 self.refresh_membership()
             rec = self.run_round()
+            if want_ckpt:
+                # WAL first, state second: an entry past the latest
+                # checkpoint step marks an uncommitted round.
+                self._round_wal().append({
+                    "round": rec["round"],
+                    "accepted": list(self._last_accepted),
+                    "completed": rec["completed"],
+                    "total_weight": rec["total_weight"],
+                })
             if self.evaluator is not None and (
                     rec["round"] % max(1, eval_every) == 0
                     or rec["round"] == last_round):
                 rec.update(self.evaluate())
+            if want_ckpt and (
+                    (ckpt_every and (rec["round"] + 1) % ckpt_every == 0)
+                    or rec["round"] == last_round):
+                self.save_checkpoint()
             if log_fn is not None:
                 log_fn(rec)
         return self.history

@@ -66,6 +66,50 @@ def leaf_to_torch(path: tuple, a: torch.Tensor) -> tuple[str, torch.Tensor]:
     return (f"{prefix}.{name}" if prefix else name), a
 
 
+def leaf_to_flax(name: str, t: torch.Tensor, num_heads: Optional[int] = None,
+                 batch_dims: int = 0) -> tuple[tuple, torch.Tensor]:
+    """The port's parameter ``name`` as its flax ``(path, tensor)``: the
+    inverse of :func:`leaf_to_torch`, as a view of ``t`` (a transpose and
+    a split of one dim are both views), so nothing is copied until the
+    caller reads it.  ``batch_dims`` leading dims (a stack of per-client
+    rows) are kept in front."""
+    path = name.split(".")
+    module, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
+    kind, lead = _kind(module), tuple(t.shape[:batch_dims])
+    if module in _QKV + ("out",) and leaf in ("weight", "bias") \
+            and num_heads is None:
+        raise ValueError(f"{name}: attention weights need num_heads")
+    if leaf == "weight" and kind == "Embed":
+        return (*path[:-1], "embedding"), t
+    if leaf == "weight" and kind in ("LayerNorm", "GroupNorm"):
+        return (*path[:-1], "scale"), t
+    if leaf == "weight":
+        if module in _QKV:         # (H·hd, D) -> (D, H, hd)
+            t = t.transpose(-1, -2).reshape(*lead, t.shape[-1], num_heads,
+                                            -1)
+        elif module == "out":      # (D, H·hd) -> (H, hd, D)
+            t = t.transpose(-1, -2).reshape(*lead, num_heads, -1,
+                                            t.shape[-2])
+        else:                      # (out, in, *k) -> (*k, in, out)
+            b, n = batch_dims, t.ndim
+            t = t.permute(*range(b), *range(b + 2, n), b + 1, b)
+        return (*path[:-1], "kernel"), t
+    if leaf == "bias" and module in _QKV:
+        return tuple(path), t.reshape(*lead, num_heads, -1)
+    return tuple(path), t
+
+
+def nest(pairs) -> dict:
+    """A nested dict from ``(path tuple, value)`` pairs."""
+    out: dict = {}
+    for path, value in pairs:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return out
+
+
 def flax_to_state_dict(flax_params: Any) -> dict[str, torch.Tensor]:
     """flax params -> the port's ``state_dict`` (CPU tensors)."""
     sd = {}

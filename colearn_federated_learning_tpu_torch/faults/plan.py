@@ -15,9 +15,11 @@ Comm-plane kinds (``inject``, at the transport seams): ``drop_request``,
 drop points: ``share_setup`` (pruned before training) and ``unmask``
 (silent during recovery).  File and hierarchical kinds (``fileplane``,
 keyed ``(silo|group, round, hop)``): ``truncate_file``, ``stale_round``,
-``drop_silo``.  Checkpoint kinds (``torn_shard``, ``stale_manifest``,
-``slow_io``) are parsed and matched here; the checkpoint plane that
-applies them is not ported yet.
+``drop_silo``.  Checkpoint kinds (``fileplane``'s ``ckpt_*`` hooks in
+``ckpt/streaming.py`` saves, keyed ``(shard, generation, op)``):
+``torn_shard`` (a committed shard file cut to half its bytes),
+``stale_manifest`` (the manifest write skipped, so the generation stays
+uncommitted) and ``slow_io`` (the write sleeps ``ms`` first).
 
 JSON surface (``--fault-plan plan.json``)::
 

@@ -24,12 +24,21 @@ instead of running somewhere else.  ``device="cpu"`` runs the same round
 with every kernel's plain PyTorch version (the tests do this); a mesh's
 device type decides for it.
 
+Checkpoints (``ckpt/manager.py``): with ``run.checkpoint_dir`` ``fit``
+saves ``(server_state, client_c)`` in the JAX engine's layout (SCAFFOLD's
+variates, else ``None``) after the record is logged, every
+``run.checkpoint_every`` rounds and always after the last;
+``restore_checkpoint`` copies the latest step back into the live
+tensors, charges the accountant for the rounds already run and
+continues the adaptive clip from the last record.  A learner on a mesh
+refuses them (item 15).
+
 Telemetry is JAX's: the spans ``round``, ``h2d_transfer``,
 ``cohort_sample`` (SCAFFOLD), ``client_update``, ``scatter_variates``,
-``sync_metrics`` and ``evaluate`` on the learner's own tracer, recorded
-while ``run.trace_dir`` opens a window (``run.trace_rounds`` bounds it)
-and written by ``fit`` as Chrome-trace JSON (``last_trace_path``), and
-the counters ``engine.rounds_total``, ``engine.round_time_s`` and
+``sync_metrics``, ``evaluate`` and ``checkpoint`` on the learner's own
+tracer, recorded while ``run.trace_dir`` opens a window
+(``run.trace_rounds`` bounds it) and written by ``fit`` as Chrome-trace
+JSON (``last_trace_path``), and the counters ``engine.rounds_total``, ``engine.round_time_s`` and
 ``engine.h2d_transfer_s`` in the process registry.  ``client_update`` is
 the span ``phase_update_s`` reads; it waits for the card only where the
 round already did (``sync=True``) or while spans are recorded.
@@ -53,7 +62,8 @@ import numpy as np
 import torch
 
 from colearn_federated_learning_tpu_torch import convert, telemetry
-from colearn_federated_learning_tpu_torch.comm import ITEM_CKPT, ITEM_OBS_REST
+from colearn_federated_learning_tpu_torch.comm import (
+    ITEM_OBS_REST, ITEM_SHARDED)
 from colearn_federated_learning_tpu_torch.data import partition as partition_lib
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
 from colearn_federated_learning_tpu_torch.data.sharding import (
@@ -77,8 +87,6 @@ def check_supported(config: ExperimentConfig) -> None:
     that still carries it, as the JAX package's does."""
     f, run = config.fed, config.run
     unported = {
-        "run.checkpoint_dir": (bool(run.checkpoint_dir), ITEM_CKPT),
-        "run.checkpoint_every > 0": (run.checkpoint_every > 0, ITEM_CKPT),
         "run.profile_dir": (bool(run.profile_dir), ITEM_OBS_REST),
     }
     bad = [f"{name} ({item})" for name, (on, item) in unported.items() if on]
@@ -298,6 +306,11 @@ class FederatedLearner:
         self.mesh = mesh
         self.device = _mesh_device(mesh, device)
         check_supported(c)
+        if mesh is not None and c.run.checkpoint_dir:
+            raise NotImplementedError(
+                "checkpoints of a learner on a mesh (each rank holds its "
+                "block of the clients' variates and, under TP, its slices) "
+                f"are not ported yet; see {ITEM_SHARDED}")
         check_fed_options(c.fed)
         local.check_strategy_optimizer(c.fed)
         self.scaffold = c.fed.strategy == "scaffold"
@@ -484,6 +497,7 @@ class FederatedLearner:
             self.eval_model, self.dataset.x_test, self.dataset.y_test,
             batch=max(c.fed.batch_size, 64), device=self.device)
         self.history: list[dict] = []
+        self._ckpt = None
 
     def _check_sp(self, shards: ClientShards) -> None:
         """The JAX engine's eager checks of a sequence-parallel layout."""
@@ -664,6 +678,71 @@ class FederatedLearner:
         order = np.argsort(self.client_ids, kind="stable")
         return order[:self.real_num_clients]
 
+    # ---- checkpoint/resume (ckpt/) ------------------------------------
+    def _checkpointer(self):
+        if self._ckpt is None:
+            from colearn_federated_learning_tpu_torch.ckpt import (
+                RoundCheckpointer)
+
+            self._ckpt = RoundCheckpointer.for_run(self.config.run)
+        return self._ckpt
+
+    def _flax_view(self, named: dict, batch_dims: int = 0) -> dict:
+        """A name -> tensor dict as a flax-layout tree of views of the
+        same tensors."""
+        heads = self.config.model.num_heads
+        return convert.nest(convert.leaf_to_flax(n, t, heads, batch_dims)
+                            for n, t in named.items())
+
+    def _checkpoint_state(self) -> tuple:
+        """``(server_state, client_c)`` in the JAX engine's layout, as views
+        of the live tensors: the server state's trees in the flax layout,
+        ``round_idx`` an int32 ``()`` array, and SCAFFOLD's per-client
+        variates (the ``VariateStore`` rows, client-major) or ``None``."""
+        s = self.server_state
+
+        def view(tree):
+            return None if tree is None else self._flax_view(tree)
+
+        state = strategies.ServerState(
+            params=view(s.params), opt_m=view(s.opt_m), opt_v=view(s.opt_v),
+            control=view(s.control),
+            round_idx=np.asarray(s.round_idx, np.int32))
+        client_c = None
+        if self.variates is not None:
+            client_c = self._flax_view(
+                dict(zip(s.params, self.variates.rows)), batch_dims=1)
+        return state, client_c
+
+    def save_checkpoint(self) -> None:
+        """Save ``(server_state, client_c)`` and the history at step
+        ``len(history)`` (``sync=False`` records are finalized first)."""
+        if any(isinstance(v, torch.Tensor)
+               for rec in self.history for v in rec.values()):
+            self.finalize_history()
+        self._checkpointer().save(len(self.history),
+                                  self._checkpoint_state(), self.history)
+
+    def restore_checkpoint(self) -> int:
+        """Restore the latest checkpoint into the live tensors; returns the
+        resumed round index.  The accountant is charged for every round
+        already run, and the adaptive clip continues from the last
+        record's."""
+        from colearn_federated_learning_tpu_torch.ckpt import streaming
+
+        template = self._checkpoint_state()
+        state, history, step = self._checkpointer().restore(template)
+        streaming.copy_leaves(template, state)
+        self.server_state.round_idx = int(state[0].round_idx)
+        self.history = history
+        if self.accountant is not None:
+            self.accountant.steps = step
+        if self.adaptive_clip and history:
+            self.dp_clip = torch.tensor(history[-1]["dp_clip"],
+                                        dtype=torch.float32,
+                                        device=self.device)
+        return step
+
     def fit(self, rounds: Optional[int] = None, log_fn=None) -> list[dict]:
         """Run ``rounds`` more rounds (default: up to ``config.fed.rounds``),
         evaluating every ``run.eval_every`` rounds and after the last, and
@@ -672,12 +751,17 @@ class FederatedLearner:
         time is its own ``phase_eval_s``.  On the card the record also
         carries ``hbm_used_gb``, the memory allocated after the round.
         With ``run.trace_dir`` the rounds of the window are traced and the
-        trace written (``last_trace_path``), even when a round raises."""
+        trace written (``last_trace_path``), even when a round raises.
+        With ``run.checkpoint_dir`` the state is saved after the record is
+        logged, every ``run.checkpoint_every`` rounds and always after the
+        last, in a ``checkpoint`` span (``phase_checkpoint_s``)."""
         if rounds is None:
             rounds = max(0, self.config.fed.rounds - len(self.history))
         run = self.config.run
         eval_every = max(1, run.eval_every)
         log_every = max(1, run.log_every)
+        ckpt_every = max(0, run.checkpoint_every)
+        want_ckpt = bool(run.checkpoint_dir)
         last_round = len(self.history) + rounds - 1
         telem = telemetry.RoundTelemetry(run, self.tracer)
         try:
@@ -702,6 +786,15 @@ class FederatedLearner:
                             rec["round"] % log_every == 0
                             or rec["round"] == last_round):
                         log_fn(rec)
+                    # With a checkpoint_dir the last round always saves,
+                    # so --resume works without a cadence.
+                    if want_ckpt and (
+                            (ckpt_every
+                             and (rec["round"] + 1) % ckpt_every == 0)
+                            or rec["round"] == last_round):
+                        with self.tracer.span("checkpoint") as ck_sp:
+                            self.save_checkpoint()
+                        rec["phase_checkpoint_s"] = ck_sp.duration_s
                 telemetry.get_registry().histogram(
                     "engine.round_time_s").observe(rec["round_time_s"])
                 # After the round span closed: an early flush of the

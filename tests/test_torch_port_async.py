@@ -450,15 +450,25 @@ def test_refusals_are_jax_refusals(fed, run_kw, kw):
 
 @pytest.mark.parametrize("fed,run_kw,item", [
     (dict(lora_rank=4), {}, "no LoRA branch"),
-    ({}, dict(checkpoint_dir="ck"), "item 9"),
+    ({}, dict(checkpoint_dir="ck"), None),
     ({}, dict(learn_observe=True), "item 10b"),
     ({}, dict(tp_size=2), "item 15")])
-def test_port_refusals_name_their_items(fed, run_kw, item, monkeypatch):
+def test_port_refusals_name_their_items(fed, run_kw, item, monkeypatch,
+                                       tmp_path):
     """What the port does not run yet; ``tp_size`` 2 only on a host with
     two cards (with fewer the server runs replicated, as JAX falls
     back).  LoRA is refused in the port's own words: the JAX
     coordinator has no LoRA branch (it constructs, and every dispatch to a
-    LoRA worker fails)."""
+    LoRA worker fails).  ``checkpoint_dir``, refused until the checkpoint
+    plane was ported, is taken (nothing is written before a save)."""
+    if item is None:
+        monkeypatch.chdir(tmp_path)
+        _, tcfg = configs(run_kw=run_kw, **fed)
+        with broker.MessageBroker() as b:
+            AsyncFederatedCoordinator(tcfg, b.host, b.port,
+                                      device="cpu").close()
+        assert list(tmp_path.iterdir()) == []
+        return
     _, tcfg = configs(run_kw=run_kw, **fed)
     if item == "item 15":
         with broker.MessageBroker() as b:

@@ -77,7 +77,8 @@ def test_overrides_reach_the_config_as_in_jax(extra):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--checkpoint-dir", "ck"], "item 9"), (["--resume"], "item 9"),
+    (["--personalize-steps", "2"], "item 10b"),
+    (["--detection-eval"], "item 10b"),
     (["--profile-dir", "pr"], "item 10b"), (["--learn-observe"], "item 10b")])
 def test_unported_override_exits_naming_its_roadmap_item(flag, item, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -366,7 +367,8 @@ def test_every_jax_flag_of_the_socket_plane_is_accepted(cmd):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["coordinate", "--broker-port", "1", "--resume"], "item 9"),
+    (["coordinate", "--broker-port", "1", "--events-file", "e.jsonl"],
+     "item 10b"),
     (["worker", "--broker-port", "1", "--client-id", "0", "--metrics-port",
       "9"], "item 10b"),
     (["broker", "--events-file", "e.jsonl"], "item 10b"),
@@ -509,7 +511,7 @@ def test_configs_prints_the_jax_lines(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["fleetsim", "--devices", "64"], "item 9"),
+    (["fleetsim", "--devices", "64"], "item 9b"),
     (["postmortem", "f"], "item 16"),
     (["top"], "item 10b"),
     (["converge", "r.jsonl"], "item 10b"),

@@ -6,8 +6,10 @@ against the plain run, the client-mesh round at world size 1 on NCCL
 against the single-device round, socket-plane rounds with the device
 fold (flat, through a two-aggregator tree, and one asynchronous
 aggregation) against the host fold, a traced engine round's spans
-against its record, and a LoRA factor-only update against the CPU and the
-fold at the factor layout against its plain version, on the card.  Marked ``cuda``: without a CUDA device every
+against its record, a LoRA factor-only update against the CPU and the
+fold at the factor layout against its plain version, and checkpoints of
+card tensors and an engine resume bit for bit, on the card.  Marked
+``cuda``: without a CUDA device every
 test here skips.  On a machine with the card (no JAX needed):
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -p no:cacheprovider -q
@@ -916,3 +918,60 @@ def test_fold_at_the_lora_factor_layout_is_bitwise_its_plain_version(cuda):
                        _bits(host.fold_sparse(None, batch)))
     torch.cuda.synchronize()
     assert fold.launches == {"fold_sparse": 4, "fold_dense": 2}
+
+
+def test_checkpoints_of_card_tensors_round_trip_bitwise(cuda, tmp_path):
+    """Both checkpointers read card tensors (a bf16 one, and a transposed
+    view as the flax layout gives them) leaf by leaf and restore each
+    leaf onto the card bit for bit; the streaming restore's digest is
+    ``load_generation_host``'s."""
+    from colearn_federated_learning_tpu_torch.ckpt import (
+        RoundCheckpointer, StreamingCheckpointer, load_generation_host)
+
+    g = torch.Generator().manual_seed(5)
+    w = torch.randn(48, 32, generator=g).to(cuda)
+    state = ({"Dense_0": {"kernel": w.T, "bias": torch.randn(
+        48, generator=g).to(cuda)},
+        "Embed_0": {"embedding": torch.randn(
+            64, 16, generator=g).to(torch.bfloat16).to(cuda)}},
+        np.zeros(3), 4)
+    zeros = ({k: {n: torch.zeros_like(t) for n, t in v.items()}
+              for k, v in state[0].items()}, np.ones(3), 0)
+    for ck in (StreamingCheckpointer(str(tmp_path / "s")),
+               RoundCheckpointer(str(tmp_path / "r"))):
+        ck.save(2, state, [{"round": 0}, {"round": 1}])
+        got, hist, step = ck.restore(zeros)
+        assert step == 2 and len(hist) == 2 and got[2] == 4
+        for k, v in state[0].items():
+            for n, t in v.items():
+                r = got[0][k][n]
+                assert r.device.type == "cuda" and r.dtype == t.dtype
+                assert torch.equal(r.view(torch.int16) if r.dtype
+                                   == torch.bfloat16 else r,
+                                   t.contiguous().view(torch.int16)
+                                   if t.dtype == torch.bfloat16 else t)
+    ck = StreamingCheckpointer(str(tmp_path / "s"))
+    ck.restore(zeros)
+    _, _, digest = load_generation_host(str(tmp_path / "s"))
+    assert ck.last_restore_digest == digest
+
+
+def test_engine_resume_on_the_card_is_bitwise(cuda, tmp_path):
+    """The f32 MLP on the card, 3 rounds straight against 1 round, a
+    checkpoint, a fresh learner's restore and 2 more: the same params
+    bit for bit."""
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+
+    cfg = _mlp_config()
+    ck = cfg.replace(run=dataclasses.replace(
+        cfg.run, checkpoint_dir=str(tmp_path)))
+    straight = FederatedLearner(cfg, device=cuda)
+    straight.fit()
+    first = FederatedLearner(ck, device=cuda)
+    first.fit(rounds=1)
+    resumed = FederatedLearner(ck, device=cuda)
+    assert resumed.restore_checkpoint() == 1
+    resumed.fit()
+    assert len(resumed.history) == 3
+    for name, t in straight.params.items():
+        assert torch.equal(t, resumed.params[name]), name

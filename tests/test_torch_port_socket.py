@@ -518,7 +518,7 @@ def test_cli_broker_worker_coordinate_processes():
 
 @pytest.mark.parametrize("fed,run,item", [
     (dict(compress_down="int8"), dict(num_aggregators=2), "tree"),
-    ({}, dict(checkpoint_dir="ck"), "item 9"),
+    ({}, dict(checkpoint_dir="ck"), None),
     ({}, dict(health_dir="h"), "ledger"),
     ({}, dict(learn_observe=True), "item 10b"),
     ({}, dict(tp_size=2), None)])
@@ -528,12 +528,15 @@ def test_coordinator_refuses_what_is_not_ported(fed, run, item, tmp_path,
     on a host without two cards runs replicated, as JAX's placement falls
     back; the aggregator tree with ``compress_down`` raises JAX's
     ValueError.  ``health_dir``, refused until the telemetry core was
-    ported, now opens the coordinator's ledger file there."""
+    ported, now opens the coordinator's ledger file there;
+    ``checkpoint_dir``, refused until the checkpoint plane was ported, is
+    taken (nothing is written before a round or an enrollment)."""
     monkeypatch.chdir(tmp_path)
     jcfg, tcfg = configs(num_clients=2, run_kw=run, **fed)
     with broker.MessageBroker() as b:
         if item is None:
             FederatedCoordinator(tcfg, b.host, b.port, device="cpu").close()
+            assert list(tmp_path.iterdir()) == []
             return
         if item == "ledger":
             coord = FederatedCoordinator(tcfg, b.host, b.port, device="cpu")
