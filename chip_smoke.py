@@ -39,7 +39,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    evaluation batches) for K1 and depth × steps for K2 and K3 on a flash
    path, none elsewhere;
 7. the federated round's other branches through the port's command line
-   (``cli.main``) at full width: 7a SCAFFOLD on config #2 (1 round; the
+   (``cli.main``) at full width (config #2's cohort cut to 10): 7a
+   SCAFFOLD on config #2 (1 round; the
    server variate moves and exactly the contributors' variate rows
    change), 7b FedNova on config #2 with stragglers (the clients' step
    counts, and so their a_i, differ), 7c DP with adaptive clipping and
@@ -57,8 +58,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    bit, the cloud model is the float64 example-weighted mean of the
    groups' to 1e-6 of its largest entry, the groups part after round 0,
    and the launches are exact over the groups' rounds and the two cloud
-   evaluations); 8b ``ClusteredLearner`` on config #2 with a second
-   concept planted on clients 50-99 (y -> 9 - y): 1 warm-up round, the
+   evaluations); 8b ``ClusteredLearner`` on config #2 (cohort cut to 10)
+   with a second concept planted on clients 50-99 (y -> 9 - y): 1
+   warm-up round, the
    (100, 100) update similarity after 3 steps (symmetric to 1e-5, unit
    diagonal to 1e-4), k-means into two clusters that partition the
    clients, one round of each cluster and their per-client report (the
@@ -80,7 +82,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    call per contribution: the host's pack, the copy's and the kernel's
    spans and the whole call by the host clock to a sync; ``fold_dense``
    of the root's 2 partials beside ``torch.sum``; 9b
-   ``init``, 3 silos of ``train --role client --compress topk8``,
+   ``init``, 2 silos of ``train --role client --compress topk8``,
    ``aggregate`` and ``eval`` on BERT-base (flash, 4 local steps)
    through ``cli.main``, then the 3 update files through
    ``StreamingFolder(device_fold=True)``, flat and as a two-aggregator
@@ -90,7 +92,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    defaults, its JSON line printed;
 10. remat, the client mesh and the SP/TP options on one card: 10a one
    round of config #4 (BERT-base, flash, 4 local steps) and of ViT-B/16
-   (cohort 16) without and with ``remat`` on the same plan, the
+   (cohort 8) without and with ``remat`` on the same plan, the
    losses and params equal (bound 1e-4 rel / 2e-5 abs; expected 0.0),
    both peak GiB and each round's seconds printed (the second is warm),
    K1's launches exact under remat (one more per block and step: the
@@ -121,17 +123,20 @@ Phases (any failure exits non-zero; no phase's error is caught):
    1e-5 absolute (a masked entry is of order 1, so f32 leaves ~1e-6
    after cancellation whatever the update's size), and the same sum with
    one survivor's delta lost or doubled failing that bound; 11c ``cli
-   broker`` and 3 ``cli worker`` processes, and ``cli coordinate
-   --fold-device`` (config #2's CNN, num_clients 3; coordinate through
-   ``cli.main`` in this process, which counts the fold's launches),
-   every process exiting 0, the last record complete with a finite loss,
-   ``fold_dense`` launched once per round;
+   coordinate --fold-device`` (config #2's CNN, num_clients 3; through
+   ``cli.main`` in this process, which counts the fold's launches)
+   against the CNN fleet (``CliFleet``: ``cli broker`` and 3 ``cli
+   worker`` processes, started with phase 11 and shared with 12c, 14c
+   and 16b),
+   the fleet still running after it, the last record complete with a
+   finite loss, ``fold_dense`` launched once per round;
 12. the aggregator tree and per-type federation (``comm/aggregator.py``,
    ``comm/per_type.py``) on the card: 12a a broker, 4 trainer threads
    (config #4, BERT-base, flash, 4 local steps, topk8 uplinks with error
    feedback), 2 ``AggregatorServer`` threads and the coordinator
    (``num_aggregators`` 2, heartbeat timeout 2 s, no evaluator), every
-   fold on the card, 2 rounds with aggregator 0 stopped after round 0:
+   fold on the card, with a trace and health ledgers (13c's checks run
+   on its round 0), 2 rounds with aggregator 0 stopped after round 0:
    each aggregator's partial bitwise its host fold, the root's sum
    bitwise the host's slice-blocked fold of the round's contributions
    (round 1's re-homed slice included), every record complete with 2
@@ -142,11 +147,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    after the share phase: 3 complete, each slice recovers on its own
    (only slice 1 rebuilds a lost member's pair masks), the recovered sum
    within 1e-5 of the survivors' unmasked sum and the same sum with one
-   survivor's delta lost or doubled failing that bound; 12c ``cli
-   broker``, 2 x ``cli aggregator --fold-device``, 3 x ``cli worker`` and
-   ``cli coordinate --num-aggregators 2 --fold-device`` (config #2's CNN,
-   3 clients, 2 rounds), every process exiting 0 and the root's
-   ``fold_dense`` launched once per round; 12d ``PerTypeFederation`` on
+   survivor's delta lost or doubled failing that bound; 12c 2 x ``cli
+   aggregator --fold-device`` join the CNN fleet and ``cli coordinate
+   --num-aggregators 2 --fold-device`` runs against it (config #2's CNN,
+   3 clients, 1 round), the fleet still running and the root's
+   ``fold_dense`` launched once; 12d ``PerTypeFederation`` on
    ``iot_traffic_tcn_fedavg`` (TCN width 64, depth 4, bf16) with 5 worker
    threads announcing MUD profiles (camera, camera, bulb, bulb,
    thermostat), 2 rounds with the device fold: the camera and bulb
@@ -170,7 +175,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    frames sent equal the frames received; the collect's split per round
    (the slowest trainer's ``deserialize_params``, ``local_train`` and
    ``compress_delta``, and the rest) is printed; launches as 11a's; 13c
-   12a's tree with a trace and ledgers, 1 round: the tier's
+   on 12a's federation (run in phase 12 with a trace and ledgers), its
+   round 0: the tier's
    ``aggregator.fold`` spans parent onto the root's round and the
    trainers' spans onto them, the ledgers hold the 4 trainers with their
    aggregator, ranked by latency ``assign_slices`` puts the slowest in
@@ -180,9 +186,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    aggregators' buffered ops) on the card: 14a a broker, 4 trainer threads
    and the evaluator, and ``AsyncFederatedCoordinator(buffer_size=2,
    observe=True)`` with a trace and a health ledger on config #4 (flash, 4
-   local steps, topk8 uplinks with error feedback, the device fold), 6
+   local steps, topk8 uplinks with error feedback, the device fold), 4
    aggregations and an evaluation: JAX's record keys with the observe and
-   ``health_*`` keys, versions 1-6, 2 contributors each, staleness within
+   ``health_*`` keys, versions 1-4, 2 contributors each, staleness within
    ``max_staleness``, a finite loss and moved params, aggregation 0's
    staged contributions folded again on the host bitwise equal to the
    device fold, every ``fold_update`` span parented on its
@@ -191,7 +197,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    spans plus the evaluator's K1 batches); per aggregation its seconds,
    the collect and apply phases, the staleness mean, max and p90, the
    arrival rate and the discards, and the aggregations per second over
-   aggregations 1-5 are printed; 14b the same config through 2
+   aggregations 1-3 are printed; 14b the same config through 2
    ``AggregatorServer`` threads with the device fold (``num_aggregators``
    2, ``agg_buffer_interval_s`` 2, heartbeat timeout 2 s, 4 trainers, no
    evaluator), 4 aggregations, aggregator 0 stopping as the first
@@ -200,10 +206,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    drained at most once or still in flight, a record with the failover,
    launches exact (``fold_sparse`` once per contribution in a drained
    partial, ``fold_dense`` once per applied partial on the root); 14c
-   ``cli broker`` and 3 ``cli worker`` processes and ``cli coordinate
-   --async-buffer 3 --fold-device --no-evaluator`` on 11c's config (K = 3
-   = trainers, so each aggregation is a full round): every process exits
-   0, ``fold_dense`` launches once per aggregation, each aggregation's
+   ``cli coordinate --async-buffer 3 --fold-device --no-evaluator``
+   against the CNN fleet on 11c's config (K = 3 = trainers, so each
+   aggregation is a full round): the fleet still runs after it,
+   ``fold_dense`` launches once per aggregation, each aggregation's
    ``total_weight`` equals 11c's round's, and aggregation 0's
    ``train_loss``, mean update and global params after the step equal
    11c's round 0 within f32 rtol 1e-4 / atol 2e-5 (aggregation 1's too
@@ -228,10 +234,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    marker on every trainer's frame through the tier, launches exact; 15c
    11b's DH secure round over the factors (trainer 2's reply lost): the
    recovered aggregate within 1e-5 of the survivors' unmasked factor sum
-   (``check_recovery``); 15d ``cli broker``, 3 x ``cli worker --lora-rank
-   4`` and ``cli coordinate --lora-rank 4 --lora-merge-every 2
-   --fold-device --no-evaluator`` on config #2's CNN, 2 rounds: every
-   process exits 0, every round complete, the updates adapt exactly the
+   (``check_recovery``); 15d a fleet of its own (``cli broker``, 3 x
+   ``cli worker --lora-rank 4``) and ``cli coordinate --lora-rank 4
+   --lora-merge-every 2 --fold-device --no-evaluator`` on config #2's
+   CNN, 2 rounds: every process exits 0, every round complete, the updates adapt exactly the
    Conv (HWIO) and Dense kernels, ``lora_merged`` reads [False, True]
    (the loss is printed: config #2's SGD diverges under the adapters'
    alpha/r = 4, JAX's trainer too); then the fold kernel at
@@ -243,16 +249,17 @@ Phases (any failure exits non-zero; no phase's error is caught):
    ``--checkpoint-dir``, then ``--rounds 2 --resume``: stderr says
    ``resumed at round 1``, K1-K3 launch exactly, and the step-2
    checkpoint, read leaf by leaf, equals that of 13a's untraced run
-   (which saves its last round) bit for bit; 16b 11c's processes with
-   ``coordinate --checkpoint-dir --checkpoint-every 1 --ckpt-stream`` as
-   a process, SIGKILLed as soon as round 0's record line is out, then
-   ``coordinate --resume`` through ``cli.main`` against the live broker
-   and workers: the ``resumed`` event at round 1 with no generation
+   (which saves its last round) bit for bit; 16b ``coordinate
+   --checkpoint-dir --checkpoint-every 1 --ckpt-stream`` as a process
+   against the CNN fleet, SIGKILLed as soon as round 0's record line is
+   out, then ``coordinate --resume`` through ``cli.main`` against the
+   live fleet: the ``resumed`` event at round 1 with no generation
    discarded and generation 1's ``load_generation_host`` digest,
    ``challenge_verified`` with the 3 workers and no rejection, 2 WAL
    entries, round 1 through ``fold_dense`` once, its params bitwise
    11c's round 1 when the killed run's round-0 state is 11c's and the
-   round-1 fold orders agree (else the difference is printed); 16c 11a's
+   round-1 fold orders agree (else the difference is printed), and the
+   fleet stopped with SIGTERM, its 6 processes exiting 0; 16c 11a's
    and 14a's federations save their live state as streaming generations
    after their rounds (BERT-base width), and a fresh coordinator of each
    kind restores it: params bitwise the live ones, the version (14a) and
@@ -260,8 +267,22 @@ Phases (any failure exits non-zero; no phase's error is caught):
    ``load_generation_host``'s; ``ckpt.save_s`` and ``ckpt.restore_s``
    with their MB and MB/s, the shard count and the CRC pass's share of
    the save are printed;
-17. one JSON line of per-kernel results (launches summed over the paths),
-   then the result line.
+17. the chaos soaks on the card: 17a ``chaos --mp --rounds 6
+   --num-workers 3`` through ``cli.main`` (the broker, 3 workers and the
+   coordinator as processes of the port's command line on config #1's
+   MLP; worker 1 SIGKILLed after round 1 and respawned, the coordinator
+   after round 2 and resumed with ``--resume``, the broker after round 3
+   and respawned on its port): the command's gate passes, two
+   coordinator incarnations, a parseable flight dump of each of the 8
+   processes, and every child but the broker on the card (``--backend
+   gpu`` and a ``cuda`` device event in its dump); 17b ``postmortem
+   --format json`` over them names the killed coordinator's pid and role,
+   and its committed rounds are the WAL's.
+
+Each phase prints its wall seconds on a line of its own; then one line
+gives the script's seconds, every phase's and the bench's (9c) rounds per
+second, and the last two lines are one JSON line of per-kernel results
+(launches summed over the paths) and the result line.
 
 Every synthetic dataset is drawn once in the process and copied to each
 later caller (``cache_synthetic_data``): a draw is a function of the
@@ -750,6 +771,9 @@ def family_paths():
 # this constant to it.  The relative tolerance allows for another numpy.
 EPS_7C = 4.1187131819595315
 EPS_RTOL = 1e-9
+# Config #2's cohort in 7a, 7b, 7e and 8b: cut from 20 to keep the script
+# in its budget.
+CNN_COHORT = 10
 BERT_DP = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
            "--local-steps", "4", "--dp-clip", "1.0",
            "--dp-noise-multiplier", "1.0", "--dp-adaptive-clip"]
@@ -844,8 +868,8 @@ def scaffold_path(A):
             del seen["rows"]
 
     return cli_path(A, "7a", ["--config", "cifar10_cnn_fedavg", "--strategy",
-                              "scaffold", "--momentum", "0", "--rounds", "1"],
-                    watch)[1]
+                              "scaffold", "--momentum", "0", "--rounds", "1",
+                              "--cohort-size", str(CNN_COHORT)], watch)[1]
 
 
 def fednova_path(A):
@@ -862,7 +886,8 @@ def fednova_path(A):
 
     return cli_path(A, "7b", ["--config", "cifar10_cnn_fedavg", "--strategy",
                               "fednova", "--straggler-prob", "0.5",
-                              "--rounds", "1"], watch)[1]
+                              "--rounds", "1", "--cohort-size",
+                              str(CNN_COHORT)], watch)[1]
 
 
 def private_paths(A):
@@ -916,7 +941,8 @@ def ring_path(A):
     records, launches, learner = cli_path(
         A, "7e", ["--config", "cifar10_cnn_fedavg", "--secure-agg",
                   "--secure-agg-neighbors", "4", "--dp-clip", "0.5",
-                  "--dp-noise-multiplier", "0.5", "--rounds", "1"])
+                  "--dp-noise-multiplier", "0.5", "--rounds", "1",
+                  "--cohort-size", str(CNN_COHORT)])
     cohort = learner.last_cohort
     table = cohort["partners"]
     ok = all(len(set(row.tolist())) == 4 and cid not in row
@@ -1065,15 +1091,18 @@ def hierarchical_path(A):
 
 
 def clustered_path(A):
-    """8b: clustered FL on config #2 with a second concept planted on
-    clients 50-99 (y -> 9 - y): 1 warm-up round, the update similarity
-    after 3 steps, two clusters, one round each, per-client report."""
+    """8b: clustered FL on config #2 (cohort ``CNN_COHORT``) with a
+    second concept planted on clients 50-99 (y -> 9 - y): 1 warm-up round,
+    the update similarity after 3 steps, two clusters, one round each,
+    per-client report."""
     from colearn_federated_learning_tpu_torch.fed import (
         ClusteredLearner, FederatedLearner)
     from colearn_federated_learning_tpu_torch.utils.config import get_config
 
     t_path = time.perf_counter()
-    base = FederatedLearner(get_config("cifar10_cnn_fedavg"))
+    cfg = get_config("cifar10_cnn_fedavg")
+    base = FederatedLearner(cfg.replace(fed=dataclasses.replace(
+        cfg.fed, cohort_size=CNN_COHORT)))
     n = base.num_clients
     planted = np.arange(n) >= n // 2
     base.y[n // 2:] = 9 - base.y[n // 2:]
@@ -1200,7 +1229,7 @@ SECTOR = 32                    # bytes the card moves per scattered access
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 FILE_PLANE = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
               "--local-steps", "4"]
-SILOS = 3
+SILOS = 2                  # cut from 4 to keep the script in its budget
 
 
 def sparse_batch(sizes, rows, int8, seed):
@@ -1822,7 +1851,7 @@ def parallel_phase(A):
                        ("vit", vit.replace(
                            model=dataclasses.replace(vit.model,
                                                      attn_impl="flash"),
-                           fed=dataclasses.replace(vit.fed, cohort_size=16)))):
+                           fed=dataclasses.replace(vit.fed, cohort_size=8)))):
         paths[f"remat_{label}"], numbers[label] = remat_path(
             A, f"10a {label}", cfg)
     log(f"  10a in {time.perf_counter() - t0:.2f} s")
@@ -2247,97 +2276,144 @@ def secure_socket_path(A, F, dataset):
 SOCKET_CLI = ["--config", "cifar10_cnn_fedavg", "--num-clients", "3",
               "--rounds", "2"]
 # Records kept from one phase for a later one's comparison (11c's rounds
-# for 14c).
+# for 14c and 16b).
 RECORDS: dict = {}
+# The open process fleets by name ("cnn": 11c's, used by 12c, 14c and 16b);
+# main() kills what a failed phase left.
+FLEETS: dict = {}
+CLI_MOD = [sys.executable, "-m", "colearn_federated_learning_tpu_torch.cli"]
 
 
-def cli_federation(F, aggregators=0, coordinate=(), worker=()):
-    """``cli broker``, ``aggregators`` x ``cli aggregator --fold-device``
-    and 3 x ``cli worker`` as processes on the card, then ``cli coordinate
-    --min-devices 3 --rounds 2 --fold-device --no-evaluator`` (with
-    ``--num-aggregators`` when there are aggregators, and the
-    ``coordinate`` flags; the workers take the ``worker`` flags) on config
-    #2's CNN (num_clients cut to 3; no
-    evaluator, so all three train) through ``cli.main`` in this process,
-    which counts the fold kernel's launches.  Every process is stopped
-    with SIGTERM.  Returns (every record of the coordinator, the global
-    params on the host after each record's round or aggregation, the
-    launches, the exit codes, seconds)."""
-    import os
+class CliFleet:
+    """``cli broker`` and 3 ``cli worker`` processes on the card (config
+    #2's CNN, num_clients cut to 3; the workers take the ``worker``
+    flags), and ``cli aggregator --fold-device`` processes added on
+    demand.  The port's workers serve until they are stopped and enroll
+    with each new coordinator, so several federations run their
+    coordinators in turn against one fleet, each process started (and its
+    CUDA context and dataset made) once."""
 
+    def __init__(self, worker=()):
+        # The children import the port from this checkout.
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, PYTHONPATH=self.root + os.pathsep
+                        + os.environ.get("PYTHONPATH", ""))
+        self.procs = []
+        self.t0 = time.perf_counter()
+        try:
+            broker = self._spawn(["broker"], stdout=subprocess.PIPE,
+                                 text=True)
+            self.port = str(json.loads(broker.stdout.readline())["port"])
+            for i in range(3):
+                self._spawn(["worker", *SOCKET_CLI, *worker, "--client-id",
+                             str(i), "--broker-port", self.port],
+                            stdout=subprocess.DEVNULL)
+        except BaseException:
+            self.kill()
+            raise
+        self.aggregators = 0
+
+    def _spawn(self, args, **kw):
+        p = subprocess.Popen([*CLI_MOD, *args], env=self.env, cwd=self.root,
+                             **kw)
+        self.procs.append(p)
+        return p
+
+    def add_aggregators(self, n: int) -> None:
+        for a in range(self.aggregators, self.aggregators + n):
+            self._spawn(["aggregator", *SOCKET_CLI, "--agg-id", str(a),
+                         "--broker-port", self.port, "--fold-device"],
+                        stdout=subprocess.DEVNULL)
+        self.aggregators += n
+
+    def check_alive(self, tag: str) -> None:
+        codes = [p.poll() for p in self.procs]
+        if any(c is not None for c in codes):
+            raise AssertionError(f"{tag}: a fleet process exited: {codes}")
+
+    def close(self) -> list:
+        """Stop every process with SIGTERM; their exit codes."""
+        for p in self.procs:
+            p.terminate()
+        try:
+            return [p.wait(60) for p in self.procs]
+        finally:
+            self.kill()
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+
+
+def cnn_fleet() -> CliFleet:
+    """The fleet of 11c, 12c, 14c and 16b, started by the first of them."""
+    if "cnn" not in FLEETS:
+        FLEETS["cnn"] = CliFleet()
+    return FLEETS["cnn"]
+
+
+def cli_federation(F, fleet, aggregators=0, coordinate=()):
+    """``cli coordinate --min-devices 3 --rounds 2 --fold-device
+    --no-evaluator`` (with ``--num-aggregators`` when ``aggregators`` of
+    the fleet's are asked for, and the ``coordinate`` flags) against
+    ``fleet``, through
+    ``cli.main`` in this process, which counts the fold kernel's launches;
+    no evaluator, so all three workers train.  Every fleet process must
+    still run after it.  Returns (every record of the coordinator, the
+    global params on the host after each record's round or aggregation,
+    the launches, seconds)."""
     from colearn_federated_learning_tpu_torch import cli
     from colearn_federated_learning_tpu_torch.comm import (
         async_coordinator, coordinator)
     from colearn_federated_learning_tpu_torch.comm.downlink import (
         host_params)
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=root + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    mod = [sys.executable, "-m", "colearn_federated_learning_tpu_torch.cli"]
-    procs = []
     t0 = time.perf_counter()
+    if aggregators > fleet.aggregators:
+        raise ValueError(f"the fleet has {fleet.aggregators} aggregators")
+    tree = ["--num-aggregators", str(aggregators)] if aggregators else []
+    F.reset_launches()
+    records, params = [], []
+    undo = []
+    for cls, name in ((coordinator.FederatedCoordinator, "run_round"),
+                      (async_coordinator.AsyncFederatedCoordinator,
+                       "run_aggregation")):
+        def kept(self, _orig=getattr(cls, name)):
+            rec = _orig(self)
+            records.append(rec)
+            params.append(host_params(self.params_tree()))
+            return rec
+        undo.append((cls, name, getattr(cls, name)))
+        setattr(cls, name, kept)
     try:
-        broker = subprocess.Popen([*mod, "broker"], env=env, cwd=root,
-                                  stdout=subprocess.PIPE, text=True)
-        procs.append(broker)
-        port = str(json.loads(broker.stdout.readline())["port"])
-        for a in range(aggregators):
-            procs.append(subprocess.Popen(
-                [*mod, "aggregator", *SOCKET_CLI, "--agg-id", str(a),
-                 "--broker-port", port, "--fold-device"], env=env, cwd=root,
-                stdout=subprocess.DEVNULL))
-        for i in range(3):
-            procs.append(subprocess.Popen(
-                [*mod, "worker", *SOCKET_CLI, *worker, "--client-id", str(i),
-                 "--broker-port", port], env=env, cwd=root,
-                stdout=subprocess.DEVNULL))
-        tree = ["--num-aggregators", str(aggregators)] if aggregators else []
-        F.reset_launches()
-        records, params = [], []
-        undo = []
-        for cls, name in ((coordinator.FederatedCoordinator, "run_round"),
-                          (async_coordinator.AsyncFederatedCoordinator,
-                           "run_aggregation")):
-            def kept(self, _orig=getattr(cls, name)):
-                rec = _orig(self)
-                records.append(rec)
-                params.append(host_params(self.params_tree()))
-                return rec
-            undo.append((cls, name, getattr(cls, name)))
-            setattr(cls, name, kept)
-        try:
-            last = cli.main(["coordinate", *SOCKET_CLI, "--broker-port",
-                             port, "--min-devices", "3", "--no-evaluator",
-                             "--fold-device", *tree, *coordinate,
-                             "--enroll-timeout", "300",
-                             "--round-timeout", str(SOCKET_TIMEOUT)])
-        finally:
-            for cls, name, orig in undo:
-                setattr(cls, name, orig)
-        if not records or records[-1] is not last:
-            raise AssertionError("the coordinator's last record is not the "
-                                 "one cli.main returned")
-        launches = dict(F.launches)
-        for p in procs:
-            p.terminate()
-        codes = [p.wait(60) for p in procs]
+        last = cli.main(["coordinate", *SOCKET_CLI, "--broker-port",
+                         fleet.port, "--min-devices", "3", "--no-evaluator",
+                         "--fold-device", *tree, *coordinate,
+                         "--enroll-timeout", "300",
+                         "--round-timeout", str(SOCKET_TIMEOUT)])
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(10)
-    return records, params, launches, codes, time.perf_counter() - t0
+        for cls, name, orig in undo:
+            setattr(cls, name, orig)
+    if not records or records[-1] is not last:
+        raise AssertionError("the coordinator's last record is not the "
+                             "one cli.main returned")
+    fleet.check_alive("cli_federation")
+    return records, params, dict(F.launches), time.perf_counter() - t0
 
 
 def socket_cli_path(F):
-    """11c: the broker, 3 worker processes and ``coordinate --fold-device``
-    on config #2's CNN (``cli_federation``): every process exits 0 and
-    ``fold_dense`` launches once per round on the coordinator.  Its
-    records, params and folds are kept for 14c."""
+    """11c: ``cli coordinate --fold-device`` against the CNN fleet (the
+    broker and 3 worker processes, started with phase 11 and shared with
+    12c, 14c and 16b; ``cli_federation``): the fleet still runs after it
+    (its
+    processes exit 0 when 16b stops them), and ``fold_dense`` launches
+    once per round on the coordinator.  Its records, params and folds are
+    kept for 14c and 16b."""
     rec_patch = _Recorder()
     try:
-        records, params, launches, codes, took = cli_federation(F)
+        records, params, launches, took = cli_federation(F, cnn_fleet())
     finally:
         rec_patch.close()
     RECORDS["11c"] = (records, params, rec_patch.folders)
@@ -2345,13 +2421,12 @@ def socket_cli_path(F):
     log(f"  [11c] broker + 3 worker processes + coordinate ({SOCKET_CLI}, "
         f"cut: num_clients 100 -> 3): last record round {last['round']} "
         f"completed {last['completed']} train_loss {last['train_loss']:.6f}"
-        f" in {last['round_time_s']:.3f} s; exit codes {codes}; fold "
-        f"launches {launches}; path {took:.2f} s")
-    if not (codes == [0, 0, 0, 0] and last["round"] == 1
-            and last["completed"] == 3 and math.isfinite(last["train_loss"])
+        f" in {last['round_time_s']:.3f} s; fold launches {launches}; "
+        f"path {took:.2f} s")
+    if not (last["round"] == 1 and last["completed"] == 3
+            and math.isfinite(last["train_loss"])
             and launches["fold_dense"] == 2 and launches["fold_sparse"] == 0):
-        raise AssertionError(f"11c: codes {codes}, record {last}, "
-                             f"launches {launches}")
+        raise AssertionError(f"11c: record {last}, launches {launches}")
     return launches
 
 
@@ -2363,6 +2438,9 @@ def socket_phase(A, F, _build):
     cfg = main_path_config()
     dataset = registry.get_dataset(cfg.data.dataset, seed=cfg.run.seed)
     paths, numbers = {}, {}
+    # The CNN fleet of 11c, 12c, 14c and 16b starts first: its processes
+    # make their CUDA contexts and draw CIFAR-10 while 11a and 11b run.
+    cnn_fleet()
     t0 = time.perf_counter()
     # 11a's trace and ledger go to a temporary directory inside the
     # gitignored build directory, removed afterwards.
@@ -2410,20 +2488,26 @@ def _tree(cfg, broker, n):
 TREE_ROUNDS = 2           # 12a: a plain round, then one re-homing a slice
 
 
-def tree_round_path(A, F, dataset):
+def tree_round_path(A, F, dataset, workdir):
     """12a: a broker, 4 trainer threads, 2 AggregatorServers with the
     device fold and the coordinator (num_aggregators 2, heartbeat timeout
     2 s, no evaluator) on config #4 with topk8 uplinks and error feedback,
-    ``TREE_ROUNDS`` rounds; aggregator 0 is stopped after round 0, so
-    round 1 re-homes its slice.  Each aggregator's partial is bitwise its host fold, and
-    the root's sum is bitwise the host's slice-blocked fold of every
-    contribution of the round; the launches are exact."""
+    ``TREE_ROUNDS`` rounds, with a trace and health ledgers (13c's checks
+    run on round 0); aggregator 0 is stopped after round 0, so round 1
+    re-homes its slice.  Each aggregator's partial is bitwise its host
+    fold, and the root's sum is bitwise the host's slice-blocked fold of
+    every contribution of the round; the launches are exact."""
+    from colearn_federated_learning_tpu_torch import telemetry
     from colearn_federated_learning_tpu_torch.comm.aggregator import (
         slice_cohort)
 
+    trace_dir = os.path.join(workdir, "12a_trace")
     cfg = socket_config(compress="topk8", compress_feedback=True,
                         fold_device=True, num_aggregators=2,
-                        agg_heartbeat_timeout=2.0)
+                        agg_heartbeat_timeout=2.0, trace_dir=trace_dir,
+                        health_dir=os.path.join(workdir, "12a_health"))
+    reg = telemetry.get_registry()
+    reg.reset()
     t0 = time.perf_counter()
     rec_patch, timer, aggs = _Recorder(), None, []
     broker, workers, coord = _federation(cfg, 4, False, dataset)
@@ -2443,6 +2527,12 @@ def tree_round_path(A, F, dataset):
         for r in range(TREE_ROUNDS):
             records.append(coord.run_round())
             if r == 0:
+                RECORDS["13c"] = traced_tree_checks(
+                    cfg, list(coord.trainers), records[0],
+                    {**A.launches, **F.launches},
+                    telemetry.write_tracer(trace_dir, cfg.run.name,
+                                           coord.tracer,
+                                           metrics=reg.snapshot()))
                 aggs[0].stop()          # its slice re-homes in round 1
         launches = {**A.launches, **F.launches}
         dense_us = timer.per_launch_us("dense")
@@ -2600,25 +2690,30 @@ def tree_secure_path(A, F, dataset):
 
 
 def tree_cli_path(F):
-    """12c: ``cli_federation`` with 2 ``cli aggregator --fold-device``
-    processes and ``coordinate --num-aggregators 2``: every process exits 0
-    and the root's ``fold_dense`` launches once per round (one dense batch
-    of the 2 partials)."""
-    records, _, launches, codes, took = cli_federation(F, aggregators=2)
+    """12c: 2 ``cli aggregator --fold-device`` processes join the CNN
+    fleet, and ``coordinate --num-aggregators 2 --rounds 1`` runs against
+    it (``cli_federation``): the fleet still runs after it and the root's
+    ``fold_dense`` launches once (one dense batch of the 2 partials)."""
+    fleet = cnn_fleet()
+    t0 = time.perf_counter()
+    fleet.add_aggregators(2)
+    records, _, launches, took = cli_federation(
+        F, fleet, aggregators=2, coordinate=["--rounds", "1"])
     last = records[-1]
-    log(f"  [12c] broker + 2 aggregator + 3 worker processes + coordinate "
-        f"--num-aggregators 2 ({SOCKET_CLI}, cut: num_clients 100 -> 3): "
-        f"last record round {last['round']} completed {last['completed']} "
-        f"aggregators {last['aggregators']} train_loss "
-        f"{last['train_loss']:.6f} in {last['round_time_s']:.3f} s, "
-        f"phase_agg_fold_s {last['phase_agg_fold_s']:.3f}; exit codes "
-        f"{codes}; root fold launches {launches}; path {took:.2f} s")
-    if not (codes == [0] * 6 and last["round"] == 1
+    log(f"  [12c] 2 aggregator processes join the fleet (broker + 3 worker "
+        f"processes) + coordinate --num-aggregators 2 ({SOCKET_CLI}, cut: "
+        f"num_clients 100 -> 3; 1 round): last record round "
+        f"{last['round']} completed {last['completed']} aggregators "
+        f"{last['aggregators']} "
+        f"train_loss {last['train_loss']:.6f} in {last['round_time_s']:.3f}"
+        f" s, phase_agg_fold_s {last['phase_agg_fold_s']:.3f}; root fold "
+        f"launches {launches}; path {time.perf_counter() - t0:.2f} s "
+        f"(coordinate {took:.2f} s)")
+    if not (len(records) == 1 and last["round"] == 0
             and last["completed"] == 3 and last["aggregators"] == 2
             and math.isfinite(last["train_loss"])
-            and launches == {"fold_sparse": 0, "fold_dense": 2}):
-        raise AssertionError(f"12c: codes {codes}, record {last}, "
-                             f"launches {launches}")
+            and launches == {"fold_sparse": 0, "fold_dense": 1}):
+        raise AssertionError(f"12c: record {last}, launches {launches}")
     return launches
 
 
@@ -2712,17 +2807,22 @@ def per_type_path(F):
 
 
 def tree_phase(A, F):
-    """Phase 12: the aggregator tree and per-type federation on the
-    card."""
+    """Phase 12: the aggregator tree and per-type federation on the card
+    (12a also runs 13c's checks of the telemetry core)."""
     from colearn_federated_learning_tpu_torch.data import registry
+    from colearn_federated_learning_tpu_torch.ops import _build
 
     cfg = main_path_config()
     dataset = registry.get_dataset(cfg.data.dataset, seed=cfg.run.seed)
     paths, numbers = {}, {}
     t0 = time.perf_counter()
-    (paths["tree_round"], numbers["12a_round_s"], numbers["12a_agg_fold_s"],
-     numbers["12a_fold_us"]) = tree_round_path(A, F, dataset)
-    log(f"  12a in {time.perf_counter() - t0:.2f} s")
+    # 12a's trace and ledgers go to a temporary directory inside the
+    # gitignored build directory, removed afterwards.
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        (paths["tree_round"], numbers["12a_round_s"],
+         numbers["12a_agg_fold_s"], numbers["12a_fold_us"]) = \
+            tree_round_path(A, F, dataset, workdir)
+    log(f"  12a (with 13c's checks) in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     paths["tree_secure"] = tree_secure_path(A, F, dataset)
     log(f"  12b in {time.perf_counter() - t0:.2f} s")
@@ -2929,42 +3029,20 @@ def traced_socket_checks(cfg, trainers, records, ev, path, health_dir):
             "round_s": [r["round_time_s"] for r in records]}
 
 
-def traced_tree_path(A, F, dataset, workdir):
-    """13c: 12a's tree (4 trainers, 2 aggregator threads, the device fold)
-    with a trace and health ledgers, 1 round: the tier's
-    ``aggregator.fold`` spans parent onto the root's round (the root's
-    fold requests carried its context) and the trainers' spans onto them;
-    ``fold_sparse`` and ``fold_dense`` launch as in a 12a round; the
-    ledgers hold the 4 trainers with their aggregator, and ranked by
-    their latency ``assign_slices`` puts the slowest in the last slice."""
+def traced_tree_checks(cfg, trainers, rec, launches, path) -> dict:
+    """13c, on 12a's federation: its round 0 (4 trainers, 2 aggregator
+    threads, the device fold, no failover yet) with a trace and health
+    ledgers: the tier's ``aggregator.fold`` spans
+    parent onto the root's round (the root's fold requests carried its
+    context) and the trainers' spans onto them; ``fold_sparse`` and
+    ``fold_dense`` launch as in a 12a round; the ledgers hold the 4
+    trainers with their aggregator, and ranked by their latency
+    ``assign_slices`` puts the slowest in the last slice.  ``path`` is the
+    trace written after round 0."""
     from colearn_federated_learning_tpu_torch import telemetry
     from colearn_federated_learning_tpu_torch.comm.aggregator import (
         assign_slices)
 
-    trace_dir = os.path.join(workdir, "13c_trace")
-    health_dir = os.path.join(workdir, "13c_health")
-    cfg = socket_config(compress="topk8", compress_feedback=True,
-                        fold_device=True, num_aggregators=2,
-                        agg_heartbeat_timeout=2.0, trace_dir=trace_dir,
-                        health_dir=health_dir)
-    reg = telemetry.get_registry()
-    reg.reset()
-    aggs = []
-    broker, workers, coord = _federation(cfg, 4, False, dataset)
-    try:
-        aggs = _tree(cfg, broker, 2)
-        coord.enroll_aggregators(timeout=120.0)
-        trainers = list(coord.trainers)
-        A.reset_launches()
-        F.reset_launches()
-        rec = coord.run_round()
-        launches = {**A.launches, **F.launches}
-        path = telemetry.write_tracer(trace_dir, cfg.run.name, coord.tracer,
-                                      metrics=reg.snapshot())
-    finally:
-        for agg in aggs:
-            agg.stop()
-        _stop(broker, workers, coord)
     depth, steps = cfg.model.depth, cfg.fed.local_steps
     want = {"flash_forward": depth * 4 * steps,
             "flash_backward_dq": depth * 4 * steps,
@@ -2990,7 +3068,7 @@ def traced_tree_path(A, F, dataset, workdir):
                                                "aggregator-1"}):
         raise AssertionError(
             f"13c: spans {[(s.name, s.process) for s in spans]}")
-    fleet = telemetry.load_health(health_dir)
+    fleet = telemetry.load_health(cfg.run.health_dir)
     ids = sorted(d.device_id for d in trainers)
     if sorted(fleet) != ids or {h.agg for h in fleet.values()} != {"0", "1"}:
         raise AssertionError(
@@ -3001,18 +3079,17 @@ def traced_tree_path(A, F, dataset, workdir):
     if ranked[-1][-1].device_id != slowest:
         raise AssertionError(f"13c: slices {ranked} by latency {lat}")
     fold_s = sorted(f.duration_s for f in folds)
-    log(f"  [13c] round {rec['round_time_s']:.3f} s: broadcast_collect "
-        f"{collect[0].duration_s:.3f} s, the tier's aggregator.fold "
-        f"{[round(t, 3) for t in fold_s]} s (phase_agg_fold_s "
-        f"{rec['phase_agg_fold_s']:.3f}); each fold span's parent is the "
-        f"root's round, each worker.train's a fold span; ledgers "
-        f"{ {d: fleet[d].agg for d in ids} }; by latency "
+    log(f"  [13c] 12a's round 0 {rec['round_time_s']:.3f} s: "
+        f"broadcast_collect {collect[0].duration_s:.3f} s, the tier's "
+        f"aggregator.fold {[round(t, 3) for t in fold_s]} s "
+        f"(phase_agg_fold_s {rec['phase_agg_fold_s']:.3f}); each fold "
+        f"span's parent is the root's round, each worker.train's a fold "
+        f"span; ledgers { {d: fleet[d].agg for d in ids} }; by latency "
         f"{ {d: round(v, 3) for d, v in lat.items()} } the slices are "
         f"{[[d.device_id for d in sl] for sl in ranked]}; launches "
         f"{launches} (exact); {card()}")
-    return launches, {"round_s": rec["round_time_s"],
-                      "collect_s": collect[0].duration_s,
-                      "agg_fold_s": fold_s}
+    return {"round_s": rec["round_time_s"], "collect_s": collect[0].duration_s,
+            "agg_fold_s": fold_s}
 
 
 def telemetry_phase(A, F, _build):
@@ -3030,10 +3107,7 @@ def telemetry_phase(A, F, _build):
         engine_paths, numbers["13a"] = traced_engine_path(A, workdir)
         paths.update(engine_paths)
         log(f"  13a in {time.perf_counter() - t0:.2f} s")
-        t0 = time.perf_counter()
-        paths["traced_tree"], numbers["13c"] = traced_tree_path(
-            A, F, dataset, workdir)
-        log(f"  13c in {time.perf_counter() - t0:.2f} s")
+    numbers["13c"] = RECORDS["13c"]      # run on 12a's federation
     log("phase 13 numbers " + json.dumps(numbers))
     return paths
 
@@ -3042,7 +3116,7 @@ def telemetry_phase(A, F, _build):
 ASYNC_CUTS = ("local_steps 150 -> 4; 4 enrolled trainers (clients 0-3 of "
               "the 50-client partition)")
 ASYNC_K = 2                # 14a's buffer: K = 2 of 4 trainers
-ASYNC_AGGS = 6             # 14a's aggregations (0 warms up)
+ASYNC_AGGS = 4             # 14a's aggregations (0 warms up; cut from 6)
 TREE_ASYNC_AGGS = 4        # 14b's; aggregator 0 stops after aggregation 1
 BASE_KEYS = {"aggregation", "model_version", "buffer_size", "staleness_mean",
              "staleness_max", "discarded", "contributors", "train_loss",
@@ -3068,7 +3142,7 @@ def flat_async_path(A, F, dataset, workdir):
     """14a: a broker, 4 trainer threads and the evaluator, and the
     ``AsyncFederatedCoordinator`` (K = 2, ``observe``, a trace and a
     health ledger) on config #4 with topk8 uplinks, error feedback and the
-    device fold: 6 aggregations and an evaluation; the live state is then
+    device fold: 4 aggregations and an evaluation; the live state is then
     saved as a streaming generation, which 16c restores."""
     from colearn_federated_learning_tpu_torch import telemetry
     from colearn_federated_learning_tpu_torch.comm.downlink import host_params
@@ -3381,20 +3455,21 @@ def async_cli_path(F):
     difference."""
     rec_patch = _Recorder()
     try:
-        records, params, launches, codes, took = cli_federation(
-            F, coordinate=["--async-buffer", "3"])
+        records, params, launches, took = cli_federation(
+            F, cnn_fleet(), coordinate=["--async-buffer", "3"])
     finally:
         rec_patch.close()
     sync, sync_params, sync_folds = RECORDS["11c"]
-    log(f"  [14c] broker + 3 worker processes + coordinate --async-buffer 3 "
-        f"({SOCKET_CLI}, cut: num_clients 100 -> 3): exit codes {codes}; "
-        f"fold launches {launches}; path {took:.2f} s")
-    if not (codes == [0, 0, 0, 0] and len(records) == len(sync) == 2
+    log(f"  [14c] the fleet (broker + 3 worker processes, 2 aggregators "
+        f"idle) + coordinate --async-buffer 3 ({SOCKET_CLI}, cut: "
+        f"num_clients 100 -> 3): fold launches {launches}; path "
+        f"{took:.2f} s")
+    if not (len(records) == len(sync) == 2
             and len(params) == len(sync_params) == 2
             and len(rec_patch.folders) == len(sync_folds) == 2
             and launches == {"fold_sparse": 0, "fold_dense": 2}):
-        raise AssertionError(f"14c: codes {codes}, records {records}, "
-                             f"launches {launches}")
+        raise AssertionError(f"14c: records {records}, launches "
+                             f"{launches}")
     comparable = True
     for r, (a, s, pa, ps, fa, fs) in enumerate(zip(
             records, sync, params, sync_params, rec_patch.folders,
@@ -3865,10 +3940,12 @@ LORA_CLI = ["--lora-rank", "4"]
 
 
 def lora_cli_path(F):
-    """15d: ``cli broker``, 3 x ``cli worker --lora-rank 4`` and ``cli
-    coordinate --lora-rank 4 --lora-merge-every 2 --fold-device
-    --no-evaluator`` on config #2's CNN (``cli_federation``), 2 rounds:
-    every process exits 0, every round is complete, the updates adapt
+    """15d: ``cli coordinate --lora-rank 4 --lora-merge-every 2
+    --fold-device --no-evaluator`` on config #2's CNN against a fleet of
+    its own (``cli broker`` and 3 x ``cli worker --lora-rank 4``, started
+    with phase 15; ``cli_federation``), 2 rounds, then the fleet stopped
+    with SIGTERM: every process exits 0, every round is complete, the
+    updates adapt
     exactly the CNN's Conv (HWIO) and Dense kernels, round 1 merges,
     ``fold_dense`` launches once per round.  The loss is printed, not
     held: config #2's SGD (lr 0.05, momentum 0.9) diverges under the
@@ -3878,12 +3955,16 @@ def lora_cli_path(F):
     from colearn_federated_learning_tpu_torch.fed import lora, setup
 
     coordinate = [*LORA_CLI, "--lora-merge-every", "2"]
+    t0 = time.perf_counter()
     rec_patch = _Recorder()
+    fleet = FLEETS["lora"]          # started with phase 15
     try:
-        records, _, launches, codes, took = cli_federation(
-            F, coordinate=coordinate, worker=LORA_CLI)
+        records, _, launches, _ = cli_federation(F, fleet,
+                                                 coordinate=coordinate)
     finally:
         rec_patch.close()
+        codes = FLEETS.pop("lora").close()
+    took = time.perf_counter() - t0
     cfg = cli.config_from_args(cli.build_parser().parse_args(
         ["coordinate", *SOCKET_CLI, *coordinate, "--broker-port", "0"]))
     shapes = setup.init_global_params(cfg, "cpu")
@@ -4002,6 +4083,9 @@ def lora_phase(A, F):
     cfg = main_path_config()
     dataset = registry.get_dataset(cfg.data.dataset, seed=cfg.run.seed)
     paths, numbers = {}, {}
+    # 15d's fleet starts first: its processes make their CUDA contexts and
+    # draw CIFAR-10 while 15a-15c run.
+    FLEETS["lora"] = CliFleet(worker=LORA_CLI)
     t0 = time.perf_counter()
     paths["lora_flat"], numbers["15a"], fold_shapes = lora_flat_path(
         A, F, dataset)
@@ -4129,17 +4213,19 @@ def _line_queue(stream):
 
 
 def resume_cli_path(F):
-    """16b: ``cli broker`` and 3 ``cli worker`` processes and a ``cli
-    coordinate --fold-device --no-evaluator --checkpoint-dir D
-    --checkpoint-every 1 --ckpt-stream`` process on 11c's config, the
-    coordinator SIGKILLed as soon as round 0's record line is out (its
-    checkpoint is committed before the line), then ``coordinate ...
+    """16b: a ``cli coordinate --fold-device --no-evaluator
+    --checkpoint-dir D --checkpoint-every 1 --ckpt-stream`` process
+    against the CNN fleet of 11c (its broker and 3 worker processes; 12c's
+    aggregators idle), the coordinator SIGKILLed as soon as round 0's
+    record line is out (its checkpoint is committed before the line),
+    then ``coordinate ...
     --resume`` through ``cli.main`` in this process against the live
     broker and workers: the ``resumed`` event says round 1, no generation
     discarded, and the digest of ``load_generation_host(D)`` at
     generation 1; ``challenge_verified`` lists the 3 workers and no
     rejection; the WAL holds 2 entries; round 1 runs through
-    ``fold_dense`` once.  Its params are held to 11c's round 1 bit for
+    ``fold_dense`` once.  Then the fleet is stopped with SIGTERM and every
+    process of it exits 0.  Its params are held to 11c's round 1 bit for
     bit when the killed run's round-0 state is 11c's bit for bit and the
     two round-1 folds' orders agree; otherwise the difference is
     printed."""
@@ -4152,30 +4238,19 @@ def resume_cli_path(F):
     from colearn_federated_learning_tpu_torch.utils import trees
 
     d = ckpt_dir("16b")
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=root + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    mod = [sys.executable, "-m", "colearn_federated_learning_tpu_torch.cli"]
-    procs, t0 = [], time.perf_counter()
+    fleet = cnn_fleet()
+    t0 = time.perf_counter()
     records, params = [], []
+    victim = None
     rec_patch = _Recorder()
     try:
-        broker = subprocess.Popen([*mod, "broker"], env=env, cwd=root,
-                                  stdout=subprocess.PIPE, text=True)
-        procs.append(broker)
-        port = str(json.loads(broker.stdout.readline())["port"])
-        for i in range(3):
-            procs.append(subprocess.Popen(
-                [*mod, "worker", *SOCKET_CLI, "--client-id", str(i),
-                 "--broker-port", port], env=env, cwd=root,
-                stdout=subprocess.DEVNULL))
-        argv = ["coordinate", *SOCKET_CLI, "--broker-port", port,
+        argv = ["coordinate", *SOCKET_CLI, "--broker-port", fleet.port,
                 "--min-devices", "3", "--no-evaluator", "--fold-device",
                 "--checkpoint-dir", d, "--checkpoint-every", "1",
                 "--ckpt-stream", "--enroll-timeout", "300",
                 "--round-timeout", str(SOCKET_TIMEOUT)]
-        victim = subprocess.Popen([*mod, *argv], env=env, cwd=root,
-                                  stdout=subprocess.DEVNULL,
+        victim = subprocess.Popen([*CLI_MOD, *argv], env=fleet.env,
+                                  cwd=fleet.root, stdout=subprocess.DEVNULL,
                                   stderr=subprocess.PIPE, text=True)
         lines = _line_queue(victim.stderr)
         deadline = time.monotonic() + 600.0
@@ -4210,28 +4285,27 @@ def resume_cli_path(F):
         finally:
             coordinator.FederatedCoordinator.run_round = orig
         launches = dict(F.launches)
-        for p in procs[:4]:
-            p.terminate()
-        codes = [p.wait(60) for p in procs[:4]]
+        fleet.check_alive("16b")
+        codes = FLEETS.pop("cnn").close()
     finally:
         rec_patch.close()
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(10)
+        if victim is not None and victim.poll() is None:
+            victim.kill()
+            victim.wait(10)
     events = _events(err)
     gen, gstep, digest = load_generation_host(d, step=1)
     wal = RoundWal(d).load()
     resumed, verdict = events.get("resumed", {}), events.get(
         "challenge_verified", {})
-    log(f"  [16b] broker + 3 worker processes + coordinate ({SOCKET_CLI}, "
-        f"cut: num_clients 100 -> 3) SIGKILLed after round 0's record "
-        f"(exit {victim_code}, {killed_s:.2f} s), then coordinate --resume "
-        f"in this process: {json.dumps(resumed)}; "
-        f"{json.dumps(verdict)}; WAL rounds {[e['round'] for e in wal]}; "
-        f"exit codes {codes}; fold launches {launches}; path "
+    log(f"  [16b] the fleet (broker + 3 worker processes, 2 aggregators "
+        f"idle) + coordinate ({SOCKET_CLI}, cut: num_clients 100 -> 3) "
+        f"SIGKILLed after round 0's record (exit {victim_code}, "
+        f"{killed_s:.2f} s), then coordinate --resume in this process: "
+        f"{json.dumps(resumed)}; {json.dumps(verdict)}; WAL rounds "
+        f"{[e['round'] for e in wal]}; the fleet's exit codes {codes} "
+        f"(11c-16b); fold launches {launches}; path "
         f"{time.perf_counter() - t0:.2f} s")
-    if not (victim_code == -signal.SIGKILL and codes == [0, 0, 0, 0]
+    if not (victim_code == -signal.SIGKILL and codes == [0] * 6
             and resumed.get("round") == 1
             and resumed.get("ckpt_discarded") == 0
             and resumed.get("ckpt_digest") == digest and gstep == 1
@@ -4353,6 +4427,134 @@ def resume_phase(A, F):
     return paths
 
 
+# ------------------------------------------------------------ phase 17
+CHAOS_ROUNDS = 6           # the canned schedule's three kills need 6
+
+
+def chaos_mp_path() -> dict:
+    """17a: ``chaos --mp --rounds 6 --num-workers 3`` through ``cli.main``
+    on the card: the broker, 3 workers and the coordinator as processes
+    of the port's command line (config #1's MLP, 784-200-200-10 in f32,
+    on ``mnist_tiny``), worker 1 SIGKILLed after round 1 and respawned,
+    the coordinator after round 2 and resumed with ``--resume``, the
+    broker after round 3 and respawned on its port.  The command's own
+    gate passes (it exits 1 otherwise): every round recorded, a final
+    score, a resume, a parseable flight dump of every killed pid.  Then:
+    the three kills with their pids, two coordinator incarnations, one
+    dump per process started (8), and every child but the broker (which
+    holds no tensor) ran on the card: ``--backend gpu`` in its argv and
+    a ``device`` event naming ``cuda`` in its dump."""
+    from colearn_federated_learning_tpu_torch import cli, telemetry
+
+    d = CKPT["chaos"]
+    arrivals = []                  # (host seconds, round) per record line
+    log_rec = cli._chaos_log
+
+    def timed(rec):
+        arrivals.append((time.perf_counter(), rec["round"]))
+        log_rec(rec)
+
+    t0 = time.perf_counter()
+    cli._chaos_log = timed
+    try:
+        summary = cli.main(["chaos", "--mp", "--rounds", str(CHAOS_ROUNDS),
+                            "--num-workers", "3", "--workdir", d])
+    finally:
+        cli._chaos_log = log_rec
+    took = time.perf_counter() - t0
+    kills = [(k["target"], k["fired_after_round"], k.get("pid"))
+             for k in summary["kills"]]
+    # Time to recover: the harness kills as it reads the record of the
+    # kill's round, so it runs from that record to the next round's.
+    recover = {}
+    for target, after, _ in kills:
+        t_kill = next(t for t, r in arrivals if r == after)
+        recover[target] = round(next(t for t, r in arrivals
+                                     if t > t_kill and r > after) - t_kill, 3)
+    gaps = [round(b[0] - a[0], 3) for a, b in zip(arrivals, arrivals[1:])]
+    dumps = [x for x in telemetry.load_flight_dumps(os.path.join(d, "flight"))
+             if "error" not in x]
+    off_card = []
+    for x in dumps:
+        argv = x.get("argv", [])
+        on_card = any(e.get("kind") == "device" and e.get("device") == "cuda"
+                      for e in x.get("events", []))
+        backend = (argv[argv.index("--backend") + 1]
+                   if "--backend" in argv else None)
+        if x.get("role") != "broker" and not (on_card and backend == "gpu"):
+            off_card.append((x.get("pid"), x.get("role"), backend))
+    log(f"  [17a] chaos --mp --rounds {CHAOS_ROUNDS} --num-workers 3: kills "
+        f"(target, after round, pid) {kills}; coordinator incarnations "
+        f"{summary['coordinator_incarnations']}; rounds_resumed "
+        f"{summary['rounds_resumed']}; rounds {summary['rounds_run']}, "
+        f"evicted {summary['evicted']}, weighted_acc "
+        f"{summary['weighted_acc']}; flight dumps {len(dumps)} "
+        f"({sorted(str(x.get('role')) for x in dumps)}), missing "
+        f"{summary['flight_missing']}; children off the card {off_card}; "
+        f"events {summary['events']}; time to recover (s from the kill to "
+        f"the next round's record) {recover}, record gaps {gaps} s; "
+        f"{took:.2f} s; {card()}")
+    if not (kills and [k[0] for k in kills]
+            == ["worker:1", "coordinator", "broker"]
+            and [k[1] for k in kills] == [1, 2, 3]
+            and all(k[2] for k in kills)
+            and summary["coordinator_incarnations"] == 2
+            and summary["rounds_resumed"] >= 1
+            and summary["rounds_run"] == CHAOS_ROUNDS
+            and not summary["flight_missing"] and len(dumps) == 8
+            and not off_card):
+        brief = {k: v for k, v in summary.items() if k != "records"}
+        raise AssertionError(f"17a: kills {kills}, summary {brief}, off "
+                             f"the card {off_card}")
+    return {"kills": kills, "seconds": took, "recover_s": recover}
+
+
+def postmortem_path(kills) -> None:
+    """17b: ``postmortem D/flight --wal-dir D/ckpt --format json`` through
+    ``cli.main`` over 17a's run: it exits 0, names the killed
+    coordinator's role and pid, and its committed rounds are the WAL's."""
+    from colearn_federated_learning_tpu_torch import cli
+    from colearn_federated_learning_tpu_torch.ckpt import RoundWal
+
+    d = CKPT["chaos"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["postmortem", os.path.join(d, "flight"), "--wal-dir",
+                  os.path.join(d, "ckpt"), "--format", "json"])
+    report = json.loads(out.getvalue())
+    wal = [e["round"] for e in RoundWal(os.path.join(d, "ckpt")).load()]
+    pid = next(k[2] for k in kills if k[0] == "coordinator")
+    named = [p for p in report["processes"] if p.get("pid") == pid]
+    seen = [(p["pid"], p["role"], p["trigger"], p["last_round_seen"])
+            for p in named]
+    log(f"  [17b] postmortem: last committed round "
+        f"{report['last_committed_round']}, committed rounds "
+        f"{report['committed_rounds']}, in flight "
+        f"{report['rounds_in_flight']}, {report['process_count']} "
+        f"processes, triggers {report['crash_triggers']}; the killed "
+        f"coordinator (pid, role, trigger, last round seen): "
+        f"{seen}; WAL rounds {wal}")
+    if not (named and named[0]["role"] == "coordinator"
+            and wal == list(range(CHAOS_ROUNDS))
+            and report["committed_rounds"] == len(wal)
+            and report["last_committed_round"] == wal[-1]
+            and report["rounds_in_flight"] == []):
+        raise AssertionError(f"17b: report {report}, WAL {wal}")
+
+
+def chaos_phase() -> dict:
+    """Phase 17: the chaos soaks on the card (17a ``chaos --mp``, 17b
+    ``postmortem``); the in-process, secure and tree soaks run in the CPU
+    tests."""
+    t0 = time.perf_counter()
+    mp = chaos_mp_path()
+    log(f"  17a in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    postmortem_path(mp["kills"])
+    log(f"  17b in {time.perf_counter() - t0:.2f} s")
+    return mp
+
+
 def cache_synthetic_data():
     """Draw each synthetic dataset once in this process: every later draw
     of the same (dataset, seed) gets a copy of the first one's arrays
@@ -4420,104 +4622,111 @@ def main() -> int:
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     CKPT["root"] = tempfile.mkdtemp(dir=_build.BUILD_DIR, prefix="ckpt-")
+    CKPT["chaos"] = ckpt_dir("chaos")
     try:
         return run_phases()
     finally:
+        for fleet in FLEETS.values():
+            fleet.kill()
         shutil.rmtree(CKPT["root"], ignore_errors=True)
 
 
-def run_phases() -> int:
-    """Phases 1-16 and the two result lines (see the module docstring)."""
-    from colearn_federated_learning_tpu_torch.ops import _build
-    from colearn_federated_learning_tpu_torch.ops import attention as A
-    from colearn_federated_learning_tpu_torch.utils.config import get_config
+PHASE_S: dict = {}          # phase -> wall seconds
 
-    cache_synthetic_data()
-    log("phase 1: device")
+
+def phase(n, title: str, fn, *args):
+    """Run phase ``n`` and print its wall seconds on a line of its own."""
+    log(f"phase {n}: {title}")
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[n] = round(time.perf_counter() - t0, 2)
+    log(f"  phase {n} in {PHASE_S[n]:.2f} s")
+    return out
+
+
+def device_phase() -> None:
     log(card())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    log("phase 2: build")
-    build_phase(_build)
 
-    log("phase 3: kernels vs plain versions (bf16)")
-    rows = kernel_phase(A)
-
-    paths = {}
-    log("phase 4: small-input check and the BERT path")
-    t0 = time.perf_counter()
-    small_model_check()
-    paths["bert"] = main_path(A)
-    log(f"  phase 4 in {time.perf_counter() - t0:.2f} s")
-
-    log("phase 5: the CIFAR-10 CNN round (config #2)")
-    t0 = time.perf_counter()
-    paths["cnn"] = drive_path(A, "cnn", get_config("cifar10_cnn_fedavg"),
-                              2, "none")
-    log(f"  phase 5 in {time.perf_counter() - t0:.2f} s")
-
-    log("phase 6: one round of each other family at full width")
-    t0 = time.perf_counter()
-    for label, cfg, cuts in family_paths():
-        paths[label] = drive_path(A, label, cfg, 1, cuts)
-    log(f"  phase 6 in {time.perf_counter() - t0:.2f} s")
-
-    log("phase 7: the round's other branches through the command line")
-    t0 = time.perf_counter()
-    paths.update(cli_phase(A))
-    log(f"  phase 7 in {time.perf_counter() - t0:.2f} s")
-
-    log("phase 8: hierarchical, clustered and per-client evaluation")
-    t0 = time.perf_counter()
-    paths.update(slice_phase(A))
-    log(f"  phase 8 in {time.perf_counter() - t0:.2f} s")
-    log("phase 9: the fold kernel and the file plane")
-    from colearn_federated_learning_tpu_torch.ops import fold as F
+def fold_and_file_phase(A, F):
+    """Phase 9: 9a the fold kernel, 9b the file plane, 9c the bench."""
+    from colearn_federated_learning_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    rows.update(fold_check_phase(F))
+    rows = fold_check_phase(F)
     log(f"  9a in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     # The global models and update files (~1.1 GB) go to a temporary
     # directory inside the gitignored build directory, removed afterwards.
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
-        paths["file_plane"] = file_plane_path(A, F, workdir)
+        paths = {"file_plane": file_plane_path(A, F, workdir)}
     log(f"  9b in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    bench_path()
+    bench = bench_path()
     log(f"  9c in {time.perf_counter() - t0:.2f} s")
-    log("phase 10: remat, the client mesh at world 1, single-device SP/TP")
-    t0 = time.perf_counter()
-    paths.update(parallel_phase(A))
-    log(f"  phase 10 in {time.perf_counter() - t0:.2f} s")
-    log("phase 11: the synchronous socket plane")
-    t0 = time.perf_counter()
-    paths.update(socket_phase(A, F, _build))
-    log(f"  phase 11 in {time.perf_counter() - t0:.2f} s")
-    log("phase 12: the aggregator tree and per-type federation")
-    t0 = time.perf_counter()
-    paths.update(tree_phase(A, F))
-    log(f"  phase 12 in {time.perf_counter() - t0:.2f} s")
-    log("phase 13: the telemetry core (traces, counters, health ledgers)")
-    t0 = time.perf_counter()
-    paths.update(telemetry_phase(A, F, _build))
-    log(f"  phase 13 in {time.perf_counter() - t0:.2f} s")
-    log("phase 14: the asynchronous coordinator (flat, the tree, processes)")
-    t0 = time.perf_counter()
-    paths.update(async_phase(A, F, _build))
-    log(f"  phase 14 in {time.perf_counter() - t0:.2f} s")
-    log("phase 15: LoRA adapter federation (flat, the tree, secure, "
-        "processes)")
-    t0 = time.perf_counter()
-    paths.update(lora_phase(A, F))
-    log(f"  phase 15 in {time.perf_counter() - t0:.2f} s")
-    log("phase 16: checkpoints and resume (the engine, a SIGKILLed "
-        "coordinator, streaming restores)")
-    t0 = time.perf_counter()
-    paths.update(resume_phase(A, F))
-    log(f"  phase 16 in {time.perf_counter() - t0:.2f} s")
+    return rows, paths, bench
+
+
+def run_phases() -> int:
+    """Phases 1-17 and the two result lines (see the module docstring)."""
+    from colearn_federated_learning_tpu_torch.ops import _build
+    from colearn_federated_learning_tpu_torch.ops import attention as A
+    from colearn_federated_learning_tpu_torch.ops import fold as F
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
+
+    t_start = time.perf_counter()
+    cache_synthetic_data()
+    phase(1, "device", device_phase)
+    phase(2, "build", build_phase, _build)
+    rows = phase(3, "kernels vs plain versions (bf16)", kernel_phase, A)
+
+    paths = {}
+
+    def bert():
+        small_model_check()
+        paths["bert"] = main_path(A)
+
+    def families():
+        for label, cfg, cuts in family_paths():
+            paths[label] = drive_path(A, label, cfg, 1, cuts)
+
+    phase(4, "small-input check and the BERT path", bert)
+    paths["cnn"] = phase(5, "the CIFAR-10 CNN round (config #2)", drive_path,
+                         A, "cnn", get_config("cifar10_cnn_fedavg"), 2,
+                         "none")
+    phase(6, "one round of each other family at full width", families)
+    paths.update(phase(7, "the round's other branches through the command "
+                          "line", cli_phase, A))
+    paths.update(phase(8, "hierarchical, clustered and per-client "
+                          "evaluation", slice_phase, A))
+    fold_rows, file_paths, bench = phase(
+        9, "the fold kernel, the file plane and the bench",
+        fold_and_file_phase, A, F)
+    rows.update(fold_rows)
+    paths.update(file_paths)
+    paths.update(phase(10, "remat, the client mesh at world 1, "
+                           "single-device SP/TP", parallel_phase, A))
+    paths.update(phase(11, "the synchronous socket plane", socket_phase, A,
+                       F, _build))
+    paths.update(phase(12, "the aggregator tree and per-type federation",
+                       tree_phase, A, F))
+    paths.update(phase(13, "the telemetry core (traces, counters, health "
+                           "ledgers)", telemetry_phase, A, F, _build))
+    paths.update(phase(14, "the asynchronous coordinator (flat, the tree, "
+                           "processes)", async_phase, A, F, _build))
+    paths.update(phase(15, "LoRA adapter federation (flat, the tree, "
+                           "secure, processes)", lora_phase, A, F))
+    paths.update(phase(16, "checkpoints and resume (the engine, a "
+                           "SIGKILLed coordinator, streaming restores)",
+                       resume_phase, A, F))
+    phase(17, "the chaos soaks (chaos --mp with SIGKILLs, postmortem)",
+          chaos_phase)
     log("launches per path " + json.dumps(paths))
+    total = time.perf_counter() - t_start
+    log(f"script {total:.2f} s; phase seconds {json.dumps(PHASE_S)}; 9c "
+        f"{bench['value']} rounds/sec; {card()}")
 
     sources = {**{name: (SOURCE, rep) for name, (rep, _) in KERNELS.items()},
                **{name: (FOLD_SOURCE, rep)

@@ -1,6 +1,7 @@
 """Command line of the PyTorch port: ``train``, ``init``, ``aggregate``,
-``eval``, ``configs``, ``bench``, ``broker``, ``worker``, ``aggregator``
-and ``coordinate``.
+``eval``, ``configs``, ``bench``, ``broker``, ``worker``, ``aggregator``,
+``coordinate``, ``trace-summary``, ``health``, ``postmortem`` and
+``chaos``.
 
     python -m colearn_federated_learning_tpu_torch.cli train --config NAME \\
         [--backend gpu|cpu] [overrides]
@@ -35,7 +36,16 @@ save the state of ``train`` and ``coordinate`` (``--ckpt-stream`` picks
 the streaming format); ``train --resume`` prints ``resumed at round k``
 and runs the remaining rounds, ``coordinate --resume`` prints the event
 ``resume_cold`` or ``resumed`` and, on the synchronous plane, after
-enrollment ``challenge_verified``.
+enrollment ``challenge_verified``.  The flight recorder
+(``telemetry/flight.py``): ``--flight-dir``, ``--flight-heartbeat`` and
+``--flight-watchdog`` on ``broker``, ``worker``, ``aggregator`` and
+``coordinate`` keep a heartbeat-rewritten ``flight_<pid>.json`` (dumped
+at once on SIGTERM, an uncaught exception or a watchdog stall), which
+``postmortem`` merges with the round WAL.  ``chaos`` runs the chaos soaks
+(``faults/soak.py``, ``faults/procsoak.py``): in this process under a
+fault plan, ``--secure`` against a plain oracle, and ``--mp`` and
+``--agg`` as processes under real SIGKILLs, with JAX's gates and exit
+codes.
 Everything runs on the card (``--backend gpu``, the default, which raises
 without one) or, only when asked, on the CPU.  ``train`` writes each
 round's record to stderr as one JSON line and its summary to stdout, as in
@@ -53,9 +63,10 @@ JAX; ``--remat`` checkpoints the transformer blocks' activations.
 A flag of the JAX command line whose feature is not ported yet is
 accepted by the parser and refused: the run exits with status 2 and names
 the ROADMAP item that ports it, and never runs without it; so is each
-JAX subcommand not ported yet (``chaos``, ``fleetsim``, ``lint``,
-``postmortem``, ``top``, ``sentinel``, ``converge``).  ``configs``,
-``trace-summary`` and ``health`` print JAX's text, not a JSON result.
+JAX subcommand not ported yet (``fleetsim``, ``lint``, ``top``,
+``sentinel``, ``converge``), and ``chaos --async``, ``--tree-async``,
+``--lock-witness`` and ``--ckpt``.  ``configs``, ``trace-summary``,
+``health`` and ``postmortem`` print JAX's text, not a JSON result.
 """
 
 from __future__ import annotations
@@ -96,7 +107,6 @@ _RUN_KEYS = {"seed", "tp_size", "eval_every", "log_every", "evict_after",
              "ckpt_stream"}
 
 _OBS = comm.ITEM_OBS_REST
-_FLIGHT = comm.ITEM_CHAOS
 
 # dest -> (flag, argparse kwargs, the ROADMAP item that ports it): the
 # override flags every subcommand takes, and those of ``train`` alone.
@@ -110,17 +120,20 @@ _UNPORTED_TRAIN = {
 }
 
 
-# The observability flags of broker/worker/coordinate.
+# The export half of the observability flags of broker, worker,
+# aggregator and coordinate (the flight recorder's half is ported).
 _OBSERVABILITY = {
-    "flight_dir": ("--flight-dir", dict(), _FLIGHT),
-    "flight_heartbeat": ("--flight-heartbeat", dict(type=float), _FLIGHT),
-    "flight_watchdog": ("--flight-watchdog", dict(type=float), _FLIGHT),
     "metrics_port": ("--metrics-port", dict(type=int), _OBS),
     "events_file": ("--events-file", dict(), _OBS),
 }
+# chaos flags -> the ROADMAP item that ports their soak.
+_UNPORTED_CHAOS = {
+    "chaos_async": ("--async", comm.ITEM_CHAOS),
+    "chaos_tree_async": ("--tree-async", comm.ITEM_CHAOS),
+    "lock_witness": ("--lock-witness", comm.ITEM_CHAOS),
+    "ckpt": ("--ckpt", comm.ITEM_SHARDED),
+}
 _UNPORTED_COMMANDS = {
-    "chaos": comm.ITEM_CHAOS,
-    "postmortem": comm.ITEM_CHAOS,
     "fleetsim": comm.ITEM_FLEETSIM,
     "top": comm.ITEM_OBS_REST,
     "converge": comm.ITEM_OBS_REST,
@@ -290,6 +303,22 @@ def _add_unported(p: argparse.ArgumentParser, flags: dict) -> None:
                        help="not ported yet (refused)", **kwargs)
 
 
+def _add_observability_flags(p: argparse.ArgumentParser) -> None:
+    """The flight recorder's flags (JAX's defaults), and the export
+    plane's, which are refused."""
+    p.add_argument("--flight-dir", default=None,
+                   help="crash flight recorder: heartbeat-rewrite a "
+                        "bounded black box (flight_<pid>.json) here; it "
+                        "survives SIGKILL up to one heartbeat of staleness "
+                        "(`postmortem` reads these)")
+    p.add_argument("--flight-heartbeat", type=float, default=5.0,
+                   help="flight-recorder rewrite period in seconds")
+    p.add_argument("--flight-watchdog", type=float, default=None,
+                   help="declare a stall (and dump) after this many "
+                        "seconds without round progress")
+    _add_unported(p, _OBSERVABILITY)
+
+
 def _async_buffer_arg(value: str):
     """``--async-buffer``: 0 (off), a positive int K, or ``auto``."""
     if value == "auto":
@@ -353,7 +382,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("broker", help="run the pub/sub control-plane broker")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=0)
-    _add_unported(p, _OBSERVABILITY)
+    _add_observability_flags(p)
 
     p = sub.add_parser("worker", help="run a device worker process")
     _add_override_flags(p)
@@ -363,7 +392,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mud-profile", default=None,
                    help="path to this device's RFC 8520 MUD JSON, "
                         "announced on enrollment")
-    _add_unported(p, _OBSERVABILITY)
+    _add_observability_flags(p)
 
     p = sub.add_parser("aggregator", help="run one aggregator-tree process: "
                                           "fold a cohort slice, send one "
@@ -375,7 +404,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--heartbeat", type=float, default=0.5,
                    help="retained-announce heartbeat period (s); the "
                         "coordinator's liveness signal")
-    _add_unported(p, _OBSERVABILITY)
+    _add_observability_flags(p)
 
     p = sub.add_parser("coordinate", help="run the federated coordinator "
                                           "over enrolled workers")
@@ -424,7 +453,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(cold start when there is none); the synchronous "
                         "coordinator then readmits only the devices its "
                         "enrollment ledger verifies")
-    _add_unported(p, _OBSERVABILITY)
+    _add_observability_flags(p)
 
     p = sub.add_parser("trace-summary",
                        help="print a per-phase time breakdown of a "
@@ -443,6 +472,71 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top", type=int, default=10,
                    help="offender rows to show")
     p.add_argument("--format", choices=["text", "json"], default="text")
+
+    p = sub.add_parser("postmortem",
+                       help="merge crash flight dumps (--flight-dir) with "
+                            "the round WAL into a who-died-where report")
+    p.add_argument("flight_dir",
+                   help="directory holding flight_<pid>.json dumps "
+                        "(searched recursively)")
+    p.add_argument("--wal-dir", default=None,
+                   help="checkpoint dir holding round_wal.jsonl (or the "
+                        "file itself) to reconcile rounds against")
+    p.add_argument("--checkpoint-step", type=int, default=None,
+                   help="latest durable checkpoint round; WAL entries "
+                        "past it count as in flight, not committed")
+    p.add_argument("--format", choices=["text", "json"], default="text")
+
+    p = sub.add_parser("chaos",
+                       help="run a chaos soak: a tiny federation under an "
+                            "injected fault plan (in this process) or real "
+                            "SIGKILLs (--mp, --agg), reporting recovery")
+    p.add_argument("--backend", choices=["gpu", "cpu"], default="gpu",
+                   help="the card (default; raises without one) or the "
+                        "CPU, for the soak and every process it starts")
+    p.add_argument("--rounds", type=int, default=10)
+    p.add_argument("--num-workers", type=int, default=4)
+    p.add_argument("--round-timeout", type=float, default=6.0,
+                   help="per-round deadline of the faulted rounds (the "
+                        "warm-up round gets a generous one)")
+    p.add_argument("--fault-plan", default=None,
+                   help="JSON fault-plan file; default is the canned "
+                        "acceptance plan (faults/soak.py)")
+    p.add_argument("--fault-seed", type=int, default=None)
+    p.add_argument("--no-faults", action="store_true",
+                   help="run the soak without any plan (baseline)")
+    p.add_argument("--compress-down", default=None,
+                   choices=["none", "int8", "topk"],
+                   help="soak with downlink delta compression on")
+    p.add_argument("--secure", action="store_true",
+                   help="secure-aggregation exactness gate: a DH masked "
+                        "federation against a plain FedAvg oracle in "
+                        "lockstep under the dropout plan")
+    p.add_argument("--mp", action="store_true",
+                   help="multi-process soak: broker, coordinator and "
+                        "workers as real subprocesses, real SIGKILL on the "
+                        "canned schedule (coordinator included: --resume)")
+    p.add_argument("--agg", action="store_true",
+                   help="aggregator-tree failover gate: a 2-aggregator "
+                        "federation with one aggregator SIGKILLed "
+                        "mid-round, final params against a flat oracle")
+    p.add_argument("--async", dest="chaos_async", action="store_true",
+                   help="not ported yet (refused)")
+    p.add_argument("--tree-async", dest="chaos_tree_async",
+                   action="store_true", help="not ported yet (refused)")
+    p.add_argument("--ckpt", action="store_true",
+                   help="not ported yet (refused)")
+    p.add_argument("--lock-witness", action="store_true",
+                   help="not ported yet (refused)")
+    p.add_argument("--workdir", default=None,
+                   help="--mp/--agg scratch dir for checkpoints, flight "
+                        "dumps and process logs (default: a fresh temp "
+                        "dir)")
+    p.add_argument("--mp-round-timeout", type=float, default=120.0,
+                   help="--mp/--agg per-round deadline")
+    p.add_argument("--mp-timeout", type=float, default=600.0,
+                   help="--mp/--agg whole-soak wall-clock backstop; a hung "
+                        "federation is killed and reported")
 
     # Subcommands not ported yet: refused before their flags are parsed.
     for name in _UNPORTED_COMMANDS:
@@ -666,14 +760,51 @@ def _stop_event() -> threading.Event:
     return stop
 
 
+def _setup_flight(args: argparse.Namespace, role: str, device=None):
+    """With ``--flight-dir``, install this process's flight recorder (the
+    recorder half of JAX's ``_setup_observability``) and record the device
+    the role runs on; returns it, or None.  A served process calls this
+    after :func:`_stop_event`, so that the recorder's SIGTERM handler dumps
+    and then chains to the clean exit."""
+    if not args.flight_dir:
+        return None
+    from colearn_federated_learning_tpu_torch import telemetry
+
+    recorder = telemetry.install_flight_recorder(
+        args.flight_dir, role=role, heartbeat_s=args.flight_heartbeat,
+        watchdog_s=args.flight_watchdog)
+    if device is not None:
+        import torch
+
+        name = (torch.cuda.get_device_name(0) if device == "cuda"
+                else "cpu")
+        recorder.record("device", device=device, name=name)
+    return recorder
+
+
+def _round_hook(recorder) -> Callable[[dict], None]:
+    """Print each record as one JSON line on stderr and, with a recorder,
+    put it in the flight ring and mark progress for the watchdog (JAX's
+    ``_obs_round_hook``)."""
+    def hook(rec: dict) -> None:
+        print(json.dumps(rec), file=sys.stderr, flush=True)
+        if recorder is not None:
+            recorder.record("round", round=rec.get("round"))
+            recorder.mark_progress()
+    return hook
+
+
 def broker(args: argparse.Namespace) -> None:
     """``broker``: print the address as one JSON line, serve until
     stopped."""
     from colearn_federated_learning_tpu_torch.comm.broker import MessageBroker
 
     stop = _stop_event()
+    recorder = _setup_flight(args, "broker")
     b = MessageBroker(host=args.host, port=args.port).start()
     print(json.dumps({"host": b.host, "port": b.port}), flush=True)
+    if recorder is not None:
+        recorder.record("broker_listening", port=b.port)
     try:
         stop.wait()
     finally:
@@ -690,13 +821,15 @@ def worker(args: argparse.Namespace) -> None:
         print("worker requires --client-id", file=sys.stderr)
         raise SystemExit(2)
     _install_fault_plan(config)
+    stop = _stop_event()
+    _setup_flight(args, f"worker{args.client_id}", _device(args))
     mud = None
     if args.mud_profile:
         with open(args.mud_profile) as f:
             mud = f.read()
     run_worker_forever(config, args.client_id, args.broker_host,
                        args.broker_port, mud_profile=mud,
-                       device=_device(args), stop=_stop_event())
+                       device=_device(args), stop=stop)
 
 
 def aggregator(args: argparse.Namespace) -> None:
@@ -710,9 +843,11 @@ def aggregator(args: argparse.Namespace) -> None:
         print("aggregator requires --agg-id", file=sys.stderr)
         raise SystemExit(2)
     _install_fault_plan(config)
+    stop = _stop_event()
+    _setup_flight(args, f"aggregator{args.agg_id}", _device(args))
     agg = run_aggregator_forever(config, args.agg_id, args.broker_host,
                                  args.broker_port, heartbeat_s=args.heartbeat,
-                                 device=_device(args), stop=_stop_event())
+                                 device=_device(args), stop=stop)
     _write_trace(config, f"{config.run.name}_aggregator{args.agg_id}",
                  agg.tracer)
 
@@ -730,7 +865,7 @@ def _write_trace(config: ExperimentConfig, name: str, tracer) -> None:
 
 
 def per_type(args: argparse.Namespace, config: ExperimentConfig,
-             mud_policy) -> dict:
+             mud_policy, recorder=None) -> dict:
     """``coordinate --per-type``: one federation per MUD device type; each
     record goes to stderr with its ``type``.  The summary holds each
     type's last record, the skipped types and the failed ones; it is
@@ -747,6 +882,9 @@ def per_type(args: argparse.Namespace, config: ExperimentConfig,
         # One write per record: the federations log from their threads.
         sys.stderr.write(json.dumps({"type": t, **rec}) + "\n")
         sys.stderr.flush()
+        if recorder is not None:
+            recorder.record("round", round=rec.get("round"))
+            recorder.mark_progress()
 
     try:
         hists = fed.run(min_devices=args.min_devices,
@@ -772,6 +910,7 @@ def coordinate(args: argparse.Namespace) -> dict:
 
     config = config_from_args(args)
     _install_fault_plan(config)
+    recorder = _setup_flight(args, "coordinator", _device(args))
     mud_policy = None
     if args.mud_require_profile or args.mud_allowed_types:
         from colearn_federated_learning_tpu_torch.comm.mud import MudPolicy
@@ -781,13 +920,15 @@ def coordinate(args: argparse.Namespace) -> dict:
             allowed_types=tuple(
                 t for t in (args.mud_allowed_types or "").split(",") if t))
     if args.per_type:
-        return per_type(args, config, mud_policy)
+        return per_type(args, config, mud_policy, recorder)
     if args.async_buffer:
-        return coordinate_async(args, config, mud_policy)
+        return coordinate_async(args, config, mud_policy, recorder)
     coord = FederatedCoordinator(config, args.broker_host, args.broker_port,
                                  round_timeout=args.round_timeout,
                                  want_evaluator=not args.no_evaluator,
                                  mud_policy=mud_policy, device=_device(args))
+    if recorder is not None:
+        recorder.attach_tracer(coord.tracer)
     with coord:
         if args.resume:
             _coordinator_resume(coord)
@@ -804,10 +945,7 @@ def coordinate(args: argparse.Namespace) -> dict:
             print(json.dumps({"event": "aggregators_enrolled",
                               "aggregators": aggs}), file=sys.stderr,
                   flush=True)
-        hist = coord.fit(
-            log_fn=lambda rec: print(json.dumps(rec), file=sys.stderr,
-                                     flush=True),
-            elastic=args.elastic)
+        hist = coord.fit(log_fn=_round_hook(recorder), elastic=args.elastic)
         if args.per_client_eval:
             from colearn_federated_learning_tpu_torch.fed import evaluation
 
@@ -845,7 +983,7 @@ def _coordinator_resume(coord) -> None:
 
 
 def coordinate_async(args: argparse.Namespace, config: ExperimentConfig,
-                     mud_policy) -> dict:
+                     mud_policy, recorder=None) -> dict:
     """``coordinate --async-buffer N|auto``: the buffered-asynchronous
     coordinator (through the aggregators' slice buffers with
     ``--num-aggregators``) for the config's ``rounds`` aggregations;
@@ -861,6 +999,8 @@ def coordinate_async(args: argparse.Namespace, config: ExperimentConfig,
         prune_score=args.async_prune_score,
         probation=args.async_probation, observe=args.async_observe,
         device=_device(args))
+    if recorder is not None:
+        recorder.attach_tracer(coord.tracer)
     with coord:
         if args.resume:
             _coordinator_resume(coord)
@@ -873,9 +1013,7 @@ def coordinate_async(args: argparse.Namespace, config: ExperimentConfig,
                   flush=True)
         hist = coord.fit(
             aggregations=max(0, config.fed.rounds - len(coord.history)),
-            log_fn=lambda rec: print(json.dumps(rec), file=sys.stderr,
-                                     flush=True),
-            elastic=args.elastic)
+            log_fn=_round_hook(recorder), elastic=args.elastic)
         _write_trace(config, config.run.name, coord.tracer)
     return hist[-1]
 
@@ -913,6 +1051,159 @@ def health(args: argparse.Namespace) -> None:
         raise SystemExit(1)
 
 
+def postmortem(args: argparse.Namespace) -> None:
+    """``postmortem``: merge the flight dumps with the round WAL (JAX's
+    ``cmd_postmortem``): who died, of what, at which round, and which
+    rounds were in flight.  Exits 1 when there is no dump, as JAX's
+    does."""
+    import os
+
+    from colearn_federated_learning_tpu_torch import telemetry
+    from colearn_federated_learning_tpu_torch.ckpt.wal import RoundWal
+
+    dumps = telemetry.load_flight_dumps(args.flight_dir)
+    wal_entries = None
+    if args.wal_dir:
+        wal_dir = args.wal_dir
+        if os.path.isfile(wal_dir):           # the file path works too
+            wal_dir = os.path.dirname(wal_dir) or "."
+        wal_entries = RoundWal(wal_dir).load()
+    report = telemetry.postmortem_report(
+        dumps, wal_entries=wal_entries, checkpoint_step=args.checkpoint_step)
+    if args.format == "json":
+        print(json.dumps(report), flush=True)
+    else:
+        print(telemetry.render_postmortem(report), flush=True)
+    if not dumps:
+        raise SystemExit(1)
+
+
+def _chaos_log(rec: dict) -> None:
+    print(json.dumps(rec), file=sys.stderr, flush=True)
+
+
+def _chaos_gate(summary: dict, ok: bool) -> dict:
+    """A soak's summary when its gate passed; otherwise it is printed and
+    the process exits 1, as JAX's ``chaos`` does."""
+    if not ok:
+        print(json.dumps(summary), flush=True)
+        raise SystemExit(1)
+    return summary
+
+
+def chaos(args: argparse.Namespace) -> dict:
+    """``chaos`` (JAX's ``cmd_chaos``, with its gates and exit codes).
+    Default: broker, workers and coordinator in this process with a fault
+    plan installed after the warm-up round (``faults/soak.py``).
+    ``--secure``: a DH secure-aggregation federation against a plain
+    FedAvg oracle in lockstep.  ``--mp``: broker, coordinator and workers
+    as subprocesses, SIGKILLed on the canned schedule, the coordinator
+    resumed with ``--resume`` (``faults/procsoak.py``).  ``--agg``: the
+    aggregator tree with one aggregator SIGKILLed, against a flat oracle.
+    ``--async``, ``--tree-async`` and ``--lock-witness`` (item 16) and
+    ``--ckpt`` (item 15) are refused."""
+    from colearn_federated_learning_tpu_torch import faults
+    from colearn_federated_learning_tpu_torch.faults import procsoak, soak
+
+    given = [(flag, item) for dest, (flag, item) in _UNPORTED_CHAOS.items()
+             if getattr(args, dest)]
+    if given:
+        for flag, item in given:
+            print(f"chaos {flag} is not ported to the PyTorch package yet; "
+                  f"see {item}", file=sys.stderr)
+        raise SystemExit(2)
+    if args.secure and args.mp:
+        print("--secure is an in-process exactness gate; drop --mp",
+              file=sys.stderr)
+        raise SystemExit(2)
+    if args.agg and (args.secure or args.mp):
+        print("--agg is its own multi-process gate; drop --secure/--mp",
+              file=sys.stderr)
+        raise SystemExit(2)
+    if args.agg:
+        summary = procsoak.run_agg_soak(
+            rounds=args.rounds, n_workers=args.num_workers,
+            workdir=args.workdir, round_timeout=args.mp_round_timeout,
+            timeout_s=args.mp_timeout, kill=not args.no_faults,
+            log_fn=_chaos_log, backend=args.backend)
+        # With the kill armed the tree must have re-homed or
+        # quorum-dropped a slice, the postmortem must name the victim and
+        # its flight dump must exist; the ledgers must survive the kill.
+        return _chaos_gate(summary, (
+            summary["exit_code"] == 0
+            and summary["oracle_exit_code"] == 0
+            and summary["rounds_run"] == args.rounds
+            and summary["oracle_ok"]
+            and summary["health_ledger_ok"]
+            and (args.no_faults
+                 or (summary["agg_failovers"] >= 1
+                     and summary["postmortem_attributed"]
+                     and not summary["flight_missing"]))))
+    if args.mp:
+        kills = ([] if args.no_faults
+                 else procsoak.canned_kill_schedule(args.rounds,
+                                                    args.num_workers))
+        summary = procsoak.run_proc_soak(
+            rounds=args.rounds, n_workers=args.num_workers, kills=kills,
+            workdir=args.workdir, round_timeout=args.mp_round_timeout,
+            timeout_s=args.mp_timeout, log_fn=_chaos_log,
+            backend=args.backend)
+        for k in summary["kills"]:
+            print(f"# killed {k['target']} after round "
+                  f"{k['fired_after_round']}", file=sys.stderr, flush=True)
+        need_resume = any(k.target == "coordinator" for k in kills)
+        # Every SIGKILLed process must have left a parseable flight dump.
+        return _chaos_gate(summary, (
+            summary["exit_code"] == 0
+            and summary["rounds_run"] == args.rounds
+            and summary["weighted_acc"] is not None
+            and (summary["rounds_resumed"] >= 1 or not need_resume)
+            and not summary["flight_missing"]))
+    if args.secure:
+        if args.no_faults:
+            plan = faults.FaultPlan([], seed=0)
+        elif args.fault_plan:
+            plan = faults.FaultPlan.load(args.fault_plan,
+                                         seed=args.fault_seed or None)
+        else:
+            plan = soak.canned_secure_plan(
+                seed=args.fault_seed if args.fault_seed is not None else 11)
+        summary = soak.run_secure_soak(
+            rounds=args.rounds, n_workers=args.num_workers, plan=plan,
+            round_timeout=args.round_timeout, log_fn=_chaos_log,
+            backend=args.backend)
+        counters = summary["counters"]
+        # With faults scheduled, recovery must actually have run.
+        return _chaos_gate(summary, (
+            summary["rounds_run"] == args.rounds
+            and summary["oracle_ok"]
+            and not summary["skipped_rounds"]
+            and counters["privacy.share_recovery_failures_total"] == 0
+            and (not plan.faults
+                 or counters["privacy.masks_recovered_total"] >= 1)))
+    if args.no_faults:
+        plan = None
+    elif args.fault_plan:
+        plan = faults.FaultPlan.load(args.fault_plan,
+                                     seed=args.fault_seed or None)
+    else:
+        plan = faults.canned_plan(
+            seed=args.fault_seed if args.fault_seed is not None else 7)
+    config = faults.default_soak_config(args.num_workers,
+                                        backend=args.backend)
+    if args.compress_down and args.compress_down != "none":
+        config = dataclasses.replace(
+            config, fed=dataclasses.replace(
+                config.fed, compress_down=args.compress_down))
+    summary = faults.run_soak(
+        rounds=args.rounds, n_workers=args.num_workers, plan=plan,
+        round_timeout=args.round_timeout, config=config, log_fn=_chaos_log)
+    for t in summary.get("top_faults", [])[:5]:
+        print(f"# top fault {t['label']}: {t['count']}", file=sys.stderr)
+    return _chaos_gate(summary, (summary["rounds_run"] == args.rounds
+                                 and summary["weighted_acc"] is not None))
+
+
 def list_configs() -> None:
     """Print one line per experiment config, in the JAX CLI's format."""
     for name, cfg in sorted(CONFIGS.items()):
@@ -941,6 +1232,8 @@ def main(argv: Optional[list] = None,
         return trace_summary(args)
     if args.cmd == "health":
         return health(args)
+    if args.cmd == "postmortem":
+        return postmortem(args)
     if args.cmd == "train":
         refuse_edge_unsupported(args, config_from_args(args))
     refuse_unported(args)
@@ -951,7 +1244,7 @@ def main(argv: Optional[list] = None,
                   "aggregate": aggregate, "eval": evaluate,
                   "broker": broker, "worker": worker,
                   "aggregator": aggregator,
-                  "coordinate": coordinate}[args.cmd](args)
+                  "coordinate": coordinate, "chaos": chaos}[args.cmd](args)
     if result is not None and is_lead():
         print(json.dumps(result), flush=True)
     return result

@@ -18,7 +18,14 @@ requests, so processes of the two packages federate together).
 - ``per_type``:    one federation per MUD device type.
 - ``aggregation``: the update folders, with the device fold (B4).
 
-Not ported yet; each is refused naming its ROADMAP.md Queue A item:
+The chaos soaks (``faults/soak.py``, ``faults/procsoak.py``: ``chaos``,
+``--secure``, ``--mp``, ``--agg``) drive this plane under fault plans and
+real SIGKILLs, with the flight recorder (``telemetry/flight.py``) on every
+process.  Not ported yet, each refused naming its ROADMAP.md Queue A item:
+the sharded server (15); the lock witness and the asynchronous,
+tree-asynchronous and checkpoint chaos soaks (16 and 15); fleetsim (9b);
+the exporter, convergence and evaluation extras (10b); the analysis tools
+(17).
 """
 
 ITEM_SHARDED = "ROADMAP.md Queue A item 15 (the sharded server)"

@@ -558,7 +558,13 @@ def run_aggregator_forever(config: ExperimentConfig, agg_id: int,
     without one); returns the stopped server (its ``tracer`` holds the
     tier's spans)."""
     agg = AggregatorServer(config, agg_id, broker_host, broker_port,
-                           heartbeat_s=heartbeat_s, device=device).start()
+                           heartbeat_s=heartbeat_s, device=device)
+    recorder = telemetry.get_flight_recorder()
+    if recorder is not None:
+        # The recorder's dumps carry this tracer's span tail, so a
+        # SIGKILLed aggregator's last folds are attributable.
+        recorder.attach_tracer(agg.tracer)
+    agg.start()
     try:
         (stop or threading.Event()).wait()
     finally:

@@ -13,11 +13,13 @@ Public surface:
 - :mod:`.health` — durable per-device health ledger (straggler
   attribution, latency sketches, the ``health`` renderer);
 - :mod:`.arrival` — seeded-EWMA arrival-rate estimation (fleet +
-  per-device), a verbatim copy of JAX's for the asynchronous plane.
+  per-device), a verbatim copy of JAX's for the asynchronous plane;
+- :mod:`.flight` — the crash flight recorder (heartbeat-rewritten
+  ``flight_<pid>.json`` dumps in JAX's ``colearn-flight-v1`` format) and
+  the ``postmortem`` report that merges them with the round WAL.
 
 Not ported yet: JAX's ``runtime`` (exporter, event log, XLA cost
-analysis), ``convergence`` and ``flight`` — ROADMAP.md Queue A items 10b
-and 16.
+analysis) and ``convergence`` — ROADMAP.md Queue A item 10b.
 """
 
 from colearn_federated_learning_tpu_torch.telemetry.tracer import (  # noqa: F401
@@ -57,4 +59,12 @@ from colearn_federated_learning_tpu_torch.telemetry.health import (  # noqa: F40
 )
 from colearn_federated_learning_tpu_torch.telemetry.arrival import (  # noqa: F401
     ArrivalEstimator,
+)
+from colearn_federated_learning_tpu_torch.telemetry.flight import (  # noqa: F401
+    FlightRecorder,
+    get_flight_recorder,
+    install_flight_recorder,
+    load_flight_dumps,
+    postmortem_report,
+    render_postmortem,
 )

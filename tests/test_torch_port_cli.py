@@ -4,8 +4,9 @@ do, a run on the CPU gives the round of ``FederatedLearner`` called
 directly, a flag of a feature not ported yet exits non-zero naming its
 ROADMAP item, and the default backend is the card, which raises without
 one.  The parser accepts every flag of the JAX ``train``, ``init``,
-``aggregate``, ``eval``, ``bench``, ``broker``, ``worker`` and
-``coordinate`` parsers (the socket plane's flags are parsed into the
+``aggregate``, ``eval``, ``bench``, ``broker``, ``worker``,
+``aggregator``, ``coordinate``, ``chaos`` and ``postmortem`` parsers
+(the socket plane's flags are parsed into the
 config as JAX does; those of paths not ported yet exit 2 naming their
 ROADMAP item); the file plane's flags
 (``--role client``, ``--compress*``, ``--topk-fraction``,
@@ -358,7 +359,7 @@ def test_file_plane_commands_raise_without_a_card(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["broker", "worker", "aggregator",
-                                 "coordinate"])
+                                 "coordinate", "chaos", "postmortem"])
 def test_every_jax_flag_of_the_socket_plane_is_accepted(cmd):
     ours = set(cli.build_parser()._subparsers._group_actions[0]
                .choices[cmd]._option_string_actions)
@@ -372,9 +373,8 @@ def test_every_jax_flag_of_the_socket_plane_is_accepted(cmd):
     (["worker", "--broker-port", "1", "--client-id", "0", "--metrics-port",
       "9"], "item 10b"),
     (["broker", "--events-file", "e.jsonl"], "item 10b"),
-    (["aggregator", "--agg-id", "0", "--broker-port", "1", "--flight-dir",
-      "f"], "item 16"),
-    (["chaos", "--rounds", "2"], "item 16")])
+    (["chaos", "--rounds", "2", "--async"], "item 16"),
+    (["chaos", "--rounds", "2", "--ckpt"], "item 15")])
 def test_socket_plane_refusals_name_their_items(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
@@ -512,7 +512,7 @@ def test_configs_prints_the_jax_lines(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["fleetsim", "--devices", "64"], "item 9b"),
-    (["postmortem", "f"], "item 16"),
+    (["chaos", "--tree-async"], "item 16"),
     (["top"], "item 10b"),
     (["converge", "r.jsonl"], "item 10b"),
     (["lint"], "item 17"),
