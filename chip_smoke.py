@@ -143,8 +143,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    aggregators and round 1 with a failover, launches exact (K1-K3 12 x 4
    trainers x 4 steps x 2 rounds, ``fold_sparse`` once per contribution,
    ``fold_dense`` once per round on the root); 12b DH secure aggregation
-   through the tree, 4 trainers in 2 slices, trainer 3's train reply lost
-   after the share phase: 3 complete, each slice recovers on its own
+   through the tree (BERT-base at 6 of its 12 blocks), 4 trainers in 2
+   slices, trainer 3's train reply lost after the share phase: 3
+   complete, each slice recovers on its own
    (only slice 1 rebuilds a lost member's pair masks), the recovered sum
    within 1e-5 of the survivors' unmasked sum and the same sum with one
    survivor's delta lost or doubled failing that bound; 12c 2 x ``cli
@@ -185,11 +186,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
 14. the asynchronous coordinator (``comm/async_coordinator.py`` and the
    aggregators' buffered ops) on the card: 14a a broker, 4 trainer threads
    and the evaluator, and ``AsyncFederatedCoordinator(buffer_size=2,
-   observe=True)`` with a trace and a health ledger on config #4 (flash, 4
-   local steps, topk8 uplinks with error feedback, the device fold), 4
-   aggregations and an evaluation: JAX's record keys with the observe and
-   ``health_*`` keys, versions 1-4, 2 contributors each, staleness within
-   ``max_staleness``, a finite loss and moved params, aggregation 0's
+   observe=True)`` with a trace and a health ledger on config #4 (6 of
+   its 12 blocks, flash, 4 local steps, topk8 uplinks with error
+   feedback, the device fold), 4 aggregations and an evaluation: JAX's
+   record keys with the observe and ``health_*`` keys, versions 1-4, 2
+   contributors each, staleness within ``max_staleness``, a finite loss and moved params, aggregation 0's
    staged contributions folded again on the host bitwise equal to the
    device fold, every ``fold_update`` span parented on its
    ``dispatch_train``, and exact launches (``fold_sparse`` once per folded
@@ -277,7 +278,18 @@ Phases (any failure exits non-zero; no phase's error is caught):
    processes, and every child but the broker on the card (``--backend
    gpu`` and a ``cuda`` device event in its dump); 17b ``postmortem
    --format json`` over them names the killed coordinator's pid and role,
-   and its committed rounds are the WAL's.
+   and its committed rounds are the WAL's; 17c ``chaos --tree-async
+   --lock-witness --rounds 6 --num-workers 3`` through ``cli.main`` (two
+   fleets of a broker, 3 workers, 2 aggregators and the asynchronous
+   coordinator at K = 2, every process under the lock witness; in the
+   faulted one aggregator 0 SIGKILLed after aggregation 2 and left dead,
+   the broker after aggregation 4 and respawned on its port): the
+   command's gate passes, the failover fired with no double fold and
+   every re-homed device in the ledger, the killed aggregator's dump
+   names it, the witness reports saw lock traffic with no inversion and
+   no unguarded access, and every child but the brokers on the card;
+   the witness's counts, the failovers, the loss tails, the time to
+   recover from each kill and the seconds are printed.
 
 Each phase prints its wall seconds on a line of its own; then one line
 gives the script's seconds, every phase's and the bench's (9c) rounds per
@@ -2021,16 +2033,20 @@ def _same_fold(a, b):
         zip(trees.leaves(a.wsum), trees.leaves(b.wsum)))
 
 
-def socket_config(**fed):
+def socket_config(depth=None, **fed):
     """Config #4 as the main path runs it (flash, 4 local steps), with the
-    socket plane's options."""
+    socket plane's options; ``depth`` cuts BERT-base's 12 blocks (the
+    width, 768, stays)."""
     base = main_path_config()
     run = {k: fed.pop(k) for k in list(fed)
            if k in ("fold_device", "comm_retries", "num_aggregators",
                     "agg_heartbeat_timeout", "agg_buffer_interval_s",
                     "trace_dir", "health_dir", "checkpoint_dir",
                     "ckpt_stream")}
-    return base.replace(fed=dataclasses.replace(base.fed, **fed),
+    model = (base.model if depth is None
+             else dataclasses.replace(base.model, depth=depth))
+    return base.replace(model=model,
+                        fed=dataclasses.replace(base.fed, **fed),
                         run=dataclasses.replace(base.run, **run))
 
 
@@ -2463,6 +2479,9 @@ def socket_phase(A, F, _build):
 # ------------------------------------------------------------ phase 12
 TREE_CUTS = ("local_steps 150 -> 4; 4 enrolled trainers (clients 0-3 of "
              "the 50-client partition), no evaluator; 2 aggregators")
+# 12b, 14a and 14b run BERT-base at half its depth, to make room for 17c
+# in the script's budget; the width and every check stay.
+CUT_DEPTH = 6
 MUD_FLEET = ((0, "camera"), (1, "camera"), (2, "bulb"), (3, "bulb"),
              (4, "thermostat"))
 
@@ -2633,7 +2652,8 @@ def tree_secure_path(A, F, dataset):
     from colearn_federated_learning_tpu_torch import faults
     from colearn_federated_learning_tpu_torch.utils import trees
 
-    cfg = socket_config(secure_agg=True, comm_retries=0, num_aggregators=2)
+    cfg = socket_config(depth=CUT_DEPTH, secure_agg=True, comm_retries=0,
+                        num_aggregators=2)
     t0 = time.perf_counter()
     rec_patch, aggs = _Recorder(masks=True), []
     broker, workers, coord = _federation(cfg, 4, False, dataset)
@@ -2669,10 +2689,10 @@ def tree_secure_path(A, F, dataset):
             "flash_backward_dq": depth * 4 * steps,
             "flash_backward_dkv": depth * 4 * steps,
             "fold_sparse": 0, "fold_dense": 0}
-    log(f"  [12b] secure DH tree round, 4 trainers in 2 slices, trainer 3's "
-        f"reply lost: completed {rec['completed']}, dropped "
-        f"{rec['dropped']}, unmask_failed {rec['unmask_failed']}, survivors "
-        f"{survivors}; recoveries (slice ids, folded, missing) "
+    log(f"  [12b] secure DH tree round (depth {depth}), 4 trainers in 2 "
+        f"slices, trainer 3's reply lost: completed {rec['completed']}, "
+        f"dropped {rec['dropped']}, unmask_failed {rec['unmask_failed']}, "
+        f"survivors {survivors}; recoveries (slice ids, folded, missing) "
         f"{recoveries}; round {rec['round_time_s']:.3f} s; launches "
         f"{launches}; path {time.perf_counter() - t0:.2f} s")
     if not (rec["completed"] == 3 and rec["dropped"] == ["3"]
@@ -3113,8 +3133,8 @@ def telemetry_phase(A, F, _build):
 
 
 # ------------------------------------------------------------ phase 14
-ASYNC_CUTS = ("local_steps 150 -> 4; 4 enrolled trainers (clients 0-3 of "
-              "the 50-client partition)")
+ASYNC_CUTS = ("local_steps 150 -> 4; depth 12 -> 6; 4 enrolled trainers "
+              "(clients 0-3 of the 50-client partition)")
 ASYNC_K = 2                # 14a's buffer: K = 2 of 4 trainers
 ASYNC_AGGS = 4             # 14a's aggregations (0 warms up; cut from 6)
 TREE_ASYNC_AGGS = 4        # 14b's; aggregator 0 stops after aggregation 1
@@ -3148,8 +3168,8 @@ def flat_async_path(A, F, dataset, workdir):
     from colearn_federated_learning_tpu_torch.comm.downlink import host_params
     from colearn_federated_learning_tpu_torch.utils import trees
 
-    cfg = socket_config(compress="topk8", compress_feedback=True,
-                        fold_device=True,
+    cfg = socket_config(depth=CUT_DEPTH, compress="topk8",
+                        compress_feedback=True, fold_device=True,
                         trace_dir=os.path.join(workdir, "14a_trace"),
                         health_dir=os.path.join(workdir, "14a_health"),
                         checkpoint_dir=ckpt_dir("16c_async"),
@@ -3295,9 +3315,9 @@ def tree_async_path(A, F, dataset):
     evaluator; 4 aggregations.  After aggregation 1, aggregator 0 stops as
     the next contribution reaches it; the next aggregation starts once
     that contribution has failed over to aggregator 1."""
-    cfg = socket_config(compress="topk8", compress_feedback=True,
-                        fold_device=True, num_aggregators=2,
-                        agg_buffer_interval_s=2.0,
+    cfg = socket_config(depth=CUT_DEPTH, compress="topk8",
+                        compress_feedback=True, fold_device=True,
+                        num_aggregators=2, agg_buffer_interval_s=2.0,
                         agg_heartbeat_timeout=2.0)
     t0 = time.perf_counter()
     rec_patch, aggs = _Recorder(), []
@@ -4474,15 +4494,7 @@ def chaos_mp_path() -> dict:
     gaps = [round(b[0] - a[0], 3) for a, b in zip(arrivals, arrivals[1:])]
     dumps = [x for x in telemetry.load_flight_dumps(os.path.join(d, "flight"))
              if "error" not in x]
-    off_card = []
-    for x in dumps:
-        argv = x.get("argv", [])
-        on_card = any(e.get("kind") == "device" and e.get("device") == "cuda"
-                      for e in x.get("events", []))
-        backend = (argv[argv.index("--backend") + 1]
-                   if "--backend" in argv else None)
-        if x.get("role") != "broker" and not (on_card and backend == "gpu"):
-            off_card.append((x.get("pid"), x.get("role"), backend))
+    off_card = _off_card(dumps)
     log(f"  [17a] chaos --mp --rounds {CHAOS_ROUNDS} --num-workers 3: kills "
         f"(target, after round, pid) {kills}; coordinator incarnations "
         f"{summary['coordinator_incarnations']}; rounds_resumed "
@@ -4542,9 +4554,119 @@ def postmortem_path(kills) -> None:
         raise AssertionError(f"17b: report {report}, WAL {wal}")
 
 
+def _off_card(dumps) -> list:
+    """(pid, role, backend) of every child but the broker (which holds no
+    tensor) whose dump lacks ``--backend gpu`` or a ``cuda`` device event."""
+    off = []
+    for x in dumps:
+        argv = x.get("argv", [])
+        on_card = any(e.get("kind") == "device" and e.get("device") == "cuda"
+                      for e in x.get("events", []))
+        backend = (argv[argv.index("--backend") + 1]
+                   if "--backend" in argv else None)
+        if x.get("role") != "broker" and not (on_card and backend == "gpu"):
+            off.append((x.get("pid"), x.get("role"), backend))
+    return off
+
+
+def chaos_tree_async_path() -> dict:
+    """17c: ``chaos --tree-async --lock-witness --rounds 6 --num-workers 3``
+    through ``cli.main`` on the card: two fleets of the port's command line
+    (a broker, 3 workers, 2 aggregators and the asynchronous coordinator
+    at K = 2 through the aggregators' slice buffers, config #1's MLP with
+    the soak's DP on ``mnist_tiny``), every process under the lock
+    witness.  In the faulted fleet aggregator 0 is SIGKILLed after
+    aggregation 2 and left dead, the broker after aggregation 4 and
+    respawned on its port; the oracle fleet runs with no kill.  The
+    command's own gate passes (it exits 1 otherwise): the failover fired,
+    no contribution folded twice, every re-homed device in the ledger, the
+    postmortem names the dead aggregator and its dump is on disk, the loss
+    tails agree, and the witness reports saw lock traffic with no
+    inversion and no unguarded access.  Then: the kills with their pids,
+    the killed aggregator's dump names its role, and every child but the
+    brokers ran on the card."""
+    from colearn_federated_learning_tpu_torch import cli, telemetry
+
+    d = CKPT["chaos_tree"]
+    arrivals = []                  # (host seconds, aggregation) per record
+    log_rec = cli._chaos_log
+
+    def timed(rec):
+        arrivals.append((time.perf_counter(), rec["aggregation"]))
+        log_rec(rec)
+
+    t0 = time.perf_counter()
+    cli._chaos_log = timed
+    try:
+        summary = cli.main(["chaos", "--tree-async", "--lock-witness",
+                            "--rounds", str(CHAOS_ROUNDS), "--num-workers",
+                            "3", "--workdir", d])
+    finally:
+        cli._chaos_log = log_rec
+    took = time.perf_counter() - t0
+    # The faulted fleet streams first; the oracle's records start again
+    # at aggregation 0.
+    split = next((i for i in range(1, len(arrivals))
+                  if arrivals[i][1] < arrivals[i - 1][1]), len(arrivals))
+    faulted = arrivals[:split]
+    kills = [(k["target"], k["fired_after_round"], k.get("pid"))
+             for k in summary["kills"]]
+    # Time to recover: from the kill (as its aggregation's record is read)
+    # to the next aggregation's record.
+    recover = {}
+    for target, after, _ in kills:
+        t_kill = next(t for t, a in faulted if a == after)
+        recover[target] = round(next(t for t, a in faulted
+                                     if t > t_kill and a > after) - t_kill, 3)
+    dumps = {fleet: [x for x in telemetry.load_flight_dumps(
+                         os.path.join(d, fleet, "flight"))
+                     if "error" not in x]
+             for fleet in ("faulted", "oracle")}
+    off_card = _off_card(dumps["faulted"] + dumps["oracle"])
+    agg_pid = next(k[2] for k in kills if k[0] == "aggregator:0")
+    victim = [x.get("role") for x in dumps["faulted"]
+              if x.get("pid") == agg_pid]
+    lw = summary["lock_witness"]
+    witness = {k: lw[k] for k in ("reports", "acquires", "guarded_ops",
+                                  "inversions", "unguarded")}
+    log(f"  [17c] chaos --tree-async --lock-witness --rounds {CHAOS_ROUNDS} "
+        f"--num-workers 3: kills (target, after aggregation, pid) {kills}; "
+        f"witness {witness}; failover_fired {summary['failover_fired']}, "
+        f"agg_failovers {summary['agg_failovers']}, double_folds "
+        f"{summary['double_folds']} of {summary['folded_keys_total']} keys, "
+        f"re-homed devices {summary['rehomed_devices']} (attributed "
+        f"{summary['rehomed_attributed']}); aggregations "
+        f"{summary['aggregations_run']} faulted, "
+        f"{summary['oracle_aggregations_run']} oracle; tail loss "
+        f"{summary['final_loss']} vs {summary['oracle_final_loss']}, gap "
+        f"{summary['loss_gap']}; flight dumps {len(dumps['faulted'])} + "
+        f"{len(dumps['oracle'])} (the killed aggregator's: {victim}), "
+        f"missing {summary['flight_missing']}; children off the card "
+        f"{off_card}; time to recover (s from the kill to the next "
+        f"aggregation's record) {recover}; {took:.2f} s; {card()}")
+    if not (kills and [k[0] for k in kills] == ["aggregator:0", "broker"]
+            and [k[1] for k in kills] == [2, 4]
+            and all(k[2] for k in kills)
+            and summary["failover_fired"] and summary["double_folds"] == 0
+            and summary["rehomed_attributed"]
+            and summary["postmortem_attributed"]
+            and not summary["flight_missing"]
+            and victim == ["aggregator0"]
+            and lw["reports"] >= 1 and lw["acquires"] >= 1
+            and lw["inversions"] == 0 and lw["unguarded"] == 0
+            and summary["aggregations_run"] == CHAOS_ROUNDS
+            and len(recover) == 2 and not off_card):
+        brief = {k: v for k, v in summary.items() if k != "records"}
+        raise AssertionError(f"17c: kills {kills}, summary {brief}, off "
+                             f"the card {off_card}, victim {victim}")
+    return {"kills": kills, "seconds": took, "recover_s": recover,
+            "witness": witness}
+
+
 def chaos_phase() -> dict:
     """Phase 17: the chaos soaks on the card (17a ``chaos --mp``, 17b
-    ``postmortem``); the in-process, secure and tree soaks run in the CPU
+    ``postmortem``, 17c ``chaos --tree-async --lock-witness``); the
+    in-process, secure, ``--agg`` and ``--async`` soaks run in the CPU
     tests."""
     t0 = time.perf_counter()
     mp = chaos_mp_path()
@@ -4552,7 +4674,10 @@ def chaos_phase() -> dict:
     t0 = time.perf_counter()
     postmortem_path(mp["kills"])
     log(f"  17b in {time.perf_counter() - t0:.2f} s")
-    return mp
+    t0 = time.perf_counter()
+    tree = chaos_tree_async_path()
+    log(f"  17c in {time.perf_counter() - t0:.2f} s")
+    return {"mp": mp, "tree_async": tree}
 
 
 def cache_synthetic_data():
@@ -4623,6 +4748,7 @@ def main() -> int:
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     CKPT["root"] = tempfile.mkdtemp(dir=_build.BUILD_DIR, prefix="ckpt-")
     CKPT["chaos"] = ckpt_dir("chaos")
+    CKPT["chaos_tree"] = ckpt_dir("chaos_tree")
     try:
         return run_phases()
     finally:
@@ -4721,8 +4847,8 @@ def run_phases() -> int:
     paths.update(phase(16, "checkpoints and resume (the engine, a "
                            "SIGKILLed coordinator, streaming restores)",
                        resume_phase, A, F))
-    phase(17, "the chaos soaks (chaos --mp with SIGKILLs, postmortem)",
-          chaos_phase)
+    phase(17, "the chaos soaks (chaos --mp with SIGKILLs, postmortem, "
+              "chaos --tree-async under the lock witness)", chaos_phase)
     log("launches per path " + json.dumps(paths))
     total = time.perf_counter() - t_start
     log(f"script {total:.2f} s; phase seconds {json.dumps(PHASE_S)}; 9c "

@@ -43,9 +43,10 @@ enrollment ``challenge_verified``.  The flight recorder
 at once on SIGTERM, an uncaught exception or a watchdog stall), which
 ``postmortem`` merges with the round WAL.  ``chaos`` runs the chaos soaks
 (``faults/soak.py``, ``faults/procsoak.py``): in this process under a
-fault plan, ``--secure`` against a plain oracle, and ``--mp`` and
-``--agg`` as processes under real SIGKILLs, with JAX's gates and exit
-codes.
+fault plan, ``--secure`` against a plain oracle, and ``--mp``, ``--agg``,
+``--async`` and ``--tree-async`` as processes under real SIGKILLs (the
+last two with ``--lock-witness``, the lock witness in every process),
+with JAX's gates and exit codes.
 Everything runs on the card (``--backend gpu``, the default, which raises
 without one) or, only when asked, on the CPU.  ``train`` writes each
 round's record to stderr as one JSON line and its summary to stdout, as in
@@ -64,9 +65,9 @@ A flag of the JAX command line whose feature is not ported yet is
 accepted by the parser and refused: the run exits with status 2 and names
 the ROADMAP item that ports it, and never runs without it; so is each
 JAX subcommand not ported yet (``fleetsim``, ``lint``, ``top``,
-``sentinel``, ``converge``), and ``chaos --async``, ``--tree-async``,
-``--lock-witness`` and ``--ckpt``.  ``configs``, ``trace-summary``,
-``health`` and ``postmortem`` print JAX's text, not a JSON result.
+``sentinel``, ``converge``), and ``chaos --ckpt``.  ``configs``,
+``trace-summary``, ``health`` and ``postmortem`` print JAX's text, not a
+JSON result.
 """
 
 from __future__ import annotations
@@ -128,9 +129,6 @@ _OBSERVABILITY = {
 }
 # chaos flags -> the ROADMAP item that ports their soak.
 _UNPORTED_CHAOS = {
-    "chaos_async": ("--async", comm.ITEM_CHAOS),
-    "chaos_tree_async": ("--tree-async", comm.ITEM_CHAOS),
-    "lock_witness": ("--lock-witness", comm.ITEM_CHAOS),
     "ckpt": ("--ckpt", comm.ITEM_SHARDED),
 }
 _UNPORTED_COMMANDS = {
@@ -490,7 +488,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("chaos",
                        help="run a chaos soak: a tiny federation under an "
                             "injected fault plan (in this process) or real "
-                            "SIGKILLs (--mp, --agg), reporting recovery")
+                            "SIGKILLs (--mp, --agg, --async, --tree-async), "
+                            "reporting recovery")
     p.add_argument("--backend", choices=["gpu", "cpu"], default="gpu",
                    help="the card (default; raises without one) or the "
                         "CPU, for the soak and every process it starts")
@@ -521,22 +520,35 @@ def build_parser() -> argparse.ArgumentParser:
                         "federation with one aggregator SIGKILLed "
                         "mid-round, final params against a flat oracle")
     p.add_argument("--async", dest="chaos_async", action="store_true",
-                   help="not ported yet (refused)")
+                   help="asynchronous-plane gate: the asynchronous "
+                        "coordinator SIGKILLed mid-aggregation and resumed "
+                        "with --resume, against a kill-free baseline "
+                        "(version monotonicity, the accountant's replay, "
+                        "the loss tail)")
     p.add_argument("--tree-async", dest="chaos_tree_async",
-                   action="store_true", help="not ported yet (refused)")
+                   action="store_true",
+                   help="the asynchronous plane through 2 aggregators: "
+                        "aggregator 0 SIGKILLed mid-aggregation and left "
+                        "dead, the broker killed and rebound, against a "
+                        "kill-free tree oracle (no double fold, the "
+                        "re-home attributed, the loss tail)")
     p.add_argument("--ckpt", action="store_true",
                    help="not ported yet (refused)")
     p.add_argument("--lock-witness", action="store_true",
-                   help="not ported yet (refused)")
+                   help="(--async/--tree-async) run every process of the "
+                        "fleets under the lock witness (faults/lockwitness) "
+                        "and gate on no ordering inversion and no "
+                        "unguarded access")
     p.add_argument("--workdir", default=None,
-                   help="--mp/--agg scratch dir for checkpoints, flight "
-                        "dumps and process logs (default: a fresh temp "
-                        "dir)")
+                   help="--mp/--agg/--async/--tree-async scratch dir for "
+                        "checkpoints, flight dumps and process logs "
+                        "(default: a fresh temp dir)")
     p.add_argument("--mp-round-timeout", type=float, default=120.0,
-                   help="--mp/--agg per-round deadline")
+                   help="--mp/--agg/--async/--tree-async per-round (or "
+                        "per-request) deadline")
     p.add_argument("--mp-timeout", type=float, default=600.0,
-                   help="--mp/--agg whole-soak wall-clock backstop; a hung "
-                        "federation is killed and reported")
+                   help="whole-soak wall-clock backstop of the process "
+                        "soaks; a hung federation is killed and reported")
 
     # Subcommands not ported yet: refused before their flags are parsed.
     for name in _UNPORTED_COMMANDS:
@@ -1091,6 +1103,53 @@ def _chaos_gate(summary: dict, ok: bool) -> dict:
     return summary
 
 
+def _lock_witness_ok(summary: dict, args: argparse.Namespace) -> bool:
+    """The lock witness's gate of ``--async`` and ``--tree-async`` (JAX's):
+    with ``--lock-witness`` the fleets wrote reports that saw lock traffic
+    and no ordering inversion or unguarded access."""
+    if not args.lock_witness:
+        return True
+    lw = summary.get("lock_witness") or {}
+    ok = (bool(lw.get("enabled"))
+          and int(lw.get("reports", 0)) >= 1
+          and int(lw.get("acquires", 0)) >= 1
+          and int(lw.get("inversions", 0)) == 0
+          and int(lw.get("unguarded", 0)) == 0)
+    if not ok:
+        brief = {k: lw.get(k) for k in ("enabled", "reports", "acquires",
+                                        "inversions", "unguarded")}
+        print(f"# lock-witness gate failed: {json.dumps(brief)}",
+              file=sys.stderr)
+        for rec in (lw.get("inversion_records", [])
+                    + lw.get("unguarded_records", [])):
+            print(f"#   {json.dumps(rec)}", file=sys.stderr)
+    return ok
+
+
+def _chaos_conflict(args: argparse.Namespace) -> Optional[str]:
+    """JAX's refusal of a combination of chaos modes, or None."""
+    if args.secure and args.mp:
+        return "--secure is an in-process exactness gate; drop --mp"
+    if args.agg and (args.secure or args.mp):
+        return "--agg is its own multi-process gate; drop --secure/--mp"
+    if args.chaos_async and (args.secure or args.mp or args.agg):
+        return ("--async is its own multi-process gate; "
+                "drop --secure/--mp/--agg")
+    if args.chaos_tree_async and (args.secure or args.mp or args.agg
+                                  or args.chaos_async):
+        return ("--tree-async is its own multi-process gate; "
+                "drop --secure/--mp/--agg/--async")
+    if args.ckpt and (args.secure or args.mp or args.agg
+                      or args.chaos_async or args.chaos_tree_async):
+        return ("--ckpt is its own multi-process gate; "
+                "drop --secure/--mp/--agg/--async/--tree-async")
+    if args.lock_witness and not (args.chaos_async
+                                  or args.chaos_tree_async):
+        return ("--lock-witness instruments the buffered-async fleets; "
+                "pair it with --async or --tree-async")
+    return None
+
+
 def chaos(args: argparse.Namespace) -> dict:
     """``chaos`` (JAX's ``cmd_chaos``, with its gates and exit codes).
     Default: broker, workers and coordinator in this process with a fault
@@ -1100,11 +1159,19 @@ def chaos(args: argparse.Namespace) -> dict:
     as subprocesses, SIGKILLed on the canned schedule, the coordinator
     resumed with ``--resume`` (``faults/procsoak.py``).  ``--agg``: the
     aggregator tree with one aggregator SIGKILLed, against a flat oracle.
-    ``--async``, ``--tree-async`` and ``--lock-witness`` (item 16) and
-    ``--ckpt`` (item 15) are refused."""
+    ``--async``: the asynchronous coordinator SIGKILLed and resumed,
+    against a kill-free baseline; ``--tree-async``: the asynchronous plane
+    through 2 aggregators, one SIGKILLed and the broker rebound, against a
+    kill-free tree oracle; ``--lock-witness`` runs those two fleets under
+    the lock witness and gates on its reports.  JAX's conflicts between
+    the modes exit 2 first; ``--ckpt`` (item 15) is refused."""
     from colearn_federated_learning_tpu_torch import faults
     from colearn_federated_learning_tpu_torch.faults import procsoak, soak
 
+    conflict = _chaos_conflict(args)
+    if conflict:
+        print(conflict, file=sys.stderr)
+        raise SystemExit(2)
     given = [(flag, item) for dest, (flag, item) in _UNPORTED_CHAOS.items()
              if getattr(args, dest)]
     if given:
@@ -1112,14 +1179,58 @@ def chaos(args: argparse.Namespace) -> dict:
             print(f"chaos {flag} is not ported to the PyTorch package yet; "
                   f"see {item}", file=sys.stderr)
         raise SystemExit(2)
-    if args.secure and args.mp:
-        print("--secure is an in-process exactness gate; drop --mp",
-              file=sys.stderr)
-        raise SystemExit(2)
-    if args.agg and (args.secure or args.mp):
-        print("--agg is its own multi-process gate; drop --secure/--mp",
-              file=sys.stderr)
-        raise SystemExit(2)
+    if args.chaos_tree_async:
+        summary = procsoak.run_tree_async_soak(
+            aggregations=args.rounds, n_workers=args.num_workers,
+            workdir=args.workdir, round_timeout=args.mp_round_timeout,
+            timeout_s=args.mp_timeout, kill=not args.no_faults,
+            log_fn=_chaos_log, lock_witness=args.lock_witness,
+            backend=args.backend)
+        # A contribution folds once, the tail tracks the kill-free tree
+        # oracle and the ledgers survive; with the kills armed the
+        # failover fired, every re-homed device is in the ledger, and the
+        # dead aggregator is named by the postmortem with its dump on disk.
+        return _chaos_gate(summary, (
+            _lock_witness_ok(summary, args)
+            and summary["exit_code"] == 0
+            and summary["oracle_exit_code"] == 0
+            and summary["aggregations_run"] >= args.rounds
+            and summary["oracle_aggregations_run"] >= args.rounds
+            and summary["version_monotonic"]
+            and summary["double_folds"] == 0
+            and summary["loss_gap_ok"]
+            and summary["health_ledger_ok"]
+            and (args.no_faults
+                 or (summary["failover_fired"]
+                     and summary["rehomed_attributed"]
+                     and summary["postmortem_attributed"]
+                     and not summary["flight_missing"]))))
+    if args.chaos_async:
+        summary = procsoak.run_async_soak(
+            aggregations=args.rounds, n_workers=args.num_workers,
+            workdir=args.workdir, round_timeout=args.mp_round_timeout,
+            timeout_s=args.mp_timeout, kill=not args.no_faults,
+            log_fn=_chaos_log, lock_witness=args.lock_witness,
+            backend=args.backend)
+        # The version increases per incarnation, the accountant replays to
+        # the recorded epsilon and the tail tracks the baseline; with the
+        # kill armed a resume ran, the postmortem names the victim, its
+        # dump is on disk and the injected pump faults are in the ledger.
+        return _chaos_gate(summary, (
+            _lock_witness_ok(summary, args)
+            and summary["exit_code"] == 0
+            and summary["baseline_exit_code"] == 0
+            and summary["aggregations_run"] >= args.rounds
+            and summary["baseline_aggregations_run"] >= args.rounds
+            and summary["version_monotonic"]
+            and summary["dp_replay_ok"]
+            and summary["loss_gap_ok"]
+            and summary["health_ledger_ok"]
+            and (args.no_faults
+                 or (summary["resumed"] >= 1
+                     and summary["postmortem_attributed"]
+                     and summary["faults_attributed"]
+                     and not summary["flight_missing"]))))
     if args.agg:
         summary = procsoak.run_agg_soak(
             rounds=args.rounds, n_workers=args.num_workers,

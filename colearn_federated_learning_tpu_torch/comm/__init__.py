@@ -19,17 +19,17 @@ requests, so processes of the two packages federate together).
 - ``aggregation``: the update folders, with the device fold (B4).
 
 The chaos soaks (``faults/soak.py``, ``faults/procsoak.py``: ``chaos``,
-``--secure``, ``--mp``, ``--agg``) drive this plane under fault plans and
-real SIGKILLs, with the flight recorder (``telemetry/flight.py``) on every
-process.  Not ported yet, each refused naming its ROADMAP.md Queue A item:
-the sharded server (15); the lock witness and the asynchronous,
-tree-asynchronous and checkpoint chaos soaks (16 and 15); fleetsim (9b);
-the exporter, convergence and evaluation extras (10b); the analysis tools
-(17).
+``--secure``, ``--mp``, ``--agg``, ``--async``, ``--tree-async``) drive
+this plane under fault plans and real SIGKILLs, with the flight recorder
+(``telemetry/flight.py``) on every process; the broker's, the
+aggregators' and both coordinators' locks are ``faults/lockwitness.py``'s,
+which ``--lock-witness`` turns on.  Not ported yet, each refused naming
+its ROADMAP.md Queue A item: the sharded server and the checkpoint chaos
+soak (15); fleetsim (9b); the exporter, convergence and evaluation extras
+(10b); the analysis tools (17).
 """
 
 ITEM_SHARDED = "ROADMAP.md Queue A item 15 (the sharded server)"
-ITEM_CHAOS = "ROADMAP.md Queue A item 16 (the chaos soaks)"
 ITEM_FLEETSIM = "ROADMAP.md Queue A item 9b (fleetsim)"
 ITEM_OBS_REST = ("ROADMAP.md Queue A item 10b (the exporter, convergence "
                  "and evaluation extras)")

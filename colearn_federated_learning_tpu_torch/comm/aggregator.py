@@ -73,6 +73,7 @@ from colearn_federated_learning_tpu_torch.comm.aggregation import (
 from colearn_federated_learning_tpu_torch.comm.broker import BrokerClient
 from colearn_federated_learning_tpu_torch.comm.transport import (
     RetryPolicy, TensorClient, TensorServer)
+from colearn_federated_learning_tpu_torch.faults import lockwitness
 from colearn_federated_learning_tpu_torch.utils.config import (
     ExperimentConfig)
 from colearn_federated_learning_tpu_torch.utils.device import resolve_device
@@ -170,7 +171,7 @@ class AggregatorServer:
         # The buffered half: one slice buffer the root fills by ``abuf``
         # and drains by ``adrain``, sized by this slice's arrival rate.
         self.arrival = telemetry.ArrivalEstimator()
-        self._abuf_cv = threading.Condition()
+        self._abuf_cv = lockwitness.condition(f"agg{agg_id}.abuf_cv")
         self._abuf_folder: Optional[StreamingFolder] = None
         self._abuf_shapes = None
         self._abuf_entries: dict[str, dict] = {}   # dedup key -> its entry
@@ -316,7 +317,7 @@ class AggregatorServer:
         return ({"meta": {"agg_id": self.agg_id, "staged": staged,
                           "dedup": dup}}, None)
 
-    def _auto_k(self, interval_s: float, slice_devices: int) -> int:
+    def _auto_k(self, interval_s: float, slice_devices: int) -> int:  # colearn: holds(_abuf_cv)
         """The slice's K: one partial per ``interval_s`` at its observed
         arrival rate, clamped to the slice size (2^10 when unknown) and
         slew-limited to [K/2, 3K/2] per drain.  Caller holds

@@ -96,6 +96,7 @@ from colearn_federated_learning_tpu_torch.comm.coordinator import (
 from colearn_federated_learning_tpu_torch.comm.downlink import host_params
 from colearn_federated_learning_tpu_torch.comm.enrollment import DeviceInfo
 from colearn_federated_learning_tpu_torch.comm.transport import TensorClient
+from colearn_federated_learning_tpu_torch.faults import lockwitness
 from colearn_federated_learning_tpu_torch.fed import setup as setup_lib
 from colearn_federated_learning_tpu_torch.utils import trees
 from colearn_federated_learning_tpu_torch.utils.config import (
@@ -212,15 +213,15 @@ class AsyncFederatedCoordinator(CoordinatorCore):
         self._results: queue.Queue = queue.Queue()
         # (version, encoded frame): one encode per version.
         self._snap_cache: Optional[tuple] = None
-        self._state_lock = threading.Lock()
-        self._version_cv = threading.Condition()
+        self._state_lock = lockwitness.lock("coord.state_lock")
+        self._version_cv = lockwitness.condition("coord.version_cv")
         self._cv_poll_s = 0.1
         self.version = 0                       # server model version t
         self._stop = threading.Event()
         self._closed = False
         self._threads: list[threading.Thread] = []
         self.failures: dict[str, int] = {}
-        self._health_lock = threading.Lock()
+        self._health_lock = lockwitness.lock("coord.health_lock")
         self.prune_after = int(prune_after)
         self.prune_score = float(prune_score)
         self.probation = int(probation)
@@ -239,8 +240,11 @@ class AsyncFederatedCoordinator(CoordinatorCore):
         self._dead_addrs: set = set()
         self._dead_aggs: set = set()
         self._assign: dict[str, int] = {}      # device -> agg_id
-        self._inflight_lock = threading.Lock()
-        self._inflight: dict[str, tuple] = {}  # dedup key -> contribution
+        self._inflight_lock = lockwitness.lock("coord.inflight_lock")
+        # dedup key -> contribution
+        self._inflight: dict[str, tuple] = lockwitness.guarded(
+            {}, "coord._inflight",
+            self._inflight_lock)  # colearn: guarded-by(_inflight_lock)
         self._partials: queue.Queue = queue.Queue()
         self._drainers: list[threading.Thread] = []
         self._failovers_pending = 0
@@ -509,7 +513,7 @@ class AsyncFederatedCoordinator(CoordinatorCore):
         with self._agg_lock:
             return sorted(a for a in self._aggs if a not in self._dead_aggs)
 
-    def _recompute_assignment(self) -> None:
+    def _recompute_assignment(self) -> None:  # colearn: holds(_agg_lock)
         """Device -> aggregator over the live aggregators, ranked by the
         health ledger's scores when there is one.  Caller holds
         ``_agg_lock``."""

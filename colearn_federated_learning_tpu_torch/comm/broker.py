@@ -18,6 +18,7 @@ import threading
 from typing import Optional
 
 from colearn_federated_learning_tpu_torch.comm import protocol
+from colearn_federated_learning_tpu_torch.faults import lockwitness
 
 
 def _match(pattern: str, topic: str) -> bool:
@@ -36,8 +37,9 @@ class MessageBroker:
         self._srv.bind((host, port))
         self._srv.listen(64)
         self.host, self.port = self._srv.getsockname()
-        self._lock = threading.Lock()
-        self._subs: dict[socket.socket, list[str]] = {}
+        self._lock = lockwitness.lock("broker.lock")
+        self._subs: dict[socket.socket, list[str]] = lockwitness.guarded(
+            {}, "broker._subs", self._lock)  # colearn: guarded-by(_lock)
         # Per-socket write locks: publishers fan out concurrently and
         # frames must never interleave on a subscriber's stream.
         self._wlocks: dict[socket.socket, threading.Lock] = {}

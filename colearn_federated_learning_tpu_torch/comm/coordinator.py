@@ -75,7 +75,6 @@ import concurrent.futures as cf
 import hashlib
 import math
 import os
-import threading
 import time
 from typing import Optional
 
@@ -95,6 +94,7 @@ from colearn_federated_learning_tpu_torch.comm.enrollment import (
     DeviceInfo, EnrollmentManager)
 from colearn_federated_learning_tpu_torch.comm.transport import (
     RetryPolicy, TensorClient)
+from colearn_federated_learning_tpu_torch.faults import lockwitness
 from colearn_federated_learning_tpu_torch.fed import compression, evaluation
 from colearn_federated_learning_tpu_torch.fed import lora as lora_lib
 from colearn_federated_learning_tpu_torch.fed import programs, strategies
@@ -186,10 +186,11 @@ class CoordinatorCore:
         # The aggregator tier (comm/aggregator.py), found from its retained
         # announcements: agg_id -> host/port/ts.
         self.num_aggregators = int(config.run.num_aggregators)
-        self._agg_lock = threading.Lock()
-        self._aggs: dict[int, dict] = {}
+        self._agg_lock = lockwitness.lock("coord.agg_lock")
+        self._aggs: dict[int, dict] = lockwitness.guarded(
+            {}, "coord._aggs", self._agg_lock)  # colearn: guarded-by(_agg_lock)
         # Serializes _refresh_aggs's broker reads (try-acquired only).
-        self._agg_refreshing = threading.Lock()
+        self._agg_refreshing = lockwitness.lock("coord.agg_refreshing")
         self._agg_sub: Optional[BrokerClient] = None
         params = setup_lib.init_global_params(config, self.device)
         self._shapes_np = _shape_views(params)

@@ -399,7 +399,7 @@ class DeviceWorker:
                 signs.append(1.0 if p > self.client_id else -1.0)
         return keys, signs
 
-    def _peer_record(self, p: int, round_idx: int) -> tuple:
+    def _peer_record(self, p: int, round_idx: int) -> tuple:  # colearn: holds(_dh_lock)
         """(pubkey text, pair stream seed, raw DH secret) for peer ``p``,
         from its retained enrollment record, refetched once per round (a
         restarted peer re-enrolls with a fresh key).  Caller holds

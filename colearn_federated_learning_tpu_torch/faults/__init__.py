@@ -5,9 +5,10 @@ fails, ``inject`` applies it at the transport's interposer seams, and
 ``soak`` and ``procsoak`` run a federation under a plan, in this process
 and as real subprocesses with real SIGKILL, and report whether the
 robustness machinery (retries, quorum, eviction, CRC framing, checkpoint
-resume, the tree's failover) held.  Not ported yet: the lock witness and
-the asynchronous, tree-asynchronous and checkpoint process soaks
-(ROADMAP.md Queue A items 16 and 15)."""
+resume, the tree's failover, the asynchronous plane's resume and re-home)
+held.  ``lockwitness`` checks the lock order and the guarded structures
+of the processes it runs in.  Not ported yet: the checkpoint process soak
+(ROADMAP.md Queue A item 15)."""
 
 from colearn_federated_learning_tpu_torch.faults.plan import (  # noqa: F401
     ANY, ANY_ROUND, FILE_KINDS, KINDS, FaultPlan, FaultSpec)
@@ -16,4 +17,5 @@ from colearn_federated_learning_tpu_torch.faults.inject import (  # noqa: F401
 from colearn_federated_learning_tpu_torch.faults.soak import (  # noqa: F401
     canned_plan, default_soak_config, run_soak)
 from colearn_federated_learning_tpu_torch.faults.procsoak import (  # noqa: F401
-    KillSpec, canned_kill_schedule, run_proc_soak)
+    KillSpec, canned_kill_schedule, run_agg_soak, run_async_soak,
+    run_proc_soak, run_tree_async_soak)

@@ -1,6 +1,7 @@
 """Multi-process chaos soak: real subprocesses, real ports, real SIGKILL
-(the counterpart of the first half of the JAX package's
-``faults/procsoak.py``: ``chaos --mp`` and ``chaos --agg``).
+(the counterpart of the JAX package's ``faults/procsoak.py`` up to its
+checkpoint soak: ``chaos --mp``, ``--agg``, ``--async`` and
+``--tree-async``).
 
 The in-process soak (``faults/soak.py``) exercises the robustness machinery
 through a transport interposer: everything a Python exception can express.
@@ -17,6 +18,10 @@ workers' re-enrollment watchdog, the coordinator's ``_rebuild_broker``).
 The schedule is event-driven, not timer-driven: a :class:`KillSpec` fires
 the moment the coordinator's stderr emits the round record for
 ``after_round``, so the signal lands while the next round is in flight.
+The asynchronous soaks (:func:`run_async_soak`, :func:`run_tree_async_soak`)
+key the same loop on aggregation records; with ``lock_witness`` every
+process of their fleets runs under ``faults/lockwitness.py`` and its
+per-pid reports are merged into the summary.
 
 JAX's children run on the CPU (``JAX_PLATFORMS=cpu``, ``--backend cpu``);
 here they run on the card unless the caller passes ``backend="cpu"``.
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import select
 import signal
@@ -223,6 +229,59 @@ class _Fleet:
             stderr=subprocess.PIPE, text=True)
         return self.coord
 
+    def start_async_coordinator(self, cfg: list[str], host: str, port: int,
+                                n_workers: int, round_timeout: float,
+                                enroll_timeout: float, buffer_size: int,
+                                resume: bool) -> subprocess.Popen:
+        """The buffered-asynchronous flavour of :meth:`start_coordinator`:
+        ``--async-buffer`` runs ``comm/async_coordinator.py``, which has no
+        per-client evaluation, so the gates compare train-loss tails."""
+        args = ["coordinate", *cfg, "--broker-host", host,
+                "--broker-port", str(port),
+                "--min-devices", str(n_workers),
+                "--round-timeout", str(round_timeout),
+                "--enroll-timeout", str(enroll_timeout),
+                "--async-buffer", str(buffer_size),
+                "--no-evaluator", "--elastic"]
+        if resume:
+            args.append("--resume")
+        self.coord = self.spawn(
+            args, stdout=self._log_file("coordinator.out"),
+            stderr=subprocess.PIPE, text=True)
+        return self.coord
+
+    def deliver(self, spec: KillSpec, fired_after: int, host: str, port: int,
+                worker_cfg: list[str],
+                agg_cfg: list[str]) -> tuple[dict, bool]:
+        """SIGKILL ``spec``'s victim as the record of ``fired_after``
+        arrives, and respawn it when ``spec.restart`` asks (the broker on
+        its port; a coordinator's relaunch with ``--resume`` is the
+        caller's).  Returns the kill's record and whether the coordinator
+        was the victim."""
+        kill_rec = {**dataclasses.asdict(spec),
+                    "fired_after_round": fired_after}
+        if spec.target in ("coordinator", "async-coordinator"):
+            kill_rec["pid"] = self.coord.pid
+            self.coord.send_signal(signal.SIGKILL)
+            return kill_rec, True
+        if spec.target == "broker":
+            victim = self.broker
+        else:
+            role, n = spec.target.split(":", 1)
+            victim = (self.aggregators if role == "aggregator"
+                      else self.workers).get(int(n))
+        if victim is not None and victim.poll() is None:
+            kill_rec["pid"] = victim.pid
+            victim.send_signal(signal.SIGKILL)
+            victim.wait()
+        if spec.target == "broker":
+            self.restart_broker()
+        elif spec.restart and role == "aggregator":
+            self.start_aggregator(int(n), agg_cfg, host, port)
+        elif spec.restart:
+            self.start_worker(int(n), worker_cfg, host, port)
+        return kill_rec, False
+
     def _all_procs(self) -> list:
         return ([self.coord, self.broker] + list(self.workers.values())
                 + list(self.aggregators.values()))
@@ -241,11 +300,18 @@ class _Fleet:
             f.close()
 
 
-def _child_env() -> dict:
+def _child_env(backend: str) -> dict:
+    """The children's environment: streamed output, the checkout on the
+    path, and on the CPU one intra-op thread per process unless the
+    caller set ``OMP_NUM_THREADS`` (a fleet of 6-7 processes each with a
+    thread per core turns a 45 ms MLP update into a second or more, and
+    the kill schedules are timed against the updates)."""
     env = dict(os.environ)
     env["PYTHONUNBUFFERED"] = "1"      # round records must stream
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (_ROOT, env.get("PYTHONPATH")) if p)
+    if backend == "cpu":
+        env.setdefault("OMP_NUM_THREADS", "1")
     return env
 
 
@@ -293,7 +359,7 @@ def run_proc_soak(
     ckpt_dir = os.path.join(workdir, "ckpt")
     flight_dir = os.path.join(workdir, "flight")
 
-    fleet = _Fleet(workdir, _child_env())
+    fleet = _Fleet(workdir, _child_env(backend))
     # A hung federation (the fault class this harness hunts) fails the
     # run instead of hanging its caller.
     watchdog = threading.Timer(timeout_s, fleet.kill_all)
@@ -374,38 +440,9 @@ def run_proc_soak(
             if log_fn is not None:
                 log_fn(doc)
             while pending and pending[0].after_round <= r:
-                spec = pending.pop(0)
-                kill_rec = {**dataclasses.asdict(spec),
-                            "fired_after_round": r}
-                if spec.target == "coordinator":
-                    kill_rec["pid"] = coord.pid
-                    coord.send_signal(signal.SIGKILL)
-                    restart_pending = True
-                elif spec.target == "broker":
-                    victim = fleet.broker
-                    if victim is not None and victim.poll() is None:
-                        kill_rec["pid"] = victim.pid
-                        victim.send_signal(signal.SIGKILL)
-                        victim.wait()
-                    fleet.restart_broker()
-                elif spec.target.startswith("aggregator:"):
-                    aid = int(spec.target.split(":", 1)[1])
-                    victim = fleet.aggregators.get(aid)
-                    if victim is not None and victim.poll() is None:
-                        kill_rec["pid"] = victim.pid
-                        victim.send_signal(signal.SIGKILL)
-                        victim.wait()
-                    if spec.restart:
-                        fleet.start_aggregator(aid, agg_cfg, host, port)
-                else:
-                    wid = int(spec.target.split(":", 1)[1])
-                    victim = fleet.workers.get(wid)
-                    if victim is not None and victim.poll() is None:
-                        kill_rec["pid"] = victim.pid
-                        victim.send_signal(signal.SIGKILL)
-                        victim.wait()
-                    if spec.restart:
-                        fleet.start_worker(wid, worker_cfg, host, port)
+                kill_rec, coord_died = fleet.deliver(
+                    pending.pop(0), r, host, port, worker_cfg, agg_cfg)
+                restart_pending = restart_pending or coord_died
                 delivered.append(kill_rec)
     finally:
         watchdog.cancel()
@@ -478,6 +515,33 @@ def _max_param_diff(state_a, state_b) -> float:
     return worst
 
 
+def _killed_role_named(workdir: str, kills: list[dict], kill: bool,
+                       role_ok: Callable[[str], bool]) -> bool:
+    """True when a killed pid left a flight dump whose postmortem names a
+    role ``role_ok`` accepts (without kills: ``not kill``)."""
+    from colearn_federated_learning_tpu_torch.telemetry import flight
+
+    killed_pids = {k["pid"] for k in kills if "pid" in k}
+    if not killed_pids:
+        return not kill
+    report = flight.postmortem_report(
+        flight.load_flight_dumps(os.path.join(workdir, "flight")))
+    return any(p.get("pid") in killed_pids
+               and role_ok(str(p.get("role", "")))
+               for p in report.get("processes", []))
+
+
+def _fleet_health(workdir: str) -> dict:
+    """A fleet's merged health ledgers ({} when they do not parse: the
+    gates' durability check)."""
+    from colearn_federated_learning_tpu_torch.telemetry import health
+
+    try:
+        return health.load_health(os.path.join(workdir, "health"))
+    except ValueError:
+        return {}
+
+
 def run_agg_soak(
     rounds: int = 4,
     n_workers: int = 3,
@@ -541,30 +605,14 @@ def run_agg_soak(
     oracle_ok = max_diff <= tol
 
     # The killed aggregator's black box must be in the tree's flight
-    # ledger, and the merged report must name the victim an aggregator.
-    from colearn_federated_learning_tpu_torch.telemetry import flight
-
-    killed_pids = {k["pid"] for k in tree["kills"] if "pid" in k}
-    if killed_pids:
-        dumps = flight.load_flight_dumps(
-            os.path.join(workdir, "tree", "flight"))
-        report = flight.postmortem_report(dumps)
-        attributed = any(
-            p.get("pid") in killed_pids
-            and str(p.get("role", "")).startswith("aggregator")
-            for p in report.get("processes", []))
-    else:
-        attributed = not kill
-
-    # The SIGKILLed aggregator's per-device records must still parse (a
-    # torn final line is tolerated) and must not be empty.
-    from colearn_federated_learning_tpu_torch.telemetry import health
-
-    try:
-        devices = health.load_health(os.path.join(workdir, "tree",
-                                                  "health"))
-    except ValueError:
-        devices = {}
+    # ledger, and the merged report must name the victim an aggregator;
+    # the tree's per-device records must still parse (a torn final line
+    # is tolerated) and must not be empty.
+    tree_dir = os.path.join(workdir, "tree")
+    attributed = _killed_role_named(
+        tree_dir, tree["kills"], kill,
+        lambda role: role.startswith("aggregator"))
+    devices = _fleet_health(tree_dir)
     health_ok = bool(devices)
 
     return {
@@ -582,5 +630,536 @@ def run_agg_soak(
         "flight_missing": tree["flight_missing"],
         "kills": tree["kills"],
         "records": tree["records"],
+        "workdir": workdir,
+    }
+
+
+_ASYNC_DP_DELTA = 1e-5
+_ASYNC_DP_NOISE = 0.02
+
+
+def _async_config_flags(aggregations: int, n_workers: int, seed: int,
+                        checkpoint_dir: Optional[str] = None,
+                        backend: str = "gpu") -> list[str]:
+    """The asynchronous soaks' federation: the process soak's config with
+    a fixed-clip DP mechanism, so every aggregation record carries the
+    realized ``dp_z_eff`` and ``dp_epsilon`` that the replay gate
+    re-derives.  ``--evict-after`` is 4 (the synchronous soak's 2 would
+    turn the injected pump flaps into evictions of healthy workers; the
+    gate wants them attributed as retries).  The noise multiplier is
+    tiny: the replay needs every aggregation charged, and the loss gate
+    needs both runs to converge."""
+    flags = _config_flags(aggregations, n_workers, seed,
+                          checkpoint_dir=checkpoint_dir, backend=backend)
+    flags += ["--evict-after", "4",
+              "--dp-clip", "1.0",
+              "--dp-noise-multiplier", str(_ASYNC_DP_NOISE),
+              "--dp-delta", str(_ASYNC_DP_DELTA)]
+    return flags
+
+
+def _async_fault_plan() -> dict:
+    """Client-site transport faults of the faulted asynchronous run,
+    installed in the coordinator process (``--fault-plan``): they fire in
+    the pumps' ``TensorClient.request`` calls, flaps as pump failures the
+    health ledger attributes as retries, delays in the per-device latency.
+    Count-bounded, so the run still converges."""
+    return {"seed": 0, "faults": [
+        {"kind": "flap_reconnect", "device_id": "*", "op": "train",
+         "count": 2, "site": "client"},
+        {"kind": "delay", "device_id": "*", "op": "train",
+         "ms": 150, "count": 3, "site": "client"},
+    ]}
+
+
+def _run_async_fleet(
+    aggregations: int,
+    n_workers: int,
+    buffer_size: int,
+    kills: list[KillSpec],
+    workdir: str,
+    round_timeout: float,
+    enroll_timeout: float,
+    timeout_s: float,
+    seed: int,
+    n_aggregators: int = 0,
+    fault_plan: Optional[dict] = None,
+    log_fn: Optional[Callable[[dict], None]] = None,
+    lock_witness: bool = False,
+    backend: str = "gpu",
+) -> dict:
+    """One buffered-asynchronous process federation (broker, N workers,
+    the asynchronous coordinator, and with ``n_aggregators`` that many
+    aggregator processes), with the process soak's kill loop keyed on
+    aggregation records (``{"aggregation": i, "model_version": v, ...}``):
+    a ``KillSpec(target, after_round=k)`` fires as aggregation ``k``'s
+    record appears, mid-aggregation ``k + 1``.  Records are deduplicated
+    by aggregation index (the last wins: a resumed incarnation's re-run of
+    an uncommitted aggregation replaces the lost one), and the model
+    version is checked to increase within each incarnation as the stream
+    arrives."""
+    os.makedirs(workdir, exist_ok=True)
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    flight_dir = os.path.join(workdir, "flight")
+
+    env = _child_env(backend)
+    witness_dir = os.path.join(workdir, "lockwitness")
+    if lock_witness:
+        # Every process runs its locks through faults.lockwitness and
+        # writes a per-pid report at exit; the summary merges them.
+        env["COLEARN_LOCK_WITNESS"] = "1"
+        env["COLEARN_LOCK_WITNESS_DIR"] = witness_dir
+    else:
+        # A witness asked for by the caller's environment stays out of a
+        # soak that did not ask for it (its cost would skew the timings).
+        env.pop("COLEARN_LOCK_WITNESS", None)
+        env.pop("COLEARN_LOCK_WITNESS_DIR", None)
+
+    fleet = _Fleet(workdir, env)
+    watchdog = threading.Timer(timeout_s, fleet.kill_all)
+    watchdog.daemon = True
+
+    records: dict[int, dict] = {}
+    events: list[dict] = []
+    resumed = 0
+    incarnations = 1
+    delivered: list[dict] = []
+    pending = sorted(kills, key=lambda k: (k.after_round, k.target))
+    version_monotonic = True
+    last_version = -1
+    rc: Optional[int] = None
+
+    try:
+        watchdog.start()
+        flight_flags = ["--flight-dir", flight_dir,
+                        "--flight-heartbeat", "0.5"]
+        health_flags = ["--health-dir", os.path.join(workdir, "health")]
+        host, port = fleet.start_broker(timeout=30.0, extra=flight_flags)
+        worker_cfg = (_async_config_flags(aggregations, n_workers, seed,
+                                          backend=backend)
+                      + flight_flags + health_flags)
+        if n_aggregators:
+            # A slice buffer of 1-2 devices never clears the default
+            # distinct-contributor quorum at the root (partials ship per
+            # slice); the last flag wins, so the override goes at the end.
+            worker_cfg += ["--min-cohort-fraction", "0"]
+        for i in range(n_workers):
+            fleet.start_worker(i, worker_cfg, host, port)
+        # The aggregators start before the coordinator, so their retained
+        # announcements are on the broker when the root subscribes.
+        agg_cfg = worker_cfg
+        for a in range(n_aggregators):
+            fleet.start_aggregator(a, agg_cfg, host, port)
+        coord_cfg = (_async_config_flags(aggregations, n_workers, seed,
+                                         checkpoint_dir=ckpt_dir,
+                                         backend=backend)
+                     + flight_flags + health_flags)
+        if n_aggregators:
+            # A 1 s heartbeat deadline (5 s by default) keeps the failover's
+            # detection inside a short soak's runway; the oracle gets the
+            # same value, so the runs keep one config.
+            coord_cfg += ["--num-aggregators", str(n_aggregators),
+                          "--min-cohort-fraction", "0",
+                          "--agg-heartbeat-timeout", "1.0"]
+        if fault_plan is not None:
+            plan_path = os.path.join(workdir, "fault_plan.json")
+            with open(plan_path, "w") as f:
+                json.dump(fault_plan, f)
+            coord_cfg += ["--fault-plan", plan_path]
+
+        def launch(resume: bool) -> subprocess.Popen:
+            return fleet.start_async_coordinator(
+                coord_cfg, host, port, n_workers, round_timeout,
+                enroll_timeout, buffer_size, resume=resume)
+
+        coord = launch(resume=False)
+        restart_pending = False
+        err_log = fleet._log_file("coordinator.err")
+        while True:
+            line = coord.stderr.readline()
+            if line:
+                err_log.write(line.encode())
+                err_log.flush()
+            if not line:
+                coord.wait()
+                if restart_pending:
+                    restart_pending = False
+                    incarnations += 1
+                    # A fresh incarnation resumes from its checkpointed
+                    # version, which may lie below the dead one's last
+                    # streamed record: monotonicity restarts with it.
+                    last_version = -1
+                    coord = launch(resume=True)
+                    continue
+                rc = coord.returncode
+                break
+            doc = _parse_json(line.strip())
+            if doc is None:
+                continue
+            if "event" in doc:
+                events.append(doc)
+                if doc["event"] == "resumed":
+                    resumed += 1
+                continue
+            if "aggregation" not in doc:
+                continue
+            agg = int(doc["aggregation"])
+            v = doc.get("model_version")
+            if v is not None:
+                if int(v) <= last_version:
+                    version_monotonic = False
+                last_version = int(v)
+            records[agg] = doc         # the last record per aggregation wins
+            if log_fn is not None:
+                log_fn(doc)
+            while pending and pending[0].after_round <= agg:
+                kill_rec, coord_died = fleet.deliver(
+                    pending.pop(0), agg, host, port, worker_cfg, agg_cfg)
+                restart_pending = restart_pending or coord_died
+                delivered.append(kill_rec)
+    finally:
+        watchdog.cancel()
+        fleet.close()
+
+    if rc is None:
+        raise RuntimeError(
+            f"async coordinator never exited cleanly within {timeout_s}s "
+            f"(records for aggregations {sorted(records)})")
+
+    from colearn_federated_learning_tpu_torch.telemetry import flight
+
+    dumps = flight.load_flight_dumps(flight_dir)
+    dumped_pids = {d.get("pid") for d in dumps if "error" not in d}
+    flight_missing = sorted({k["pid"] for k in delivered if "pid" in k}
+                            - dumped_pids)
+
+    recs = [records[a] for a in sorted(records)]
+    return {
+        "lock_witness": (_collect_lockwitness(witness_dir)
+                         if lock_witness else {"enabled": False}),
+        "aggregations_run": len(recs),
+        "records": recs,
+        "version_monotonic": version_monotonic,
+        "resumed": resumed,
+        "coordinator_incarnations": incarnations,
+        "kills": delivered,
+        "flight_dumps": len(dumped_pids),
+        "flight_missing": flight_missing,
+        "events": events,
+        "exit_code": rc,
+        "workdir": workdir,
+    }
+
+
+def _collect_lockwitness(witness_dir: str) -> dict:
+    """Merge a fleet's per-pid ``lockwitness-*.json`` reports into one
+    summary for the gate: the report count, the inversions and unguarded
+    accesses (with their records), and the acquires and guarded ops that
+    show the witness saw traffic."""
+    reports = []
+    skipped = 0
+    if os.path.isdir(witness_dir):
+        for name in sorted(os.listdir(witness_dir)):
+            if not (name.startswith("lockwitness-")
+                    and name.endswith(".json")):
+                continue
+            try:
+                with open(os.path.join(witness_dir, name)) as f:
+                    reports.append(json.load(f))
+            except (OSError, ValueError):
+                # A report torn by a kill mid-write is no witnessed fault;
+                # the skipped count shows the gap.
+                skipped += 1
+    inversions = [inv for r in reports for inv in r.get("inversions", [])]
+    unguarded = [u for r in reports for u in r.get("unguarded", [])]
+    return {
+        "enabled": True,
+        "reports": len(reports),
+        "reports_unparseable": skipped,
+        "acquires": sum(int(r.get("acquires", 0)) for r in reports),
+        "guarded_ops": sum(int(r.get("guarded_ops", 0)) for r in reports),
+        "inversions": len(inversions),
+        "unguarded": len(unguarded),
+        "inversion_records": inversions,
+        "unguarded_records": unguarded,
+    }
+
+
+def _tail_loss(records: list[dict], n: int = 3) -> float:
+    """Mean train loss over the last ``n`` aggregations with a finite
+    one: asynchronous losses vary with thread timing from aggregation to
+    aggregation, so the gates compare smoothed tails."""
+    tail = [float(r["train_loss"]) for r in records
+            if "train_loss" in r
+            and math.isfinite(float(r["train_loss"]))][-n:]
+    return sum(tail) / len(tail) if tail else float("inf")
+
+
+def _merge_lockwitness(*parts: dict) -> dict:
+    """Fold the fleets' witness summaries (faulted and baseline or oracle)
+    into the one entry the chaos gate reads."""
+    if not any(p.get("enabled") for p in parts):
+        return {"enabled": False}
+    merged = {"enabled": True, "reports": 0, "acquires": 0,
+              "guarded_ops": 0, "inversions": 0, "unguarded": 0,
+              "inversion_records": [], "unguarded_records": []}
+    for p in parts:
+        if not p.get("enabled"):
+            continue
+        for k in ("reports", "acquires", "guarded_ops",
+                  "inversions", "unguarded"):
+            merged[k] += int(p.get(k, 0))
+        merged["inversion_records"] += list(p.get("inversion_records", []))
+        merged["unguarded_records"] += list(p.get("unguarded_records", []))
+    return merged
+
+
+def run_async_soak(
+    aggregations: int = 6,
+    n_workers: int = 3,
+    buffer_size: int = 2,
+    workdir: Optional[str] = None,
+    round_timeout: float = 120.0,
+    enroll_timeout: float = 90.0,
+    timeout_s: float = 600.0,
+    kill: bool = True,
+    seed: int = 0,
+    loss_tol: float = 0.75,
+    log_fn: Optional[Callable[[dict], None]] = None,
+    lock_witness: bool = False,
+    backend: str = "gpu",
+) -> dict:
+    """The asynchronous plane's chaos gate: the asynchronous coordinator
+    SIGKILLed mid-aggregation and relaunched with ``--resume``, against a
+    kill-free baseline of the same config and seed.
+
+    - **faulted**: the coordinator dies as aggregation
+      ``aggregations // 2 - 1``'s record streams (pumps in flight, the
+      buffer unfolded), then resumes; a count-bounded client-site fault
+      plan rides on its pumps;
+    - **baseline**: the same federation, with no kill and no fault.
+
+    Gates (``chaos --async``): the model version increases within each
+    incarnation; replaying the records' ``dp_z_eff`` into a fresh
+    accountant lands on the last record's ``dp_epsilon`` (no double
+    charge through the resume); the faulted tail loss is within
+    ``loss_tol`` of the baseline's; the killed pid's flight dump names the
+    coordinator, the health ledgers survive the kill, and the injected
+    pump faults show as per-device retries in them."""
+    if aggregations < 4:
+        raise ValueError(
+            f"async soak needs >= 4 aggregations so the kill lands after "
+            f"a committed checkpoint, got {aggregations}")
+    workdir = workdir or tempfile.mkdtemp(prefix="colearn_asyncsoak_")
+    os.makedirs(workdir, exist_ok=True)
+    kills = ([KillSpec("async-coordinator",
+                       after_round=max(1, aggregations // 2 - 1))]
+             if kill else [])
+
+    faulted = _run_async_fleet(
+        aggregations=aggregations, n_workers=n_workers,
+        buffer_size=buffer_size, kills=kills,
+        workdir=os.path.join(workdir, "faulted"),
+        round_timeout=round_timeout, enroll_timeout=enroll_timeout,
+        timeout_s=timeout_s, seed=seed,
+        fault_plan=_async_fault_plan() if kill else None, log_fn=log_fn,
+        lock_witness=lock_witness, backend=backend)
+    baseline = _run_async_fleet(
+        aggregations=aggregations, n_workers=n_workers,
+        buffer_size=buffer_size, kills=[],
+        workdir=os.path.join(workdir, "baseline"),
+        round_timeout=round_timeout, enroll_timeout=enroll_timeout,
+        timeout_s=timeout_s, seed=seed, fault_plan=None, log_fn=log_fn,
+        lock_witness=lock_witness, backend=backend)
+
+    # The deduplicated record stream is the final coordinator's history:
+    # its realized multipliers must replay to the last record's epsilon.
+    from colearn_federated_learning_tpu_torch.privacy.accountant import (
+        RdpAccountant)
+
+    acct = RdpAccountant(noise_multiplier=_ASYNC_DP_NOISE,
+                         sampling_rate=1.0, delta=_ASYNC_DP_DELTA)
+    final_eps = None
+    for rec in faulted["records"]:
+        if "dp_z_eff" in rec:
+            acct.step(1, sampling_rate=1.0,
+                      noise_multiplier=float(rec["dp_z_eff"]))
+        if "dp_epsilon" in rec:
+            final_eps = float(rec["dp_epsilon"])
+    replayed_eps = acct.epsilon()
+    dp_replay_ok = (final_eps is not None
+                    and math.isfinite(final_eps)
+                    and math.isfinite(replayed_eps)
+                    and abs(replayed_eps - final_eps)
+                    <= 1e-6 * max(1.0, abs(final_eps)))
+
+    final_loss = _tail_loss(faulted["records"])
+    baseline_loss = _tail_loss(baseline["records"])
+    loss_gap = abs(final_loss - baseline_loss)
+    loss_gap_ok = math.isfinite(loss_gap) and loss_gap <= loss_tol
+
+    faulted_dir = os.path.join(workdir, "faulted")
+    attributed = _killed_role_named(faulted_dir, faulted["kills"], kill,
+                                    lambda role: role == "coordinator")
+    devices = _fleet_health(faulted_dir)
+    fault_retries = sum(int(h.counts.get("retry", 0))
+                        for h in devices.values())
+
+    return {
+        "exit_code": faulted["exit_code"],
+        "baseline_exit_code": baseline["exit_code"],
+        "aggregations_run": faulted["aggregations_run"],
+        "baseline_aggregations_run": baseline["aggregations_run"],
+        "version_monotonic": (faulted["version_monotonic"]
+                              and baseline["version_monotonic"]),
+        "resumed": faulted["resumed"],
+        "coordinator_incarnations": faulted["coordinator_incarnations"],
+        "dp_replay_ok": dp_replay_ok,
+        "dp_epsilon": final_eps,
+        "dp_epsilon_replayed": replayed_eps,
+        "final_loss": final_loss,
+        "baseline_final_loss": baseline_loss,
+        "loss_gap": loss_gap,
+        "loss_gap_ok": loss_gap_ok,
+        "postmortem_attributed": attributed,
+        "health_ledger_ok": bool(devices),
+        "health_devices": len(devices),
+        "fault_retries": fault_retries,
+        "faults_attributed": (not kill) or fault_retries >= 1,
+        "flight_missing": faulted["flight_missing"],
+        "kills": faulted["kills"],
+        "records": faulted["records"],
+        "lock_witness": _merge_lockwitness(faulted["lock_witness"],
+                                           baseline["lock_witness"]),
+        "workdir": workdir,
+    }
+
+
+def run_tree_async_soak(
+    aggregations: int = 6,
+    n_workers: int = 3,
+    buffer_size: int = 2,
+    workdir: Optional[str] = None,
+    round_timeout: float = 120.0,
+    enroll_timeout: float = 90.0,
+    timeout_s: float = 900.0,
+    kill: bool = True,
+    seed: int = 0,
+    loss_tol: float = 0.75,
+    log_fn: Optional[Callable[[dict], None]] = None,
+    lock_witness: bool = False,
+    backend: str = "gpu",
+) -> dict:
+    """The asynchronous tree's chaos gate: the buffered-asynchronous
+    federation through 2 aggregator processes' slice buffers, an
+    aggregator SIGKILLed mid-aggregation and left dead, and the broker
+    SIGKILLed and rebound on its port two aggregations later, against a
+    kill-free tree oracle of the same config and seed.
+
+    - **faulted**: aggregator 0 dies as aggregation
+      ``max(1, aggregations // 3)``'s record streams; the root marks its
+      address dead and re-homes the slice's contributions in flight onto
+      aggregator 1 without folding any twice; then the broker dies and
+      rebinds (the workers' re-enrollment and the root's re-subscription
+      heal);
+    - **oracle**: the same tree, with no kill.
+
+    Gates (``chaos --tree-async``): the faulted tail loss within
+    ``loss_tol`` of the oracle's; no ``folded_keys`` entry twice across
+    the records (``double_folds`` 0); with ``kill``, ``agg_failovers`` >= 1
+    and every device of a record's ``rehomed_devices`` with ``rehomed`` >=
+    1 in the health ledger; the version increasing, every killed pid's
+    flight dump, the postmortem naming the dead aggregator and the ledgers
+    surviving, as in the flat soak."""
+    if aggregations < 4:
+        raise ValueError(
+            f"tree-async soak needs >= 4 aggregations so the kills land "
+            f"inside the run, got {aggregations}")
+    workdir = workdir or tempfile.mkdtemp(prefix="colearn_treeasync_")
+    os.makedirs(workdir, exist_ok=True)
+    # Kill early (after about a third of the run), so that the failover's
+    # detection, the slice's re-home and the re-homed partials' folds all
+    # land before the root reaches its budget.
+    cut = max(1, aggregations // 3)
+    kills = ([KillSpec("aggregator:0", after_round=cut, restart=False),
+              KillSpec("broker", after_round=min(cut + 2,
+                                                 aggregations - 1))]
+             if kill else [])
+
+    faulted = _run_async_fleet(
+        aggregations=aggregations, n_workers=n_workers,
+        buffer_size=buffer_size, kills=kills,
+        workdir=os.path.join(workdir, "faulted"),
+        round_timeout=round_timeout, enroll_timeout=enroll_timeout,
+        timeout_s=timeout_s, seed=seed, n_aggregators=2,
+        fault_plan=None, log_fn=log_fn, lock_witness=lock_witness,
+        backend=backend)
+    oracle = _run_async_fleet(
+        aggregations=aggregations, n_workers=n_workers,
+        buffer_size=buffer_size, kills=[],
+        workdir=os.path.join(workdir, "oracle"),
+        round_timeout=round_timeout, enroll_timeout=enroll_timeout,
+        timeout_s=timeout_s, seed=seed, n_aggregators=2,
+        fault_plan=None, log_fn=log_fn, lock_witness=lock_witness,
+        backend=backend)
+
+    final_loss = _tail_loss(faulted["records"])
+    oracle_loss = _tail_loss(oracle["records"])
+    loss_gap = abs(final_loss - oracle_loss)
+    loss_gap_ok = math.isfinite(loss_gap) and loss_gap <= loss_tol
+
+    # Each record names the dedup keys (``version@device``) its partial
+    # was built from: a key in two records reached the model twice.
+    seen_keys: set = set()
+    double_folds = 0
+    for rec in faulted["records"]:
+        for key in rec.get("folded_keys", []):
+            if key in seen_keys:
+                double_folds += 1
+            seen_keys.add(key)
+
+    agg_failovers = sum(int(r.get("agg_failovers", 0))
+                        for r in faulted["records"])
+    rehomed_devices = sorted({str(d) for r in faulted["records"]
+                              for d in r.get("rehomed_devices", [])})
+
+    faulted_dir = os.path.join(workdir, "faulted")
+    agg_attributed = _killed_role_named(
+        faulted_dir, faulted["kills"], kill,
+        lambda role: role.startswith("aggregator"))
+    # Every device the records say was re-homed carries a ``rehomed``
+    # count in the merged ledger.
+    devices = _fleet_health(faulted_dir)
+    ledger_rehomed = {d for d, h in devices.items()
+                      if int(h.counts.get("rehomed", 0)) >= 1}
+    rehomed_attributed = ((not kill) or
+                          (bool(rehomed_devices)
+                           and set(rehomed_devices) <= ledger_rehomed))
+
+    return {
+        "exit_code": faulted["exit_code"],
+        "oracle_exit_code": oracle["exit_code"],
+        "aggregations_run": faulted["aggregations_run"],
+        "oracle_aggregations_run": oracle["aggregations_run"],
+        "version_monotonic": (faulted["version_monotonic"]
+                              and oracle["version_monotonic"]),
+        "final_loss": final_loss,
+        "oracle_final_loss": oracle_loss,
+        "loss_gap": loss_gap,
+        "loss_gap_ok": loss_gap_ok,
+        "double_folds": double_folds,
+        "folded_keys_total": len(seen_keys),
+        "agg_failovers": agg_failovers,
+        "failover_fired": (not kill) or agg_failovers >= 1,
+        "rehomed_devices": rehomed_devices,
+        "rehomed_attributed": rehomed_attributed,
+        "postmortem_attributed": agg_attributed,
+        "health_ledger_ok": bool(devices),
+        "health_devices": len(devices),
+        "flight_missing": faulted["flight_missing"],
+        "kills": faulted["kills"],
+        "records": faulted["records"],
+        "lock_witness": _merge_lockwitness(faulted["lock_witness"],
+                                           oracle["lock_witness"]),
         "workdir": workdir,
     }

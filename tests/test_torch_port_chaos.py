@@ -12,13 +12,21 @@ its ``chaos`` command, against the JAX package's, on the CPU.
 - The secure soak under the dropout matrix of JAX's
   ``test_wire_dropout_matrix_exact_recovery``: the recovered aggregates
   equal the plain oracle's and 3 masks are recovered.
-- ``chaos``: each mode's gate and exit codes.  JAX's SIGKILL tests of the
-  process soak (``tests/test_procsoak.py``) stay ``slow``, as in JAX.
+- ``chaos``: each mode's gate and exit codes, JAX's conflicts between the
+  modes, and the lock witness's gate (``_lock_witness_ok``) on crafted
+  summaries with JAX's verdicts.
+- The asynchronous soaks: their flags (``_async_config_flags``), fault
+  plan, loss tail and tiny-budget refusals are JAX's; every gate key of
+  ``--async`` and ``--tree-async`` fails the command when flipped.
+- JAX's SIGKILL tests of the process soaks (``tests/test_procsoak.py``)
+  stay ``slow``, as in JAX, with a ``--tree-async --lock-witness`` run.
 """
 
+import argparse
 import dataclasses
 import importlib.util
 import json
+import os
 import pathlib
 
 import pytest
@@ -373,10 +381,7 @@ def test_chaos_in_process_gate_fails_without_a_score(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--async"], "item 16"), (["--tree-async"], "item 16"),
-    (["--async", "--lock-witness"], "item 16"),
-    (["--lock-witness"], "item 16"), (["--ckpt"], "item 15"),
-    (["--ckpt", "--no-faults"], "item 15")])
+    (["--ckpt"], "item 15"), (["--ckpt", "--no-faults"], "item 15")])
 def test_chaos_refuses_the_unported_soaks(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["chaos", *argv])
@@ -385,7 +390,10 @@ def test_chaos_refuses_the_unported_soaks(argv, item, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--secure", "--mp"], ["--agg", "--mp"],
-                                  ["--agg", "--secure"]])
+                                  ["--agg", "--secure"], ["--async", "--mp"],
+                                  ["--tree-async", "--async"],
+                                  ["--ckpt", "--tree-async"],
+                                  ["--lock-witness"]])
 def test_chaos_rejects_jax_s_conflicts(argv, capsys):
     from colearn_federated_learning_tpu import cli as jax_cli
 
@@ -409,6 +417,178 @@ def test_proc_soak_checks_kill_targets_before_spawning(tmp_path):
     with pytest.raises(ValueError, match="rounds"):
         procsoak.run_proc_soak(rounds=0, backend="cpu")
     assert list(tmp_path.iterdir()) == []
+
+
+# ------------------------------------------------- the asynchronous soaks --
+@pytest.mark.parametrize("ckpt", [None, "run/ckpt"])
+def test_async_soak_flags_are_jax_s(ckpt):
+    ours = procsoak._async_config_flags(6, 3, 2, checkpoint_dir=ckpt,
+                                        backend="cpu")
+    assert ours == jax_procsoak._async_config_flags(6, 3, 2,
+                                                    checkpoint_dir=ckpt)
+    on_card = procsoak._async_config_flags(6, 3, 2, checkpoint_dir=ckpt)
+    assert on_card[on_card.index("--backend") + 1] == "gpu"
+    i = on_card.index("--backend")
+    assert on_card[:i] + on_card[i + 2:] == ours[:i] + ours[i + 2:]
+
+
+@pytest.mark.parametrize("ambient", [None, "3"])
+def test_soak_children_take_one_cpu_thread_unless_told(monkeypatch, ambient):
+    if ambient is None:
+        monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    else:
+        monkeypatch.setenv("OMP_NUM_THREADS", ambient)
+    cpu, card = procsoak._child_env("cpu"), procsoak._child_env("gpu")
+    assert cpu["OMP_NUM_THREADS"] == (ambient or "1")
+    assert card.get("OMP_NUM_THREADS") == ambient
+    for env in (cpu, card):
+        assert env["PYTHONUNBUFFERED"] == "1"
+        assert env["PYTHONPATH"].split(os.pathsep)[0] == procsoak._ROOT
+
+
+def test_async_fault_plan_and_dp_constants_are_jax_s():
+    assert procsoak._async_fault_plan() == jax_procsoak._async_fault_plan()
+    assert (procsoak._ASYNC_DP_NOISE, procsoak._ASYNC_DP_DELTA) == \
+        (jax_procsoak._ASYNC_DP_NOISE, jax_procsoak._ASYNC_DP_DELTA)
+    plan = FaultPlan.from_json(json.dumps(procsoak._async_fault_plan()))
+    assert [(f.kind, f.site) for f in plan.faults] == [
+        ("flap_reconnect", "client"), ("delay", "client")]
+
+
+@pytest.mark.parametrize("records,n", [
+    ([], 3), ([{"round": 1}], 3),
+    ([{"train_loss": v} for v in (2.0, 1.5, float("nan"), 1.0, 0.5)], 3),
+    ([{"train_loss": v} for v in (2.0, float("inf"), 1.25)], 2),
+    ([{"train_loss": 0.75}, {"aggregation": 1}], 1)])
+def test_tail_loss_is_jax_s(records, n):
+    assert procsoak._tail_loss(records, n) == \
+        jax_procsoak._tail_loss(records, n)
+
+
+def test_async_coordinator_kill_spec_is_jax_s():
+    ours = procsoak.KillSpec("async-coordinator", after_round=1)
+    theirs = jax_procsoak.KillSpec("async-coordinator", after_round=1)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    for mod in (procsoak, jax_procsoak):
+        with pytest.raises(ValueError, match="restart"):
+            mod.KillSpec("async-coordinator", after_round=0, restart=False)
+
+
+@pytest.mark.parametrize("name", ["run_async_soak", "run_tree_async_soak"])
+@pytest.mark.parametrize("aggregations", [0, 3])
+def test_async_soaks_reject_tiny_budgets(name, aggregations, tmp_path):
+    with pytest.raises(ValueError, match="aggregations") as ours:
+        getattr(procsoak, name)(aggregations=aggregations,
+                                workdir=str(tmp_path), backend="cpu")
+    with pytest.raises(ValueError) as theirs:
+        getattr(jax_procsoak, name)(aggregations=aggregations,
+                                    workdir=str(tmp_path))
+    assert str(ours.value) == str(theirs.value)
+    assert list(tmp_path.iterdir()) == []
+
+
+LW_OK = {"enabled": True, "reports": 2, "acquires": 40, "guarded_ops": 9,
+         "inversions": 0, "unguarded": 0, "inversion_records": [],
+         "unguarded_records": []}
+
+
+@pytest.mark.parametrize("armed", [True, False])
+@pytest.mark.parametrize("lw", [
+    LW_OK, None, {"enabled": False}, {**LW_OK, "reports": 0},
+    {**LW_OK, "acquires": 0},
+    {**LW_OK, "inversions": 1, "inversion_records": [{"edge": ["B", "A"]}]},
+    {**LW_OK, "unguarded": 2, "unguarded_records": [{"op": "iter"},
+                                                    {"op": "pop"}]},
+    {"enabled": True}])
+def test_lock_witness_gate_is_jax_s(armed, lw, capsys):
+    from colearn_federated_learning_tpu import cli as jax_cli
+
+    summary = {} if lw is None else {"lock_witness": lw}
+    args = argparse.Namespace(lock_witness=armed)
+    theirs = jax_cli._lock_witness_ok(summary, args)
+    theirs_err = capsys.readouterr().err
+    assert cli._lock_witness_ok(summary, args) is theirs
+    assert capsys.readouterr().err == theirs_err
+    assert theirs == (not armed or lw is LW_OK)
+
+
+ASYNC_OK = dict(exit_code=0, baseline_exit_code=0, aggregations_run=6,
+                baseline_aggregations_run=6, version_monotonic=True,
+                dp_replay_ok=True, loss_gap_ok=True, health_ledger_ok=True,
+                resumed=1, postmortem_attributed=True,
+                faults_attributed=True, flight_missing=[], lock_witness=LW_OK)
+TREE_OK = dict(exit_code=0, oracle_exit_code=0, aggregations_run=6,
+               oracle_aggregations_run=6, version_monotonic=True,
+               double_folds=0, loss_gap_ok=True, health_ledger_ok=True,
+               failover_fired=True, rehomed_attributed=True,
+               postmortem_attributed=True, flight_missing=[],
+               lock_witness=LW_OK)
+# Each gate key, flipped: (key, failing value, whether --no-faults waives it).
+ASYNC_FLIPS = [("exit_code", 1, False), ("baseline_exit_code", 3, False),
+               ("aggregations_run", 5, False),
+               ("baseline_aggregations_run", 5, False),
+               ("version_monotonic", False, False),
+               ("dp_replay_ok", False, False), ("loss_gap_ok", False, False),
+               ("health_ledger_ok", False, False), ("resumed", 0, True),
+               ("postmortem_attributed", False, True),
+               ("faults_attributed", False, True),
+               ("flight_missing", [7], True),
+               ("lock_witness", {**LW_OK, "inversions": 1}, False),
+               ("lock_witness", {**LW_OK, "unguarded": 1}, False),
+               ("lock_witness", {**LW_OK, "reports": 0}, False),
+               ("lock_witness", {"enabled": False}, False)]
+TREE_FLIPS = [("exit_code", 1, False), ("oracle_exit_code", 3, False),
+              ("aggregations_run", 5, False),
+              ("oracle_aggregations_run", 5, False),
+              ("version_monotonic", False, False), ("double_folds", 1, False),
+              ("loss_gap_ok", False, False),
+              ("health_ledger_ok", False, False),
+              ("failover_fired", False, True),
+              ("rehomed_attributed", False, True),
+              ("postmortem_attributed", False, True),
+              ("flight_missing", [7], True),
+              ("lock_witness", {**LW_OK, "inversions": 1}, False),
+              ("lock_witness", {**LW_OK, "unguarded": 1}, False),
+              ("lock_witness", {**LW_OK, "acquires": 0}, False),
+              ("lock_witness", {"enabled": False}, False)]
+ASYNC_CASES = (
+    [("--async", "run_async_soak", ASYNC_OK, k, v, w) for k, v, w in
+     [(None, None, False)] + ASYNC_FLIPS]
+    + [("--tree-async", "run_tree_async_soak", TREE_OK, k, v, w)
+       for k, v, w in [(None, None, False)] + TREE_FLIPS])
+
+
+@pytest.mark.parametrize("no_faults", [False, True])
+@pytest.mark.parametrize("flag,runner,ok,key,value,waived", ASYNC_CASES)
+def test_chaos_async_gates(monkeypatch, capsys, flag, runner, ok, key, value,
+                           waived, no_faults):
+    """Every gate key of ``--async`` and ``--tree-async`` flipped alone
+    exits 1 in both packages (the kill-only keys pass under
+    ``--no-faults``); the soak gets the command's budget, backend and
+    witness."""
+    from colearn_federated_learning_tpu import cli as jax_cli
+
+    summary = dict(ok) if key is None else {**ok, key: value}
+    calls = _fake(monkeypatch, procsoak, runner, summary)
+    _fake(monkeypatch, jax_procsoak, runner, summary)
+    argv = ["chaos", flag, "--lock-witness", "--rounds", "6",
+            "--num-workers", "3"] + (["--no-faults"] if no_faults else [])
+    want = 0 if key is None or (waived and no_faults) else 1
+    assert jax_cli.main(argv) == want
+    capsys.readouterr()
+    if want == 0:
+        assert cli.main(argv) == summary
+    else:
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv + ["--backend", "cpu"])
+        assert exc.value.code == 1
+    out = capsys.readouterr().out
+    assert json.loads(out.strip().splitlines()[-1]) == \
+        json.loads(json.dumps(summary))
+    (kw,) = calls
+    assert kw["aggregations"] == 6 and kw["n_workers"] == 3
+    assert kw["lock_witness"] is True and kw["kill"] is not no_faults
+    assert kw["backend"] == ("gpu" if want == 0 else "cpu")
 
 
 # ---------------------------------------- real SIGKILLs (slow, as in JAX) --
@@ -481,3 +661,51 @@ def test_agg_soak_aggregator_sigkill_fails_over(tmp_path):
     assert s["health_ledger_ok"] and s["health_devices"] == 3
     assert s["flight_missing"] == []
     assert [k["target"] for k in s["kills"]] == ["aggregator:0"]
+
+
+@pytest.mark.slow
+def test_async_soak_coordinator_sigkill_resumes(tmp_path):
+    """JAX's buffered-asynchronous acceptance run: 3 workers, a real
+    SIGKILL to the asynchronous coordinator mid-aggregation, a relaunch
+    with ``--resume``; the versions increase in both incarnations, the
+    accountant's replay gives the final epsilon (no double charge), and
+    the faulted tail loss is within tolerance of a kill-free baseline."""
+    s = procsoak.run_async_soak(aggregations=5, n_workers=3,
+                                workdir=str(tmp_path), round_timeout=120.0,
+                                timeout_s=600.0, backend="cpu")
+    assert s["exit_code"] == 0
+    assert s["baseline_exit_code"] == 0
+    assert s["aggregations_run"] >= 5
+    assert s["version_monotonic"]
+    assert s["resumed"] >= 1
+    assert s["coordinator_incarnations"] == 2
+    assert s["dp_replay_ok"], (s["dp_epsilon"], s["dp_epsilon_replayed"])
+    assert s["loss_gap_ok"], s["loss_gap"]
+    assert s["postmortem_attributed"]
+    assert s["health_ledger_ok"]
+    assert s["fault_retries"] >= 1        # the plan's flaps landed
+    assert s["flight_missing"] == []
+    assert s["lock_witness"] == {"enabled": False}
+
+
+@pytest.mark.slow
+def test_chaos_tree_async_with_the_lock_witness(tmp_path, capsys):
+    """``chaos --tree-async --lock-witness`` at JAX's default budget (6
+    aggregations): aggregator 0 SIGKILLed and left dead, the broker killed
+    and rebound; the command's gate passes, the failover fired and folded
+    nothing twice, and the witness reports of both fleets' coordinators
+    saw lock traffic with no inversion and no unguarded access."""
+    s = cli.main(["chaos", "--tree-async", "--lock-witness", "--backend",
+                  "cpu", "--rounds", "6", "--num-workers", "3",
+                  "--workdir", str(tmp_path)])
+    capsys.readouterr()
+    assert [k["target"] for k in s["kills"]] == ["aggregator:0", "broker"]
+    assert all("pid" in k for k in s["kills"])
+    assert s["failover_fired"] and s["double_folds"] == 0
+    assert s["rehomed_attributed"] and s["rehomed_devices"]
+    assert s["postmortem_attributed"] and s["flight_missing"] == []
+    lw = s["lock_witness"]
+    assert lw["reports"] >= 2 and lw["acquires"] >= 1
+    assert lw["inversions"] == 0 and lw["unguarded"] == 0
+    assert {"flight", "health", "lockwitness"} <= {
+        p.name for p in (tmp_path / "faulted").iterdir()}

@@ -373,7 +373,7 @@ def test_every_jax_flag_of_the_socket_plane_is_accepted(cmd):
     (["worker", "--broker-port", "1", "--client-id", "0", "--metrics-port",
       "9"], "item 10b"),
     (["broker", "--events-file", "e.jsonl"], "item 10b"),
-    (["chaos", "--rounds", "2", "--async"], "item 16"),
+    (["chaos", "--rounds", "2", "--ckpt", "--no-faults"], "item 15"),
     (["chaos", "--rounds", "2", "--ckpt"], "item 15")])
 def test_socket_plane_refusals_name_their_items(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -512,7 +512,7 @@ def test_configs_prints_the_jax_lines(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["fleetsim", "--devices", "64"], "item 9b"),
-    (["chaos", "--tree-async"], "item 16"),
+    (["chaos", "--ckpt"], "item 15"),
     (["top"], "item 10b"),
     (["converge", "r.jsonl"], "item 10b"),
     (["lint"], "item 17"),

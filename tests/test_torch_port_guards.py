@@ -124,7 +124,8 @@ NEW_MODULES = ["bench.py", "comm/aggregation.py", "fed/compression.py",
                "telemetry/lifecycle.py", "telemetry/registry.py",
                "telemetry/tracer.py", "ckpt/__init__.py", "ckpt/manager.py",
                "ckpt/streaming.py", "ckpt/wal.py", "telemetry/flight.py",
-               "faults/soak.py", "faults/procsoak.py"]
+               "faults/soak.py", "faults/procsoak.py",
+               "faults/lockwitness.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
