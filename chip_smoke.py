@@ -98,7 +98,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    K1's launches exact under remat (one more per block and step: the
    recomputed forward); 10b the client-mesh round at
    world size 1 on NCCL (``init_device_mesh("cuda", (1,), ("clients",))`` from
-   a FileStore): config #4 at full width with 4 clients in full
+   a FileStore): config #4 at 6 of BERT-base's 12 blocks with 4 clients in full
    participation and 4 steps, plain FedAvg, DP with secure aggregation,
    and Krum, each equal to the single-device learner's round on the same
    plan (2e-5), with exactly its path's collectives and exact launches;
@@ -107,8 +107,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the untiled run's loss;
 11. the synchronous socket plane (``comm/``) on the card: 11a a broker, a
    ``FederatedCoordinator`` and 4 ``DeviceWorker``s as threads (3
-   trainers and the evaluator) on config #4 (BERT-base, flash, 4 local
-   steps) with topk8 uplinks, error feedback and ``fold_device``, 2 rounds
+   trainers and the evaluator) on config #4 (BERT-base at 6 of its 12
+   blocks, flash, 4 local steps) with topk8 uplinks, error feedback and
+   ``fold_device``, 2 rounds
    and an evaluation, with a trace and a health ledger (13b's checks run
    on this federation): every record complete with a finite loss, the
    params moved, round 0's updates folded again on the host bitwise equal
@@ -117,7 +118,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    once per contribution; the seconds per round, every ``phase_*_s``, the
    fold's device us and the staging copy's per contribution, and
    ``bytes_saved_uplink`` are printed; 11b DH secure aggregation with
-   dropout recovery, 4 trainers, 1 round, a FaultPlan losing trainer 2's
+   dropout recovery (BERT-base at 6 of its 12 blocks), 4 trainers, 1
+   round, a FaultPlan losing trainer 2's
    train reply after the share phase: 3 complete, ``unmask_failed``
    false, the recovered aggregate equal to the survivors' unmasked sum to
    1e-5 absolute (a masked entry is of order 1, so f32 leaves ~1e-6
@@ -132,7 +134,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    finite loss, ``fold_dense`` launched once per round;
 12. the aggregator tree and per-type federation (``comm/aggregator.py``,
    ``comm/per_type.py``) on the card: 12a a broker, 4 trainer threads
-   (config #4, BERT-base, flash, 4 local steps, topk8 uplinks with error
+   (config #4, BERT-base at 6 of its 12 blocks, flash, 4 local steps,
+   topk8 uplinks with error
    feedback), 2 ``AggregatorServer`` threads and the coordinator
    (``num_aggregators`` 2, heartbeat timeout 2 s, no evaluator), every
    fold on the card, with a trace and health ledgers (13c's checks run
@@ -140,7 +143,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    each aggregator's partial bitwise its host fold, the root's sum
    bitwise the host's slice-blocked fold of the round's contributions
    (round 1's re-homed slice included), every record complete with 2
-   aggregators and round 1 with a failover, launches exact (K1-K3 12 x 4
+   aggregators and round 1 with a failover, launches exact (K1-K3 6 x 4
    trainers x 4 steps x 2 rounds, ``fold_sparse`` once per contribution,
    ``fold_dense`` once per round on the root); 12b DH secure aggregation
    through the tree (BERT-base at 6 of its 12 blocks), 4 trainers in 2
@@ -216,10 +219,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    11c's round 0 within f32 rtol 1e-4 / atol 2e-5 (aggregation 1's too
    when the two round-0 folds are bitwise equal: the fold order differs);
 15. LoRA adapter federation (``fed/lora.py``, rank 8, alpha 16, a merge
-   every 2 aggregations) on the card: 15a 11a's federation (3 trainers and
-   the evaluator, config #4, the device fold) with dense factor uplinks, 3
-   rounds and an evaluation: every update is the factor tree (146 leaves,
-   1,577,424 float32), ``bytes_saved_uplink`` is the dense frame's length
+   every 2 aggregations) on the card, BERT-base at 6 of its 12 blocks: 15a
+   11a's federation (3 trainers and the evaluator, config #4, the device
+   fold) with dense factor uplinks, 3 rounds and an evaluation: every
+   update is the factor tree (74 leaves, 913,872 float32), ``bytes_saved_uplink`` is the dense frame's length
    less the factor frame's per update (JAX's pricing), every round's
    ``fold_dense`` of the 3 factor updates bitwise its host fold, round 0
    leaves the base bit for bit and moves the factors, ``lora_merged``
@@ -242,7 +245,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    Conv (HWIO) and Dense kernels, ``lora_merged`` reads [False, True]
    (the loss is printed: config #2's SGD diverges under the adapters'
    alpha/r = 4, JAX's trainer too); then the fold kernel at
-   the factor layout (``fold_dense`` of 3 contributions and of 2
+   BERT-base's full-depth factor layout (146 slots; ``fold_dense`` of 3
+   contributions and of 2
    partials, ``fold_sparse`` of topk8 contributions) bitwise its plain
    version and timed as in 9a;
 16. checkpoints and resume (``ckpt/``) on the card: 16a ``train`` on
@@ -289,7 +293,29 @@ Phases (any failure exits non-zero; no phase's error is caught):
    names it, the witness reports saw lock traffic with no inversion and
    no unguarded access, and every child but the brokers on the card;
    the witness's counts, the failovers, the loss tails, the time to
-   recover from each kill and the seconds are printed.
+   recover from each kill and the seconds are printed;
+18. the sharded server (``parallel/partition.py``'s ``ServerPlacement``)
+   on the card: 18a BERT-base's server params (9a's layout) over a
+   ``(model,)`` placement of 2 positions on the one card, 9a's 10 topk8
+   and 10 dense contributions and 2 partials through
+   ``StreamingFolder(placement=..., device_fold=True)``: ``fold_sparse``
+   and ``fold_dense`` at the per-shard slot layout (319 slots) bitwise
+   their plain versions there, the assembled mean bitwise the replicated
+   device fold's and the host fold's, one FedAdam ``server_update`` over
+   the shards (params and both moments) bitwise the replicated step, the
+   downlink frame byte-equal to the replicated one with
+   ``comm.gather_bytes_avoided_total`` moved by exactly
+   ``tree_gather_avoided``, ``bytes_per_chip`` printed, and each kernel
+   timed at that layout beside its plain version, its library call and
+   its bound; 18b ``make_server_placement`` falls back on the one card
+   (``insufficient_devices``) and for config #1's MLP at tp = 3
+   (``rules_matched_nothing``), each counted; 18c ``chaos --ckpt``
+   through ``cli.main`` (JAX's defaults: a tp = 2 ``--ckpt-stream``
+   coordinator on the CPU, its broker and 2 workers on the card,
+   SIGKILLed mid-save and resumed at tp = 1, against a kill-free oracle):
+   the command's gate passes with ``resharded`` >= 1; the kill's
+   generation, the committed step, the seconds from the kill to the
+   resumed round's record and the soak's seconds are printed.
 
 Each phase prints its wall seconds on a line of its own; then one line
 gives the script's seconds, every phase's and the bench's (9c) rounds per
@@ -678,6 +704,21 @@ def main_path_config():
     return base.replace(
         model=dataclasses.replace(base.model, attn_impl="flash"),
         fed=dataclasses.replace(base.fed, local_steps=4))
+
+
+BERT: dict = {}              # bert_params' one draw
+
+
+def bert_params():
+    """BERT-base's initial server params (``main_path_config``, the flax
+    layout, float32 host arrays), drawn on the card once in the process:
+    9a, the factor layout of phase 15 and phase 18 read it (no caller
+    writes into it)."""
+    if "params" not in BERT:
+        from colearn_federated_learning_tpu_torch.fed import setup
+
+        BERT["params"] = setup.init_global_params(main_path_config(), "cuda")
+    return BERT["params"]
 
 
 def main_path(A):
@@ -1315,10 +1356,9 @@ def fold_check_phase(F):
     version's, ``index_add_``'s and the bound, and the overlapped
     ``fold_sparse`` call per contribution: its pack, copy and kernel times
     and its whole time by the host clock up to a sync."""
-    from colearn_federated_learning_tpu_torch.fed import setup
     from colearn_federated_learning_tpu_torch.utils import trees
 
-    shapes = setup.init_global_params(main_path_config(), "cuda")
+    shapes = bert_params()
     sizes = [int(np.asarray(l).size) for l in trees.leaves(shapes)]
     kernel = F.get_kernel(sizes)
     log(f"  BERT-base layout: {len(sizes)} slots, {kernel.total} f32 entries")
@@ -1406,45 +1446,24 @@ def fold_check_phase(F):
         f"accumulator); staged in {t_stage:.2f} s")
     del dense, got, want
 
-    # Timing.  The kernel by CUDA-graph replay (``device_ms``); the plain
-    # version and ``index_add_`` by events around a host loop (they are
-    # not captured: the plain version's index_put_ sorts).  Sparse times
-    # are per contribution (one launch), onto a standing accumulator.
+    # Timing (``sparse_row``, ``dense_row``), with the wrapper loop, the
+    # staging copy and the overlapped call beside the device time.
     for int8, label in ((True, "topk8"), (False, "topk")):
         st, batch = staged[label]
         acc = torch.zeros(kernel.total, dtype=torch.float32, device="cuda")
-        ms = device_ms(lambda s: kernel.fold_sparse_staged(acc, s),
-                       [st]) / FOLD_ROWS
+        row, nbytes, in_bytes = sparse_row(F, kernel, st, acc, FOLD_ROWS)
+        ms = row["ms"]
         wrapper = time_ms(lambda: kernel.fold_sparse_staged(acc, st),
                           iters=5) / FOLD_ROWS
-        plain = time_ms(lambda: plain_sparse(F, kernel, st, acc),
-                        iters=3) / FOLD_ROWS
-        entries = [global_entries(kernel, p) for p in st.parts]
-
-        def yardstick():
-            for (gi, sc), p in zip(entries, st.parts):
-                acc.index_add_(0, gi, (p.vals.float() * sc) * float(p.weight))
-
-        library = time_ms(yardstick, iters=3) / FOLD_ROWS
-        # The bound: each staged byte read once (from the tensors' own
-        # element sizes), and each touched 32-byte sector of the
-        # accumulator read and written once.
-        in_bytes = sum(staged_bytes(p) for p in st.parts)
-        nbytes = in_bytes + sum(SECTOR * 2 * int(torch.unique_consecutive(
-            gi // (SECTOR // 4)).numel()) for gi, _ in entries)
-        nbytes /= FOLD_ROWS
-        flops = 3 * st.entries / FOLD_ROWS
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
         # The copy of one contribution's region, pinned host -> device.
         h2d_bytes = max(staged_bytes(p) for p in st.parts)
         dst = torch.empty(h2d_bytes, dtype=torch.uint8, device="cuda")
         h2d = time_ms(lambda: dst.copy_(kernel._pinned[:h2d_bytes],
                                         non_blocking=True), iters=5)
         overlap = fold_call_times(F, kernel, acc, batch)
-        row = {"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
-               "library_ms": library, "h2d_ms": h2d,
-               "bound_ms": 1e3 * max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        row = {"ms": ms, "wrapper_ms": wrapper, "plain_ms": row["plain_ms"],
+               "library_ms": row["library_ms"], "h2d_ms": h2d,
+               "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                "max_abs_err": errs["fold_sparse"], **overlap}
         log(f"  fold_sparse {label} per contribution: {ms * 1e3:.2f} us "
             f"device ({row['bound_ms'] / ms:.1%} of bound "
@@ -1453,7 +1472,8 @@ def fold_check_phase(F):
             f"{in_bytes / st.entries:.3f} staged bytes per entry); wrapper "
             f"loop {wrapper * 1e3:.2f} us; H2D copy of "
             f"{h2d_bytes / 1e6:.2f} MB {h2d * 1e3:.2f} us; plain "
-            f"{plain * 1e3:.2f} us; index_add_ {library * 1e3:.2f} us")
+            f"{row['plain_ms'] * 1e3:.2f} us; index_add_ "
+            f"{row['library_ms'] * 1e3:.2f} us")
         log(f"  fold_sparse {label} call per contribution (overlapped): "
             f"pack {overlap['pack_ms'] * 1e3:.2f} us host, copy "
             f"{overlap['copy_ms'] * 1e3:.2f} us, kernel "
@@ -1463,30 +1483,22 @@ def fold_check_phase(F):
             + json.dumps({"label": label, **row}))
         if int8:
             rows["fold_sparse"] = row
-        del entries, acc, dst
-    dense_bytes = x.numel() * 4 + kernel.total * 4
-    ms = device_ms(lambda s: kernel.fold_dense_staged(None, s), [x])
-    out = torch.empty(kernel.total, dtype=torch.float32, device="cuda")
-    plain = time_ms(lambda: F.fold_dense_reference(out, x, True), iters=3)
-    library = device_ms(lambda s: torch.sum(s, dim=0), [x])
+        del acc, dst
+    d = dense_row(F, kernel, x)
     pinned = kernel._pinned
     h2d = time_ms(lambda: pinned[:x.numel() * 4].to("cuda", non_blocking=True),
                   iters=3)
-    t_bytes = dense_bytes / HBM_BYTES_PER_S
-    t_ops = x.numel() / F32_FLOP_PER_S
-    rows["fold_dense"] = {
-        "ms": ms, "wrapper_ms": time_ms(
+    r = rows["fold_dense"] = {
+        "ms": d["ms"], "wrapper_ms": time_ms(
             lambda: kernel.fold_dense_staged(None, x), iters=3),
-        "plain_ms": plain, "library_ms": library, "h2d_ms": h2d,
-        "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "plain_ms": d["plain_ms"], "library_ms": d["library_ms"],
+        "h2d_ms": h2d, "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
         "max_abs_err": errs["fold_dense"]}
-    r = rows["fold_dense"]
-    log(f"  fold_dense, {FOLD_ROWS} rows of {kernel.total}: {ms * 1e3:.2f} us "
-        f"device ({r['bound_ms'] / ms:.1%} of bound "
-        f"{r['bound_ms'] * 1e3:.2f} us, {r['bound_by']}); H2D staging copy "
-        f"{h2d * 1e3:.2f} us; plain {plain * 1e3:.2f} us; torch.sum "
-        f"{library * 1e3:.2f} us; {card()}")
+    log(f"  fold_dense, {FOLD_ROWS} rows of {kernel.total}: "
+        f"{r['ms'] * 1e3:.2f} us device ({r['bound_ms'] / r['ms']:.1%} of "
+        f"bound {r['bound_ms'] * 1e3:.2f} us, {r['bound_by']}); H2D staging "
+        f"copy {h2d * 1e3:.2f} us; plain {r['plain_ms'] * 1e3:.2f} us; "
+        f"torch.sum {r['library_ms'] * 1e3:.2f} us; {card()}")
     # The root's shape in 12a: 2 partials, adopted and added.
     two = x[:2]
     sum2 = device_ms(lambda s: torch.sum(s, dim=0), [two])
@@ -1494,6 +1506,51 @@ def fold_check_phase(F):
     log(f"  fold_dense of 2 partials (the root's shape in 12a): "
         f"{dense2 * 1e3:.2f} us device; torch.sum {sum2 * 1e3:.2f} us")
     return rows
+
+
+def sparse_row(F, kernel, st, acc, rows: int) -> tuple[dict, float, int]:
+    """The sparse launch over the staged batch ``st`` (``rows``
+    contributions) onto the standing accumulator ``acc``, per
+    contribution: its device time (CUDA-graph replay), the plain
+    version's and ``index_add_``'s (events around a host loop: neither is
+    captured, the plain version's ``index_put_`` sorts) and the bound,
+    each staged byte read once (the tensors' own element sizes) and each
+    touched 32-byte sector of the accumulator read and written once.
+    Returns ``(row, bytes per contribution, staged bytes)``."""
+    ms = device_ms(lambda s: kernel.fold_sparse_staged(acc, s), [st]) / rows
+    plain = time_ms(lambda: plain_sparse(F, kernel, st, acc),
+                    iters=3) / rows
+    entries = [global_entries(kernel, p) for p in st.parts]
+
+    def yardstick():
+        for (gi, sc), p in zip(entries, st.parts):
+            acc.index_add_(0, gi, (p.vals.float() * sc) * float(p.weight))
+
+    library = time_ms(yardstick, iters=3) / rows
+    in_bytes = sum(staged_bytes(p) for p in st.parts)
+    nbytes = (in_bytes + sum(SECTOR * 2 * int(torch.unique_consecutive(
+        gi // (SECTOR // 4)).numel()) for gi, _ in entries)) / rows
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * st.entries / rows / F32_FLOP_PER_S
+    return ({"ms": ms, "plain_ms": plain, "library_ms": library,
+             "bound_ms": 1e3 * max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations"},
+            nbytes, in_bytes)
+
+
+def dense_row(F, kernel, x) -> dict:
+    """The dense launch over the staged rows ``x``: its device time, the
+    plain version's, ``torch.sum``'s over the same rows and the bytes
+    bound (the rows read once, the accumulator written once)."""
+    ms = device_ms(lambda s: kernel.fold_dense_staged(None, s), [x])
+    out = torch.empty(kernel.total, dtype=torch.float32, device="cuda")
+    plain = time_ms(lambda: F.fold_dense_reference(out, x, True), iters=3)
+    library = device_ms(lambda s: torch.sum(s, dim=0), [x])
+    t_bytes = (x.numel() * 4 + kernel.total * 4) / HBM_BYTES_PER_S
+    t_ops = x.numel() / F32_FLOP_PER_S
+    return {"ms": ms, "plain_ms": plain, "library_ms": library,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def fold_call_times(F, kernel, acc, batch, calls: int = 5) -> dict:
@@ -1748,7 +1805,8 @@ MESH_CLIENTS = 4
 def mesh_world1_path(A):
     """10b: the client-mesh round at world size 1 on NCCL (a FileStore in
     a temporary directory, ``init_device_mesh("cuda", (1,), ("clients",))``):
-    config #4 at full width, 4 clients in full participation, 4 steps,
+    config #4 at 6 of BERT-base's 12 blocks (width 768), 4 clients in full
+    participation, 4 steps,
     plain FedAvg, DP with secure aggregation, and Krum; each round's
     params equal the single-device learner's on the same plan, its
     collectives are exactly those of its path, and the kernels' launches
@@ -1760,6 +1818,8 @@ def mesh_world1_path(A):
     from colearn_federated_learning_tpu_torch.parallel import collectives
 
     base = main_path_config()
+    base = base.replace(model=dataclasses.replace(base.model,
+                                                  depth=CUT_DEPTH))
     depth = base.model.depth
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2094,7 +2154,8 @@ def _stop(broker, workers, coord):
 
 def socket_round_path(A, F, dataset, workdir):
     """11a: a broker, a FederatedCoordinator and 4 DeviceWorkers (3
-    trainers and the evaluator) on the card, config #4 with topk8 uplinks,
+    trainers and the evaluator) on the card, config #4 at 6 of BERT-base's
+    12 blocks with topk8 uplinks,
     error feedback and the device fold, 2 rounds and an evaluation, with a
     trace and a health ledger, which 13b's checks read
     (``traced_socket_checks``); the live state is then saved as a
@@ -2105,9 +2166,9 @@ def socket_round_path(A, F, dataset, workdir):
 
     trace_dir = os.path.join(workdir, "13b_trace")
     health_dir = os.path.join(workdir, "13b_health")
-    cfg = socket_config(compress="topk8", compress_feedback=True,
-                        fold_device=True, trace_dir=trace_dir,
-                        health_dir=health_dir,
+    cfg = socket_config(depth=CUT_DEPTH, compress="topk8",
+                        compress_feedback=True, fold_device=True,
+                        trace_dir=trace_dir, health_dir=health_dir,
                         checkpoint_dir=ckpt_dir("16c_sync"),
                         ckpt_stream=True)
     reg = telemetry.get_registry()
@@ -2119,8 +2180,8 @@ def socket_round_path(A, F, dataset, workdir):
         log(f"  [11a] {cfg.run.name}: bert width {cfg.model.width} "
             f"{cfg.model.dtype}, flash, topk8 + feedback, fold_device; "
             f"trainers {[d.device_id for d in coord.trainers]}, evaluator "
-            f"{coord.evaluator.device_id}; cuts: {SOCKET_CUTS}; up in "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"{coord.evaluator.device_id}; cuts: {SOCKET_CUTS}; depth 12 "
+            f"-> {CUT_DEPTH}; up in {time.perf_counter() - t0:.2f} s")
         if len(coord.trainers) != 3 or coord.evaluator is None:
             raise AssertionError("11a: roles not assigned as 3 + 1")
         trainers = sorted(d.device_id for d in coord.trainers)
@@ -2243,14 +2304,14 @@ DROP_REPLY_2 = {"seed": 0, "faults": [
 
 def secure_socket_path(A, F, dataset):
     """11b: wire secure aggregation with DH keys and dropout recovery on
-    BERT-base, 4 trainers, 1 round; a FaultPlan corrupts trainer 2's train
+    BERT-base at 6 of its 12 blocks, 4 trainers, 1 round; a FaultPlan corrupts trainer 2's train
     reply after the share phase (transport retries off, so the reply is
     lost).  The round completes with the 3 others and the recovered
     aggregate equals their unmasked sum."""
     from colearn_federated_learning_tpu_torch import faults
     from colearn_federated_learning_tpu_torch.utils import trees
 
-    cfg = socket_config(secure_agg=True, comm_retries=0)
+    cfg = socket_config(depth=CUT_DEPTH, secure_agg=True, comm_retries=0)
     t0 = time.perf_counter()
     rec_patch = _Recorder(masks=True)
     broker, workers, coord = _federation(cfg, 4, False, dataset)
@@ -2510,7 +2571,8 @@ TREE_ROUNDS = 2           # 12a: a plain round, then one re-homing a slice
 def tree_round_path(A, F, dataset, workdir):
     """12a: a broker, 4 trainer threads, 2 AggregatorServers with the
     device fold and the coordinator (num_aggregators 2, heartbeat timeout
-    2 s, no evaluator) on config #4 with topk8 uplinks and error feedback,
+    2 s, no evaluator) on config #4 at 6 of BERT-base's 12 blocks with
+    topk8 uplinks and error feedback,
     ``TREE_ROUNDS`` rounds, with a trace and health ledgers (13c's checks
     run on round 0); aggregator 0 is stopped after round 0, so round 1
     re-homes its slice.  Each aggregator's partial is bitwise its host
@@ -2521,9 +2583,10 @@ def tree_round_path(A, F, dataset, workdir):
         slice_cohort)
 
     trace_dir = os.path.join(workdir, "12a_trace")
-    cfg = socket_config(compress="topk8", compress_feedback=True,
-                        fold_device=True, num_aggregators=2,
-                        agg_heartbeat_timeout=2.0, trace_dir=trace_dir,
+    cfg = socket_config(depth=CUT_DEPTH, compress="topk8",
+                        compress_feedback=True, fold_device=True,
+                        num_aggregators=2, agg_heartbeat_timeout=2.0,
+                        trace_dir=trace_dir,
                         health_dir=os.path.join(workdir, "12a_health"))
     reg = telemetry.get_registry()
     reg.reset()
@@ -2537,7 +2600,8 @@ def tree_round_path(A, F, dataset, workdir):
         log(f"  [12a] {cfg.run.name}: bert width {cfg.model.width} "
             f"{cfg.model.dtype}, flash, topk8 + feedback, fold_device on "
             f"the aggregators and the root; trainers {order}, aggregators "
-            f"{enrolled}; cuts: {TREE_CUTS}; {TREE_ROUNDS} rounds; up in "
+            f"{enrolled}; cuts: {TREE_CUTS}; depth 12 -> {CUT_DEPTH}; "
+            f"{TREE_ROUNDS} rounds; up in "
             f"{time.perf_counter() - t0:.2f} s")
         A.reset_launches()
         F.reset_launches()
@@ -3553,19 +3617,18 @@ def async_phase(A, F, _build):
 
 # ------------------------------------------------------------ phase 15
 LORA = dict(lora_rank=8, lora_alpha=16.0, lora_merge_every=2)
-LORA_CUTS = ("local_steps 150 -> 4; {n} enrolled trainers (clients "
-             "0-{last} of the 50-client partition){more}")
 LORA_ROUNDS = 3            # 15a: round 1 merges, rounds 0 and 2 do not
-# BERT-base's 73 adapted weights at r = 8: 146 factor leaves holding
-# 1,577,424 float32 entries (the JAX package's lora.init_factors).
-LORA_LEAVES, LORA_ENTRIES = 146, 1_577_424
+# 15a-15c run BERT-base at 6 of its 12 blocks (width 768): 37 adapted
+# weights at r = 8, 74 factor leaves holding 913,872 float32 entries (the
+# JAX package's lora.init_factors at that depth; 146 and 1,577,424 at 12).
+LORA_LEAVES, LORA_ENTRIES = 74, 913_872
 MERGE_RTOL, MERGE_ATOL = 1e-4, 2e-5
 
 
 def lora_config(**fed):
-    """Config #4 as the socket paths run it, with rank-8 adapters (α 16,
-    a merge every 2 aggregations)."""
-    return socket_config(**LORA, **fed)
+    """Config #4 as the socket paths run it at 6 of BERT-base's 12 blocks,
+    with rank-8 adapters (α 16, a merge every 2 aggregations)."""
+    return socket_config(depth=CUT_DEPTH, **LORA, **fed)
 
 
 def _cpu_tree(tree):
@@ -3627,7 +3690,8 @@ def _factor_shaped(tag, fold_shapes, folders):
 
 def lora_flat_path(A, F, dataset):
     """15a: a broker, a FederatedCoordinator and 4 DeviceWorkers (3
-    trainers and the evaluator) on config #4 with rank-8 adapters (α 16, a
+    trainers and the evaluator) on config #4 (at 6 of BERT-base's 12
+    blocks) with rank-8 adapters (α 16, a
     merge every 2), dense factor uplinks and the device fold, 3 rounds and
     an evaluation.  Every update is the factor tree; ``bytes_saved_uplink``
     is the dense frame's length less the factor frame's per update (JAX's
@@ -3657,8 +3721,8 @@ def lora_flat_path(A, F, dataset):
             f"{fed.lora_alpha} merge every {fed.lora_merge_every}, dense "
             f"factor uplinks, fold_device; trainers "
             f"{[d.device_id for d in coord.trainers]}, evaluator "
-            f"{coord.evaluator.device_id}; cuts: {SOCKET_CUTS}; up in "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"{coord.evaluator.device_id}; cuts: {SOCKET_CUTS}; depth 12 "
+            f"-> {CUT_DEPTH}; up in {time.perf_counter() - t0:.2f} s")
         base0 = host_params(coord.params_tree())
         eval_params, merge = coord._eval_params, coord._merge_lora
 
@@ -3779,7 +3843,7 @@ def lora_flat_path(A, F, dataset):
                                     for r in records],
                       "merge_ms": [t * 1e3 for t in merge_s],
                       "merge_bound_ms": merge_bound_ms,
-                      "local_train_s_per_step": per_step}, fold_shapes
+                      "local_train_s_per_step": per_step}
 
 
 def lora_tree_path(A, F, dataset):
@@ -4099,6 +4163,7 @@ def lora_phase(A, F):
     """Phase 15: LoRA adapter federation on the card, on config #4 (and
     config #2 through the processes)."""
     from colearn_federated_learning_tpu_torch.data import registry
+    from colearn_federated_learning_tpu_torch.fed import lora
 
     cfg = main_path_config()
     dataset = registry.get_dataset(cfg.data.dataset, seed=cfg.run.seed)
@@ -4107,7 +4172,7 @@ def lora_phase(A, F):
     # draw CIFAR-10 while 15a-15c run.
     FLEETS["lora"] = CliFleet(worker=LORA_CLI)
     t0 = time.perf_counter()
-    paths["lora_flat"], numbers["15a"], fold_shapes = lora_flat_path(
+    paths["lora_flat"], numbers["15a"] = lora_flat_path(
         A, F, dataset)
     log(f"  15a in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -4120,7 +4185,10 @@ def lora_phase(A, F):
     paths["lora_cli"] = lora_cli_path(F)
     log(f"  15d in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    numbers["factor_folds"] = factor_fold_rows(F, fold_shapes)
+    # The factor layout at BERT-base's full depth (146 slots), whatever
+    # depth 15a-15c run at.
+    numbers["factor_folds"] = factor_fold_rows(F, lora.init_factors(
+        bert_params(), LORA["lora_rank"], model_name="bert", device="cpu"))
     log(f"  factor-layout folds in {time.perf_counter() - t0:.2f} s")
     log("phase 15 numbers " + json.dumps(numbers))
     return paths
@@ -4680,6 +4748,388 @@ def chaos_phase() -> dict:
     return {"mp": mp, "tree_async": tree}
 
 
+# ------------------------------------------------------------ phase 18
+SHARD_TP = 2               # 18a: two positions of the (model,) axis ...
+SHARD_PARTIALS = 2         # ... on the one card; the root's 2 partials
+CKPT_ROUNDS, CKPT_WORKERS = 4, 2   # 18c: run_ckpt_soak's own defaults
+
+
+def topk8_wire(shapes, slots):
+    """A drawn topk8 contribution (``sparse_batch``'s per-slot int64
+    indices, int8 values and scale) as the wire tree a topk8 frame
+    carries."""
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    return trees.unflatten(shapes, [
+        {"i": idx.astype(np.int32), "v": vals,
+         "n": np.int64(np.size(ref)), "s": np.float32(scale)}
+        for (idx, vals, scale), ref in zip(slots, trees.leaves(shapes))])
+
+
+def _fold_all(F, inputs, **kw):
+    """A ``StreamingFolder(**kw)`` over 18a's contributions in cohort order,
+    dense batches of at most ``FOLD_ROWS`` rows (9a's staging buffer
+    holds them); returns ``(its mean, the launches its fold made)``."""
+    from colearn_federated_learning_tpu_torch.comm.aggregation import (
+        StreamingFolder)
+
+    f = StreamingFolder(inputs.shapes, order=inputs.order, **kw)
+    f._fold_batch_max = FOLD_ROWS
+    for meta, wire in inputs.sparse + inputs.dense:
+        f.add(dict(meta), wire)
+    for key, tw, tree, ls in inputs.partials:
+        f.add_partial(key, tw, tree, ls)
+    F.reset_launches()
+    mean = f.mean()
+    torch.cuda.synchronize()
+    return mean, dict(F.launches)
+
+
+def shard_inputs():
+    """18a's inputs: BERT-base's server params (9a's layout) and their
+    placement over ``SHARD_TP`` positions on the one card, 9a's draws (10
+    topk8 contributions from seed 91, 10 dense rows from seed 93, the
+    first two of them again as the root's partials) and the cohort
+    order."""
+    from colearn_federated_learning_tpu_torch.parallel import partition
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    params = bert_params()
+    # 9a's device key, so the replicated fold shares 9a's kernel and its
+    # staging buffer.
+    dev = torch.device("cuda")
+    placement = partition.make_server_placement(
+        params, SHARD_TP, "model", main_path_config().model.name,
+        devices=[dev] * SHARD_TP)
+    if placement is None:
+        raise AssertionError("18a: BERT-base's params did not shard")
+    shapes = placement.shapes_tree()
+    sizes = [int(np.asarray(l).size) for l in trees.leaves(params)]
+    t0 = time.perf_counter()
+    sparse = [({"client_id": f"s{r}", "weight": float(w),
+                "mean_loss": 0.5 + 0.01 * r, "compress": "topk8"},
+               topk8_wire(shapes, slots))
+              for r, (w, slots) in enumerate(
+                  sparse_batch(sizes, FOLD_ROWS, True, 91))]
+    g = torch.Generator(device="cuda").manual_seed(93)
+    rng = np.random.default_rng(93)
+    dense = []
+    for r in range(FOLD_ROWS):
+        flat = torch.randn(sum(sizes), generator=g, device="cuda")
+        dense.append(({"client_id": f"d{r}",
+                       "weight": float(rng.uniform(1.0, 300.0)),
+                       "mean_loss": 0.4, "compress": "none"},
+                      trees.unflatten(shapes, [
+                          part.reshape(np.shape(ref)) for part, ref in zip(
+                              np.split(flat.cpu().numpy(),
+                                       np.cumsum(sizes)[:-1]),
+                              trees.leaves(shapes))])))
+    partials = [(f"p{i}", 3.5 + i, dense[i][1], 1.25 + i)
+                for i in range(SHARD_PARTIALS)]
+    return SimpleNamespace(
+        params=params, dev=dev, placement=placement, shapes=shapes,
+        sizes=sizes, sparse=sparse, dense=dense, partials=partials,
+        order=([m["client_id"] for m, _ in sparse + dense]
+               + [p[0] for p in partials]),
+        draw_s=time.perf_counter() - t0)
+
+
+def shard_kernel_rows(F, inputs) -> dict:
+    """18a's kernels at the per-shard slot layout (one slot per distinct
+    shard): ``fold_sparse`` over the 10 topk8 contributions and
+    ``fold_dense`` over the root's 2 partials, each bitwise its plain
+    version there, then timed per launch as 9a times them (``sparse_row``,
+    ``dense_row``) beside its plain version, its library call and its
+    bound."""
+    from colearn_federated_learning_tpu_torch.comm.aggregation import (
+        StreamingFolder)
+
+    placement = inputs.placement
+    stager = StreamingFolder(inputs.shapes, placement=placement,
+                             device_fold=True, device=inputs.dev)
+    kernel = F.get_kernel([int(np.prod(shape, dtype=np.int64))
+                           for group in stager._slot_layout()
+                           for shape in group], inputs.dev)
+    if len(kernel.sizes) <= len(inputs.sizes):
+        raise AssertionError("18a: the slot layout is not per shard")
+    st = kernel.stage_sparse([
+        (np.float32(m["weight"]), stager._stage_topk_raw(w).slots)
+        for m, w in inputs.sparse])
+    err_s = bits_equal("18a fold_sparse at the shard layout",
+                       kernel.fold_sparse_staged(None, st),
+                       plain_sparse(F, kernel, st, None))
+    x = kernel.stage_dense([stager._dense_slots(placement.slice_tree(tree))
+                            for _, _, tree, _ in inputs.partials])
+    got = kernel.fold_dense_staged(None, x)
+    err_d = bits_equal("18a fold_dense at the shard layout", got,
+                       F.fold_dense_reference(torch.empty_like(got), x,
+                                              True))
+    acc = torch.zeros(kernel.total, dtype=torch.float32, device="cuda")
+    srow, _, _ = sparse_row(F, kernel, st, acc, FOLD_ROWS)
+    rows = {"fold_sparse": {**srow, "max_abs_err": err_s},
+            "fold_dense": {**dense_row(F, kernel, x), "max_abs_err": err_d}}
+    shape = {"fold_sparse": "per topk8 contribution",
+             "fold_dense": f"{SHARD_PARTIALS} partials per launch"}
+    for name, r in rows.items():
+        log(f"  [18a] {name} at the tp = {SHARD_TP} slot layout "
+            f"({len(kernel.sizes)} slots, {shape[name]}): "
+            f"{r['ms'] * 1e3:.2f} us device per launch "
+            f"({r['bound_ms'] / r['ms']:.1%} of bound "
+            f"{r['bound_ms'] * 1e3:.2f} us, {r['bound_by']}); plain "
+            f"{r['plain_ms'] * 1e3:.2f} us; library "
+            f"{r['library_ms'] * 1e3:.2f} us; bitwise its plain version; "
+            + json.dumps({"label": f"tp{SHARD_TP}", "name": name, **r}))
+    return rows
+
+
+def sharded_fold_path(F, inputs) -> tuple[dict, dict]:
+    """18a: the sharded server on the card at BERT-base's server params
+    over a ``(model,)`` placement of two positions on the one card.  The
+    contributions fold through ``StreamingFolder(placement=...,
+    device_fold=True)`` (the B4 kernels at the per-shard slot layout),
+    and the assembled mean is bitwise the replicated device fold's and
+    the placed host fold's.  Then one FedAdam ``server_update`` over the
+    shards (the params and both moments sharded) is bitwise the
+    replicated step, the downlink frame of the placed params is
+    byte-equal to the replicated one and moves
+    ``comm.gather_bytes_avoided_total`` by exactly ``tree_gather_avoided``,
+    and ``bytes_per_chip`` is printed.  Returns (the launches of the
+    placed fold, numbers)."""
+    from colearn_federated_learning_tpu_torch import telemetry
+    from colearn_federated_learning_tpu_torch.comm.downlink import (
+        DownlinkEncoder)
+    from colearn_federated_learning_tpu_torch.fed import strategies
+    from colearn_federated_learning_tpu_torch.parallel import partition
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    placement, dev, shapes = inputs.placement, inputs.dev, inputs.shapes
+    n = len(inputs.sizes)
+    t0 = time.perf_counter()
+    (m_shd, tw, ls), launches = _fold_all(F, inputs, placement=placement,
+                                          device_fold=True, device=dev)
+    t_shd = time.perf_counter() - t0
+    want = {"fold_sparse": FOLD_ROWS, "fold_dense": 2}
+    if launches != want:
+        raise AssertionError(f"18a: launches {launches}, want {want}")
+    got = _leaf_bytes(partition.host_tree(m_shd))
+    t0 = time.perf_counter()
+    (m_rep, tw_r, ls_r), _ = _fold_all(F, inputs, device_fold=True,
+                                       device=dev)
+    if _leaf_bytes(m_rep) != got or (tw_r, ls_r) != (tw, ls):
+        raise AssertionError("18a: the placed fold differs from the "
+                             "replicated device fold")
+    t_rep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (m_host, tw_h, ls_h), _ = _fold_all(F, inputs, placement=placement)
+    if (_leaf_bytes(partition.host_tree(m_host)) != got
+            or (tw_h, ls_h) != (tw, ls)):
+        raise AssertionError("18a: the placed fold differs from the host "
+                             "fold")
+    t_host = time.perf_counter() - t0
+    del m_rep, m_host
+    log(f"  [18a] BERT-base over {SHARD_TP} positions on one card: "
+        f"{n} leaves, sharded fraction {placement.sharded_fraction():.4f}; "
+        f"{FOLD_ROWS} topk8 + {FOLD_ROWS} dense + {SHARD_PARTIALS} partials "
+        f"(drawn in {inputs.draw_s:.2f} s): the placed device fold "
+        f"({t_shd:.2f} s, launches {launches}) bitwise the replicated "
+        f"device fold ({t_rep:.2f} s) and the placed host fold "
+        f"({t_host:.2f} s), with 18c's fleets running beside them")
+
+    # One FedAdam server step, sharded against replicated.
+    fed = dataclasses.replace(main_path_config().fed, strategy="fedadam",
+                              server_lr=0.01)
+    rep = strategies.init_server_state(
+        {str(i): torch.from_numpy(np.array(l)).to(dev)
+         for i, l in enumerate(trees.leaves(inputs.params))}, fed)
+    strategies.server_update(rep, {
+        str(i): torch.from_numpy(np.asarray(l)).to(dev)
+        for i, l in enumerate(trees.leaves(partition.host_tree(m_shd)))},
+        fed)
+    sharded = strategies.init_server_state(
+        placement.flatten(placement.shard(inputs.params)), fed)
+    strategies.server_update(sharded, placement.flatten(m_shd), fed)
+    torch.cuda.synchronize()
+    for part in ("params", "opt_m", "opt_v"):
+        a = partition.host_tree(placement.unflatten(getattr(sharded, part)))
+        b = trees.unflatten(shapes, [getattr(rep, part)[str(i)]
+                                     for i in range(n)])
+        if _leaf_bytes(a) != _leaf_bytes(partition.host_tree(b)):
+            raise AssertionError(f"18a: the sharded step's {part} differs "
+                                 "from the replicated step's")
+    # The downlink frame and the gather it avoided.
+    placed = placement.unflatten(sharded.params)
+    avoided = partition.tree_gather_avoided(placed)
+    counter = telemetry.get_registry().counter(
+        "comm.gather_bytes_avoided_total")
+    before = counter.value
+    body_shd = bytes(DownlinkEncoder("none").encode_round(1, placed)[0])
+    moved = counter.value - before
+    body_rep = bytes(DownlinkEncoder("none").encode_round(1, trees.unflatten(
+        shapes, [rep.params[str(i)] for i in range(n)]))[0])
+    if body_shd != body_rep or moved != avoided or not avoided:
+        raise AssertionError(f"18a: frames equal {body_shd == body_rep}, "
+                             f"counter moved {moved} of {avoided}")
+    per_chip = partition.bytes_per_chip(strategies.ServerState(
+        params=placed, opt_m=placement.unflatten(sharded.opt_m),
+        opt_v=placement.unflatten(sharded.opt_v)))
+    numbers = {"leaves": n, "gather_bytes_avoided": avoided,
+               "bytes_per_chip": per_chip,
+               "replicated_state_bytes": 3 * 4 * sum(inputs.sizes),
+               "frame_bytes": len(body_shd),
+               "fold_s": {"placed_device": t_shd, "replicated_device": t_rep,
+                          "placed_host": t_host}}
+    log(f"  [18a] FedAdam step over the shards bitwise the replicated step "
+        f"(params, opt_m, opt_v); downlink frame of {len(body_shd)} bytes "
+        f"byte-equal to the replicated one, comm.gather_bytes_avoided_total "
+        f"+{moved} (tree_gather_avoided {avoided}); bytes_per_chip "
+        f"{per_chip} (the replicated state {numbers['replicated_state_bytes']}"
+        f"); {card()}")
+    return launches, numbers
+
+
+def fallback_path() -> None:
+    """18b: ``make_server_placement`` falls back, counted.  BERT-base at tp
+    = 2 with the default positions (the host's cards): one card, so None
+    under ``insufficient_devices``.  Config #1's MLP at tp = 3 on three
+    positions of the card: 200, 200 and 10 do not divide by 3, every leaf
+    replicates, so None under ``rules_matched_nothing``."""
+    from colearn_federated_learning_tpu_torch import telemetry
+    from colearn_federated_learning_tpu_torch.fed import setup
+    from colearn_federated_learning_tpu_torch.parallel import partition
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
+
+    reg = telemetry.get_registry()
+
+    def count(reason):
+        return reg.snapshot().get(
+            f"fed.mesh_fallback_total{{reason={reason}}}", 0)
+
+    bert = bert_params()
+    before = count("insufficient_devices")
+    pl = partition.make_server_placement(bert, SHARD_TP, "model", "bert")
+    cards = torch.cuda.device_count()
+    if (pl is None) != (cards < SHARD_TP) or (
+            cards < SHARD_TP and count("insufficient_devices") != before + 1):
+        raise AssertionError(f"18b: {cards} cards, placement {pl}")
+    mlp = setup.init_global_params(get_config("mnist_mlp_fedavg"), "cuda")
+    before_r = count("rules_matched_nothing")
+    dev = torch.device("cuda", 0)
+    pl3 = partition.make_server_placement(mlp, 3, "model", "mlp",
+                                          devices=[dev] * 3)
+    if pl3 is not None or count("rules_matched_nothing") != before_r + 1:
+        raise AssertionError(f"18b: the MLP at tp = 3 gave {pl3}")
+    log(f"  [18b] BERT-base at tp = {SHARD_TP} on {cards} card(s): "
+        f"placement {'none' if pl is None else pl.n_devices}, "
+        f"insufficient_devices {before} -> {count('insufficient_devices')}; "
+        f"config #1's MLP at tp = 3: none, rules_matched_nothing "
+        f"{before_r} -> {count('rules_matched_nothing')}")
+
+
+def chaos_ckpt_path() -> dict:
+    """18c: ``chaos --ckpt`` (the kill leg, JAX's defaults: 4 rounds, 2
+    workers, tp 2 -> 1, 300 ms of slow I/O per shard file) through
+    ``cli.main``: two fleets of the port's command line (a broker and 2
+    workers on the card, the ``--ckpt-stream`` coordinator on the CPU
+    with 8 forced host positions, since its tp = 2 placement needs two
+    positions and the machine has one card), config #1's MLP.  The
+    faulted coordinator is SIGKILLed while a save is in flight and
+    relaunched with ``--resume --tp-size 1``; the command's gate passes
+    (it exits 1 otherwise): the kill mid-save, the resume at the last
+    committed step with its digest, ``resharded`` >= 1, the loss tail
+    against the kill-free oracle, the postmortem naming the coordinator,
+    no dump missing.  Then: the workers ran on the card and every
+    coordinator incarnation on the CPU."""
+    from colearn_federated_learning_tpu_torch import cli, telemetry
+
+    d = CKPT["chaos_ckpt"]
+    arrivals = []                  # (wall seconds, round) per record line
+    log_rec = cli._chaos_log
+
+    def timed(rec):
+        arrivals.append((time.time(), rec["round"]))
+        log_rec(rec)
+
+    t0 = time.perf_counter()
+    cli._chaos_log = timed
+    try:
+        summary = cli.main(["chaos", "--ckpt", "--rounds", str(CKPT_ROUNDS),
+                            "--num-workers", str(CKPT_WORKERS), "--workdir",
+                            d])
+    finally:
+        cli._chaos_log = log_rec
+    took = time.perf_counter() - t0
+    kill = summary["kill"]
+    after = [t for t, r in arrivals if t > kill["at"]]
+    recover = round(after[0] - kill["at"], 3) if after else None
+    dumps = [x for x in telemetry.load_flight_dumps(
+        os.path.join(d, "faulted", "flight")) if "error" not in x]
+    off = _off_card(dumps)
+    workers = [x for x in dumps
+               if str(x.get("role", "")).startswith("worker")]
+    log(f"  [18c] chaos --ckpt: killed pid {kill.get('pid')} mid-save of "
+        f"{summary['killed_gen']} (mid_save {summary['killed_mid_save']}); "
+        f"committed step {summary['committed_step']}, resumed at round "
+        f"{summary['resume_round']} with digest ok {summary['digest_ok']}, "
+        f"resharded {summary['resharded_resumes']}; rounds "
+        f"{summary['rounds_run']} faulted, {summary['oracle_rounds_run']} "
+        f"oracle; tail loss {summary['final_loss']} vs "
+        f"{summary['oracle_final_loss']}; postmortem attributed "
+        f"{summary['postmortem_attributed']}, missing dumps "
+        f"{summary['flight_missing']}; {len(dumps)} dumps, off the card "
+        f"{off}; {recover} s from the kill to the resumed round's record; "
+        f"the soak {took:.2f} s; {card()}")
+    if not (summary["killed_mid_save"] and summary["resharded_resumes"] >= 1
+            and recover is not None and len(workers) == CKPT_WORKERS
+            and off and {role for _, role, _ in off} == {"coordinator"}
+            and {b for _, _, b in off} == {"cpu"}):
+        brief = {k: v for k, v in summary.items() if k != "records"}
+        raise AssertionError(f"18c: summary {brief}, off the card {off}")
+    return {"seconds": took, "recover_s": recover,
+            "committed_step": summary["committed_step"],
+            "killed_gen": summary["killed_gen"]}
+
+
+def sharded_phase(F) -> tuple[dict, dict]:
+    """Phase 18: the sharded server (18a the placed fold, step and
+    downlink on the card; 18b the fallbacks; 18c ``chaos --ckpt``).  18a's
+    kernels are timed first, alone; then 18c's soak (processes that do
+    little on the card) runs on a thread beside 18a's folds and 18b.
+    Returns (its paths' launches, 18a's timing rows)."""
+    t0 = time.perf_counter()
+    inputs = shard_inputs()
+    rows = shard_kernel_rows(F, inputs)
+    log(f"  18a's inputs and kernels in {time.perf_counter() - t0:.2f} s")
+    soak: dict = {}
+
+    def run_soak():
+        t = time.perf_counter()
+        try:
+            soak["18c"] = chaos_ckpt_path()
+        except BaseException as e:         # re-raised on this thread
+            soak["error"] = e
+        soak["s"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=run_soak, name="18c")
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        launches, numbers = sharded_fold_path(F, inputs)
+        del inputs
+        log(f"  18a's folds, step and downlink in "
+            f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        fallback_path()
+        log(f"  18b in {time.perf_counter() - t0:.2f} s")
+    finally:
+        thread.join()
+    if "error" in soak:
+        raise soak["error"]
+    log(f"  18c in {soak['s']:.2f} s (beside 18a's folds and 18b)")
+    numbers["18c"] = soak["18c"]
+    log("phase 18 numbers " + json.dumps(numbers))
+    return {"sharded_fold": launches}, rows
+
+
 def cache_synthetic_data():
     """Draw each synthetic dataset once in this process: every later draw
     of the same (dataset, seed) gets a copy of the first one's arrays
@@ -4749,6 +5199,7 @@ def main() -> int:
     CKPT["root"] = tempfile.mkdtemp(dir=_build.BUILD_DIR, prefix="ckpt-")
     CKPT["chaos"] = ckpt_dir("chaos")
     CKPT["chaos_tree"] = ckpt_dir("chaos_tree")
+    CKPT["chaos_ckpt"] = ckpt_dir("chaos_ckpt")
     try:
         return run_phases()
     finally:
@@ -4796,7 +5247,7 @@ def fold_and_file_phase(A, F):
 
 
 def run_phases() -> int:
-    """Phases 1-17 and the two result lines (see the module docstring)."""
+    """Phases 1-18 and the two result lines (see the module docstring)."""
     from colearn_federated_learning_tpu_torch.ops import _build
     from colearn_federated_learning_tpu_torch.ops import attention as A
     from colearn_federated_learning_tpu_torch.ops import fold as F
@@ -4849,6 +5300,10 @@ def run_phases() -> int:
                        resume_phase, A, F))
     phase(17, "the chaos soaks (chaos --mp with SIGKILLs, postmortem, "
               "chaos --tree-async under the lock witness)", chaos_phase)
+    shard_paths, _ = phase(18, "the sharded server (the placed fold, step "
+                               "and downlink, the fallbacks, chaos --ckpt)",
+                           sharded_phase, F)
+    paths.update(shard_paths)
     log("launches per path " + json.dumps(paths))
     total = time.perf_counter() - t_start
     log(f"script {total:.2f} s; phase seconds {json.dumps(PHASE_S)}; 9c "

@@ -2,11 +2,14 @@
 format (its ``ckpt/streaming.py``), so a generation written by either
 package restores in the other.
 
-- SAVE streams one shard file at a time.  On one device every leaf is
-  one slice in ``shard_00000.npz``; each leaf is read to the host only
-  while its own entry of that file is written, so the host never holds a
-  second copy of the whole state.  Files are committed by the same-dir
-  temp file, fsync and ``os.replace``.
+- SAVE streams one shard file at a time: ``shard_<j>.npz`` holds the
+  ``j``-th distinct shard of every leaf that has one (a sharded server's
+  ``parallel.partition.ShardedTensor``; a replicated leaf is one slice in
+  ``shard_00000.npz``), each slice read to the host only while its own
+  entry is written, so the host never holds a second copy of the whole
+  state, and the gather a replicated layout would need is counted in
+  ``comm.gather_bytes_avoided_total``.  Files are committed by the
+  same-dir temp file, fsync and ``os.replace``.
 - A generation ``manifest.json`` (format 1: the CRC32 and size of every
   file, and per leaf its ``path``, ``shape``, ``dtype`` and ``slices``)
   is written and fsynced LAST: it is the commit marker.  A kill at any
@@ -15,17 +18,21 @@ package restores in the other.
   a missing or torn manifest, a missing or torn shard, or a CRC
   mismatch, counting each in ``ckpt.generations_discarded_total{reason}``
   (and in :attr:`StreamingCheckpointer.generations_discarded`).  Leaves
-  are assembled one at a time from their saved slices (a JAX generation
-  saved on a tp > 1 mesh has several) and placed on the template leaf's
-  device; :attr:`StreamingCheckpointer.last_restore_digest` is the
-  sha256 over each leaf's ``(dtype name, shape)`` and C-order bytes, in
-  flatten order, as JAX's.
+  are assembled one at a time from their saved slices and re-cut onto the
+  template leaf's layout: a tensor on its device, or a sharded leaf's
+  shards each on its own position's device, so a generation saved at any
+  tp restores at any other (``ckpt.resharded_resumes_total`` when the
+  saved slice count differs from the template's shard count, JAX's
+  rule).  :attr:`StreamingCheckpointer.last_restore_digest` is the sha256
+  over each leaf's ``(dtype name, shape)`` and C-order bytes, in flatten
+  order, as JAX's.
 
 State trees follow ``jax.tree_util``'s flatten order and paths
 (:func:`flatten_state`): tuples and lists by index, dataclasses (the
 port's ``ServerState``) and NamedTuples by field with ``None`` fields
 dropped, dicts by sorted key.  Leaves are tensors (read where they live:
-a view is made contiguous leaf by leaf), numpy arrays or Python scalars.
+a view is made contiguous leaf by leaf), sharded leaves, numpy arrays or
+Python scalars.
 Callers hand the state in JAX's layout: flax-layout views of their
 tensors (``convert.leaf_to_flax``), ``round_idx`` as an int32 ``()``
 array.  bf16 leaves round-trip bitwise without ``ml_dtypes``: their
@@ -51,6 +58,8 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from colearn_federated_learning_tpu_torch.parallel.partition import (
+    ShardedTensor, host_leaf, leaf_gather_avoided)
 from colearn_federated_learning_tpu_torch.telemetry import registry as _metrics
 from colearn_federated_learning_tpu_torch.utils.serialization import (
     _dtype_entry, _resolve_dtype)
@@ -76,8 +85,8 @@ def _is_namedtuple(x) -> bool:
 
 
 def _is_leaf(x) -> bool:
-    return isinstance(x, (torch.Tensor, np.ndarray, np.generic, int, float,
-                          bool))
+    return isinstance(x, (torch.Tensor, ShardedTensor, np.ndarray,
+                          np.generic, int, float, bool))
 
 
 def flatten_state(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
@@ -129,17 +138,24 @@ def unflatten_state(tree: Any, leaves: Iterator) -> Any:
 
 def copy_leaves(dst: Any, src: Any) -> None:
     """Copy every tensor leaf of a restored tree ``src`` into the matching
-    leaf of ``dst``, a template whose tensor leaves are views of live
-    tensors: the restore lands in the live storage."""
+    leaf of ``dst``, a template whose tensor leaves (and sharded leaves'
+    shards) are views of live tensors: the restore lands in the live
+    storage."""
     for (_, d), (_, s) in zip(flatten_state(dst), flatten_state(src)):
         if isinstance(d, torch.Tensor):
             d.copy_(s)
+        elif isinstance(d, ShardedTensor):
+            for dp, sp in zip(d.parts, s.parts):
+                dp.copy_(sp)
 
 
 # ------------------------------------------------------------ leaf bytes --
 
 def _leaf_meta(leaf) -> tuple[tuple, dict, str]:
     """``(shape, dtype entry, dtype name)`` of a leaf, in JAX's terms."""
+    if isinstance(leaf, ShardedTensor):
+        _, entry, name = _leaf_meta(leaf.parts[0])
+        return leaf.shape, entry, name
     if isinstance(leaf, torch.Tensor):
         shape = tuple(int(d) for d in leaf.shape)
         if leaf.dtype == torch.bfloat16:
@@ -153,7 +169,10 @@ def _leaf_meta(leaf) -> tuple[tuple, dict, str]:
 
 def _host_bytes(leaf) -> np.ndarray:
     """One leaf's C-order bytes on the host, as a flat uint8 array (the
-    only host copy of it; a device view is made contiguous first)."""
+    only host copy of it; a device view is made contiguous first, a
+    sharded leaf read shard by shard into one buffer)."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = host_leaf(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -184,10 +203,29 @@ def _as_tensor(buf: np.ndarray, view: Optional[torch.dtype]) -> torch.Tensor:
     return t.view(view) if view is not None else t
 
 
+def _leaf_shards(leaf) -> list:
+    """A leaf's distinct shards as ``(starts, stops, leaf)``: each shard of
+    a sharded leaf, or the whole of any other leaf."""
+    if isinstance(leaf, ShardedTensor):
+        out = []
+        for part, idx in zip(leaf.parts, leaf.index):
+            starts = [0 if s.start is None else int(s.start) for s in idx]
+            stops = [d if s.stop is None else int(s.stop)
+                     for d, s in zip(leaf.shape, idx)]
+            out.append((starts, stops, part))
+        return out
+    shape = _leaf_meta(leaf)[0]
+    return [([0] * len(shape), list(shape), leaf)]
+
+
 def _place(tmpl: Any, buf: np.ndarray, view: Optional[torch.dtype]) -> Any:
     """One assembled host leaf in the template leaf's kind: a tensor on the
-    template's device, a numpy array, or the template's Python scalar
-    type."""
+    template's device, a sharded leaf re-cut onto the template's shards
+    (each on its own device), a numpy array, or the template's Python
+    scalar type."""
+    if isinstance(tmpl, ShardedTensor):
+        return tmpl.map_parts(lambda part, idx: _as_tensor(
+            buf[idx], view).to(part.device))
     if isinstance(tmpl, torch.Tensor):
         return _as_tensor(buf, view).to(tmpl.device)
     if isinstance(tmpl, (np.ndarray, np.generic)):
@@ -313,7 +351,8 @@ class StreamingCheckpointer:
         return out
 
     def save(self, step: int, server_state: Any, history: list[dict]) -> None:
-        """Stream ``server_state`` leaf by leaf into generation ``step``;
+        """Stream ``server_state`` shard file by shard file into generation
+        ``step``;
         the manifest commit is the LAST durable write.  A save the fault
         plane aborts (``stale_manifest``) leaves the generation
         uncommitted and counts ``ckpt.save_aborted_total``."""
@@ -328,33 +367,42 @@ class StreamingCheckpointer:
 
         flat = flatten_state(server_state)
         leaves: list[dict] = []
+        plans: list[list] = []       # per leaf: its distinct shards
+        avoided = 0
         for path, leaf in flat:
             shape, entry, _ = _leaf_meta(leaf)
             leaves.append({"path": path, "shape": list(shape),
                            "dtype": entry, "slices": []})
+            plans.append(_leaf_shards(leaf))
+            avoided += leaf_gather_avoided(leaf)
+        if avoided:
+            reg.counter("comm.gather_bytes_avoided_total").inc(avoided)
+        n_shards = max([1] + [len(p) for p in plans])
         stats: dict = {"crc_s": 0.0}
         files: dict[str, dict] = {}
-        fname = "shard_00000.npz"
-        fpath = os.path.join(gen, fname)
-        fileplane.ckpt_slow_io(0, step, "shard")
-        entries = []
-        for i, (_, leaf) in enumerate(flat):
-            key = f"l{i:05d}"
-            n = len(leaves[i]["shape"])
-            leaves[i]["slices"].append(
-                {"file": fname, "key": key, "start": [0] * n,
-                 "stop": list(leaves[i]["shape"])})
-            entries.append((key, lambda leaf=leaf: _host_bytes(leaf)))
         nbytes = 0
+        for j in range(n_shards):
+            fname = f"shard_{j:05d}.npz"
+            fpath = os.path.join(gen, fname)
+            fileplane.ckpt_slow_io(j, step, "shard")
+            entries = []
+            for i, shards in enumerate(plans):
+                if j >= len(shards):
+                    continue
+                starts, stops, part = shards[j]
+                key = f"l{i:05d}"
+                leaves[i]["slices"].append({"file": fname, "key": key,
+                                            "start": starts, "stop": stops})
+                entries.append((key, lambda part=part: _host_bytes(part)))
 
-        def write(f):
-            nonlocal nbytes
-            nbytes = write_npz_streaming(f, entries)
+            def write(f, entries=entries):
+                nonlocal nbytes
+                nbytes += write_npz_streaming(f, entries)
 
-        crc, size = _atomic_write(fpath, write, stats)
-        fileplane.ckpt_torn_shard(fpath, 0, step)
-        files[fname] = {"crc": crc, "size": size}
-        reg.counter("ckpt.shards_written_total").inc()
+            crc, size = _atomic_write(fpath, write, stats)
+            fileplane.ckpt_torn_shard(fpath, j, step)
+            files[fname] = {"crc": crc, "size": size}
+            reg.counter("ckpt.shards_written_total").inc()
 
         fileplane.ckpt_slow_io(-1, step, "history")
         hist_bytes = json.dumps(history).encode()
@@ -369,14 +417,16 @@ class StreamingCheckpointer:
             reg.counter("ckpt.save_aborted_total").inc()
             return
         fileplane.ckpt_slow_io(-1, step, "manifest")
-        manifest = {"format": 1, "step": int(step), "saved_shards": 1,
+        manifest = {"format": 1, "step": int(step),
+                    "saved_shards": int(n_shards),
                     "leaves": leaves, "files": files}
         man_bytes = json.dumps(manifest, separators=(",", ":")).encode()
         _atomic_write(os.path.join(gen, MANIFEST),
                       lambda f: f.write(man_bytes), stats)
         self._prune(step)
         dt = time.perf_counter() - t0
-        self.last_save_stats = {"save_s": dt, "bytes": nbytes, "shards": 1,
+        self.last_save_stats = {"save_s": dt, "bytes": nbytes,
+                                "shards": n_shards,
                                 "crc_s": stats["crc_s"]}
         reg.counter("ckpt.saves_total").inc()
         reg.histogram("ckpt.save_s").observe(dt)
@@ -477,7 +527,10 @@ class StreamingCheckpointer:
                 _digest_update(digest, name, shape, buf)
                 nbytes += buf.nbytes
                 out.append(_place(tmpl, buf, view))
-                if len(rec["slices"]) > 1:
+                saved_n = len(rec["slices"])
+                tmpl_n = (len(tmpl.parts) if isinstance(tmpl, ShardedTensor)
+                          else 1)
+                if saved_n != tmpl_n and (saved_n > 1 or tmpl_n > 1):
                     resharded = True
         if resharded:
             reg.counter("ckpt.resharded_resumes_total").inc()

@@ -44,9 +44,12 @@ at once on SIGTERM, an uncaught exception or a watchdog stall), which
 ``postmortem`` merges with the round WAL.  ``chaos`` runs the chaos soaks
 (``faults/soak.py``, ``faults/procsoak.py``): in this process under a
 fault plan, ``--secure`` against a plain oracle, and ``--mp``, ``--agg``,
-``--async`` and ``--tree-async`` as processes under real SIGKILLs (the
-last two with ``--lock-witness``, the lock witness in every process),
-with JAX's gates and exit codes.
+``--async``, ``--tree-async`` and ``--ckpt`` as processes under real
+SIGKILLs (``--async`` and ``--tree-async`` with ``--lock-witness``, the
+lock witness in every process), with JAX's gates and exit codes.
+``coordinate --tp-size N`` shards the server state over N positions
+(the cards, or on the CPU the host positions ``XLA_FLAGS`` forces) or,
+on a host with fewer, runs replicated and counts the fallback.
 Everything runs on the card (``--backend gpu``, the default, which raises
 without one) or, only when asked, on the CPU.  ``train`` writes each
 round's record to stderr as one JSON line and its summary to stdout, as in
@@ -65,7 +68,7 @@ A flag of the JAX command line whose feature is not ported yet is
 accepted by the parser and refused: the run exits with status 2 and names
 the ROADMAP item that ports it, and never runs without it; so is each
 JAX subcommand not ported yet (``fleetsim``, ``lint``, ``top``,
-``sentinel``, ``converge``), and ``chaos --ckpt``.  ``configs``,
+``sentinel``, ``converge``).  ``configs``,
 ``trace-summary``, ``health`` and ``postmortem`` print JAX's text, not a
 JSON result.
 """
@@ -126,10 +129,6 @@ _UNPORTED_TRAIN = {
 _OBSERVABILITY = {
     "metrics_port": ("--metrics-port", dict(type=int), _OBS),
     "events_file": ("--events-file", dict(), _OBS),
-}
-# chaos flags -> the ROADMAP item that ports their soak.
-_UNPORTED_CHAOS = {
-    "ckpt": ("--ckpt", comm.ITEM_SHARDED),
 }
 _UNPORTED_COMMANDS = {
     "fleetsim": comm.ITEM_FLEETSIM,
@@ -533,7 +532,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "kill-free tree oracle (no double fold, the "
                         "re-home attributed, the loss tail)")
     p.add_argument("--ckpt", action="store_true",
-                   help="not ported yet (refused)")
+                   help="streaming-checkpoint gate: a --ckpt-stream "
+                        "federation is SIGKILLed mid-save and resumed at "
+                        "another --tp-size, restoring the last committed "
+                        "generation bitwise (--no-faults: a kill-free "
+                        "resume of the final generation)")
     p.add_argument("--lock-witness", action="store_true",
                    help="(--async/--tree-async) run every process of the "
                         "fleets under the lock witness (faults/lockwitness) "
@@ -1163,8 +1166,11 @@ def chaos(args: argparse.Namespace) -> dict:
     against a kill-free baseline; ``--tree-async``: the asynchronous plane
     through 2 aggregators, one SIGKILLed and the broker rebound, against a
     kill-free tree oracle; ``--lock-witness`` runs those two fleets under
-    the lock witness and gates on its reports.  JAX's conflicts between
-    the modes exit 2 first; ``--ckpt`` (item 15) is refused."""
+    the lock witness and gates on its reports.  ``--ckpt``: a
+    ``--ckpt-stream`` federation at tp = 2 SIGKILLed mid-save and resumed
+    at tp = 1, against a kill-free oracle (``--no-faults``: a finished
+    run's last generation resumed at tp = 1).  JAX's conflicts between
+    the modes exit 2 first."""
     from colearn_federated_learning_tpu_torch import faults
     from colearn_federated_learning_tpu_torch.faults import procsoak, soak
 
@@ -1172,13 +1178,37 @@ def chaos(args: argparse.Namespace) -> dict:
     if conflict:
         print(conflict, file=sys.stderr)
         raise SystemExit(2)
-    given = [(flag, item) for dest, (flag, item) in _UNPORTED_CHAOS.items()
-             if getattr(args, dest)]
-    if given:
-        for flag, item in given:
-            print(f"chaos {flag} is not ported to the PyTorch package yet; "
-                  f"see {item}", file=sys.stderr)
-        raise SystemExit(2)
+    if args.ckpt:
+        summary = procsoak.run_ckpt_soak(
+            rounds=args.rounds, n_workers=args.num_workers,
+            workdir=args.workdir, round_timeout=args.mp_round_timeout,
+            timeout_s=args.mp_timeout, kill=not args.no_faults,
+            log_fn=_chaos_log, backend=args.backend)
+        if summary["mode"] == "smoke":
+            # A tp = 2 run's final generation resumes at tp = 1 with the
+            # digest the harness computed, across the re-cut.
+            return _chaos_gate(summary, (
+                summary["exit_code"] == 0
+                and summary["resume_exit_code"] == 0
+                and summary["rounds_run"] >= args.rounds
+                and summary["resume_round_ok"]
+                and summary["digest_ok"]
+                and summary["reshard_ok"]))
+        # The kill landed mid-save, the resume restored the last committed
+        # generation bitwise across the tp change, the federation finished
+        # near the oracle's loss, and the postmortem names the coordinator.
+        return _chaos_gate(summary, (
+            summary["exit_code"] == 0
+            and summary["oracle_exit_code"] == 0
+            and summary["rounds_run"] >= args.rounds
+            and summary["killed_mid_save"]
+            and summary["resumed"] >= 1
+            and summary["resume_round_ok"]
+            and summary["digest_ok"]
+            and summary["reshard_ok"]
+            and summary["loss_gap_ok"]
+            and summary["postmortem_attributed"]
+            and not summary["flight_missing"]))
     if args.chaos_tree_async:
         summary = procsoak.run_tree_async_soak(
             aggregations=args.rounds, n_workers=args.num_workers,

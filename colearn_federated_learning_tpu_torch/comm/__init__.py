@@ -18,18 +18,22 @@ requests, so processes of the two packages federate together).
 - ``per_type``:    one federation per MUD device type.
 - ``aggregation``: the update folders, with the device fold (B4).
 
-The chaos soaks (``faults/soak.py``, ``faults/procsoak.py``: ``chaos``,
-``--secure``, ``--mp``, ``--agg``, ``--async``, ``--tree-async``) drive
+The coordinators' server state may be sharded over a placement
+(``parallel.partition.ServerPlacement``, ``run.tp_size``).  The chaos
+soaks (``faults/soak.py``, ``faults/procsoak.py``: ``chaos``,
+``--secure``, ``--mp``, ``--agg``, ``--async``, ``--tree-async``,
+``--ckpt``) drive
 this plane under fault plans and real SIGKILLs, with the flight recorder
 (``telemetry/flight.py``) on every process; the broker's, the
 aggregators' and both coordinators' locks are ``faults/lockwitness.py``'s,
 which ``--lock-witness`` turns on.  Not ported yet, each refused naming
-its ROADMAP.md Queue A item: the sharded server and the checkpoint chaos
-soak (15); fleetsim (9b); the exporter, convergence and evaluation extras
+its ROADMAP.md Queue A item: checkpoints of a learner on a client mesh
+(15b); fleetsim (9b); the exporter, convergence and evaluation extras
 (10b); the analysis tools (17).
 """
 
-ITEM_SHARDED = "ROADMAP.md Queue A item 15 (the sharded server)"
+ITEM_SHARDED = ("ROADMAP.md Queue A item 15b (checkpoints of a learner on a "
+                "client mesh)")
 ITEM_FLEETSIM = "ROADMAP.md Queue A item 9b (fleetsim)"
 ITEM_OBS_REST = ("ROADMAP.md Queue A item 10b (the exporter, convergence "
                  "and evaluation extras)")

@@ -16,8 +16,13 @@ each block folds through the fold kernel (``ops/fold.py``, CUDA on the
 card, its plain version when ``device="cpu"``), bitwise equal to the host
 fold, which stays the parity oracle.
 
-The sharded server (``placement=``) is not ported: it raises, naming
-its ROADMAP.md Queue A item.
+With ``placement`` (``parallel.partition.ServerPlacement``, the sharded
+server) every contribution is sliced into its per-shard layout as it is
+staged (topk indices partitioned with offset-adjusted coordinates), the
+fold accumulates shard-wise (each leaf a tuple of its shards; the device
+fold one slot per shard) and :meth:`StreamingFolder.mean` assembles a
+placed tree.  Per element the sum sequence is unchanged, so the sharded
+fold is bitwise the replicated one.
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ from colearn_federated_learning_tpu_torch.utils import trees
 
 
 class _SparseStage:
-    """One topk contribution staged sparse: per leaf (flatten order), one
-    ``(flat_idx, scaled_values, target_shape)`` triple."""
+    """One topk contribution staged sparse: per leaf (flatten order), a
+    list of ``(flat_idx, scaled_values, target_shape)`` triples, one per
+    shard under a placement and exactly one otherwise."""
 
     __slots__ = ("leaves",)
 
@@ -66,6 +72,16 @@ def _own_leaf(leaf: Any) -> np.ndarray:
     return a
 
 
+def _partwise(fn):
+    """``fn`` over a leaf, or over each shard of a sharded leaf (the tuple
+    ``ServerPlacement.slice_tree`` gives)."""
+    def apply(*xs):
+        if isinstance(xs[0], tuple):
+            return tuple(fn(*p) for p in zip(*xs))
+        return fn(*xs)
+    return apply
+
+
 def _merge_dense(acc: Any, contrib: Any) -> Any:
     """Elementwise host add for the dense fold, in place where the
     accumulator allows."""
@@ -74,16 +90,7 @@ def _merge_dense(acc: Any, contrib: Any) -> Any:
         if a.flags.writeable and a.dtype == np.result_type(a, c):
             return np.add(a, c, out=a)
         return np.add(a, c)
-    return trees.map_leaves(add, acc, contrib)
-
-
-def _refuse_placement(placement: Any) -> None:
-    if placement is not None:
-        from colearn_federated_learning_tpu_torch import comm
-
-        raise NotImplementedError(
-            "the sharded server (placement=) is not ported yet; see "
-            f"{comm.ITEM_SHARDED}")
+    return trees.map_leaves(_partwise(add), acc, contrib)
 
 
 class UpdateFolder:
@@ -115,7 +122,7 @@ class UpdateFolder:
         fold of zero total weight gives ``(None, 0, nan)``."""
         if self.total_w <= 0.0:
             return None, 0.0, math.nan
-        return (trees.map_leaves(lambda x: x * (1.0 / self.total_w),
+        return (trees.map_leaves(_partwise(lambda x: x * (1.0 / self.total_w)),
                                  self.wsum),
                 self.total_w, self.loss_sum / self.total_w)
 
@@ -136,17 +143,20 @@ class StreamingFolder(UpdateFolder):
       and fold as one batched sparse call per run, dense ones as one
       batched add, split only where the run's kind or value dtype
       changes, so the order is the cohort order and the result is bitwise
-      :meth:`_fold_block`'s.
+      :meth:`_fold_block`'s.  Under a placement the kernel's slots are the
+      shards (:meth:`_slot_layout`).
+    - ``placement`` slices every contribution per shard as it is staged;
+      :meth:`mean` assembles the placed tree.
     """
 
     def __init__(self, shapes: Any, order: Optional[Sequence[str]] = None,
                  placement: Optional[Any] = None,
                  slices: Optional[Sequence[Sequence[str]]] = None,
                  device_fold: bool = False, device=None):
-        _refuse_placement(placement)
         super().__init__(shapes)
         self._order = list(order) if order is not None else None
         self._staged: dict[str, tuple[float, Any, float]] = {}
+        self._placement = placement
         self._slices = ([list(s) for s in slices]
                         if slices is not None else None)
         self.folded_ids: list[str] = []
@@ -158,6 +168,7 @@ class StreamingFolder(UpdateFolder):
         self._device_fold = bool(device_fold)
         self._device = device
         self._kernel = None
+        self._slot_meta: Optional[list] = None
         self._fold_batch_max: Optional[int] = None
 
     def add(self, meta: dict, delta: Any,
@@ -176,7 +187,13 @@ class StreamingFolder(UpdateFolder):
             # int8 and none are dense by nature.
             delta = compression.decompress_delta(delta, meta,
                                                  shapes=self.shapes)
-            contrib = trees.map_leaves(lambda x: np.asarray(x) * w, delta)
+            if self._placement is not None:
+                # Sliced and scaled in one pass: the slices of the scaled
+                # leaf, bit for bit.
+                contrib = self._placement.slice_tree(delta, scale=w)
+            else:
+                contrib = trees.map_leaves(lambda x: np.asarray(x) * w,
+                                           delta)
         cid = str(meta.get("client_id", len(self._staged)))
         self._staged[cid] = (w, contrib,
                              float(meta.get("mean_loss", 0.0)) * w)
@@ -190,20 +207,33 @@ class StreamingFolder(UpdateFolder):
         nodes = trees.flatten_up_to(self.shapes, wire_tree)
         sw = np.float32(w)
         leaves = []
-        for node, ref in zip(nodes, trees.leaves(self.shapes)):
+        for pos, (node, ref) in enumerate(zip(nodes,
+                                              trees.leaves(self.shapes))):
             idx, vals, _ = compression.topk_leaf_arrays(node)
-            leaves.append((idx, vals * sw, tuple(np.shape(ref))))
+            vals = vals * sw
+            if self._placement is not None:
+                leaves.append(
+                    self._placement.partition_flat_indices(pos, idx, vals))
+            else:
+                leaves.append([(idx, vals, tuple(np.shape(ref)))])
         return _SparseStage(leaves)
 
     def _stage_topk_raw(self, wire_tree: Any) -> _RawSparseStage:
         """Raw ``(indices, values, scale)`` per slot for the kernel, the
-        frame's int32 indices as they came."""
+        frame's int32 indices as they came (a shard's own int64 ones under
+        a placement; masking keeps the values' dtype)."""
         slots = []
         vdt = np.dtype(np.float32)
-        for node in trees.flatten_up_to(self.shapes, wire_tree):
+        for pos, node in enumerate(trees.flatten_up_to(self.shapes,
+                                                       wire_tree)):
             idx, vals, scale, _ = compression.topk_leaf_raw(node)
             vdt = vals.dtype
-            slots.append((idx, vals, scale))
+            if self._placement is not None:
+                slots += [(li, lv, scale) for li, lv, _ in
+                          self._placement.partition_flat_indices(
+                              pos, idx, vals)]
+            else:
+                slots.append((idx, vals, scale))
         return _RawSparseStage(slots, vdt)
 
     def add_partial(self, key: str, total_w: float, tree: Any,
@@ -216,6 +246,10 @@ class StreamingFolder(UpdateFolder):
         t0 = time.perf_counter()
         contrib = (None if tree is None
                    else trees.map_leaves(_own_leaf, tree))
+        if contrib is not None and self._placement is not None:
+            # Slicing commutes with the adds, so the sharded combine is
+            # bitwise the replicated one.
+            contrib = self._placement.slice_tree(contrib)
         self._staged[str(key)] = (float(total_w), contrib, float(loss_sum))
         self.count += int(count)
         self.fold_s += time.perf_counter() - t0
@@ -233,22 +267,28 @@ class StreamingFolder(UpdateFolder):
     def _scatter_fold(self, acc: Any, stage: _SparseStage) -> Any:
         """Fold one sparse contribution: assignment into fresh zeros when
         it is the first, else an in-place scatter-add (untouched entries
-        keep their bits, a -0.0 included)."""
+        keep their bits, a -0.0 included), shard by shard under a
+        placement."""
+        sharded = self._placement is not None
         if acc is None:
             out = []
-            for idx, vals, shape in stage.leaves:
-                flat = np.zeros(int(np.prod(shape, dtype=np.int64)),
-                                np.float32)
-                flat[idx] = vals
-                out.append(flat.reshape(shape))
+            for shards in stage.leaves:
+                parts = []
+                for idx, vals, shape in shards:
+                    flat = np.zeros(int(np.prod(shape, dtype=np.int64)),
+                                    np.float32)
+                    flat[idx] = vals
+                    parts.append(flat.reshape(shape))
+                out.append(tuple(parts) if sharded else parts[0])
             return trees.unflatten(self.shapes, out)
-        new = []
-        for arr, (idx, vals, _) in zip(trees.flatten_up_to(self.shapes, acc),
-                                       stage.leaves):
-            # reshape(-1) of a C-contiguous array is a view: += mutates acc.
-            arr.reshape(-1)[idx] += vals
-            new.append(arr)
-        return trees.unflatten(self.shapes, new)
+        for leaf, shards in zip(trees.flatten_up_to(self.shapes, acc),
+                                stage.leaves):
+            for arr, (idx, vals, _) in zip(leaf if sharded else (leaf,),
+                                           shards):
+                # reshape(-1) of a C-contiguous array is a view: += mutates
+                # acc.
+                arr.reshape(-1)[idx] += vals
+        return acc
 
     def _fold_block(self, ids: Sequence[str]) -> tuple[Any, float, float]:
         """The host fold of one block, from zero: the parity oracle."""
@@ -263,15 +303,40 @@ class StreamingFolder(UpdateFolder):
             ls += loss_w
         return acc, tw, ls
 
+    def _slot_layout(self) -> list:
+        """Per leaf (flatten order): the shapes of the slots the device fold
+        accumulates into, one per distinct shard under a placement
+        (``slice_tree``'s order) and exactly one otherwise."""
+        if self._slot_meta is None:
+            refs = trees.leaves(self.shapes)
+            if self._placement is None:
+                self._slot_meta = [[tuple(np.shape(r))] for r in refs]
+            else:
+                no_idx = np.zeros(0, np.int64)
+                no_val = np.zeros(0, np.float32)
+                self._slot_meta = [
+                    [tuple(shape) for _, _, shape in
+                     self._placement.partition_flat_indices(
+                         pos, no_idx, no_val)]
+                    for pos in range(len(refs))]
+        return self._slot_meta
+
+    def _dense_slots(self, contrib: Any) -> list:
+        """One staged dense or partial tree as the kernel's flat slot list
+        (views: staged leaves are C-contiguous)."""
+        return [np.asarray(part).reshape(-1)
+                for leaf in trees.flatten_up_to(self.shapes, contrib)
+                for part in (leaf if isinstance(leaf, tuple) else (leaf,))]
+
     def _fold_block_device(self, ids: Sequence[str]) -> tuple:
         """The block fold through the fold kernel: sparse runs as batched
         sparse calls, dense runs as batched adds, one copy to the host at
         the block's end."""
         from colearn_federated_learning_tpu_torch.ops import fold
 
-        refs = trees.leaves(self.shapes)
         if self._kernel is None:
-            sizes = [int(np.prod(np.shape(r), dtype=np.int64)) for r in refs]
+            sizes = [int(np.prod(shape, dtype=np.int64))
+                     for group in self._slot_layout() for shape in group]
             self._kernel = fold.get_kernel(sizes, self._device)
         kernel = self._kernel
         acc = None
@@ -308,9 +373,7 @@ class StreamingFolder(UpdateFolder):
             elif contrib is not None:
                 if sparse_run:
                     flush_sparse()
-                dense_run.append([np.asarray(leaf).reshape(-1) for leaf
-                                  in trees.flatten_up_to(self.shapes,
-                                                         contrib)])
+                dense_run.append(self._dense_slots(contrib))
                 folded += 1
         flush_sparse()
         flush_dense()
@@ -319,10 +382,13 @@ class StreamingFolder(UpdateFolder):
                 "comm.fold_device_total").inc(folded)
         if acc is None:
             return None, tw, ls
-        flat = kernel.to_host(acc)
-        tree = trees.unflatten(self.shapes, [
-            part.reshape(np.shape(r)) for part, r in zip(flat, refs)])
-        return tree, tw, ls
+        it = iter(kernel.to_host(acc))
+        out = []
+        for group in self._slot_layout():
+            parts = [next(it).reshape(shape) for shape in group]
+            out.append(tuple(parts) if self._placement is not None
+                       else parts[0])
+        return trees.unflatten(self.shapes, out), tw, ls
 
     def finalize(self) -> None:
         """Sum the staged contributions in cohort order (idempotent)."""
@@ -367,8 +433,16 @@ class StreamingFolder(UpdateFolder):
                 "correction is defined relative to the completed sum)")
         if self.wsum is None:
             return
-        self.wsum = trees.map_leaves(np.subtract, self.wsum, tree)
+        if self._placement is not None:
+            # The staged layout: the subtraction runs slice-wise.
+            tree = self._placement.slice_tree(tree)
+        self.wsum = trees.map_leaves(_partwise(np.subtract), self.wsum, tree)
 
     def mean(self) -> tuple[Optional[Any], float, float]:
+        """``UpdateFolder.mean`` after :meth:`finalize`; under a placement
+        the mean is assembled, each shard on its position's device."""
         self.finalize()
-        return super().mean()
+        mean_delta, total_w, mean_loss = super().mean()
+        if mean_delta is not None and self._placement is not None:
+            mean_delta = self._placement.assemble(mean_delta)
+        return mean_delta, total_w, mean_loss

@@ -70,9 +70,14 @@ snapshot cache and rebuilds the accountant by replaying each record's
 ``dp_z_eff``.  As JAX's, it keeps no enrollment ledger and runs no
 challenge on resume.
 
-Not ported yet, each refused naming its ROADMAP item: the convergence
-observatory (``learn_observe``), and the sharded server (``tp_size`` > 1
-on a host with that many cards; with fewer the server runs replicated).
+With ``run.tp_size`` > 1 the server state, the buffered folds (flat,
+and the tree's drained partials) and the server step are sharded over
+``CoordinatorCore``'s placement, as in the synchronous coordinator; the
+pumps' host copy of the params is read per shard, and a resume is re-cut
+onto the placement.
+
+Not ported yet, refused naming its ROADMAP item: the convergence
+observatory (``learn_observe``).
 """
 
 from __future__ import annotations
@@ -796,6 +801,7 @@ class AsyncFederatedCoordinator(CoordinatorCore):
         # Arrival-indexed staging keys: a device may land updates of two
         # versions in one buffer, and the sorted finalize is arrival order.
         folder = StreamingFolder(self._shapes_np,
+                                 placement=self._fold_placement,
                                  device_fold=self._fold_device,
                                  device=self.device)
         staleness: list[int] = []
@@ -970,6 +976,7 @@ class AsyncFederatedCoordinator(CoordinatorCore):
         self._start_dispatchers()
         t0 = time.perf_counter()
         folder = StreamingFolder(self._shapes_np,
+                                 placement=self._fold_placement,
                                  device_fold=self._fold_device,
                                  device=self.device)
         discarded = 0

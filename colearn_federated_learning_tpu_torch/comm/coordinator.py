@@ -24,6 +24,17 @@ one MUD device type (``comm/per_type.py`` runs one coordinator per type).
 
 The server state lives on the coordinator's device (the card unless the
 caller passes ``device="cpu"``), in the flax layout the wire carries.
+With ``run.tp_size`` > 1 it is sharded over a 1-D ``(run.tp_axis,)``
+placement (``parallel.partition.ServerPlacement``: the distinct cards, or
+on the CPU the host positions ``XLA_FLAGS`` forces): a flat dict with one
+tensor per (leaf, shard), each on its position's device, which the
+server step runs over unchanged; the fold stages per shard, the downlink
+and the checkpoints read per shard, and ``comm.gather_bytes_avoided_total``
+counts what a replicated layout would have gathered.  A host that cannot
+honour ``tp_size``, or a model the rules shard nothing of, runs
+replicated and counts ``fed.mesh_fallback_total{reason}``, as JAX does.
+Under LoRA the factors and their folds stay replicated; the merge runs
+shard-wise on the sharded base.
 :class:`CoordinatorCore` holds what this coordinator shares with the
 asynchronous one (``comm/async_coordinator.py``): the device, the control
 plane, the aggregator tier's discovery, the server state, the ledger's
@@ -63,10 +74,8 @@ answer a nonce challenge under their recorded key.  As in JAX, the
 asynchronous coordinator shares the checkpointer but keeps no ledger and
 runs no challenge.
 
-Not ported yet, each refused naming its ROADMAP item: the convergence
-observatory, and the sharded server (``tp_size`` > 1 on a host with that
-many cards; with fewer the server runs replicated, as the JAX package's
-placement falls back).
+Not ported yet, refused naming its ROADMAP item: the convergence
+observatory.
 """
 
 from __future__ import annotations
@@ -99,6 +108,7 @@ from colearn_federated_learning_tpu_torch.fed import compression, evaluation
 from colearn_federated_learning_tpu_torch.fed import lora as lora_lib
 from colearn_federated_learning_tpu_torch.fed import programs, strategies
 from colearn_federated_learning_tpu_torch.fed import setup as setup_lib
+from colearn_federated_learning_tpu_torch.parallel import partition
 from colearn_federated_learning_tpu_torch.privacy import dropout
 from colearn_federated_learning_tpu_torch.privacy import secure_agg as sa
 from colearn_federated_learning_tpu_torch.privacy.accountant import (
@@ -145,10 +155,10 @@ class CoordinatorCore:
     """What the synchronous and the asynchronous coordinators share
     (``FederatedCoordinator`` here, ``comm/async_coordinator.py``'s
     ``AsyncFederatedCoordinator``): the coordinator's device and the
-    sharded server's refusal, the control plane (enrollment, late joiners,
-    the broker's rebuild), the aggregator tier's discovery, the server
-    state in the flax layout on that device, the tracer, the health
-    ledger's flush and the evaluator."""
+    server placement, the control plane (enrollment, late joiners, the
+    broker's rebuild), the aggregator tier's discovery, the server state
+    in the flax layout on that device (or sharded over the placement),
+    the tracer, the health ledger's flush and the evaluator."""
 
     def _init_core(self, config: ExperimentConfig, broker_host: str,
                    broker_port: int, want_evaluator: bool, mud_policy,
@@ -158,12 +168,6 @@ class CoordinatorCore:
         file (``health_<process>.jsonl``)."""
         self.config = config
         self.device = resolve_device(device)
-        tp = config.run.tp_size
-        if tp > 1 and self.device.type == "cuda" \
-                and torch.cuda.device_count() >= tp:
-            raise NotImplementedError(
-                f"the sharded server (tp_size={tp}) is not ported yet; see "
-                f"{comm.ITEM_SHARDED}")
         self.want_evaluator = want_evaluator
         # The coordinator's spans live here, and the workers' spans are
         # adopted from their replies, so one trace covers the federation;
@@ -195,8 +199,20 @@ class CoordinatorCore:
         params = setup_lib.init_global_params(config, self.device)
         self._shapes_np = _shape_views(params)
         self._fold_device = bool(config.run.fold_device)
+        # The sharded server, or None (replicated; the fallback counted).
+        self._placement = partition.make_server_placement(
+            params, config.run.tp_size, config.run.tp_axis,
+            config.model.name, device=self.device)
+        # The folds stage per shard, but under LoRA they fold the factors,
+        # which stay replicated; only the base is sharded.
+        self._fold_placement = (None if config.fed.lora_rank > 0
+                                else self._placement)
+        # The replicated state's keys (a placement keys its own).
         self._names = [str(i) for i in range(len(trees.leaves(params)))]
         self._load_params(params)
+        if self._placement is not None:
+            telemetry.get_registry().gauge("comm.server_bytes_per_chip").set(
+                partition.bytes_per_chip(self._checkpoint_server_state()))
         self.history: list[dict] = []
         self._clients: dict[str, TensorClient] = {}
         self.trainers: list[DeviceInfo] = []
@@ -220,13 +236,12 @@ class CoordinatorCore:
 
     def _checkpoint_server_state(self) -> strategies.ServerState:
         """The server state in the JAX coordinator's layout, as views of
-        the live tensors: flax-layout trees, ``round_idx`` an int32 ``()``
-        array."""
+        the live tensors: flax-layout trees (of sharded leaves under a
+        placement), ``round_idx`` an int32 ``()`` array."""
         s = self.server_state
 
         def tree(d):
-            return None if d is None else trees.unflatten(
-                self._shapes_np, [d[n] for n in self._names])
+            return None if d is None else self._tree_of(d)
 
         return strategies.ServerState(
             params=tree(s.params), opt_m=tree(s.opt_m), opt_v=tree(s.opt_v),
@@ -234,24 +249,41 @@ class CoordinatorCore:
             round_idx=np.asarray(s.round_idx, np.int32))
 
     def _restore_server_state(self, template, restored) -> None:
-        """Copy a restored server state into the live tensors."""
+        """Copy a restored server state into the live tensors (re-cut onto
+        this coordinator's placement by the restore)."""
         from colearn_federated_learning_tpu_torch.ckpt import streaming
 
         streaming.copy_leaves(template, restored)
         self.server_state.round_idx = int(restored.round_idx)
 
+    def _state_dict(self, tree) -> dict:
+        """A flax-layout tree (host arrays, tensors, or sharded leaves) as
+        the server state's flat dict: one tensor per leaf on the
+        coordinator's device, or under a placement one per (leaf, shard)
+        on its position's device."""
+        if self._placement is not None:
+            return self._placement.flatten(tree)
+        return {n: (l if isinstance(l, torch.Tensor)
+                    else torch.from_numpy(np.asarray(l))).to(self.device)
+                for n, l in zip(self._names, trees.leaves(tree))}
+
+    def _tree_of(self, flat: dict) -> dict:
+        """The server state's flat dict as a flax-layout tree of views."""
+        if self._placement is not None:
+            return self._placement.unflatten(flat)
+        return trees.unflatten(self._shapes_np,
+                               [flat[n] for n in self._names])
+
     def _load_params(self, tree) -> None:
         """Start the server state from a flax-layout params tree."""
         self.server_state = strategies.init_server_state(
-            {n: torch.from_numpy(np.array(l, np.float32)).to(self.device)
-             for n, l in zip(self._names, trees.leaves(tree))},
-            self.config.fed)
+            self._state_dict(trees.map_leaves(
+                lambda l: np.array(l, np.float32), tree)), self.config.fed)
 
     def params_tree(self) -> dict:
         """The global params as a flax-layout tree of tensors on the
-        coordinator's device."""
-        return trees.unflatten(self._shapes_np, [
-            self.server_state.params[n] for n in self._names])
+        coordinator's device (of sharded leaves under a placement)."""
+        return self._tree_of(self.server_state.params)
 
     def _eval_params(self) -> dict:
         """The params the evaluator scores (flax layout, on the device)."""
@@ -259,12 +291,11 @@ class CoordinatorCore:
 
     def _server_step(self, mean_delta) -> None:
         """Apply the server strategy to a flax-layout mean delta (host
-        arrays) on the coordinator's device."""
+        arrays, or the placed tree a sharded fold assembles) on the
+        server's devices: elementwise, so shard by shard it is bitwise
+        the replicated step."""
         self.server_state = strategies.server_update(
-            self.server_state,
-            {n: torch.from_numpy(np.asarray(l)).to(self.device)
-             for n, l in zip(self._names, trees.leaves(mean_delta))},
-            self.config.fed)
+            self.server_state, self._state_dict(mean_delta), self.config.fed)
 
     def enroll(self, min_devices: int, timeout: float = 30.0) -> None:
         """Wait for devices, assign roles, open tensor connections."""
@@ -870,6 +901,7 @@ class FederatedCoordinator(CoordinatorCore):
             folder = StreamingFolder(
                 self._fold_shapes,
                 order=[f"slice:{i}" for i in range(len(slices))],
+                placement=self._fold_placement,
                 device_fold=self._fold_device, device=self.device)
             with tracer.span("broadcast_collect",
                              cohort=len(cohort)) as collect_sp:
@@ -1079,6 +1111,7 @@ class FederatedCoordinator(CoordinatorCore):
         # The sum is pinned to cohort order whatever the arrival order.
         folder = StreamingFolder(
             self._fold_shapes, order=[str(int(d.device_id)) for d in cohort],
+            placement=self._fold_placement,
             device_fold=self._fold_device, device=self.device)
 
         def fold(dev: DeviceInfo, res) -> None:
@@ -1465,8 +1498,9 @@ class FederatedCoordinator(CoordinatorCore):
                 self.device), tree)
 
     def _encode_lora_round(self, r: int):
-        """The round's one composite frame (the base and this cycle's
-        factors) with the ``lora`` meta marker the aggregator tier reads;
+        """The round's one composite frame (the base, read per shard under
+        a placement, and this cycle's factors) with the ``lora`` meta
+        marker the aggregator tier reads;
         (body, resync_body, saved) as ``DownlinkEncoder.encode_round``
         gives them (no resync: workers keep no delta cache under LoRA)."""
         composite = {"base": host_params(self.params_tree()),
@@ -1497,15 +1531,22 @@ class FederatedCoordinator(CoordinatorCore):
     def _merge_lora(self) -> None:
         """Merge B·A·(α/r) into the base, then zero B (A is kept, so the
         factors' shapes never change); counted in
-        ``fed.lora_merges_total``."""
+        ``fed.lora_merges_total``.  On a sharded base the merge runs shard
+        by shard (A and B stay replicated) and the bytes a replicated
+        merge would have gathered count in
+        ``comm.gather_bytes_avoided_total``."""
         fed = self.config.fed
-        merged = lora_lib.merge_adapters(self.params_tree(), self._factors,
+        reg = telemetry.get_registry()
+        params = self.params_tree()
+        avoided = partition.tree_gather_avoided(params)
+        merged = lora_lib.merge_adapters(params, self._factors,
                                          fed.lora_alpha, fed.lora_rank)
-        for n, leaf in zip(self._names, trees.leaves(merged)):
-            self.server_state.params[n] = leaf
+        self.server_state.params.update(self._state_dict(merged))
         self._factors = lora_lib.reset_factors(self._factors)
         self._lora_agg_count = 0
-        telemetry.get_registry().counter("fed.lora_merges_total").inc()
+        reg.counter("fed.lora_merges_total").inc()
+        if avoided:
+            reg.counter("comm.gather_bytes_avoided_total").inc(avoided)
 
     def _eval_params(self) -> dict:
         """Under LoRA a temporary merge, so the unmerged cycle counts; the

@@ -22,10 +22,10 @@ import threading
 from typing import Any, Callable, Optional
 
 import numpy as np
-import torch
 
 from colearn_federated_learning_tpu_torch import telemetry
 from colearn_federated_learning_tpu_torch.fed import compression
+from colearn_federated_learning_tpu_torch.parallel import partition
 from colearn_federated_learning_tpu_torch.utils import trees
 from colearn_federated_learning_tpu_torch.utils.serialization import (
     pytree_to_bytes, wire_frame_length)
@@ -50,16 +50,17 @@ def apply_dense_delta(base: Any, delta: Any) -> Any:
 
 
 def host_params(tree: Any) -> Any:
-    """A host copy of the server params: each tensor leaf read to host
-    numpy in one device-to-host copy (a copy of a CPU tensor too, which
-    the server updates in place); numpy leaves pass through."""
-    def read(leaf):
-        if isinstance(leaf, torch.Tensor):
-            host = leaf.detach().cpu().numpy()
-            return host.copy() if leaf.device.type == "cpu" else host
-        return np.asarray(leaf)
-
-    return trees.map_leaves(read, tree)
+    """A host copy of the server params (``parallel.partition.host_tree``):
+    a tensor leaf in one device-to-host copy (a copy of a CPU tensor too,
+    which the server updates in place), a sharded leaf shard by shard
+    into one buffer with no gathered device copy, numpy leaves as they
+    are.  The bytes the sharded leaves' replicated layout would have held
+    per position count in ``comm.gather_bytes_avoided_total``."""
+    avoided = partition.tree_gather_avoided(tree)
+    if avoided:
+        telemetry.get_registry().counter(
+            "comm.gather_bytes_avoided_total").inc(avoided)
+    return partition.host_tree(tree)
 
 
 class DownlinkEncoder:

@@ -5,10 +5,10 @@ fails, ``inject`` applies it at the transport's interposer seams, and
 ``soak`` and ``procsoak`` run a federation under a plan, in this process
 and as real subprocesses with real SIGKILL, and report whether the
 robustness machinery (retries, quorum, eviction, CRC framing, checkpoint
-resume, the tree's failover, the asynchronous plane's resume and re-home)
-held.  ``lockwitness`` checks the lock order and the guarded structures
-of the processes it runs in.  Not ported yet: the checkpoint process soak
-(ROADMAP.md Queue A item 15)."""
+resume, the tree's failover, the asynchronous plane's resume and re-home,
+the streaming checkpoint's crash consistency across a re-shard) held.
+``lockwitness`` checks the lock order and the guarded structures of the
+processes it runs in."""
 
 from colearn_federated_learning_tpu_torch.faults.plan import (  # noqa: F401
     ANY, ANY_ROUND, FILE_KINDS, KINDS, FaultPlan, FaultSpec)

@@ -1,7 +1,6 @@
 """Multi-process chaos soak: real subprocesses, real ports, real SIGKILL
-(the counterpart of the JAX package's ``faults/procsoak.py`` up to its
-checkpoint soak: ``chaos --mp``, ``--agg``, ``--async`` and
-``--tree-async``).
+(the counterpart of the JAX package's ``faults/procsoak.py``: ``chaos
+--mp``, ``--agg``, ``--async``, ``--tree-async`` and ``--ckpt``).
 
 The in-process soak (``faults/soak.py``) exercises the robustness machinery
 through a transport interposer: everything a Python exception can express.
@@ -23,8 +22,19 @@ key the same loop on aggregation records; with ``lock_witness`` every
 process of their fleets runs under ``faults/lockwitness.py`` and its
 per-pid reports are merged into the summary.
 
+The checkpoint soak (:func:`run_ckpt_soak`) keys its kill on the
+filesystem instead: a watcher SIGKILLs the ``--ckpt-stream`` coordinator
+while a save is in flight, and the relaunch with ``--resume`` at another
+``tp_size`` must restore the last committed generation bitwise.
+
 JAX's children run on the CPU (``JAX_PLATFORMS=cpu``, ``--backend cpu``);
 here they run on the card unless the caller passes ``backend="cpu"``.
+One exception: the checkpoint soak's coordinator always runs on the CPU
+(``--backend cpu``) with 8 forced host positions in ``XLA_FLAGS``, as
+JAX's soak gives its whole fleet.  Its sharded server must place tp = 2
+positions, and the card machine has one card; the soak's broker and
+workers run on ``backend``.  A coordinator that ended up replicated never
+reports a resharded resume, so ``reshard_ok`` fails its gate.
 """
 
 from __future__ import annotations
@@ -1161,5 +1171,377 @@ def run_tree_async_soak(
         "records": faulted["records"],
         "lock_witness": _merge_lockwitness(faulted["lock_witness"],
                                            oracle["lock_witness"]),
+        "workdir": workdir,
+    }
+
+
+# --------------------------------------------------- streaming-ckpt soak --
+
+def _ckpt_fault_plan(slow_ms: int) -> dict:
+    """``slow_io`` on every per-shard checkpoint write: each shard file
+    costs ``slow_ms`` more before its bytes land, widening the window
+    between the first shard's commit and the manifest's so the watcher's
+    SIGKILL lands inside a save."""
+    return {"seed": 0, "faults": [
+        {"kind": "slow_io", "device_id": "*", "round": -1, "op": "shard",
+         "ms": slow_ms, "count": 0, "site": "server", "hop": "shard"},
+    ]}
+
+
+def _ckpt_gen_entries(ckpt_dir: str) -> list[str]:
+    try:
+        names = os.listdir(ckpt_dir)
+    except OSError:
+        return []
+    return sorted(os.path.join(ckpt_dir, n) for n in names
+                  if n.startswith("gen_"))
+
+
+def _ckpt_has_committed(ckpt_dir: str) -> bool:
+    return any(os.path.exists(os.path.join(g, "manifest.json"))
+               for g in _ckpt_gen_entries(ckpt_dir))
+
+
+def _ckpt_in_progress(ckpt_dir: str) -> Optional[str]:
+    """The newest generation directory with shard files on disk and no
+    manifest: a save in flight (or a dead one the next restore falls
+    through)."""
+    for g in reversed(_ckpt_gen_entries(ckpt_dir)):
+        if os.path.exists(os.path.join(g, "manifest.json")):
+            continue
+        try:
+            names = os.listdir(g)
+        except OSError:
+            continue     # pruned while scanned: not a save in flight
+        if any(n.startswith("shard_") and n.endswith(".npz")
+               for n in names):
+            return g
+    return None
+
+
+def _run_ckpt_fleet(
+    rounds: int,
+    n_workers: int,
+    workdir: str,
+    round_timeout: float,
+    enroll_timeout: float,
+    timeout_s: float,
+    seed: int,
+    tp_size: int,
+    resume_tp_size: int,
+    kill_during_save: bool,
+    fault_plan: Optional[dict] = None,
+    start_resumed: bool = False,
+    ckpt_dir: Optional[str] = None,
+    log_fn: Optional[Callable[[dict], None]] = None,
+    backend: str = "gpu",
+) -> dict:
+    """One streaming-checkpoint fleet (a broker, N workers and the
+    synchronous coordinator with ``--ckpt-stream``, on the CPU).  With
+    ``kill_during_save`` a watcher thread polls the checkpoint directory
+    and SIGKILLs the coordinator as soon as a generation has shard files
+    and no manifest, after an earlier generation committed; right after
+    the kill it records the last committed generation's step and digest
+    (``ckpt.streaming.load_generation_host``), which the relaunched
+    ``--resume`` coordinator (at ``resume_tp_size``) must restore.
+    ``start_resumed`` launches the first coordinator with ``--resume``
+    against an existing ``ckpt_dir`` (the kill-free smoke leg)."""
+    os.makedirs(workdir, exist_ok=True)
+    ckpt_dir = ckpt_dir or os.path.join(workdir, "ckpt")
+    flight_dir = os.path.join(workdir, "flight")
+
+    env = _child_env(backend)
+    # The coordinator's placement needs tp_size host positions: the test
+    # suite's 8 (the workers read nothing of it).
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
+                        + " --xla_force_host_platform_device_count=8"
+                        ).strip()
+
+    fleet = _Fleet(workdir, env)
+    watchdog = threading.Timer(timeout_s, fleet.kill_all)
+    watchdog.daemon = True
+
+    records: dict[int, dict] = {}
+    events: list[dict] = []
+    per_client: dict = {}
+    resumed = 0
+    incarnations = 1
+    resume_event: Optional[dict] = None
+    rc: Optional[int] = None
+    holder: dict = {"coord": None, "restart_pending": False, "stop": False}
+    killed: dict = {}
+
+    def watch() -> None:
+        from colearn_federated_learning_tpu_torch.ckpt.streaming import (
+            load_generation_host)
+
+        # Armed once a generation committed: a kill during the first save
+        # would leave nothing to fall back to.
+        while not holder["stop"] and not _ckpt_has_committed(ckpt_dir):
+            time.sleep(0.02)
+        prog = None
+        while not holder["stop"]:
+            prog = _ckpt_in_progress(ckpt_dir)
+            if prog:
+                break
+            time.sleep(0.01)
+        coord = holder["coord"]
+        if holder["stop"] or coord is None or prog is None:
+            return
+        holder["restart_pending"] = True
+        killed["pid"] = coord.pid
+        killed["gen"] = os.path.basename(prog)
+        coord.send_signal(signal.SIGKILL)
+        killed["at"] = time.time()      # the kill's wall time
+        coord.wait()
+        # The process is dead and its relaunch not started: the directory
+        # holds what the next restore must come back with.
+        killed["mid_save"] = not os.path.exists(
+            os.path.join(prog, "manifest.json"))
+        try:
+            _, step, digest = load_generation_host(ckpt_dir)
+            killed["committed_step"] = step
+            killed["digest"] = digest
+        except FileNotFoundError:
+            killed["committed_step"] = None
+            killed["digest"] = None
+
+    watcher = (threading.Thread(target=watch, daemon=True)
+               if kill_during_save else None)
+
+    try:
+        watchdog.start()
+        flight_flags = ["--flight-dir", flight_dir,
+                        "--flight-heartbeat", "0.5"]
+        host, port = fleet.start_broker(timeout=30.0, extra=flight_flags)
+        worker_cfg = (_config_flags(rounds, n_workers, seed, backend=backend)
+                      + flight_flags)
+        for i in range(n_workers):
+            fleet.start_worker(i, worker_cfg, host, port)
+        coord_cfg = (_config_flags(rounds, n_workers, seed,
+                                   checkpoint_dir=ckpt_dir, backend="cpu")
+                     + ["--ckpt-stream"] + flight_flags)
+        if fault_plan is not None:
+            plan_path = os.path.join(workdir, "fault_plan.json")
+            with open(plan_path, "w") as f:
+                json.dump(fault_plan, f)
+            coord_cfg += ["--fault-plan", plan_path]
+
+        def launch(resume: bool) -> subprocess.Popen:
+            tp = resume_tp_size if resume else tp_size
+            c = fleet.start_coordinator(
+                coord_cfg + ["--tp-size", str(tp)], host, port, n_workers,
+                round_timeout, enroll_timeout, resume=resume)
+            holder["coord"] = c
+            return c
+
+        coord = launch(resume=start_resumed)
+        if watcher is not None:
+            watcher.start()
+        err_log = fleet._log_file("coordinator.err")
+        while True:
+            line = coord.stderr.readline()
+            if line:
+                err_log.write(line.encode())
+                err_log.flush()
+            if not line:
+                coord.wait()
+                if holder["restart_pending"]:
+                    holder["restart_pending"] = False
+                    incarnations += 1
+                    coord = launch(resume=True)
+                    continue
+                rc = coord.returncode
+                break
+            doc = _parse_json(line.strip())
+            if doc is None:
+                continue
+            if "event" in doc:
+                events.append(doc)
+                if doc["event"] == "resumed":
+                    resumed += 1
+                    resume_event = doc
+                continue
+            if "num_clients_evaluated" in doc:
+                per_client = doc
+                continue
+            if "round" not in doc:
+                continue
+            records[int(doc["round"])] = doc
+            if log_fn is not None:
+                log_fn(doc)
+    finally:
+        holder["stop"] = True
+        watchdog.cancel()
+        fleet.close()
+        if watcher is not None and watcher.is_alive():
+            watcher.join(timeout=5.0)
+
+    if rc is None:
+        raise RuntimeError(
+            f"coordinator never exited cleanly within {timeout_s}s "
+            f"(records for rounds {sorted(records)})")
+
+    from colearn_federated_learning_tpu_torch.telemetry import flight
+
+    dumps = flight.load_flight_dumps(flight_dir)
+    dumped_pids = {d.get("pid") for d in dumps if "error" not in d}
+    flight_missing = sorted(({killed["pid"]} if "pid" in killed else set())
+                            - dumped_pids)
+
+    recs = [records[r] for r in sorted(records)]
+    return {
+        "rounds_run": len(recs),
+        "records": recs,
+        "weighted_acc": per_client.get("weighted_acc"),
+        "resumed": resumed,
+        "resume_event": resume_event,
+        "coordinator_incarnations": incarnations,
+        "kill": killed,
+        "flight_dumps": len(dumped_pids),
+        "flight_missing": flight_missing,
+        "events": events,
+        "exit_code": rc,
+        "ckpt_dir": ckpt_dir,
+        "workdir": workdir,
+    }
+
+
+def run_ckpt_soak(
+    rounds: int = 4,
+    n_workers: int = 2,
+    workdir: Optional[str] = None,
+    round_timeout: float = 120.0,
+    enroll_timeout: float = 90.0,
+    timeout_s: float = 600.0,
+    kill: bool = True,
+    seed: int = 0,
+    loss_tol: float = 0.75,
+    tp_size: int = 2,
+    resume_tp_size: int = 1,
+    slow_ms: int = 300,
+    log_fn: Optional[Callable[[dict], None]] = None,
+    backend: str = "gpu",
+) -> dict:
+    """The streaming checkpoint's chaos gate (``chaos --ckpt``).
+
+    **Kill leg** (``kill=True``): a ``tp_size`` federation saves a
+    streaming generation every round under a ``slow_io`` plan on its shard
+    writes; a filesystem watcher SIGKILLs the coordinator while a save is
+    in flight (shard files on disk, no manifest yet), after at least one
+    generation committed, and the coordinator is relaunched with
+    ``--resume`` at ``resume_tp_size``.  The gate holds:
+
+    - the kill landed mid-save (``killed_mid_save``) and the resume
+      restored the last committed generation: the resumed round is the
+      step the watcher recorded at the kill;
+    - the resume event's ``ckpt_digest`` equals the digest
+      ``load_generation_host`` computed from that generation, across the
+      tp change (``resharded`` >= 1 when the tps differ);
+    - the tail train loss is within ``loss_tol`` of a kill-free oracle
+      federation at ``resume_tp_size``;
+    - the killed pid left a flight dump whose postmortem names the
+      coordinator.
+
+    **Smoke leg** (``kill=False``): a kill-free ``tp_size`` run to its
+    end, then a fresh fleet resumes the same directory at
+    ``resume_tp_size`` with no rounds left: its digest must be the
+    harness's ``load_generation_host`` digest of the final generation."""
+    if rounds < 3:
+        raise ValueError(
+            f"ckpt soak needs >= 3 rounds so the mid-save kill lands "
+            f"after a committed generation, got {rounds}")
+    workdir = workdir or tempfile.mkdtemp(prefix="colearn_ckptsoak_")
+    os.makedirs(workdir, exist_ok=True)
+    reshard = tp_size != resume_tp_size
+
+    if not kill:
+        first = _run_ckpt_fleet(
+            rounds, n_workers, os.path.join(workdir, "save"),
+            round_timeout, enroll_timeout, timeout_s, seed,
+            tp_size=tp_size, resume_tp_size=tp_size,
+            kill_during_save=False, log_fn=log_fn, backend=backend)
+        from colearn_federated_learning_tpu_torch.ckpt.streaming import (
+            load_generation_host)
+
+        _, step, digest = load_generation_host(first["ckpt_dir"])
+        second = _run_ckpt_fleet(
+            rounds, n_workers, os.path.join(workdir, "resume"),
+            round_timeout, enroll_timeout, timeout_s, seed,
+            tp_size=resume_tp_size, resume_tp_size=resume_tp_size,
+            kill_during_save=False, start_resumed=True,
+            ckpt_dir=first["ckpt_dir"], log_fn=log_fn, backend=backend)
+        ev = second["resume_event"] or {}
+        return {
+            "mode": "smoke",
+            "exit_code": first["exit_code"],
+            "resume_exit_code": second["exit_code"],
+            "rounds_run": first["rounds_run"],
+            "committed_step": step,
+            "save_digest": digest,
+            "resume_digest": ev.get("ckpt_digest"),
+            "resume_round": ev.get("round"),
+            "resume_round_ok": ev.get("round") == step,
+            "digest_ok": (digest is not None
+                          and ev.get("ckpt_digest") == digest),
+            "resharded_resumes": int(ev.get("resharded", 0) or 0),
+            "reshard_ok": ((not reshard)
+                           or int(ev.get("resharded", 0) or 0) >= 1),
+            "records": first["records"],
+            "workdir": workdir,
+        }
+
+    faulted = _run_ckpt_fleet(
+        rounds, n_workers, os.path.join(workdir, "faulted"),
+        round_timeout, enroll_timeout, timeout_s, seed,
+        tp_size=tp_size, resume_tp_size=resume_tp_size,
+        kill_during_save=True, fault_plan=_ckpt_fault_plan(slow_ms),
+        log_fn=log_fn, backend=backend)
+    oracle = _run_ckpt_fleet(
+        rounds, n_workers, os.path.join(workdir, "oracle"),
+        round_timeout, enroll_timeout, timeout_s, seed,
+        tp_size=resume_tp_size, resume_tp_size=resume_tp_size,
+        kill_during_save=False, log_fn=log_fn, backend=backend)
+
+    ev = faulted["resume_event"] or {}
+    killed = faulted["kill"]
+    committed = killed.get("committed_step")
+    final_loss = _tail_loss(faulted["records"])
+    oracle_loss = _tail_loss(oracle["records"])
+    loss_gap = abs(final_loss - oracle_loss)
+    faulted_dir = os.path.join(workdir, "faulted")
+    attributed = _killed_role_named(
+        faulted_dir, [killed] if "pid" in killed else [], True,
+        lambda role: role == "coordinator")
+
+    return {
+        "mode": "kill",
+        "exit_code": faulted["exit_code"],
+        "oracle_exit_code": oracle["exit_code"],
+        "rounds_run": faulted["rounds_run"],
+        "oracle_rounds_run": oracle["rounds_run"],
+        "killed_mid_save": bool(killed.get("mid_save")),
+        "killed_gen": killed.get("gen"),
+        "committed_step": committed,
+        "kill_digest": killed.get("digest"),
+        "resume_digest": ev.get("ckpt_digest"),
+        "resume_round": ev.get("round"),
+        "resume_round_ok": (committed is not None
+                            and ev.get("round") == committed),
+        "digest_ok": (killed.get("digest") is not None
+                      and ev.get("ckpt_digest") == killed["digest"]),
+        "resharded_resumes": int(ev.get("resharded", 0) or 0),
+        "reshard_ok": ((not reshard)
+                       or int(ev.get("resharded", 0) or 0) >= 1),
+        "resumed": faulted["resumed"],
+        "coordinator_incarnations": faulted["coordinator_incarnations"],
+        "final_loss": final_loss,
+        "oracle_final_loss": oracle_loss,
+        "loss_gap": loss_gap,
+        "loss_gap_ok": math.isfinite(loss_gap) and loss_gap <= loss_tol,
+        "postmortem_attributed": attributed,
+        "flight_missing": faulted["flight_missing"],
+        "kill": killed,
+        "records": faulted["records"],
         "workdir": workdir,
     }

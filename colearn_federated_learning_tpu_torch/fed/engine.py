@@ -31,7 +31,7 @@ variates, else ``None``) after the record is logged, every
 ``restore_checkpoint`` copies the latest step back into the live
 tensors, charges the accountant for the rounds already run and
 continues the adaptive clip from the last record.  A learner on a mesh
-refuses them (item 15).
+refuses them (item 15b).
 
 Telemetry is JAX's: the spans ``round``, ``h2d_transfer``,
 ``cohort_sample`` (SCAFFOLD), ``client_update``, ``scatter_variates``,

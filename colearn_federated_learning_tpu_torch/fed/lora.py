@@ -20,9 +20,12 @@ factorization splits the leaf's dims where ``m + n`` is least (ties to
 the lowest split), so an attention kernel (D, H, hd) factors as
 (D, r) x (r, H·hd).
 
-The math runs on torch tensors on whatever device they live on.  The
-sharded server's factor specs (``factor_specs``) belong to ROADMAP.md
-Queue A item 15.
+The math runs on torch tensors on whatever device they live on.  On a
+sharded base (``parallel.partition.ShardedTensor`` leaves) the merge
+runs shard by shard: each leaf's (α/r)·B·A is computed whole, as the
+replicated merge computes it, and every shard adds its own block, so the
+sharded merge is bitwise the replicated one.  :func:`factor_specs` gives
+the factors' partition specs on a sharded base (JAX's).
 """
 
 from __future__ import annotations
@@ -197,7 +200,12 @@ def apply_adapters(params: Mapping, factors: Mapping, alpha: float,
                 out[k] = v
                 continue
             a, b = ab
-            out[k] = adapt_leaf(v, adapter_delta(a, b, v.shape, alpha, rank))
+            delta = adapter_delta(a, b, v.shape, alpha, rank)
+            if isinstance(v, partition.ShardedTensor):
+                out[k] = v.map_parts(lambda part, idx, d=delta: adapt_leaf(
+                    part, d[idx].to(part.device)))
+            else:
+                out[k] = adapt_leaf(v, delta)
         return out
 
     return walk(params, "")
@@ -223,3 +231,42 @@ def reset_factors(factors: Mapping) -> dict:
         return node
 
     return walk(factors)
+
+
+# ------------------------------------------------------ sharding specs --
+def factor_specs(params: Mapping, rank: int, axis: str = "model",
+                 model_name: str = "", rules: Optional[tuple] = None,
+                 sizes: Optional[Mapping[str, int]] = None) -> dict:
+    """The factor tree's partition specs (tuples, ``parallel/partition.py``'s
+    form): the base leaf's resolved spec inherited by the factor whose
+    flattened dim group holds the sharded base dim as its major
+    component.
+
+    - base sharded at dim 0        -> B: ``(axis, None)``
+    - base sharded at dim split(k) -> A: ``(None, axis)``
+    - anything else                -> both replicated (``()``)
+
+    A factor dim that does not divide by the axis size replicates."""
+    rules = rules if rules is not None else partition.rules_for_model(
+        model_name)
+    sizes = dict(sizes or {})
+    specs = partition.match_partition_rules(rules, params, axis=axis,
+                                            sizes=sizes)
+    spec_by_path = {partition.path_str(p): s
+                    for p, s in _leaves_with_path(specs)}
+    size = int(sizes.get(axis, 0))
+    out: dict = {}
+    for path, shape in sorted(target_paths(
+            params, model_name=model_name, rules=rules).items()):
+        spec = spec_by_path.get(path, ())
+        sharded_dim = next(
+            (d for d, name in enumerate(spec) if name == axis), None)
+        k = split_point(shape)
+        m, n = factor_dims(shape)
+        a_spec, b_spec = (), ()
+        if sharded_dim == 0 and (not size or m % size == 0):
+            b_spec = (axis, None)
+        elif sharded_dim == k and (not size or n % size == 0):
+            a_spec = (None, axis)
+        _nested_set(out, path, {A_KEY: a_spec, B_KEY: b_spec})
+    return out

@@ -3,7 +3,12 @@ another, and never the CPU by itself."""
 
 from __future__ import annotations
 
+import os
+import re
+
 import torch
+
+_HOST_COUNT = re.compile(r"--xla_force_host_platform_device_count=(\d+)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -14,3 +19,22 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device available; pass device='cpu' to run the plain "
             "PyTorch versions of the kernels on the CPU")
     return device
+
+
+def host_device_count() -> int:
+    """The host's positions for a placement on the CPU: the forced host
+    platform device count in ``XLA_FLAGS`` (the setting the JAX runtime
+    reads, and both packages' tests and soaks set), else 1."""
+    m = _HOST_COUNT.search(os.environ.get("XLA_FLAGS", ""))
+    return int(m.group(1)) if m else 1
+
+
+def placement_devices(device=None) -> list[torch.device]:
+    """The positions a server placement may use on ``device``'s kind (the
+    card unless the caller asks for the CPU): every card of the host, or
+    :func:`host_device_count` positions on the CPU."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device] * host_device_count()

@@ -452,15 +452,16 @@ def test_refusals_are_jax_refusals(fed, run_kw, kw):
     (dict(lora_rank=4), {}, "no LoRA branch"),
     ({}, dict(checkpoint_dir="ck"), None),
     ({}, dict(learn_observe=True), "item 10b"),
-    ({}, dict(tp_size=2), "item 15")])
+    ({}, dict(tp_size=2), "sharded")])
 def test_port_refusals_name_their_items(fed, run_kw, item, monkeypatch,
                                        tmp_path):
-    """What the port does not run yet; ``tp_size`` 2 only on a host with
-    two cards (with fewer the server runs replicated, as JAX falls
-    back).  LoRA is refused in the port's own words: the JAX
-    coordinator has no LoRA branch (it constructs, and every dispatch to a
-    LoRA worker fails).  ``checkpoint_dir``, refused until the checkpoint
-    plane was ported, is taken (nothing is written before a save)."""
+    """What the port does not run yet.  LoRA is refused in the port's own
+    words: the JAX coordinator has no LoRA branch (it constructs, and
+    every dispatch to a LoRA worker fails).  ``checkpoint_dir``, refused
+    until the checkpoint plane was ported, is taken (nothing is written
+    before a save); ``tp_size`` 2, refused on a host with two cards until
+    the sharded server was ported, shards the server state over two of
+    the CPU's forced host positions, with no fallback counted."""
     if item is None:
         monkeypatch.chdir(tmp_path)
         _, tcfg = configs(run_kw=run_kw, **fed)
@@ -470,18 +471,23 @@ def test_port_refusals_name_their_items(fed, run_kw, item, monkeypatch,
         assert list(tmp_path.iterdir()) == []
         return
     _, tcfg = configs(run_kw=run_kw, **fed)
-    if item == "item 15":
+    if item == "sharded":
+        reg = telemetry.get_registry()
+        before = dict(reg.snapshot())
         with broker.MessageBroker() as b:
-            AsyncFederatedCoordinator(tcfg, b.host, b.port,
-                                      device="cpu").close()
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+            c = AsyncFederatedCoordinator(tcfg, b.host, b.port, device="cpu")
+            c.close()
+        assert c._placement is not None and c._fold_placement is not None
+        assert c._placement.n_devices == 2
+        assert {k: v for k, v in reg.snapshot().items()
+                if k.startswith("fed.mesh_fallback_total")} == {
+            k: v for k, v in before.items()
+            if k.startswith("fed.mesh_fallback_total")}
+        return
     match = (f"ROADMAP.md Queue A {item}" if item.startswith("item ")
              else item)
     with pytest.raises(NotImplementedError, match=match):
-        AsyncFederatedCoordinator(tcfg, "127.0.0.1", 1,
-                                  device=None if item == "item 15"
-                                  else "cpu")
+        AsyncFederatedCoordinator(tcfg, "127.0.0.1", 1, device="cpu")
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

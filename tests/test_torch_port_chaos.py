@@ -380,13 +380,70 @@ def test_chaos_in_process_gate_fails_without_a_score(monkeypatch, capsys):
     assert json.loads(capsys.readouterr().out)["weighted_acc"] is None
 
 
+CKPT_KILL_OK = dict(
+    mode="kill", exit_code=0, oracle_exit_code=0, rounds_run=4,
+    killed_mid_save=True, resumed=1, resume_round_ok=True, digest_ok=True,
+    reshard_ok=True, loss_gap_ok=True, postmortem_attributed=True,
+    flight_missing=[])
+CKPT_SMOKE_OK = dict(mode="smoke", exit_code=0, resume_exit_code=0,
+                     rounds_run=4, resume_round_ok=True, digest_ok=True,
+                     reshard_ok=True)
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--ckpt"], "item 15"), (["--ckpt", "--no-faults"], "item 15")])
-def test_chaos_refuses_the_unported_soaks(argv, item, capsys):
+def test_chaos_refuses_the_unported_soaks(argv, item, capsys, monkeypatch):
+    """``--ckpt`` (ROADMAP item 15) was refused until its soak was ported:
+    both legs now run ``procsoak.run_ckpt_soak`` with the command's
+    arguments, and each passing summary passes JAX's gate."""
+    no_faults = "--no-faults" in argv
+    calls = _fake(monkeypatch, procsoak, "run_ckpt_soak",
+                  CKPT_SMOKE_OK if no_faults else CKPT_KILL_OK)
+    out = cli.main(["chaos", *argv, "--rounds", "4", "--num-workers", "2",
+                    "--backend", "cpu", "--workdir", "w"])
+    assert out["mode"] == ("smoke" if no_faults else "kill")
+    (kw,) = calls
+    assert kw == dict(rounds=4, n_workers=2, workdir="w",
+                      round_timeout=120.0, timeout_s=600.0,
+                      kill=not no_faults, log_fn=cli._chaos_log,
+                      backend="cpu")
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == out
+
+
+@pytest.mark.parametrize("key", sorted(k for k, v in CKPT_KILL_OK.items()
+                                       if v is True or k == "resumed"))
+def test_chaos_ckpt_kill_gate_fails_on_each_key(key, monkeypatch, capsys):
+    bad = {**CKPT_KILL_OK, key: 0 if key == "resumed" else False}
+    _fake(monkeypatch, procsoak, "run_ckpt_soak", bad)
     with pytest.raises(SystemExit) as exc:
-        cli.main(["chaos", *argv])
-    assert exc.value.code == 2
-    assert f"ROADMAP.md Queue A {item} " in capsys.readouterr().err
+        cli.main(["chaos", "--ckpt", "--rounds", "4", "--backend", "cpu"])
+    assert exc.value.code == 1
+    assert json.loads(capsys.readouterr().out)[key] in (0, False)
+
+
+@pytest.mark.parametrize("bad", [{"flight_missing": [9]},
+                                 {"oracle_exit_code": 1},
+                                 {"rounds_run": 3}])
+def test_chaos_ckpt_kill_gate_fails_on_the_rest(bad, monkeypatch, capsys):
+    _fake(monkeypatch, procsoak, "run_ckpt_soak", {**CKPT_KILL_OK, **bad})
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["chaos", "--ckpt", "--rounds", "4", "--backend", "cpu"])
+    assert exc.value.code == 1
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("key", ["resume_round_ok", "digest_ok",
+                                 "reshard_ok", "resume_exit_code"])
+def test_chaos_ckpt_smoke_gate_fails_on_each_key(key, monkeypatch, capsys):
+    bad = {**CKPT_SMOKE_OK,
+           key: 1 if key == "resume_exit_code" else False}
+    _fake(monkeypatch, procsoak, "run_ckpt_soak", bad)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["chaos", "--ckpt", "--no-faults", "--rounds", "4",
+                  "--backend", "cpu"])
+    assert exc.value.code == 1
+    capsys.readouterr()
 
 
 @pytest.mark.parametrize("argv", [["--secure", "--mp"], ["--agg", "--mp"],

@@ -918,3 +918,187 @@ def test_resume_without_a_checkpoint_raises_in_train(tmp_path):
         cli.main(["train", *TINY, "--rounds", "1", "--checkpoint-dir",
                   str(tmp_path), "--resume"])
 
+
+
+# ------------------------------------------- the sharded server's state --
+def _sharded_cfgs(tmp_path, tp_size, name, stream=True, **fed):
+    jcfg, tcfg = configs(num_clients=3, strategy="fedadam", server_lr=0.05,
+                         rounds=3, run_kw=dict(tp_size=tp_size), **fed)
+    return jcfg, tcfg.replace(run=dataclasses.replace(
+        tcfg.run, checkpoint_dir=str(tmp_path / name), ckpt_stream=stream))
+
+
+def _host_state(c):
+    """The coordinator's state as host bytes per flax path (placement-free:
+    a sharded leaf is read shard by shard into one buffer)."""
+    from colearn_federated_learning_tpu_torch.parallel import partition
+
+    return {path: partition.host_leaf(leaf).tobytes()
+            for path, leaf in streaming.flatten_state(
+                c._checkpoint_server_state())}
+
+
+def _is_sharded(c) -> bool:
+    return any(len(getattr(l, "parts", ())) > 1
+               for _, l in streaming.flatten_state(c._checkpoint_server_state()))
+
+
+def test_tp2_save_writes_a_file_per_shard_and_resumes_on_tp1(tmp_path):
+    """A tp = 2 coordinator's generation holds 2 shard files (each sharded
+    leaf in 2 slices, the gather it avoided counted); a tp = 1
+    coordinator restores it bitwise and counts a resharded resume."""
+    jcfg, tcfg2 = _sharded_cfgs(tmp_path, 2, "ck")
+    _, tcfg1 = _sharded_cfgs(tmp_path, 1, "ck")
+    with _fleet(tcfg2, 3) as (b, _):
+        saver = _coordinator(tcfg2, b, jax_init(jcfg), 3)
+        assert _is_sharded(saver)
+        before = _counter("comm.gather_bytes_avoided_total")
+        saver.fit(rounds=2)
+        assert _counter("comm.gather_bytes_avoided_total") > before
+        want = _host_state(saver)
+        saver.close()
+        gen = tmp_path / "ck" / "gen_00000002"
+        assert sorted(p.name for p in gen.iterdir()) == [
+            "history.json", "manifest.json", "shard_00000.npz",
+            "shard_00001.npz"]
+        manifest = json.load(open(gen / "manifest.json"))
+        assert manifest["saved_shards"] == 2
+        assert {len(l["slices"]) for l in manifest["leaves"]} == {1, 2}
+        before = _counter("ckpt.resharded_resumes_total")
+        resumed = FederatedCoordinator(tcfg1, b.host, b.port,
+                                       want_evaluator=False, device="cpu")
+    try:
+        assert resumed._placement is None
+        assert resumed.restore_checkpoint() == 2
+        assert _counter("ckpt.resharded_resumes_total") == before + 1
+        assert _host_state(resumed) == want
+        _, _, digest = load_generation_host(str(tmp_path / "ck"))
+        assert resumed._ckpt.last_restore_digest == digest
+    finally:
+        resumed.close()
+
+
+@pytest.mark.parametrize("saved,restored,counted", [(1, 2, True),
+                                                    (2, 2, False)])
+def test_resharded_follows_jax_s_rule(tmp_path, saved, restored, counted):
+    """JAX's rule: a resume is resharded when the saved slice count of a
+    leaf differs from the template's shard count.  A tp = 1 save resumed
+    at tp = 2 is; its shards land on their positions.  A tp = 2 save
+    resumed at tp = 2 is not."""
+    jcfg, tsave = _sharded_cfgs(tmp_path, saved, "ck")
+    _, tload = _sharded_cfgs(tmp_path, restored, "ck")
+    with _fleet(tsave, 3) as (b, _):
+        saver = _coordinator(tsave, b, jax_init(jcfg), 3)
+        saver.fit(rounds=1)
+        want = _host_state(saver)
+        saver.close()
+        before = _counter("ckpt.resharded_resumes_total")
+        resumed = FederatedCoordinator(tload, b.host, b.port,
+                                       want_evaluator=False, device="cpu")
+    try:
+        live = {k: v.data_ptr() for k, v in
+                resumed.server_state.params.items()}
+        assert resumed.restore_checkpoint() == 1
+        assert _counter("ckpt.resharded_resumes_total") == before + int(
+            counted)
+        assert _host_state(resumed) == want and _is_sharded(resumed)
+        # Restored into the live shards, each on its own position.
+        assert {k: v.data_ptr() for k, v in
+                resumed.server_state.params.items()} == live
+        for _, leaf in streaming.flatten_state(
+                resumed._checkpoint_server_state()):
+            for part, pos in zip(getattr(leaf, "parts", ()),
+                                 range(resumed._placement.n_devices)):
+                assert part.device == resumed._placement.devices[pos]
+    finally:
+        resumed.close()
+
+
+@pytest.mark.parametrize("tp_load", [1, 2])
+def test_tp2_generations_move_between_port_and_jax(tmp_path, tp_load):
+    """A port generation saved at tp = 2 restores in JAX at tp = 1 and at
+    tp = 2, and JAX's in the port, with equal digests and equal
+    leaves."""
+    from colearn_federated_learning_tpu.parallel import partition as jpart
+    from colearn_federated_learning_tpu_torch.parallel import partition
+
+    rng = np.random.default_rng(17)
+    params = {"params": {
+        "Dense_0": {"kernel": rng.standard_normal((6, 8)).astype(np.float32),
+                    "bias": rng.standard_normal(8).astype(np.float32)},
+        "Dense_1": {"kernel": rng.standard_normal((8, 4)).astype(np.float32),
+                    "bias": rng.standard_normal(4).astype(np.float32)},
+        "LayerNorm_0": {"scale": rng.standard_normal(5).astype(np.float32)}}}
+    ours = partition.make_server_placement(params, 2, "model", "mlp",
+                                           device="cpu")
+    theirs = jpart.make_server_placement(params, 2, "model", "mlp",
+                                         devices=jax.devices("cpu")[:2])
+    hist = [{"round": 0}]
+    StreamingCheckpointer(str(tmp_path / "port")).save(
+        1, (ours.shard(params),), hist)
+    JaxStreaming(str(tmp_path / "jax")).save(1, (theirs.shard(params),),
+                                             hist)
+    want = [np.asarray(l).tobytes() for l in jax.tree.leaves(params)]
+    for side in ("port", "jax"):
+        names = sorted(os.listdir(tmp_path / side / "gen_00000001"))
+        assert names == ["history.json", "manifest.json", "shard_00000.npz",
+                         "shard_00001.npz"], side
+    # The port's generation in JAX, and JAX's in the port.
+    jtmpl = ((theirs.shard(jax.tree.map(np.zeros_like, params)),)
+             if tp_load == 2 else (jax.tree.map(np.zeros_like, params),))
+    jck = JaxStreaming(str(tmp_path / "port"))
+    (jstate,), _, step = jck.restore(jtmpl)
+    assert step == 1
+    assert [np.asarray(jpart.host_leaf(l)).tobytes()
+            for l in jax.tree.leaves(jstate)] == want
+    zeros = {"params": {k: {n: np.zeros_like(a) for n, a in v.items()}
+                        for k, v in params["params"].items()}}
+    ttmpl = ((ours.shard(zeros),) if tp_load == 2
+             else (trees_to_torch(zeros),))
+    tck = StreamingCheckpointer(str(tmp_path / "jax"))
+    (tstate,), _, step = tck.restore(ttmpl)
+    assert step == 1
+    assert [partition.host_leaf(l).tobytes() for _, l in
+            streaming.flatten_state(tstate)] == want
+    _, _, d_port = jax_load_generation(str(tmp_path / "port"))
+    _, _, d_jax = load_generation_host(str(tmp_path / "jax"))
+    assert d_port == d_jax == jck.last_restore_digest \
+        == tck.last_restore_digest
+
+
+def trees_to_torch(tree):
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    return trees.map_leaves(lambda a: torch.from_numpy(np.array(a)), tree)
+
+
+@pytest.mark.parametrize("stream", [True, False],
+                         ids=["streaming", "round"])
+def test_coordinator_resumed_at_another_tp_goes_on_bitwise(tmp_path,
+                                                           stream):
+    """Three FedAdam rounds at tp = 1 straight, against two at tp = 2
+    saved, and a tp = 1 coordinator resumed from them for the third: the
+    state (params and moments) ends bit for bit the same."""
+    jcfg, tcfg2 = _sharded_cfgs(tmp_path, 2, "ck", stream=stream)
+    _, tcfg1 = _sharded_cfgs(tmp_path, 1, "ck", stream=stream)
+    _, plain = configs(num_clients=3, strategy="fedadam", server_lr=0.05,
+                       rounds=3)
+    init = jax_init(jcfg)
+    with _fleet(tcfg1, 3) as (b, _):
+        straight = _coordinator(plain, b, init, 3)
+        straight.fit(rounds=3)
+        want = _host_state(straight)
+        straight.close()
+        first = _coordinator(tcfg2, b, init, 3)
+        first.fit(rounds=2)
+        first.close()
+        resumed = FederatedCoordinator(tcfg1, b.host, b.port,
+                                       want_evaluator=False, device="cpu")
+        try:
+            assert resumed.restore_checkpoint() == 2
+            resumed.enroll(min_devices=3, timeout=WAIT)
+            resumed.fit()
+            assert len(resumed.history) == 3
+            assert _host_state(resumed) == want
+        finally:
+            resumed.close()

@@ -6,8 +6,9 @@ against the plain run, the client-mesh round at world size 1 on NCCL
 against the single-device round, socket-plane rounds with the device
 fold (flat, through a two-aggregator tree, and one asynchronous
 aggregation) against the host fold, a traced engine round's spans
-against its record, a LoRA factor-only update against the CPU and the
-fold at the factor layout against its plain version, and checkpoints of
+against its record, a LoRA factor-only update against the CPU, the
+fold at the factor layout and at the sharded server's tp = 2 slot layout
+against its plain version, and checkpoints of
 card tensors and an engine resume bit for bit, on the card.  Marked
 ``cuda``: without a CUDA device every
 test here skips.  On a machine with the card (no JAX needed):
@@ -585,6 +586,55 @@ def test_streaming_folder_on_the_card_is_bitwise_the_host_fold(cuda):
     assert host.total_w == dev.total_w
     assert ([l.tobytes() for l in trees.leaves(host.wsum)]
             == [l.tobytes() for l in trees.leaves(dev.wsum)])
+
+
+@pytest.mark.parametrize("schemes", [("topk8", "topk8", "topk8"),
+                                     ("none", "none", "none")],
+                         ids=["fold_sparse", "fold_dense"])
+def test_fold_kernels_at_a_tp2_slot_layout_are_bitwise(cuda, schemes):
+    """The sharded server's slot layout (one slot per shard, two positions
+    on the one card): each B4 kernel at that layout is bitwise its plain
+    version there, and the placed mean is the replicated card fold's."""
+    from colearn_federated_learning_tpu_torch.comm.aggregation import (
+        StreamingFolder)
+    from colearn_federated_learning_tpu_torch.fed import compression
+    from colearn_federated_learning_tpu_torch.parallel import partition
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    shapes = {"TransformerBlock_0": {
+        "Dense_0": {"kernel": np.zeros((64, 256), np.float32),
+                    "bias": np.zeros(256, np.float32)},
+        "Dense_1": {"kernel": np.zeros((256, 64), np.float32)},
+        "LayerNorm_0": {"scale": np.zeros(64, np.float32)}}}
+    placement = partition.make_server_placement(
+        shapes, 2, "model", "bert", devices=[cuda, cuda])
+    assert placement is not None
+    updates = []
+    for i, scheme in enumerate(schemes):
+        d = trees.map_leaves(lambda w: np.random.default_rng(
+            60 + i).standard_normal(w.shape).astype(np.float32), shapes)
+        wire, meta = compression.compress_delta(d, scheme, topk_fraction=0.1)
+        updates.append(({"client_id": str(i), "weight": 1.0 + i, **meta},
+                        wire))
+    means = []
+    for pl, dev in ((placement, cuda), (placement, "cpu"), (None, cuda)):
+        f = StreamingFolder(shapes, order=["0", "1", "2"], placement=pl,
+                            device_fold=True, device=dev)
+        for meta, wire in updates:
+            f.add(dict(meta), wire)
+        fold.reset_launches()
+        means.append(partition.host_tree(f.mean()[0]))
+        if dev == "cpu":
+            assert sum(fold.launches.values()) == 0
+        else:
+            torch.cuda.synchronize()
+            assert fold.launches == (
+                {"fold_sparse": 3, "fold_dense": 0}
+                if schemes[0] == "topk8" else
+                {"fold_sparse": 0, "fold_dense": 1})
+    for other in means[1:]:
+        assert [l.tobytes() for l in trees.leaves(other)] == [
+            l.tobytes() for l in trees.leaves(means[0])]
 
 
 def test_fold_rejects_an_index_outside_its_slot(cuda):

@@ -334,8 +334,22 @@ def test_device_fold_without_a_card_raises(monkeypatch):
 
 
 def test_sharded_server_is_refused_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        StreamingFolder(_params(), placement=object())
+    """Refused until the sharded server was ported: a placed folder now
+    folds every frame type bitwise as the replicated one, and its mean is
+    the placed tree of that mean."""
+    from colearn_federated_learning_tpu_torch.parallel import partition
+
+    placement = partition.make_server_placement(_params(), 2, "model",
+                                                "bert", device="cpu")
+    assert placement is not None
+    for scheme in SCHEMES:
+        updates = _updates(scheme)
+        rep = _port(_params(), updates)
+        shd = _feed(StreamingFolder(_params(), order=_order(updates),
+                                    placement=placement), updates)
+        assert (shd.total_w, shd.loss_sum) == (rep.total_w, rep.loss_sum)
+        assert _tree_bytes(partition.host_tree(shd.mean()[0])) == \
+            _tree_bytes(rep.mean()[0])
 
 
 # ------------------------------------------------------- the kernel's plan

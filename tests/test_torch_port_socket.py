@@ -524,19 +524,26 @@ def test_cli_broker_worker_coordinate_processes():
     ({}, dict(tp_size=2), None)])
 def test_coordinator_refuses_what_is_not_ported(fed, run, item, tmp_path,
                                                 monkeypatch):
-    """Each unported option raises naming its ROADMAP item; ``tp_size`` 2
-    on a host without two cards runs replicated, as JAX's placement falls
-    back; the aggregator tree with ``compress_down`` raises JAX's
-    ValueError.  ``health_dir``, refused until the telemetry core was
-    ported, now opens the coordinator's ledger file there;
-    ``checkpoint_dir``, refused until the checkpoint plane was ported, is
-    taken (nothing is written before a round or an enrollment)."""
+    """Each unported option raises naming its ROADMAP item; the aggregator
+    tree with ``compress_down`` raises JAX's ValueError.  ``health_dir``,
+    refused until the telemetry core was ported, now opens the
+    coordinator's ledger file there; ``checkpoint_dir``, refused until the
+    checkpoint plane was ported, is taken (nothing is written before a
+    round or an enrollment); ``tp_size`` 2, refused on a host with two
+    cards until the sharded server was ported, shards the server state
+    over two of the CPU's forced host positions (``tests/conftest.py``)."""
     monkeypatch.chdir(tmp_path)
     jcfg, tcfg = configs(num_clients=2, run_kw=run, **fed)
     with broker.MessageBroker() as b:
         if item is None:
-            FederatedCoordinator(tcfg, b.host, b.port, device="cpu").close()
+            coord = FederatedCoordinator(tcfg, b.host, b.port, device="cpu")
+            coord.close()
             assert list(tmp_path.iterdir()) == []
+            if run.get("tp_size", 1) > 1:
+                assert coord._placement is not None
+                assert coord._placement.n_devices == run["tp_size"]
+                assert any(len(l.parts) == run["tp_size"]
+                           for l in jax.tree.leaves(coord.params_tree()))
             return
         if item == "ledger":
             coord = FederatedCoordinator(tcfg, b.host, b.port, device="cpu")
