@@ -32,7 +32,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    batch 32, its own 34-step budget — for 2 rounds and an evaluation;
 6. one round and one evaluation of each other family at full width, each
    cut listed in its line: config #1 (MLP), config #3 (ResNet-18,
-   FedProx, cohort cut to 10), ``iot_traffic_tcn_fedavg`` (TCN), config #5 (ViT-B/16 with
+   FedProx, cohort cut to 5), ``iot_traffic_tcn_fedavg`` (TCN, cohort cut
+   to 5), config #5 (ViT-B/16 with
    ``attn_impl="flash"``, cohort cut to 32) and MoE-BERT (BERT-base width,
    4 experts, flash, cohort 4, 2 local steps).  Every path resets the
    launch counts before it and checks them after: depth × (steps +
@@ -315,7 +316,37 @@ Phases (any failure exits non-zero; no phase's error is caught):
    SIGKILLed mid-save and resumed at tp = 1, against a kill-free oracle):
    the command's gate passes with ``resharded`` >= 1; the kill's
    generation, the committed step, the seconds from the kill to the
-   resumed round's record and the soak's seconds are printed.
+   resumed round's record and the soak's seconds are printed;
+19. checkpoints of a learner on a client mesh (on a thread beside 17a
+   and 17b, whose soak is processes the script waits on, and joined
+   before 17c starts, so 17c's recoveries are read alone): config #2 with
+   ``--strategy scaffold --momentum 0`` at cohort 10 (7a's cut) on a
+   world-1 NCCL mesh: an uninterrupted 2-round run, a run that saves
+   after round 0, and a fresh mesh learner that restores the step and
+   runs round 1: its params, server control and every variate row bitwise
+   the uninterrupted run's, the step's leaves the one-device learner's
+   paths and shapes; the save and restore seconds and the step's MB are
+   printed;
+20. the fleet simulator (``fleetsim/``): 20a ``fleetsim --devices
+   1000000 --cohort 1024 --chunk 256 --rounds 3 --compress topk8``
+   through ``cli.main`` with ``--trace-dir`` and a fault plan of
+   ``drop_request``, ``delay`` (the whole deadline) and
+   ``corrupt_payload`` (each ``count`` 0, 2 %): every round's cohort,
+   firings, trained and completed devices equal the host's replay of the
+   plan on the traffic model's cohorts, ``fault.injected_total`` moves by
+   the firings, the byte estimates are the shape-only frame prices times
+   the devices, the loss is finite and the trace holds one
+   ``train_chunk`` span per chunk; the seconds per round and the clients
+   per second are printed; 20b ``FleetSim.from_learner`` on config #1
+   (MLP, f32): the one-chunk round bitwise the engine's ``run_round``
+   from the same state and draws, the 4-chunk round within 1e-5 of the
+   round's largest update entry; 20c
+   ``fleetsim --async-buffer auto --async-observe`` and
+   ``--async-buffer 8 --aggregators 2`` for 6 aggregations at the
+   command's default 10,000 devices, each returning with
+   ``model_version`` 6; ``arrival_tracking``, ``staleness_p90`` (the
+   registry reset before each command, so each its own run's) and the
+   tree's ``agg_fold_tracking_min`` are printed.
 
 Each phase prints its wall seconds on a line of its own; then one line
 gives the script's seconds, every phase's and the bench's (9c) rounds per
@@ -800,12 +831,15 @@ def family_paths():
     vit = get_config("femnist_vit_cross_silo")
     moe = get_config("agnews_bert_fedavg")
     resnet = get_config("cifar100_resnet18_fedprox")
+    tcn = get_config("iot_traffic_tcn_fedavg")
+    # ResNet-18's and the TCN's cohorts are cut to 5 to pay for phase 20.
     return [
         ("mlp", get_config("mnist_mlp_fedavg"), "none"),
         ("resnet18", resnet.replace(
-            fed=dataclasses.replace(resnet.fed, cohort_size=10)),
-         "cohort_size 20 -> 10"),
-        ("tcn", get_config("iot_traffic_tcn_fedavg"), "none"),
+            fed=dataclasses.replace(resnet.fed, cohort_size=5)),
+         "cohort_size 20 -> 5"),
+        ("tcn", tcn.replace(fed=dataclasses.replace(tcn.fed, cohort_size=5)),
+         "cohort_size 10 -> 5"),
         ("vit", vit.replace(
             model=dataclasses.replace(vit.model, attn_impl="flash"),
             fed=dataclasses.replace(vit.fed, cohort_size=32)),
@@ -4731,17 +4765,22 @@ def chaos_tree_async_path() -> dict:
             "witness": witness}
 
 
-def chaos_phase() -> dict:
+def chaos_phase(before_17c=None) -> dict:
     """Phase 17: the chaos soaks on the card (17a ``chaos --mp``, 17b
     ``postmortem``, 17c ``chaos --tree-async --lock-witness``); the
     in-process, secure, ``--agg`` and ``--async`` soaks run in the CPU
-    tests."""
-    t0 = time.perf_counter()
-    mp = chaos_mp_path()
-    log(f"  17a in {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    postmortem_path(mp["kills"])
-    log(f"  17b in {time.perf_counter() - t0:.2f} s")
+    tests.  ``before_17c`` is called after 17b (also when 17a or 17b
+    raised), before 17c starts."""
+    try:
+        t0 = time.perf_counter()
+        mp = chaos_mp_path()
+        log(f"  17a in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        postmortem_path(mp["kills"])
+        log(f"  17b in {time.perf_counter() - t0:.2f} s")
+    finally:
+        if before_17c is not None:
+            before_17c()
     t0 = time.perf_counter()
     tree = chaos_tree_async_path()
     log(f"  17c in {time.perf_counter() - t0:.2f} s")
@@ -5099,18 +5138,7 @@ def sharded_phase(F) -> tuple[dict, dict]:
     inputs = shard_inputs()
     rows = shard_kernel_rows(F, inputs)
     log(f"  18a's inputs and kernels in {time.perf_counter() - t0:.2f} s")
-    soak: dict = {}
-
-    def run_soak():
-        t = time.perf_counter()
-        try:
-            soak["18c"] = chaos_ckpt_path()
-        except BaseException as e:         # re-raised on this thread
-            soak["error"] = e
-        soak["s"] = time.perf_counter() - t
-
-    thread = threading.Thread(target=run_soak, name="18c")
-    thread.start()
+    soak = Beside("18c", chaos_ckpt_path)
     try:
         t0 = time.perf_counter()
         launches, numbers = sharded_fold_path(F, inputs)
@@ -5121,13 +5149,344 @@ def sharded_phase(F) -> tuple[dict, dict]:
         fallback_path()
         log(f"  18b in {time.perf_counter() - t0:.2f} s")
     finally:
-        thread.join()
-    if "error" in soak:
-        raise soak["error"]
-    log(f"  18c in {soak['s']:.2f} s (beside 18a's folds and 18b)")
-    numbers["18c"] = soak["18c"]
+        ckpt = soak.join()
+    log(f"  18c in {soak.s:.2f} s (beside 18a's folds and 18b)")
+    numbers["18c"] = ckpt
     log("phase 18 numbers " + json.dumps(numbers))
     return {"sharded_fold": launches}, rows
+
+
+# ------------------------------------------------------------ phase 19
+MESH_CKPT_ROUNDS = 2       # 19: round 0 saved, round 1 resumed
+
+
+def _host_state(learner) -> dict:
+    """A learner's params, server control and variate rows as host copies
+    (the rows are host tensors already)."""
+    s = learner.server_state
+    out = {f"params/{k}": v.detach().cpu().clone()
+           for k, v in s.params.items()}
+    out.update({f"control/{k}": v.detach().cpu().clone()
+                for k, v in (s.control or {}).items()})
+    if learner.variates is not None:
+        out.update({f"variates/{i}": r.clone()
+                    for i, r in enumerate(learner.variates.rows)})
+    return out
+
+
+def mesh_resume_phase(A, F) -> dict:
+    """19: item 15b on the card.  Config #2 with ``--strategy scaffold
+    --momentum 0`` at cohort 10 (7a's cut) on a world-1 NCCL client mesh
+    (``init_device_mesh("cuda", (1,), ("clients",))`` from a FileStore):
+    an uninterrupted 2-round run; a run with ``checkpoint_dir`` that saves
+    after round 0; a fresh mesh learner that restores the step and runs
+    round 1.  Its params, server control and every variate row must equal
+    the uninterrupted run's bit for bit, and the step's leaves must have
+    the one-device learner's paths and shapes.  Prints the save and
+    restore seconds and the step's MB.  Returns its launches (none of the
+    kernels runs on the CNN)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from colearn_federated_learning_tpu_torch.ckpt import (
+        RoundCheckpointer, streaming)
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+    from colearn_federated_learning_tpu_torch.ops import _build
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
+
+    base = get_config("cifar10_cnn_fedavg")
+    base = base.replace(fed=dataclasses.replace(
+        base.fed, strategy="scaffold", momentum=0.0, cohort_size=CNN_COHORT,
+        rounds=MESH_CKPT_ROUNDS))
+    A.reset_launches()
+    F.reset_launches()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        cfg = base.replace(run=dataclasses.replace(
+            base.run, checkpoint_dir=os.path.join(tmp, "ckpt")))
+        dist.init_process_group("nccl", store=dist.FileStore(
+            f"{tmp}/store", 1), rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,),
+                                    mesh_dim_names=("clients",))
+            t0 = time.perf_counter()
+            learner = FederatedLearner(base, mesh=mesh)
+            learner.fit(rounds=MESH_CKPT_ROUNDS)
+            straight = _host_state(learner)
+            straight_s = time.perf_counter() - t0
+            del learner
+            learner = FederatedLearner(cfg, mesh=mesh)
+            learner.fit(rounds=1)
+            save_s = learner.history[-1]["phase_checkpoint_s"]
+            del learner
+            learner = FederatedLearner(cfg, mesh=mesh)
+            t0 = time.perf_counter()
+            step = learner.restore_checkpoint()
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            learner.fit()
+            resumed = _host_state(learner)
+            rounds = [r["round"] for r in learner.history]
+            del learner
+        finally:
+            dist.destroy_process_group()
+        table = RoundCheckpointer(cfg.run.checkpoint_dir).leaf_table(1)
+        one = FederatedLearner(base)
+        want = [(path, list(leaf.shape)) for path, leaf in
+                streaming.flatten_state(one._checkpoint_state())]
+        del one
+    launches = {**A.launches, **F.launches}
+    mb = sum(4 * math.prod(r["shape"]) for r in table) / 1e6
+    differ = [k for k in straight if not torch.equal(straight[k], resumed[k])]
+    got = [(r["path"], r["shape"]) for r in table]
+    log(f"  [19] config #2 SCAFFOLD on a world-1 NCCL mesh (cohort 20 -> "
+        f"10): uninterrupted {MESH_CKPT_ROUNDS} rounds {straight_s:.2f} s; "
+        f"saved after round 0 in {save_s:.3f} s ({mb:.1f} MB, {len(table)} "
+        f"leaves, client_c {table[-1]['shape'][0]} slots); restored step "
+        f"{step} in {restore_s:.3f} s; resumed rounds {rounds}; "
+        f"{len(straight)} tensors against the uninterrupted run, "
+        f"{len(differ)} differ; leaf shapes the one-device learner's: "
+        f"{got == want}; launches {launches}; {card()}")
+    if differ or step != 1 or rounds != [0, 1] or got != want:
+        raise AssertionError(f"19: the resumed mesh run differs ({differ[:4]}"
+                             f", step {step}, rounds {rounds}) or the step's "
+                             f"leaves are not the one-device learner's")
+    if any(launches.values()):
+        raise AssertionError(f"19: a kernel launched on the CNN: {launches}")
+    return launches
+
+
+# ------------------------------------------------------------ phase 20
+FLEET_DEVICES = 1_000_000   # 20a: the fleet, the cohort and its chunks
+FLEET_COHORT = 1024
+FLEET_CHUNK = 256
+FLEET_ROUNDS = 3
+FLEET_FAULTS = [            # count 0: unlimited, each on 2 % of the keys
+    {"kind": "drop_request", "op": "train", "probability": 0.02,
+     "count": 0},
+    {"kind": "delay", "op": "train", "probability": 0.02, "ms": 1000.0,
+     "count": 0},
+    {"kind": "corrupt_payload", "op": "train", "probability": 0.02,
+     "count": 0}]
+FLEET_ASYNC_ROUNDS = 6      # 20c's aggregations
+
+
+def _fleet_expected(plan_path: str) -> list:
+    """20a's rounds replayed on the host from the command's defaults: each
+    round's traffic cohort and the plan's firings on it (the plan's
+    probability gate is a hash of its seed and the key, so a replay fires
+    as the run did), and the devices that must complete (not dropped, not
+    corrupted, not delayed past the whole deadline)."""
+    from colearn_federated_learning_tpu_torch import fleetsim
+    from colearn_federated_learning_tpu_torch.faults.plan import FaultPlan
+
+    plan = FaultPlan.load(plan_path)
+    traffic = fleetsim.TrafficModel(fleetsim.TrafficSpec(), FLEET_DEVICES)
+    kinds = ("drop_request", "delay", "corrupt_payload")
+    out = []
+    for r in range(FLEET_ROUNDS):
+        ids = traffic.sample_cohort(r, FLEET_COHORT)
+        fired = {k: 0 for k in kinds}
+        completed = trained = 0
+        for d in ids:
+            hit = {f.kind for f in plan.match(str(int(d)), r, "train",
+                                              kinds=kinds, site="server")}
+            for k in hit:
+                fired[k] += 1
+            trained += "drop_request" not in hit
+            completed += not hit
+        out.append(dict(cohort=len(ids), trained=trained,
+                        completed=completed, **fired))
+    return out
+
+
+def _fleet_prices(compress: str) -> tuple[int, int]:
+    """The shape-only frame prices of 20a's MLP (32 -> 64 -> 64 -> 10):
+    the full downlink frame and the ``compress`` uplink train frame."""
+    from colearn_federated_learning_tpu_torch.fed import compression
+    from colearn_federated_learning_tpu_torch.utils.serialization import (
+        wire_frame_length)
+
+    dims = [32, 64, 64, 10]
+    zeros = {f"Dense_{i}": {"kernel": np.zeros((a, b), np.float32),
+                            "bias": np.zeros((b,), np.float32)}
+             for i, (a, b) in enumerate(zip(dims, dims[1:]))}
+    wire, meta = compression.compress_delta(zeros, compress)
+    return (wire_frame_length(zeros, {"round": 0, "down": "full"}),
+            wire_frame_length(wire, {"round": 0, "op": "train", **meta}))
+
+
+def fleet_cli_path(workdir: str) -> dict:
+    """20a: ``fleetsim --devices 1000000 --cohort 1024 --chunk 256 --rounds
+    3 --compress topk8`` through ``cli.main`` with ``--trace-dir`` and a
+    fault plan of ``drop_request``, ``delay`` (the whole deadline) and
+    ``corrupt_payload``, each unlimited at 2 %.  Each round's cohort,
+    firings, trained and completed devices equal the host's replay of the
+    plan on the traffic model's cohorts; the summary's counts are the
+    records' sums and ``fault.injected_total`` moved by them; every
+    record's bytes are the shape-only prices times its devices; the loss
+    is finite; the trace holds one ``train_chunk`` span per chunk."""
+    from colearn_federated_learning_tpu_torch import cli, telemetry
+
+    plan_path = os.path.join(workdir, "fleet_plan.json")
+    with open(plan_path, "w") as f:
+        json.dump({"faults": FLEET_FAULTS}, f)
+    reg = telemetry.get_registry()
+    kinds = ("drop_request", "delay", "corrupt_payload")
+
+    def injected():
+        return {k: reg.counter("fault.injected_total",
+                               labels={"kind": k}).value for k in kinds}
+
+    before = injected()
+    argv = ["fleetsim", "--devices", str(FLEET_DEVICES), "--cohort",
+            str(FLEET_COHORT), "--chunk", str(FLEET_CHUNK), "--rounds",
+            str(FLEET_ROUNDS), "--compress", "topk8", "--trace-dir", workdir,
+            "--fault-plan", plan_path]
+    t0 = time.perf_counter()
+    (summary, err) = _stderr_of(lambda: cli.main(argv))
+    wall = time.perf_counter() - t0
+    records = [json.loads(line) for line in err.splitlines()
+               if line.startswith('{"train_loss"')]
+    want = _fleet_expected(plan_path)
+    down, up = _fleet_prices("topk8")
+    moved = {k: v - before[k] for k, v in injected().items()}
+    bad = []
+    for rec, w in zip(records, want):
+        got = dict(cohort=rec["cohort"], trained=rec["clients_trained"],
+                   completed=int(rec["completed"]),
+                   drop_request=rec["dropped"], delay=rec["straggled"],
+                   corrupt_payload=rec["corrupted"])
+        if got != w:
+            bad.append((rec["round"], got, w))
+        if (rec["bytes_down_est"] != rec["clients_trained"] * down
+                or rec["bytes_up_est"] != rec["clients_trained"] * up
+                or not math.isfinite(rec["train_loss"])):
+            bad.append((rec["round"], "bytes or loss", rec))
+    sums = {k: sum(w[k] for w in want) for k in kinds}
+    doc = telemetry.load_trace(os.path.join(workdir, "fleetsim_trace.json"))
+    chunks = sum(s.name == "train_chunk" for s in telemetry.trace_spans(doc))
+    want_chunks = sum(math.ceil(w["cohort"] / FLEET_CHUNK) for w in want)
+    secs = [r["round_time_s"] for r in records]
+    log(f"  [20a] fleetsim {FLEET_DEVICES} devices, cohort {FLEET_COHORT} "
+        f"in chunks of {FLEET_CHUNK}, {FLEET_ROUNDS} rounds, topk8: "
+        f"s/round {[round(t, 3) for t in secs]}, clients/s "
+        f"{summary['clients_per_sec']:.1f}; trained "
+        f"{summary['clients_trained']}, completed "
+        f"{[int(r['completed']) for r in records]}, firings {sums} "
+        f"(counted {moved}); bytes/round down "
+        f"{summary['bytes_down_per_round']:.0f} up "
+        f"{summary['bytes_up_per_round']:.0f} (prices {down}, {up}); loss "
+        f"{summary['train_loss']:.6f}; train_chunk spans {chunks}; path "
+        f"{wall:.2f} s; {card()}")
+    if (bad or len(records) != FLEET_ROUNDS or moved != sums
+            or summary["clients_trained"] != sum(w["trained"] for w in want)
+            or {k: summary[k] for k in ("dropped", "straggled", "corrupted")}
+            != {"dropped": sums["drop_request"], "straggled": sums["delay"],
+                "corrupted": sums["corrupt_payload"]}
+            or chunks != want_chunks):
+        raise AssertionError(f"20a: {bad[:3]}, firings {moved} against "
+                             f"{sums}, chunks {chunks} against {want_chunks}")
+    return dict(s_round=secs, clients_per_sec=summary["clients_per_sec"])
+
+
+def fleet_learner_path() -> dict:
+    """20b: ``FleetSim.from_learner`` on config #1 (the MLP, f32) on the
+    card, from copies of one learner's initial state: the one-chunk
+    round equals the engine's ``run_round`` bit for bit (the same draws),
+    the 4-chunk round agrees within the CPU test's bound, 1e-5 of the
+    round's largest update entry (at least 1e-5): chunked folding
+    regroups the f32 sums, so the difference is roundoff of the update."""
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+    from colearn_federated_learning_tpu_torch.fleetsim import FleetSim
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
+
+    learner = FederatedLearner(get_config("mnist_mlp_fedavg"))
+    start = [p.clone() for p in learner.params.values()]
+    n = learner.num_clients
+    one = FleetSim.from_learner(learner, chunk_size=n)
+    four = FleetSim.from_learner(learner, chunk_size=math.ceil(n / 4))
+    secs = {}
+    for label, run in (("one chunk", one.run_round),
+                       ("4 chunks", four.run_round),
+                       ("engine", learner.run_round)):
+        t0 = time.perf_counter()
+        rec = run()
+        torch.cuda.synchronize()
+        secs[label] = (round(time.perf_counter() - t0, 3),
+                       rec["train_loss"])
+    diff1 = max(float((a - b).abs().max()) for a, b in
+                zip(one.server_state.params.values(),
+                    learner.params.values()))
+    diff4 = max(float((a - b).abs().max()) for a, b in
+                zip(four.server_state.params.values(),
+                    learner.params.values()))
+    update = max(float((a - b).abs().max()) for a, b in
+                 zip(learner.params.values(), start))
+    bound = 1e-5 * max(1.0, update)
+    log(f"  [20b] config #1 from_learner ({n} clients, "
+        f"{learner.num_steps} steps): one chunk vs run_round max abs diff "
+        f"{diff1:.3e} (bitwise), 4 chunks {diff4:.3e} (bound {bound:.3e}: "
+        f"the largest update entry {update:.3e}); s and loss "
+        f"{json.dumps(secs)}; {card()}")
+    if diff1 != 0.0 or not diff4 <= bound:
+        raise AssertionError(f"20b: one chunk {diff1}, 4 chunks {diff4}")
+    return secs
+
+
+def fleet_async_path() -> dict:
+    """20c: ``fleetsim --async-buffer auto --async-observe`` and
+    ``--async-buffer 8 --aggregators 2`` for 6 aggregations at the
+    command's default 10,000 devices through ``cli.main``: each returns
+    (exit 0) with ``model_version`` 6.  The process registry is reset
+    before each, so each summary's staleness percentiles (read from the
+    registry's histogram) are its own run's."""
+    from colearn_federated_learning_tpu_torch import cli, telemetry
+
+    out = {}
+    for label, extra in (("auto", ["--async-buffer", "auto",
+                                   "--async-observe"]),
+                         ("tree", ["--async-buffer", "8",
+                                   "--aggregators", "2"])):
+        telemetry.get_registry().reset()
+        t0 = time.perf_counter()
+        summary, _ = _stderr_of(lambda: cli.main(
+            ["fleetsim", "--rounds", str(FLEET_ASYNC_ROUNDS), *extra]))
+        keys = ("model_version", "buffer_size", "arrival_tracking",
+                "staleness_p90", "agg_fold_tracking_min")
+        out[label] = {k: summary.get(k) for k in keys}
+        out[label]["s"] = round(time.perf_counter() - t0, 3)
+        if summary["model_version"] != FLEET_ASYNC_ROUNDS:
+            raise AssertionError(f"20c {label}: {summary}")
+    log(f"  [20c] fleetsim async at 10,000 devices, "
+        f"{FLEET_ASYNC_ROUNDS} aggregations: {json.dumps(out)}; {card()}")
+    return out
+
+
+def fleet_phase(A, F) -> dict:
+    """Phase 20: the fleet simulator on the card (20a the million-device
+    command with faults and a trace, 20b the parity with the engine's
+    round, 20c the asynchronous plane flat and as a tree).  Returns its
+    launches (the MLP runs none of the kernels)."""
+    from colearn_federated_learning_tpu_torch.ops import _build
+
+    A.reset_launches()
+    F.reset_launches()
+    numbers = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        numbers["20a"] = fleet_cli_path(workdir)
+    log(f"  20a in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    numbers["20b"] = fleet_learner_path()
+    log(f"  20b in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    numbers["20c"] = fleet_async_path()
+    log(f"  20c in {time.perf_counter() - t0:.2f} s")
+    launches = {**A.launches, **F.launches}
+    if any(launches.values()):
+        raise AssertionError(f"20: a kernel launched on the MLP: {launches}")
+    log("phase 20 numbers " + json.dumps(numbers))
+    return launches
 
 
 def cache_synthetic_data():
@@ -5221,6 +5580,34 @@ def phase(n, title: str, fn, *args):
     return out
 
 
+class Beside:
+    """``fn(*args)`` on a thread beside the caller's own work, for work
+    whose card use is small beside another's waiting on its processes
+    (18c's soak beside 18a's folds and 18b, phase 19 beside 17a and 17b).
+    :meth:`join` waits and returns its result or raises its error; ``s``
+    is its wall seconds."""
+
+    def __init__(self, name: str, fn, *args):
+        self.out, self.error, self.s = None, None, None
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                self.out = fn(*args)
+            except BaseException as e:         # re-raised by join()
+                self.error = e
+            self.s = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=run, name=name)
+        self.thread.start()
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.out
+
+
 def device_phase() -> None:
     log(card())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -5247,7 +5634,7 @@ def fold_and_file_phase(A, F):
 
 
 def run_phases() -> int:
-    """Phases 1-18 and the two result lines (see the module docstring)."""
+    """Phases 1-20 and the two result lines (see the module docstring)."""
     from colearn_federated_learning_tpu_torch.ops import _build
     from colearn_federated_learning_tpu_torch.ops import attention as A
     from colearn_federated_learning_tpu_torch.ops import fold as F
@@ -5298,12 +5685,28 @@ def run_phases() -> int:
     paths.update(phase(16, "checkpoints and resume (the engine, a "
                            "SIGKILLed coordinator, streaming restores)",
                        resume_phase, A, F))
+    # Phase 19's card work is small beside 17a's soak, whose processes the
+    # script waits on: it runs on a thread beside 17a and 17b and is
+    # joined before 17c, so 17c's recoveries are read with nothing beside.
+    log("phase 19: checkpoints of a learner on a client mesh (on a thread "
+        "beside 17a and 17b)")
+    mesh = Beside("phase 19", mesh_resume_phase, A, F)
+
+    def join_mesh():
+        paths["mesh_resume"] = mesh.join()
+        PHASE_S[19] = round(mesh.s, 2)
+        log(f"  phase 19 in {PHASE_S[19]:.2f} s (beside 17a and 17b)")
+
     phase(17, "the chaos soaks (chaos --mp with SIGKILLs, postmortem, "
-              "chaos --tree-async under the lock witness)", chaos_phase)
+              "chaos --tree-async under the lock witness)", chaos_phase,
+          join_mesh)
     shard_paths, _ = phase(18, "the sharded server (the placed fold, step "
                                "and downlink, the fallbacks, chaos --ckpt)",
                            sharded_phase, F)
     paths.update(shard_paths)
+    paths["fleetsim"] = phase(20, "the fleet simulator (a million devices, "
+                                  "the engine's round, the asynchronous "
+                                  "plane)", fleet_phase, A, F)
     log("launches per path " + json.dumps(paths))
     total = time.perf_counter() - t_start
     log(f"script {total:.2f} s; phase seconds {json.dumps(PHASE_S)}; 9c "

@@ -9,7 +9,8 @@ not resume here (the streaming generations of ``ckpt/streaming.py`` move
 both ways).  Each step is one directory, committed atomically: the state
 is written into a temporary directory beside it as ``state.npz`` (one
 entry per leaf, keyed by the leaf's JAX path, written leaf by leaf, and
-a ``__leaves__`` entry listing each leaf's path, shape and dtype) with
+a ``__leaves__`` entry listing each leaf's path, shape and dtype, and a
+``__meta__`` entry with what the saver records beside the state) with
 ``history.json``, both fsynced, and the directory is renamed to
 ``<dir>/<step>``.  A kill mid-save leaves a temporary directory that no
 restore reads (the next save removes it) and the previous step intact.
@@ -31,6 +32,7 @@ from colearn_federated_learning_tpu_torch.telemetry import registry as _metrics
 
 STATE = "state.npz"
 _LEAVES = "__leaves__"
+_META = "__meta__"
 
 
 class RoundCheckpointer:
@@ -55,7 +57,10 @@ class RoundCheckpointer:
                       if n.isdigit()
                       and os.path.isdir(os.path.join(self.directory, n)))
 
-    def save(self, step: int, server_state: Any, history: list[dict]) -> None:
+    def save(self, step: int, server_state: Any, history: list[dict],
+             meta: Optional[dict] = None) -> None:
+        """Commit ``server_state`` and ``history`` as ``step``; ``meta``,
+        a JSON-able dict, is kept beside the leaves (:meth:`step_meta`)."""
         t0 = time.perf_counter()
         for name in os.listdir(self.directory):
             if name.startswith(".tmp-"):       # a killed save's leftovers
@@ -69,8 +74,8 @@ class RoundCheckpointer:
                 shape, entry, _ = streaming._leaf_meta(leaf)
                 table.append({"path": path, "shape": list(shape),
                               "dtype": entry})
-            meta = np.frombuffer(json.dumps(table).encode(), np.uint8)
-            entries = [(_LEAVES, lambda: meta)] + [
+            entries = [(_LEAVES, lambda: _json_bytes(table)),
+                       (_META, lambda: _json_bytes(meta or {}))] + [
                 (path, lambda leaf=leaf, rec=rec: _stored(leaf, rec))
                 for (path, leaf), rec in zip(flat, table)]
             with open(os.path.join(tmp, STATE), "wb") as f:
@@ -142,6 +147,20 @@ class RoundCheckpointer:
         return (streaming.unflatten_state(target_state, iter(out)),
                 list(history), step)
 
+    def leaf_table(self, step: Optional[int] = None) -> list[dict]:
+        """Each leaf's ``path``, ``shape`` and ``dtype`` entry as a step
+        records them (no leaf is read)."""
+        _, path = self._step_dir(step)
+        with np.load(os.path.join(path, STATE)) as z:
+            return json.loads(z[_LEAVES].tobytes())
+
+    def step_meta(self, step: Optional[int] = None) -> dict:
+        """The ``meta`` a step was saved with (``{}`` for none)."""
+        _, path = self._step_dir(step)
+        with np.load(os.path.join(path, STATE)) as z:
+            return (json.loads(z[_META].tobytes()) if _META in z.files
+                    else {})
+
     def load_leaves(self, step: Optional[int] = None
                     ) -> Iterator[tuple[str, Any]]:
         """Template-free read of a step, one leaf at a time: ``(path, CPU
@@ -154,6 +173,10 @@ class RoundCheckpointer:
 
     def close(self) -> None:
         pass
+
+
+def _json_bytes(obj) -> np.ndarray:
+    return np.frombuffer(json.dumps(obj).encode(), np.uint8)
 
 
 def _stored(leaf, rec: dict) -> np.ndarray:

@@ -199,7 +199,8 @@ def _digest_update(h, name: str, shape: tuple, buf: np.ndarray) -> None:
 
 
 def _as_tensor(buf: np.ndarray, view: Optional[torch.dtype]) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(buf))
+    # ascontiguousarray makes a () array (1,): keep the leaf's shape.
+    t = torch.from_numpy(np.ascontiguousarray(buf).reshape(buf.shape))
     return t.view(view) if view is not None else t
 
 

@@ -1,7 +1,7 @@
 """Command line of the PyTorch port: ``train``, ``init``, ``aggregate``,
 ``eval``, ``configs``, ``bench``, ``broker``, ``worker``, ``aggregator``,
-``coordinate``, ``trace-summary``, ``health``, ``postmortem`` and
-``chaos``.
+``coordinate``, ``trace-summary``, ``health``, ``postmortem``,
+``chaos`` and ``fleetsim``.
 
     python -m colearn_federated_learning_tpu_torch.cli train --config NAME \\
         [--backend gpu|cpu] [overrides]
@@ -34,7 +34,8 @@ renders.  Both print the JAX command's text and exit with its codes.
 Checkpoints (``ckpt/``): ``--checkpoint-dir`` and ``--checkpoint-every``
 save the state of ``train`` and ``coordinate`` (``--ckpt-stream`` picks
 the streaming format); ``train --resume`` prints ``resumed at round k``
-and runs the remaining rounds, ``coordinate --resume`` prints the event
+(under ``torchrun`` on a client mesh too, rank 0 only) and runs the
+remaining rounds, ``coordinate --resume`` prints the event
 ``resume_cold`` or ``resumed`` and, on the synchronous plane, after
 enrollment ``challenge_verified``.  The flight recorder
 (``telemetry/flight.py``): ``--flight-dir``, ``--flight-heartbeat`` and
@@ -47,6 +48,11 @@ fault plan, ``--secure`` against a plain oracle, and ``--mp``, ``--agg``,
 ``--async``, ``--tree-async`` and ``--ckpt`` as processes under real
 SIGKILLs (``--async`` and ``--tree-async`` with ``--lock-witness``, the
 lock witness in every process), with JAX's gates and exit codes.
+``fleetsim`` simulates a fleet of up to a million devices
+(``fleetsim/``): chunked rounds over a seeded synthetic population and a
+traffic model, or with ``--async-buffer`` the buffered-asynchronous
+plane on a virtual clock (``--aggregators``: its two-tier tree), with
+JAX's flags and summary keys (less the compile census, ``compiles``).
 ``coordinate --tp-size N`` shards the server state over N positions
 (the cards, or on the CPU the host positions ``XLA_FLAGS`` forces) or,
 on a host with fewer, runs replicated and counts the fallback.
@@ -67,8 +73,8 @@ JAX; ``--remat`` checkpoints the transformer blocks' activations.
 A flag of the JAX command line whose feature is not ported yet is
 accepted by the parser and refused: the run exits with status 2 and names
 the ROADMAP item that ports it, and never runs without it; so is each
-JAX subcommand not ported yet (``fleetsim``, ``lint``, ``top``,
-``sentinel``, ``converge``).  ``configs``,
+JAX subcommand not ported yet (``lint``, ``top``, ``sentinel``,
+``converge``), and ``fleetsim --learn-observe``.  ``configs``,
 ``trace-summary``, ``health`` and ``postmortem`` print JAX's text, not a
 JSON result.
 """
@@ -131,7 +137,6 @@ _OBSERVABILITY = {
     "events_file": ("--events-file", dict(), _OBS),
 }
 _UNPORTED_COMMANDS = {
-    "fleetsim": comm.ITEM_FLEETSIM,
     "top": comm.ITEM_OBS_REST,
     "converge": comm.ITEM_OBS_REST,
     "lint": comm.ITEM_ANALYSIS,
@@ -553,10 +558,96 @@ def build_parser() -> argparse.ArgumentParser:
                    help="whole-soak wall-clock backstop of the process "
                         "soaks; a hung federation is killed and reported")
 
+    _add_fleetsim_parser(sub)
+
     # Subcommands not ported yet: refused before their flags are parsed.
     for name in _UNPORTED_COMMANDS:
         sub.add_parser(name, help="not ported yet (refused)")
     return parser
+
+
+def _add_fleetsim_parser(sub) -> None:
+    """``fleetsim``'s flags and defaults: JAX's, with ``--backend``."""
+    p = sub.add_parser("fleetsim",
+                       help="simulate a 1k-1M device fleet: chunked "
+                            "rounds over a synthetic population with a "
+                            "traffic model (fleetsim/)")
+    p.add_argument("--backend", choices=["gpu", "cpu"], default="gpu",
+                   help="the card (default; raises without one) or the CPU")
+    p.add_argument("--devices", type=int, default=10_000)
+    p.add_argument("--cohort", type=int, default=1024)
+    p.add_argument("--rounds", type=int, default=5)
+    p.add_argument("--chunk", type=int, default=1024,
+                   help="chunk size: memory is O(chunk), the cohort runs "
+                        "in cohort/chunk chunks")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--classes", type=int, default=10)
+    p.add_argument("--feature-dim", type=int, default=32)
+    p.add_argument("--capacity", type=int, default=32,
+                   help="padded per-device shard size")
+    p.add_argument("--label-skew", type=float, default=0.7,
+                   help="P(label == device home class); non-IID knob")
+    p.add_argument("--base-rate", type=float, default=2.0,
+                   help="mean device check-ins per hour")
+    p.add_argument("--diurnal", type=float, default=0.8,
+                   help="day/night availability swing in [0, 1]")
+    p.add_argument("--round-minutes", type=float, default=10.0)
+    p.add_argument("--strategy", default="fedavg",
+                   choices=["fedavg", "fedprox", "fedadam", "fedyogi"])
+    p.add_argument("--local-steps", type=int, default=4)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--hidden-dim", type=int, default=64)
+    p.add_argument("--depth", type=int, default=2)
+    p.add_argument("--compress", default="none",
+                   choices=["none", "int8", "topk", "topk8"],
+                   help="uplink scheme for the byte estimates")
+    p.add_argument("--lora-rank", type=int, default=0,
+                   help="rank-r adapter federation: price the "
+                        "factor-frame uplink (bytes_up_saved_est; "
+                        "training stays dense in the sim)")
+    p.add_argument("--lora-alpha", type=float, default=16.0)
+    p.add_argument("--compress-down", default="none",
+                   choices=["none", "int8", "topk"])
+    p.add_argument("--fault-plan", default=None,
+                   help="JSON fault plan; (device, round, op='train') "
+                        "keys drive per-simulated-device drop/"
+                        "straggle/corrupt")
+    p.add_argument("--fault-seed", type=int, default=None)
+    p.add_argument("--trace-dir", default=None,
+                   help="write the sweep's span trace (fleet_round/"
+                        "train_chunks/train_chunk) as a Chrome-trace "
+                        "JSON here; read with `trace-summary`")
+    p.add_argument("--async-buffer", type=_async_buffer_arg, default=0,
+                   help="> 0 runs the buffered-ASYNC simulation "
+                        "instead of sync rounds: fold every N "
+                        "arrival-ordered completions with staleness "
+                        "weighting (FleetSim.fit_async); --rounds "
+                        "then counts aggregations; 'auto' sizes N "
+                        "from the observed arrival rate")
+    p.add_argument("--async-observe", action="store_true",
+                   help="async mode: stamp observatory keys "
+                        "(staleness tail, contribution mass, EWMA "
+                        "arrival rate) into records (implied by "
+                        "--async-buffer auto)")
+    p.add_argument("--async-max-staleness", type=int, default=10,
+                   help="async mode: discard updates staler than "
+                        "this many versions (wasted compute)")
+    p.add_argument("--async-prune-after", type=int, default=0,
+                   help="async mode: stop re-dispatching a device "
+                        "after this many CONSECUTIVE too-stale "
+                        "discards (0 = off)")
+    p.add_argument("--aggregators", type=int, default=0,
+                   help="async mode: two-tier tree -- devices "
+                        "sliced by service time across N per-"
+                        "slice auto-K buffers, partials folded "
+                        "unscaled at the edge and staleness-"
+                        "discounted at the root against the "
+                        "OLDEST constituent (0 = flat async)")
+    p.add_argument("--async-probation", type=int, default=8,
+                   help="async mode: aggregations a pruned device "
+                        "sits out before re-admission")
+    _add_unported(p, {"learn_observe": _UNPORTED["learn_observe"]})
 
 
 def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
@@ -1098,8 +1189,9 @@ def _chaos_log(rec: dict) -> None:
 
 
 def _chaos_gate(summary: dict, ok: bool) -> dict:
-    """A soak's summary when its gate passed; otherwise it is printed and
-    the process exits 1, as JAX's ``chaos`` does."""
+    """A soak's (or a fleet simulation's) summary when its gate passed;
+    otherwise it is printed and the process exits 1, as JAX's ``chaos``
+    and ``fleetsim`` do."""
     if not ok:
         print(json.dumps(summary), flush=True)
         raise SystemExit(1)
@@ -1345,6 +1437,125 @@ def chaos(args: argparse.Namespace) -> dict:
                                  and summary["weighted_acc"] is not None))
 
 
+def fleetsim(args: argparse.Namespace) -> dict:
+    """``fleetsim``: chunked rounds (or, with ``--async-buffer``, the
+    buffered-asynchronous plane, flat or through ``--aggregators``) over a
+    seeded synthetic population with a traffic model; per-round records
+    on stderr, the summary (JAX's keys, less the compile census) returned.
+    A run that trained no client (or, asynchronously, applied no
+    aggregation) prints its summary and exits 1, as JAX's."""
+    from colearn_federated_learning_tpu_torch import fleetsim as fs
+    from colearn_federated_learning_tpu_torch import telemetry
+    from colearn_federated_learning_tpu_torch.utils.config import (
+        FedConfig, ModelConfig, RunConfig)
+
+    spec = fs.PopulationSpec(
+        num_devices=args.devices, num_classes=args.classes,
+        feature_dim=args.feature_dim, shard_capacity=args.capacity,
+        label_skew=args.label_skew, seed=args.seed)
+    population = fs.DevicePopulation(spec)
+    traffic = fs.TrafficModel(
+        fs.TrafficSpec(base_rate=args.base_rate,
+                       diurnal_amplitude=args.diurnal,
+                       round_minutes=args.round_minutes, seed=args.seed),
+        spec.num_devices)
+    config = ExperimentConfig(
+        model=ModelConfig(name="mlp", num_classes=spec.num_classes,
+                          hidden_dim=args.hidden_dim, depth=args.depth),
+        fed=FedConfig(strategy=args.strategy, local_steps=args.local_steps,
+                      batch_size=args.batch_size, lr=args.lr,
+                      compress=args.compress,
+                      compress_down=args.compress_down or "none",
+                      lora_rank=args.lora_rank, lora_alpha=args.lora_alpha),
+        run=RunConfig(name="fleetsim", seed=args.seed))
+    plan = None
+    if args.fault_plan:
+        from colearn_federated_learning_tpu_torch import faults
+
+        plan = faults.FaultPlan.load(args.fault_plan,
+                                     seed=args.fault_seed or None)
+    sim = fs.FleetSim.from_population(
+        config, population, traffic, cohort_size=args.cohort,
+        chunk_size=args.chunk, fault_plan=plan, device=_device(args))
+    if args.trace_dir:
+        sim.tracer.enabled = True
+
+    def log(rec: dict) -> None:
+        print(json.dumps(rec), file=sys.stderr, flush=True)
+
+    if args.async_buffer:
+        history = sim.fit_async(
+            args.rounds, buffer_size=args.async_buffer,
+            max_staleness=args.async_max_staleness,
+            prune_after=args.async_prune_after,
+            probation=args.async_probation,
+            observe=args.async_observe,
+            aggregators=args.aggregators, log_fn=log)
+        last = history[-1]
+        # Arrival tracking: the share of arrived updates that were folded
+        # (1 == the fold plane keeps up with the arrival stream).
+        arrived = last["arrival_rate_per_min"] * last["sim_time_min"]
+        folded = max(0.0, arrived - last["wasted_updates_total"])
+        summary = {
+            "devices": spec.num_devices,
+            "buffer_size": last["buffer_size"],
+            "aggregations": len(history),
+            "model_version": last["model_version"],
+            "sim_minutes": last["sim_time_min"],
+            "arrival_rate_per_min": last["arrival_rate_per_min"],
+            "agg_rate_per_min": last["agg_rate_per_min"],
+            "arrival_tracking": folded / max(arrived, 1e-9),
+            "staleness_mean": (
+                sum(r["staleness_mean"] for r in history) / len(history)),
+            "wasted_updates": last["wasted_updates_total"],
+            "train_loss": last["train_loss"],
+        }
+        # The staleness tail over every FOLDED update of the run.
+        hs = telemetry.get_registry().histogram(
+            "fleetsim.async_staleness",
+            labels={"outcome": "folded"}).summary()
+        if hs.get("count"):
+            summary["staleness_p50"] = hs["p50"]
+            summary["staleness_p90"] = hs["p90"]
+            summary["staleness_p99"] = hs["p99"]
+        if args.async_buffer == "auto":
+            summary["buffer_auto"] = True
+        if args.aggregators:
+            summary["aggregators"] = args.aggregators
+            summary["agg_fold_tracking_min"] = last["agg_fold_tracking_min"]
+        if args.async_prune_after:
+            summary["pruned"] = last["pruned"]
+            summary["pruned_total"] = last["pruned_total"]
+        return _chaos_gate(summary, bool(history)
+                           and last["model_version"] > 0)
+    history = sim.fit(args.rounds, log_fn=log)
+    if args.trace_dir:
+        path = telemetry.write_tracer(
+            args.trace_dir, "fleetsim", sim.tracer,
+            metrics=telemetry.get_registry().snapshot())
+        print(f"trace written to {path}", file=sys.stderr)
+    wall = sum(r["round_time_s"] for r in history) or 1e-9
+    clients = sum(r["clients_trained"] for r in history)
+    summary = {
+        "devices": spec.num_devices,
+        "cohort": args.cohort,
+        "chunk": sim.chunk_size,
+        "rounds": len(history),
+        "clients_trained": clients,
+        "rounds_per_sec": len(history) / wall,
+        "clients_per_sec": clients / wall,
+        "bytes_up_per_round": (
+            sum(r["bytes_up_est"] for r in history) / len(history)),
+        "bytes_down_per_round": (
+            sum(r["bytes_down_est"] for r in history) / len(history)),
+        "dropped": sum(r["dropped"] for r in history),
+        "straggled": sum(r["straggled"] for r in history),
+        "corrupted": sum(r["corrupted"] for r in history),
+        "train_loss": history[-1]["train_loss"],
+    }
+    return _chaos_gate(summary, bool(history) and clients > 0)
+
+
 def list_configs() -> None:
     """Print one line per experiment config, in the JAX CLI's format."""
     for name, cfg in sorted(CONFIGS.items()):
@@ -1385,7 +1596,8 @@ def main(argv: Optional[list] = None,
                   "aggregate": aggregate, "eval": evaluate,
                   "broker": broker, "worker": worker,
                   "aggregator": aggregator,
-                  "coordinate": coordinate, "chaos": chaos}[args.cmd](args)
+                  "coordinate": coordinate, "chaos": chaos,
+                  "fleetsim": fleetsim}[args.cmd](args)
     if result is not None and is_lead():
         print(json.dumps(result), flush=True)
     return result

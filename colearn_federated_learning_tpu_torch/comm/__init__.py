@@ -27,14 +27,10 @@ this plane under fault plans and real SIGKILLs, with the flight recorder
 (``telemetry/flight.py``) on every process; the broker's, the
 aggregators' and both coordinators' locks are ``faults/lockwitness.py``'s,
 which ``--lock-witness`` turns on.  Not ported yet, each refused naming
-its ROADMAP.md Queue A item: checkpoints of a learner on a client mesh
-(15b); fleetsim (9b); the exporter, convergence and evaluation extras
-(10b); the analysis tools (17).
+its ROADMAP.md Queue A item: the exporter, convergence and evaluation
+extras (10b); the analysis tools (17).
 """
 
-ITEM_SHARDED = ("ROADMAP.md Queue A item 15b (checkpoints of a learner on a "
-                "client mesh)")
-ITEM_FLEETSIM = "ROADMAP.md Queue A item 9b (fleetsim)"
 ITEM_OBS_REST = ("ROADMAP.md Queue A item 10b (the exporter, convergence "
                  "and evaluation extras)")
 ITEM_ANALYSIS = "ROADMAP.md Queue A item 17 (the analysis tools)"

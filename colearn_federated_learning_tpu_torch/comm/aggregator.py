@@ -56,12 +56,14 @@ meta carries the ``lora`` marker: its ``factors`` half is the fold (or
 buffer) template, since the replies are factor deltas, and the relay
 re-encodes the composite with its meta.
 
-Not ported yet: ``expected_ingest`` (ROADMAP.md Queue A item 9).
+:func:`expected_ingest` is the tree's analytic per-round ingest bill
+(shape-only pricing, JAX's).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import math
 import threading
 import time
 from typing import Any, Optional, Sequence
@@ -548,6 +550,20 @@ def combine_partial_weights(total_ws: Sequence[float]) -> float:
     for t in total_ws:
         total += float(t)
     return total
+
+
+def expected_ingest(cohort: int, n_aggregators: int, update_bytes: int,
+                    partial_bytes: int) -> dict:
+    """Analytic per-round ingest bill of the tree (shape-only pricing,
+    same convention as the wire bench): each aggregator ingests
+    ``ceil(C/N)`` device update frames; the root ingests ``N`` partial
+    frames instead of ``C`` update frames."""
+    per_agg_devices = math.ceil(cohort / max(1, n_aggregators))
+    return {
+        "agg_ingest_bytes": per_agg_devices * update_bytes,
+        "root_ingest_bytes": n_aggregators * partial_bytes,
+        "flat_root_ingest_bytes": cohort * update_bytes,
+    }
 
 
 def run_aggregator_forever(config: ExperimentConfig, agg_id: int,

@@ -30,8 +30,15 @@ variates, else ``None``) after the record is logged, every
 ``run.checkpoint_every`` rounds and always after the last;
 ``restore_checkpoint`` copies the latest step back into the live
 tensors, charges the accountant for the rounds already run and
-continues the adaptive clip from the last record.  A learner on a mesh
-refuses them (item 15b).
+continues the adaptive clip from the last record.  On a mesh the saved
+state is JAX's too: the variates' clients-axis blocks gathered in slot
+order and, under TP, the whole params and moments; one rank writes the
+step and every rank waits on a barrier of the mesh's axes before it goes
+on, and a restore has every rank read the step and keep its block and
+its slices.  The step records the clients axis's slot order, and a
+SCAFFOLD step is refused by a learner whose slots are in another order
+(a clients axis of another size), since its rows would land on other
+clients.
 
 Telemetry is JAX's: the spans ``round``, ``h2d_transfer``,
 ``cohort_sample`` (SCAFFOLD), ``client_update``, ``scatter_variates``,
@@ -62,8 +69,7 @@ import numpy as np
 import torch
 
 from colearn_federated_learning_tpu_torch import convert, telemetry
-from colearn_federated_learning_tpu_torch.comm import (
-    ITEM_OBS_REST, ITEM_SHARDED)
+from colearn_federated_learning_tpu_torch.comm import ITEM_OBS_REST
 from colearn_federated_learning_tpu_torch.data import partition as partition_lib
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
 from colearn_federated_learning_tpu_torch.data.sharding import (
@@ -306,11 +312,6 @@ class FederatedLearner:
         self.mesh = mesh
         self.device = _mesh_device(mesh, device)
         check_supported(c)
-        if mesh is not None and c.run.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoints of a learner on a mesh (each rank holds its "
-                "block of the clients' variates and, under TP, its slices) "
-                f"are not ported yet; see {ITEM_SHARDED}")
         check_fed_options(c.fed)
         local.check_strategy_optimizer(c.fed)
         self.scaffold = c.fed.strategy == "scaffold"
@@ -551,13 +552,7 @@ class FederatedLearner:
         """The global model's whole parameters: under tensor parallelism
         the slices all-gathered over the model group (every rank of it
         must call this), else :attr:`params` itself."""
-        if self.tp_dims is None:
-            return self.params
-        from colearn_federated_learning_tpu_torch.parallel import tp as tp_lib
-
-        names = list(self.params)
-        return tp_lib.gather_params(self.params,
-                                    dict(zip(names, self.tp_dims)), self.tp)
+        return self._whole(self.params)
 
     def host_shards(self) -> tuple:
         """(x, y) numpy arrays of every client's padded shard in array-slot
@@ -694,15 +689,31 @@ class FederatedLearner:
         return convert.nest(convert.leaf_to_flax(n, t, heads, batch_dims)
                             for n, t in named.items())
 
+    def _whole(self, named: Optional[dict]) -> Optional[dict]:
+        """A name -> tensor dict of this rank's TP slices gathered whole
+        over the model group (every rank of it must call this); the dict
+        itself without TP."""
+        if named is None or self.tp_dims is None:
+            return named
+        from colearn_federated_learning_tpu_torch.parallel import tp as tp_lib
+
+        return tp_lib.gather_params(named, dict(zip(named, self.tp_dims)),
+                                    self.tp)
+
     def _checkpoint_state(self) -> tuple:
-        """``(server_state, client_c)`` in the JAX engine's layout, as views
-        of the live tensors: the server state's trees in the flax layout,
-        ``round_idx`` an int32 ``()`` array, and SCAFFOLD's per-client
-        variates (the ``VariateStore`` rows, client-major) or ``None``."""
+        """``(server_state, client_c)`` in the JAX engine's layout: the
+        server state's trees in the flax layout, ``round_idx`` an int32
+        ``()`` array, and SCAFFOLD's per-client variates (client-major,
+        in array-slot order) or ``None``.  On one device these are views
+        of the live tensors.  On a mesh every rank must call this: the
+        clients-axis blocks of the variates are all-gathered, so the rows
+        are the ``padded_num_clients`` slots in the interleaved order,
+        ghosts included, and under TP the params and moments are
+        gathered whole."""
         s = self.server_state
 
         def view(tree):
-            return None if tree is None else self._flax_view(tree)
+            return None if tree is None else self._flax_view(self._whole(tree))
 
         state = strategies.ServerState(
             params=view(s.params), opt_m=view(s.opt_m), opt_v=view(s.opt_v),
@@ -710,30 +721,137 @@ class FederatedLearner:
             round_idx=np.asarray(s.round_idx, np.int32))
         client_c = None
         if self.variates is not None:
-            client_c = self._flax_view(
-                dict(zip(s.params, self.variates.rows)), batch_dims=1)
+            rows = self.variates.rows
+            if self.clients.size > 1:
+                rows = [collectives.all_gather(r.to(self.device),
+                                               self.clients.group).cpu()
+                        for r in rows]
+            client_c = self._flax_view(dict(zip(s.params, rows)),
+                                       batch_dims=1)
         return state, client_c
+
+    def _mesh_lead(self) -> bool:
+        """The rank that writes a mesh's checkpoint: index 0 of every
+        axis (the only rank without a mesh)."""
+        return all(ax.index == 0 for ax in (self.clients, self.seq, self.tp))
 
     def save_checkpoint(self) -> None:
         """Save ``(server_state, client_c)`` and the history at step
-        ``len(history)`` (``sync=False`` records are finalized first)."""
+        ``len(history)`` (``sync=False`` records are finalized first).  On
+        a mesh every rank must call this: the state is gathered, one rank
+        (index 0 of every axis) writes the step, and every rank waits on a
+        barrier of each mesh axis, so none goes on before the step is
+        committed.  Beside the state the step records the clients axis's
+        size and its slot order (``client_ids``), which the variate rows
+        follow."""
         if any(isinstance(v, torch.Tensor)
                for rec in self.history for v in rec.values()):
             self.finalize_history()
-        self._checkpointer().save(len(self.history),
-                                  self._checkpoint_state(), self.history)
+        state = self._checkpoint_state()
+        if self._mesh_lead():
+            self._checkpointer().save(
+                len(self.history), state, self.history,
+                meta={"clients_size": self.clients_size,
+                      "client_ids": self.client_ids.tolist()})
+        del state
+        for ax in (self.clients, self.seq, self.tp):
+            if ax.group is not None:
+                collectives.barrier(ax.group, self.device)
+
+    def _restore_template(self) -> tuple:
+        """The JAX layout of the whole state with stride-0 CPU leaves of
+        the whole shapes and the live dtypes (nothing allocated): the
+        restore's template."""
+        s = self.server_state
+        names = list(s.params)
+
+        def zeros(tree, rows=()):
+            if tree is None:
+                return None
+            whole = {n: torch.zeros((), dtype=tree[n].dtype).expand(
+                         *rows, *shape)
+                     for n, shape in zip(names, self.full_shapes)}
+            return self._flax_view(whole, batch_dims=len(rows))
+
+        state = strategies.ServerState(
+            params=zeros(s.params), opt_m=zeros(s.opt_m),
+            opt_v=zeros(s.opt_v), control=zeros(s.control),
+            round_idx=np.asarray(s.round_idx, np.int32))
+        client_c = None
+        if self.variates is not None:
+            client_c = zeros(dict(zip(names, self.variates.rows)),
+                             (self.num_clients,))
+        return state, client_c
+
+    def _load_whole(self, state, client_c) -> None:
+        """Copy a restored whole state into this rank's live tensors: its
+        TP slices of every server tree (``partition.shard``, as
+        :meth:`load_flax_params` cuts them) and its clients-axis block of
+        the variate rows (all of both on one device)."""
+        from colearn_federated_learning_tpu_torch.ckpt import streaming
+        from colearn_federated_learning_tpu_torch.parallel import partition
+
+        s = self.server_state
+        dims = dict(zip(s.params, self.tp_dims or [None] * len(s.params)))
+        for field in ("params", "opt_m", "opt_v", "control"):
+            live = getattr(s, field)
+            if live is None:
+                continue
+            whole = dict(convert.leaf_to_torch(tuple(path.split("/")), t)
+                         for path, t in streaming.flatten_state(
+                             getattr(state, field)))
+            with torch.no_grad():
+                for n, t in live.items():
+                    t.copy_(partition.shard(whole[n], dims[n], self.tp_size,
+                                            self.tp.index))
+        if self.variates is not None:
+            L = len(self.block_ids)
+            block = slice(self.clients.index * L, (self.clients.index + 1) * L)
+            live = self._flax_view(dict(zip(s.params, self.variates.rows)),
+                                   batch_dims=1)
+            for (_, dst), (_, src) in zip(streaming.flatten_state(live),
+                                          streaming.flatten_state(client_c)):
+                dst.copy_(src[block])
+        s.round_idx = int(state.round_idx)
+
+    def _check_slot_order(self, ckpt) -> None:
+        """Refuse a step whose SCAFFOLD variates are in another slot order
+        than this learner's: a clients axis of another size interleaves
+        the clients otherwise, even where it pads them to the same count.
+        As in the JAX engine, no re-permutation maps the rows onto another
+        layout.  A step that records no order was saved on one device."""
+        if self.variates is None:
+            return
+        meta = ckpt.step_meta()
+        ids = meta.get("client_ids")
+        if ids is None:
+            rows = [rec["shape"][0] for rec in ckpt.leaf_table()
+                    if rec["path"].startswith("1/")]
+            if not rows:             # no variates: the restore refuses it
+                return
+            ids = list(range(rows[0]))
+        if ids != self.client_ids.tolist():
+            raise ValueError(
+                f"checkpoint holds SCAFFOLD's variates for {len(ids)} client "
+                f"slots in the slot order of a {meta.get('clients_size', 1)}"
+                f"-way clients axis; this learner's {self.clients_size}-way "
+                f"clients axis has {self.num_clients} slots "
+                f"({self.real_num_clients} clients) in another order, and no "
+                "re-permutation maps the rows onto it: restore onto a "
+                "clients axis of the saved size")
 
     def restore_checkpoint(self) -> int:
         """Restore the latest checkpoint into the live tensors; returns the
         resumed round index.  The accountant is charged for every round
         already run, and the adaptive clip continues from the last
-        record's."""
-        from colearn_federated_learning_tpu_torch.ckpt import streaming
-
-        template = self._checkpoint_state()
-        state, history, step = self._checkpointer().restore(template)
-        streaming.copy_leaves(template, state)
-        self.server_state.round_idx = int(state[0].round_idx)
+        record's.  On a mesh every rank reads the step and keeps its part:
+        its TP slices (so a step saved at one tp size restores at any
+        other that divides the model's dims, and on one device) and its
+        block of the variate rows."""
+        ckpt = self._checkpointer()
+        self._check_slot_order(ckpt)
+        state, history, step = ckpt.restore(self._restore_template())
+        self._load_whole(*state)
         self.history = history
         if self.accountant is not None:
             self.accountant.steps = step

@@ -35,11 +35,16 @@ def local_model_config(model_cfg):
 
 def local_trainer_for_config(config: ExperimentConfig,
                              model: torch.nn.Module,
-                             capacity: int) -> tuple[Callable, int]:
+                             capacity: int,
+                             lora_dense_ok: bool = False
+                             ) -> tuple[Callable, int]:
     """(local_update fn, num_steps) for one client round under ``config``,
-    with the JAX package's refusals."""
+    with the JAX package's refusals.  ``lora_dense_ok``: fleetsim prices
+    LoRA factor frames but trains dense by design (``fleetsim/sim.py``);
+    only it may build this dense trainer under ``lora_rank > 0``."""
     c = config.fed
-    local_lib.check_dense_trainer(c)
+    if not (lora_dense_ok and c.lora_rank > 0):
+        local_lib.check_dense_trainer(c)
     local_lib.check_strategy_optimizer(c)
     num_steps = num_steps_for_config(config, capacity)
     optimizer = local_lib.make_optimizer(c.lr, c.momentum, c.local_optimizer)

@@ -3,7 +3,7 @@ of sequence and tensor parallelism.
 
 Every collective the port makes goes through this module, and each call
 adds one to ``counts[kind]`` (``all_reduce``, ``all_gather``,
-``all_to_all``, ``ring_shift``), so a caller can hold a round to the exact
+``all_to_all``, ``ring_shift``, ``barrier``), so a caller can hold a round to the exact
 calls its path implies.  A group is always a real process group: at
 world size 1 the calls still run (the mesh path never skips its
 collectives).
@@ -65,6 +65,14 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
         dist.all_gather_into_tensor
     gather(out, t, group=group)
     return out
+
+
+def barrier(group, device: torch.device) -> None:
+    """Wait until every rank of ``group`` has reached this call (on NCCL,
+    on the rank's own card)."""
+    counts["barrier"] += 1
+    kw = {"device_ids": [device.index]} if device.type == "cuda" else {}
+    dist.barrier(group=group, **kw)
 
 
 def group_rank(group) -> int:

@@ -590,14 +590,41 @@ def test_engine_interrupted_midrun_resumes_bitwise(tmp_path, fed_kw):
 
 
 def test_engine_refuses_checkpoints_on_a_mesh(tmp_path):
-    _, cfg = _tiny_cfgs(run_kw=dict(checkpoint_dir=str(tmp_path)))
+    """Item 15b retired the refusal: a SCAFFOLD learner on a world-1 gloo
+    client mesh (in this process, over a FileStore) saves after round 0,
+    a fresh mesh learner restores and runs round 1 bit for bit as the
+    uninterrupted mesh run, and the step's leaves have the one-device
+    learner's paths and shapes (the many-rank cases are
+    ``tests/test_torch_port_mesh_ckpt.py``'s)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
 
-    class Mesh:
-        mesh_dim_names = ("clients",)
-        device_type = "cpu"
-
-    with pytest.raises(NotImplementedError, match="item 15"):
-        FederatedLearner(cfg, mesh=Mesh())
+    _, base = _tiny_cfgs(strategy="scaffold", momentum=0.0)
+    cfg = base.replace(run=dataclasses.replace(
+        base.run, checkpoint_dir=str(tmp_path / "mesh")))
+    one = base.replace(run=dataclasses.replace(
+        base.run, checkpoint_dir=str(tmp_path / "one")))
+    FederatedLearner(one, device="cpu").fit(rounds=1)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("clients",))
+        straight = FederatedLearner(base, device="cpu", mesh=mesh)
+        straight.fit(rounds=2)
+        FederatedLearner(cfg, device="cpu", mesh=mesh).fit(rounds=1)
+        resumed = FederatedLearner(cfg, device="cpu", mesh=mesh)
+        assert resumed.restore_checkpoint() == 1
+        resumed.fit(rounds=1)
+    finally:
+        dist.destroy_process_group()
+    assert _params_equal(straight.params, resumed.params)
+    assert _params_equal(straight.server_state.control,
+                         resumed.server_state.control)
+    assert all(torch.equal(a, b) for a, b in
+               zip(straight.variates.rows, resumed.variates.rows))
+    table = lambda d: [(r["path"], r["shape"]) for r in
+                       RoundCheckpointer(str(tmp_path / d)).leaf_table(1)]
+    assert table("mesh") == table("one")
 
 
 # ------------------------------------------------------- socket plane --

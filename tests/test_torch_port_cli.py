@@ -509,7 +509,6 @@ def test_configs_prints_the_jax_lines(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["fleetsim", "--devices", "64"], "item 9b"),
     (["top"], "item 10b"),
     (["converge", "r.jsonl"], "item 10b"),
     (["lint"], "item 17"),
@@ -520,6 +519,19 @@ def test_unported_commands_exit_naming_their_items(argv, item, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert f"ROADMAP.md Queue A {item} " in err and argv[0] in err
+
+
+def test_fleetsim_runs_where_it_was_refused(capsys):
+    """``fleetsim`` was refused naming item 9b until the fleet simulator
+    was ported: it now runs (``tests/test_torch_port_fleetsim.py`` holds
+    it to JAX's), and only ``--learn-observe`` is refused, naming 10b."""
+    out = cli.main(["fleetsim", "--devices", "64", "--cohort", "8",
+                    "--rounds", "1", "--chunk", "8", "--backend", "cpu"])
+    assert out["rounds"] == 1 and out["clients_trained"] == 8
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["fleetsim", "--devices", "64", "--learn-observe"])
+    assert exc.value.code == 2
+    assert "ROADMAP.md Queue A item 10b " in capsys.readouterr().err
 
 
 # ``chaos --ckpt`` was refused naming item 15 (the three cases above)

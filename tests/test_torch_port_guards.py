@@ -89,6 +89,33 @@ def test_mesh_factoring_is_the_jax_copy():
                 jax_mesh.factor_devices(n, axes), (n, axes)
 
 
+@pytest.mark.parametrize("seed", [0, 5])
+def test_fleet_population_and_traffic_copies_identical_to_jax(seed):
+    """``fleetsim/population.py`` and ``traffic.py`` are numpy copies of
+    JAX's: the same shards, classes, budgets, availability and cohorts."""
+    from colearn_federated_learning_tpu import fleetsim as jax_fleetsim
+    from colearn_federated_learning_tpu_torch import fleetsim
+
+    arrays = []
+    for mod in (fleetsim, jax_fleetsim):
+        spec = mod.PopulationSpec(num_devices=3000, feature_dim=6,
+                                  shard_capacity=5, min_examples=2,
+                                  seed=seed)
+        pop = mod.DevicePopulation(spec)
+        tm = mod.TrafficModel(mod.TrafficSpec(base_rate=3.0, seed=seed),
+                              3000)
+        ids = np.arange(0, 3000, 7)
+        arrays.append([*pop.materialize(ids), pop.counts(ids),
+                       pop.home_classes(ids), pop.speed_class_index(ids),
+                       pop.step_budgets(ids, 9), pop.example_batch(7),
+                       mod.population.hash_u01(seed, 3, ids),
+                       tm.availability_probability(4, ids),
+                       tm.available_mask(4), tm.sample_cohort(4, 100),
+                       np.float64(tm.expected_available(2))])
+    for a, b in zip(*arrays):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
 def test_configs_identical_to_jax():
     assert sorted(config.CONFIGS) == sorted(jax_config.CONFIGS)
     for name, cfg in config.CONFIGS.items():
@@ -125,7 +152,9 @@ NEW_MODULES = ["bench.py", "comm/aggregation.py", "fed/compression.py",
                "telemetry/tracer.py", "ckpt/__init__.py", "ckpt/manager.py",
                "ckpt/streaming.py", "ckpt/wal.py", "telemetry/flight.py",
                "faults/soak.py", "faults/procsoak.py",
-               "faults/lockwitness.py"]
+               "faults/lockwitness.py", "fleetsim/__init__.py",
+               "fleetsim/population.py", "fleetsim/traffic.py",
+               "fleetsim/sim.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

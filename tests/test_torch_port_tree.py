@@ -110,6 +110,24 @@ def test_slice_cohort_and_weights_equal_jax(n):
     assert aggregator.slice_cohort(["a"], 0) == [["a"]]
 
 
+@pytest.mark.parametrize("cohort,n,update,partial", [
+    (10, 4, 100, 700), (10, 1, 100, 700), (7, 3, 64, 64), (0, 2, 5, 9),
+    (3, 0, 8, 16)])
+def test_expected_ingest_bill_equals_jax(cohort, n, update, partial):
+    """The cases of JAX's ``tests/test_aggregator_tree.py::
+    test_expected_ingest_bill`` and around them: the bill is JAX's."""
+    ours = aggregator.expected_ingest(cohort=cohort, n_aggregators=n,
+                                      update_bytes=update,
+                                      partial_bytes=partial)
+    assert ours == jax_agg.expected_ingest(
+        cohort=cohort, n_aggregators=n, update_bytes=update,
+        partial_bytes=partial)
+    if (cohort, n) == (10, 4):
+        assert ours == {"agg_ingest_bytes": 3 * 100,
+                        "root_ingest_bytes": 4 * 700,
+                        "flat_root_ingest_bytes": 10 * 100}
+
+
 # ------------------------------------------------ partial-combine parity --
 def _shapes():
     return {"Dense_0": {"kernel": np.zeros((20, 8), np.float32),

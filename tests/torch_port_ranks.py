@@ -228,5 +228,116 @@ def sp_model(p: dict) -> dict:
     return out
 
 
+def _whole_state(ln) -> dict:
+    """A learner's whole server state and every variate row (slot
+    order), as numpy: TP slices and clients-axis blocks gathered (every
+    rank of the mesh must call this)."""
+    from colearn_federated_learning_tpu_torch.ckpt import streaming
+
+    state, client_c = ln._checkpoint_state()
+    return {path: (t.detach().cpu().numpy().copy()
+                   if isinstance(t, torch.Tensor) else np.asarray(t))
+            for path, t in streaming.flatten_state((state, client_c))}
+
+
+def mesh_resume(p: dict) -> dict:
+    """Item 15b on a mesh (``p["mesh"]``): an uninterrupted
+    ``p["rounds"]``-round run; a run with ``checkpoint_dir`` that saves
+    after round 1; then for each of ``p["resumes"]`` (a mesh spec, or
+    None for one device) a fresh learner that restores the step and runs
+    the remaining rounds (the last one through ``fit``, which saves
+    again; the others through ``run_round``).  Returns the whole states
+    (numpy, keyed by checkpoint path): ``straight``, ``saved`` (the
+    saving run's after round 1), and per resume ``restored`` (right after
+    the restore) and ``resumed``; rank 0 adds the step's leaves as
+    written (``leaves``)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from colearn_federated_learning_tpu_torch.ckpt import RoundCheckpointer
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+
+    cfg, ck = p["config"], p["ckpt_dir"]
+    ccfg = cfg.replace(run=dataclasses.replace(cfg.run, checkpoint_dir=ck))
+    draws = RecordedDraws(p["draws"])
+
+    def learner(config, spec):
+        ln = FederatedLearner(config, device="cpu", plan=draws,
+                              mesh=None if spec is None else _mesh(*spec))
+        ln.load_flax_params(p["params"])
+        return ln
+
+    out = {}
+    ln = learner(cfg, p["mesh"])
+    ln.fit(rounds=p["rounds"])
+    out["straight"] = _whole_state(ln)
+    ln = learner(ccfg, p["mesh"])
+    ln.fit(rounds=1)
+    out["saved"] = _whole_state(ln)
+    out["history"] = ln.history
+    if dist.get_rank() == 0:
+        out["leaves"] = {path: t.numpy().copy() for path, t in
+                         RoundCheckpointer(ck).load_leaves()}
+    for i, spec in enumerate(p["resumes"]):
+        ln = learner(ccfg, spec)
+        out[("step", i)] = ln.restore_checkpoint()
+        out[("restored", i)] = _whole_state(ln)
+        if i == len(p["resumes"]) - 1:
+            ln.fit()
+        else:
+            for _ in range(p["rounds"] - 1):
+                ln.run_round()
+        out[("resumed", i)] = _whole_state(ln)
+        out[("history", i)] = [dict(r) for r in ln.history]
+    return out
+
+
+def mesh_resize(p: dict) -> dict:
+    """SCAFFOLD steps restored onto a clients axis of another size; each
+    case gives the restore's error (``None`` if it restored) and the
+    learner's slot count.  ``pad``: the step of ``p["config"]`` (saved on
+    the 4-way axis) on a 2-way axis over ranks 0 and 1 (the other ranks
+    build the mesh and stay out).  With ``p["equal"]``, a config whose
+    slot count is the same on 4, 2 and 1 devices: ``to2`` and ``to1``, a
+    step it saves on the 4-way axis restored on the 2-way axis and on one
+    device; ``from1``, a step rank 0 saves on one device
+    (``p["equal_one"]`` names its directory) restored on the 4-way
+    axis."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+
+    rank = dist.get_rank()
+    two = DeviceMesh("cpu", torch.arange(p["size"]),
+                     mesh_dim_names=("clients",))
+
+    def restore(cfg, mesh):
+        ln = FederatedLearner(cfg, device="cpu", mesh=mesh)
+        try:
+            ln.restore_checkpoint()
+        except ValueError as e:
+            return {"error": str(e), "slots": ln.num_clients}
+        return {"error": None, "slots": ln.num_clients}
+
+    out = {"pad": restore(p["config"], two) if rank < p["size"] else None}
+    eq = p["equal"]
+    four = _mesh(("clients",), (dist.get_world_size(),))
+    FederatedLearner(eq, device="cpu", mesh=four).fit(rounds=1)
+    out["to2"] = restore(eq, two) if rank < p["size"] else None
+    out["to1"] = restore(eq, None)
+    one = eq.replace(run=dataclasses.replace(eq.run,
+                                             checkpoint_dir=p["equal_one"]))
+    if rank == 0:
+        FederatedLearner(one, device="cpu").fit(rounds=1)
+    dist.barrier()
+    out["from1"] = restore(one, four)
+    return out
+
+
 SCENARIOS = {"learner_rounds": learner_rounds, "attention": attention,
-             "sp_model": sp_model, "layouts": layouts}
+             "sp_model": sp_model, "layouts": layouts,
+             "mesh_resume": mesh_resume, "mesh_resize": mesh_resize}
