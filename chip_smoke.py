@@ -33,8 +33,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
 6. one round and one evaluation of each other family at full width, each
    cut listed in its line: config #1 (MLP), config #3 (ResNet-18,
    FedProx, cohort cut to 5), ``iot_traffic_tcn_fedavg`` (TCN, cohort cut
-   to 5), config #5 (ViT-B/16 with
-   ``attn_impl="flash"``, cohort cut to 32) and MoE-BERT (BERT-base width,
+   to 5; then ``evaluate_detection(benign_class=0)``, the IoT
+   deployment's report: finite, over the whole test set, its accuracy
+   the evaluation's), config #5 (ViT-B/16 with
+   ``attn_impl="flash"``, cohort cut to 16) and MoE-BERT (BERT-base width,
    4 experts, flash, cohort 4, 2 local steps).  Every path resets the
    launch counts before it and checks them after: depth × (steps +
    evaluation batches) for K1 and depth × steps for K2 and K3 on a flash
@@ -54,7 +56,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    round, evaluation seconds and peak memory;
 8. the hierarchical and clustered learners and per-client evaluation at
    full width: 8a ``train --edge-groups 2 --edge-sync-period 2 --rounds
-   3`` on BERT-base through ``cli.main`` (2 groups of 25 clients, cohort
+   3`` on BERT-base at 6 of its 12 blocks through ``cli.main`` (2 groups
+   of 25 clients, cohort
    10 each; after every sync each group holds the cloud model bit for
    bit, the cloud model is the float64 example-weighted mean of the
    groups' to 1e-6 of its largest entry, the groups part after round 0,
@@ -66,8 +69,13 @@ Phases (any failure exits non-zero; no phase's error is caught):
    diagonal to 1e-4), k-means into two clusters that partition the
    clients, one round of each cluster and their per-client report (the
    labels' agreement with the planted concept is printed, not gated);
-   8c ``train --per-client-eval`` on BERT-base for one round, the report
-   finite and K1's launches exact with the per-client chunks;
+   8c ``train --per-client-eval --personalize-steps 5 --detection-eval``
+   on BERT-base (full width and depth) for one round: the three reports
+   finite, the personalized one over all 50 clients, their seconds
+   printed, and K1-K3's launches exact with the per-client chunks, the
+   250 fine-tune steps (K1-K3), the global and personalized scoring
+   chunks of every holdout half and the confusion scan's test batches
+   (K1);
 9. the server's fold kernel (B4, ``csrc/fold.cu``) and the file plane:
    9a the kernel against its plain version BIT FOR BIT (int32 views) at
    BERT-base's slot layout (198 slots, 108.6 M float32 entries): 10
@@ -84,7 +92,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    spans and the whole call by the host clock to a sync; ``fold_dense``
    of the root's 2 partials beside ``torch.sum``; 9b
    ``init``, 2 silos of ``train --role client --compress topk8``,
-   ``aggregate`` and ``eval`` on BERT-base (flash, 4 local steps)
+   ``aggregate`` and ``eval`` on BERT-base at 6 of its 12 blocks (flash,
+   4 local steps)
    through ``cli.main``, then the 3 update files through
    ``StreamingFolder(device_fold=True)``, flat and as a two-aggregator
    tree, each bitwise equal to its host fold, the mean within 1e-6 of
@@ -93,7 +102,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    defaults, its JSON line printed;
 10. remat, the client mesh and the SP/TP options on one card: 10a one
    round of config #4 (BERT-base, flash, 4 local steps) and of ViT-B/16
-   (cohort 8) without and with ``remat`` on the same plan, the
+   (cohort 8), each at 6 of its 12 blocks, without and with ``remat`` on
+   the same plan, the
    losses and params equal (bound 1e-4 rel / 2e-5 abs; expected 0.0),
    both peak GiB and each round's seconds printed (the second is warm),
    K1's launches exact under remat (one more per block and step: the
@@ -105,7 +115,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    plan (2e-5), with exactly its path's collectives and exact launches;
    10c ``train --attn-impl ring`` on one card runs the dense core and
    gives the dense run's loss, and ``train --tp-size 2`` warns and gives
-   the untiled run's loss;
+   the untiled run's loss (BERT-base at 6 of its 12 blocks);
 11. the synchronous socket plane (``comm/``) on the card: 11a a broker, a
    ``FederatedCoordinator`` and 4 ``DeviceWorker``s as threads (3
    trainers and the evaluator) on config #4 (BERT-base at 6 of its 12
@@ -132,7 +142,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
    worker`` processes, started with phase 11 and shared with 12c, 14c
    and 16b),
    the fleet still running after it, the last record complete with a
-   finite loss, ``fold_dense`` launched once per round;
+   finite loss, ``fold_dense`` launched once per round; with
+   ``--learn-observe --metrics-port 0 --events-file``
+   (``ObservedCoordinator``): JAX's ``conv_*`` keys on every record with
+   the norm of the coordinator's own mean update, ``top --once --url``
+   against the live exporter exiting 0 with the round count and the
+   learning section, ``/metrics`` parsing as Prometheus text with
+   ``learn_update_norm``, the events file's start, round and stop lines,
+   and ``converge`` over it exiting 0;
 12. the aggregator tree and per-type federation (``comm/aggregator.py``,
    ``comm/per_type.py``) on the card: 12a a broker, 4 trainer threads
    (config #4, BERT-base at 6 of its 12 blocks, flash, 4 local steps,
@@ -165,8 +182,13 @@ Phases (any failure exits non-zero; no phase's error is caught):
    ``fold_dense`` launches 4 times;
 13. the telemetry core (``telemetry/``, ``metrics.py``) on config #4:
    13a ``train`` through ``cli.main`` for 2 rounds without and with
-   ``--trace-dir --trace-rounds 1 --log-file --tensorboard-dir`` on the
-   same plan: the same record keys, the losses and params within 10a's
+   ``--trace-dir --trace-rounds 1 --log-file --tensorboard-dir
+   --profile-dir`` on the same plan: the same record keys but the traced
+   records' ``flops_per_round``, which equals the hand count of BERT-base
+   at 4 steps × 16 × cohort 10 (``bert_step_flops``), one Chrome trace
+   of the profiler window (round 1 alone) whose card events hold K1-K3
+   by name, once per block and step of round 1 (K1 with its evaluation
+   batches), the losses and params within 10a's
    bound (expected 0.0), the trace's ``round``/``client_update``/
    ``sync_metrics`` spans of round 0 only, ``client_update`` equal to
    each record's ``phase_update_s``, the JSONL lines the records, the
@@ -219,6 +241,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    ``train_loss``, mean update and global params after the step equal
    11c's round 0 within f32 rtol 1e-4 / atol 2e-5 (aggregation 1's too
    when the two round-0 folds are bitwise equal: the fold order differs);
+   observed as 11c is (``ObservedCoordinator``);
 15. LoRA adapter federation (``fed/lora.py``, rank 8, alpha 16, a merge
    every 2 aggregations) on the card, BERT-base at 6 of its 12 blocks: 15a
    11a's federation (3 trainers and the evaluator, config #4, the device
@@ -337,7 +360,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the firings, the byte estimates are the shape-only frame prices times
    the devices, the loss is finite and the trace holds one
    ``train_chunk`` span per chunk; the seconds per round and the clients
-   per second are printed; 20b ``FleetSim.from_learner`` on config #1
+   per second are printed; then its first 2 rounds with
+   ``--learn-observe``: every record carries the observatory's keys with
+   ``conv_cohort_skew`` and ``conv_norm_p90``, and is otherwise 20a's bit
+   for bit, its seconds per round printed beside 20a's; 20b ``FleetSim.from_learner`` on config #1
    (MLP, f32): the one-chunk round bitwise the engine's ``run_round``
    from the same state and draws, the 4-chunk round within 1e-5 of the
    round's largest update entry; 20c
@@ -379,6 +405,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 from types import SimpleNamespace
 
 import numpy as np
@@ -402,7 +429,10 @@ VIT_L = 50                     # ViT-B/16 on 28 x 28 FEMNIST: 7 x 7 patches + cl
 
 
 def log(*args):
-    print(*args, flush=True)
+    """A line of the script's record on the process's own stdout: a
+    thread beside a phase (19 beside 17a and 17b) logs there even while
+    that phase captures ``sys.stdout`` to read a command's output."""
+    print(*args, file=sys.__stdout__, flush=True)
 
 
 def card() -> str:
@@ -757,13 +787,15 @@ def main_path(A):
     return drive_path(A, "bert", main_path_config(), 2, "local_steps 4")
 
 
-def drive_path(A, label, cfg, rounds, cuts):
+def drive_path(A, label, cfg, rounds, cuts, detection=False):
     """Build ``FederatedLearner(cfg)`` on the card, run ``rounds`` rounds
     and one evaluation, check that the output is finite, that every
     sampled client completed and that the params moved, and that the
     flash kernels launched exactly depth × (steps + evaluation batches)
     (K1) and depth × steps (K2, K3) times on a flash path, and never
-    elsewhere.  Returns the launch counts."""
+    elsewhere; with ``detection``, then ``evaluate_detection()`` (after
+    the launch counts are read; ``detection_check``).  Returns the launch
+    counts."""
     from colearn_federated_learning_tpu_torch.fed import FederatedLearner
 
     t_path = time.perf_counter()
@@ -808,6 +840,8 @@ def drive_path(A, label, cfg, rounds, cuts):
     if not (finite and math.isfinite(eval_loss) and 0.0 <= eval_acc <= 1.0
             and changed > 0):
         raise AssertionError(f"{label}: output is not finite or did not train")
+    if detection:
+        detection_check(label, learner, eval_acc)
     flash = cfg.model.attn_impl == "flash"
     steps = rounds * learner.cohort_size * learner.num_steps
     eval_batches = math.ceil(len(learner.dataset.x_test)
@@ -822,6 +856,26 @@ def drive_path(A, label, cfg, rounds, cuts):
     log(f"  [{label}] seconds per round: {round_s}; path "
         f"{time.perf_counter() - t_path:.2f} s")
     return launches
+
+
+def detection_check(label, learner, eval_acc) -> None:
+    """``evaluate_detection()`` with benign class 0, the IoT deployment's
+    report: finite, over the whole test set, its accuracy the
+    evaluation's (the confusion matrix counts the same argmax)."""
+    t0 = time.perf_counter()
+    rep = learner.evaluate_detection(benign_class=0)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    keys = ("accuracy", "macro_f1", "detection_rate", "false_alarm_rate")
+    log(f"  [{label}] evaluate_detection(benign_class=0) in {took:.3f} s: "
+        + json.dumps({k: rep[k] for k in keys}) + "; per-class F1 "
+        + json.dumps([round(float(f), 6) for f in rep["per_class_f1"]]))
+    if not (all(math.isfinite(rep[k]) for k in keys)
+            and np.isfinite(rep["per_class_f1"]).all()
+            and int(np.asarray(rep["support"]).sum())
+            == len(learner.dataset.x_test)
+            and math.isclose(rep["accuracy"], eval_acc, abs_tol=1e-6)):
+        raise AssertionError(f"{label}: detection report {rep}")
 
 
 def family_paths():
@@ -842,8 +896,8 @@ def family_paths():
          "cohort_size 10 -> 5"),
         ("vit", vit.replace(
             model=dataclasses.replace(vit.model, attn_impl="flash"),
-            fed=dataclasses.replace(vit.fed, cohort_size=32)),
-         "cohort_size 256 -> 32"),
+            fed=dataclasses.replace(vit.fed, cohort_size=16)),
+         "cohort_size 256 -> 16"),
         ("moe_bert", moe.replace(
             model=dataclasses.replace(moe.model, name="moe_bert",
                                       num_experts=4, attn_impl="flash"),
@@ -861,12 +915,28 @@ EPS_RTOL = 1e-9
 # Config #2's cohort in 7a, 7b, 7e and 8b: cut from 20 to keep the script
 # in its budget.
 CNN_COHORT = 10
+# 8a, 9b and 10c run BERT-base at CUT_DEPTH of its 12 blocks, through
+# this registry config (the script registers it in this process), to pay
+# for 8c's personalized evaluation and 13a's profile; the width and every
+# check stay.
+BERT_HALF = "agnews_bert_fedavg_half"
+
+
+def register_half_bert() -> None:
+    from colearn_federated_learning_tpu_torch.utils import config
+
+    base = config.get_config("agnews_bert_fedavg")
+    config.CONFIGS[BERT_HALF] = base.replace(
+        model=dataclasses.replace(base.model, depth=CUT_DEPTH))
+
+
 BERT_DP = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
            "--local-steps", "4", "--dp-clip", "1.0",
            "--dp-noise-multiplier", "1.0", "--dp-adaptive-clip"]
 
 
-def cli_path(A, label, argv, watch=None, extra_batches=None):
+def cli_path(A, label, argv, watch=None, extra_batches=None,
+             extra_steps=None):
     """Run ``cli.main(["train", *argv])`` on the card, with the kernels'
     launch counts and the peak memory reset once the learner is built;
     ``watch(learner, record)`` sees the learner before the first round
@@ -874,8 +944,9 @@ def cli_path(A, label, argv, watch=None, extra_batches=None):
     and the params are finite and that the flash kernels launched exactly
     depth × (steps run + evaluation batches) (K1) and depth × steps (K2,
     K3) on a flash path, and never elsewhere; ``extra_batches(learner)``
-    counts forward batches beyond those (a per-client evaluation's).
-    Returns (records, launches, learner)."""
+    counts forward batches beyond those (a per-client evaluation's) and
+    ``extra_steps(learner)`` training steps beyond the rounds' (the
+    personalized fine-tune's).  Returns (records, launches, learner)."""
     from colearn_federated_learning_tpu_torch import cli
 
     state = {"records": [], "steps": 0}
@@ -914,10 +985,11 @@ def cli_path(A, label, argv, watch=None, extra_batches=None):
                              / max(cfg.fed.batch_size, 64))
     depth = cfg.model.depth if cfg.model.attn_impl == "flash" else 0
     extra = extra_batches(learner) if extra_batches is not None else 0
-    want = {"flash_forward": depth * (state["steps"] + evals * eval_batches
-                                      + extra),
-            "flash_backward_dq": depth * state["steps"],
-            "flash_backward_dkv": depth * state["steps"]}
+    steps = state["steps"] + (extra_steps(learner) if extra_steps is not None
+                              else 0)
+    want = {"flash_forward": depth * (steps + evals * eval_batches + extra),
+            "flash_backward_dq": depth * steps,
+            "flash_backward_dkv": depth * steps}
     if launches != want:
         raise AssertionError(f"{label}: kernel launches {launches}, "
                              f"expected {want}")
@@ -1054,7 +1126,7 @@ def cli_phase(A):
     return paths
 
 
-HIER = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
+HIER = ["--config", BERT_HALF, "--attn-impl", "flash",
         "--local-steps", "4", "--edge-groups", "2", "--edge-sync-period", "2",
         "--rounds", "3"]
 SYNC_RTOL = 1e-6               # cloud model vs its float64 recomputation
@@ -1252,42 +1324,94 @@ def clustered_path(A):
     return launches
 
 
+PERSONALIZE_STEPS = 5      # 8c's --personalize-steps
+
+
 def per_client_eval_path(A):
-    """8c: one BERT-base round and ``--per-client-eval``: the report is
-    finite and K1 launched once per layer for every per-client chunk."""
+    """8c: one BERT-base round, then ``--per-client-eval``,
+    ``--personalize-steps 5`` and ``--detection-eval`` in the same
+    process: every report is finite, the personalized one covers all 50
+    clients, and K1-K3 launched exactly: K2 and K3 once per layer for each
+    of the 5 fine-tune steps of every client, K1 for those steps too, for
+    every per-client chunk, for the global and the personalized scoring
+    chunks of every client's holdout half, and for every test batch of
+    the confusion scan.  Each evaluation's seconds are printed."""
     seen = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            seen[name] = fn(*a, **kw)
+            torch.cuda.synchronize()
+            seen[name + "_s"] = time.perf_counter() - t0
+            return seen[name]
+        return run
 
     def watch(learner, rec):
         if rec is None:
-            evaluate = learner.evaluate_per_client
+            for name in ("evaluate_per_client", "evaluate_personalized",
+                         "evaluate_detection"):
+                setattr(learner, name, timed(name, getattr(learner, name)))
 
-            def captured():
-                t0 = time.perf_counter()
-                seen["rep"] = evaluate()
-                seen["s"] = time.perf_counter() - t0
-                return seen["rep"]
+    def batch(learner):
+        return max(learner.config.fed.batch_size, 64)
 
-            learner.evaluate_per_client = captured
+    def holdout_chunks(learner):
+        b = batch(learner)
+        return sum(math.ceil((int(c) - int(c) // 2) / b)
+                   for c in learner.counts if int(c) >= 2)
 
     def chunks(learner):
-        batch = max(learner.config.fed.batch_size, 64)
-        return sum(math.ceil(int(c) / batch) for c in learner.counts)
+        b = batch(learner)
+        per_client = sum(math.ceil(int(c) / b) for c in learner.counts)
+        test = math.ceil(len(learner.dataset.x_test) / b)
+        return per_client + 2 * holdout_chunks(learner) + test
+
+    def fine_tune_steps(learner):
+        return PERSONALIZE_STEPS * sum(int(c) >= 2 for c in learner.counts)
 
     _, launches, learner = cli_path(
         A, "8c", ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
                   "--local-steps", "4", "--rounds", "1",
-                  "--per-client-eval"], watch, extra_batches=chunks)
-    rep = seen["rep"]
+                  "--per-client-eval", "--personalize-steps",
+                  str(PERSONALIZE_STEPS), "--detection-eval"], watch,
+        extra_batches=chunks, extra_steps=fine_tune_steps)
+    rep = seen["evaluate_per_client"]
     values = [rep[k] for k in ("weighted_loss", "weighted_acc", "acc_p10",
                                "acc_p50", "acc_p90")]
     log(f"  [8c] per-client evaluation of {len(rep['per_client_acc'])} "
-        f"clients ({chunks(learner)} chunks) in {seen['s']:.3f} s: "
+        f"clients in {seen['evaluate_per_client_s']:.3f} s: "
         + json.dumps({k: rep[k] for k in ("weighted_loss", "weighted_acc",
                                           "acc_p10", "acc_p50", "acc_p90")}))
     if not (all(math.isfinite(v) for v in values)
             and np.isfinite(rep["per_client_loss"]).all()
             and len(rep["per_client_acc"]) == learner.num_clients):
         raise AssertionError(f"8c: report is not finite: {rep}")
+    pers = seen["evaluate_personalized"]
+    keys = ("global_acc", "personalized_acc", "personalization_gain")
+    log(f"  [8c] personalized evaluation ({PERSONALIZE_STEPS} fine-tune "
+        f"steps, {fine_tune_steps(learner)} in all; "
+        f"{2 * holdout_chunks(learner)} scoring chunks) of "
+        f"{pers['num_clients_evaluated']} clients in "
+        f"{seen['evaluate_personalized_s']:.3f} s: "
+        + json.dumps({k: pers[k] for k in keys}))
+    if not (all(math.isfinite(pers[k]) for k in keys)
+            and np.isfinite(pers["per_client_global_acc"]).all()
+            and np.isfinite(pers["per_client_personalized_acc"]).all()
+            and pers["num_clients_evaluated"] == 50
+            and learner.num_clients == 50):
+        raise AssertionError(f"8c: personalized report {pers}")
+    det = seen["evaluate_detection"]
+    dkeys = ("accuracy", "macro_f1", "detection_rate", "false_alarm_rate")
+    log(f"  [8c] detection evaluation over "
+        f"{int(np.asarray(det['support']).sum())} test examples in "
+        f"{seen['evaluate_detection_s']:.3f} s: "
+        + json.dumps({k: det[k] for k in dkeys}))
+    if not (all(math.isfinite(det[k]) for k in dkeys)
+            and np.isfinite(det["per_class_f1"]).all()
+            and int(np.asarray(det["support"]).sum())
+            == len(learner.dataset.x_test)):
+        raise AssertionError(f"8c: detection report {det}")
     return launches
 
 
@@ -1314,7 +1438,7 @@ FOLD_ROWS = 10                 # contributions per 9a batch
 TOPK_FRACTION = 0.05           # the JAX package's default keep density
 SECTOR = 32                    # bytes the card moves per scattered access
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-FILE_PLANE = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
+FILE_PLANE = ["--config", BERT_HALF, "--attn-impl", "flash",
               "--local-steps", "4"]
 SILOS = 2                  # cut from 4 to keep the script in its budget
 
@@ -1912,7 +2036,7 @@ def mesh_world1_path(A):
     return launches
 
 
-SINGLE_DEVICE = ["--config", "agnews_bert_fedavg", "--local-steps", "2",
+SINGLE_DEVICE = ["--config", BERT_HALF, "--local-steps", "2",
                  "--cohort-size", "4", "--rounds", "1"]
 
 
@@ -1953,10 +2077,15 @@ def parallel_phase(A):
     paths, numbers = {}, {}
     t0 = time.perf_counter()
     vit = get_config("femnist_vit_cross_silo")
-    for label, cfg in (("bert", main_path_config()),
+    bert = main_path_config()
+    # Both at CUT_DEPTH of their 12 blocks (the width and the checks
+    # stay), to keep the script in its budget.
+    for label, cfg in (("bert", bert.replace(model=dataclasses.replace(
+                            bert.model, depth=CUT_DEPTH))),
                        ("vit", vit.replace(
                            model=dataclasses.replace(vit.model,
-                                                     attn_impl="flash"),
+                                                     attn_impl="flash",
+                                                     depth=CUT_DEPTH),
                            fed=dataclasses.replace(vit.fed, cohort_size=8)))):
         paths[f"remat_{label}"], numbers[label] = remat_path(
             A, f"10a {label}", cfg)
@@ -2465,7 +2594,7 @@ def cnn_fleet() -> CliFleet:
     return FLEETS["cnn"]
 
 
-def cli_federation(F, fleet, aggregators=0, coordinate=()):
+def cli_federation(F, fleet, aggregators=0, coordinate=(), live=None):
     """``cli coordinate --min-devices 3 --rounds 2 --fold-device
     --no-evaluator`` (with ``--num-aggregators`` when ``aggregators`` of
     the fleet's are asked for, and the ``coordinate`` flags) against
@@ -2474,20 +2603,31 @@ def cli_federation(F, fleet, aggregators=0, coordinate=()):
     no evaluator, so all three workers train.  Every fleet process must
     still run after it.  Returns (every record of the coordinator, the
     global params on the host after each record's round or aggregation,
-    the launches, seconds)."""
+    the launches, seconds).  ``live(record, exporter)`` runs after each
+    record while the coordinator (and its ``--metrics-port`` exporter, or
+    None) is live."""
     from colearn_federated_learning_tpu_torch import cli
     from colearn_federated_learning_tpu_torch.comm import (
         async_coordinator, coordinator)
     from colearn_federated_learning_tpu_torch.comm.downlink import (
         host_params)
+    from colearn_federated_learning_tpu_torch.telemetry import runtime
 
     t0 = time.perf_counter()
     if aggregators > fleet.aggregators:
         raise ValueError(f"the fleet has {fleet.aggregators} aggregators")
     tree = ["--num-aggregators", str(aggregators)] if aggregators else []
     F.reset_launches()
-    records, params = [], []
+    records, params, exporters = [], [], []
     undo = []
+
+    def start(self, _orig=runtime.MetricsExporter.start):
+        exporters.append(self)
+        return _orig(self)
+
+    undo.append((runtime.MetricsExporter, "start",
+                 runtime.MetricsExporter.start))
+    runtime.MetricsExporter.start = start
     for cls, name in ((coordinator.FederatedCoordinator, "run_round"),
                       (async_coordinator.AsyncFederatedCoordinator,
                        "run_aggregation")):
@@ -2495,6 +2635,8 @@ def cli_federation(F, fleet, aggregators=0, coordinate=()):
             rec = _orig(self)
             records.append(rec)
             params.append(host_params(self.params_tree()))
+            if live is not None:
+                live(rec, exporters[-1] if exporters else None)
             return rec
         undo.append((cls, name, getattr(cls, name)))
         setattr(cls, name, kept)
@@ -2514,6 +2656,107 @@ def cli_federation(F, fleet, aggregators=0, coordinate=()):
     return records, params, dict(F.launches), time.perf_counter() - t0
 
 
+CONV_KEYS = {"conv_update_norm", "conv_step_size", "conv_norm_ewma",
+             "conv_trend"}        # JAX's; conv_cos_prev from the 2nd on
+PROM_SAMPLE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? "
+    r"(-?[0-9.]+([eE][-+]?[0-9]+)?|[-+]?Inf|NaN)$")
+
+
+def _cli_exit(argv) -> tuple:
+    """``cli.main(argv)`` in this process: (its exit status, its
+    stdout)."""
+    from colearn_federated_learning_tpu_torch import cli
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        code = 0
+    except SystemExit as e:
+        code = 0 if e.code is None else e.code
+    return code, out.getvalue()
+
+
+class ObservedCoordinator:
+    """11c's and 14c's observability: ``coordinate --learn-observe
+    --metrics-port 0 --events-file``.  While the coordinator is live
+    (after its first record) ``cli top --once --url`` against its
+    exporter (through ``cli.main`` in this process: a child process
+    takes 9-10 s to import the package on the card machine) must exit 0
+    with the round count and the learning section in its body, and
+    ``/metrics`` must parse line by line as Prometheus text and hold
+    ``learn_update_norm``; afterwards every record carries JAX's
+    ``conv_*`` keys with the norm of the coordinator's own mean update,
+    the events file holds a ``start`` line, a ``round`` line per record
+    and a ``stop`` line, and ``cli converge`` over it exits 0."""
+
+    def __init__(self, tag: str):
+        self.tag = tag
+        self.events = ckpt_dir(f"{tag}_events.jsonl")
+        self.argv = ["--learn-observe", "--metrics-port", "0",
+                     "--events-file", self.events]
+        self.top = None
+
+    def live(self, rec, exporter) -> None:
+        if self.top is not None:
+            return
+        if exporter is None or exporter.port is None:
+            raise AssertionError(f"{self.tag}: no live metrics exporter")
+        base = f"http://127.0.0.1:{exporter.port}"
+        t0 = time.perf_counter()
+        code, body = _cli_exit(["top", "--once", "--url",
+                                base + "/snapshot.json"])
+        top_s = time.perf_counter() - t0
+        if not (code == 0 and "rounds total" in body
+                and "update norm" in body):
+            raise AssertionError(f"{self.tag}: top exited {code}: {body}")
+        with urllib.request.urlopen(base + "/metrics", timeout=10) as resp:
+            text = resp.read().decode()
+        lines = [ln for ln in text.splitlines() if ln]
+        bad = [ln for ln in lines if not (ln.startswith("# TYPE ")
+                                          or PROM_SAMPLE.match(ln))]
+        norm = [ln for ln in lines
+                if ln.startswith("colearn_learn_update_norm ")]
+        if bad or not norm:
+            raise AssertionError(f"{self.tag}: /metrics lines {bad[:5]}, "
+                                 f"learn_update_norm {norm}")
+        self.top = (body, top_s, len(lines), norm[0])
+
+    def check(self, records, folders) -> None:
+        from colearn_federated_learning_tpu_torch.telemetry import convergence
+
+        if self.top is None:
+            raise AssertionError(f"{self.tag}: top never ran")
+        for i, (rec, folder) in enumerate(zip(records, folders)):
+            want = CONV_KEYS | ({"conv_cos_prev"} if i else set())
+            norm = convergence.tree_norm(folder.mean()[0])
+            if not (want <= set(rec) and math.isclose(
+                    rec["conv_update_norm"], round(norm, 8), rel_tol=1e-5)):
+                raise AssertionError(f"{self.tag}: record {i} "
+                                     f"{ {k: rec.get(k) for k in want} }, "
+                                     f"its mean's norm {norm}")
+        with open(self.events) as f:
+            kinds = [json.loads(line)["event"] for line in f]
+        if kinds != ["start"] + ["round"] * len(records) + ["stop"]:
+            raise AssertionError(f"{self.tag}: events {kinds}")
+        t0 = time.perf_counter()
+        code, conv = _cli_exit(["converge", self.events])
+        if code != 0 or "trends:" not in conv:
+            raise AssertionError(f"{self.tag}: converge exited {code}: "
+                                 f"{conv}")
+        body, top_s, n_lines, norm_line = self.top
+        log(f"  [{self.tag}] --learn-observe: "
+            + json.dumps([{k: r[k] for k in sorted(r)
+                           if k.startswith("conv_")} for r in records]))
+        log(f"  [{self.tag}] top --once exit 0 in {top_s:.2f} s; /metrics "
+            f"{n_lines} lines parse, {norm_line!r}; events "
+            f"{len(kinds)} lines (start, {len(records)} round, stop); "
+            f"converge exit 0 in {time.perf_counter() - t0:.2f} s:")
+        for line in body.splitlines() + conv.splitlines():
+            log(f"  [{self.tag}]   {line}")
+
+
 def socket_cli_path(F):
     """11c: ``cli coordinate --fold-device`` against the CNN fleet (the
     broker and 3 worker processes, started with phase 11 and shared with
@@ -2523,10 +2766,13 @@ def socket_cli_path(F):
     once per round on the coordinator.  Its records, params and folds are
     kept for 14c and 16b."""
     rec_patch = _Recorder()
+    obs = ObservedCoordinator("11c")
     try:
-        records, params, launches, took = cli_federation(F, cnn_fleet())
+        records, params, launches, took = cli_federation(
+            F, cnn_fleet(), coordinate=obs.argv, live=obs.live)
     finally:
         rec_patch.close()
+    obs.check(records, rec_patch.folders)
     RECORDS["11c"] = (records, params, rec_patch.folders)
     last = records[-1]
     log(f"  [11c] broker + 3 worker processes + coordinate ({SOCKET_CLI}, "
@@ -2961,20 +3207,69 @@ BERT_TRACE = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
 CLOCK_SLACK_S = 1e-3       # wall-clock anchors vs perf_counter durations
 
 
+def bert_step_flops(cfg, seq_len: int, attention_factor: int = 18) -> int:
+    """One BERT local step's FLOPs by hand: every Dense layer's matmul
+    forward and its two backward products (the embeddings train, so
+    every block's input gradient is formed), 6·N·(4·d² + 2·d·ff) per block
+    over N = B·L tokens, the head's 6·B·d·C, and the attention core's
+    ``attention_factor``·B·H·L²·D per block: the flash kernels' 4 + 6 + 8
+    (the backward recomputes QKᵀ in K2 and K3)."""
+    m, B, L = cfg.model, cfg.fed.batch_size, seq_len
+    d, H = m.width, m.num_heads
+    ff = 4 * d                       # the blocks' mlp_ratio
+    N = B * L
+    block = 6 * N * (4 * d * d + 2 * d * ff) \
+        + attention_factor * B * H * L * L * (d // H)
+    return m.depth * block + 6 * B * d * m.num_classes
+
+
+FLASH_NAMES = ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
+               "flash_dkv_bf16_kernel")
+KERNEL_EVENT = re.compile(r'"cat": "kernel", "name": "([^"]*)"')
+
+
+def _kernel_counts(names) -> dict:
+    out: dict = {}
+    for name in names:
+        for k in FLASH_NAMES:
+            if k in name:
+                name = k
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def chrome_kernels(path: str) -> tuple[dict, float]:
+    """Count the card's kernel events of a ``torch.profiler`` Chrome trace
+    by kernel name (template arguments and signature dropped), by a scan
+    of the text for kineto's ``"cat": "kernel", "name": ...`` (the same
+    counts as loading the 236 MiB JSON, in a seventh of the time on the
+    card machine); returns the counts and the seconds."""
+    t0 = time.perf_counter()
+    with open(path) as f:
+        counts = _kernel_counts(KERNEL_EVENT.findall(f.read()))
+    return counts, time.perf_counter() - t0
+
+
 def traced_engine_path(A, workdir):
     """13a: ``train`` through ``cli.main`` on config #4 (BERT-base, flash,
     4 local steps, 2 rounds) without and with ``--trace-dir
-    --trace-rounds 1 --log-file --tensorboard-dir``, on the same plan: the
-    record keys are the same, the losses and params agree within phase
+    --trace-rounds 1 --log-file --tensorboard-dir --profile-dir``, on the
+    same plan: the record keys are the same but for the traced records'
+    ``flops_per_round``, which equals the hand count (``bert_step_flops``
+    × cohort 10 × 4 steps); the losses and params agree within phase
     10a's bound (expected 0.0: tracing adds no work to the round), the
     trace holds ``round``/``client_update``/``sync_metrics`` of round 0
     only, loads through the port's ``load_trace``, and its
     ``client_update`` durations are the records' ``phase_update_s``; the
-    JSONL log holds the records.  K1-K3 launch exactly in both runs.  The
-    untraced run saves its last round with ``--checkpoint-dir``: 16a's
-    uninterrupted reference."""
+    JSONL log holds the records.  The profiler window (rounds 1..2 of a
+    2-round run: round 1 alone) writes one Chrome trace whose card events
+    hold K2 and K3 once per layer and step of round 1 and K1 for those
+    steps and round 1's evaluation batches.  K1-K3 launch exactly in both
+    runs.  The untraced run saves its last round with
+    ``--checkpoint-dir``: 16a's uninterrupted reference."""
     from colearn_federated_learning_tpu_torch import telemetry
 
+    prof_dir = os.path.join(workdir, "13a_profile")
     trace_dir = os.path.join(workdir, "13a_trace")
     log_file = os.path.join(workdir, "13a_log.jsonl")
     tb_dir = os.path.join(workdir, "13a_tb")
@@ -2984,24 +3279,62 @@ def traced_engine_path(A, workdir):
         if traced:
             argv += ["--trace-dir", trace_dir, "--trace-rounds",
                      str(TRACE_WINDOW), "--log-file", log_file,
-                     "--tensorboard-dir", tb_dir]
+                     "--tensorboard-dir", tb_dir, "--profile-dir", prof_dir]
         else:
             # 16a's uninterrupted reference: its last round saves.
             argv += ["--checkpoint-dir", ckpt_dir("16a_straight")]
         label = "13a traced" if traced else "13a untraced"
-        records, launches, learner = cli_path(A, label, argv)
+        # The traced fit counts the round's FLOPs on one real local step
+        # of one client (round_cost_analysis), which launches K1-K3 once.
+        records, launches, learner = cli_path(
+            A, label, argv, extra_steps=(lambda _: 1) if traced else None)
         runs[traced] = (records, [p.clone() for p in
                                   learner.params.values()],
                         learner.last_trace_path)
         paths["traced_engine" if traced else "untraced_engine"] = launches
+        if traced:
+            cfg = learner.config
+            last_steps = int(learner.last_cohort["steps_run"].sum())
+            seq_len = int(learner.x.shape[-1])
+            flops_want = (bert_step_flops(cfg, seq_len)
+                          * learner.cohort_size * learner.num_steps)
+            eval_batches = math.ceil(len(learner.dataset.x_test)
+                                     / max(cfg.fed.batch_size, 64))
         del learner
     (plain, p0, none_path), (recs, p1, path) = runs[False], runs[True]
     if none_path is not None or path is None:
         raise AssertionError(f"13a: trace paths {none_path}, {path}")
-    # The untraced run's last record also carries its checkpoint's time.
-    if [sorted(r) for r in recs] != [sorted(set(r) - {"phase_checkpoint_s"})
-                                     for r in plain]:
+    # The untraced run's last record also carries its checkpoint's time;
+    # the traced ones carry the round's FLOPs, as JAX's do.
+    if [sorted(set(r) - {"flops_per_round"}) for r in recs] != [
+            sorted(set(r) - {"phase_checkpoint_s"}) for r in plain]:
         raise AssertionError("13a: tracing changed the record keys")
+    flops = [r.get("flops_per_round") for r in recs]
+    if flops != [float(flops_want)] * len(recs):
+        raise AssertionError(f"13a: flops_per_round {flops}, by hand "
+                             f"{flops_want}")
+    profiles = sorted(os.listdir(prof_dir))
+    if len(profiles) != 1 or "_profile_rounds1-1_" not in profiles[0]:
+        raise AssertionError(f"13a: profile files {profiles}")
+    kern, t_load = chrome_kernels(os.path.join(prof_dir, profiles[0]))
+    depth = cfg.model.depth
+    evaluated = "eval_loss" in recs[-1]
+    prof_want = {"flash_fwd_bf16_kernel": depth * (
+                     last_steps + (eval_batches if evaluated else 0)),
+                 "flash_dq_bf16_kernel": depth * last_steps,
+                 "flash_dkv_bf16_kernel": depth * last_steps}
+    prof_got = {k: kern.get(k, 0) for k in prof_want}
+    if prof_got != prof_want:
+        raise AssertionError(f"13a: profiled card kernels {prof_got}, "
+                             f"expected round 1's {prof_want}")
+    log(f"  [13a] flops_per_round {flops[0]:.6e} (by hand: "
+        f"{bert_step_flops(cfg, seq_len):.6e} per step x cohort 10 x 4 "
+        f"steps); "
+        f"profile {profiles[0]} "
+        f"({os.path.getsize(os.path.join(prof_dir, profiles[0])) / 2**20:.1f}"
+        f" MiB, scanned in {t_load:.2f} s): flash kernels {prof_got} (round 1 "
+        f"only), {sum(kern.values())} card kernel events of "
+        f"{len(kern)} names")
     loss_diff = max(abs(a["train_loss"] - b["train_loss"])
                     for a, b in zip(recs, plain))
     param_diff = max(float((a - b).abs().max()) for a, b in zip(p0, p1))
@@ -3572,11 +3905,14 @@ def async_cli_path(F):
     of round 0 are bitwise equal, and otherwise printed with their
     difference."""
     rec_patch = _Recorder()
+    obs = ObservedCoordinator("14c")
     try:
         records, params, launches, took = cli_federation(
-            F, cnn_fleet(), coordinate=["--async-buffer", "3"])
+            F, cnn_fleet(), coordinate=["--async-buffer", "3", *obs.argv],
+            live=obs.live)
     finally:
         rec_patch.close()
+    obs.check(records, rec_patch.folders)
     sync, sync_params, sync_folds = RECORDS["11c"]
     log(f"  [14c] the fleet (broker + 3 worker processes, 2 aggregators "
         f"idle) + coordinate --async-buffer 3 ({SOCKET_CLI}, cut: "
@@ -5386,7 +5722,58 @@ def fleet_cli_path(workdir: str) -> dict:
             or chunks != want_chunks):
         raise AssertionError(f"20a: {bad[:3]}, firings {moved} against "
                              f"{sums}, chunks {chunks} against {want_chunks}")
+    RECORDS["20a"] = (records, plan_path)
     return dict(s_round=secs, clients_per_sec=summary["clients_per_sec"])
+
+
+FLEET_OBSERVED_ROUNDS = 2      # 20a with --learn-observe: its first rounds
+
+
+def fleet_observe_path() -> dict:
+    """20a with ``--learn-observe`` (its first 2 rounds, the same fault
+    plan, no trace): every record carries the observatory's keys with
+    ``conv_cohort_skew`` and ``conv_norm_p90`` (the population's home
+    classes and the devices' norms), the second ``conv_cos_prev`` too,
+    and apart from its ``conv_*`` keys and times each record is 20a's,
+    bit for bit: observing changes nothing of the round.  Its seconds per
+    round are printed beside 20a's."""
+    from colearn_federated_learning_tpu_torch import cli
+
+    plain, plan_path = RECORDS["20a"]
+    argv = ["fleetsim", "--devices", str(FLEET_DEVICES), "--cohort",
+            str(FLEET_COHORT), "--chunk", str(FLEET_CHUNK), "--rounds",
+            str(FLEET_OBSERVED_ROUNDS), "--compress", "topk8",
+            "--fault-plan", plan_path, "--learn-observe"]
+    t0 = time.perf_counter()
+    (_, err) = _stderr_of(lambda: cli.main(argv))
+    wall = time.perf_counter() - t0
+    records = [json.loads(line) for line in err.splitlines()
+               if line.startswith('{"train_loss"')]
+    timed = {"round_time_s"}
+    bad = []
+    for i, (rec, ref) in enumerate(zip(records, plain)):
+        want = CONV_KEYS | {"conv_cohort_skew", "conv_cohort_cos_min",
+                            "conv_norm_median", "conv_norm_p90",
+                            "conv_norm_anomalies"}
+        if i:
+            want |= {"conv_cos_prev"}
+        rest = {k: v for k, v in rec.items()
+                if not k.startswith("conv_") and k not in timed}
+        if not (want <= set(rec) and rest == {
+                k: v for k, v in ref.items() if k not in timed}):
+            bad.append((i, sorted(set(rec) - set(ref)), rest))
+    secs = [r["round_time_s"] for r in records]
+    log(f"  [20a observed] fleetsim ... --rounds {FLEET_OBSERVED_ROUNDS} "
+        f"--learn-observe: "
+        + json.dumps([{k: r[k] for k in sorted(r) if k.startswith("conv_")}
+                      for r in records]))
+    log(f"  [20a observed] s/round {[round(t, 3) for t in secs]} against "
+        f"20a's {[round(r['round_time_s'], 3) for r in plain]} without "
+        f"the flag; records 20a's bit for bit but their conv_* keys; path "
+        f"{wall:.2f} s; {card()}")
+    if bad or len(records) != FLEET_OBSERVED_ROUNDS:
+        raise AssertionError(f"20a observed: {bad[:2]}")
+    return dict(s_round=secs)
 
 
 def fleet_learner_path() -> dict:
@@ -5475,7 +5862,10 @@ def fleet_phase(A, F) -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         numbers["20a"] = fleet_cli_path(workdir)
-    log(f"  20a in {time.perf_counter() - t0:.2f} s")
+        log(f"  20a in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        numbers["20a_observed"] = fleet_observe_path()
+        log(f"  20a observed in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     numbers["20b"] = fleet_learner_path()
     log(f"  20b in {time.perf_counter() - t0:.2f} s")
@@ -5642,6 +6032,7 @@ def run_phases() -> int:
 
     t_start = time.perf_counter()
     cache_synthetic_data()
+    register_half_bert()
     phase(1, "device", device_phase)
     phase(2, "build", build_phase, _build)
     rows = phase(3, "kernels vs plain versions (bf16)", kernel_phase, A)
@@ -5654,7 +6045,8 @@ def run_phases() -> int:
 
     def families():
         for label, cfg, cuts in family_paths():
-            paths[label] = drive_path(A, label, cfg, 1, cuts)
+            paths[label] = drive_path(A, label, cfg, 1, cuts,
+                                      detection=label == "tcn")
 
     phase(4, "small-input check and the BERT path", bert)
     paths["cnn"] = phase(5, "the CIFAR-10 CNN round (config #2)", drive_path,

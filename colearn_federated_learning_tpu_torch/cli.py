@@ -1,7 +1,7 @@
 """Command line of the PyTorch port: ``train``, ``init``, ``aggregate``,
 ``eval``, ``configs``, ``bench``, ``broker``, ``worker``, ``aggregator``,
 ``coordinate``, ``trace-summary``, ``health``, ``postmortem``,
-``chaos`` and ``fleetsim``.
+``chaos``, ``fleetsim``, ``top`` and ``converge``.
 
     python -m colearn_federated_learning_tpu_torch.cli train --config NAME \\
         [--backend gpu|cpu] [overrides]
@@ -70,13 +70,23 @@ client mesh of the N ranks (NCCL; gloo with ``--backend cpu``), with a
 runs the dense core and ``--tp-size 2`` warns and runs untiled, as in
 JAX; ``--remat`` checkpoints the transformer blocks' activations.
 
-A flag of the JAX command line whose feature is not ported yet is
-accepted by the parser and refused: the run exits with status 2 and names
-the ROADMAP item that ports it, and never runs without it; so is each
-JAX subcommand not ported yet (``lint``, ``top``, ``sentinel``,
-``converge``), and ``fleetsim --learn-observe``.  ``configs``,
-``trace-summary``, ``health`` and ``postmortem`` print JAX's text, not a
-JSON result.
+Observability (``telemetry/runtime.py``, ``telemetry/convergence.py``):
+``--metrics-port`` (0: an ephemeral port, announced as a ``metrics_port``
+event on stderr) serves ``/metrics`` and ``/snapshot.json`` from
+``broker``, ``worker``, ``aggregator`` and ``coordinate``, which ``top``
+renders; ``--events-file`` appends their ``start``, ``round`` and
+``stop`` events as JSONL; ``--learn-observe`` stamps the convergence
+observatory's ``conv_*`` keys on the coordinators' and ``fleetsim``'s
+records (a no-op in ``train``, as in JAX), which ``converge`` reports;
+``train --profile-dir`` profiles rounds 1..2 with ``torch.profiler``.
+``train --personalize-steps N`` and ``--detection-eval`` dump JAX's
+personalized and detection reports on stderr after training, and ``eval
+--detection-eval`` adds the detection view to the file's score.
+
+JAX's ``lint`` and ``sentinel`` commands are not ported yet: each exits
+with status 2 naming the ROADMAP item that ports it.  ``configs``,
+``trace-summary``, ``health``, ``postmortem``, ``top`` and ``converge``
+print JAX's text, not a JSON result.
 """
 
 from __future__ import annotations
@@ -114,31 +124,10 @@ _RUN_KEYS = {"seed", "tp_size", "eval_every", "log_every", "evict_after",
              "num_aggregators", "agg_heartbeat_timeout",
              "agg_buffer_interval_s", "trace_dir", "trace_rounds",
              "health_dir", "checkpoint_dir", "checkpoint_every",
-             "ckpt_stream"}
+             "ckpt_stream", "profile_dir", "learn_observe"}
 
-_OBS = comm.ITEM_OBS_REST
-
-# dest -> (flag, argparse kwargs, the ROADMAP item that ports it): the
-# override flags every subcommand takes, and those of ``train`` alone.
-_UNPORTED = {
-    "profile_dir": ("--profile-dir", dict(), _OBS),
-    "learn_observe": ("--learn-observe", dict(action="store_true"), _OBS),
-}
-_UNPORTED_TRAIN = {
-    "personalize_steps": ("--personalize-steps", dict(type=int), _OBS),
-    "detection_eval": ("--detection-eval", dict(action="store_true"), _OBS),
-}
-
-
-# The export half of the observability flags of broker, worker,
-# aggregator and coordinate (the flight recorder's half is ported).
-_OBSERVABILITY = {
-    "metrics_port": ("--metrics-port", dict(type=int), _OBS),
-    "events_file": ("--events-file", dict(), _OBS),
-}
+# JAX subcommands not ported yet -> the ROADMAP item that ports them.
 _UNPORTED_COMMANDS = {
-    "top": comm.ITEM_OBS_REST,
-    "converge": comm.ITEM_OBS_REST,
     "lint": comm.ITEM_ANALYSIS,
     "sentinel": comm.ITEM_ANALYSIS,
 }
@@ -296,18 +285,20 @@ def _add_override_flags(p: argparse.ArgumentParser) -> None:
                         "(ckpt/streaming.py): CRC-checked shard files and "
                         "a manifest commit marker written last, in the "
                         "JAX package's format")
-    _add_unported(p, _UNPORTED)
-
-
-def _add_unported(p: argparse.ArgumentParser, flags: dict) -> None:
-    for dest, (flag, kwargs, _) in flags.items():
-        p.add_argument(flag, dest=dest, default=None,
-                       help="not ported yet (refused)", **kwargs)
+    p.add_argument("--profile-dir", default=None,
+                   help="train: write a torch.profiler Chrome trace of "
+                        "rounds 1-2 here (the card's kernels included)")
+    p.add_argument("--learn-observe", action="store_true", default=None,
+                   help="convergence observatory "
+                        "(telemetry/convergence.py): stamp conv_* "
+                        "learning-health keys (update norm, cosine to "
+                        "the previous update, EWMA trend) on the "
+                        "coordinators' records and export learn.* "
+                        "metrics; `converge` renders the report")
 
 
 def _add_observability_flags(p: argparse.ArgumentParser) -> None:
-    """The flight recorder's flags (JAX's defaults), and the export
-    plane's, which are refused."""
+    """The flight recorder's and the export plane's flags (JAX's)."""
     p.add_argument("--flight-dir", default=None,
                    help="crash flight recorder: heartbeat-rewrite a "
                         "bounded black box (flight_<pid>.json) here; it "
@@ -318,7 +309,14 @@ def _add_observability_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--flight-watchdog", type=float, default=None,
                    help="declare a stall (and dump) after this many "
                         "seconds without round progress")
-    _add_unported(p, _OBSERVABILITY)
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve /metrics (Prometheus text) and "
+                        "/snapshot.json on 127.0.0.1:<port>; 0 binds an "
+                        "ephemeral port announced as a metrics_port "
+                        "event on stderr")
+    p.add_argument("--events-file", default=None,
+                   help="append lifecycle + round events as JSONL here "
+                        "(push half of the export plane)")
 
 
 def _async_buffer_arg(value: str):
@@ -357,7 +355,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true", default=None,
                    help="restore the latest checkpoint of --checkpoint-dir "
                         "and run the remaining rounds")
-    _add_unported(p, _UNPORTED_TRAIN)
+    p.add_argument("--personalize-steps", type=int, default=0,
+                   help="fine-tune-then-eval personalization probe: N "
+                        "local steps per client on half its shard, scored "
+                        "on the held-out half (stderr)")
+    p.add_argument("--detection-eval", action="store_true",
+                   help="detection-oriented held-out report (per-class "
+                        "P/R/F1, alarm detection/false-alarm rates; class "
+                        "0 = benign; stderr)")
 
     p = sub.add_parser("init", help="write an initial global model file")
     _add_override_flags(p)
@@ -373,8 +378,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("eval", help="evaluate a global model file")
     _add_override_flags(p)
     p.add_argument("--global-model", required=True)
-    p.add_argument("--detection-eval", action="store_true", default=None,
-                   help="not ported yet (refused)")
+    p.add_argument("--detection-eval", action="store_true",
+                   help="add the anomaly-detection report (per-class "
+                        "P/R/F1, alarm detection/false-alarm rates)")
 
     sub.add_parser("configs", help="list experiment configs")
 
@@ -560,6 +566,27 @@ def build_parser() -> argparse.ArgumentParser:
 
     _add_fleetsim_parser(sub)
 
+    p = sub.add_parser("top",
+                       help="live terminal view of a --metrics-port "
+                            "process: round rate, cohort health, faults, "
+                            "device memory")
+    p.add_argument("--port", type=int, default=9100,
+                   help="metrics port of the process to watch")
+    p.add_argument("--url", default=None,
+                   help="full /snapshot.json URL (overrides --port)")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="refresh period in seconds")
+    p.add_argument("--once", action="store_true",
+                   help="print one snapshot and exit (no screen clear)")
+
+    p = sub.add_parser("converge",
+                       help="round-over-round learning report from a "
+                            "--learn-observe run's JSONL (update norm / "
+                            "cosine / trend per round)")
+    p.add_argument("results",
+                   help="JSONL file, or directory searched recursively "
+                        "for *.jsonl")
+
     # Subcommands not ported yet: refused before their flags are parsed.
     for name in _UNPORTED_COMMANDS:
         sub.add_parser(name, help="not ported yet (refused)")
@@ -647,7 +674,11 @@ def _add_fleetsim_parser(sub) -> None:
     p.add_argument("--async-probation", type=int, default=8,
                    help="async mode: aggregations a pruned device "
                         "sits out before re-admission")
-    _add_unported(p, {"learn_observe": _UNPORTED["learn_observe"]})
+    p.add_argument("--learn-observe", action="store_true",
+                   help="convergence observatory: stamp conv_* "
+                        "learning-health keys (update norm / cosine / "
+                        "trend, per-cohort drift skew) on round records; "
+                        "`converge` renders them")
 
 
 def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
@@ -664,19 +695,6 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
     return cfg.replace(**{
         name: dataclasses.replace(getattr(cfg, name), **values)
         for name, values in sections.items()})
-
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Exit with status 2, naming the ROADMAP items, if any flag of a
-    feature that is not ported yet was given."""
-    flags = {**_UNPORTED, **_UNPORTED_TRAIN, **_OBSERVABILITY}
-    given = [(flag, item) for dest, (flag, _, item) in flags.items()
-             if getattr(args, dest, None) not in (None, False)]
-    if given:
-        for flag, item in given:
-            print(f"{flag} is not ported to the PyTorch package yet; "
-                  f"see {item}", file=sys.stderr)
-        raise SystemExit(2)
 
 
 def refuse_edge_unsupported(args: argparse.Namespace,
@@ -762,11 +780,18 @@ def _fit(args: argparse.Namespace, config: ExperimentConfig, learner,
                 "edge_groups": config.fed.edge_groups,
                 "final_loss": loss, "final_acc": acc,
                 "data_source": learner.dataset.source}
-    if args.per_client_eval:
-        report = learner.evaluate_per_client()
+    def dump_report(report: dict) -> None:
         if lead:
             print(json.dumps(evaluation.sanitize_report(report)),
                   file=sys.stderr, flush=True)
+
+    if args.per_client_eval:
+        dump_report(learner.evaluate_per_client())
+    if args.personalize_steps:
+        dump_report(learner.evaluate_personalized(
+            steps=args.personalize_steps))
+    if args.detection_eval:
+        dump_report(learner.evaluate_detection())
     n_chips = (learner.mesh.mesh.numel() if learner.mesh is not None else 1)
     out = {"name": config.run.name, "rounds": len(records),
            "elapsed_s": time.perf_counter() - t_start,
@@ -840,6 +865,7 @@ def evaluate(args: argparse.Namespace) -> dict:
     from colearn_federated_learning_tpu_torch.fed import offline
 
     return offline.evaluate_global(config_from_args(args), args.global_model,
+                                   detection=args.detection_eval,
                                    device=_device(args))
 
 
@@ -888,16 +914,56 @@ def _setup_flight(args: argparse.Namespace, role: str, device=None):
     return recorder
 
 
-def _round_hook(recorder) -> Callable[[dict], None]:
-    """Print each record as one JSON line on stderr and, with a recorder,
-    put it in the flight ring and mark progress for the watchdog (JAX's
+def _setup_observability(args: argparse.Namespace, role: str,
+                         device=None) -> tuple:
+    """Install what the observability flags opted into (JAX's
+    ``_setup_observability``): the flight recorder (:func:`_setup_flight`),
+    the metrics exporter (its port announced on stderr as a
+    ``metrics_port`` event) and the event log, which gets a ``start``
+    event.  Returns ``(exporter, events, recorder)``, each None when
+    off."""
+    from colearn_federated_learning_tpu_torch import telemetry
+
+    recorder = _setup_flight(args, role, device)
+    exporter = events = None
+    if args.metrics_port is not None:
+        exporter = telemetry.MetricsExporter(port=args.metrics_port).start()
+        print(json.dumps({"event": "metrics_port", "port": exporter.port}),
+              file=sys.stderr, flush=True)
+    if args.events_file:
+        events = telemetry.EventLog(args.events_file)
+        events.emit("start", role=role)
+    return exporter, events, recorder
+
+
+def _close_observability(exporter, events, role: str) -> None:
+    """A ``stop`` event and the exporter's shutdown, as the process ends
+    (JAX's broker does this; the port's other roles too)."""
+    if events is not None:
+        events.emit("stop", role=role)
+        events.close()
+    if exporter is not None:
+        exporter.close()
+
+
+def _round_hook(recorder, events=None) -> Callable[[dict], None]:
+    """Print each record as one JSON line on stderr; with an event log,
+    append its scalar fields as a ``round`` event; with a recorder, put
+    it in the flight ring and mark progress for the watchdog (JAX's
     ``_obs_round_hook``)."""
     def hook(rec: dict) -> None:
         print(json.dumps(rec), file=sys.stderr, flush=True)
-        if recorder is not None:
-            recorder.record("round", round=rec.get("round"))
-            recorder.mark_progress()
+        _observe_record(rec, events, recorder)
     return hook
+
+
+def _observe_record(rec: dict, events, recorder) -> None:
+    if events is not None:
+        events.emit("round", **{k: v for k, v in rec.items()
+                                if isinstance(v, (int, float, str, bool))})
+    if recorder is not None:
+        recorder.record("round", round=rec.get("round"))
+        recorder.mark_progress()
 
 
 def broker(args: argparse.Namespace) -> None:
@@ -906,7 +972,7 @@ def broker(args: argparse.Namespace) -> None:
     from colearn_federated_learning_tpu_torch.comm.broker import MessageBroker
 
     stop = _stop_event()
-    recorder = _setup_flight(args, "broker")
+    exporter, events, recorder = _setup_observability(args, "broker")
     b = MessageBroker(host=args.host, port=args.port).start()
     print(json.dumps({"host": b.host, "port": b.port}), flush=True)
     if recorder is not None:
@@ -915,6 +981,7 @@ def broker(args: argparse.Namespace) -> None:
         stop.wait()
     finally:
         b.stop()
+        _close_observability(exporter, events, "broker")
 
 
 def worker(args: argparse.Namespace) -> None:
@@ -928,14 +995,18 @@ def worker(args: argparse.Namespace) -> None:
         raise SystemExit(2)
     _install_fault_plan(config)
     stop = _stop_event()
-    _setup_flight(args, f"worker{args.client_id}", _device(args))
+    role = f"worker{args.client_id}"
+    exporter, events, _ = _setup_observability(args, role, _device(args))
     mud = None
     if args.mud_profile:
         with open(args.mud_profile) as f:
             mud = f.read()
-    run_worker_forever(config, args.client_id, args.broker_host,
-                       args.broker_port, mud_profile=mud,
-                       device=_device(args), stop=stop)
+    try:
+        run_worker_forever(config, args.client_id, args.broker_host,
+                           args.broker_port, mud_profile=mud,
+                           device=_device(args), stop=stop)
+    finally:
+        _close_observability(exporter, events, role)
 
 
 def aggregator(args: argparse.Namespace) -> None:
@@ -950,10 +1021,14 @@ def aggregator(args: argparse.Namespace) -> None:
         raise SystemExit(2)
     _install_fault_plan(config)
     stop = _stop_event()
-    _setup_flight(args, f"aggregator{args.agg_id}", _device(args))
-    agg = run_aggregator_forever(config, args.agg_id, args.broker_host,
-                                 args.broker_port, heartbeat_s=args.heartbeat,
-                                 device=_device(args), stop=stop)
+    role = f"aggregator{args.agg_id}"
+    exporter, events, _ = _setup_observability(args, role, _device(args))
+    try:
+        agg = run_aggregator_forever(
+            config, args.agg_id, args.broker_host, args.broker_port,
+            heartbeat_s=args.heartbeat, device=_device(args), stop=stop)
+    finally:
+        _close_observability(exporter, events, role)
     _write_trace(config, f"{config.run.name}_aggregator{args.agg_id}",
                  agg.tracer)
 
@@ -971,7 +1046,7 @@ def _write_trace(config: ExperimentConfig, name: str, tracer) -> None:
 
 
 def per_type(args: argparse.Namespace, config: ExperimentConfig,
-             mud_policy, recorder=None) -> dict:
+             mud_policy, recorder=None, events=None) -> dict:
     """``coordinate --per-type``: one federation per MUD device type; each
     record goes to stderr with its ``type``.  The summary holds each
     type's last record, the skipped types and the failed ones; it is
@@ -988,9 +1063,7 @@ def per_type(args: argparse.Namespace, config: ExperimentConfig,
         # One write per record: the federations log from their threads.
         sys.stderr.write(json.dumps({"type": t, **rec}) + "\n")
         sys.stderr.flush()
-        if recorder is not None:
-            recorder.record("round", round=rec.get("round"))
-            recorder.mark_progress()
+        _observe_record({"type": t, **rec}, events, recorder)
 
     try:
         hists = fed.run(min_devices=args.min_devices,
@@ -1010,13 +1083,25 @@ def per_type(args: argparse.Namespace, config: ExperimentConfig,
 def coordinate(args: argparse.Namespace) -> dict:
     """``coordinate``: enroll ``--min-devices`` (and, with
     ``--num-aggregators``, the aggregators), fit, and return the last
-    record; every record goes to stderr as one JSON line."""
+    record; every record goes to stderr as one JSON line (and, with
+    ``--events-file``, into the event log as a ``round`` event)."""
+    config = config_from_args(args)
+    _install_fault_plan(config)
+    exporter, events, recorder = _setup_observability(args, "coordinator",
+                                                      _device(args))
+    try:
+        return _coordinate(args, config, recorder, events)
+    finally:
+        _close_observability(exporter, events, "coordinator")
+
+
+def _coordinate(args: argparse.Namespace, config: ExperimentConfig,
+                recorder, events) -> dict:
+    """``coordinate``'s body, between the observability set-up and its
+    close."""
     from colearn_federated_learning_tpu_torch.comm.coordinator import (
         FederatedCoordinator)
 
-    config = config_from_args(args)
-    _install_fault_plan(config)
-    recorder = _setup_flight(args, "coordinator", _device(args))
     mud_policy = None
     if args.mud_require_profile or args.mud_allowed_types:
         from colearn_federated_learning_tpu_torch.comm.mud import MudPolicy
@@ -1026,9 +1111,9 @@ def coordinate(args: argparse.Namespace) -> dict:
             allowed_types=tuple(
                 t for t in (args.mud_allowed_types or "").split(",") if t))
     if args.per_type:
-        return per_type(args, config, mud_policy, recorder)
+        return per_type(args, config, mud_policy, recorder, events)
     if args.async_buffer:
-        return coordinate_async(args, config, mud_policy, recorder)
+        return coordinate_async(args, config, mud_policy, recorder, events)
     coord = FederatedCoordinator(config, args.broker_host, args.broker_port,
                                  round_timeout=args.round_timeout,
                                  want_evaluator=not args.no_evaluator,
@@ -1051,7 +1136,8 @@ def coordinate(args: argparse.Namespace) -> dict:
             print(json.dumps({"event": "aggregators_enrolled",
                               "aggregators": aggs}), file=sys.stderr,
                   flush=True)
-        hist = coord.fit(log_fn=_round_hook(recorder), elastic=args.elastic)
+        hist = coord.fit(log_fn=_round_hook(recorder, events),
+                         elastic=args.elastic)
         if args.per_client_eval:
             from colearn_federated_learning_tpu_torch.fed import evaluation
 
@@ -1089,7 +1175,7 @@ def _coordinator_resume(coord) -> None:
 
 
 def coordinate_async(args: argparse.Namespace, config: ExperimentConfig,
-                     mud_policy, recorder=None) -> dict:
+                     mud_policy, recorder=None, events=None) -> dict:
     """``coordinate --async-buffer N|auto``: the buffered-asynchronous
     coordinator (through the aggregators' slice buffers with
     ``--num-aggregators``) for the config's ``rounds`` aggregations;
@@ -1119,7 +1205,7 @@ def coordinate_async(args: argparse.Namespace, config: ExperimentConfig,
                   flush=True)
         hist = coord.fit(
             aggregations=max(0, config.fed.rounds - len(coord.history)),
-            log_fn=_round_hook(recorder), elastic=args.elastic)
+            log_fn=_round_hook(recorder, events), elastic=args.elastic)
         _write_trace(config, config.run.name, coord.tracer)
     return hist[-1]
 
@@ -1467,7 +1553,8 @@ def fleetsim(args: argparse.Namespace) -> dict:
                       compress=args.compress,
                       compress_down=args.compress_down or "none",
                       lora_rank=args.lora_rank, lora_alpha=args.lora_alpha),
-        run=RunConfig(name="fleetsim", seed=args.seed))
+        run=RunConfig(name="fleetsim", seed=args.seed,
+                      learn_observe=bool(args.learn_observe)))
     plan = None
     if args.fault_plan:
         from colearn_federated_learning_tpu_torch import faults
@@ -1556,6 +1643,79 @@ def fleetsim(args: argparse.Namespace) -> dict:
     return _chaos_gate(summary, bool(history) and clients > 0)
 
 
+def top(args: argparse.Namespace) -> None:
+    """``top`` (JAX's ``cmd_top``): a terminal dashboard over a live
+    ``/snapshot.json`` endpoint — round rate, cohort health, fault
+    counters, the async and learning planes, device memory.  Exits 1 when
+    the endpoint cannot be read; ``--once`` prints one body."""
+    import urllib.error
+    import urllib.request
+
+    from colearn_federated_learning_tpu_torch.telemetry import runtime
+
+    url = args.url or f"http://127.0.0.1:{args.port}/snapshot.json"
+    prev = None
+    while True:
+        try:
+            with urllib.request.urlopen(url, timeout=5.0) as resp:
+                snap = json.loads(resp.read().decode("utf-8"))
+        except (OSError, urllib.error.URLError, ValueError) as e:
+            print(f"colearn top: cannot fetch {url}: {e}", file=sys.stderr)
+            raise SystemExit(1)
+        body = runtime.render_top(
+            snap, prev=prev,
+            interval_s=args.interval if prev is not None else 0.0)
+        if args.once:
+            print(body, flush=True)
+            return
+        # Clear and home instead of curses: works in any terminal.
+        sys.stdout.write("\x1b[2J\x1b[H" + body + "\n")
+        sys.stdout.flush()
+        prev = snap
+        time.sleep(args.interval)
+
+
+def converge(args: argparse.Namespace) -> None:
+    """``converge`` (JAX's ``cmd_converge``): the round-over-round learning
+    report of the ``conv_*`` records in a JSONL file or a directory's
+    ``*.jsonl`` files.  Exits 2 when nothing can be read, 1 when no
+    record carries learning signals."""
+    import glob
+    import os
+
+    from colearn_federated_learning_tpu_torch import telemetry
+
+    paths = ([args.results] if os.path.isfile(args.results)
+             else sorted(glob.glob(os.path.join(args.results, "**",
+                                                "*.jsonl"), recursive=True)))
+    records: list = []
+    for path in paths:
+        try:
+            with open(path, encoding="utf-8") as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        rec = json.loads(line)
+                    except json.JSONDecodeError:
+                        continue
+                    if isinstance(rec, dict):
+                        records.append(rec)
+        except OSError as e:
+            print(f"colearn converge: cannot read {path}: {e}",
+                  file=sys.stderr)
+            raise SystemExit(2)
+    if not paths:
+        print(f"colearn converge: no JSONL under {args.results}",
+              file=sys.stderr)
+        raise SystemExit(2)
+    report = telemetry.render_convergence_report(records)
+    print(report, flush=True)
+    if report.startswith("no learning signals"):
+        raise SystemExit(1)
+
+
 def list_configs() -> None:
     """Print one line per experiment config, in the JAX CLI's format."""
     for name, cfg in sorted(CONFIGS.items()):
@@ -1586,9 +1746,12 @@ def main(argv: Optional[list] = None,
         return health(args)
     if args.cmd == "postmortem":
         return postmortem(args)
+    if args.cmd == "top":
+        return top(args)
+    if args.cmd == "converge":
+        return converge(args)
     if args.cmd == "train":
         refuse_edge_unsupported(args, config_from_args(args))
-    refuse_unported(args)
     if args.cmd == "train" and args.role == "client":
         result = client(args)
     else:

@@ -26,11 +26,10 @@ soaks (``faults/soak.py``, ``faults/procsoak.py``: ``chaos``,
 this plane under fault plans and real SIGKILLs, with the flight recorder
 (``telemetry/flight.py``) on every process; the broker's, the
 aggregators' and both coordinators' locks are ``faults/lockwitness.py``'s,
-which ``--lock-witness`` turns on.  Not ported yet, each refused naming
-its ROADMAP.md Queue A item: the exporter, convergence and evaluation
-extras (10b); the analysis tools (17).
+which ``--lock-witness`` turns on.  With ``run.learn_observe`` both
+coordinators keep the convergence observatory
+(``telemetry/convergence.py``).  Not ported yet, refused naming its
+ROADMAP.md Queue A item: the analysis tools (17).
 """
 
-ITEM_OBS_REST = ("ROADMAP.md Queue A item 10b (the exporter, convergence "
-                 "and evaluation extras)")
 ITEM_ANALYSIS = "ROADMAP.md Queue A item 17 (the analysis tools)"

@@ -76,8 +76,12 @@ and the tree's drained partials) and the server step are sharded over
 pumps' host copy of the params is read per shard, and a resume is re-cut
 onto the placement.
 
-Not ported yet, refused naming its ROADMAP item: the convergence
-observatory (``learn_observe``).
+With ``run.learn_observe`` the convergence observatory
+(``CoordinatorCore``'s, as in the synchronous coordinator) observes each
+applied buffer's mean after the server step: the ``apply_update`` span
+carries the ``conv_*`` attributes (the tree's aggregations put none, as
+JAX's) and the record the ``conv_*`` keys.  It keeps a copy of the
+previous mean on the coordinator's device for the cosine.
 """
 
 from __future__ import annotations
@@ -97,7 +101,7 @@ from colearn_federated_learning_tpu_torch.comm import protocol
 from colearn_federated_learning_tpu_torch.comm.aggregation import (
     StreamingFolder)
 from colearn_federated_learning_tpu_torch.comm.coordinator import (
-    CoordinatorCore, refuse_unported)
+    CoordinatorCore)
 from colearn_federated_learning_tpu_torch.comm.downlink import host_params
 from colearn_federated_learning_tpu_torch.comm.enrollment import DeviceInfo
 from colearn_federated_learning_tpu_torch.comm.transport import TensorClient
@@ -196,7 +200,6 @@ class AsyncFederatedCoordinator(CoordinatorCore):
                 "a LoRA worker cannot read (the reference coordinator has "
                 "no LoRA branch, so every dispatch fails there); use the "
                 "synchronous coordinator")
-        refuse_unported(config)
         # Quorum over DISTINCT contributors; 0 disables.
         self.min_cohort_fraction = config.fed.min_cohort_fraction
         self.buffer_size = buffer_size
@@ -900,6 +903,7 @@ class AsyncFederatedCoordinator(CoordinatorCore):
                     mean_delta = None
                     mean_loss = float("nan")
                 self._apply(mean_delta)
+                conv_sig = self._observe_learning(mean_delta, apply_sp)
             agg_sp.attrs["folded"] = len(staleness)
             agg_sp.attrs["discarded"] = discarded
             agg_sp.attrs["link_folds"] = fold_span_ids
@@ -919,13 +923,13 @@ class AsyncFederatedCoordinator(CoordinatorCore):
         }
         return self._finish_record(reg, rec, quorum, skipped_quorum,
                                    mass_folded, mass_discarded, mean_delta,
-                                   weights, contributors)
+                                   weights, contributors, conv_sig=conv_sig)
 
     def _finish_record(self, reg, rec: dict, quorum: int,
                        skipped_quorum: bool, mass_folded: float,
                        mass_discarded: float, mean_delta, weights,
-                       contributors, tree_keys: Optional[dict] = None
-                       ) -> dict:
+                       contributors, tree_keys: Optional[dict] = None,
+                       conv_sig: Optional[dict] = None) -> dict:
         """The gauges, pruning, accounting and the record's keys after the
         core ones, in JAX's order and under JAX's conditions; appends the
         record to the history."""
@@ -962,6 +966,9 @@ class AsyncFederatedCoordinator(CoordinatorCore):
         if self.health is not None:
             rec.update(telemetry.health_record_keys(
                 self._health_async_feed()))
+        if conv_sig:
+            # The conv_* keys only under learn_observe.
+            rec.update(conv_sig)
         self.history.append(rec)
         return rec
 
@@ -1069,6 +1076,7 @@ class AsyncFederatedCoordinator(CoordinatorCore):
                     mean_delta = None
                     mean_loss = float("nan")
                 self._apply(mean_delta)
+                conv_sig = self._observe_learning(mean_delta, None)
             agg_sp.attrs["folded"] = len(contributors)
             agg_sp.attrs["discarded"] = discarded
             agg_sp.attrs["agg_id"] = int(meta["agg_id"])
@@ -1106,7 +1114,8 @@ class AsyncFederatedCoordinator(CoordinatorCore):
         }
         return self._finish_record(reg, rec, quorum, skipped_quorum,
                                    mass_folded, mass_discarded, mean_delta,
-                                   weights, contributors, tree_keys)
+                                   weights, contributors, tree_keys,
+                                   conv_sig)
 
     def _export_pump_gauges(self, reg) -> None:
         """``async.pumps{state=...}``: every state each aggregation, zeros

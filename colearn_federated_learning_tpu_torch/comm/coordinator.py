@@ -74,8 +74,13 @@ answer a nonce challenge under their recorded key.  As in JAX, the
 asynchronous coordinator shares the checkpointer but keeps no ledger and
 runs no challenge.
 
-Not ported yet, refused naming its ROADMAP item: the convergence
-observatory.
+With ``run.learn_observe`` both coordinators keep JAX's convergence
+observatory (``telemetry/convergence.py``): after the fold and the server
+step it observes the round's mean update (the factor tree under LoRA, the
+placed mean under a placement; a no-op round observes nothing), puts
+``conv_update_norm``, ``conv_trend`` and ``conv_cos_prev`` on the
+``aggregate`` span, exports the ``learn.*`` metrics and stamps the
+``conv_*`` keys on the record.  Without it the records keep their keys.
 """
 
 from __future__ import annotations
@@ -90,7 +95,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from colearn_federated_learning_tpu_torch import comm, telemetry
+from colearn_federated_learning_tpu_torch import telemetry
 from colearn_federated_learning_tpu_torch.comm import aggregator as agg_lib
 from colearn_federated_learning_tpu_torch.comm import enrollment, keyexchange
 from colearn_federated_learning_tpu_torch.comm import protocol
@@ -131,20 +136,6 @@ SHARE_TIMEOUT_FRACTION = 0.25
 REFRESH_BUDGET_S = 1.0
 
 
-def refuse_unported(config: ExperimentConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of any option
-    the port's coordinator does not run yet."""
-    run = config.run
-    unported = [
-        (run.learn_observe, "the convergence observatory (learn_observe)",
-         comm.ITEM_OBS_REST)]
-    for given, what, item in unported:
-        if given:
-            raise NotImplementedError(
-                f"the socket coordinator's {what} is not ported yet; see "
-                f"{item}")
-
-
 def _shape_views(tree):
     """Zero-stride f32 views shaped as ``tree``'s leaves (no memory)."""
     return trees.map_leaves(
@@ -159,6 +150,25 @@ class CoordinatorCore:
     broker's rebuild), the aggregator tier's discovery, the server state
     in the flax layout on that device (or sharded over the placement),
     the tracer, the health ledger's flush and the evaluator."""
+
+    def _observe_learning(self, mean_delta, span) -> Optional[dict]:
+        """The round's (or aggregation's) learning signals under
+        ``run.learn_observe``: observe the mean update, put the span's
+        ``conv_*`` attributes (with a span; the asynchronous tree's
+        aggregation puts none, as JAX's) and export ``learn.*``.  None
+        when off, or for a no-op (``mean_delta`` None), which leaves the
+        trend state untouched."""
+        if self._learn is None:
+            return None
+        sig = self._learn.observe(mean_delta, lr=self.config.fed.server_lr)
+        if sig and span is not None:
+            span.attrs["conv_update_norm"] = sig["conv_update_norm"]
+            span.attrs["conv_trend"] = sig["conv_trend"]
+            if "conv_cos_prev" in sig:
+                span.attrs["conv_cos_prev"] = sig["conv_cos_prev"]
+        if sig:
+            self._learn.export_metrics(telemetry.get_registry(), sig)
+        return sig
 
     def _init_core(self, config: ExperimentConfig, broker_host: str,
                    broker_port: int, want_evaluator: bool, mud_policy,
@@ -180,6 +190,11 @@ class CoordinatorCore:
         if config.run.health_dir:
             self.health = telemetry.HealthLedger(config.run.health_dir,
                                                  process)
+        # The convergence observatory, only with run.learn_observe: it
+        # needs the aggregate alone (under secure aggregation the server
+        # never opens an individual update).
+        self._learn = (telemetry.ConvergenceObservatory()
+                       if config.run.learn_observe else None)
         self._broker_addr = (broker_host, broker_port)
         self._mud_policy = mud_policy
         self._device_type = device_type
@@ -469,7 +484,6 @@ class FederatedCoordinator(CoordinatorCore):
                 "secure_agg_threshold must be in (0, 1], got "
                 f"{fed.secure_agg_threshold}")
         validate_robustness(config)
-        refuse_unported(config)
         if config.run.num_aggregators and fed.compress_down != "none":
             raise ValueError(
                 "the aggregator tree requires compress_down='none': the "
@@ -986,6 +1000,7 @@ class FederatedCoordinator(CoordinatorCore):
                     lora_merged = self._apply_lora_update(mean_delta)
                 else:
                     self._server_step(mean_delta)
+            conv_sig = self._observe_learning(mean_delta, agg_sp)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         evicted = self._note_round_outcome(cohort_full, dropped)
@@ -1038,6 +1053,9 @@ class FederatedCoordinator(CoordinatorCore):
             # The health_* keys only when the ledger is on.
             rec.update(_hl.health_record_keys(self._health_round_feed(
                 r, pruned, dropped, evicted, tree_mode, tree_stats)))
+        if conv_sig:
+            # The conv_* keys only under learn_observe.
+            rec.update(conv_sig)
         return rec
 
     # ---- health ledger (telemetry/health.py) -----------------------------

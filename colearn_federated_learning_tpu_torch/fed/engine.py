@@ -49,12 +49,22 @@ JSON (``last_trace_path``), and the counters ``engine.rounds_total``, ``engine.r
 ``engine.h2d_transfer_s`` in the process registry.  ``client_update`` is
 the span ``phase_update_s`` reads; it waits for the card only where the
 round already did (``sync=True``) or while spans are recorded.
+With ``run.profile_dir`` ``fit`` also opens a ``torch.profiler`` window
+over rounds 1..2 (``utils/profiling.py``), the card's activity included,
+with a device barrier inside it.  Traced records carry
+``flops_per_round`` (:meth:`FederatedLearner.round_cost_analysis`),
+counted once and cached across ``fit`` calls.  ``evaluate_detection``
+and ``evaluate_personalized`` are JAX's reports.
 Departures: SCAFFOLD's variates go back to the host as each contributor
 finishes (the device holds O(model) of them), so ``scatter_variates`` is
-one span per contributor inside ``client_update``; and a traced record
-carries no ``flops_per_round`` (JAX's comes from XLA's AOT cost
-analysis; ROADMAP.md Queue A item 10b).  ``hbm_used_gb`` comes from the
-card's allocator, on every round on the card.
+one span per contributor inside ``client_update``; ``flops_per_round``
+counts one client's local step under ``FlopCounterMode`` (matmuls and
+convolutions, the flash kernels by formula), where JAX's is XLA's cost
+analysis of the round program (elementwise work counted too, a Pallas
+call not at all); and the profiler writes a Chrome-trace JSON where
+JAX's writes an xplane.  ``hbm_used_gb`` comes from the card's
+allocator (``telemetry.sample_device_memory``, which also sets the
+``runtime.hbm_*`` gauges), on every round on the card.
 """
 
 from __future__ import annotations
@@ -69,7 +79,6 @@ import numpy as np
 import torch
 
 from colearn_federated_learning_tpu_torch import convert, telemetry
-from colearn_federated_learning_tpu_torch.comm import ITEM_OBS_REST
 from colearn_federated_learning_tpu_torch.data import partition as partition_lib
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
 from colearn_federated_learning_tpu_torch.data.sharding import (
@@ -91,16 +100,11 @@ def check_supported(config: ExperimentConfig) -> None:
     ``edge_groups`` is not refused: the hierarchical learner
     (``fed/hierarchical.py``) builds its groups from copies of a config
     that still carries it, as the JAX package's does."""
-    f, run = config.fed, config.run
-    unported = {
-        "run.profile_dir": (bool(run.profile_dir), ITEM_OBS_REST),
-    }
-    bad = [f"{name} ({item})" for name, (on, item) in unported.items() if on]
+    f = config.fed
     if f.strategy not in strategies.STRATEGIES:
-        bad.insert(0, f"strategy {f.strategy!r}")
-    if bad:
         raise NotImplementedError(
-            f"not ported yet: {'; '.join(bad)}; see ROADMAP.md Queue A")
+            f"not ported yet: strategy {f.strategy!r}; see ROADMAP.md "
+            "Queue A")
 
 
 def check_fed_options(fed) -> None:
@@ -499,6 +503,7 @@ class FederatedLearner:
             batch=max(c.fed.batch_size, 64), device=self.device)
         self.history: list[dict] = []
         self._ckpt = None
+        self._flops_per_round: Optional[float] = None
 
     def _check_sp(self, shards: ClientShards) -> None:
         """The JAX engine's eager checks of a sequence-parallel layout."""
@@ -630,6 +635,93 @@ class FederatedLearner:
     def evaluate(self) -> tuple[float, float]:
         """(mean loss, accuracy) of the global model on the test set."""
         return self._eval_fn(self.server_state.params.values())
+
+    def evaluate_detection(self, benign_class: int = 0) -> dict:
+        """Detection-oriented held-out report (per-class precision,
+        recall and F1, macro-F1, the alarm view's detection and false-alarm
+        rates; ``evaluation.detection_report``) from the global model's
+        confusion matrix over the test set, in the evaluation's padded
+        batches."""
+        if not hasattr(self, "_conf_eval_fn"):
+            self._conf_eval_fn = evaluation.make_confusion_eval_fn(
+                self.eval_model, self.dataset.x_test, self.dataset.y_test,
+                batch=max(self.config.fed.batch_size, 64),
+                num_classes=self.config.model.num_classes,
+                device=self.device)
+        conf = self._conf_eval_fn(self.server_state.params.values())
+        return evaluation.detection_report(conf, benign_class=benign_class)
+
+    def evaluate_personalized(self, steps: int = 5,
+                              lr: Optional[float] = None) -> dict:
+        """Per-client personalization probe: fine-tune the current global
+        model on the first half of each client's shard for ``steps`` local
+        steps, then score both the global and the personalized model on
+        the held-out second half (``programs.build_personalized_eval_fn``).
+        Per-client arrays in client-id order and their weighted
+        aggregates, as JAX's; clients with fewer than 2 examples have no
+        holdout half and are dropped from the aggregates."""
+        key = (steps, lr)
+        if getattr(self, "_pers_eval_key", None) != key:
+            self._pers_eval_fn = programs.build_personalized_eval_fn(
+                self, steps, lr if lr is not None else self.config.fed.lr)
+            self._pers_eval_key = key
+        g_acc, p_acc, n_eval = self._pers_eval_fn(
+            self.server_state.params.values())
+        order = np.argsort(self.client_ids, kind="stable")
+        g_acc, p_acc, n_eval = g_acc[order], p_acc[order], n_eval[order]
+        real = n_eval > 0
+        g_acc, p_acc, n_eval = g_acc[real], p_acc[real], n_eval[real]
+        if n_eval.sum() == 0:
+            # No client holds the >= 2 examples a holdout half needs.
+            return {
+                "global_acc": 0.0, "personalized_acc": 0.0,
+                "personalization_gain": 0.0,
+                "per_client_global_acc": g_acc,
+                "per_client_personalized_acc": p_acc,
+                "num_eval_examples": n_eval,
+                "num_clients_evaluated": 0,
+            }
+        w = n_eval / n_eval.sum()
+        return {
+            "global_acc": float((g_acc * w).sum()),
+            "personalized_acc": float((p_acc * w).sum()),
+            "personalization_gain": float(((p_acc - g_acc) * w).sum()),
+            "per_client_global_acc": g_acc,
+            "per_client_personalized_acc": p_acc,
+            "num_eval_examples": n_eval,
+            "num_clients_evaluated": int(real.sum()),
+        }
+
+    def round_cost_analysis(self) -> dict:
+        """The round's FLOPs: one client's local step counted under
+        ``torch.utils.flop_counter.FlopCounterMode`` (matmuls and
+        convolutions, forward and backward; the flash kernels, which it
+        cannot see into, by their formula, ``ops.attention.count_flops``),
+        times the cohort and ``num_steps``.  ``flops_per_round`` is that
+        product; ``flops_per_step`` the one client's step.  The step runs
+        from the global params on the first client with examples, with
+        fixed batch rows, and leaves the server state and the draws
+        untouched."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from colearn_federated_learning_tpu_torch.ops import attention
+
+        params = list(self.server_state.params.values())
+        slot = int(np.argmax(np.asarray(self.block_counts) > 0))
+        count = max(int(self.block_counts[slot]), 1)
+        idx = torch.zeros((self.num_steps, self.config.fed.batch_size),
+                          dtype=torch.long, device=self.device)
+        args = (params, self.x[slot], self.y[slot], count, idx, 1)
+        if self.scaffold:
+            zeros = [torch.zeros_like(p) for p in params]
+            args += (zeros, zeros)
+        with FlopCounterMode(display=False) as counter, \
+                attention.count_flops() as attn:
+            res = self.local_update(*args)
+            del res
+        step = float(counter.get_total_flops() + attn.flops)
+        return {"flops_per_step": step,
+                "flops_per_round": step * self.cohort_size * self.num_steps}
 
     def evaluate_per_client(self) -> dict:
         """Score the current global model on every client's own shard:
@@ -869,7 +961,10 @@ class FederatedLearner:
         time is its own ``phase_eval_s``.  On the card the record also
         carries ``hbm_used_gb``, the memory allocated after the round.
         With ``run.trace_dir`` the rounds of the window are traced and the
-        trace written (``last_trace_path``), even when a round raises.
+        trace written (``last_trace_path``), even when a round raises, and
+        the records carry ``flops_per_round``; with ``run.profile_dir`` a
+        ``torch.profiler`` window covers rounds 1..2 and is closed however
+        ``fit`` ends.
         With ``run.checkpoint_dir`` the state is saved after the record is
         logged, every ``run.checkpoint_every`` rounds and always after the
         last, in a ``checkpoint`` span (``phase_checkpoint_s``)."""
@@ -881,18 +976,31 @@ class FederatedLearner:
         ckpt_every = max(0, run.checkpoint_every)
         want_ckpt = bool(run.checkpoint_dir)
         last_round = len(self.history) + rounds - 1
-        telem = telemetry.RoundTelemetry(run, self.tracer)
+        telem = telemetry.RoundTelemetry(run, self.tracer, self.device)
+        # The FLOP count rides the trace window, as in JAX: counted once
+        # and cached across fit() calls.
+        if telem.tracing and self._flops_per_round is None:
+            self._flops_per_round = self.round_cost_analysis()[
+                "flops_per_round"]
         try:
             for _ in range(rounds):
                 t0 = time.perf_counter()
                 telem.before_round(len(self.history))
                 with self.tracer.span("round", round=len(self.history)):
                     rec = self.run_round()
+                    if telem.profiling and not self.tracer.enabled:
+                        # The profiler window must hold the round's device
+                        # work; the traced round already waited.
+                        self._sync()
+                    telem.after_round(rec["round"])
                     rec["round_time_s"] = time.perf_counter() - t0
-                    if self.device.type == "cuda":
+                    stats = telemetry.sample_device_memory(
+                        device=self.device)
+                    if stats.get("bytes_in_use"):
                         rec["hbm_used_gb"] = round(
-                            torch.cuda.memory_allocated(self.device) / 2**30,
-                            3)
+                            stats["bytes_in_use"] / 2**30, 3)
+                    if self._flops_per_round:
+                        rec["flops_per_round"] = self._flops_per_round
                     if (rec["round"] % eval_every == 0
                             or rec["round"] == last_round):
                         with self.tracer.span("evaluate") as ev_sp:

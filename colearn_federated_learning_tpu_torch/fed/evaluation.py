@@ -1,5 +1,7 @@
 """Held-out evaluation over padded test batches with a validity mask
-(the counterpart of the JAX package's ``fed/evaluation.py``)."""
+(the counterpart of the JAX package's ``fed/evaluation.py``): the loss
+and accuracy, the confusion matrix, and the detection report built from
+it (a copy of JAX's, numpy only)."""
 
 from __future__ import annotations
 
@@ -52,6 +54,68 @@ def make_eval_fn(model: torch.nn.Module, x_test, y_test, batch: int,
         return float(loss_sum) / n, float(acc_sum) / n
 
     return eval_fn
+
+
+def make_confusion_eval_fn(model: torch.nn.Module, x_test, y_test,
+                           batch: int, num_classes: int,
+                           device) -> Callable:
+    """``fn(params) -> (C, C)`` numpy f32 confusion matrix (rows = true
+    class, cols = prediction) over the test set: the padded batches of
+    :func:`make_eval_fn`, one masked f32 scatter-add per batch, as JAX's
+    scan accumulates it.  One host sync at the end."""
+    xb, yb, mb = pad_batches(x_test, y_test, batch, device)
+    model_params = list(model.parameters())
+    C = num_classes
+
+    @torch.no_grad()
+    def conf_fn(params) -> np.ndarray:
+        torch._foreach_copy_(model_params, list(params))
+        conf = torch.zeros(C * C, dtype=torch.float32, device=device)
+        for x, y, m in zip(xb, yb, mb):
+            pred = model(x).argmax(dim=-1)
+            conf.index_add_(0, y * C + pred, m)
+        return conf.reshape(C, C).cpu().numpy()
+
+    return conf_fn
+
+
+def detection_report(conf: np.ndarray, benign_class: int = 0) -> dict:
+    """Detection-oriented metrics from a confusion matrix — the quantities
+    the reference's IoT network-anomaly deployment actually cares about
+    (SURVEY.md §0: MUD-compliant edge anomaly detection), where plain
+    accuracy hides a useless always-benign classifier:
+
+    - per-class precision/recall/F1 + macro-F1;
+    - binary ALARM view (any non-benign prediction is an alarm):
+      ``detection_rate`` = P(alarm | attack), ``false_alarm_rate`` =
+      P(alarm | benign).
+    """
+    conf = np.asarray(conf, np.float64)
+    C = conf.shape[0]
+    tp = np.diag(conf)
+    support = conf.sum(axis=1)
+    predicted = conf.sum(axis=0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        precision = np.where(predicted > 0, tp / predicted, 0.0)
+        recall = np.where(support > 0, tp / support, 0.0)
+        f1 = np.where(precision + recall > 0,
+                      2 * precision * recall / (precision + recall), 0.0)
+    attack = np.arange(C) != benign_class
+    attack_total = conf[attack].sum()
+    benign_total = conf[benign_class].sum()
+    alarms_on_attack = conf[attack][:, attack].sum()
+    alarms_on_benign = conf[benign_class, attack].sum()
+    return {
+        "accuracy": float(tp.sum() / max(conf.sum(), 1.0)),
+        "per_class_precision": precision,
+        "per_class_recall": recall,
+        "per_class_f1": f1,
+        "macro_f1": float(f1[support > 0].mean()) if (support > 0).any()
+        else 0.0,
+        "detection_rate": float(alarms_on_attack / max(attack_total, 1.0)),
+        "false_alarm_rate": float(alarms_on_benign / max(benign_total, 1.0)),
+        "support": support,
+    }
 
 
 def sanitize_report(rep: dict) -> dict:

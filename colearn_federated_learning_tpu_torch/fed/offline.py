@@ -16,8 +16,7 @@ dropped silo writes no file, a stale one stamps the previous round, a
 torn one is cut to half its bytes.  A residual that cannot be carried
 counts in ``fed.offline_residual_resets_total`` and a skipped update file
 in ``fed.offline_updates_rejected_total``, each by reason, as in JAX.
-Not ported yet: ``detection=True`` raises, naming ROADMAP.md Queue A item
-10b.
+``evaluate_global(detection=True)`` adds JAX's detection report.
 """
 
 from __future__ import annotations
@@ -29,7 +28,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from colearn_federated_learning_tpu_torch.comm import ITEM_OBS_REST
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
 from colearn_federated_learning_tpu_torch.data.sharding import pack_client_shards
 from colearn_federated_learning_tpu_torch.faults import fileplane
@@ -291,10 +289,9 @@ def evaluate_global(config: ExperimentConfig, global_path: str,
                     dataset: Optional[data_registry.Dataset] = None,
                     detection: bool = False, device=None) -> dict:
     """Score a global-model file on the test set: ``{"round",
-    "eval_loss", "eval_acc"}``."""
-    if detection:
-        raise NotImplementedError(
-            f"the detection report is not ported yet; see {ITEM_OBS_REST}")
+    "eval_loss", "eval_acc"}``; ``detection=True`` adds the detection
+    view (``evaluation.detection_report``, class 0 benign) without its
+    ``accuracy``, as JAX's does (``eval_acc`` is canonical)."""
     device = resolve_device(device)
     params, meta = load_pytree_npz(global_path)
     ds = dataset or data_registry.get_dataset(config.data.dataset,
@@ -302,9 +299,18 @@ def evaluate_global(config: ExperimentConfig, global_path: str,
     model = model_registry.build_model(
         setup_lib.local_model_config(config.model), device,
         input_shape=np.asarray(ds.x_test).shape[1:])
+    batch = max(config.fed.batch_size, 64)
     eval_fn = evaluation.make_eval_fn(
-        model, ds.x_test, ds.y_test, batch=max(config.fed.batch_size, 64),
-        device=device)
-    loss, acc = eval_fn(setup_lib.flax_to_params(model, params, device))
-    return {"round": int(meta.get("round", 0)), "eval_loss": float(loss),
-            "eval_acc": float(acc)}
+        model, ds.x_test, ds.y_test, batch=batch, device=device)
+    params = setup_lib.flax_to_params(model, params, device)
+    loss, acc = eval_fn(params)
+    out = {"round": int(meta.get("round", 0)), "eval_loss": float(loss),
+           "eval_acc": float(acc)}
+    if detection:
+        conf_fn = evaluation.make_confusion_eval_fn(
+            model, ds.x_test, ds.y_test, batch=batch,
+            num_classes=config.model.num_classes, device=device)
+        rep = evaluation.detection_report(conf_fn(params))
+        rep.pop("accuracy", None)
+        out.update(evaluation.sanitize_report(rep))
+    return out

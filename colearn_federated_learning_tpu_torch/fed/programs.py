@@ -455,11 +455,13 @@ def run_round(ln, round_idx: int, sel: np.ndarray) -> dict:
 
 
 # ---------------------------------------------------------------------
-# per-client programs (evaluation, update similarity)
+# per-client programs (evaluation, personalization, update similarity)
 # ---------------------------------------------------------------------
-# The round index the similarity's batch draws are keyed on: past any
-# training round, as in the JAX package.
+# The round indices the similarity's and the personalized fine-tune's
+# batch draws are keyed on: past any training round, each its own
+# purpose, as in the JAX package.
 SIMILARITY_ROUND = 1 << 23
+PERSONALIZE_ROUND = 1 << 24
 
 
 def build_client_eval_fn(ln):
@@ -494,6 +496,81 @@ def build_client_eval_fn(ln):
             out = collectives.all_gather(out, ln.clients.group)
         out = out.cpu().numpy()
         return out[:, 0], out[:, 1]
+
+    return eval_fn
+
+
+def build_personalized_eval_fn(ln, steps: int, lr: float):
+    """``fn(params) -> (g_acc, p_acc, n_eval)``: numpy arrays in array-slot
+    order (the JAX ``build_personalized_eval_fn``'s outputs).  Each client
+    fine-tunes ``params`` for ``steps`` steps on the first half of its
+    shard (``count // 2`` rows) with the config's own local trainer (its
+    optimizer, momentum, MoE aux loss and FedProx term; ``strategy``,
+    ``local_steps``, ``lr`` and ``straggler_prob`` overridden as in JAX),
+    on batches drawn at ``PERSONALIZE_ROUND``; then the global and the
+    personalized params score the second half, in chunks of
+    ``max(batch_size, 64)`` rows.  A client with fewer than 2 examples has
+    no holdout half: it neither trains nor scores (accuracies 0,
+    ``n_eval`` 0), as its JAX lanes count nothing.  On a client mesh each
+    rank fine-tunes and scores its own block, and the results are
+    all-gathered over the ``clients`` group.  One host sync."""
+    import dataclasses
+
+    c = ln.config
+    fed = dataclasses.replace(
+        c.fed,
+        strategy=c.fed.strategy if c.fed.strategy == "fedprox" else "fedavg",
+        local_steps=steps, lr=lr, straggler_prob=0.0)
+    local.check_dense_trainer(fed)
+    local.check_strategy_optimizer(fed)
+    update = local.make_local_update(
+        ln.model, local.make_optimizer(lr, fed.momentum, fed.local_optimizer),
+        steps,
+        prox_mu=fed.prox_mu if fed.strategy == "fedprox" else 0.0,
+        min_steps_fraction=fed.straggler_min_fraction,
+        aux_loss_weight=(c.model.moe_aux_weight
+                         if c.model.name.startswith("moe") else 0.0),
+        grad_sync_group=ln.seq.group if ln.sp else None,
+        tp=ln.tp if ln.tp_dims is not None else None,
+        sharded=(None if ln.tp_dims is None
+                 else [d is not None for d in ln.tp_dims]))
+    batch = max(fed.batch_size, 64)
+    model_params = list(ln.model.parameters())
+
+    @torch.no_grad()
+    def score(params, slot: int, lo: int, hi: int) -> torch.Tensor:
+        torch._foreach_copy_(model_params, params)
+        correct = torch.zeros((), dtype=torch.float32, device=ln.device)
+        for b in range(lo, hi, batch):
+            logits = ln.model(ln.x[slot, b:min(b + batch, hi)])
+            correct += (logits.argmax(dim=-1)
+                        == ln.y[slot, b:min(b + batch, hi)]).sum()
+        return correct / float(max(hi - lo, 1))
+
+    def eval_fn(params):
+        params = list(params)
+        out = torch.zeros((len(ln.block_ids), 3), dtype=torch.float32,
+                          device=ln.device)
+        for slot, gid in enumerate(ln.block_ids):
+            count = int(ln.block_counts[slot])
+            if count < 2:
+                continue
+            n_ft = count // 2
+            idx = ln.draws.batch_indices(PERSONALIZE_ROUND, int(gid), n_ft,
+                                         steps, fed.batch_size)
+            idx = torch.as_tensor(idx, dtype=torch.long).to(
+                ln.device, non_blocking=True)
+            res = update(params, ln.x[slot], ln.y[slot], n_ft, idx, steps)
+            pers = torch._foreach_add(params, res.delta)
+            del res
+            out[slot, 0] = score(params, slot, n_ft, count)
+            out[slot, 1] = score(pers, slot, n_ft, count)
+            out[slot, 2] = count - n_ft
+            del pers
+        if ln.mesh is not None:
+            out = collectives.all_gather(out, ln.clients.group)
+        out = out.cpu().numpy()
+        return out[:, 0], out[:, 1], out[:, 2].astype(np.int32)
 
     return eval_fn
 

@@ -37,10 +37,21 @@ NOTE on plan authoring: ``FaultSpec.count`` defaults to 1 (one firing
 TOTAL); fleet-wide schedules want explicit ``count=0`` (unlimited) or a
 budget sized to the cohort.
 
+With ``run.learn_observe`` the convergence observatory
+(``telemetry/convergence.py``) watches the simulated fleet: updates are
+simulation-local, so besides the aggregate's signals it attributes
+per-device norms (``device_skew``: ``conv_norm_median``, ``_p90``,
+``_anomalies``; an anomaly is a ``norm_anomaly`` in the health ledger) and
+per-home-class drift (``cohort_skew``) on the synchronous plane, and the
+aggregate's signals on the asynchronous planes.
+
 Departures from JAX: nothing is compiled, so there is no
 ``compile_counts`` (JAX's pad-to-fixed-width invariant has no object
-here); the convergence observatory (``run.learn_observe``) is refused
-naming ROADMAP.md Queue A item 10b.
+here).  JAX's observed chunk is a separate vmapped program; here the
+chunk loop itself keeps, under observation only, each device's update
+norm and the per-home-class f32 weighted sums (one bucket for a
+``from_learner`` fleet, which has no population), so without the flag
+the loop is the one it was.
 """
 
 from __future__ import annotations
@@ -52,7 +63,6 @@ import numpy as np
 import torch
 
 from colearn_federated_learning_tpu_torch import convert, telemetry
-from colearn_federated_learning_tpu_torch.comm import ITEM_OBS_REST
 from colearn_federated_learning_tpu_torch.fed import compression, programs
 from colearn_federated_learning_tpu_torch.fed import setup as setup_lib
 from colearn_federated_learning_tpu_torch.fed import strategies
@@ -76,10 +86,6 @@ def _validate_fleet_config(config: ExperimentConfig) -> None:
             "fleetsim does not support dp/secure-agg hooks yet: their "
             "noise accounting and mask pairing assume the engine's "
             "single-program cohort; run the on-device engine")
-    if config.run.learn_observe:
-        raise NotImplementedError(
-            "fleetsim's convergence observatory (run.learn_observe) is not "
-            f"ported to the PyTorch package yet; see {ITEM_OBS_REST}")
 
 
 def _count_fault(kind: str) -> None:
@@ -116,6 +122,22 @@ class _Partial:
         torch._foreach_mul_(self.wsum, s_w)
         self.total_w = float(np.float32(self.total_w) * np.float32(s_w))
         self.loss_sum *= s_w
+
+
+class _Observed:
+    """What the chunk loop keeps under ``run.learn_observe`` besides the
+    sums: each cohort device's update norm (0 for a non-contributor, in
+    cohort order) and the per-home-class f32 weighted delta sums
+    (``class_wsum``, a leading class axis) and weights."""
+
+    __slots__ = ("norms", "class_wsum", "class_w")
+
+    def __init__(self, params: list, num_classes: int, device):
+        self.norms: list = []
+        self.class_wsum = [torch.zeros((num_classes,) + p.shape,
+                                       dtype=torch.float32, device=device)
+                           for p in params]
+        self.class_w = np.zeros(num_classes, np.float32)
 
 
 class FleetSim:
@@ -179,6 +201,11 @@ class FleetSim:
         if config.run.health_dir:
             self.health = telemetry.HealthLedger(config.run.health_dir,
                                                  "fleetsim")
+        # The convergence observatory, off by default: without it the
+        # chunk loop keeps nothing more and the records their keys.
+        self._learn = (telemetry.ConvergenceObservatory()
+                       if config.run.learn_observe else None)
+        self._population = None           # set by from_population
         self._price_wire()
         reg = telemetry.get_registry()
         reg.gauge("fleetsim.devices").set(self.num_devices)
@@ -293,6 +320,7 @@ class FleetSim:
             device=device,
         )
         sim._traffic = traffic
+        sim._population = population
         return sim
 
     @classmethod
@@ -354,7 +382,9 @@ class FleetSim:
 
     # ------------------------------------------------------------ chunks --
     def _train_chunk(self, params: list, ids: np.ndarray, round_idx: int,
-                     budgets: np.ndarray, keep: np.ndarray) -> _Partial:
+                     budgets: np.ndarray, keep: np.ndarray,
+                     obs: Optional[_Observed] = None,
+                     classes: Optional[np.ndarray] = None) -> _Partial:
         """One chunk's training and weighting: every device of ``ids``
         runs the engine's local update from ``params`` in order, and its
         update joins the chunk's running weighted sum as in
@@ -362,7 +392,9 @@ class FleetSim:
         or delayed past its whole deadline) is skipped, since it would run
         no step and add nothing.  The engine's simulated stragglers
         (``straggler_prob``), keyed on the global device ids, cap
-        ``budgets`` from below."""
+        ``budgets`` from below.  With ``obs`` (under observation) each
+        device's update norm and its weighted delta in its home class's
+        row (``classes``) are kept too."""
         fed = self.config.fed
         dev = self.device
         if fed.straggler_prob > 0.0:
@@ -371,6 +403,12 @@ class FleetSim:
         lr_scale = strategies.lr_scale_for_round(fed, round_idx)
         part = _Partial(params, dev)
         run = [j for j in range(len(ids)) if budgets[j] > 0]
+        if obs is not None:
+            # Every device's norm, 0 until it contributes; kept in
+            # cohort order.
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            at = len(obs.norms)
+            obs.norms.extend([zero] * len(ids))
         if not run:
             return part
         x, y, counts = self._shard_fn(ids[run])
@@ -388,8 +426,14 @@ class FleetSim:
                            and keep[j])
             weight = float(res.num_examples) if contrib else 0.0
             if contrib:
-                torch._foreach_add_(part.wsum,
-                                    torch._foreach_mul(res.delta, weight))
+                wd = torch._foreach_mul(res.delta, weight)
+                torch._foreach_add_(part.wsum, wd)
+                if obs is not None:
+                    c = int(classes[j])
+                    torch._foreach_add_([w[c] for w in obs.class_wsum], wd)
+                    obs.class_w[c] += np.float32(weight)
+                    obs.norms[at + j] = torch.stack(
+                        torch._foreach_norm(res.delta)).square().sum().sqrt()
             part.total_w += weight
             part.loss_sum += res.mean_loss * weight
             part.n_comp += int(contrib)
@@ -491,6 +535,13 @@ class FleetSim:
             padded = max(chunk, ((n + chunk - 1) // chunk) * chunk)
             params = list(self.server_state.params.values())
             acc = _Partial(params, self.device)
+            obs = classes = None
+            if self._learn is not None:
+                pop = self._population
+                obs = _Observed(params, pop.spec.num_classes if pop else 1,
+                                self.device)
+                classes = (pop.home_classes(ids) if pop is not None
+                           else np.zeros(n, np.int32))
             with self.tracer.span("train_chunks", round=r, cohort=n,
                                   chunks=padded // chunk):
                 if n:
@@ -502,10 +553,15 @@ class FleetSim:
                             sl = slice(lo, min(lo + chunk, n))
                             acc.fold(self._train_chunk(
                                 params, ids[sl], r, budgets[sl],
-                                keep_w[sl]))
-            with self.tracer.span("server_update", round=r):
+                                keep_w[sl], obs,
+                                None if classes is None else classes[sl]))
+            with self.tracer.span("server_update", round=r) as up_sp:
                 metrics = self._finish(acc)
                 out = {k: float(v) for k, v in metrics.items()}
+                conv_sig = None
+                if obs is not None:
+                    conv_sig = self._learn_round_feed(r, ids, acc.wsum,
+                                                      up_sp, obs)
                 self._sync()
 
         n_trained = int(trains.sum())
@@ -521,6 +577,9 @@ class FleetSim:
             bytes_up_est=bytes_up,
             **fstats,
         )
+        if conv_sig:
+            # The conv_* keys only under learn_observe.
+            out.update(conv_sig)
         if self.gather_avoided_bytes:
             # Key present only under a sharded server (tp_size > 1): one
             # broadcast encode per round, one avoidance charge.
@@ -549,6 +608,52 @@ class FleetSim:
         reg.histogram("fleetsim.round_time_s").observe(out["round_time_s"])
         self.history.append(out)
         return out
+
+    def _learn_round_feed(self, r: int, ids: np.ndarray, mean_delta: list,
+                          span, obs: _Observed) -> Optional[dict]:
+        """The round's learning signals: the aggregate's norm, cosine and
+        trend from the observatory, the per-device skew (an anomalous
+        norm is a ``norm_anomaly`` in the health ledger), the per-cohort
+        drift (with a population), the span's attributes and the
+        ``learn.*`` export; returns the record's ``conv_*`` dict."""
+        from colearn_federated_learning_tpu_torch.telemetry import (
+            convergence)
+
+        sig = self._learn.observe(mean_delta, lr=self.config.fed.server_lr)
+        if sig is None:
+            return None
+        if obs.norms:
+            norms = torch.stack(obs.norms).cpu().numpy()
+            contributors = norms > 0.0
+            if contributors.any():
+                sk = convergence.device_skew(norms[contributors])
+                sig["conv_norm_median"] = round(sk["median"], 8)
+                sig["conv_norm_p90"] = round(sk["p90"], 8)
+                sig["conv_norm_anomalies"] = len(sk["anomalies"])
+                if self.health is not None and sk["anomalies"]:
+                    cids = ids[contributors]
+                    for idx in sk["anomalies"]:
+                        self.health.record(str(int(cids[idx])), round=r,
+                                           norm_anomaly=1)
+            if self._population is not None:
+                sig.update(convergence.cohort_skew(
+                    obs.class_wsum, obs.class_w, mean_delta))
+        span.attrs["conv_update_norm"] = sig["conv_update_norm"]
+        span.attrs["conv_trend"] = sig["conv_trend"]
+        if "conv_cos_prev" in sig:
+            span.attrs["conv_cos_prev"] = sig["conv_cos_prev"]
+        self._learn.export_metrics(telemetry.get_registry(), sig)
+        return sig
+
+    def _learn_async(self, mean_delta: list, reg) -> Optional[dict]:
+        """An asynchronous aggregation's signals (the aggregate's only,
+        as JAX's), exported to ``learn.*``; None when off."""
+        if self._learn is None:
+            return None
+        sig = self._learn.observe(mean_delta, lr=self.config.fed.server_lr)
+        if sig:
+            self._learn.export_metrics(reg, sig)
+        return sig
 
     def fit(self, rounds: int, log_fn=None) -> list[dict]:
         for _ in range(rounds):
@@ -808,6 +913,7 @@ class FleetSim:
                 lambda v: float((1.0 + (version - v)) ** -staleness_exponent))
             metrics = self._finish(acc)
             out = {k: float(x) for k, x in metrics.items()}
+            conv_sig = self._learn_async(acc.wsum, reg)
             version += 1
             ring[version] = self._snapshot()
             for v in [v for v in ring if v < version - max_staleness]:
@@ -839,6 +945,8 @@ class FleetSim:
             if prune_after > 0:
                 rec["pruned"] = len(pruned)
                 rec["pruned_total"] = pruned_total
+            if conv_sig:
+                rec.update(conv_sig)
             reg.counter("fleetsim.async_aggregations_total").inc()
             self.history.append(rec)
             if log_fn is not None:
@@ -1057,6 +1165,7 @@ class FleetSim:
             acc.scale(s_w)
             metrics = self._finish(acc)
             out = {k: float(x) for k, x in metrics.items()}
+            conv_sig = self._learn_async(acc.wsum, reg)
             for dd, dv in batch:
                 stale_streak.pop(dd, None)
                 dtau = version - dv
@@ -1104,6 +1213,8 @@ class FleetSim:
             if prune_after > 0:
                 rec["pruned"] = len(pruned)
                 rec["pruned_total"] = pruned_total
+            if conv_sig:
+                rec.update(conv_sig)
             reg.counter("fleetsim.async_aggregations_total").inc()
             self.history.append(rec)
             if log_fn is not None:

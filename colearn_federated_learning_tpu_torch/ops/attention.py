@@ -14,6 +14,10 @@ wrapper, under a lock: threads that share the card (the socket plane's
 in-process workers) bump it together.  :class:`FlashAttention` ties the three together for autograd
 (the counterpart of the JAX ``_flash`` custom_vjp); Δ = rowsum(dO ⊙ O)
 stays a plain torch op, as it is plain XLA in the reference.
+:func:`count_flops` tallies the three kernels' FLOPs by formula while a
+FLOP count is open (``fed/engine.round_cost_analysis``): a
+``FlopCounterMode`` cannot see into a kernel launch, and the plain
+versions run out of its sight, so the CPU and the card count alike.
 
 Tensors keep the JAX layout: q, k, v and O are (B, L, H, D); lse and Δ
 are (B, Lq, H) float32; the key bias is (B, Lk) float32 with 0 for a valid
@@ -22,6 +26,7 @@ key and -1e30 for a masked one.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import threading
@@ -42,6 +47,47 @@ def reset_launches() -> None:
     with _LAUNCHES_LOCK:
         for name in launches:
             launches[name] = 0
+
+
+class FlopTally:
+    """The attention FLOPs counted by formula while :func:`count_flops`
+    is open."""
+
+    def __init__(self):
+        self.flops = 0
+
+
+_TALLY: Optional[FlopTally] = None
+
+
+@contextlib.contextmanager
+def count_flops():
+    """Tally the flash kernels' FLOPs by formula over (B, Lq, Lk, H, D):
+    K1 4·B·H·Lq·Lk·D (QKᵀ and PV), K2 6·… (QKᵀ, dO·Vᵀ, dS·K) and K3 8·…
+    (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q), unmasked and not halved under a causal
+    mask.  Meanwhile the plain versions run outside any dispatch mode, so
+    a ``FlopCounterMode`` around the same code counts the wrappers
+    nothing on the CPU, as it counts nothing for a kernel launch.  The
+    tally is process-wide, as ``launches`` is: the autograd engine runs a
+    card's backward on threads of its own."""
+    global _TALLY
+    prev, _TALLY = _TALLY, FlopTally()
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = prev
+
+
+def _tally(factor: int, q, k) -> contextlib.AbstractContextManager:
+    """Add ``factor``·B·H·Lq·Lk·D to the open tally, and hide what runs
+    inside the returned context from the dispatch modes."""
+    if _TALLY is None:
+        return contextlib.nullcontext()
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    B, lq, H, D = q.shape
+    _TALLY.flops += factor * B * H * lq * k.shape[1] * D
+    return _disable_current_modes()
 
 
 def key_bias(kv_mask: Optional[torch.Tensor], batch: int, lk: int,
@@ -214,6 +260,11 @@ def _launch(fn, name, pointers, q, dims, causal):
 
 def flash_forward(q, k, v, bias, causal: bool = False):
     """K1: (O, lse) for (B, L, H, D) q/k/v and a (B, Lk) key bias."""
+    with _tally(4, q, k):
+        return _flash_forward(q, k, v, bias, causal)
+
+
+def _flash_forward(q, k, v, bias, causal):
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, bias, causal)
     dims = _check(q, k, v, bias)
@@ -227,6 +278,11 @@ def flash_forward(q, k, v, bias, causal: bool = False):
 
 def flash_backward_dq(q, k, v, bias, dout, lse, delta, causal: bool = False):
     """K2: dQ from the saved lse and Δ = rowsum(dO ⊙ O)."""
+    with _tally(6, q, k):
+        return _flash_backward_dq(q, k, v, bias, dout, lse, delta, causal)
+
+
+def _flash_backward_dq(q, k, v, bias, dout, lse, delta, causal):
     if q.device.type == "cpu":
         return flash_backward_dq_reference(q, k, v, bias, dout, lse, delta,
                                            causal)
@@ -240,6 +296,11 @@ def flash_backward_dq(q, k, v, bias, dout, lse, delta, causal: bool = False):
 def flash_backward_dkv(q, k, v, bias, dout, lse, delta,
                        causal: bool = False):
     """K3: (dK, dV) from the saved lse and Δ."""
+    with _tally(8, q, k):
+        return _flash_backward_dkv(q, k, v, bias, dout, lse, delta, causal)
+
+
+def _flash_backward_dkv(q, k, v, bias, dout, lse, delta, causal):
     if q.device.type == "cpu":
         return flash_backward_dkv_reference(q, k, v, bias, dout, lse, delta,
                                             causal)

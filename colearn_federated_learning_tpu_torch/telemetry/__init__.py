@@ -9,17 +9,23 @@ Public surface:
   counters, gauges, quantile histograms;
 - :mod:`.export` — Chrome-trace/Perfetto JSON writer/loader and the
   ``trace-summary`` text breakdown;
-- :class:`RoundTelemetry` — the per-round span-trace window;
+- :class:`RoundTelemetry` — the per-round lifecycle shared by the span
+  tracer window and the ``torch.profiler`` window;
+- :mod:`.runtime` — live export (Prometheus endpoint, JSONL event stream,
+  the ``top`` renderer) and the card's memory gauges;
 - :mod:`.health` — durable per-device health ledger (straggler
   attribution, latency sketches, the ``health`` renderer);
 - :mod:`.arrival` — seeded-EWMA arrival-rate estimation (fleet +
   per-device), a verbatim copy of JAX's for the asynchronous plane;
 - :mod:`.flight` — the crash flight recorder (heartbeat-rewritten
   ``flight_<pid>.json`` dumps in JAX's ``colearn-flight-v1`` format) and
-  the ``postmortem`` report that merges them with the round WAL.
+  the ``postmortem`` report that merges them with the round WAL;
+- :mod:`.convergence` — the learning-health plane: per-round update-norm
+  / cosine / trend signals from the aggregate, per-cohort drift
+  attribution, and the ``converge`` report.
 
-Not ported yet: JAX's ``runtime`` (exporter, event log, XLA cost
-analysis) and ``convergence`` — ROADMAP.md Queue A item 10b.
+JAX's ``CompileTracker`` and ``compiled_cost`` have no counterpart: the
+port compiles nothing (``runtime``'s docstring).
 """
 
 from colearn_federated_learning_tpu_torch.telemetry.tracer import (  # noqa: F401
@@ -48,6 +54,12 @@ from colearn_federated_learning_tpu_torch.telemetry.export import (  # noqa: F40
 from colearn_federated_learning_tpu_torch.telemetry.lifecycle import (  # noqa: F401
     RoundTelemetry,
 )
+from colearn_federated_learning_tpu_torch.telemetry.runtime import (  # noqa: F401
+    EventLog,
+    MetricsExporter,
+    prometheus_text,
+    sample_device_memory,
+)
 from colearn_federated_learning_tpu_torch.telemetry.health import (  # noqa: F401
     DeviceHealth,
     HealthLedger,
@@ -59,6 +71,12 @@ from colearn_federated_learning_tpu_torch.telemetry.health import (  # noqa: F40
 )
 from colearn_federated_learning_tpu_torch.telemetry.arrival import (  # noqa: F401
     ArrivalEstimator,
+)
+from colearn_federated_learning_tpu_torch.telemetry.convergence import (  # noqa: F401,E501
+    ConvergenceObservatory,
+    cohort_skew,
+    device_skew,
+    render_convergence_report,
 )
 from colearn_federated_learning_tpu_torch.telemetry.flight import (  # noqa: F401
     FlightRecorder,

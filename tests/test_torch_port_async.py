@@ -451,7 +451,7 @@ def test_refusals_are_jax_refusals(fed, run_kw, kw):
 @pytest.mark.parametrize("fed,run_kw,item", [
     (dict(lora_rank=4), {}, "no LoRA branch"),
     ({}, dict(checkpoint_dir="ck"), None),
-    ({}, dict(learn_observe=True), "item 10b"),
+    ({}, dict(learn_observe=True), None),
     ({}, dict(tp_size=2), "sharded")])
 def test_port_refusals_name_their_items(fed, run_kw, item, monkeypatch,
                                        tmp_path):
@@ -461,13 +461,17 @@ def test_port_refusals_name_their_items(fed, run_kw, item, monkeypatch,
     until the checkpoint plane was ported, is taken (nothing is written
     before a save); ``tp_size`` 2, refused on a host with two cards until
     the sharded server was ported, shards the server state over two of
-    the CPU's forced host positions, with no fallback counted."""
+    the CPU's forced host positions, with no fallback counted;
+    ``learn_observe``, refused until item 10b was ported, builds the
+    convergence observatory (``tests/test_torch_port_convergence.py``
+    holds its records to JAX's)."""
     if item is None:
         monkeypatch.chdir(tmp_path)
         _, tcfg = configs(run_kw=run_kw, **fed)
         with broker.MessageBroker() as b:
-            AsyncFederatedCoordinator(tcfg, b.host, b.port,
-                                      device="cpu").close()
+            c = AsyncFederatedCoordinator(tcfg, b.host, b.port, device="cpu")
+            c.close()
+        assert (c._learn is not None) == bool(run_kw.get("learn_observe"))
         assert list(tmp_path.iterdir()) == []
         return
     _, tcfg = configs(run_kw=run_kw, **fed)

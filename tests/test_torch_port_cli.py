@@ -1,14 +1,13 @@
 """The port's command line: ``python -m colearn_federated_learning_tpu_torch
 .cli train``.  Its overrides reach the config as the JAX command line's
 do, a run on the CPU gives the round of ``FederatedLearner`` called
-directly, a flag of a feature not ported yet exits non-zero naming its
-ROADMAP item, and the default backend is the card, which raises without
-one.  The parser accepts every flag of the JAX ``train``, ``init``,
+directly, a command not ported yet (``lint``, ``sentinel``) exits
+non-zero naming its ROADMAP item, and the default backend is the card,
+which raises without one.  The parser accepts every flag of the JAX ``train``, ``init``,
 ``aggregate``, ``eval``, ``bench``, ``broker``, ``worker``,
 ``aggregator``, ``coordinate``, ``chaos`` and ``postmortem`` parsers
 (the socket plane's flags are parsed into the
-config as JAX does; those of paths not ported yet exit 2 naming their
-ROADMAP item); the file plane's flags
+config as JAX does); the file plane's flags
 (``--role client``, ``--compress*``, ``--topk-fraction``,
 ``--min-cohort-fraction`` and the client's files) do in ``--role sim``
 what they do in JAX, which is nothing beyond the config; the
@@ -77,16 +76,33 @@ def test_overrides_reach_the_config_as_in_jax(extra):
     assert ours.run.log_every == theirs.run.log_every
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--personalize-steps", "2"], "item 10b"),
-    (["--detection-eval"], "item 10b"),
-    (["--profile-dir", "pr"], "item 10b"), (["--learn-observe"], "item 10b")])
-def test_unported_override_exits_naming_its_roadmap_item(flag, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["train", "--backend", "cpu", *TINY, *flag])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flag[0] in err and f"ROADMAP.md Queue A {item}" in err
+@pytest.mark.parametrize("flag,report", [
+    (["--personalize-steps", "2"], "personalization_gain"),
+    (["--detection-eval"], "macro_f1"),
+    (["--profile-dir", "pr"], None), (["--learn-observe"], None)])
+def test_unported_override_exits_naming_its_roadmap_item(flag, report,
+                                                         capsys, tmp_path,
+                                                         monkeypatch):
+    """The ``train`` flags refused until item 10b was ported now run as
+    JAX's: the evaluation flags dump their report on stderr after the
+    records, ``--profile-dir`` writes one trace and changes nothing of
+    the run, and ``--learn-observe`` is a no-op in ``train``, as in JAX
+    (its ``conv_*`` keys are the coordinators' and fleetsim's)."""
+    monkeypatch.chdir(tmp_path)
+    # The profiler's window opens at round 1: give it one.
+    rounds = ["--rounds", "2"] if flag[0] == "--profile-dir" else []
+    plain = cli.main(["train", "--backend", "cpu", *TINY, *rounds])
+    capsys.readouterr()
+    out = cli.main(["train", "--backend", "cpu", *TINY, *rounds, *flag])
+    err = capsys.readouterr().err.strip().splitlines()
+    assert out["acc_at_round"] == plain["acc_at_round"]
+    assert out["final_loss"] == plain["final_loss"]
+    rec = json.loads(err[0])
+    assert not any(k.startswith("conv_") for k in rec)
+    if report is not None:
+        assert report in json.loads(err[-1])
+    elif flag[0] == "--profile-dir":
+        assert len(list((tmp_path / "pr").iterdir())) == 1
 
 
 @pytest.mark.parametrize("cmd,flag,rest", [
@@ -322,13 +338,21 @@ def test_file_plane_flags_in_sim_run_the_plain_round(capsys):
     assert with_flags["acc_at_round"] == plain["acc_at_round"]
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["eval", "--global-model", "g.npz", "--detection-eval"], "item 10")])
-def test_file_plane_refusals_name_their_items(argv, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main([argv[0], "--backend", "cpu", *argv[1:]])
-    assert exc.value.code == 2
-    assert f"ROADMAP.md Queue A {item}" in capsys.readouterr().err
+@pytest.mark.parametrize("argv,keys", [
+    (["eval", "--global-model", "g.npz", "--detection-eval"],
+     ["detection_rate", "false_alarm_rate", "macro_f1",
+      "per_class_f1"])])
+def test_file_plane_refusals_name_their_items(argv, keys, capsys, tmp_path,
+                                              monkeypatch):
+    """``eval --detection-eval``, refused until item 10b was ported, adds
+    JAX's detection view (``tests/test_torch_port_detection.py`` holds
+    its values to JAX's)."""
+    monkeypatch.chdir(tmp_path)
+    cli.main(["init", "--backend", "cpu", *TINY, "--out", "g.npz"])
+    out = cli.main([argv[0], "--backend", "cpu", *TINY, *argv[1:]])
+    capsys.readouterr()
+    assert set(keys) <= set(out) and "accuracy" not in out
+    assert out["round"] == 0 and np.isfinite(out["eval_loss"])
 
 
 def test_file_plane_takes_the_tree_flags_as_jax(tmp_path, capsys):
@@ -367,17 +391,122 @@ def test_every_jax_flag_of_the_socket_plane_is_accepted(cmd):
     assert theirs and theirs <= ours, sorted(theirs - ours)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["coordinate", "--broker-port", "1", "--events-file", "e.jsonl"],
-     "item 10b"),
-    (["worker", "--broker-port", "1", "--client-id", "0", "--metrics-port",
-      "9"], "item 10b"),
-    (["broker", "--events-file", "e.jsonl"], "item 10b")])
-def test_socket_plane_refusals_name_their_items(argv, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(argv)
-    assert exc.value.code == 2
-    assert f"ROADMAP.md Queue A {item}" in capsys.readouterr().err
+def _served(argv, tmp_path, between=None):
+    """Run a serving command (``broker``, ``worker``) as a process with
+    ``--metrics-port 0 --events-file``: its announced exporter answers
+    ``/metrics``, and SIGTERM (after ``between()``) stops it with exit 0
+    after a ``stop`` event.  Returns (exit code, event kinds, the
+    /metrics body)."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import urllib.request
+
+    import time
+
+    events = tmp_path / "events.jsonl"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    err_path = tmp_path / "stderr.txt"
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "colearn_federated_learning_tpu_torch.cli",
+             *argv, "--metrics-port", "0", "--events-file", str(events)],
+            stdout=subprocess.DEVNULL, stderr=err, env=env,
+            cwd=str(tmp_path))
+    try:
+        port, deadline = None, time.monotonic() + 60
+        while port is None and time.monotonic() < deadline:
+            for line in err_path.read_text().splitlines():
+                if line.startswith('{"event": "metrics_port"'):
+                    port = json.loads(line)["port"]
+            time.sleep(0.1)
+        assert port, "no metrics_port event"
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=10) as r:
+            body = r.read().decode()
+        if between is not None:
+            between()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+    kinds = [json.loads(ln)["event"] for ln in
+             events.read_text().splitlines()]
+    return code, kinds, body
+
+
+@pytest.mark.parametrize("argv,role", [
+    (["coordinate", "--events-file", "e.jsonl"], "coordinator"),
+    (["worker", "--client-id", "0", "--metrics-port", "9"], "worker0"),
+    (["broker", "--events-file", "e.jsonl"], "broker")])
+def test_socket_plane_refusals_name_their_items(argv, role, capsys, tmp_path,
+                                                monkeypatch):
+    """``--metrics-port`` and ``--events-file``, refused until item 10b
+    was ported, run on ``broker``, ``worker`` and ``coordinate``: the
+    exporter serves while the process does, and the event log holds a
+    ``start`` line, the coordinator's ``round`` lines and a ``stop``
+    line (JAX's broker writes the ``stop``; the port's every role)."""
+    from colearn_federated_learning_tpu_torch.comm.broker import (
+        MessageBroker)
+    from colearn_federated_learning_tpu_torch.comm.worker import DeviceWorker
+
+    monkeypatch.chdir(tmp_path)
+    with MessageBroker() as b:
+        base = ["--backend", "cpu", *TINY, "--broker-port", str(b.port)]
+        if argv[0] == "broker":
+            code, kinds, body = _served(["broker"], tmp_path)
+        elif argv[0] == "worker":
+            def enroll():
+                # A worker serves (and stops on SIGTERM) once it has a role.
+                from colearn_federated_learning_tpu_torch.comm.coordinator \
+                    import FederatedCoordinator
+
+                cfg = cli.config_from_args(cli.build_parser().parse_args(
+                    ["worker", *base, "--client-id", "0"]))
+                with FederatedCoordinator(cfg, b.host, b.port,
+                                          want_evaluator=False,
+                                          device="cpu") as coord:
+                    coord.enroll(min_devices=1, timeout=60)
+                    time.sleep(1.0)
+
+            import time
+
+            code, kinds, body = _served(["worker", *base, *argv[1:3]],
+                                        tmp_path, between=enroll)
+        else:
+            cfg = cli.config_from_args(cli.build_parser().parse_args(
+                ["coordinate", *base]))
+            workers = [DeviceWorker(cfg, i, b.host, b.port,
+                                    device="cpu").start() for i in range(2)]
+            try:
+                rec = cli.main(["coordinate", *base, "--min-devices", "2",
+                                "--no-evaluator", "--metrics-port", "0",
+                                "--learn-observe", *argv[1:]])
+            finally:
+                for w in workers:
+                    w.stop()
+            err = capsys.readouterr().err.splitlines()
+            port = json.loads(err[0])["port"]
+            kinds = [json.loads(ln)["event"] for ln in
+                     (tmp_path / "e.jsonl").read_text().splitlines()]
+            assert {"conv_update_norm", "conv_trend"} <= set(rec)
+            import urllib.error
+            import urllib.request
+
+            with pytest.raises(urllib.error.URLError):   # closed on exit
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                       timeout=5)
+            code, body = 0, "colearn_"
+    assert code == 0
+    assert kinds[0] == "start" and kinds[-1] == "stop"
+    if argv[0] == "coordinate":
+        assert kinds == ["start", "round", "stop"]
+    assert "colearn_" in body or body == ""
 
 
 # The asynchronous coordinator's flags, refused until it was ported: each
@@ -421,7 +550,6 @@ def _jax_args(argv):
 def test_async_flags_are_accepted_as_jax(argv):
     ours = cli.build_parser().parse_args([*argv, "--backend", "cpu"])
     theirs = _jax_args(argv)
-    cli.refuse_unported(ours)              # nothing refuses them
     for dest in ASYNC_DESTS + ("agg_buffer_interval_s",):
         if hasattr(theirs, dest):
             assert getattr(ours, dest) == getattr(theirs, dest), dest
@@ -509,29 +637,44 @@ def test_configs_prints_the_jax_lines(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["top"], "item 10b"),
-    (["converge", "r.jsonl"], "item 10b"),
+    (["top", "--once", "--url", "http://127.0.0.1:1/snapshot.json"], None),
+    (["converge", "r.jsonl"], None),
     (["lint"], "item 17"),
     (["sentinel", "--root", "r"], "item 17")])
-def test_unported_commands_exit_naming_their_items(argv, item, capsys):
+def test_unported_commands_exit_naming_their_items(argv, item, capsys,
+                                                   tmp_path, monkeypatch):
+    """``lint`` and ``sentinel`` exit 2 naming item 17; ``top`` and
+    ``converge``, refused until item 10b was ported, run and exit with
+    JAX's codes (nothing to fetch: 1; nothing to read: 2)."""
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
-    assert exc.value.code == 2
     err = capsys.readouterr().err
+    if item is None:
+        assert exc.value.code == jax_cli.main(argv) != 0
+        assert f"colearn {argv[0]}: " in err
+        return
+    assert exc.value.code == 2
     assert f"ROADMAP.md Queue A {item} " in err and argv[0] in err
 
 
 def test_fleetsim_runs_where_it_was_refused(capsys):
     """``fleetsim`` was refused naming item 9b until the fleet simulator
     was ported: it now runs (``tests/test_torch_port_fleetsim.py`` holds
-    it to JAX's), and only ``--learn-observe`` is refused, naming 10b."""
+    it to JAX's), and so does ``--learn-observe`` since item 10b
+    (``tests/test_torch_port_convergence.py``)."""
     out = cli.main(["fleetsim", "--devices", "64", "--cohort", "8",
                     "--rounds", "1", "--chunk", "8", "--backend", "cpu"])
     assert out["rounds"] == 1 and out["clients_trained"] == 8
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["fleetsim", "--devices", "64", "--learn-observe"])
-    assert exc.value.code == 2
-    assert "ROADMAP.md Queue A item 10b " in capsys.readouterr().err
+    observed = cli.main(["fleetsim", "--devices", "64", "--cohort", "8",
+                         "--rounds", "1", "--chunk", "8", "--backend",
+                         "cpu", "--learn-observe"])
+    assert observed == {**out, "rounds_per_sec": observed["rounds_per_sec"],
+                        "clients_per_sec": observed["clients_per_sec"]}
+    recs = [json.loads(ln) for ln in capsys.readouterr().err.splitlines()
+            if ln.startswith('{"train_loss"')]
+    assert not any(k.startswith("conv_") for k in recs[0])
+    assert "conv_cohort_skew" in recs[1]
 
 
 # ``chaos --ckpt`` was refused naming item 15 (the three cases above)

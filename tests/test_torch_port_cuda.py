@@ -8,8 +8,10 @@ fold (flat, through a two-aggregator tree, and one asynchronous
 aggregation) against the host fold, a traced engine round's spans
 against its record, a LoRA factor-only update against the CPU, the
 fold at the factor layout and at the sharded server's tp = 2 slot layout
-against its plain version, and checkpoints of
-card tensors and an engine resume bit for bit, on the card.  Marked
+against its plain version, checkpoints of card tensors and an engine
+resume bit for bit, the memory gauges, the profiler window's kernel
+events, the FLOP count and the personalized evaluation against the CPU,
+on the card.  Marked
 ``cuda``: without a CUDA device every
 test here skips.  On a machine with the card (no JAX needed):
 
@@ -384,8 +386,9 @@ def test_fit_records_on_the_card_carry_memory_and_eval_time(cuda):
 def test_traced_round_on_the_card_times_the_card(cuda, tmp_path):
     """A traced engine round on the card: the trace holds the round's
     spans, ``client_update`` is ``phase_update_s`` to the trace's
-    microsecond, and the traced records carry the untraced keys, with the
-    same losses (tracing adds no work to the round)."""
+    microsecond, and the traced records carry the untraced keys and
+    ``flops_per_round``, with the same losses (tracing adds no work to
+    the round)."""
     from colearn_federated_learning_tpu_torch import telemetry
     from colearn_federated_learning_tpu_torch.fed import FederatedLearner
 
@@ -401,7 +404,10 @@ def test_traced_round_on_the_card_times_the_card(cuda, tmp_path):
         "client_update", "evaluate", "round", "sync_metrics"]
     update = next(s for s in spans if s.name == "client_update")
     assert abs(update.duration_s - hist[0]["phase_update_s"]) < 1e-6
-    assert [sorted(r) for r in hist] == [sorted(r) for r in plain]
+    # Traced records carry the round's FLOPs too, as JAX's do.
+    assert [sorted(set(r) - {"flops_per_round"}) for r in hist] == [
+        sorted(r) for r in plain]
+    assert all(r["flops_per_round"] > 0 for r in hist)
     assert [r["train_loss"] for r in hist] == [r["train_loss"]
                                                for r in plain]
 
@@ -1025,3 +1031,115 @@ def test_engine_resume_on_the_card_is_bitwise(cuda, tmp_path):
     assert len(resumed.history) == 3
     for name, t in straight.params.items():
         assert torch.equal(t, resumed.params[name]), name
+
+
+def test_memory_gauges_read_the_cards_allocator(cuda):
+    """``sample_device_memory`` on the card: the allocator's bytes in use
+    (at least a fresh 64 MiB tensor's), its peak and the card's total,
+    set as the ``runtime.hbm_*`` gauges; without a device argument it
+    reads the current card once CUDA is initialised."""
+    from colearn_federated_learning_tpu_torch.telemetry import runtime
+    from colearn_federated_learning_tpu_torch.telemetry.registry import (
+        MetricsRegistry)
+
+    x = torch.empty(16 * 2**20, dtype=torch.float32, device=cuda)
+    reg = MetricsRegistry()
+    stats = runtime.sample_device_memory(registry=reg, device=cuda)
+    assert stats["bytes_in_use"] >= x.numel() * 4
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+    assert stats["bytes_limit"] == torch.cuda.mem_get_info(cuda)[1]
+    snap = reg.snapshot()
+    assert snap["runtime.hbm_bytes_in_use"] == stats["bytes_in_use"]
+    assert snap["runtime.hbm_bytes_limit"] == stats["bytes_limit"]
+    assert snap["runtime.hbm_peak_bytes_in_use"] == \
+        stats["peak_bytes_in_use"]
+    assert runtime.sample_device_memory(registry=MetricsRegistry())[
+        "bytes_limit"] == stats["bytes_limit"]
+    assert runtime.sample_device_memory(device="cpu") == {}
+    del x
+
+
+def _bert_engine_config(**run_kw):
+    from colearn_federated_learning_tpu_torch.utils import config
+
+    return config.ExperimentConfig(
+        data=config.DataConfig(dataset="agnews_tiny", num_clients=4,
+                               partition="iid"),
+        model=dataclasses.replace(_bert_small(False), vocab_size=2000),
+        fed=config.FedConfig(strategy="fedavg", rounds=3, cohort_size=2,
+                             local_steps=2, batch_size=8, lr=1e-3,
+                             momentum=0.0, local_optimizer="adam"),
+        run=config.RunConfig(name="card_bert", **run_kw))
+
+
+def test_profiler_window_holds_the_cards_flash_kernels(cuda, tmp_path):
+    """``profile_dir`` on the card: one Chrome trace of rounds 1..2 whose
+    CUDA kernel events hold K1, K2 and K3 once per block and step of
+    those rounds, as the launch counters do."""
+    import json
+    import math
+    import os
+
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+
+    cfg = _bert_engine_config(profile_dir=str(tmp_path), eval_every=10)
+    ln = FederatedLearner(cfg, device=cuda)
+    ln.fit(rounds=1)                    # round 0: outside the window
+    A.reset_launches()
+    ln.fit(rounds=2)                    # rounds 1 and 2
+    files = os.listdir(tmp_path)
+    assert len(files) == 1 and "_profile_rounds1-2_" in files[0]
+    with open(os.path.join(tmp_path, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    count = {}
+    for ev in events:
+        if ev.get("cat") != "kernel":
+            continue
+        for name in ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
+                     "flash_dkv_bf16_kernel"):
+            if name in ev.get("name", ""):
+                count[name] = count.get(name, 0) + 1
+    steps = 2 * ln.cohort_size * ln.num_steps
+    depth = cfg.model.depth
+    # The window closes after round 2's device work, before its
+    # evaluation (JAX's order): K1 holds the training steps alone, and
+    # the evaluation's launches are the counters' difference.
+    assert count == {"flash_fwd_bf16_kernel": depth * steps,
+                     "flash_dq_bf16_kernel": depth * steps,
+                     "flash_dkv_bf16_kernel": depth * steps}
+    evals = math.ceil(len(ln.dataset.x_test) / 64)
+    assert A.launches["flash_forward"] == depth * (steps + evals)
+    assert count["flash_dq_bf16_kernel"] == A.launches["flash_backward_dq"]
+
+
+def test_flops_per_round_on_the_card_equal_the_cpus(cuda):
+    """The FLOP count is the counter's on the matmuls plus the flash
+    kernels' formula: the same on the card as on the CPU."""
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+
+    cfg = _bert_engine_config()
+    got = FederatedLearner(cfg, device=cuda).round_cost_analysis()
+    want = FederatedLearner(cfg, device="cpu").round_cost_analysis()
+    assert got == want
+
+
+def test_personalized_evaluation_on_the_card_matches_the_cpu(cuda):
+    """The f32 MLP: one round, then the fine-tune-then-score probe on the
+    card and on the CPU with the same draws.  The per-client accuracies
+    are equal, or off by one example on at most one client (cuBLAS and
+    the CPU round the f32 products differently, which can move a
+    boundary example); the example counts are equal."""
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+
+    reps = []
+    for device in (cuda, "cpu"):
+        ln = FederatedLearner(_mlp_config(), device=device)
+        ln.run_round()
+        reps.append(ln.evaluate_personalized(steps=3))
+    card, cpu = reps
+    n = cpu["num_eval_examples"]
+    np.testing.assert_array_equal(card["num_eval_examples"], n)
+    assert card["num_clients_evaluated"] == cpu["num_clients_evaluated"] == 8
+    for key in ("per_client_global_acc", "per_client_personalized_acc"):
+        off = np.rint(np.abs(card[key] - cpu[key]) * n).astype(int)
+        assert off.max() <= 1 and (off > 0).sum() <= 1, (key, off)

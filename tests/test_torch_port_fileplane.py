@@ -324,8 +324,11 @@ def test_refusals_match_jax(tmp_path):
     with pytest.raises(NotImplementedError, match="engine-only"):
         offline.aggregate_updates(tcfg, g0, [g0], str(tmp_path / "g1.npz"),
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        offline.evaluate_global(tcfg, g0, detection=True, device="cpu")
+    # The detection view, refused until item 10b was ported, has JAX's
+    # keys (tests/test_torch_port_detection.py holds its values).
+    ours = offline.evaluate_global(tcfg, g0, detection=True, device="cpu")
+    theirs = jax_offline.evaluate_global(_configs()[0], g0, detection=True)
+    assert sorted(ours) == sorted(theirs)
 
 
 def test_fixed_clip_dp_update_is_clipped_noised_and_uniform(tmp_path):

@@ -16,7 +16,8 @@ case for case with JAX's ``tests/test_fleetsim.py`` where a case applies.
 - Byte estimates equal JAX's for every uplink and downlink scheme, LoRA
   factor frames and tp_size 2; the validator's refusals; the metric
   catalog; the ``fleetsim`` command's summary keys (JAX's less
-  ``compiles``) and its refusal of ``--learn-observe`` (item 10b).
+  ``compiles``), and ``--learn-observe``, refused until item 10b was
+  ported (``tests/test_torch_port_convergence.py`` holds it to JAX's).
 - ``fit_async`` (fixed K, ``auto``, pruning, observe) and the two-tier
   tree: every event-count field equal to JAX's (the schedule is host
   numpy drawn in JAX's order), the losses and weights within f32 bounds.
@@ -544,8 +545,18 @@ def test_fleetsim_rejects_engine_only_configs(bad):
 
 
 def test_fleetsim_refuses_learn_observe_naming_item_10b():
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        make_fleet(config=fleet_config(tc, run_kw=dict(learn_observe=True)))
+    """``learn_observe`` was refused naming item 10b until the observatory
+    was ported: the fleet now stamps JAX's ``conv_*`` keys, and only
+    them, on each round."""
+    plain = make_fleet(num_devices=64, cohort=16, chunk=8).fit(2)
+    seen = make_fleet(num_devices=64, cohort=16, chunk=8, config=fleet_config(
+        tc, run_kw=dict(learn_observe=True))).fit(2)
+    for a, b in zip(seen, plain):
+        assert {k for k in a if k.startswith("conv_")} >= {
+            "conv_update_norm", "conv_norm_p90", "conv_cohort_skew"}
+        assert {k: v for k, v in a.items()
+                if not k.startswith("conv_") and k != "round_time_s"} == {
+            k: v for k, v in b.items() if k != "round_time_s"}
 
 
 def test_fleetsim_without_a_card_raises(monkeypatch):
@@ -642,10 +653,15 @@ def test_cli_fleetsim_writes_a_trace_and_counts_faults(tmp_path, capsys):
 
 
 def test_cli_fleetsim_refuses_learn_observe_naming_item_10b(capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["fleetsim", "--learn-observe", "--backend", "cpu"])
-    assert exc.value.code == 2
-    assert "ROADMAP.md Queue A item 10b " in capsys.readouterr().err
+    """``fleetsim --learn-observe``, refused naming item 10b until the
+    observatory was ported, runs: every record carries the ``conv_*``
+    keys, the second the cosine to the first."""
+    cli.main([*CLI_ARGS, "--learn-observe", "--backend", "cpu"])
+    recs = [json.loads(ln) for ln in capsys.readouterr().err.splitlines()
+            if ln.startswith('{"train_loss"')]
+    assert len(recs) == 2
+    assert all("conv_update_norm" in r for r in recs)
+    assert "conv_cos_prev" in recs[1] and "conv_cos_prev" not in recs[0]
 
 
 # --------------------------------------------------------- buffered async --

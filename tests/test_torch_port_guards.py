@@ -350,15 +350,15 @@ def _tiny_mlp(**run_kw):
 @pytest.mark.parametrize("run_kw,item", [
     (dict(checkpoint_dir="ckpt"), None),
     (dict(checkpoint_every=2), None),
-    (dict(profile_dir="prof"), "item 10b")])
+    (dict(profile_dir="prof"), None)])
 def test_checkpoint_and_trace_options_are_refused(run_kw, item, tmp_path,
                                                   monkeypatch):
-    """The JAX learner's ``fit`` writes checkpoints and a profiler window;
-    the port's refuses the profiler window, naming the item that ports
-    it, before it writes anything, and so do the learners built on it.
+    """The JAX learner's ``fit`` writes checkpoints and a profiler window.
     The checkpoint options, refused until the checkpoint plane was
-    ported, are taken, and nothing is written before ``fit`` saves.  (The
-    span-trace window is ported: see the test below.)"""
+    ported, and the profiler window, refused until item 10b was ported,
+    are taken by the port's learners, and nothing is written before
+    ``fit`` saves or profiles (``tests/test_torch_port_profile.py``).
+    (The span-trace window is ported: see the test below.)"""
     from colearn_federated_learning_tpu_torch.fed import HierarchicalLearner
 
     monkeypatch.chdir(tmp_path)

@@ -520,7 +520,7 @@ def test_cli_broker_worker_coordinate_processes():
     (dict(compress_down="int8"), dict(num_aggregators=2), "tree"),
     ({}, dict(checkpoint_dir="ck"), None),
     ({}, dict(health_dir="h"), "ledger"),
-    ({}, dict(learn_observe=True), "item 10b"),
+    ({}, dict(learn_observe=True), None),
     ({}, dict(tp_size=2), None)])
 def test_coordinator_refuses_what_is_not_ported(fed, run, item, tmp_path,
                                                 monkeypatch):
@@ -531,7 +531,9 @@ def test_coordinator_refuses_what_is_not_ported(fed, run, item, tmp_path,
     checkpoint plane was ported, is taken (nothing is written before a
     round or an enrollment); ``tp_size`` 2, refused on a host with two
     cards until the sharded server was ported, shards the server state
-    over two of the CPU's forced host positions (``tests/conftest.py``)."""
+    over two of the CPU's forced host positions (``tests/conftest.py``);
+    ``learn_observe``, refused until item 10b was ported, builds the
+    convergence observatory."""
     monkeypatch.chdir(tmp_path)
     jcfg, tcfg = configs(num_clients=2, run_kw=run, **fed)
     with broker.MessageBroker() as b:
@@ -539,6 +541,8 @@ def test_coordinator_refuses_what_is_not_ported(fed, run, item, tmp_path,
             coord = FederatedCoordinator(tcfg, b.host, b.port, device="cpu")
             coord.close()
             assert list(tmp_path.iterdir()) == []
+            assert (coord._learn is not None) == bool(
+                run.get("learn_observe"))
             if run.get("tp_size", 1) > 1:
                 assert coord._placement is not None
                 assert coord._placement.n_devices == run["tp_size"]

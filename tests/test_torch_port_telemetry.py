@@ -11,7 +11,7 @@ JAX package's, on the CPU at small sizes.
   and JAX's ``summarize_trace`` text of it equals the port's, and the
   other way round.
 - The engine: default records keep their keys (JAX's), traced records
-  gain exactly JAX's keys less ``flops_per_round``, the trace window
+  gain exactly JAX's keys (``flops_per_round`` too), the trace window
   honours ``trace_rounds``, ``client_update`` is ``phase_update_s``, and
   the engine's counters equal JAX's.
 - The socket plane: the same federation of either package (broker,
@@ -220,8 +220,8 @@ def _engine_cfgs(**run_kw):
 
 @pytest.mark.parametrize("strategy", ["fedavg", "scaffold"])
 def test_engine_records_and_trace_window_as_jax(strategy, tmp_path):
-    """Untraced records keep JAX's keys; traced ones gain exactly JAX's
-    (less ``flops_per_round``), their window is the first
+    """Untraced records keep JAX's keys; traced ones gain exactly JAX's,
+    ``flops_per_round`` included, their window is the first
     ``trace_rounds`` rounds, and ``client_update`` is ``phase_update_s``."""
     out = {}
     for traced in (False, True):
@@ -240,9 +240,10 @@ def test_engine_records_and_trace_window_as_jax(strategy, tmp_path):
     assert [sorted(r) for r in plain] == [sorted(r) for r in jplain]
     recs, jrecs, ours, theirs = out[True]
     for a, b in zip(recs, jrecs):
-        assert sorted(a) == sorted(set(b) - {"flops_per_round"})
-        assert "flops_per_round" in b
-    assert [sorted(r) for r in recs] == [sorted(r) for r in plain]
+        assert sorted(a) == sorted(b)
+        assert "flops_per_round" in a and "flops_per_round" in b
+    assert [sorted(set(r) - {"flops_per_round"}) for r in recs] == [
+        sorted(r) for r in plain]
     doc = telemetry.load_trace(ours.last_trace_path)
     jdoc = jax_telemetry.load_trace(theirs.last_trace_path)
     spans = jax_telemetry.trace_spans(doc)

@@ -338,6 +338,20 @@ def mesh_resize(p: dict) -> dict:
     return out
 
 
+def personalized(p: dict) -> dict:
+    """The port's learner on a ``clients`` mesh of the world with its own
+    draws: ``p["rounds"]`` rounds, then ``evaluate_personalized(
+    p["steps"])``, each rank fine-tuning and scoring its block."""
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+
+    world = torch.distributed.get_world_size()
+    ln = FederatedLearner(p["config"], device="cpu",
+                          mesh=_mesh(("clients",), (world,)))
+    ln.fit(rounds=p["rounds"])
+    return ln.evaluate_personalized(steps=p["steps"])
+
+
 SCENARIOS = {"learner_rounds": learner_rounds, "attention": attention,
              "sp_model": sp_model, "layouts": layouts,
-             "mesh_resume": mesh_resume, "mesh_resize": mesh_resize}
+             "mesh_resume": mesh_resume, "mesh_resize": mesh_resize,
+             "personalized": personalized}
