@@ -372,7 +372,31 @@ Phases (any failure exits non-zero; no phase's error is caught):
    command's default 10,000 devices, each returning with
    ``model_version`` 6; ``arrival_tracking``, ``staleness_p90`` (the
    registry reset before each command, so each its own run's) and the
-   tree's ``agg_fold_tracking_min`` are printed.
+   tree's ``agg_fold_tracking_min`` are printed;
+21. the analysis tools (``analysis/``): 21a ``lint --gate --format
+   json`` over the port's package through ``cli.main``: 0 findings, 0
+   baselined (its files, suppressed count and seconds printed); 21b the
+   learn smoke (the JAX package's ``scripts/learn_smoke.py``
+   configuration) through the port's ``FleetSim`` on the card: 64
+   devices, a 32-wide MLP of depth 1, cohort and chunk 16, 2 local steps
+   of batch 8 at lr 0.05, 12 observed rounds from seed 0, written as
+   ``results/learn_events.jsonl`` rows under a temporary root holding
+   the repo's ``pyproject.toml``: the three sentinels over those rows
+   (``live-learn-*`` and ``fleet-learn-cohort-skew-ceiling``) are ok
+   and ``live-learn-divergence`` and ``live-learn-plateau`` are judged
+   (12 rows of the 11 they need, a value); the same seed with a 10x lr
+   spike at round 9, read at rounds 0-11, trips ``live-learn-divergence``
+   with ``above_max_ratio``, and its round 8 update norm is the clean
+   run's to 6 decimals; 21c ``fleetsim --async-buffer 32
+   --async-observe`` for 30 aggregations at 10,000 devices (K 32,
+   ``fit_async``'s own default: under ``auto`` K grows to 1,024 and the
+   30 aggregations train some 20,000 clients), its records
+   written as ``results/async_events_port.jsonl`` rows under such a
+   root: ``live-async-staleness-tail-drift`` reads at least 25 rows and
+   is ok, and ``live-async-arrival-rate-floor``'s verdict is printed (it
+   reads ``arrival_rate_per_s``, which only the coordinator writes);
+   21d ``sentinel --root <repo> --format json`` through ``cli.main``:
+   ``ok``, 32 rules, 0 violations.
 
 Each phase prints its wall seconds on a line of its own; then one line
 gives the script's seconds, every phase's and the bench's (9c) rounds per
@@ -5879,6 +5903,218 @@ def fleet_phase(A, F) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 21
+LEARN_ROUNDS = 12           # 21b: the JAX package's scripts/learn_smoke.py
+LEARN_SPIKE_ROUND = 9
+LEARN_SPIKE_MULTIPLIER = 10.0
+LEARN_RULES = ("live-learn-divergence", "live-learn-plateau")  # judged
+SENTINEL_AGGS = 30          # 21c's aggregations, at K = 32
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def _stdout_of(fn) -> str:
+    """Run ``fn()`` with this process's stdout captured and return the
+    text; on an error (a command's non-zero exit too) the text goes to
+    stderr before the error propagates."""
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            fn()
+    except BaseException:
+        sys.stderr.write(out.getvalue())
+        raise
+    return out.getvalue()
+
+
+def _jsonable(obj):
+    """numpy scalars and arrays in a record, as the learn smoke writes
+    them."""
+    if hasattr(obj, "item") and not isinstance(obj, (list, dict)):
+        return obj.item()
+    if hasattr(obj, "tolist"):
+        return obj.tolist()
+    raise TypeError(f"not JSON-serializable: {type(obj)!r}")
+
+
+def _sentinel_root(workdir: str, name: str, file: str, recs: list) -> str:
+    """A root holding the repo's ``pyproject.toml`` and ``recs`` as
+    ``{"event": "round", ...}`` rows in ``results/<file>``."""
+    root = os.path.join(workdir, name)
+    os.makedirs(os.path.join(root, "results"), exist_ok=True)
+    shutil.copy(os.path.join(REPO, "pyproject.toml"), root)
+    with open(os.path.join(root, "results", file), "w") as f:
+        for rec in recs:
+            f.write(json.dumps({"event": "round", **rec},
+                               default=_jsonable) + "\n")
+    return root
+
+
+def _verdicts(root: str, file_part: str) -> dict:
+    """The port's sentinel on the rules that read ``file_part`` files,
+    by rule id."""
+    from colearn_federated_learning_tpu_torch.analysis import sentinel
+
+    rules = [r for r in sentinel.load_rules(root) if file_part in r.file]
+    return {r["id"]: r for r in sentinel.evaluate_slo(root, rules)["results"]}
+
+
+def lint_path() -> dict:
+    """21a: ``lint --gate --format json`` over the port's package."""
+    from colearn_federated_learning_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    text = _stdout_of(lambda: cli.main(["lint", "--gate", "--format",
+                                        "json", "--root", REPO]))
+    secs = time.perf_counter() - t0
+    doc = json.loads(text)
+    log(f"  [21a] lint --gate over the port: {doc['files']} files, "
+        f"{len(doc['findings'])} findings, {doc['suppressed']} suppressed, "
+        f"{doc['baselined']} baselined in {secs:.3f} s")
+    if doc["findings"] or doc["baselined"] or doc["files"] < 100:
+        raise AssertionError(f"21a: {doc}")
+    return dict(files=doc["files"], suppressed=doc["suppressed"],
+                s=round(secs, 3))
+
+
+def _learn_run(**fed_kw) -> list:
+    """One observed 12-round FleetSim run of the learn smoke's
+    configuration on the card; its round records."""
+    from colearn_federated_learning_tpu_torch import fleetsim
+    from colearn_federated_learning_tpu_torch.utils.config import (
+        ExperimentConfig, FedConfig, ModelConfig, RunConfig)
+
+    fed = dict(strategy="fedavg", local_steps=2, batch_size=8, lr=0.05,
+               momentum=0.0, **fed_kw)
+    cfg = ExperimentConfig(
+        model=ModelConfig(name="mlp", num_classes=10, hidden_dim=32,
+                          depth=1),
+        fed=FedConfig(**fed),
+        run=RunConfig(name="learn_smoke", seed=0, learn_observe=True))
+    spec = fleetsim.PopulationSpec(num_devices=64, feature_dim=16,
+                                   shard_capacity=16, min_examples=4, seed=0)
+    traffic = fleetsim.TrafficModel(
+        fleetsim.TrafficSpec(base_rate=2000.0, diurnal_amplitude=0.0,
+                             seed=0), spec.num_devices)
+    sim = fleetsim.FleetSim.from_population(
+        cfg, fleetsim.DevicePopulation(spec), traffic, cohort_size=16,
+        chunk_size=16)
+    if sim.device.type != "cuda":
+        raise AssertionError(f"21b: FleetSim on {sim.device}")
+    recs = sim.fit(LEARN_ROUNDS)
+    if len(recs) != LEARN_ROUNDS or not all(
+            "conv_update_norm" in r for r in recs):
+        raise AssertionError(f"21b: records {[sorted(r) for r in recs]}")
+    return recs
+
+
+def learn_sentinel_path(workdir: str) -> dict:
+    """21b: the learn smoke on the card, judged by the live learning
+    sentinels: the clean run ok and judged, the spiked one tripping
+    ``live-learn-divergence`` by round 11."""
+    clean = _learn_run()
+    ok = _verdicts(_sentinel_root(workdir, "learn_clean",
+                                  "learn_events.jsonl", clean),
+                   "learn_events")
+    spiked = _learn_run(lr_spike_round=LEARN_SPIKE_ROUND,
+                        lr_spike_multiplier=LEARN_SPIKE_MULTIPLIER)
+    red = _verdicts(_sentinel_root(workdir, "learn_spike",
+                                   "learn_events.jsonl",
+                                   spiked[:LEARN_SPIKE_ROUND + 3]),
+                    "learn_events")
+    live = sorted(ok)              # the three rules over learn_events
+    pre = round(clean[LEARN_SPIKE_ROUND - 1]["conv_update_norm"], 6)
+    pre_s = round(spiked[LEARN_SPIKE_ROUND - 1]["conv_update_norm"], 6)
+    div = red["live-learn-divergence"]
+    summary = {i: {k: ok[i][k] for k in ("ok", "rows", "value", "reason")}
+               for i in live}
+    log(f"  [21b] learn smoke on the card, clean: {json.dumps(summary)}")
+    log(f"  [21b] spiked (x{LEARN_SPIKE_MULTIPLIER:g} at round "
+        f"{LEARN_SPIKE_ROUND}): live-learn-divergence ok {div['ok']}, "
+        f"value {div['value']}, reason {div['reason']}; round 8 norm "
+        f"{pre_s} against the clean run's {pre}; {card()}")
+    judged = all(ok[i]["rows"] == LEARN_ROUNDS and ok[i]["value"] is not None
+                 for i in LEARN_RULES)
+    if not (len(live) == 3 and all(ok[i]["ok"] for i in live) and judged):
+        raise AssertionError(f"21b clean: {summary}")
+    if div["ok"] or not str(div["reason"]).startswith("above_max_ratio"):
+        raise AssertionError(f"21b spiked: {div}")
+    if pre != pre_s:
+        raise AssertionError(f"21b: round 8 norm {pre_s} against {pre}")
+    return dict(clean={i: ok[i]["value"] for i in LEARN_RULES},
+                spike_ratio=div["value"])
+
+
+def async_sentinel_path(workdir: str) -> dict:
+    """21c: ``fleetsim --async-buffer 32 --async-observe`` for 30
+    aggregations at the command's 10,000 devices, judged by the live
+    asynchronous sentinels."""
+    from colearn_federated_learning_tpu_torch import cli, telemetry
+
+    telemetry.get_registry().reset()
+    t0 = time.perf_counter()
+    summary, err = _stderr_of(lambda: cli.main(
+        ["fleetsim", "--rounds", str(SENTINEL_AGGS), "--async-buffer",
+         "32", "--async-observe"]))
+    secs = time.perf_counter() - t0
+    recs = [json.loads(line) for line in err.splitlines()
+            if line.startswith('{"aggregation"')]
+    got = _verdicts(_sentinel_root(workdir, "async", "async_events_port.jsonl",
+                                   recs), "async_events")
+    tail = got["live-async-staleness-tail-drift"]
+    rate = got["live-async-arrival-rate-floor"]
+    log(f"  [21c] fleetsim async at 10,000 devices, {len(recs)} "
+        f"aggregations in {secs:.2f} s: live-async-staleness-tail-drift "
+        f"ok {tail['ok']} rows {tail['rows']} value {tail['value']} "
+        f"reason {tail['reason']}; live-async-arrival-rate-floor ok "
+        f"{rate['ok']} rows {rate['rows']} reason {rate['reason']} (FleetSim "
+        f"writes arrival_rate_per_min, not the coordinator's "
+        f"arrival_rate_per_s); {card()}")
+    if (summary["model_version"] != SENTINEL_AGGS
+            or len(recs) != SENTINEL_AGGS or tail["rows"] < 25
+            or not tail["ok"] or tail["value"] is None):
+        raise AssertionError(f"21c: {summary}, {tail}")
+    return dict(rows=tail["rows"], value=tail["value"], s=round(secs, 3),
+                arrival_rate_floor=rate["reason"])
+
+
+def sentinel_path() -> dict:
+    """21d: ``sentinel --root <repo> --format json``: ok, every rule of
+    ``pyproject.toml`` (32), no violation."""
+    from colearn_federated_learning_tpu_torch import cli
+
+    doc = json.loads(_stdout_of(lambda: cli.main(
+        ["sentinel", "--root", REPO, "--format", "json"])))
+    log(f"  [21d] sentinel over the repo: ok {doc['ok']}, {doc['rules']} "
+        f"rules, {doc['violations']} violations")
+    if not doc["ok"] or doc["rules"] != 32 or doc["violations"]:
+        raise AssertionError(f"21d: {doc}")
+    return dict(rules=doc["rules"])
+
+
+def analysis_phase(A, F) -> dict:
+    """Phase 21: the analysis tools (21a lint, 21b and 21c the live
+    sentinels on rows the card wrote, 21d the repo's sentinel).  Returns
+    its launches (the MLPs run none of the kernels)."""
+    from colearn_federated_learning_tpu_torch.ops import _build
+
+    A.reset_launches()
+    F.reset_launches()
+    numbers = {"21a": lint_path()}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        t0 = time.perf_counter()
+        numbers["21b"] = learn_sentinel_path(workdir)
+        log(f"  21b in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        numbers["21c"] = async_sentinel_path(workdir)
+        log(f"  21c in {time.perf_counter() - t0:.2f} s")
+    numbers["21d"] = sentinel_path()
+    launches = {**A.launches, **F.launches}
+    if any(launches.values()):
+        raise AssertionError(f"21: a kernel launched on the MLP: {launches}")
+    log("phase 21 numbers " + json.dumps(numbers))
+    return launches
+
+
 def cache_synthetic_data():
     """Draw each synthetic dataset once in this process: every later draw
     of the same (dataset, seed) gets a copy of the first one's arrays
@@ -6024,7 +6260,7 @@ def fold_and_file_phase(A, F):
 
 
 def run_phases() -> int:
-    """Phases 1-20 and the two result lines (see the module docstring)."""
+    """Phases 1-21 and the two result lines (see the module docstring)."""
     from colearn_federated_learning_tpu_torch.ops import _build
     from colearn_federated_learning_tpu_torch.ops import attention as A
     from colearn_federated_learning_tpu_torch.ops import fold as F
@@ -6099,6 +6335,9 @@ def run_phases() -> int:
     paths["fleetsim"] = phase(20, "the fleet simulator (a million devices, "
                                   "the engine's round, the asynchronous "
                                   "plane)", fleet_phase, A, F)
+    paths["analysis"] = phase(21, "the analysis tools (lint, the live "
+                                  "sentinels on the card's rows, sentinel)",
+                              analysis_phase, A, F)
     log("launches per path " + json.dumps(paths))
     total = time.perf_counter() - t_start
     log(f"script {total:.2f} s; phase seconds {json.dumps(PHASE_S)}; 9c "

@@ -1,7 +1,8 @@
 """Command line of the PyTorch port: ``train``, ``init``, ``aggregate``,
 ``eval``, ``configs``, ``bench``, ``broker``, ``worker``, ``aggregator``,
 ``coordinate``, ``trace-summary``, ``health``, ``postmortem``,
-``chaos``, ``fleetsim``, ``top`` and ``converge``.
+``chaos``, ``fleetsim``, ``top``, ``converge``, ``lint`` and
+``sentinel``.
 
     python -m colearn_federated_learning_tpu_torch.cli train --config NAME \\
         [--backend gpu|cpu] [overrides]
@@ -83,10 +84,12 @@ records (a no-op in ``train``, as in JAX), which ``converge`` reports;
 personalized and detection reports on stderr after training, and ``eval
 --detection-eval`` adds the detection view to the file's score.
 
-JAX's ``lint`` and ``sentinel`` commands are not ported yet: each exits
-with status 2 naming the ROADMAP item that ports it.  ``configs``,
-``trace-summary``, ``health``, ``postmortem``, ``top`` and ``converge``
-print JAX's text, not a JSON result.
+``lint`` runs this package's AST lint (``analysis/``; by default over
+this package, with the repo's ``[tool.colearn.lint]`` and baseline) and
+``sentinel`` the ``[tool.colearn.slo]`` rules over ``results/``, with
+JAX's flags, output and exit codes; neither imports torch.  ``configs``,
+``trace-summary``, ``health``, ``postmortem``, ``top``, ``converge``,
+``lint`` and ``sentinel`` print JAX's text, not a JSON result.
 """
 
 from __future__ import annotations
@@ -100,7 +103,6 @@ import threading
 import time
 from typing import Callable, Optional
 
-from colearn_federated_learning_tpu_torch import comm
 from colearn_federated_learning_tpu_torch.utils.config import (
     CONFIGS, ExperimentConfig, get_config)
 
@@ -125,12 +127,6 @@ _RUN_KEYS = {"seed", "tp_size", "eval_every", "log_every", "evict_after",
              "agg_buffer_interval_s", "trace_dir", "trace_rounds",
              "health_dir", "checkpoint_dir", "checkpoint_every",
              "ckpt_stream", "profile_dir", "learn_observe"}
-
-# JAX subcommands not ported yet -> the ROADMAP item that ports them.
-_UNPORTED_COMMANDS = {
-    "lint": comm.ITEM_ANALYSIS,
-    "sentinel": comm.ITEM_ANALYSIS,
-}
 
 
 def _add_override_flags(p: argparse.ArgumentParser) -> None:
@@ -587,9 +583,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSONL file, or directory searched recursively "
                         "for *.jsonl")
 
-    # Subcommands not ported yet: refused before their flags are parsed.
-    for name in _UNPORTED_COMMANDS:
-        sub.add_parser(name, help="not ported yet (refused)")
+    p = sub.add_parser("lint",
+                       help="run the AST invariant checks (CL002-CL021, "
+                            "CL023; analysis/) — fast, CPU-only, no torch "
+                            "import")
+    p.add_argument("paths", nargs="*",
+                   help="files/dirs to lint (default: this package)")
+    p.add_argument("--format", choices=["text", "json", "sarif"],
+                   default="text")
+    p.add_argument("--gate", action="store_true",
+                   help="CI gate: additionally fail when the baseline file "
+                        "still carries accepted fingerprints — every "
+                        "suppression must be an inline reasoned noqa")
+    p.add_argument("--rules", default=None,
+                   help="comma-separated rule ids to run (default: all "
+                        "registered)")
+    p.add_argument("--disable", default=None,
+                   help="comma-separated rule ids to skip")
+    p.add_argument("--baseline", default=None,
+                   help="baseline JSON path relative to --root (default: "
+                        "[tool.colearn.lint].baseline)")
+    p.add_argument("--write-baseline", action="store_true",
+                   help="accept every current finding into the baseline "
+                        "file and exit 0")
+    p.add_argument("--root", default=None,
+                   help="repo root holding pyproject.toml + baseline "
+                        "(default: cwd, else the package parent)")
+
+    p = sub.add_parser("sentinel",
+                       help="evaluate [tool.colearn.slo] rules against "
+                            "results/*.jsonl; non-zero exit on any "
+                            "regression (the CI perf gate)")
+    p.add_argument("--root", default=None,
+                   help="repo root holding pyproject.toml and the "
+                        "rule-referenced result files (default: cwd, else "
+                        "the package parent)")
+    p.add_argument("--format", choices=["text", "json"], default="text")
     return parser
 
 
@@ -1716,6 +1745,87 @@ def converge(args: argparse.Namespace) -> None:
         raise SystemExit(1)
 
 
+def _repo_root(arg: Optional[str]) -> str:
+    """``--root``, else the working directory or the package's parent,
+    whichever holds a ``pyproject.toml`` (the working directory when
+    neither does), as JAX's ``lint`` and ``sentinel`` choose it."""
+    import os
+
+    if arg:
+        return os.path.abspath(arg)
+    parent = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return next((c for c in (os.getcwd(), parent)
+                 if os.path.exists(os.path.join(c, "pyproject.toml"))),
+                os.getcwd())
+
+
+def lint(args: argparse.Namespace) -> None:
+    """``lint``: JAX's ``cmd_lint`` over this package's rule set.  Exits 1
+    on a finding (or, under ``--gate``, on a non-empty baseline) and 2 on
+    an unknown rule id."""
+    import os
+
+    from colearn_federated_learning_tpu_torch.analysis import engine
+    from colearn_federated_learning_tpu_torch.analysis import reporters
+
+    root = _repo_root(args.root)
+    config = engine.LintConfig.from_pyproject(root)
+    if args.rules:
+        config.enable = [r.strip() for r in args.rules.split(",")]
+    if args.disable:
+        config.disable = tuple(r.strip() for r in args.disable.split(","))
+    try:
+        eng = engine.LintEngine(config=config, root=root)
+    except ValueError as e:
+        print(f"colearn lint: {e}", file=sys.stderr)
+        raise SystemExit(2)
+    paths = args.paths or [os.path.dirname(os.path.abspath(__file__))]
+    baseline_path = (os.path.join(root, args.baseline)
+                     if args.baseline else None)
+    if args.write_baseline:
+        # Lint without the current baseline, then accept everything found.
+        result = eng.run(paths, baseline_path="")
+        target = baseline_path or os.path.join(root, config.baseline)
+        entries = engine.write_baseline(target, result.findings)
+        print(f"colearn lint: baselined {len(result.findings)} finding(s) "
+              f"({len(entries)} fingerprint(s)) -> {target}")
+        return
+    if args.gate:
+        # The baseline is a migration vehicle, not a place findings live:
+        # the gate fails while any fingerprint is parked there.
+        gate_baseline = baseline_path or os.path.join(root, config.baseline)
+        entries = engine.load_baseline(gate_baseline)
+        if entries:
+            print(f"colearn lint --gate: baseline {gate_baseline} still "
+                  f"carries {len(entries)} fingerprint(s); fix the "
+                  f"findings or move each to an inline "
+                  f"`# colearn: noqa(CLxxx): <reason>`", file=sys.stderr)
+            raise SystemExit(1)
+    result = eng.run(paths, baseline_path=baseline_path)
+    render = {"json": reporters.render_json,
+              "sarif": reporters.render_sarif}.get(args.format,
+                                                   reporters.render_text)
+    print(render(result), flush=True)
+    if result.exit_code:
+        raise SystemExit(result.exit_code)
+
+
+def sentinel(args: argparse.Namespace) -> None:
+    """``sentinel``: JAX's ``cmd_sentinel``; exits 1 on any violation (or
+    no rule) and 2 on a malformed rule table."""
+    from colearn_federated_learning_tpu_torch.analysis import sentinel as slo
+
+    try:
+        verdict = slo.evaluate_slo(_repo_root(args.root))
+    except ValueError as e:
+        print(f"colearn sentinel: {e}", file=sys.stderr)
+        raise SystemExit(2)
+    print(json.dumps(verdict) if args.format == "json"
+          else slo.render_verdict(verdict), flush=True)
+    if not verdict["ok"]:
+        raise SystemExit(1)
+
+
 def list_configs() -> None:
     """Print one line per experiment config, in the JAX CLI's format."""
     for name, cfg in sorted(CONFIGS.items()):
@@ -1729,10 +1839,6 @@ def main(argv: Optional[list] = None,
     line on stdout (``bench`` prints its own); returns the result.
     ``on_round`` is :func:`train`'s."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _UNPORTED_COMMANDS:
-        print(f"the {argv[0]} command is not ported to the PyTorch package "
-              f"yet; see {_UNPORTED_COMMANDS[argv[0]]}", file=sys.stderr)
-        raise SystemExit(2)
     args = build_parser().parse_args(argv)
     if args.cmd == "bench":
         from colearn_federated_learning_tpu_torch import bench
@@ -1750,6 +1856,10 @@ def main(argv: Optional[list] = None,
         return top(args)
     if args.cmd == "converge":
         return converge(args)
+    if args.cmd == "lint":
+        return lint(args)
+    if args.cmd == "sentinel":
+        return sentinel(args)
     if args.cmd == "train":
         refuse_edge_unsupported(args, config_from_args(args))
     if args.cmd == "train" and args.role == "client":

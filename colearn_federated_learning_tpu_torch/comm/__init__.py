@@ -28,8 +28,5 @@ this plane under fault plans and real SIGKILLs, with the flight recorder
 aggregators' and both coordinators' locks are ``faults/lockwitness.py``'s,
 which ``--lock-witness`` turns on.  With ``run.learn_observe`` both
 coordinators keep the convergence observatory
-(``telemetry/convergence.py``).  Not ported yet, refused naming its
-ROADMAP.md Queue A item: the analysis tools (17).
+(``telemetry/convergence.py``).
 """
-
-ITEM_ANALYSIS = "ROADMAP.md Queue A item 17 (the analysis tools)"

@@ -171,7 +171,7 @@ class StreamingFolder(UpdateFolder):
         self._slot_meta: Optional[list] = None
         self._fold_batch_max: Optional[int] = None
 
-    def add(self, meta: dict, delta: Any,
+    def add(self, meta: dict, delta: Any,  # colearn: hot
             weight: Optional[float] = None) -> float:
         if self._finalized:
             raise RuntimeError("StreamingFolder already finalized")
@@ -185,8 +185,8 @@ class StreamingFolder(UpdateFolder):
                 "comm.uplink_densify_avoided_total").inc()
         else:
             # int8 and none are dense by nature.
-            delta = compression.decompress_delta(delta, meta,
-                                                 shapes=self.shapes)
+            delta = compression.decompress_delta(  # colearn: noqa(CL013): int8/none payloads are inherently dense
+                delta, meta, shapes=self.shapes)
             if self._placement is not None:
                 # Sliced and scaled in one pass: the slices of the scaled
                 # leaf, bit for bit.
@@ -328,7 +328,7 @@ class StreamingFolder(UpdateFolder):
                 for leaf in trees.flatten_up_to(self.shapes, contrib)
                 for part in (leaf if isinstance(leaf, tuple) else (leaf,))]
 
-    def _fold_block_device(self, ids: Sequence[str]) -> tuple:
+    def _fold_block_device(self, ids: Sequence[str]) -> tuple:  # colearn: hot
         """The block fold through the fold kernel: sparse runs as batched
         sparse calls, dense runs as batched adds, one copy to the host at
         the block's end."""

@@ -74,7 +74,7 @@ class MessageBroker:
     def _accept_loop(self) -> None:
         while not self._stopping.is_set():
             try:
-                conn, _ = self._srv.accept()   # stop() wakes it
+                conn, _ = self._srv.accept()  # colearn: noqa(CL002): stop() wakes the accept via a sentinel connect
             except OSError:
                 return
             if self._stopping.is_set():
@@ -98,7 +98,7 @@ class MessageBroker:
                     self._publish(header, body)
                 elif op == "ping":
                     self._send(conn, {"op": "pong"}, b"")
-        except protocol.ConnectionClosed:
+        except protocol.ConnectionClosed:  # colearn: noqa(CL003): client hangup is normal teardown
             pass                       # the client left
         except (OSError, ValueError):
             protocol.count_suppressed()   # a flaky or buggy peer: drop it

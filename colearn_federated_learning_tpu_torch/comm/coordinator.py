@@ -781,7 +781,7 @@ class FederatedCoordinator(CoordinatorCore):
         results, failed_ids, handled = [], set(), set()
         deadline = time.monotonic() + budget
         pool = self._executor(len(devs))
-        futs = {pool.submit(ask, d, deadline): d for d in devs}
+        futs = {pool.submit(ask, d, deadline): d for d in devs}  # colearn: hot
 
         def take(fut, dev):
             handled.add(fut)
@@ -798,7 +798,7 @@ class FederatedCoordinator(CoordinatorCore):
         try:
             for fut in cf.as_completed(futs, timeout=budget):
                 take(fut, futs[fut])
-        except cf.TimeoutError:
+        except cf.TimeoutError:   # colearn: noqa(CL003): stragglers dropped/counted/reconnected below
             pass                       # stragglers are handled below
         for fut, dev in futs.items():
             if fut in handled:
@@ -897,7 +897,7 @@ class FederatedCoordinator(CoordinatorCore):
                 pruned = [d.device_id for d in share_failed]
                 cut = set(pruned)
                 cohort = [d for d in cohort if d.device_id not in cut]
-        with tracer.span("serialize_params"):
+        with tracer.span("serialize_params"):  # colearn: hot
             # One encode for the whole cohort (serialize-once).
             if self._lora:
                 body, resync_body, saved = self._encode_lora_round(r)
@@ -1253,7 +1253,7 @@ class FederatedCoordinator(CoordinatorCore):
                 try:
                     for fut in cf.as_completed(futs, timeout=timeout):
                         take(fut, pending.pop(fut))
-                except cf.TimeoutError:
+                except cf.TimeoutError:     # colearn: noqa(CL003): stragglers cancelled and counted below
                     pass
                 for fut, i in pending.items():
                     if fut.done():

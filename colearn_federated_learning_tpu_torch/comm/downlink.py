@@ -49,7 +49,7 @@ def apply_dense_delta(base: Any, delta: Any) -> Any:
     return trees.map_leaves(add, base, delta)
 
 
-def host_params(tree: Any) -> Any:
+def host_params(tree: Any) -> Any:  # colearn: hot
     """A host copy of the server params (``parallel.partition.host_tree``):
     a tensor leaf in one device-to-host copy (a copy of a CPU tensor too,
     which the server updates in place), a sharded leaf shard by shard

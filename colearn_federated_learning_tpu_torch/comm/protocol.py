@@ -88,7 +88,7 @@ def _recv_exact(sock: socket.socket, n: int) -> bytearray:
     view = memoryview(buf)
     got = 0
     while got < n:
-        r = sock.recv_into(view[got:], n - got)
+        r = sock.recv_into(view[got:], n - got)  # colearn: noqa(CL002): deadline is the caller's settimeout
         if not r:
             raise ConnectionClosed(f"peer closed after {got}/{n} bytes")
         got += r

@@ -408,8 +408,8 @@ class DeviceWorker:
             raise RuntimeError("worker is stopped")
         if self._dh_lookup is None:
             bh, bp = self._broker_addr
-            self._dh_lookup = BrokerClient(bh, bp,
-                                           timeout=protocol.CONNECT_TIMEOUT)
+            self._dh_lookup = BrokerClient(  # colearn: noqa(CL019): _dh_lock serializes this dedicated connection by design; ctor bounded by CONNECT_TIMEOUT
+                bh, bp, timeout=protocol.CONNECT_TIMEOUT)
         if self._peer_round != round_idx:
             self._peer_info_cache.clear()
             self._peer_round = round_idx

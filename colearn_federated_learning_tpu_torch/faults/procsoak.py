@@ -1211,8 +1211,9 @@ def _ckpt_in_progress(ckpt_dir: str) -> Optional[str]:
             continue
         try:
             names = os.listdir(g)
-        except OSError:
-            continue     # pruned while scanned: not a save in flight
+        except OSError:  # colearn: noqa(CL003): poll race — the dir the
+            continue     # coordinator is pruning mid-scan simply isn't
+                         # an in-progress save; the watcher re-polls.
         if any(n.startswith("shard_") and n.endswith(".npz")
                for n in names):
             return g
@@ -1292,7 +1293,7 @@ def _run_ckpt_fleet(
         killed["pid"] = coord.pid
         killed["gen"] = os.path.basename(prog)
         coord.send_signal(signal.SIGKILL)
-        killed["at"] = time.time()      # the kill's wall time
+        killed["at"] = time.time()  # colearn: noqa(CL004): the kill's wall time, read against wall-clock arrival stamps of the records; no seeded replay reads it
         coord.wait()
         # The process is dead and its relaunch not started: the directory
         # holds what the next restore must come back with.

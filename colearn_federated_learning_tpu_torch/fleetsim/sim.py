@@ -414,17 +414,17 @@ class FleetSim:
         x, y, counts = self._shard_fn(ids[run])
         x = torch.as_tensor(x, device=dev)
         y = torch.as_tensor(y, device=dev).long()
-        for k, j in enumerate(run):
+        for k, j in enumerate(run):  # colearn: hot
             count = int(counts[k])
             idx = self.draws.batch_indices(round_idx, int(ids[j]), count,
                                            self.num_steps, fed.batch_size)
             idx = torch.as_tensor(idx, dtype=torch.long).to(
                 dev, non_blocking=True)
-            res = self.local_update(params, x[k], y[k], count, idx,
-                                    int(budgets[j]), lr_scale)
+            res = self.local_update(  # colearn: noqa(CL009): one client at a time on purpose, the engine's bitwise order; ROADMAP's batched cohort step replaces this loop
+                params, x[k], y[k], count, idx, int(budgets[j]), lr_scale)
             contrib = bool(res.completed and res.num_examples > 0
                            and keep[j])
-            weight = float(res.num_examples) if contrib else 0.0
+            weight = float(res.num_examples) if contrib else 0.0  # colearn: noqa(CL006): num_examples is a host int, no device read
             if contrib:
                 wd = torch._foreach_mul(res.delta, weight)
                 torch._foreach_add_(part.wsum, wd)

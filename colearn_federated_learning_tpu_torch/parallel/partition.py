@@ -265,8 +265,8 @@ def host_leaf(a: Any) -> np.ndarray:
         if len(a.parts) == 1:
             return _tensor_host(a.parts[0])
         out = None
-        for part, idx in zip(a.parts, a.index):
-            host = part.detach().cpu().numpy()
+        for part, idx in zip(a.parts, a.index):  # colearn: hot
+            host = part.detach().cpu().numpy()  # colearn: noqa(CL006): per-shard D2H is the point, no full-array sync
             if out is None:
                 out = np.empty(a.shape, host.dtype)
             out[idx] = host

@@ -1,8 +1,8 @@
 """The port's command line: ``python -m colearn_federated_learning_tpu_torch
 .cli train``.  Its overrides reach the config as the JAX command line's
 do, a run on the CPU gives the round of ``FederatedLearner`` called
-directly, a command not ported yet (``lint``, ``sentinel``) exits
-non-zero naming its ROADMAP item, and the default backend is the card,
+directly, every JAX command runs (``lint`` and ``sentinel`` with JAX's
+exit codes), and the default backend is the card,
 which raises without one.  The parser accepts every flag of the JAX ``train``, ``init``,
 ``aggregate``, ``eval``, ``bench``, ``broker``, ``worker``,
 ``aggregator``, ``coordinate``, ``chaos`` and ``postmortem`` parsers
@@ -623,9 +623,12 @@ def _subcommands(main) -> set:
 
 
 def test_every_jax_subcommand_is_ported_or_refused():
+    """Every JAX subcommand is the port's too, and none is refused any
+    more: the last two, ``lint`` and ``sentinel``, run since item 17."""
     theirs = _subcommands(jax_cli.main)
     assert _subcommands(cli.main) == theirs
-    assert set(cli._UNPORTED_COMMANDS) < theirs
+    assert not hasattr(cli, "_UNPORTED_COMMANDS")
+    assert {"lint", "sentinel"} < theirs
 
 
 def test_configs_prints_the_jax_lines(capsys):
@@ -638,24 +641,73 @@ def test_configs_prints_the_jax_lines(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["top", "--once", "--url", "http://127.0.0.1:1/snapshot.json"], None),
-    (["converge", "r.jsonl"], None),
-    (["lint"], "item 17"),
-    (["sentinel", "--root", "r"], "item 17")])
+    (["converge", "r.jsonl"], None)])
 def test_unported_commands_exit_naming_their_items(argv, item, capsys,
                                                    tmp_path, monkeypatch):
-    """``lint`` and ``sentinel`` exit 2 naming item 17; ``top`` and
-    ``converge``, refused until item 10b was ported, run and exit with
-    JAX's codes (nothing to fetch: 1; nothing to read: 2)."""
+    """``top`` and ``converge``, refused until item 10b was ported, run
+    and exit with JAX's codes (nothing to fetch: 1; nothing to read: 2).
+    ``lint`` and ``sentinel``, refused until item 17, run in the cases
+    below."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
     err = capsys.readouterr().err
-    if item is None:
-        assert exc.value.code == jax_cli.main(argv) != 0
-        assert f"colearn {argv[0]}: " in err
-        return
-    assert exc.value.code == 2
-    assert f"ROADMAP.md Queue A {item} " in err and argv[0] in err
+    assert item is None
+    assert exc.value.code == jax_cli.main(argv) != 0
+    assert f"colearn {argv[0]}: " in err
+
+
+def _exit_of(main, argv) -> int:
+    """A command's exit code: JAX's ``main`` returns it, the port's raises
+    SystemExit on a non-zero one."""
+    try:
+        rc = main(argv)
+    except SystemExit as e:
+        return e.code
+    return 0 if main is cli.main else rc
+
+
+@pytest.mark.parametrize("argv,code", [
+    (["lint", "pkg/comm/mod.py", "--root", "."], 1),
+    (["lint", "pkg/comm/mod.py", "--root", ".", "--format", "json"], 1),
+    (["lint", "pkg/fed/mod.py", "--root", "."], 0),
+    (["lint", "pkg", "--root", ".", "--disable", "CL002"], 0),
+    (["lint", "pkg", "--root", ".", "--rules", "CL002,CL003"], 1),
+    (["lint", "pkg", "--root", ".", "--rules", "CL999"], 2),
+    (["sentinel"], 0),
+    (["sentinel", "--format", "json"], 0),
+    (["sentinel", "--root", "r"], 0),
+    (["sentinel", "--root", "r", "--format", "json"], 0)])
+def test_lint_and_sentinel_run_where_they_were_refused(argv, code, capsys,
+                                                      tmp_path, monkeypatch):
+    """``lint`` and ``sentinel`` were refused naming item 17 until the
+    analysis tools were ported: they now run in a scratch root (a comm
+    file with a finding, a clean fed file; a bare root without rules and a
+    root ``r`` with one kept rule; without ``--root`` the command falls
+    back to the package's parent, the repo) and give JAX's exit codes and
+    text (the unknown rule's message lists the port's ids, JAX's less
+    CL001; ``tests/test_torch_port_lint.py`` and
+    ``test_torch_port_sentinel.py`` hold them to JAX's further)."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "pkg" / "comm").mkdir(parents=True)
+    (tmp_path / "pkg" / "fed").mkdir()
+    (tmp_path / "pkg" / "comm" / "mod.py").write_text(
+        "def drain(sock):\n    return sock.recv(4)\n")
+    (tmp_path / "pkg" / "fed" / "mod.py").write_text("X = 1\n")
+    (tmp_path / "r" / "results").mkdir(parents=True)
+    (tmp_path / "r" / "pyproject.toml").write_text(
+        '[[tool.colearn.slo.rules]]\nid = "n"\nfile = "results/f.jsonl"\n'
+        'agg = "count"\nmin = 1\n')
+    (tmp_path / "r" / "results" / "f.jsonl").write_text('{"x": 1}\n')
+    ours = _exit_of(cli.main, argv)
+    out = capsys.readouterr()
+    assert ours == _exit_of(jax_cli.main, argv) == code
+    theirs = capsys.readouterr()
+    if code == 2:
+        assert out.err.startswith("colearn lint: unknown lint rule 'CL999'")
+        assert out.err.replace("['CL002'", "['CL001', 'CL002'") == theirs.err
+    else:
+        assert (out.out, out.err) == (theirs.out, theirs.err)
 
 
 def test_fleetsim_runs_where_it_was_refused(capsys):

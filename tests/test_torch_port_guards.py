@@ -146,6 +146,9 @@ NEW_MODULES = ["bench.py", "comm/aggregation.py", "fed/compression.py",
                "faults/fileplane.py", "faults/inject.py", "faults/plan.py",
                "privacy/dropout.py", "privacy/secure_agg.py",
                "analysis/__init__.py", "analysis/metric_catalog.py",
+               "analysis/engine.py", "analysis/findings.py",
+               "analysis/lock_regions.py", "analysis/reporters.py",
+               "analysis/rules.py", "analysis/sentinel.py",
                "metrics.py", "telemetry/__init__.py", "telemetry/arrival.py",
                "telemetry/export.py", "telemetry/health.py",
                "telemetry/lifecycle.py", "telemetry/registry.py",
@@ -170,11 +173,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 @pytest.mark.parametrize("module", ["analysis/metric_catalog.py",
-                                    "telemetry/arrival.py"])
+                                    "telemetry/arrival.py",
+                                    "analysis/findings.py"])
 def test_telemetry_copies_are_their_sources_verbatim(module):
-    """The metric catalog (which the registry's strict mode reads) and the
-    arrival estimator need nothing of JAX: the port keeps them as exact
-    copies of the JAX package's files."""
+    """The metric catalog (which the registry's strict mode reads), the
+    arrival estimator and the lint's finding model need nothing of JAX:
+    the port keeps them as exact copies of the JAX package's files."""
     ours = (ROOT / "colearn_federated_learning_tpu_torch" / module).read_text()
     theirs = (ROOT / "colearn_federated_learning_tpu" / module).read_text()
     assert ours == theirs

@@ -226,15 +226,28 @@ def test_the_broker_s_imports_pull_in_no_torch():
     """The telemetry package and the command line load without torch: a
     ``broker`` (which touches no tensor) respawned in a chaos soak is
     back on its port in well under a second, not after torch's import
-    (9-10 s on the card machine)."""
+    (9-10 s on the card machine).  So do the analysis tools, and ``lint``
+    (over the port's package) and ``sentinel`` (over the repo's rules)
+    run without it, as JAX's never initialize jax."""
+    import os
     import subprocess
     import sys
 
-    code = ("import sys; "
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys, contextlib, io; "
             "import colearn_federated_learning_tpu_torch.telemetry; "
-            "import colearn_federated_learning_tpu_torch.cli; "
+            "import colearn_federated_learning_tpu_torch.cli as cli; "
             "import colearn_federated_learning_tpu_torch.comm.broker; "
-            "print('torch' in sys.modules)")
+            "from colearn_federated_learning_tpu_torch.analysis import ("
+            "engine, findings, lock_regions, reporters, rules, sentinel); "
+            "out = io.StringIO(); "
+            "ctx = contextlib.redirect_stdout(out); ctx.__enter__(); "
+            f"cli.main(['lint', '--gate', '--root', {root!r}]); "
+            f"cli.main(['sentinel', '--root', {root!r}]); "
+            "ctx.__exit__(None, None, None); "
+            "print('clean' in out.getvalue(), "
+            "'sentinel verdict: OK' in out.getvalue(), "
+            "'torch' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True)
-    assert out.stdout.strip() == "False"
+    assert out.stdout.strip() == "True True False"
