@@ -396,7 +396,27 @@ Phases (any failure exits non-zero; no phase's error is caught):
    is ok, and ``live-async-arrival-rate-floor``'s verdict is printed (it
    reads ``arrival_rate_per_s``, which only the coordinator writes);
    21d ``sentinel --root <repo> --format json`` through ``cli.main``:
-   ``ok``, 32 rules, 0 violations.
+   ``ok``, 32 rules, 0 violations;
+22. the measurement drivers (``scripts/torch_port_*.py``), each through
+   its ``main`` on the card, writing into a temporary root that holds the
+   repo's ``pyproject.toml``: 22a ``perf_north_star`` at its full shape
+   (1000 clients of 64 CIFAR-10 examples, cohort 64, 8 steps of 32, the
+   width-64 bf16 CNN) cut to ``--rounds 3 --warmup 1``, its summary
+   printed (rounds/sec, client-samples/sec, peak GiB, the model-FLOPs
+   utilization against the card's bf16 peak); 22b ``bench_fleet
+   --cohorts 1000`` with every sweep flag at its defaults and
+   ``--check-schema``; 22c ``bench_wire --check-schema`` with its sweep
+   cut to 2 rounds, cohort 4, 1 timed fold per fold row and 1 timed save
+   per checkpoint row (every device ``wire_fold`` row bitwise the host
+   fold; ``fold_sparse`` and ``fold_dense`` launched), then ``--fold-device
+   --cohorts 4 --schemes topk8`` rounds, whose
+   ``fold_device_folds_per_round`` must equal the cohort; 22d
+   ``mesh_smoke`` at its defaults (4 positions repeating the card); 22e
+   ``sentinel --root <root> --format json`` through ``cli.main`` over
+   those rows: every rule's id, value and verdict printed, and every rule
+   ok but ``fleet-1m-round-rate`` and ``fleet-1m-client-throughput``
+   (no 1M ``fleet_round`` row is written: printed with the clients/s at
+   cohort 1,000 and the round time it implies for a cohort of 1,000,000).
 
 Each phase prints its wall seconds on a line of its own; then one line
 gives the script's seconds, every phase's and the bench's (9c) rounds per
@@ -6115,6 +6135,230 @@ def analysis_phase(A, F) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 22
+# The sentinel's rules phase 22 prints and does not assert: they read
+# fleet_round rows at 1,000,000 devices, which the phase does not write
+# (the chunk loop trains one client at a time).
+UNJUDGED_RULES = ("fleet-1m-round-rate", "fleet-1m-client-throughput")
+MILLION = 1_000_000
+# 22c's cuts of bench_wire's sweep (its defaults: 5 rounds, cohorts 2 and
+# 4, 3 timed folds per fold row, 2 timed saves per checkpoint row), so
+# that the script stays under 900 s; every row a rule reads is written.
+WIRE_CUTS = ("--rounds", "2", "--cohorts", "4", "--fold-repeats", "1",
+             "--ckpt-repeats", "1")
+
+
+def _port_script(name: str):
+    """``scripts/torch_port_<name>.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(REPO, "scripts", f"torch_port_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_port_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _rows(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _run_script(tag: str, name: str, argv: list) -> float:
+    """``main(argv)`` of a driver, its printed rows captured; fails on a
+    non-zero exit.  Returns its seconds."""
+    mod = _port_script(name)
+    t0 = time.perf_counter()
+    text = _stdout_of(lambda: _check_rc(tag, mod.main(argv)))
+    secs = time.perf_counter() - t0
+    log(f"  [{tag}] {name} {' '.join(argv[:-2])}: {len(text.splitlines())} "
+        f"lines in {secs:.2f} s")
+    return secs
+
+
+def _check_rc(tag: str, rc) -> None:
+    if rc not in (0, None):
+        raise AssertionError(f"{tag}: exit code {rc}")
+
+
+def north_star_path(results: str) -> dict:
+    """22a: ``perf_north_star`` at its full shape, 3 timed rounds."""
+    out = os.path.join(results, "perf_north_star.jsonl")
+    secs = _run_script("22a", "perf_north_star",
+                       ["--rounds", "3", "--warmup", "1", "--out", out])
+    meta, *rounds, summary = _rows(out)
+    log(f"  [22a] north star: {summary['rounds_per_sec']} rounds/sec, "
+        f"{summary['client_samples_per_sec_per_chip']} client-samples/sec, "
+        f"peak {meta['hbm_peak_per_chip_gb']} GiB, flops_per_round "
+        f"{summary['flops_per_round']:.6e}, model_flops_utilization "
+        f"{summary['model_flops_utilization']}; summary "
+        f"{json.dumps(summary)}; {card()}")
+    if not (summary["platform"] == "gpu" and len(rounds) == 3
+            and summary["rounds_per_sec"] > 0
+            and summary["cohort"] == 64 and summary["local_steps"] == 8
+            and summary["flops_per_round"] > 0
+            and summary["model_flops_utilization"] is not None
+            and 0 < summary["model_flops_utilization"] < 1):
+        raise AssertionError(f"22a: {meta}, {summary}")
+    return dict(s=round(secs, 2), rounds_per_sec=summary["rounds_per_sec"],
+                mfu=summary["model_flops_utilization"])
+
+
+def fleet_bench_path(results: str) -> dict:
+    """22b: ``bench_fleet --cohorts 1000`` and every sweep at its
+    defaults."""
+    out = os.path.join(results, "fleet_bench.jsonl")
+    secs = _run_script("22b", "bench_fleet", [
+        "--cohorts", "1000", "--mask-sweep", "--uplink-sweep",
+        "--ingest-sweep", "--async-sweep", "--tree-async-sweep",
+        "--drift-sweep", "--check-schema", "--out", out])
+    rows = _rows(out)
+    kinds = {}
+    for r in rows:
+        kinds[r["bench"]] = kinds.get(r["bench"], 0) + 1
+    point = next(r for r in rows if r["bench"] == "fleet_round")
+    walls = {r["bench"]: r["bench_wall_s"] for r in rows
+             if r["bench"] in ("fleet_round", "fleet_async_prune",
+                               "fleet_async_autok", "fleet_learn_drift")}
+    walls["fleet_tree_async"] = next(
+        r["bench_wall_s"] for r in rows if r["bench"] == "fleet_tree_async"
+        and r["mode"] == "measured")
+    log(f"  [22b] {len(rows)} rows {json.dumps(kinds)}; seconds per "
+        f"measured point {json.dumps(walls)}; cohort 1,000: "
+        f"{point['clients_per_sec']} clients/s, "
+        f"{point['round_time_s_mean']} s per round, so "
+        f"{MILLION / point['clients_per_sec']:.1f} s per round at a cohort "
+        f"of 1,000,000 (the rules' floor: 10,000 clients/s); {card()}")
+    want = {"fleet_round": 1, "fleet_mask_cost": 5, "fleet_uplink_bytes": 3,
+            "fleet_ingest_scaling": 3, "fleet_async": 4,
+            "fleet_async_prune": 1, "fleet_async_autok": 1,
+            "fleet_tree_async": 4, "fleet_learn_drift": 1}
+    if kinds != want or point["clients_trained"] != 2000:
+        raise AssertionError(f"22b: {kinds}, {point}")
+    return dict(s=round(secs, 2), clients_per_sec=point["clients_per_sec"])
+
+
+def wire_bench_path(F, results: str) -> dict:
+    """22c: ``bench_wire`` at its defaults, then ``--fold-device``
+    rounds; both sets of rows in ``wire_bench.jsonl``."""
+    out = os.path.join(results, "wire_bench.jsonl")
+    fold_out = os.path.join(results, "wire_fold_device.jsonl")
+    secs = _run_script("22c", "bench_wire", [*WIRE_CUTS, "--check-schema",
+                                             "--out", out])
+    launches = dict(F.launches)
+    secs += _run_script("22c", "bench_wire", [
+        "--fold-device", "--cohorts", "4", "--down-schemes", "none",
+        "--tp-sizes", "1", "--schemes", "topk8", "--feedback", "off",
+        "--lora-ranks", "", "--fold-frames", "", "--ckpt-tp", "0",
+        "--check-schema", "--out", fold_out])
+    rows, fold_rounds = _rows(out), _rows(fold_out)
+    with open(out, "a") as f:
+        for r in fold_rounds:
+            f.write(json.dumps(r) + "\n")
+    folds = [r for r in rows if r["bench"] == "wire_fold"]
+    walls: dict = {}
+    for r in rows:
+        if r["bench"] in ("wire_round", "wire_lora"):
+            walls[r["bench"]] = walls.get(r["bench"], 0.0) + r["bench_wall_s"]
+        else:                       # cumulative within a frame or the pair
+            key = f"{r['bench']}/{r.get('frame', '')}"
+            walls[key] = max(walls.get(key, 0.0), r["bench_wall_s"])
+    log(f"  [22c] seconds by kind {json.dumps(walls)}")
+    for r in folds:
+        log(f"  [22c] wire_fold {r['frame']} {r['path']} batch {r['batch']}: "
+            f"{r['updates_per_s']} updates/s, {r['speedup_vs_host']}x the "
+            f"host, parity {r['parity_bitwise']}, {r['kernel_backend']}")
+    for r in (r for r in rows if r["bench"] == "wire_ckpt"):
+        log(f"  [22c] wire_ckpt {r['path']}: save {r['save_s']} s, restore "
+            f"{r['restore_s']} s, gather_avoided {r['gather_avoided']}, "
+            f"bitwise {r['restore_bitwise']}")
+    log(f"  [22c] --fold-device rounds: "
+        + "; ".join(f"{r['scheme_up']} up {r['fold_device_folds_per_round']}"
+                    f" folds per round of {r['cohort']}, "
+                    f"{r['round_time_s_mean']} s" for r in fold_rounds)
+        + f"; launches {json.dumps(dict(F.launches))}; {card()}")
+    device = [r for r in folds if r["path"] == "device"]
+    if len(device) != 6 or not all(r["parity_bitwise"] and
+                                   r["kernel_backend"] == "cuda"
+                                   for r in device):
+        raise AssertionError(f"22c: device fold rows {device}")
+    if len(fold_rounds) != 2 or any(
+            r["fold_device_folds_per_round"] != r["cohort"]
+            for r in fold_rounds):
+        raise AssertionError(f"22c: --fold-device rows {fold_rounds}")
+    if not (launches["fold_sparse"] and launches["fold_dense"]
+            and F.launches["fold_sparse"] > launches["fold_sparse"]
+            and F.launches["fold_dense"] > launches["fold_dense"]):
+        raise AssertionError(f"22c: launches {launches}, {F.launches}")
+    return dict(s=round(secs, 2), updates_per_s={
+        f"{r['frame']}/{r['path']}/{r['batch']}": r["updates_per_s"]
+        for r in folds})
+
+
+def mesh_smoke_path(results: str) -> dict:
+    """22d: ``mesh_smoke`` at its defaults."""
+    out = os.path.join(results, "mesh_bench.jsonl")
+    secs = _run_script("22d", "mesh_smoke", ["--out", out])
+    compare = _rows(out)[-1]
+    log(f"  [22d] mesh smoke: {json.dumps(compare)}")
+    if not (compare["fold_bitwise_ok"] and compare["frame_bytes_ok"]):
+        raise AssertionError(f"22d: {compare}")
+    return dict(s=round(secs, 2),
+                ratio=compare["hbm_ratio_sharded_over_replicated"])
+
+
+def measured_sentinel_path(root: str) -> dict:
+    """22e: the port's sentinel over the rows 22a-22d wrote."""
+    from colearn_federated_learning_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            cli.main(["sentinel", "--root", root, "--format", "json"])
+        except SystemExit as e:       # 1: the unjudged rules' violations
+            if e.code not in (0, 1, None):
+                raise
+    doc = json.loads(out.getvalue())
+    for r in doc["results"]:
+        log(f"  [22e] {r['id']}: value {r['value']}, rows {r['rows']}, "
+            f"ok {r['ok']}, reason {r['reason']}"
+            + (" (printed, not asserted)" if r["id"] in UNJUDGED_RULES
+               else ""))
+    bad = [r for r in doc["results"]
+           if not r["ok"] and r["id"] not in UNJUDGED_RULES]
+    judged = [r for r in doc["results"] if r["rows"] > 0]
+    if doc["rules"] != 32 or bad:
+        raise AssertionError(f"22e: {bad}")
+    return dict(rules=doc["rules"], judged_on_rows=len(judged),
+                violations=doc["violations"])
+
+
+def measure_phase(A, F) -> dict:
+    """Phase 22: the measurement drivers on the card and the sentinel over
+    their rows.  Returns its launches (22c's folds)."""
+    from colearn_federated_learning_tpu_torch import telemetry
+    from colearn_federated_learning_tpu_torch.ops import _build
+
+    A.reset_launches()
+    F.reset_launches()
+    telemetry.get_registry().reset()
+    numbers = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        results = os.path.join(root, "results")
+        os.makedirs(results)
+        shutil.copy(os.path.join(REPO, "pyproject.toml"), root)
+        numbers["22a"] = north_star_path(results)
+        numbers["22b"] = fleet_bench_path(results)
+        numbers["22c"] = wire_bench_path(F, results)
+        numbers["22d"] = mesh_smoke_path(results)
+        numbers["22e"] = measured_sentinel_path(root)
+    launches = {**A.launches, **F.launches}
+    if any(A.launches.values()):
+        raise AssertionError(f"22: attention kernels launched: {launches}")
+    log("phase 22 numbers " + json.dumps(numbers))
+    return launches
+
+
 def cache_synthetic_data():
     """Draw each synthetic dataset once in this process: every later draw
     of the same (dataset, seed) gets a copy of the first one's arrays
@@ -6260,7 +6504,7 @@ def fold_and_file_phase(A, F):
 
 
 def run_phases() -> int:
-    """Phases 1-21 and the two result lines (see the module docstring)."""
+    """Phases 1-22 and the two result lines (see the module docstring)."""
     from colearn_federated_learning_tpu_torch.ops import _build
     from colearn_federated_learning_tpu_torch.ops import attention as A
     from colearn_federated_learning_tpu_torch.ops import fold as F
@@ -6338,6 +6582,9 @@ def run_phases() -> int:
     paths["analysis"] = phase(21, "the analysis tools (lint, the live "
                                   "sentinels on the card's rows, sentinel)",
                               analysis_phase, A, F)
+    paths["measure"] = phase(22, "the measurement drivers (north star, "
+                                 "fleet, wire, mesh) and the sentinel over "
+                                 "their rows", measure_phase, A, F)
     log("launches per path " + json.dumps(paths))
     total = time.perf_counter() - t_start
     log(f"script {total:.2f} s; phase seconds {json.dumps(PHASE_S)}; 9c "

@@ -172,10 +172,12 @@ class CoordinatorCore:
 
     def _init_core(self, config: ExperimentConfig, broker_host: str,
                    broker_port: int, want_evaluator: bool, mud_policy,
-                   device_type: Optional[str], device, process: str) -> None:
+                   device_type: Optional[str], device, process: str,
+                   positions: Optional[list] = None) -> None:
         """Everything but the validation, which each coordinator runs
         first.  ``process`` names the tracer's process and the ledger's
-        file (``health_<process>.jsonl``)."""
+        file (``health_<process>.jsonl``); ``positions``, the sharded
+        server's positions (default: ``utils.device.placement_devices``)."""
         self.config = config
         self.device = resolve_device(device)
         self.want_evaluator = want_evaluator
@@ -217,7 +219,7 @@ class CoordinatorCore:
         # The sharded server, or None (replicated; the fallback counted).
         self._placement = partition.make_server_placement(
             params, config.run.tp_size, config.run.tp_axis,
-            config.model.name, device=self.device)
+            config.model.name, devices=positions, device=self.device)
         # The folds stage per shard, but under LoRA they fold the factors,
         # which stay replicated; only the base is sharded.
         self._fold_placement = (None if config.fed.lora_rank > 0
@@ -467,10 +469,14 @@ class FederatedCoordinator(CoordinatorCore):
         mud_policy=None,
         device_type: Optional[str] = None,
         device=None,
+        positions: Optional[list] = None,
     ):
         """``mud_policy``: an optional :class:`comm.mud.MudPolicy` gating
         enrollment by RFC 8520 identity.  ``device_type``: federate ONLY
-        devices of this MUD type (the per-type topology)."""
+        devices of this MUD type (the per-type topology).  ``positions``:
+        the sharded server's positions under ``run.tp_size > 1`` (default:
+        the distinct cards, or the CPU's host positions; a position may
+        repeat a device)."""
         setup_lib.require_mean_aggregator(config, "the socket coordinator")
         fed = config.fed
         if fed.secure_agg and fed.secure_agg_neighbors and (
@@ -500,7 +506,8 @@ class FederatedCoordinator(CoordinatorCore):
         # Sub-quorum rounds are explicit no-ops; 0 disables.
         self.min_cohort_fraction = fed.min_cohort_fraction
         self._init_core(config, broker_host, broker_port, want_evaluator,
-                        mud_policy, device_type, device, "coordinator")
+                        mud_policy, device_type, device, "coordinator",
+                        positions=positions)
         self._wal = None
         # The durable enrollment ledger (ckpt/wal.EnrollmentLedger) and
         # what the previous incarnation admitted, read before this process

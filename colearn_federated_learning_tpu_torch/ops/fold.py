@@ -433,12 +433,18 @@ class FoldKernel:
     # ------------------------------------------------------- delivery --
     def to_host(self, acc: Optional[torch.Tensor]) -> Optional[list]:
         """The accumulator's slots as flat host numpy arrays (one device ->
-        host copy)."""
+        host copy).  From the card the copy lands in pinned memory from
+        torch's caching host allocator: a fresh pageable buffer of the
+        accumulator's size (434 MB at BERT-base) would fault in every page
+        on each fold and copy through a staging buffer.  The arrays hold
+        the block until the caller drops them."""
         if acc is None:
             return None
-        flat = acc.cpu().numpy()
-        if not self.on_card:
-            flat = flat.copy()          # detach from the accumulator
+        if self.on_card:
+            host = torch.empty(acc.shape, dtype=acc.dtype, pin_memory=True)
+            flat = host.copy_(acc).numpy()
+        else:
+            flat = acc.numpy().copy()   # detach from the accumulator
         return [flat[a:b] for a, b in zip(self.offsets[:-1],
                                           self.offsets[1:])]
 

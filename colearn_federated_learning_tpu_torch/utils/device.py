@@ -38,3 +38,14 @@ def placement_devices(device=None) -> list[torch.device]:
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [device] * host_device_count()
+
+
+def server_positions(n: int, device=None) -> list[torch.device]:
+    """Positions for an ``n``-wide server placement on ``device``'s kind:
+    the distinct cards, or the first card repeated ``n`` times when the
+    host has fewer (a placement's positions may repeat a device); on the
+    CPU, :func:`host_device_count` positions."""
+    devs = placement_devices(device)
+    if devs[0].type == "cuda" and len(devs) < n:
+        return [devs[0]] * n
+    return devs

@@ -24,9 +24,10 @@ case for case with JAX's ``tests/test_fleetsim.py`` where a case applies.
 
 No counterpart: JAX's ``compile_counts`` cases (``one_compile_per_sweep``,
 ``cli_fleetsim_reports_compile_counts`` and the compile asserts of the
-async cases), since the port compiles nothing, and
-``bench_fleet_writes_schema_valid_jsonl`` (``scripts/bench_fleet.py`` is
-not ported; ROADMAP.md).
+async cases), since the port compiles nothing.  JAX's
+``bench_fleet_writes_schema_valid_jsonl`` has its counterpart in
+``tests/test_torch_port_measure.py``, beside the rest of
+``scripts/torch_port_bench_fleet.py``'s cases.
 """
 
 import dataclasses

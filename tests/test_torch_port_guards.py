@@ -188,7 +188,11 @@ def test_telemetry_copies_are_their_sources_verbatim(module):
                                     "scripts/torch_port_profile.py",
                                     "scripts/torch_port_ab_round.py",
                                     "scripts/torch_port_ab_fold.py",
-                                    "scripts/torch_port_fold_layouts.py"])
+                                    "scripts/torch_port_fold_layouts.py",
+                                    "scripts/torch_port_bench_fleet.py",
+                                    "scripts/torch_port_mesh_smoke.py",
+                                    "scripts/torch_port_bench_wire.py",
+                                    "scripts/torch_port_perf_north_star.py"])
 def test_card_scripts_import_no_jax_and_nothing_of_the_jax_package(script):
     for mod in _imports(ROOT / script):
         assert mod.split(".")[0] not in FORBIDDEN, f"{script} imports {mod}"
