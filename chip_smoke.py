@@ -36,8 +36,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    to 5; then ``evaluate_detection(benign_class=0)``, the IoT
    deployment's report: finite, over the whole test set, its accuracy
    the evaluation's), config #5 (ViT-B/16 with
-   ``attn_impl="flash"``, cohort cut to 16) and MoE-BERT (BERT-base width,
-   4 experts, flash, cohort 4, 2 local steps).  Every path resets the
+   ``attn_impl="flash"``, cohort cut to 16, 6 of its 12 blocks) and
+   MoE-BERT (BERT-base width, 6 blocks, 4 experts, flash, cohort 4, 2
+   local steps).  Every path resets the
    launch counts before it and checks them after: depth × (steps +
    evaluation batches) for K1 and depth × steps for K2 and K3 on a flash
    path, none elsewhere;
@@ -51,7 +52,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the JAX accountant's value for 7c's q, z and δ, which a CPU test ties
    to JAX; no update norm in the record) and 7c' its round
    0 without the masks (the params agree to 1e-5: the masks cancel on the
-   card), 7d Krum on BERT-base (8 of 10 kept), 7e ring masks of degree 4
+   card), 7d Krum on BERT-base at 6 blocks (8 of 10 kept), 7e ring masks
+   of degree 4
    with DP on config #2 — each with exact launch counts, its seconds per
    round, evaluation seconds and peak memory;
 8. the hierarchical and clustered learners and per-client evaluation at
@@ -70,7 +72,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    clients, one round of each cluster and their per-client report (the
    labels' agreement with the planted concept is printed, not gated);
    8c ``train --per-client-eval --personalize-steps 5 --detection-eval``
-   on BERT-base (full width and depth) for one round: the three reports
+   on BERT-base (full width, 6 of its 12 blocks) for one round: the three
+   reports
    finite, the personalized one over all 50 clients, their seconds
    printed, and K1-K3's launches exact with the per-client chunks, the
    250 fine-tune steps (K1-K3), the global and personalized scoring
@@ -181,11 +184,12 @@ Phases (any failure exits non-zero; no phase's error is caught):
    type fails, the two models are finite, moved and distinct, and
    ``fold_dense`` launches 4 times;
 13. the telemetry core (``telemetry/``, ``metrics.py``) on config #4:
-   13a ``train`` through ``cli.main`` for 2 rounds without and with
+   13a ``train`` through ``cli.main`` (BERT-base at 6 of its 12 blocks
+   since PR 23) for 2 rounds without and with
    ``--trace-dir --trace-rounds 1 --log-file --tensorboard-dir
    --profile-dir`` on the same plan: the same record keys but the traced
-   records' ``flops_per_round``, which equals the hand count of BERT-base
-   at 4 steps × 16 × cohort 10 (``bert_step_flops``), one Chrome trace
+   records' ``flops_per_round``, which equals the hand count of that
+   BERT at 4 steps × 16 × cohort 10 (``bert_step_flops``), one Chrome trace
    of the profiler window (round 1 alone) whose card events hold K1-K3
    by name, once per block and step of round 1 (K1 with its evaluation
    batches), the losses and params within 10a's
@@ -274,7 +278,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    partials, ``fold_sparse`` of topk8 contributions) bitwise its plain
    version and timed as in 9a;
 16. checkpoints and resume (``ckpt/``) on the card: 16a ``train`` on
-   config #4 (BERT-base, flash, 4 local steps) for 1 round with
+   config #4 (BERT-base at 6 of its 12 blocks, flash, 4 local steps) for
+   1 round with
    ``--checkpoint-dir``, then ``--rounds 2 --resume``: stderr says
    ``resumed at round 1``, K1-K3 launch exactly, and the step-2
    checkpoint, read leaf by leaf, equals that of 13a's untraced run
@@ -416,7 +421,34 @@ Phases (any failure exits non-zero; no phase's error is caught):
    those rows: every rule's id, value and verdict printed, and every rule
    ok but ``fleet-1m-round-rate`` and ``fleet-1m-client-throughput``
    (no 1M ``fleet_round`` row is written: printed with the clients/s at
-   cohort 1,000 and the round time it implies for a cohort of 1,000,000).
+   cohort 1,000 and the round time it implies for a cohort of 1,000,000);
+23. the last drivers: 23a ``dryrun.entry()``'s ViT-B/16 forward on the
+   card (bf16, K1 at L = 50, exactly one launch per block and call) on
+   its zero batch and a seeded one against the same parameters through
+   the plain (dense) core, held as phase 3 holds a kernel, with the f32
+   truth beside it; ``dryrun_multichip(1)`` on a world-1 NCCL group made
+   here (the CNN round with DP and secure aggregation), and
+   ``scripts/torch_port_record_dryrun.py 1`` (a process, which spawns
+   its own rank) writing its row; 23b ``cli bench --rounds 5 --warmup 1
+   --skip-baseline`` under ``torchrun --standalone --nproc-per-node 1``
+   (9c runs 20 rounds after 2 and the baseline): ``n_devices`` 1, its rounds/sec
+   printed beside 9c's; 23c ``torch_port_run_baseline_configs.py
+   --attn-impl flash`` (the text and ViT variants through K1-K3):
+   ``agnews_bert_fedavg`` to its 20 rounds in this process (its K1-K3
+   launches counted), and in processes beside it (``VARIANT_GROUPS``)
+   ``mnist_mlp_fedavg`` (20 rounds) and ``iot_traffic_tcn_fedavg`` (25)
+   to their rounds and every other variant for 1 round at its own width
+   (``femnist_vit_full3400``'s cohort cut to 64): every loss finite,
+   mnist's and the TCN's last accuracy at least 0.95,
+   ``agnews_bert_fedavg``'s rise from round 0 to round 19 at least half
+   of the JAX package's committed curve's
+   (``results/agnews_bert_fedavg.jsonl``), both curves printed; 23a's
+   record, 23d ``torch_port_chaos_soak.py``'s gate (a process on the
+   card), 23e ``torch_port_chaos_soak_mp.py``'s gate (processes on the
+   card) and 23f ``torch_port_obs_smoke.py``'s four phases (workers and
+   coordinators on the card; ``OBS_GROUPS``, two processes), each on a
+   thread of its own from 23c on; then 23d's ``torch_port_trace_smoke.py``
+   alone (coverage at least 0.95).
 
 Each phase prints its wall seconds on a line of its own; then one line
 gives the script's seconds, every phase's and the bench's (9c) rounds per
@@ -930,7 +962,8 @@ def family_paths():
     moe = get_config("agnews_bert_fedavg")
     resnet = get_config("cifar100_resnet18_fedprox")
     tcn = get_config("iot_traffic_tcn_fedavg")
-    # ResNet-18's and the TCN's cohorts are cut to 5 to pay for phase 20.
+    # ResNet-18's and the TCN's cohorts are cut to 5 to pay for phase 20,
+    # ViT's and MoE-BERT's depth to CUT_DEPTH for phase 23.
     return [
         ("mlp", get_config("mnist_mlp_fedavg"), "none"),
         ("resnet18", resnet.replace(
@@ -939,15 +972,18 @@ def family_paths():
         ("tcn", tcn.replace(fed=dataclasses.replace(tcn.fed, cohort_size=5)),
          "cohort_size 10 -> 5"),
         ("vit", vit.replace(
-            model=dataclasses.replace(vit.model, attn_impl="flash"),
+            model=dataclasses.replace(vit.model, attn_impl="flash",
+                                      depth=CUT_DEPTH),
             fed=dataclasses.replace(vit.fed, cohort_size=16)),
-         "cohort_size 256 -> 16"),
+         f"cohort_size 256 -> 16, depth 12 -> {CUT_DEPTH}"),
         ("moe_bert", moe.replace(
             model=dataclasses.replace(moe.model, name="moe_bert",
-                                      num_experts=4, attn_impl="flash"),
+                                      num_experts=4, attn_impl="flash",
+                                      depth=CUT_DEPTH),
             fed=dataclasses.replace(moe.fed, cohort_size=4, local_steps=2),
             run=dataclasses.replace(moe.run, name="moe_bert_agnews")),
-         "cohort_size 10 -> 4, local_steps 150 -> 2"),
+         f"cohort_size 10 -> 4, local_steps 150 -> 2, depth 12 -> "
+         f"{CUT_DEPTH}"),
     ]
 
 
@@ -959,10 +995,10 @@ EPS_RTOL = 1e-9
 # Config #2's cohort in 7a, 7b, 7e and 8b: cut from 20 to keep the script
 # in its budget.
 CNN_COHORT = 10
-# 8a, 9b and 10c run BERT-base at CUT_DEPTH of its 12 blocks, through
-# this registry config (the script registers it in this process), to pay
-# for 8c's personalized evaluation and 13a's profile; the width and every
-# check stay.
+# 7d, 8a, 8c, 9b and 10c run BERT-base at CUT_DEPTH of its 12 blocks,
+# through this registry config (the script registers it in this process),
+# to pay for 13a's profile and phase 23 (7d and 8c since PR 23); the
+# width and every check stay.
 BERT_HALF = "agnews_bert_fedavg_half"
 
 
@@ -1126,9 +1162,10 @@ def private_paths(A):
 
 
 def krum_path(A):
-    """7d: Krum on BERT-base keeps n − f = 8 of the 10 clients."""
+    """7d: Krum on BERT-base (6 of its 12 blocks) keeps n − f = 8 of the
+    10 clients."""
     records, launches, learner = cli_path(
-        A, "7d", ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
+        A, "7d", ["--config", BERT_HALF, "--attn-impl", "flash",
                   "--local-steps", "4", "--rounds", "1", "--aggregator",
                   "krum", "--trim-fraction", "0.2"])
     chosen = learner.last_cohort["selected"]
@@ -1372,7 +1409,8 @@ PERSONALIZE_STEPS = 5      # 8c's --personalize-steps
 
 
 def per_client_eval_path(A):
-    """8c: one BERT-base round, then ``--per-client-eval``,
+    """8c: one round of BERT-base at 6 of its 12 blocks, then
+    ``--per-client-eval``,
     ``--personalize-steps 5`` and ``--detection-eval`` in the same
     process: every report is finite, the personalized one covers all 50
     clients, and K1-K3 launched exactly: K2 and K3 once per layer for each
@@ -1415,7 +1453,7 @@ def per_client_eval_path(A):
         return PERSONALIZE_STEPS * sum(int(c) >= 2 for c in learner.counts)
 
     _, launches, learner = cli_path(
-        A, "8c", ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
+        A, "8c", ["--config", BERT_HALF, "--attn-impl", "flash",
                   "--local-steps", "4", "--rounds", "1",
                   "--per-client-eval", "--personalize-steps",
                   str(PERSONALIZE_STEPS), "--detection-eval"], watch,
@@ -3246,7 +3284,8 @@ def tree_phase(A, F):
 
 # ------------------------------------------------------------ phase 13
 TRACE_WINDOW = 1           # 13a traces the first of its 2 rounds
-BERT_TRACE = ["--config", "agnews_bert_fedavg", "--attn-impl", "flash",
+# 13a and 16a at CUT_DEPTH of BERT-base's 12 blocks since PR 23.
+BERT_TRACE = ["--config", BERT_HALF, "--attn-impl", "flash",
               "--local-steps", "4", "--rounds", "2", "--eval-every", "10"]
 CLOCK_SLACK_S = 1e-3       # wall-clock anchors vs perf_counter durations
 
@@ -3295,8 +3334,8 @@ def chrome_kernels(path: str) -> tuple[dict, float]:
 
 
 def traced_engine_path(A, workdir):
-    """13a: ``train`` through ``cli.main`` on config #4 (BERT-base, flash,
-    4 local steps, 2 rounds) without and with ``--trace-dir
+    """13a: ``train`` through ``cli.main`` on config #4 (BERT-base at 6 of
+    its 12 blocks, flash, 4 local steps, 2 rounds) without and with ``--trace-dir
     --trace-rounds 1 --log-file --tensorboard-dir --profile-dir``, on the
     same plan: the record keys are the same but for the traced records'
     ``flops_per_round``, which equals the hand count (``bert_step_flops``
@@ -6359,6 +6398,292 @@ def measure_phase(A, F) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 23
+# 23c: the curves run to their rounds; every other variant runs 1 round.
+CURVES = ("mnist_mlp_fedavg", "agnews_bert_fedavg", "iot_traffic_tcn_fedavg")
+# 23c's process groups beside the agnews curve (which runs in this
+# process, so that its K1-K3 launches are counted): each group is one
+# process of run_baseline_configs, a group's processes one after another.
+VARIANT_GROUPS = (
+    (("mnist_mlp_fedavg,iot_traffic_tcn_fedavg",),),
+    (("cifar10_cnn_fedavg,cifar100_resnet18_fedprox,agnews_moebert_fedavg,"
+      "femnist_vit_cross_silo", "--rounds", "1"),),
+    (("agnews_bert_full,femnist_vit3400_scaled", "--rounds", "1"),),
+    # femnist_vit_full3400's cohort 256 (about 1,024 ViT-B/16 steps) cut.
+    (("femnist_vit_full3400", "--rounds", "1", "--cohort", "64"),),
+)
+# 23f's four phases as two processes of the smoke (its argv selection).
+OBS_GROUPS = (("classic", "tree"), ("async", "learning"))
+MIN_FINAL_ACC = 0.95            # mnist's and the TCN's last accuracy
+RISE_SHARE = 0.5                # of the JAX curve's rise, round 0 -> 19
+# 23b's timed rounds and warm-up (the bench's default 20 and 2, and its
+# baseline, are 9c's).
+TORCHRUN_ROUNDS, TORCHRUN_WARMUP = 5, 1
+
+
+def _python_env() -> dict:
+    return dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+
+
+def entry_path(A, root: str) -> dict:
+    """23a: the flagship forward through K1 against the dense core on the
+    same parameters; the dry run in-process at world 1 and through its
+    recorder."""
+    import torch.distributed as dist
+
+    from colearn_federated_learning_tpu_torch import dryrun
+    from colearn_federated_learning_tpu_torch.models import registry
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
+
+    fn, (params, x) = dryrun.entry()
+    cfg = get_config(dryrun.FLAGSHIP).model
+    g = torch.Generator(device="cuda").manual_seed(23)
+    inputs = {"zeros": x, "seeded": torch.randn(x.shape, generator=g,
+                                                device="cuda")}
+    A.reset_launches()
+    got = {k: fn(params, v) for k, v in inputs.items()}
+    torch.cuda.synchronize()
+    launches = dict(A.launches)
+    want = {"flash_forward": 2 * cfg.depth, "flash_backward_dq": 0,
+            "flash_backward_dkv": 0}
+    if launches != want:
+        raise AssertionError(f"23a: launches {launches}, want {want}")
+    errs = {}
+    plain = [registry.build_model(
+        dataclasses.replace(cfg, attn_impl="dense", dtype=dt), "cuda",
+        input_shape=dryrun.ENTRY_BATCH[1:]).eval()
+        for dt in (cfg.dtype, "float32")]
+    for k, v in inputs.items():
+        with torch.no_grad():
+            ref, truth = (torch.func.functional_call(m, params, (v,))
+                          for m in plain)
+        if tuple(got[k].shape) != (8, cfg.num_classes):
+            raise AssertionError(f"23a: logits {tuple(got[k].shape)}")
+        errs[k] = check_close(f"23a entry {k}", got[k], ref, truth)
+    del plain
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            f"{tmp}/store", 1), rank=0, world_size=1)
+        try:
+            t0 = time.perf_counter()
+            run = dryrun.dryrun_multichip(1)
+            dry_s = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    if [r["mesh"] for r in run["runs"]] != [{"clients": 1}]:
+        raise AssertionError(f"23a: dry run {run}")
+    log(f"  [23a] entry logits max abs err vs the plain core "
+        f"{json.dumps(errs)}, K1 launches {launches['flash_forward']}; "
+        f"dry run at world 1 {json.dumps(run['runs'])} in {dry_s:.2f} s; "
+        f"{card()}")
+    return dict(entry_err=errs, dryrun_s=round(dry_s, 2))
+
+
+def record_dryrun_path(root: str) -> dict:
+    """23a's record: ``torch_port_record_dryrun.py 1`` as a process (run
+    beside 23c)."""
+    out = os.path.join(root, "dryrun_multichip.json")
+    _, _, secs = script_process("23a", ["record_dryrun", "1", "--out", out],
+                                300)
+    with open(out) as f:
+        rec = json.load(f)
+    log(f"  [23a] record_dryrun 1: {json.dumps(rec)}; {secs:.2f} s")
+    if not (rec["platform"].startswith("gpu") and rec["runs"][0]["ok"]):
+        raise AssertionError(f"23a: record {rec}")
+    return dict(s=round(secs, 2))
+
+
+def bench_torchrun_path(bench9c: dict) -> dict:
+    """23b: ``cli bench --rounds 5 --warmup 1 --skip-baseline`` under
+    ``torchrun --nproc-per-node 1`` (9c runs 20 rounds after 2 and the
+    reference-style baseline)."""
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1", "-m",
+            "colearn_federated_learning_tpu_torch.cli", "bench",
+            "--rounds", str(TORCHRUN_ROUNDS), "--warmup",
+            str(TORCHRUN_WARMUP), "--skip-baseline"]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, cwd=REPO,
+                       env=_python_env(), timeout=600)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        sys.stderr.write(r.stdout[-4000:] + r.stderr[-4000:])
+        raise AssertionError(f"23b: torchrun bench exited {r.returncode}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    log(f"  [23b] torchrun bench: {out['value']} rounds/sec (9c in-process "
+        f"{bench9c['value']}), n_devices {out['n_devices']}, "
+        f"{out['client_samples_per_sec_per_chip']} client-samples/sec/chip, "
+        f"vs_baseline {out['vs_baseline']}, {secs:.2f} s; {out.get('card')}")
+    if not (out["n_devices"] == 1 and out["platform"] == "gpu"
+            and out["value"] > 0):
+        raise AssertionError(f"23b: {out}")
+    return dict(rounds_per_sec=out["value"], s=round(secs, 2))
+
+
+def _curve(rows) -> list:
+    return [round(r["eval_acc"], 4) for r in rows if "eval_acc" in r]
+
+
+def variant_group(results: str, group: tuple) -> float:
+    """One of 23c's process groups; returns its seconds."""
+    secs = 0.0
+    for only, *extra in group:
+        _, _, s = script_process("23c", [
+            "run_baseline_configs", "--only", only, "--attn-impl", "flash",
+            "--out", results, *extra], 900)
+        log(f"  [23c] run_baseline_configs --only {only} "
+            f"{' '.join(extra)}: {s:.2f} s (a process)")
+        secs += s
+    return secs
+
+
+def baseline_path(A, root: str) -> dict:
+    """23c: the baseline variants through K1-K3 (see the module
+    docstring): the agnews curve in this process, the other variants in
+    VARIANT_GROUPS's processes beside it.  Returns the groups' threads
+    (joined by :func:`check_baselines`) and the curve's seconds."""
+    results = os.path.join(root, "baseline")
+    groups = [Beside(f"23c group {i}", variant_group, results, g)
+              for i, g in enumerate(VARIANT_GROUPS)]
+    A.reset_launches()
+    secs = _run_script("23c", "run_baseline_configs", [
+        "--only", "agnews_bert_fedavg", "--attn-impl", "flash", "--out",
+        results])
+    return groups, dict(A.launches), round(secs, 2)
+
+
+def check_baselines(root: str, groups, launches: dict, agnews_s) -> dict:
+    """23c's checks over every variant's records, once its processes are
+    joined."""
+    mod = _port_script("run_baseline_configs")
+    results = os.path.join(root, "baseline")
+    secs = {"agnews_bert_fedavg": agnews_s}
+    for i, g in enumerate(groups):
+        secs[f"group {i}"] = round(g.join(), 2)
+    curves = {}
+    for name in mod.scaled_variants():
+        meta, *rows = _rows(os.path.join(results, f"{name}.jsonl"))
+        losses = [r[k] for r in rows for k in ("train_loss", "eval_loss")
+                  if k in r]
+        if not (rows and all(math.isfinite(v) for v in losses)):
+            raise AssertionError(f"23c: {name} losses {losses}")
+        curves[name] = _curve(rows)
+        log(f"  [23c] {name}: {meta['note']}; {len(rows)} rounds, cohort "
+            f"{meta['cohort']}, {meta['local_steps']} steps; eval_acc "
+            f"{curves[name]}; last train_loss {rows[-1]['train_loss']}")
+    jax_curve = _curve(_rows(os.path.join(REPO, "results",
+                                          "agnews_bert_fedavg.jsonl"))[1:])
+    ours = curves["agnews_bert_fedavg"]
+    rise, jax_rise = ours[-1] - ours[0], jax_curve[-1] - jax_curve[0]
+    log(f"  [23c] agnews_bert_fedavg rise {rise:.4f} (port {ours[0]} -> "
+        f"{ours[-1]}) against the JAX package's {jax_rise:.4f} "
+        f"({jax_curve[0]} -> {jax_curve[-1]}); JAX curve {jax_curve}; "
+        f"launches {json.dumps(launches)}; {card()}")
+    if len(ours) != 20 or rise < RISE_SHARE * jax_rise:
+        raise AssertionError(f"23c: agnews curve {ours}")
+    for name in ("mnist_mlp_fedavg", "iot_traffic_tcn_fedavg"):
+        if curves[name][-1] < MIN_FINAL_ACC:
+            raise AssertionError(f"23c: {name} curve {curves[name]}")
+    if not all(launches.values()):
+        raise AssertionError(f"23c: launches {launches}")
+    return dict(s=secs, rise=round(rise, 4), jax_rise=round(jax_rise, 4),
+                launches=launches)
+
+
+def script_process(tag: str, argv: list, timeout: float) -> tuple:
+    """``scripts/torch_port_<argv[0]>.py argv[1:]`` as a process on the
+    card; fails on a non-zero exit.  Returns (stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts",
+                                      f"torch_port_{argv[0]}.py"),
+         *argv[1:]], capture_output=True, text=True, cwd=REPO,
+        env=_python_env(), timeout=timeout)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        sys.stderr.write(r.stdout[-4000:] + r.stderr[-6000:])
+        raise AssertionError(f"{tag}: {argv[0]} exited {r.returncode}")
+    return r.stdout, r.stderr, secs
+
+
+def proc_soak_path() -> dict:
+    """23e: the process soak's gate, as a process on the card."""
+    out, _, secs = script_process("23e", ["chaos_soak_mp"], 900)
+    doc = json.loads(out.strip().splitlines()[-1])
+    f = doc["faulted"]
+    log(f"  [23e] chaos_soak_mp: problems {doc['problems']}; faulted "
+        f"rounds_run {f['rounds_run']}, rounds_resumed {f['rounds_resumed']}"
+        f", kills {[k.get('target') for k in f['kills']]}, acc baseline "
+        f"{doc['baseline']['weighted_acc']} faulted {f['weighted_acc']}; "
+        f"{secs:.2f} s")
+    return dict(s=round(secs, 2), kills=len(f["kills"]))
+
+
+def obs_smoke_path(phases: tuple) -> dict:
+    """23f: phases of the observability smoke, as a process (its fleets
+    on the card)."""
+    _, err, secs = script_process("23f", ["obs_smoke", *phases], 900)
+    checks = [ln for ln in err.splitlines() if ln.startswith("[obs-smoke]")]
+    ok = sum(ln.startswith("[obs-smoke] ok:") for ln in checks)
+    failed = [ln for ln in checks if ln.startswith("[obs-smoke] FAIL:")]
+    log(f"  [23f] obs_smoke {' '.join(phases)}: {ok} checks ok, "
+        f"{len(failed)} failed, over "
+        f"{sum('phase:' in ln for ln in checks)} phases in {secs:.2f} s")
+    if failed or not ok or "all checks passed" not in checks[-1]:
+        raise AssertionError(f"23f: {checks}")
+    return dict(s=round(secs, 2), checks=ok)
+
+
+def soak_path() -> dict:
+    """23d: the in-process soak's gate, as a process on the card."""
+    out, _, secs = script_process("23d", ["chaos_soak"], 600)
+    doc = json.loads(out.strip().splitlines()[-1])
+    f = doc["faulted"]
+    log(f"  [23d] chaos_soak: problems {doc['problems']}, skipped "
+        f"{f['skipped_rounds']}, evicted {f['evicted']}, acc baseline "
+        f"{doc['baseline']['weighted_acc']} faulted {f['weighted_acc']}, "
+        f"{secs:.2f} s")
+    return dict(s=round(secs, 2))
+
+
+def trace_path(root: str) -> dict:
+    """23d: the trace smoke on the card, alone (its coverage is a share
+    of 25 ms rounds)."""
+    t0 = time.perf_counter()
+    res = _port_script("trace_smoke").main(os.path.join(root, "trace"))
+    secs = time.perf_counter() - t0
+    log(f"  [23d] trace smoke: {res['spans']} spans, phases "
+        f"{res['phases']}, coverage {res['coverage']:.4f}, {secs:.2f} s")
+    if not (res["coverage"] >= 0.95 and res["device"].startswith("cuda")):
+        raise AssertionError(f"23d: trace smoke {res}")
+    return dict(coverage=round(res["coverage"], 4), s=round(secs, 2))
+
+
+def drivers_phase(A, bench9c: dict) -> dict:
+    """Phase 23: the last drivers (see the module docstring).  Returns
+    23c's launches."""
+    from colearn_federated_learning_tpu_torch.ops import _build
+
+    numbers = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        numbers["23a"] = entry_path(A, root)
+        numbers["23b"] = bench_torchrun_path(bench9c)
+        beside = {"23a record": Beside("23a record", record_dryrun_path,
+                                       root),
+                  "23e": Beside("23e", proc_soak_path),
+                  "23d soak": Beside("23d soak", soak_path),
+                  **{f"23f {' '.join(g)}": Beside("23f", obs_smoke_path, g)
+                     for g in OBS_GROUPS}}
+        groups, launches, agnews_s = baseline_path(A, root)
+        numbers["23c"] = check_baselines(root, groups, launches, agnews_s)
+        for tag, b in beside.items():
+            numbers[tag] = b.join()
+        numbers["23d"] = trace_path(root)
+    log("phase 23 numbers " + json.dumps(numbers))
+    return numbers["23c"]["launches"]
+
+
 def cache_synthetic_data():
     """Draw each synthetic dataset once in this process: every later draw
     of the same (dataset, seed) gets a copy of the first one's arrays
@@ -6504,7 +6829,7 @@ def fold_and_file_phase(A, F):
 
 
 def run_phases() -> int:
-    """Phases 1-22 and the two result lines (see the module docstring)."""
+    """Phases 1-23 and the two result lines (see the module docstring)."""
     from colearn_federated_learning_tpu_torch.ops import _build
     from colearn_federated_learning_tpu_torch.ops import attention as A
     from colearn_federated_learning_tpu_torch.ops import fold as F
@@ -6585,6 +6910,11 @@ def run_phases() -> int:
     paths["measure"] = phase(22, "the measurement drivers (north star, "
                                  "fleet, wire, mesh) and the sentinel over "
                                  "their rows", measure_phase, A, F)
+    paths["drivers"] = phase(23, "the last drivers (the dry run, the bench "
+                                 "under torchrun, the baseline curves, the "
+                                 "trace smoke, the soak gates, the "
+                                 "observability smoke)", drivers_phase, A,
+                             bench)
     log("launches per path " + json.dumps(paths))
     total = time.perf_counter() - t_start
     log(f"script {total:.2f} s; phase seconds {json.dumps(PHASE_S)}; 9c "

@@ -6,8 +6,12 @@ The counterpart of the JAX package's ``bench.py``, measuring the same
 work: config #2's shape (CIFAR-10 CNN width 64, bf16, 64 Dirichlet
 clients of 256 examples, cohort 16, 8 local steps x batch 32, SGD with
 momentum), a federated round of cohort sampling, local training, the
-weighted fold and the server step.  The rate is the timed rounds over the
-host seconds of the timed window, after ``--warmup`` rounds; the card is
+weighted fold and the server step.  The learner is laid out as the JAX
+bench lays its own (``FederatedLearner.from_config``): under ``torchrun``
+a ``(clients,)`` mesh over the world, whose size is ``n_devices``; the
+cohort is cut to a multiple of it, and the per-chip rate is divided by
+it.  The rate is the timed rounds over the host seconds of the timed
+window, after ``--warmup`` rounds; the card is
 synchronised at the window's end and not between rounds.  One process
 measures once: repeat calls to see the spread.  Each round's
 ``round_time_s`` (the host's time between round starts) and their median
@@ -89,12 +93,28 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+def _agreed(learner, value: float) -> float:
+    """``value`` as every rank of the learner's mesh sees it (their
+    largest), so that ranks in lockstep take the same decisions."""
+    if learner.mesh is None:
+        return value
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor([value], dtype=torch.float64, device=learner.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
 def run_port(rounds: int, warmup: int, workload: Optional[dict] = None,
              min_time_s: float = 0.0, device=None) -> dict:
     """Time ``rounds`` federated rounds of the port after ``warmup``
     rounds; with ``min_time_s`` > 0, keep timing more rounds until the
     window holds at least that many seconds.  ``device`` None is the
-    card."""
+    card.  The learner is laid out by ``FederatedLearner.from_config``, as
+    the JAX bench lays its own: under ``torchrun`` a ``(clients,)`` mesh
+    over the world, whose size is ``n_devices`` and divides the
+    per-chip rate; the cohort is the learner's own, mesh-adjusted one."""
     import torch
 
     from colearn_federated_learning_tpu_torch.data import registry as data_registry
@@ -105,7 +125,10 @@ def run_port(rounds: int, warmup: int, workload: Optional[dict] = None,
     dataset = data_registry.get_dataset(
         w["dataset"], seed=0,
         max_train=w["num_clients"] * w["examples_per_client"], max_test=512)
-    learner = FederatedLearner(config, dataset=dataset, device=device)
+    learner = FederatedLearner.from_config(config, dataset=dataset,
+                                           device=device)
+    n_devices = learner.mesh.size() if learner.mesh is not None else 1
+    # The round's actual work (the cohort may be adjusted to the mesh).
     samples_per_round = learner.cohort_size * learner.num_steps * w["batch"]
 
     def wait():
@@ -124,7 +147,7 @@ def run_port(rounds: int, warmup: int, workload: Optional[dict] = None,
             starts.append(time.perf_counter())
             learner.run_round(sync=False)
         wait()
-        dt = time.perf_counter() - t0
+        dt = _agreed(learner, time.perf_counter() - t0)
         total_rounds += chunk
         if dt >= min_time_s:
             break
@@ -138,8 +161,10 @@ def run_port(rounds: int, warmup: int, workload: Optional[dict] = None,
     rps = total_rounds / dt
     return {
         "rounds_per_sec": rps,
-        "client_samples_per_sec_per_chip": rps * samples_per_round,
-        "n_devices": 1,
+        "client_samples_per_sec_per_chip": rps * samples_per_round / n_devices,
+        "n_devices": n_devices,
+        "cohort": learner.cohort_size,
+        "samples_per_round": samples_per_round,
         "rounds_timed": total_rounds,
         "seconds_timed": round(dt, 3),
         "round_time_s": round_times,
@@ -275,7 +300,8 @@ def main(argv: list[str] | None = None) -> dict:
 def run(args: argparse.Namespace) -> dict:
     """Run the bench and print its JSON line; returns it.  Exits with
     status 2 for a refused flag and 1 without a card, printing no
-    result."""
+    result.  Under ``torchrun`` rank 0 alone prints the line (and runs
+    the baseline); the other ranks return their ``run_port`` summary."""
     refused = [flag for dest, flag in _REFUSED.items()
                if getattr(args, dest) not in (None, False)]
     if refused:
@@ -298,6 +324,10 @@ def run(args: argparse.Namespace) -> dict:
     ours = run_port(rounds, args.warmup, workload, min_time_s=floor,
                     device="cpu" if on_cpu else None)
     times = ours.pop("round_time_s")
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return ours                 # one line per world, from rank 0
     print(f"[bench] round_time_s {json.dumps(times)}; median "
           f"{statistics.median(times)}", file=sys.stderr)
     print(f"[bench] port: {ours}", file=sys.stderr)

@@ -361,9 +361,17 @@ def _reduce_round(ln, flat, stats, total_w, track_norms) -> tuple:
     """The mesh round's sums over the ``clients`` group: the delta sum
     (with SCAFFOLD's variate sum) in one flat all-reduce — a robust
     aggregate is already global —, the round's scalars in another, and
-    ``norm_max`` by a MAX when norms are reported."""
+    ``norm_max`` by a MAX when norms are reported.  Under SP the loss sum
+    is first the seq axis's first shard's (a broadcast)."""
     g = ln.clients.group
     loss_sum, n_completed, bit_sum, norm_sum, norm_max, nova_sum = stats
+    if ln.sp:
+        # JAX returns the round's metrics through a replicated out-spec,
+        # which carries the first shard of the seq axis.  Under MoE the
+        # shards' losses differ in their load-balance term (each shard
+        # routes its local tokens with local capacity: models/moe.py), so
+        # every rank takes that shard's, and the records agree.
+        loss_sum = collectives.broadcast(loss_sum.clone(), ln.seq.group)
     if not ln.robust:
         collectives.all_reduce(flat, g)
     host = torch.tensor([total_w, n_completed, nova_sum],

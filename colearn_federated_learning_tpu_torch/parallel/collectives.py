@@ -2,9 +2,10 @@
 of sequence and tensor parallelism.
 
 Every collective the port makes goes through this module, and each call
-adds one to ``counts[kind]`` (``all_reduce``, ``all_gather``,
-``all_to_all``, ``ring_shift``, ``barrier``), so a caller can hold a round to the exact
-calls its path implies.  A group is always a real process group: at
+adds one to ``counts[kind]`` (``all_reduce``, ``broadcast``,
+``all_gather``, ``all_to_all``, ``ring_shift``, ``barrier``), so a caller
+can hold a round to the exact calls its path implies.  A group is always
+a real process group: at
 world size 1 the calls still run (the mesh path never skips its
 collectives).
 
@@ -51,6 +52,14 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """In-place all-reduce of ``t`` over ``group``; returns ``t``."""
     counts["all_reduce"] += 1
     dist.all_reduce(t, op=_OPS[op], group=group)
+    return t
+
+
+def broadcast(t: torch.Tensor, group, index: int = 0) -> torch.Tensor:
+    """In-place broadcast of ``t`` from the rank at ``index`` of ``group``
+    to every rank of it; returns ``t``."""
+    counts["broadcast"] += 1
+    dist.broadcast(t, src=dist.get_global_rank(group, index), group=group)
     return t
 
 

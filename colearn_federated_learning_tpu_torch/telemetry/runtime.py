@@ -59,6 +59,9 @@ __all__ = [
 
 
 # ------------------------------------------------------------ HBM gauges --
+_TOTAL_BYTES: dict = {}      # card index -> its total memory in bytes
+
+
 def sample_device_memory(registry: Optional[MetricsRegistry] = None,
                          device=None) -> dict:
     """Sample the card's allocator into live gauges; returns the stats
@@ -76,10 +79,19 @@ def sample_device_memory(registry: Optional[MetricsRegistry] = None,
     device = torch.device(device)
     if device.type != "cuda":
         return {}
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    # One read of the allocator's counters (each of torch's
+    # memory_allocated/max_memory_allocated builds the whole dict) and the
+    # card's total memory once per card: the engine samples inside every
+    # round span, whose children must cover it.
+    alloc = torch.cuda.memory_stats(device)
+    if device.index not in _TOTAL_BYTES:
+        _TOTAL_BYTES[device.index] = int(torch.cuda.mem_get_info(device)[1])
     stats = {
-        "bytes_in_use": int(torch.cuda.memory_allocated(device)),
-        "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(device)),
-        "bytes_limit": int(torch.cuda.mem_get_info(device)[1]),
+        "bytes_in_use": int(alloc.get("allocated_bytes.all.current", 0)),
+        "peak_bytes_in_use": int(alloc.get("allocated_bytes.all.peak", 0)),
+        "bytes_limit": _TOTAL_BYTES[device.index],
     }
     reg = registry if registry is not None else get_registry()
     reg.gauge("runtime.hbm_bytes_in_use").set(stats["bytes_in_use"])

@@ -157,7 +157,7 @@ NEW_MODULES = ["bench.py", "comm/aggregation.py", "fed/compression.py",
                "faults/soak.py", "faults/procsoak.py",
                "faults/lockwitness.py", "fleetsim/__init__.py",
                "fleetsim/population.py", "fleetsim/traffic.py",
-               "fleetsim/sim.py"]
+               "fleetsim/sim.py", "dryrun.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -184,15 +184,12 @@ def test_telemetry_copies_are_their_sources_verbatim(module):
     assert ours == theirs
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "scripts/torch_port_profile.py",
-                                    "scripts/torch_port_ab_round.py",
-                                    "scripts/torch_port_ab_fold.py",
-                                    "scripts/torch_port_fold_layouts.py",
-                                    "scripts/torch_port_bench_fleet.py",
-                                    "scripts/torch_port_mesh_smoke.py",
-                                    "scripts/torch_port_bench_wire.py",
-                                    "scripts/torch_port_perf_north_star.py"])
+CARD_SCRIPTS = ["chip_smoke.py"] + sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
+        "torch_port_*.py"))
+
+
+@pytest.mark.parametrize("script", CARD_SCRIPTS)
 def test_card_scripts_import_no_jax_and_nothing_of_the_jax_package(script):
     for mod in _imports(ROOT / script):
         assert mod.split(".")[0] not in FORBIDDEN, f"{script} imports {mod}"

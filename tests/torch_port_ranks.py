@@ -351,7 +351,48 @@ def personalized(p: dict) -> dict:
     return ln.evaluate_personalized(steps=p["steps"])
 
 
+def bench(p: dict) -> dict:
+    """The port's bench (``bench.run_port``) on this world: its learner
+    laid out by ``from_config``, ``p["rounds"]`` timed rounds of
+    ``p["workload"]``."""
+    from colearn_federated_learning_tpu_torch import bench as bench_lib
+
+    return bench_lib.run_port(p["rounds"], p["warmup"], p["workload"],
+                              device="cpu")
+
+
+def pod_rounds(p: dict) -> dict:
+    """The JAX package's ``tests/pod_child.py`` round on a ``clients``
+    mesh of the world: ``p["cohort"]`` of ``p["num_clients"]`` clients of
+    ``mnist_tiny`` through a small MLP, 2 rounds."""
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+    from colearn_federated_learning_tpu_torch.utils.config import (
+        DataConfig, ExperimentConfig, FedConfig, ModelConfig, RunConfig)
+
+    world = torch.distributed.get_world_size()
+    n = p["num_clients"]
+    # mnist_tiny has 2,000 train rows: Dirichlet cannot give every client
+    # an example past a few hundred clients, so large N deals IID.
+    config = ExperimentConfig(
+        data=DataConfig(dataset="mnist_tiny", num_clients=n,
+                        partition="dirichlet" if n <= 200 else "iid",
+                        dirichlet_alpha=0.5, max_examples_per_client=16),
+        model=ModelConfig(name="mlp", num_classes=10, hidden_dim=16, depth=1),
+        fed=FedConfig(strategy="fedavg", rounds=2, cohort_size=p["cohort"],
+                      local_steps=1, batch_size=4, lr=0.1, momentum=0.9),
+        run=RunConfig(name="pod_child"))
+    ln = FederatedLearner(config, device="cpu",
+                          mesh=_mesh(("clients",), (world,)))
+    hist = ln.fit(rounds=2)
+    return dict(n_devices=world, num_clients=ln.num_clients,
+                cohort_per_device=ln.cohort_per_device,
+                completed=[int(r["completed"]) for r in hist],
+                train_loss=[float(r["train_loss"]) for r in hist],
+                total_weight=[float(r["total_weight"]) for r in hist])
+
+
 SCENARIOS = {"learner_rounds": learner_rounds, "attention": attention,
              "sp_model": sp_model, "layouts": layouts,
              "mesh_resume": mesh_resume, "mesh_resize": mesh_resize,
-             "personalized": personalized}
+             "personalized": personalized, "bench": bench,
+             "pod_rounds": pod_rounds}
