@@ -448,7 +448,26 @@ Phases (any failure exits non-zero; no phase's error is caught):
    card) and 23f ``torch_port_obs_smoke.py``'s four phases (workers and
    coordinators on the card; ``OBS_GROUPS``, two processes), each on a
    thread of its own from 23c on; then 23d's ``torch_port_trace_smoke.py``
-   alone (coverage at least 0.95).
+   alone (coverage at least 0.95);
+24. (run after phase 3) the JAX package's native kernels on the card:
+   24a N1 (``csrc/topk.cu``, the top-k selector of the uplink
+   compression) against its plain version bit for bit (indices and value
+   bits) at every BERT-base leaf size at k = 1, 5 % and n, and on
+   degenerate leaves (all zeros, a constant, mixed ±0.0, ties of both
+   signs, denormals with ±inf and NaN, n = 1, 7 and 700), each size timed
+   (CUDA-graph replay) beside its bound (the leaf read once, the k
+   indices and values written once), the plain version and
+   ``torch.topk`` over the magnitudes (the yardstick the port never
+   calls), then ``compress_delta`` (topk8) of a whole BERT-base delta on
+   the card by the host clock, with exactly one selection per leaf; 24b
+   N2 (``csrc/gather.cu``, the engine's row gather) bit for bit at config
+   #5's slots (3,400 clients of FEMNIST), a bad index raising, timed
+   beside ``index_select`` and its bound.  On the paths, N1 selects every
+   trainer's topk8 uplink on the card (9b's silos, 11a, 12a, 14a, 14b,
+   15b: exactly one launch per leaf and update; 13b prints every
+   trainer's ``compress_delta`` seconds), and N2 packs every engine's
+   shards (phases 4-6: two launches per learner, its ``h2d_transfer``
+   seconds printed).
 
 Each phase prints its wall seconds on a line of its own; then one line
 gives the script's seconds, every phase's and the bench's (9c) rounds per
@@ -872,18 +891,28 @@ def drive_path(A, label, cfg, rounds, cuts, detection=False):
     elsewhere; with ``detection``, then ``evaluate_detection()`` (after
     the launch counts are read; ``detection_check``).  Returns the launch
     counts."""
+    from colearn_federated_learning_tpu_torch import telemetry
     from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+    from colearn_federated_learning_tpu_torch.ops import gather as G
 
     t_path = time.perf_counter()
     t0 = time.perf_counter()
+    G.reset_launches()
     learner = FederatedLearner(cfg)
+    packs = dict(G.launches)
+    if packs != {"gather_rows": 2}:
+        raise AssertionError(f"{label}: the pack launched {packs}, expected "
+                             "one gather each of x and y")
+    h2d = telemetry.get_registry().gauge("engine.h2d_transfer_s").value
     n_params = sum(p.numel() for p in learner.params.values())
     width = cfg.model.hidden_dim if cfg.model.name == "mlp" else cfg.model.width
     log(f"  [{label}] {cfg.run.name}: {cfg.model.name} width {width} "
         f"{cfg.model.dtype}, {n_params / 1e6:.2f} M params; "
         f"{learner.num_clients} clients, cohort {learner.cohort_size}, "
         f"{learner.num_steps} steps x batch {cfg.fed.batch_size}; cuts: "
-        f"{cuts}; built in {time.perf_counter() - t0:.2f} s")
+        f"{cuts}; built in {time.perf_counter() - t0:.2f} s (h2d_transfer "
+        f"{h2d:.4f} s: x {tuple(learner.x.shape)} {learner.x.dtype} packed "
+        f"on the card by gather_rows, {packs['gather_rows']} launches)")
     before = [p.clone() for p in learner.params.values()]
     fresh_peak()
     A.reset_launches()
@@ -931,7 +960,7 @@ def drive_path(A, label, cfg, rounds, cuts, detection=False):
                              f"expected {want}")
     log(f"  [{label}] seconds per round: {round_s}; path "
         f"{time.perf_counter() - t_path:.2f} s")
-    return launches
+    return {**launches, **packs}
 
 
 def detection_check(label, learner, eval_acc) -> None:
@@ -1833,6 +1862,7 @@ def file_plane_path(A, F, workdir):
     from colearn_federated_learning_tpu_torch.comm.aggregation import (
         StreamingFolder)
     from colearn_federated_learning_tpu_torch.fed import offline
+    from colearn_federated_learning_tpu_torch.ops import topk as T
     from colearn_federated_learning_tpu_torch.utils import trees
     from colearn_federated_learning_tpu_torch.utils.serialization import (
         load_pytree_npz)
@@ -1842,6 +1872,7 @@ def file_plane_path(A, F, workdir):
     fresh_peak()
     A.reset_launches()
     F.reset_launches()
+    T.reset_launches()
     t0 = time.perf_counter()
     log("  [file plane] " + " ".join(["init", *FILE_PLANE]))
     cli.main(["init", *FILE_PLANE, "--out", g0])
@@ -1854,6 +1885,11 @@ def file_plane_path(A, F, workdir):
         client_s.append(time.perf_counter() - t1)
         if not (math.isfinite(stats["mean_loss"]) and stats["weight"] > 0):
             raise AssertionError(f"9b: bad client stats {stats}")
+    selections = dict(T.launches)
+    leaves = len(trees.leaves(load_pytree_npz(g0)[0]))
+    if selections != {"topk_abs": SILOS * leaves}:
+        raise AssertionError(f"9b: the silos selected {selections}, "
+                             f"expected {SILOS} x {leaves} leaves")
     t1 = time.perf_counter()
     agg = cli.main(["aggregate", *FILE_PLANE, "--global-model", g0,
                     "--updates", *ups, "--out", g1])
@@ -1883,7 +1919,8 @@ def file_plane_path(A, F, workdir):
     log(f"  [file plane] clients {[round(t, 2) for t in client_s]} s "
         f"(update files {size_mb:.1f} MB each); aggregate {agg_s:.2f} s; "
         f"eval {eval_s:.2f} s: loss {ev['eval_loss']:.6f} acc "
-        f"{ev['eval_acc']:.4f}; launches {launches} (exact)")
+        f"{ev['eval_acc']:.4f}; launches {launches}, {selections} on the "
+        f"silos (exact)")
 
     # The same files through the folders, host and on the card.
     params, _ = load_pytree_npz(g0)
@@ -1955,7 +1992,7 @@ def file_plane_path(A, F, workdir):
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; path "
         f"{time.perf_counter() - t0:.2f} s; cuts: local_steps 150 -> 4, "
         f"{SILOS} silos")
-    return {**launches, **fold_launches}
+    return {**launches, **fold_launches, **selections}
 
 
 def bench_path():
@@ -2407,6 +2444,7 @@ def socket_round_path(A, F, dataset, workdir):
     streaming generation, which 16c restores."""
     from colearn_federated_learning_tpu_torch import telemetry
     from colearn_federated_learning_tpu_torch.comm.downlink import host_params
+    from colearn_federated_learning_tpu_torch.ops import topk as T
     from colearn_federated_learning_tpu_torch.utils import trees
 
     trace_dir = os.path.join(workdir, "13b_trace")
@@ -2431,8 +2469,10 @@ def socket_round_path(A, F, dataset, workdir):
             raise AssertionError("11a: roles not assigned as 3 + 1")
         trainers = sorted(d.device_id for d in coord.trainers)
         before = host_params(coord.params_tree())
+        leaves = wire_leaves(workers)
         A.reset_launches()
         F.reset_launches()
+        T.reset_launches()
         timer = _FoldTimer(F)
         records = []
         for _ in range(2):
@@ -2440,7 +2480,7 @@ def socket_round_path(A, F, dataset, workdir):
         t1 = time.perf_counter()
         ev = coord.evaluate()
         eval_s = time.perf_counter() - t1
-        launches = {**A.launches, **F.launches}
+        launches = {**A.launches, **F.launches, **T.launches}
         after = host_params(coord.params_tree())
         fold_us = timer.per_contribution_us("sparse")
         stage_us = timer.per_contribution_us("stage")
@@ -2486,7 +2526,8 @@ def socket_round_path(A, F, dataset, workdir):
     want = {"flash_forward": depth * (trained + eval_batches),
             "flash_backward_dq": depth * trained,
             "flash_backward_dkv": depth * trained,
-            "fold_sparse": 2 * 3, "fold_dense": 0}
+            "fold_sparse": 2 * 3, "fold_dense": 0,
+            "topk_abs": 2 * 3 * leaves}
     if launches != want:
         raise AssertionError(f"11a: launches {launches}, expected {want}")
     log(f"  [11a] evaluate: loss {ev['eval_loss']:.6f} acc "
@@ -2943,6 +2984,7 @@ def tree_round_path(A, F, dataset, workdir):
     from colearn_federated_learning_tpu_torch import telemetry
     from colearn_federated_learning_tpu_torch.comm.aggregator import (
         slice_cohort)
+    from colearn_federated_learning_tpu_torch.ops import topk as T
 
     trace_dir = os.path.join(workdir, "12a_trace")
     cfg = socket_config(depth=CUT_DEPTH, compress="topk8",
@@ -2965,8 +3007,10 @@ def tree_round_path(A, F, dataset, workdir):
             f"{enrolled}; cuts: {TREE_CUTS}; depth 12 -> {CUT_DEPTH}; "
             f"{TREE_ROUNDS} rounds; up in "
             f"{time.perf_counter() - t0:.2f} s")
+        leaves = wire_leaves(workers)
         A.reset_launches()
         F.reset_launches()
+        T.reset_launches()
         timer = _FoldTimer(F)
         records = []
         for r in range(TREE_ROUNDS):
@@ -2979,7 +3023,7 @@ def tree_round_path(A, F, dataset, workdir):
                                            coord.tracer,
                                            metrics=reg.snapshot()))
                 aggs[0].stop()          # its slice re-homes in round 1
-        launches = {**A.launches, **F.launches}
+        launches = {**A.launches, **F.launches, **T.launches}
         dense_us = timer.per_launch_us("dense")
     finally:
         if timer is not None:
@@ -3048,7 +3092,8 @@ def tree_round_path(A, F, dataset, workdir):
     want = {"flash_forward": depth * trained,
             "flash_backward_dq": depth * trained,
             "flash_backward_dkv": depth * trained,
-            "fold_sparse": TREE_ROUNDS * 4, "fold_dense": TREE_ROUNDS}
+            "fold_sparse": TREE_ROUNDS * 4, "fold_dense": TREE_ROUNDS,
+            "topk_abs": TREE_ROUNDS * 4 * leaves}
     log(f"  [12a] every slice fold == its host fold, every root sum == the "
         f"slice-blocked host fold (bitwise, round 1's re-homed slice "
         f"included); the slice folds replayed alone: fold_sparse "
@@ -3553,6 +3598,11 @@ def traced_socket_checks(cfg, trainers, records, ev, path, health_dir):
     mean = {k: sum(sp[k] for sp in split) / len(split)
             for k in ("broadcast_collect_s", "deserialize_params_s",
                       "local_train_s", "compress_delta_s", "rest_s")}
+    compress = [round(sp.duration_s, 4) for sp in telemetry.trace_spans(doc)
+                if sp.name == "compress_delta"]
+    log(f"  [13b] compress_delta_s (every trainer's, N1 on the card) "
+        f"{compress}; the slowest trainer's per round "
+        f"{[round(sp['compress_delta_s'], 4) for sp in split]}")
     log(f"  [13b] rounds {[round(r['round_time_s'], 3) for r in records]} "
         f"s; ledger {sorted(fleet)} (lat ewma "
         f"{[round(fleet[d].lat_ewma, 3) for d in sorted(fleet)]} s); "
@@ -3664,12 +3714,21 @@ TREE_KEYS = {"agg_id", "agg_buffer_k", "agg_buffer_rate_per_s",
 
 
 def _async_launches_want(cfg, dispatches, eval_batches=0, fold_sparse=0,
-                         fold_dense=0):
+                         fold_dense=0, leaves=0):
     depth, steps = cfg.model.depth, cfg.fed.local_steps
     return {"flash_forward": depth * (steps * dispatches + eval_batches),
             "flash_backward_dq": depth * steps * dispatches,
             "flash_backward_dkv": depth * steps * dispatches,
-            "fold_sparse": fold_sparse, "fold_dense": fold_dense}
+            "fold_sparse": fold_sparse, "fold_dense": fold_dense,
+            "topk_abs": leaves * dispatches}
+
+
+def wire_leaves(workers) -> int:
+    """Leaves of the trainers' uplink tree (the model's, or its factors'
+    under LoRA): N1 selects each once per compressed update."""
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    return len(trees.leaves(workers[0]._wire_shapes()))
 
 
 def flat_async_path(A, F, dataset, workdir):
@@ -3680,6 +3739,7 @@ def flat_async_path(A, F, dataset, workdir):
     saved as a streaming generation, which 16c restores."""
     from colearn_federated_learning_tpu_torch import telemetry
     from colearn_federated_learning_tpu_torch.comm.downlink import host_params
+    from colearn_federated_learning_tpu_torch.ops import topk as T
     from colearn_federated_learning_tpu_torch.utils import trees
 
     cfg = socket_config(depth=CUT_DEPTH, compress="topk8",
@@ -3701,8 +3761,10 @@ def flat_async_path(A, F, dataset, workdir):
         if len(coord.trainers) != 4 or coord.evaluator is None:
             raise AssertionError("14a: roles not assigned as 4 + 1")
         before = host_params(coord.params_tree())
+        leaves = wire_leaves(workers)
         A.reset_launches()
         F.reset_launches()
+        T.reset_launches()
         records = [coord.run_aggregation() for _ in range(ASYNC_AGGS)]
         t1 = time.perf_counter()
         ev = coord.evaluate()
@@ -3716,7 +3778,7 @@ def flat_async_path(A, F, dataset, workdir):
         # training is in the launch counts.
         coord.close()
         torch.cuda.synchronize()
-        launches = {**A.launches, **F.launches}
+        launches = {**A.launches, **F.launches, **T.launches}
         spans = coord.tracer.snapshot()
         path = telemetry.write_tracer(cfg.run.trace_dir, cfg.run.name,
                                       coord.tracer)
@@ -3778,7 +3840,7 @@ def flat_async_path(A, F, dataset, workdir):
     eval_batches = math.ceil(len(dataset.x_test)
                              / max(cfg.fed.batch_size, 64))
     want = _async_launches_want(cfg, len(dispatch), eval_batches,
-                                fold_sparse=folded)
+                                fold_sparse=folded, leaves=leaves)
     if launches != want:
         raise AssertionError(f"14a: launches {launches}, expected {want} "
                              f"({len(dispatch)} dispatches)")
@@ -3829,6 +3891,8 @@ def tree_async_path(A, F, dataset):
     evaluator; 4 aggregations.  After aggregation 1, aggregator 0 stops as
     the next contribution reaches it; the next aggregation starts once
     that contribution has failed over to aggregator 1."""
+    from colearn_federated_learning_tpu_torch.ops import topk as T
+
     cfg = socket_config(depth=CUT_DEPTH, compress="topk8",
                         compress_feedback=True, fold_device=True,
                         num_aggregators=2, agg_buffer_interval_s=2.0,
@@ -3854,8 +3918,10 @@ def tree_async_path(A, F, dataset):
             f"{enrolled}, slices {coord._assign}; interval "
             f"{cfg.run.agg_buffer_interval_s} s; cuts: {ASYNC_CUTS}, no "
             f"evaluator; up in {time.perf_counter() - t0:.2f} s")
+        leaves = wire_leaves(workers)
         A.reset_launches()
         F.reset_launches()
+        T.reset_launches()
         records = []
         for i in range(TREE_ASYNC_AGGS):
             records.append(coord.run_aggregation())
@@ -3869,7 +3935,7 @@ def tree_async_path(A, F, dataset):
         for agg in aggs:
             agg.stop()
         torch.cuda.synchronize()
-        launches = {**A.launches, **F.launches}
+        launches = {**A.launches, **F.launches, **T.launches}
         spans = [sp for sp in coord.tracer.snapshot()
                  if sp.name == "dispatch_train"]
         # Drained but not taken (read in place: a get would count them
@@ -3920,7 +3986,7 @@ def tree_async_path(A, F, dataset):
     staged = sum(len(f.folded_ids) for f in drained)
     applied = sum(1 for r in records if not r.get("skipped_quorum"))
     want = _async_launches_want(cfg, len(spans), fold_sparse=staged,
-                                fold_dense=applied)
+                                fold_dense=applied, leaves=leaves)
     if launches != want:
         raise AssertionError(f"14b: launches {launches}, expected {want}")
     parts = [{"agg": m["agg_id"], "count": m["count"],
@@ -4312,6 +4378,7 @@ def lora_tree_path(A, F, dataset):
         StreamingFolder)
     from colearn_federated_learning_tpu_torch.comm.aggregator import (
         slice_cohort)
+    from colearn_federated_learning_tpu_torch.ops import topk as T
 
     cfg = lora_config(compress="topk8", compress_feedback=True,
                       fold_device=True, num_aggregators=2,
@@ -4334,11 +4401,13 @@ def lora_tree_path(A, F, dataset):
             aggs = _tree(cfg, broker, 2)
             coord.enroll_aggregators(timeout=120.0)
             order = [d.device_id for d in coord.trainers]
+            leaves = wire_leaves(workers)
             A.reset_launches()
             F.reset_launches()
+            T.reset_launches()
             timer = _FoldTimer(F)
             records = [coord.run_round() for _ in range(2)]
-            launches = {**A.launches, **F.launches}
+            launches = {**A.launches, **F.launches, **T.launches}
             dense_us = timer.per_launch_us("dense")
             fold_shapes = coord._fold_shapes
         finally:
@@ -4406,7 +4475,8 @@ def lora_tree_path(A, F, dataset):
     want = {"flash_forward": depth * trained,
             "flash_backward_dq": depth * trained,
             "flash_backward_dkv": depth * trained,
-            "fold_sparse": 2 * 4, "fold_dense": 2}
+            "fold_sparse": 2 * 4, "fold_dense": 2,
+            "topk_abs": 2 * 4 * leaves}
     log(f"  [15b] {updates} topk8 factor updates; every slice fold == its "
         f"host fold and every root sum == the slice-blocked host fold "
         f"(bitwise); the lora marker reached all {len(seen)} train "
@@ -6684,6 +6754,218 @@ def drivers_phase(A, bench9c: dict) -> dict:
     return numbers["23c"]["launches"]
 
 
+# ------------------------------------------------------------ phase 24
+NATIVE_KERNELS = {
+    "topk_abs": ("colearn_federated_learning_tpu_torch/csrc/topk.cu",
+                 "colearn_federated_learning_tpu/native/src/topk.cpp:72"),
+    "gather_rows": ("colearn_federated_learning_tpu_torch/csrc/gather.cu",
+                    "colearn_federated_learning_tpu/native/src/gather.cpp:24"),
+}
+TOPK_TIMED_SETS = 4          # input sets per timed leaf size (L2-cold above
+                             # 12.5 M entries; the small leaves stay warm)
+
+
+def _bits_equal(tag, got, want) -> None:
+    if got.dtype.is_floating_point:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{tag}: kernel != plain version")
+
+
+def topk_case(T, tag, x, k) -> None:
+    """N1 against its plain version on the card, bit for bit."""
+    want_i, want_v = T.topk_abs_reference(x, k)
+    got_i, got_v = T.topk_abs(x, k)
+    torch.cuda.synchronize()
+    _bits_equal(f"{tag} indices", got_i, want_i)
+    _bits_equal(f"{tag} values", got_v, want_v)
+
+
+def topk_degenerate(T, n) -> list:
+    """The degenerate leaves (size ``n`` but for the small ones)."""
+    g = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(n, generator=g, device="cuda")
+    special = x.clone()
+    special[::7] = 1e-40                           # denormals
+    special[3::11] = -1e-42
+    special[5], special[9] = float("inf"), float("-inf")
+    special[11] = float("nan")
+    special[12] = -float("nan")
+    signed = torch.where(torch.rand(n, generator=g, device="cuda") < 0.5,
+                         torch.tensor(0.0, device="cuda"),
+                         torch.tensor(-0.0, device="cuda"))
+    ties = torch.randint(-3, 4, (n,), generator=g, device="cuda").float()
+    k5 = math.ceil(0.05 * n)
+    return [("zeros", torch.zeros(n, device="cuda"), [1, k5, n]),
+            ("constant", torch.full((n,), -2.5, device="cuda"), [k5, n - 1]),
+            ("signed zeros", signed, [k5]), ("ties", ties, [1, k5, n]),
+            ("specials", special, [1, k5]),
+            ("n = 1", x[:1].clone(), [1]), ("n = 7", x[:7].clone(), [1, 2, 7]),
+            ("n = 700", x[:700].clone(), [1, 35, 699])]
+
+
+def topk_row(T, n: int, sets: int) -> dict:
+    """N1 at a leaf of ``n`` (k = 5 %): device time by CUDA-graph replay
+    over ``sets`` leaves, the plain version's and ``torch.topk``'s over
+    the magnitudes (the yardstick the port never calls; events around a
+    host loop over the same leaves), and the bound: the leaf read once and
+    the k indices and values written once."""
+    k = math.ceil(TOPK_FRACTION * n)
+    g = torch.Generator(device="cuda").manual_seed(n)
+    xs = [torch.randn(n, generator=g, device="cuda") for _ in range(sets)]
+    out_i = torch.empty(k, dtype=torch.int32, device="cuda")
+    out_v = torch.empty(k, dtype=torch.float32, device="cuda")
+    ms = device_ms(lambda x: T.topk_abs(x, k, out_i, out_v), xs)
+
+    def each(fn):
+        for x in xs:
+            fn(x)
+
+    plain = time_ms(lambda: each(lambda x: T.topk_abs_reference(x, k)),
+                    iters=3) / sets
+    library = time_ms(lambda: each(
+        lambda x: torch.topk(x.abs(), k, sorted=False)), iters=3) / sets
+    t_bytes = (4 * n + 8 * k) / HBM_BYTES_PER_S
+    return {"n": n, "k": k, "ms": ms, "plain_ms": plain,
+            "library_ms": library, "bound_ms": 1e3 * t_bytes,
+            "bound_by": "bytes"}
+
+
+def topk_phase(T) -> tuple[dict, list]:
+    """24a: N1 bit for bit at every BERT-base leaf size and on the
+    degenerate leaves, timed per size, and the whole 199-leaf delta
+    through ``compress_delta`` (topk8) on the card."""
+    from colearn_federated_learning_tpu_torch.fed import compression
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    params = bert_params()
+    sizes = sorted({int(np.size(l)) for l in trees.leaves(params)})
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for n in sizes:
+        x = 1e-3 * torch.randn(n, generator=g, device="cuda")
+        for k in sorted({1, math.ceil(TOPK_FRACTION * n), n}):
+            topk_case(T, f"24a n = {n} k = {k}", x, k)
+    cases = topk_degenerate(T, max(sizes))
+    for name, x, ks in cases:
+        for k in ks:
+            topk_case(T, f"24a {name} (n = {x.numel()}) k = {k}", x, k)
+    log(f"  [24a] topk_abs == plain bit for bit at the {len(sizes)} "
+        f"BERT-base leaf sizes {sizes} (k = 1, 5 %, n) and on "
+        f"{sum(len(ks) for _, _, ks in cases)} degenerate cases "
+        f"({', '.join(name for name, _, _ in cases)})")
+    per_size = []
+    for n in sizes:
+        sets = TOPK_TIMED_SETS if 4 * n * TOPK_TIMED_SETS > 2 * L2_BYTES \
+            else 1
+        per_size.append(topk_row(T, n, sets))
+        r = per_size[-1]
+        log(f"  [24a] n = {n} k = {r['k']}: {1e3 * r['ms']:.2f} us "
+            f"(bound {1e3 * r['bound_ms']:.2f} us, torch.topk "
+            f"{1e3 * r['library_ms']:.2f} us, plain "
+            f"{1e3 * r['plain_ms']:.2f} us)")
+    count = {n: 0 for n in sizes}
+    for l in trees.leaves(params):
+        count[int(np.size(l))] += 1
+    delta = trees.map_leaves(
+        lambda l: 1e-3 * torch.randn(np.shape(l), generator=g,
+                                     device="cuda"), params)
+    T.reset_launches()
+    calls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wire, meta = compression.compress_delta(delta, "topk8")
+        calls.append(time.perf_counter() - t0)
+    leaves = len(trees.leaves(params))
+    if T.launches["topk_abs"] != 3 * leaves:
+        raise AssertionError(f"24a: {T.launches} for 3 deltas of {leaves}")
+    frames = trees.flatten_up_to(params, wire)
+    for f, l in zip(frames[:3] + frames[-3:],
+                    trees.leaves(delta)[:3] + trees.leaves(delta)[-3:]):
+        want_i, _ = T.topk_abs_reference(l.reshape(-1), f["i"].size)
+        if not np.array_equal(f["i"], want_i.cpu().numpy()):
+            raise AssertionError("24a: the delta's frame indices differ")
+    device_sum = sum(r["ms"] * count[r["n"]] for r in per_size)
+    bound_sum = sum(r["bound_ms"] * count[r["n"]] for r in per_size)
+    lib_sum = sum(r["library_ms"] * count[r["n"]] for r in per_size)
+    whole = {"leaves": leaves, "entries": sum(n * count[n] for n in sizes),
+             "compress_delta_s": calls, "device_ms": device_sum,
+             "bound_ms": bound_sum, "library_ms": lib_sum,
+             "launches_per_delta": leaves}
+    log(f"  [24a] the whole delta ({leaves} leaves, {whole['entries']} "
+        f"entries): compress_delta topk8 {[round(c, 4) for c in calls]} s "
+        f"by the host clock; selections {device_sum:.3f} ms device "
+        f"(bound {bound_sum:.3f} ms, torch.topk {lib_sum:.3f} ms); "
+        f"{leaves} launches per delta; {card()}")
+    top = max(per_size, key=lambda r: r["n"])
+    return top, per_size + [whole]
+
+
+def gather_phase(G) -> dict:
+    """24b: N2 at config #5's rows (the engine's pack of FEMNIST's 3,400
+    clients on one card): x and y bit for bit against the plain version
+    on the card, then timed: device time by CUDA-graph replay of the
+    launch, ``index_select``'s (the yardstick), the plain version's (its
+    check syncs: a host loop) and the bound (each source row the slots
+    name and each index read once, each output row written once)."""
+    from colearn_federated_learning_tpu_torch.data import registry, sharding
+    from colearn_federated_learning_tpu_torch.fed.engine import (
+        partition_for_config)
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
+
+    cfg = get_config("femnist_vit_cross_silo")
+    ds = registry.get_dataset(cfg.data.dataset, seed=cfg.run.seed)
+    parts = partition_for_config(cfg, np.asarray(ds.y_train))
+    rows, _ = sharding.client_rows(parts, cfg.data.max_examples_per_client)
+    src = torch.from_numpy(np.ascontiguousarray(ds.x_train)).cuda()
+    ys = torch.from_numpy(np.asarray(ds.y_train, np.int32).astype(np.int64)
+                          ).cuda()
+    idx = torch.from_numpy(rows.reshape(-1)).cuda()
+    for tag, t in (("x", src), ("y", ys)):
+        _bits_equal(f"24b {tag}", G.gather_rows(t, idx),
+                    G.gather_rows_reference(t, idx))
+    bad = idx.clone()
+    bad[len(bad) // 2] = len(src)
+    try:
+        G.gather_rows(src, bad)
+    except IndexError:
+        pass
+    else:
+        raise AssertionError("24b: a bad index did not raise")
+    out = torch.empty((len(idx),) + tuple(src.shape[1:]), device="cuda")
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ms = device_ms(lambda i: G.launch(src, i, out, flag), [idx])
+    library = device_ms(lambda i: torch.index_select(src, 0, i), [idx])
+    plain = time_ms(lambda: G.gather_rows_reference(src, idx), iters=5)
+    # Each input read once (the source rows the slots name, the indices)
+    # and the output written once.
+    nbytes = (int(torch.unique(idx).numel()) + len(idx)) * src[0].numel() * 4 \
+        + idx.numel() * 8
+    row = {"ms": ms, "plain_ms": plain, "library_ms": library,
+           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+           "max_abs_err": 0.0, "rows": int(len(idx)),
+           "row_bytes": int(src[0].numel() * 4)}
+    log(f"  [24b] gather_rows == plain bit for bit (x {tuple(out.shape)} "
+        f"float32 from {tuple(src.shape)}, y int64) at config #5's "
+        f"{rows.shape[0]} x {rows.shape[1]} slots; a bad index raises; "
+        f"{1e3 * ms:.2f} us device (bound {1e3 * row['bound_ms']:.2f} us, "
+        f"index_select {1e3 * library:.2f} us, plain {1e3 * plain:.2f} "
+        f"us); {card()}")
+    return row
+
+
+def native_phase() -> dict:
+    """Phase 24: the JAX package's native kernels on the card, N1 (24a)
+    and N2 (24b)."""
+    from colearn_federated_learning_tpu_torch.ops import gather as G
+    from colearn_federated_learning_tpu_torch.ops import topk as T
+
+    top, topk_rows = topk_phase(T)
+    log("phase 24 topk rows " + json.dumps(topk_rows))
+    return {"topk_abs": {**top, "max_abs_err": 0.0},
+            "gather_rows": gather_phase(G)}
+
+
 def cache_synthetic_data():
     """Draw each synthetic dataset once in this process: every later draw
     of the same (dataset, seed) gets a copy of the first one's arrays
@@ -6841,6 +7123,8 @@ def run_phases() -> int:
     phase(1, "device", device_phase)
     phase(2, "build", build_phase, _build)
     rows = phase(3, "kernels vs plain versions (bf16)", kernel_phase, A)
+    rows.update(phase(24, "the native kernels (N1 top-k, N2 row gather) "
+                          "vs plain versions", native_phase))
 
     paths = {}
 
@@ -6922,7 +7206,8 @@ def run_phases() -> int:
 
     sources = {**{name: (SOURCE, rep) for name, (rep, _) in KERNELS.items()},
                **{name: (FOLD_SOURCE, rep)
-                  for name, rep in FOLD_KERNELS.items()}}
+                  for name, rep in FOLD_KERNELS.items()},
+               **NATIVE_KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(p.get(name, 0) for p in paths.values()),
                     status="ok", **rows[name])

@@ -22,6 +22,7 @@ import threading
 from typing import Any, Callable, Optional
 
 import numpy as np
+import torch
 
 from colearn_federated_learning_tpu_torch import telemetry
 from colearn_federated_learning_tpu_torch.fed import compression
@@ -63,6 +64,13 @@ def host_params(tree: Any) -> Any:  # colearn: hot
     return partition.host_tree(tree)
 
 
+def _float32_tensors(tree: Any) -> bool:
+    leaves = trees.leaves(tree)
+    return bool(leaves) and all(
+        isinstance(l, torch.Tensor) and l.dtype == torch.float32
+        for l in leaves)
+
+
 class DownlinkEncoder:
     """Per-round broadcast encoder (coordinator side): one CLW1 encode per
     round — counted in ``comm.broadcast_encode_total`` — whose frame every
@@ -87,6 +95,13 @@ class DownlinkEncoder:
         "resync"; ``bytes_saved_per_send`` is what a delta send saves over
         a full-params one.  ``params`` is a tree of tensors or arrays."""
         reg = telemetry.get_registry()
+        # A topk scheme over plain float32 tensors (the server state on its
+        # device) diffs, selects (N1 on a card) and rebuilds there, so after
+        # the first round only the frame's kept entries reach the host.
+        on_device = (self.scheme in compression.TOPK_SCHEMES
+                     and _float32_tensors(params))
+        if on_device and self._base is not None:
+            return self._encode_on_device(r, params)
         params_np = host_params(params)
         if self.scheme == "none":
             body = pytree_to_bytes(params_np, {"round": r})
@@ -96,7 +111,9 @@ class DownlinkEncoder:
             body = pytree_to_bytes(params_np,
                                    {"round": r, DOWN_KEY: MODE_FULL})
             reg.counter("comm.broadcast_encode_total").inc()
-            self._base = (r, params_np)
+            self._base = (r, trees.map_leaves(
+                lambda p: p.detach().clone(), params) if on_device
+                else params_np)
             return memoryview(body), self._resync_fn(r, params_np), 0
 
         base_round, base = self._base
@@ -118,6 +135,28 @@ class DownlinkEncoder:
         saved = max(0, full_len - len(body))
         return memoryview(body), self._resync_fn(r, recon), saved
 
+    def _encode_on_device(
+        self, r: int, params: Any
+    ) -> tuple[memoryview, Callable[[], memoryview], int]:
+        """:meth:`encode_round`'s delta round on the params' device, its
+        base there too: the same frame and rebuilt params as the host's."""
+        base_round, base = self._base
+        delta = trees.map_leaves(lambda p, b: p.detach() - b, params, base)
+        wire, cmeta, decoded = compression.compress_decode(delta,
+                                                           self.scheme)
+        meta = {"round": r, DOWN_KEY: MODE_DELTA, DOWN_BASE_KEY: base_round,
+                **cmeta}
+        body = pytree_to_bytes(wire, meta)
+        telemetry.get_registry().counter("comm.broadcast_encode_total").inc()
+        recon = trees.map_leaves(torch.add, base, decoded)
+        self._base = (r, recon)
+        shapes = trees.map_leaves(
+            lambda p: np.broadcast_to(np.float32(0), tuple(p.shape)), params)
+        full_len = wire_frame_length(
+            shapes, {"round": r, DOWN_KEY: MODE_FULL})
+        saved = max(0, full_len - len(body))
+        return memoryview(body), self._resync_fn(r, recon), saved
+
     def _resync_fn(self, r: int, recon: Any) -> Callable[[], memoryview]:
         """Lazy one-shot encoder of the round's full rebuilt params, shared
         by concurrent resyncs."""
@@ -130,7 +169,8 @@ class DownlinkEncoder:
                     telemetry.get_registry().counter(
                         "comm.broadcast_encode_total").inc()
                     cache.append(memoryview(pytree_to_bytes(
-                        recon, {"round": r, DOWN_KEY: MODE_FULL})))
+                        compression.host_tree(recon),
+                        {"round": r, DOWN_KEY: MODE_FULL})))
                 return cache[0]
 
         return resync_body

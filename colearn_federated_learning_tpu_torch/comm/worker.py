@@ -74,9 +74,15 @@ from colearn_federated_learning_tpu_torch.utils.device import resolve_device
 
 def tree_global_norm(tree: Any) -> float:
     """sqrt of the f32 sum of squares, as the JAX package's
-    ``pytrees.tree_global_norm``."""
+    ``pytrees.tree_global_norm``; a tree of tensors is summed on their
+    device (in another order than numpy's, so to float32 rounding)."""
+    leaves = trees.leaves(tree)
+    if leaves and isinstance(leaves[0], torch.Tensor):
+        sq = torch.stack([torch.sum(torch.square(l.float()))
+                          for l in leaves]).sum()
+        return float(torch.sqrt(sq))
     sq = sum(np.sum(np.square(np.asarray(l, np.float32)), dtype=np.float32)
-             for l in trees.leaves(tree))
+             for l in leaves)
     return float(np.sqrt(np.float32(sq)))
 
 
@@ -611,7 +617,11 @@ class DeviceWorker:
             out_meta["mean_loss"] = mean_loss
         with tracer.span("compress_delta", codec=fed.compress):
             if delta_np is None:
-                delta_np = self._wire_tree(delta)
+                # A topk delta is selected where it was trained (N1 on a
+                # card): only the kept entries come to the host.
+                delta_np = (self._wire_tensors(delta)
+                            if fed.compress in compression.TOPK_SCHEMES
+                            else self._wire_tree(delta))
             if fed.compress_feedback and not fed.secure_agg \
                     and fed.compress != "none":
                 wire, cmeta, self._uplink_residual = \
@@ -678,6 +688,14 @@ class DeviceWorker:
             return trees.unflatten(self._wire_shapes(), [
                 d.detach().float().cpu().numpy() for d in delta])
         return setup_lib.params_to_flax(self._model, delta, self.config)
+
+    def _wire_tensors(self, delta: list) -> Any:
+        """:meth:`_wire_tree` as float32 tensors on the worker's device."""
+        if self._lora:
+            return trees.unflatten(self._wire_shapes(),
+                                   [d.detach().float() for d in delta])
+        return setup_lib.params_to_flax_tensors(self._model, delta,
+                                                self.config)
 
     def _wire_shapes(self) -> Any:
         """The flax-layout tree of this worker's wire payload, as

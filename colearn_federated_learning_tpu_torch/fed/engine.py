@@ -82,7 +82,7 @@ from colearn_federated_learning_tpu_torch import convert, telemetry
 from colearn_federated_learning_tpu_torch.data import partition as partition_lib
 from colearn_federated_learning_tpu_torch.data import registry as data_registry
 from colearn_federated_learning_tpu_torch.data.sharding import (
-    ClientShards, pack_client_shards, pad_clients_to_multiple)
+    client_rows, gather_block, pad_rows_to_multiple)
 from colearn_federated_learning_tpu_torch.fed import evaluation, local, programs
 from colearn_federated_learning_tpu_torch.fed import robust, strategies
 from colearn_federated_learning_tpu_torch.models import registry as model_registry
@@ -358,46 +358,46 @@ class FederatedLearner:
         labels = np.asarray(self.dataset.y_train)
         parts = (partitions if partitions is not None
                  else partition_for_config(c, labels))
-        shards = pack_client_shards(
-            np.asarray(self.dataset.x_train), labels, parts,
-            capacity=c.data.max_examples_per_client)
-        self.real_num_clients = shards.num_clients   # before ghost padding
+        # The slots' source rows by index arithmetic on the host; the rows
+        # themselves are gathered on the device below.
+        rows, counts = client_rows(parts,
+                                   capacity=c.data.max_examples_per_client)
+        self.real_num_clients = len(counts)   # before ghost padding
+        x_train = np.asarray(self.dataset.x_train)
+        example_shape = tuple(x_train.shape[1:])
         if self.sp:
-            self._check_sp(shards)
+            self._check_sp(example_shape)
         if mesh is not None:
             # Ghost-pad to the client axis, then interleave so real clients
             # spread evenly over the devices; ``client_ids[slot]`` is each
             # slot's original client id, on which every draw is keyed.
-            shards = pad_clients_to_multiple(shards, self.clients_size)
+            rows, counts = pad_rows_to_multiple(rows, counts,
+                                                self.clients_size)
             D = self.clients_size
-            L = shards.num_clients // D
+            L = len(counts) // D
             order = np.array([j * D + d for d in range(D) for j in range(L)],
                              dtype=np.int64)
-            shards = ClientShards(x=shards.x[order], y=shards.y[order],
-                                  counts=shards.counts[order])
+            rows, counts = rows[order], counts[order]
             self.client_ids = order
         else:
-            self.client_ids = np.arange(shards.num_clients, dtype=np.int64)
-        self.shards = shards
-        self.num_clients = shards.num_clients
-        self.counts = shards.counts
+            self.client_ids = np.arange(len(counts), dtype=np.int64)
+        self.num_clients = len(counts)
+        self.counts = counts
         # This rank's block of clients (every client on one device), and
         # under SP its slice of every sequence.
         L = self.num_clients // self.clients_size
         block = slice(self.clients.index * L, (self.clients.index + 1) * L)
         self.block_ids = self.client_ids[block]
         self.block_counts = self.counts[block]
-        x = shards.x[block]
-        if self.sp:
-            x = np.array_split(x, self.seq_size, axis=-1)[self.seq.index]
         # Recording stays off until fit() opens a trace window; span()
         # still times either way.
         self.tracer = telemetry.Tracer(process="engine", enabled=False)
         self.last_trace_path: Optional[str] = None
         with self.tracer.span("h2d_transfer") as sp:
-            self.x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-            self.y = torch.from_numpy(
-                shards.y[block].astype(np.int64)).to(self.device)
+            self.x, self.y = gather_block(
+                x_train, labels, rows[block], self.device,
+                seq_split=((self.seq_size, self.seq.index) if self.sp
+                           else None))
         telemetry.get_registry().gauge("engine.h2d_transfer_s").set(
             sp.duration_s)
 
@@ -409,14 +409,14 @@ class FederatedLearner:
         train_cfg = c.model if self.sp else local_model_config(c.model)
         self.model = model_registry.build_model(
             train_cfg, self.device, generator=prng.init_generator(c.run.seed),
-            input_shape=shards.x.shape[2:],
+            input_shape=example_shape,
             seq_group=self.seq.group if self.sp else None)
         self.full_shapes = [p.shape for p in self.model.parameters()]
         self.eval_model = self.model
         if self.sp:
             self.eval_model = model_registry.build_model(
                 local_model_config(c.model), self.device,
-                input_shape=shards.x.shape[2:])
+                input_shape=example_shape)
         self.tp_dims = None
         if self.tp_size > 1:
             from colearn_federated_learning_tpu_torch.parallel import tp as tp_lib
@@ -439,7 +439,7 @@ class FederatedLearner:
 
         # --- local trainer and cohort ---------------------------------
         local.check_dense_trainer(c.fed)
-        self.num_steps = num_steps_for_config(c, shards.capacity)
+        self.num_steps = num_steps_for_config(c, rows.shape[1])
         optimizer = local.make_optimizer(c.fed.lr, c.fed.momentum,
                                          c.fed.local_optimizer)
         self.local_update = local.make_local_update(
@@ -505,14 +505,14 @@ class FederatedLearner:
         self._ckpt = None
         self._flops_per_round: Optional[float] = None
 
-    def _check_sp(self, shards: ClientShards) -> None:
+    def _check_sp(self, example_shape: tuple) -> None:
         """The JAX engine's eager checks of a sequence-parallel layout."""
         c = self.config
-        if shards.x.ndim != 3:
+        if len(example_shape) != 1:
             raise ValueError(
                 "sequence parallelism needs (tokens,)-shaped examples, "
-                f"got example shape {shards.x.shape[2:]}")
-        seq_len = shards.x.shape[-1]
+                f"got example shape {example_shape}")
+        seq_len = example_shape[-1]
         if seq_len % self.seq_size:
             raise ValueError(
                 f"seq_len {seq_len} is not divisible by the "

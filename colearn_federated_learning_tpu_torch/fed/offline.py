@@ -142,7 +142,11 @@ def client_update(
         strategies.lr_scale_for_round(c.fed, round_idx))
     delta, weight = setup_lib.finalize_client_delta(c, result, client_id,
                                                     round_idx, draws)
-    delta_np = setup_lib.params_to_flax(model, delta, c)
+    # A topk delta is selected where it was trained (N1 on a card): only
+    # the kept entries come to the host.
+    delta_np = (setup_lib.params_to_flax_tensors(model, delta, c)
+                if c.fed.compress in compression.TOPK_SCHEMES
+                else setup_lib.params_to_flax(model, delta, c))
     mean_loss = float(result.mean_loss)
 
     feedback = (c.fed.compress_feedback and residual_path is not None
@@ -163,7 +167,7 @@ def client_update(
                 topk_fraction=c.fed.topk_fraction)
         if new_residual is not None:
             atomic_save_pytree_npz(
-                residual_path, new_residual,
+                residual_path, compression.host_tree(new_residual),
                 meta={"round": round_idx, "client_id": client_id})
     else:
         wire, cmeta = compression.compress_delta(

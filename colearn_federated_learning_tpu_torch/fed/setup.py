@@ -130,6 +130,20 @@ def params_to_flax(model: torch.nn.Module, values: Optional[list],
         num_heads=config.model.num_heads)
 
 
+def params_to_flax_tensors(model: torch.nn.Module, values: list,
+                           config: ExperimentConfig) -> dict:
+    """The tensor twin of :func:`params_to_flax`: ``values`` (tensors in
+    ``model.parameters()`` order) as a flax-layout tree of contiguous
+    float32 tensors on their own device, so a delta is compressed where
+    it was trained."""
+    names = [n for n, _ in model.named_parameters()]
+    return convert.nest(
+        (path, t.contiguous())
+        for path, t in (convert.leaf_to_flax(n, v.detach().float(),
+                                             config.model.num_heads)
+                        for n, v in zip(names, values)))
+
+
 def flax_to_params(model: torch.nn.Module, flax_params: Any,
                    device) -> list:
     """A flax-layout tree as float32 tensors on ``device`` in

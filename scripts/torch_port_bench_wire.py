@@ -205,11 +205,28 @@ def _rounds(coord, rounds: int, round_timeout: float) -> list:
     coord.round_timeout = round_timeout
     out = []
     for _ in range(rounds):
+        _settle_sends(reg)
         before = {c: reg.counter(c).value for c in _COUNTERS}
         rec = coord.run_round()
+        _settle_sends(reg)
         out.append((rec, {c: reg.counter(c).value - before[c]
                           for c in _COUNTERS}))
     return out
+
+
+def _settle_sends(reg, timeout: float = 10.0) -> None:
+    """Wait until every message received in this process has been counted
+    as sent.  A sender counts a message after its send returns, so the
+    coordinator may fold a trainer's reply, end the round and read the
+    counters before the trainer's thread counts it (under load, it then
+    lands in the next round's delta or in none).  Every party of the
+    federation runs in this process, so at rest the sent count is at least
+    the received count."""
+    sent = reg.counter("comm.messages_sent")
+    received = reg.counter("comm.messages_received")
+    deadline = time.monotonic() + timeout
+    while sent.value < received.value and time.monotonic() < deadline:
+        time.sleep(0.001)
 
 
 def _start(config, n_workers: int, warmup_timeout: float, device):

@@ -11,6 +11,9 @@ fold at the factor layout and at the sharded server's tp = 2 slot layout
 against its plain version, checkpoints of card tensors and an engine
 resume bit for bit, the memory gauges, the profiler window's kernel
 events, the FLOP count and the personalized evaluation against the CPU,
+the native kernels N1 (top-k) and N2 (row gather) against their plain
+versions bit for bit, feedback compression of card tensors against the
+CPU's and the engine's pack on the card against the CPU's,
 on the card.  Marked
 ``cuda``: without a CUDA device every
 test here skips.  On a machine with the card (no JAX needed):
@@ -1143,3 +1146,121 @@ def test_personalized_evaluation_on_the_card_matches_the_cpu(cuda):
     for key in ("per_client_global_acc", "per_client_personalized_acc"):
         off = np.rint(np.abs(card[key] - cpu[key]) * n).astype(int)
         assert off.max() <= 1 and (off > 0).sum() <= 1, (key, off)
+
+
+# ------------------------------------------------ N1 (top-k) and N2 (gather)
+def _topk_leaf(name: str) -> np.ndarray:
+    rng = np.random.default_rng(11)
+    if name.startswith("normal"):
+        return rng.standard_normal(int(name[6:])).astype(np.float32)
+    if name == "ties":
+        return rng.integers(-3, 4, 100_000).astype(np.float32)
+    if name == "zeros":
+        return np.zeros(70_000, np.float32)
+    if name == "constant":
+        return np.full(70_000, -2.5, np.float32)
+    if name == "signed_zeros":
+        return np.where(rng.random(5_000) < 0.5, np.float32(0.0),
+                        np.float32(-0.0)).astype(np.float32)
+    x = rng.standard_normal(40_000).astype(np.float32)
+    x[::7] = np.float32(1e-40)
+    x[3::11] = -np.float32(1e-42)
+    x[5], x[9], x[11], x[12] = np.inf, -np.inf, np.nan, -np.float32(np.nan)
+    return x
+
+
+@pytest.mark.parametrize("frac", [None, 0.05, "n-1", 1.0])
+@pytest.mark.parametrize("name", ["normal1", "normal7", "normal65539",
+                                  "normal1000000", "normal23440896", "ties",
+                                  "zeros", "constant", "signed_zeros",
+                                  "specials"])
+def test_topk_kernel_is_bitwise_its_plain_version(cuda, name, frac):
+    from colearn_federated_learning_tpu_torch.ops import topk
+
+    x = torch.from_numpy(_topk_leaf(name))
+    n = x.numel()
+    k = {None: 1, "n-1": max(n - 1, 1)}.get(frac) or max(
+        1, int(np.ceil(n * frac)))
+    want_i, want_v = topk.topk_abs_reference(x, k)
+    before = topk.launches["topk_abs"]
+    got_i, got_v = topk.topk_abs(x.to(cuda), k)
+    torch.cuda.synchronize()
+    assert topk.launches["topk_abs"] == before + 1
+    assert got_i.dtype == torch.int32 and got_v.dtype == torch.float32
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_v.cpu().view(torch.int32), want_v.view(torch.int32))
+
+
+@pytest.mark.parametrize("scheme", ["topk", "topk8"])
+def test_feedback_compression_on_the_card_equals_the_cpu(cuda, scheme):
+    """Three rounds of feedback over a tree of card tensors: frames
+    byte-equal and residuals bit-equal to the same tree on the CPU."""
+    from colearn_federated_learning_tpu_torch.fed import compression
+    from colearn_federated_learning_tpu_torch.utils import serialization
+    from colearn_federated_learning_tpu_torch.utils import trees
+
+    rng = np.random.default_rng(2)
+    shapes = {"a": {"kernel": (300, 40), "bias": (40,)}, "b": (7,),
+              "c": {"embedding": (2000, 32)}}
+    res_card = res_cpu = None
+    for r in range(3):
+        tree = trees.map_leaves(lambda s: torch.from_numpy(
+            (0.01 * rng.standard_normal(s)).astype(np.float32)), shapes)
+        card = trees.map_leaves(lambda t: t.to(cuda), tree)
+        wc, mc, res_card = compression.feedback_compress(
+            card, res_card, scheme, topk_fraction=0.05)
+        wp, mp, res_cpu = compression.feedback_compress(
+            tree, res_cpu, scheme, topk_fraction=0.05)
+        assert (bytes(serialization.pytree_to_bytes(wc, mc))
+                == bytes(serialization.pytree_to_bytes(wp, mp)))
+        for a, b in zip(trees.leaves(res_card), trees.leaves(res_cpu)):
+            assert a.is_cuda
+            assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype,row", [
+    (np.uint8, (32, 32, 3)), (np.float32, (28, 28, 1)), (np.int32, (7,)),
+    (np.uint8, (3,)), (np.int64, ())])
+def test_gather_kernel_is_bitwise_index_select(cuda, dtype, row):
+    from colearn_federated_learning_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(4)
+    src = torch.from_numpy((rng.integers(0, 120, (5000,) + row)
+                            ).astype(dtype))
+    idx = torch.from_numpy(rng.integers(0, 5000, 20_000).astype(np.int64))
+    before = gather.launches["gather_rows"]
+    got = gather.gather_rows(src.to(cuda), idx.to(cuda))
+    assert gather.launches["gather_rows"] == before + 1
+    assert torch.equal(got.cpu(), gather.gather_rows_reference(src, idx))
+
+
+def test_gather_kernel_raises_and_writes_nothing_on_a_bad_index(cuda):
+    from colearn_federated_learning_tpu_torch.ops import gather
+
+    src = torch.arange(48, dtype=torch.float32, device=cuda).view(12, 4)
+    for bad in (-1, 12):
+        idx = torch.tensor([0, 3, bad, 5], device=cuda)
+        with pytest.raises(IndexError, match="out of range"):
+            gather.gather_rows(src, idx)
+        out = torch.full((4, 4), 7.0, device=cuda)
+        flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+        gather.launch(src, idx, out, flag)
+        assert int(flag.item()) == 1
+        assert torch.equal(out, torch.full((4, 4), 7.0, device=cuda))
+
+
+def test_engine_pack_on_the_card_equals_the_cpu(cuda):
+    from colearn_federated_learning_tpu_torch.fed import FederatedLearner
+    from colearn_federated_learning_tpu_torch.ops import gather
+    from colearn_federated_learning_tpu_torch.utils.config import get_config
+
+    cfg = get_config("cifar10_cnn_fedavg")
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                               dataset="cifar10_tiny",
+                                               num_clients=10))
+    gather.reset_launches()
+    card = FederatedLearner(cfg)
+    assert gather.launches["gather_rows"] == 2
+    cpu = FederatedLearner(cfg, device="cpu")
+    assert torch.equal(card.x.cpu(), cpu.x) and torch.equal(card.y.cpu(),
+                                                            cpu.y)

@@ -70,12 +70,14 @@ def test_partitions_and_shards_identical_to_jax(kind):
 def test_ghost_padding_identical_to_jax(multiple):
     ds = registry.get_dataset("mnist_tiny", seed=1)
     parts = partition.iid_partition(len(ds.y_train), 6, seed=2)
-    s = sharding.pad_clients_to_multiple(sharding.pack_client_shards(
-        ds.x_train, ds.y_train, parts), multiple)
+    rows, counts = sharding.pad_rows_to_multiple(
+        *sharding.client_rows(parts), multiple)
+    x, y = sharding.gather_block(ds.x_train, ds.y_train, rows, "cpu")
     r = jax_sharding.pad_clients_to_multiple(jax_sharding.pack_client_shards(
         ds.x_train, ds.y_train, parts), multiple)
-    for field in ("x", "y", "counts"):
-        a, b = getattr(s, field), getattr(r, field)
+    for field, a in (("x", x.numpy()), ("y", y.numpy().astype(np.int32)),
+                     ("counts", counts)):
+        b = getattr(r, field)
         assert a.dtype == b.dtype and np.array_equal(a, b), field
 
 
@@ -157,7 +159,8 @@ NEW_MODULES = ["bench.py", "comm/aggregation.py", "fed/compression.py",
                "faults/soak.py", "faults/procsoak.py",
                "faults/lockwitness.py", "fleetsim/__init__.py",
                "fleetsim/population.py", "fleetsim/traffic.py",
-               "fleetsim/sim.py", "dryrun.py"]
+               "fleetsim/sim.py", "dryrun.py", "ops/topk.py", "ops/gather.py",
+               "data/sharding.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

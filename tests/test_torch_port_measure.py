@@ -261,6 +261,17 @@ def test_mesh_smoke_rows_equal_jax(scripts, tmp_path):
 HEADER_FLOAT_BYTES = 8
 MESSAGE_BYTES = {"bytes_sent", "bytes_received", "bytes_sent_per_round",
                  "bytes_received_per_round"}
+# A sender counts a message's bytes after its send returns, so JAX's bench
+# may read its counters after the coordinator folded a trainer's last
+# reply and before that trainer's thread counted it: under load, JAX's
+# sent bytes of a round miss a reply (or carry the previous round's).
+# Every message of the in-process federation is received in the same
+# process and counted before the round can end, so the received bytes are
+# the same messages counted without that race.  The port's bench waits
+# for every send to be counted, so its sent bytes equal its received
+# bytes, and both are held to JAX's received bytes.
+SENT_AS_RECEIVED = {"bytes_sent": "bytes_received",
+                    "bytes_sent_per_round": "bytes_received_per_round"}
 
 
 def _check_wire_equal(got: dict, want: dict) -> None:
@@ -277,8 +288,12 @@ def _check_wire_equal(got: dict, want: dict) -> None:
         assert g_exact == w_exact
         assert set(g_bytes) == set(w_bytes) and g_bytes
         for k in g_bytes:
-            assert abs(g_bytes[k] - w_bytes[k]) <= (
-                HEADER_FLOAT_BYTES * replies), (k, g_bytes[k], w_bytes[k])
+            received = SENT_AS_RECEIVED.get(k, k)
+            if received != k:
+                assert g_bytes[k] == g_bytes[received], (k, g_bytes)
+            assert abs(g_bytes[k] - w_bytes[received]) <= (
+                HEADER_FLOAT_BYTES * replies), (k, g_bytes[k],
+                                                w_bytes[received])
     assert len(got["per_round"]) == len(want["per_round"])
 
 
