@@ -452,22 +452,26 @@ Phases (any failure exits non-zero; no phase's error is caught):
 24. (run after phase 3) the JAX package's native kernels on the card:
    24a N1 (``csrc/topk.cu``, the top-k selector of the uplink
    compression) against its plain version bit for bit (indices and value
-   bits) at every BERT-base leaf size at k = 1, 5 % and n, and on
-   degenerate leaves (all zeros, a constant, mixed ±0.0, ties of both
-   signs, denormals with ±inf and NaN, n = 1, 7 and 700), each size timed
-   (CUDA-graph replay) beside its bound (the leaf read once, the k
+   bits) at every BERT-base leaf size at k = 1, 5 % and n (a batch of
+   one), and on degenerate leaves (all zeros, a constant, mixed ±0.0,
+   ties of both signs, denormals with ±inf and NaN, n = 1, 7 and 700),
+   alone and each beside six normal leaves in one batched call; each size
+   timed (CUDA-graph replay) beside its bound (the leaf read once, the k
    indices and values written once), the plain version and
    ``torch.topk`` over the magnitudes (the yardstick the port never
-   calls), then ``compress_delta`` (topk8) of a whole BERT-base delta on
-   the card by the host clock, with exactly one selection per leaf; 24b
+   calls); the whole 198-leaf BERT-base delta as one batched call bit for
+   bit, replayed from a CUDA graph on leaves it had not seen, and timed
+   beside the per-size sum; then ``compress_delta`` (topk8) of the delta
+   on the card by the host clock, every frame's indices checked, with
+   exactly one selection per leaf and one call per delta; 24b
    N2 (``csrc/gather.cu``, the engine's row gather) bit for bit at config
    #5's slots (3,400 clients of FEMNIST), a bad index raising, timed
    beside ``index_select`` and its bound.  On the paths, N1 selects every
    trainer's topk8 uplink on the card (9b's silos, 11a, 12a, 14a, 14b,
-   15b: exactly one launch per leaf and update; 13b prints every
-   trainer's ``compress_delta`` seconds), and N2 packs every engine's
-   shards (phases 4-6: two launches per learner, its ``h2d_transfer``
-   seconds printed).
+   15b: exactly one selection per leaf and update, one call per update;
+   13b prints every trainer's ``compress_delta`` seconds), and N2 packs
+   every engine's shards (phases 4-6: two launches per learner, its
+   ``h2d_transfer`` seconds printed).
 
 Each phase prints its wall seconds on a line of its own; then one line
 gives the script's seconds, every phase's and the bench's (9c) rounds per
@@ -1887,9 +1891,10 @@ def file_plane_path(A, F, workdir):
             raise AssertionError(f"9b: bad client stats {stats}")
     selections = dict(T.launches)
     leaves = len(trees.leaves(load_pytree_npz(g0)[0]))
-    if selections != {"topk_abs": SILOS * leaves}:
+    if selections != {"topk_abs": SILOS * leaves, "topk_abs_calls": SILOS}:
         raise AssertionError(f"9b: the silos selected {selections}, "
-                             f"expected {SILOS} x {leaves} leaves")
+                             f"expected {SILOS} x {leaves} leaves in "
+                             f"{SILOS} calls")
     t1 = time.perf_counter()
     agg = cli.main(["aggregate", *FILE_PLANE, "--global-model", g0,
                     "--updates", *ups, "--out", g1])
@@ -2527,7 +2532,7 @@ def socket_round_path(A, F, dataset, workdir):
             "flash_backward_dq": depth * trained,
             "flash_backward_dkv": depth * trained,
             "fold_sparse": 2 * 3, "fold_dense": 0,
-            "topk_abs": 2 * 3 * leaves}
+            "topk_abs": 2 * 3 * leaves, "topk_abs_calls": 2 * 3}
     if launches != want:
         raise AssertionError(f"11a: launches {launches}, expected {want}")
     log(f"  [11a] evaluate: loss {ev['eval_loss']:.6f} acc "
@@ -3093,7 +3098,8 @@ def tree_round_path(A, F, dataset, workdir):
             "flash_backward_dq": depth * trained,
             "flash_backward_dkv": depth * trained,
             "fold_sparse": TREE_ROUNDS * 4, "fold_dense": TREE_ROUNDS,
-            "topk_abs": TREE_ROUNDS * 4 * leaves}
+            "topk_abs": TREE_ROUNDS * 4 * leaves,
+            "topk_abs_calls": TREE_ROUNDS * 4}
     log(f"  [12a] every slice fold == its host fold, every root sum == the "
         f"slice-blocked host fold (bitwise, round 1's re-homed slice "
         f"included); the slice folds replayed alone: fold_sparse "
@@ -3720,7 +3726,8 @@ def _async_launches_want(cfg, dispatches, eval_batches=0, fold_sparse=0,
             "flash_backward_dq": depth * steps * dispatches,
             "flash_backward_dkv": depth * steps * dispatches,
             "fold_sparse": fold_sparse, "fold_dense": fold_dense,
-            "topk_abs": leaves * dispatches}
+            "topk_abs": leaves * dispatches,
+            "topk_abs_calls": dispatches if leaves else 0}
 
 
 def wire_leaves(workers) -> int:
@@ -4476,7 +4483,7 @@ def lora_tree_path(A, F, dataset):
             "flash_backward_dq": depth * trained,
             "flash_backward_dkv": depth * trained,
             "fold_sparse": 2 * 4, "fold_dense": 2,
-            "topk_abs": 2 * 4 * leaves}
+            "topk_abs": 2 * 4 * leaves, "topk_abs_calls": 2 * 4}
     log(f"  [15b] {updates} topk8 factor updates; every slice fold == its "
         f"host fold and every root sum == the slice-blocked host fold "
         f"(bitwise); the lora marker reached all {len(seen)} train "
@@ -6831,10 +6838,46 @@ def topk_row(T, n: int, sets: int) -> dict:
             "bound_by": "bytes"}
 
 
+def topk_batch_case(T, tag, flats, ks) -> None:
+    """One batched call against the plain version on the card, bit for
+    bit, with its counts: one selection per leaf, one call."""
+    want_i, want_v = T.topk_abs_many_reference(flats, ks)
+    before = dict(T.launches)
+    got_i, got_v = T.topk_abs_many(flats, ks)
+    torch.cuda.synchronize()
+    _bits_equal(f"{tag} indices", got_i, want_i)
+    _bits_equal(f"{tag} values", got_v, want_v)
+    if (T.launches["topk_abs"] - before["topk_abs"] != len(flats)
+            or T.launches["topk_abs_calls"] - before["topk_abs_calls"] != 1):
+        raise AssertionError(f"{tag}: counts {T.launches} after {before}")
+
+
+def topk_captured(T, flats, ks) -> None:
+    """The batched call captured in a CUDA graph on fresh leaves (a table
+    the call has not seen) and replayed: bit for bit its plain version."""
+    fresh = [f.clone() for f in flats]
+    want_i, want_v = T.topk_abs_many_reference(fresh, ks)
+    out_i = torch.zeros(sum(ks), dtype=torch.int32, device="cuda")
+    out_v = torch.zeros(sum(ks), dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        T.topk_abs_many(fresh, ks, out_i, out_v)
+    for _ in range(2):
+        out_i.zero_()
+        out_v.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        _bits_equal("24a captured indices", out_i, want_i)
+        _bits_equal("24a captured values", out_v, want_v)
+
+
 def topk_phase(T) -> tuple[dict, list]:
-    """24a: N1 bit for bit at every BERT-base leaf size and on the
-    degenerate leaves, timed per size, and the whole 199-leaf delta
-    through ``compress_delta`` (topk8) on the card."""
+    """24a: N1 bit for bit at every BERT-base leaf size (a batch of one)
+    and on the degenerate leaves, alone and beside normal leaves in one
+    call, timed per size; the whole 198-leaf delta as one batched call, bit
+    for bit, captured in a CUDA graph and timed; then through
+    ``compress_delta`` (topk8) on the card, every frame checked."""
     from colearn_federated_learning_tpu_torch.fed import compression
     from colearn_federated_learning_tpu_torch.utils import trees
 
@@ -6849,10 +6892,24 @@ def topk_phase(T) -> tuple[dict, list]:
     for name, x, ks in cases:
         for k in ks:
             topk_case(T, f"24a {name} (n = {x.numel()}) k = {k}", x, k)
+    # Each degenerate leaf beside normal leaves of every size, in one call,
+    # at each of its k.
+    normal = [1e-3 * torch.randn(n, generator=g, device="cuda")
+              for n in sizes[:-1]]
+    mixed = 0
+    for name, x, ks in cases:
+        for k in ks:
+            flats = normal[:2] + [x] + normal[2:]
+            kk = [math.ceil(TOPK_FRACTION * f.numel()) for f in flats]
+            kk[2] = k
+            topk_batch_case(T, f"24a {name} k = {k} among {len(flats)}",
+                            flats, kk)
+            mixed += 1
     log(f"  [24a] topk_abs == plain bit for bit at the {len(sizes)} "
         f"BERT-base leaf sizes {sizes} (k = 1, 5 %, n) and on "
         f"{sum(len(ks) for _, _, ks in cases)} degenerate cases "
-        f"({', '.join(name for name, _, _ in cases)})")
+        f"({', '.join(name for name, _, _ in cases)}), alone and in "
+        f"{mixed} batched calls beside {len(normal)} normal leaves")
     per_size = []
     for n in sizes:
         sets = TOPK_TIMED_SETS if 4 * n * TOPK_TIMED_SETS > 2 * L2_BYTES \
@@ -6869,6 +6926,18 @@ def topk_phase(T) -> tuple[dict, list]:
     delta = trees.map_leaves(
         lambda l: 1e-3 * torch.randn(np.shape(l), generator=g,
                                      device="cuda"), params)
+    flats = [l.reshape(-1) for l in trees.leaves(delta)]
+    ks = [math.ceil(TOPK_FRACTION * f.numel()) for f in flats]
+    leaves = len(flats)
+    topk_batch_case(T, "24a the whole delta", flats, ks)
+    topk_captured(T, flats, ks)
+    want_i, _ = T.topk_abs_many_reference(flats, ks)
+    want_i = want_i.cpu().numpy()
+    out_i = torch.empty(sum(ks), dtype=torch.int32, device="cuda")
+    out_v = torch.empty(sum(ks), dtype=torch.float32, device="cuda")
+    batched = device_ms(lambda fl: T.topk_abs_many(fl, ks, out_i, out_v),
+                        [flats])
+    plain = time_ms(lambda: T.topk_abs_many_reference(flats, ks), iters=2)
     T.reset_launches()
     calls = []
     for _ in range(3):
@@ -6876,27 +6945,32 @@ def topk_phase(T) -> tuple[dict, list]:
         t0 = time.perf_counter()
         wire, meta = compression.compress_delta(delta, "topk8")
         calls.append(time.perf_counter() - t0)
-    leaves = len(trees.leaves(params))
-    if T.launches["topk_abs"] != 3 * leaves:
+    if T.launches != {"topk_abs": 3 * leaves, "topk_abs_calls": 3}:
         raise AssertionError(f"24a: {T.launches} for 3 deltas of {leaves}")
     frames = trees.flatten_up_to(params, wire)
-    for f, l in zip(frames[:3] + frames[-3:],
-                    trees.leaves(delta)[:3] + trees.leaves(delta)[-3:]):
-        want_i, _ = T.topk_abs_reference(l.reshape(-1), f["i"].size)
-        if not np.array_equal(f["i"], want_i.cpu().numpy()):
-            raise AssertionError("24a: the delta's frame indices differ")
+    off = 0
+    for f, k in zip(frames, ks):
+        if not np.array_equal(f["i"], want_i[off:off + k]):
+            raise AssertionError(f"24a: the delta's frame at {off} differs")
+        off += k
     device_sum = sum(r["ms"] * count[r["n"]] for r in per_size)
-    bound_sum = sum(r["bound_ms"] * count[r["n"]] for r in per_size)
     lib_sum = sum(r["library_ms"] * count[r["n"]] for r in per_size)
-    whole = {"leaves": leaves, "entries": sum(n * count[n] for n in sizes),
-             "compress_delta_s": calls, "device_ms": device_sum,
-             "bound_ms": bound_sum, "library_ms": lib_sum,
-             "launches_per_delta": leaves}
-    log(f"  [24a] the whole delta ({leaves} leaves, {whole['entries']} "
-        f"entries): compress_delta topk8 {[round(c, 4) for c in calls]} s "
-        f"by the host clock; selections {device_sum:.3f} ms device "
-        f"(bound {bound_sum:.3f} ms, torch.topk {lib_sum:.3f} ms); "
-        f"{leaves} launches per delta; {card()}")
+    entries = sum(n * count[n] for n in sizes)
+    bound = 1e3 * (4 * entries + 8 * sum(ks)) / HBM_BYTES_PER_S
+    whole = {"leaves": leaves, "entries": entries,
+             "compress_delta_s": calls, "device_ms": batched,
+             "per_size_sum_ms": device_sum, "plain_ms": plain,
+             "bound_ms": bound, "library_ms": lib_sum,
+             "selections_per_delta": leaves, "calls_per_delta": 1}
+    log(f"  [24a] the whole delta ({leaves} leaves, {entries} entries): "
+        f"== plain bit for bit in one call and in a captured graph, every "
+        f"compress_delta frame too; one batched call {1e3 * batched:.2f} "
+        f"us device (the leaves one by one {1e3 * device_sum:.2f} us, "
+        f"bound {1e3 * bound:.2f} us, torch.topk {1e3 * lib_sum:.2f} us, "
+        f"plain {1e3 * plain:.2f} us); compress_delta topk8 "
+        f"{[round(c, 4) for c in calls]} s by the host clock; "
+        f"{T.launches['topk_abs_calls'] // 3} topk_abs call and {leaves} "
+        f"selections per delta; {card()}")
     top = max(per_size, key=lambda r: r["n"])
     return top, per_size + [whole]
 

@@ -22,9 +22,9 @@ dropped into the next round (error feedback, EF-SGD).
 The device of the leaves decides the route.  Numpy leaves are selected on
 the host.  Tensor leaves under a topk scheme are selected on their device
 by ``ops/topk.py`` (N1: the kernel on a card, with no fallback; its plain
-version on the CPU), every leaf into one buffer, so only the ``k`` indices
-and values of the tree cross to the host, in one copy each; the topk8
-levels are computed there, over the ``k`` values.  Under feedback the
+version on the CPU), every leaf into one buffer in one call per delta, so
+only the ``k`` indices and values of the tree cross to the host, in one
+copy each; the topk8 levels are computed there, over the ``k`` values.  Under feedback the
 compensated delta, its decode and the new residual stay on the device.
 The other schemes take tensor leaves to the host first.
 """
@@ -177,22 +177,18 @@ def compress_delta(
 def _compress_tensors(delta: Any, scheme: str,
                       topk_fraction: float | None) -> tuple:
     """A topk scheme over a tree of tensors: every leaf selected on its
-    device into one buffer, whose ``k`` indices and values come to the
-    host in one copy each.  ``(wire_tree, meta_fields, (ks, device idx,
-    device values))``, the values decoded (topk8's levels times their
-    float32 scale, as the host decodes them)."""
+    device into one buffer by one call of the selector, whose ``k``
+    indices and values come to the host in one copy each.  ``(wire_tree,
+    meta_fields, (ks, device idx, device values))``, the values decoded
+    (topk8's levels times their float32 scale, as the host decodes
+    them)."""
     frac = TOPK_FRACTION if topk_fraction is None else float(topk_fraction)
     quantize = scheme == "topk8"
     flats = [l.detach().reshape(-1).to(torch.float32)
              for l in trees.leaves(delta)]
     ks = [_keep(f.numel(), frac) for f in flats]
     dev = flats[0].device
-    idx = torch.empty(sum(ks), dtype=torch.int32, device=dev)
-    val = torch.empty(sum(ks), dtype=torch.float32, device=dev)
-    off = 0
-    for f, k in zip(flats, ks):
-        topk_op.topk_abs(f, k, idx[off:off + k], val[off:off + k])
-        off += k
+    idx, val = topk_op.topk_abs_many(flats, ks)
     idx_h, val_h = idx.cpu().numpy(), val.cpu().numpy()
     bounds = np.cumsum([0] + ks)
     frames = [_topk_frame(idx_h[a:b], val_h[a:b], f.numel(), quantize)

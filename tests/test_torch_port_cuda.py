@@ -11,8 +11,9 @@ fold at the factor layout and at the sharded server's tp = 2 slot layout
 against its plain version, checkpoints of card tensors and an engine
 resume bit for bit, the memory gauges, the profiler window's kernel
 events, the FLOP count and the personalized evaluation against the CPU,
-the native kernels N1 (top-k) and N2 (row gather) against their plain
-versions bit for bit, feedback compression of card tensors against the
+the native kernels N1 (top-k; batched over a tree, and replayed from a
+CUDA graph) and N2 (row gather) against their plain versions bit for bit,
+feedback compression of card tensors against the
 CPU's and the engine's pack on the card against the CPU's,
 on the card.  Marked
 ``cuda``: without a CUDA device every
@@ -1189,6 +1190,84 @@ def test_topk_kernel_is_bitwise_its_plain_version(cuda, name, frac):
     assert got_i.dtype == torch.int32 and got_v.dtype == torch.float32
     assert torch.equal(got_i.cpu(), want_i)
     assert torch.equal(got_v.cpu().view(torch.int32), want_v.view(torch.int32))
+
+
+TOPK_LEAVES = ["normal1", "normal7", "normal65539", "normal1000000", "ties",
+               "zeros", "constant", "signed_zeros", "specials"]
+# BERT-base's uplink leaves (198): the embeddings and their LayerNorm,
+# 12 blocks (q, k, v, o with biases, two LayerNorms, the FFN), the head.
+BERT_BASE_LEAVES = ([23_440_896, 98_304, 768, 768]
+                    + 12 * ([589_824, 768] * 4 + [768, 768, 2_359_296, 3072,
+                                                  2_359_296, 768, 768, 768])
+                    + [3072, 4])
+
+
+def _batch_check(topk, flats, ks):
+    """One batched call on the card against the plain version on the
+    CPU, bit for bit, with its counts."""
+    want_i, want_v = topk.topk_abs_many_reference([f.cpu() for f in flats],
+                                                  ks)
+    before = dict(topk.launches)
+    got_i, got_v = topk.topk_abs_many(flats, ks)
+    torch.cuda.synchronize()
+    assert topk.launches["topk_abs"] == before["topk_abs"] + len(flats)
+    assert topk.launches["topk_abs_calls"] == before["topk_abs_calls"] + 1
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_v.cpu().view(torch.int32), want_v.view(torch.int32))
+
+
+@pytest.mark.parametrize("frac", [None, 0.05, 1.0])
+def test_topk_batched_kernel_is_bitwise_on_a_mixed_tree(cuda, frac):
+    """Every degenerate leaf beside normal ones, in one call."""
+    from colearn_federated_learning_tpu_torch.ops import topk
+
+    flats = [torch.from_numpy(_topk_leaf(name)).to(cuda)
+             for name in TOPK_LEAVES]
+    ks = [1 if frac is None else max(1, int(np.ceil(f.numel() * frac)))
+          for f in flats]
+    _batch_check(topk, flats, ks)
+
+
+def test_topk_batched_kernel_is_bitwise_on_a_bert_base_delta(cuda):
+    from colearn_federated_learning_tpu_torch.ops import topk
+
+    g = torch.Generator(device=cuda).manual_seed(25)
+    flats = [1e-3 * torch.randn(n, generator=g, device=cuda)
+             for n in BERT_BASE_LEAVES]
+    _batch_check(topk, flats, [int(np.ceil(0.05 * f.numel())) for f in flats])
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_topk_batched_kernel_replays_from_a_cuda_graph(cuda, warm):
+    """The batched call captured in a CUDA graph, on leaves it has seen
+    (its table kept) or not (the table written inside the graph), and
+    replayed with new values in the same leaves: each replay bit for bit
+    the plain version."""
+    from colearn_federated_learning_tpu_torch.ops import topk
+
+    rng = np.random.default_rng(8)
+    sizes = [7, 3072, 589_824, 20_000, 70_000]
+    flats = [torch.empty(n, device=cuda) for n in sizes]
+    ks = [max(1, int(np.ceil(0.05 * n))) for n in sizes]
+    out_i = torch.empty(sum(ks), dtype=torch.int32, device=cuda)
+    out_v = torch.empty(sum(ks), device=cuda)
+    if warm:
+        topk.topk_abs_many(flats, ks, out_i, out_v)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        topk.topk_abs_many(flats, ks, out_i, out_v)
+    for _ in range(3):
+        host = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+                for n in sizes]
+        for f, h in zip(flats, host):
+            f.copy_(h)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_i, want_v = topk.topk_abs_many_reference(host, ks)
+        assert torch.equal(out_i.cpu(), want_i)
+        assert torch.equal(out_v.cpu().view(torch.int32),
+                           want_v.view(torch.int32))
 
 
 @pytest.mark.parametrize("scheme", ["topk", "topk8"])

@@ -8,7 +8,9 @@ small sizes: the camera / bulb / thermostat fleet of
   init each type's params are JAX's per-type run's (f32 rtol 1e-4 / atol
   2e-5), with JAX's records; the two type models differ.
 - An ``EnrollmentManager`` restricted to one type lists the devices JAX's
-  lists and rejects none, whatever the other devices' types.
+  lists and rejects none, whatever the other devices' types, also with
+  the broker's retained replay held back (the managers subscribe once
+  every announcement is retained).
 - ``coordinate --per-type`` prints JAX's summary keys and exits 1 when a
   type's federation fails (the others run on) or when no type runs.
 
@@ -17,6 +19,8 @@ Every wait has its own timeout in code (no pytest-timeout here).
 
 import contextlib
 import json
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -117,17 +121,48 @@ def test_per_type_federations_match_jax(monkeypatch):
 ANNOUNCED = FLEET + ((5, ""), (6, "camera"))
 
 
-@pytest.mark.parametrize("device_type", ["camera", "bulb", "thermostat"])
-def test_manager_restricted_to_one_type_ignores_the_others(device_type):
-    """Announcements of every type (and one without a profile) reach a
-    manager of each package restricted to ``device_type``: both list the
-    same devices, in the same order, and reject none."""
+def _until(client, done, what: str) -> None:
+    """Reads ``client``'s messages until ``done(header)``, within WAIT."""
+    deadline = time.monotonic() + WAIT
+    while True:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            raise TimeoutError(f"no {what} within {WAIT} s")
+        header, _ = client.recv(timeout=remaining)
+        if done(header):
+            return
+
+
+def announce_retained(b, pub) -> None:
+    """Announces ``ANNOUNCED`` and returns once the broker has retained
+    every announcement.  A manager that subscribes while one is still in
+    flight gets it live, possibly before the replay of the earlier ones
+    (both brokers replay outside their lock), and lists it out of
+    announcement order."""
+    watcher = broker.BrokerClient(b.host, b.port, timeout=WAIT)
+    watcher.subscribe(enrollment.ENROLL_TOPIC + "#", ack=True)
+    _until(watcher, lambda h: h.get("op") == "suback", "suback")
+    for i, t in ANNOUNCED:
+        enrollment.announce(pub, enrollment.DeviceInfo(
+            device_id=str(i), host="127.0.0.1", port=1000 + i,
+            mud=profile(t) if t else ""))
+    seen = set()
+
+    def every(header):
+        seen.add(header.get("topic"))
+        return len(seen & {enrollment.ENROLL_TOPIC + str(i)
+                           for i, _ in ANNOUNCED}) == len(ANNOUNCED)
+
+    _until(watcher, every, "announcement of every device")
+    watcher.close()
+
+
+def check_restricted_managers(device_type) -> None:
+    """Both packages' managers restricted to ``device_type`` list its
+    devices in announcement order and reject none."""
     with broker.MessageBroker() as b:
         pub = broker.BrokerClient(b.host, b.port, timeout=WAIT)
-        for i, t in ANNOUNCED:
-            enrollment.announce(pub, enrollment.DeviceInfo(
-                device_id=str(i), host="127.0.0.1", port=1000 + i,
-                mud=profile(t) if t else ""))
+        announce_retained(b, pub)
         want = [str(i) for i, t in ANNOUNCED if t == device_type]
         ours = enrollment.EnrollmentManager(
             broker.BrokerClient(b.host, b.port, timeout=WAIT),
@@ -137,13 +172,57 @@ def test_manager_restricted_to_one_type_ignores_the_others(device_type):
             device_type=device_type)
         for manager in (ours, theirs):
             manager.wait_for(len(want), WAIT)
-            manager.poll(0.3)            # every announcement has arrived
+            manager.poll(0.3)            # the other types' announcements
         got = [[d.device_id for d in m.devices()] for m in (ours, theirs)]
         assert got[0] == got[1] == want
         assert ours.rejected == theirs.rejected == {}
         assert ours.profile_of(want[0]).device_type == device_type
         for client in (pub, ours._client, theirs._client):
             client.close()
+
+
+@pytest.mark.parametrize("device_type", ["camera", "bulb", "thermostat"])
+def test_manager_restricted_to_one_type_ignores_the_others(device_type):
+    """Announcements of every type (and one without a profile) reach a
+    manager of each package restricted to ``device_type``: both list the
+    same devices, in the same order, and reject none."""
+    check_restricted_managers(device_type)
+
+
+@pytest.mark.parametrize("device_type", ["camera", "bulb"])
+def test_restricted_managers_keep_order_under_a_slow_replay(
+        monkeypatch, device_type):
+    """The port's broker with each subscription's replay held back and
+    device 6's announcement delayed: a manager subscribing while 6 is in
+    flight could get it live before the replay of the others.  Announced
+    through ``announce_retained``, both managers still list in
+    announcement order."""
+    served = threading.local()
+    serve, send, publish = (broker.MessageBroker._serve_conn,
+                            broker.MessageBroker._send,
+                            broker.MessageBroker._publish)
+
+    def marked_serve(self, conn):
+        served.conn, served.held = conn, False
+        return serve(self, conn)
+
+    def held_send(self, conn, header, body):
+        # A message to the connection this thread serves is a replay.
+        if (getattr(served, "conn", None) is conn and not served.held
+                and header.get("op") == "msg"):
+            served.held = True
+            time.sleep(0.5)
+        return send(self, conn, header, body)
+
+    def late_publish(self, header, body):
+        if header.get("topic") == enrollment.ENROLL_TOPIC + "6":
+            time.sleep(0.3)
+        return publish(self, header, body)
+
+    monkeypatch.setattr(broker.MessageBroker, "_serve_conn", marked_serve)
+    monkeypatch.setattr(broker.MessageBroker, "_send", held_send)
+    monkeypatch.setattr(broker.MessageBroker, "_publish", late_publish)
+    check_restricted_managers(device_type)
 
 
 TINY = ["--config", "mnist_mlp_fedavg", "--dataset", "mnist_tiny",
