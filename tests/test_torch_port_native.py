@@ -5,8 +5,10 @@ and the paths that reach them, on the CPU, against the JAX package.
 On the CPU the wrappers run their plain versions (the card's kernels are
 held to those bit for bit by ``tests/test_torch_port_cuda.py`` and
 ``chip_smoke.py``).  The comparison is with the JAX package's native
-library itself (``native.load()`` must build: its numpy fallback breaks
-ties in another order), on inputs drawn with numpy from a seed:
+library itself, built for this module in the worker's own temporary
+directory (``torch_port_native_lib.native_lib``: it must build, since the
+numpy fallback breaks ties in another order), on inputs drawn with numpy
+from a seed:
 
 - the selection, indices and value bits, over random leaves of 1 to 10^6
   entries at k = 1, 2, 5 %, n - 1 and n, and over ties of both signs, all
@@ -56,16 +58,12 @@ from colearn_federated_learning_tpu_torch.ops import gather, topk
 from colearn_federated_learning_tpu_torch.utils import config, serialization
 from colearn_federated_learning_tpu_torch.utils import trees
 from test_torch_port_round import FAMILIES
+from torch_port_native_lib import native_lib  # noqa: F401  (autouse)
 
 # The residual norm is a float32 sum of squares over the whole tree: the
 # port sums each leaf, then the leaves, on the tensors' device; numpy sums
 # leaf by leaf in its own pairwise order.  Both round in float32.
 NORM_RTOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _native():
-    assert native.load() is not None, "the JAX package's native library"
 
 
 def bits(a) -> np.ndarray:

@@ -10,7 +10,8 @@ held to it bit for bit by ``tests/test_torch_port_cuda.py`` and
   degenerate leaves (all zeros, a constant, mixed ±0.0, ties of both
   signs, NaN, ±inf and denormals) gives, leaf by leaf, JAX's
   ``native.topk_abs`` indices and value bits at k = 1, 5 % and n, inputs
-  drawn with numpy from a seed;
+  drawn with numpy from a seed (the library is built for this module in
+  the worker's own temporary directory, ``torch_port_native_lib``);
 - the batch refuses what ``topk_abs`` refuses, and lists of unequal
   length;
 - the kernel's table puts the large leaves first with their offsets;
@@ -27,11 +28,7 @@ import torch
 from colearn_federated_learning_tpu import native
 from colearn_federated_learning_tpu_torch.fed import compression
 from colearn_federated_learning_tpu_torch.ops import topk
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _native():
-    assert native.load() is not None, "the JAX package's native library"
+from torch_port_native_lib import native_lib  # noqa: F401  (autouse)
 
 
 def _tree() -> list[np.ndarray]:
